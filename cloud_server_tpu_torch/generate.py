@@ -1,0 +1,121 @@
+"""Text generation CLI: `python -m cloud_server_tpu_torch.generate`.
+
+Batch mode of the reference's CLI on the port: weights from a numpy
+`--params-npz` or random-init from `--seed` (training checkpoints are
+not ported yet), byte tokenizer, prompts served
+through the paged continuous-batching server. Runs on the card unless
+`--device cpu` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m cloud_server_tpu_torch.generate",
+        description="Generate text with the PyTorch paged server.")
+    p.add_argument("--config", help="JSON config with a 'model' section")
+    p.add_argument("--params-npz", metavar="PATH",
+                   help="parameters as a .npz of the reference's parameter "
+                   "dict under '/'-joined keys (omit: random init from "
+                   "--seed)")
+    p.add_argument("--prompt", action="append", default=[],
+                   help="prompt text (repeatable); '-' reads lines from stdin")
+    p.add_argument("--max-new", type=int, default=128)
+    p.add_argument("--temperature", type=float, default=0.8)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--max-len", type=int, default=0,
+                   help="server cache length (default: fits prompt+max-new)")
+    p.add_argument("--decode-chunk", type=int, default=1,
+                   help="decode steps per scheduler iteration")
+    p.add_argument("--max-slots", type=int, default=8,
+                   help="concurrent request slots in the server")
+    p.add_argument("--page-size", type=int, default=128,
+                   help="tokens per KV page")
+    p.add_argument("--num-pages", type=int, default=0,
+                   help="page pool size (0 = max_slots * max_context / "
+                   "page_size)")
+    p.add_argument("--prefill-chunk", type=int, default=256,
+                   help="admission window width")
+    p.add_argument("--decode-impl", choices=["xla", "pallas"], default=None,
+                   help="cached-attention implementation: 'pallas' selects "
+                   "the CUDA paged-attention kernel, 'xla' the plain "
+                   "PyTorch gather + attention")
+    p.add_argument("--device", default=None,
+                   help="torch device (default cuda; 'cpu' to run on the "
+                   "CPU)")
+    return p
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+
+    from cloud_server_tpu_torch import resolve_device
+    from cloud_server_tpu_torch.config import (InferConfig, ModelConfig,
+                                               from_json)
+    from cloud_server_tpu_torch.data.tokenizer import ByteTokenizer
+    from cloud_server_tpu_torch.inference.paged_server import (
+        PagedInferenceServer)
+    from cloud_server_tpu_torch.models import transformer
+
+    device = resolve_device(args.device)
+    raw = {}
+    if args.config:
+        with open(args.config) as f:
+            raw = json.load(f)
+    model_cfg = from_json(ModelConfig, raw.get("model", {}))
+    if args.decode_impl is not None:
+        model_cfg = dataclasses.replace(
+            model_cfg, decode_attention_impl=args.decode_impl)
+    tok = ByteTokenizer()
+    if tok.vocab_size > model_cfg.vocab_size:
+        raise SystemExit(
+            f"tokenizer vocab ({tok.vocab_size}) exceeds model vocab "
+            f"({model_cfg.vocab_size})")
+    prompts = []
+    for prm in args.prompt:
+        if prm == "-":
+            prompts.extend(line.rstrip("\n") for line in sys.stdin)
+        else:
+            prompts.append(prm)
+    if not prompts:
+        raise SystemExit("no prompts (use --prompt, repeatable, or '-')")
+
+    if args.params_npz:
+        params = transformer.params_from_npz(args.params_npz, model_cfg,
+                                             device)
+    else:
+        print("[generate] no --params-npz; using random init",
+              file=sys.stderr)
+        params = transformer.init_params(model_cfg, args.seed,
+                                         device=device)
+    infer_cfg = InferConfig(
+        max_decode_len=args.max_new, temperature=args.temperature,
+        eos_token_id=tok.eos_id, pad_token_id=tok.pad_id or 0)
+
+    encoded = [tok.encode(p) or [0] for p in prompts]
+    longest = max(len(e) for e in encoded)
+    max_len = args.max_len or min(model_cfg.max_seq_len,
+                                  longest + args.max_new + 1)
+    ps = args.page_size
+    max_context = -(-max_len // ps) * ps
+    prefill_chunk = -(-max(ps, args.prefill_chunk) // ps) * ps
+    srv = PagedInferenceServer(
+        params, model_cfg, infer_cfg,
+        max_slots=min(args.max_slots, len(encoded)),
+        max_context=max_context, page_size=ps,
+        num_pages=args.num_pages or None, decode_chunk=args.decode_chunk,
+        prefill_chunk=prefill_chunk, seed=args.seed, device=device)
+    outs = srv.generate(encoded, max_new_tokens=args.max_new)
+    for prompt, out in zip(prompts, outs):
+        print(f"=== {prompt!r}")
+        print(tok.decode(out))
+
+
+if __name__ == "__main__":
+    main()

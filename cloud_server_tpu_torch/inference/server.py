@@ -1,0 +1,132 @@
+"""Request types and the emit rule shared by the serving stack.
+
+The parts of the reference's `inference/server.py` that the paged
+server needs: `QueueFullError`, `Request`, `resolve_seed`, `emit_token`,
+`_token_logprobs` and `_bucket`. The contiguous `InferenceServer` is not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+import uuid
+from typing import Callable, Sequence
+
+import torch
+
+from cloud_server_tpu_torch.config import InferConfig
+from cloud_server_tpu_torch.inference.sampling import SamplingParams
+
+
+def _token_logprobs(logits: torch.Tensor, toks: torch.Tensor) -> torch.Tensor:
+    """log P(tok) under the model's raw (pre-filter) distribution."""
+    lsm = torch.log_softmax(logits.float(), dim=-1)
+    return lsm.gather(1, toks.long()[:, None])[:, 0]
+
+
+class QueueFullError(RuntimeError):
+    """submit() refused: the pending queue is at its configured bound."""
+
+
+@dataclasses.dataclass
+class Request:
+    """A generation request; thread-safe completion via `result()`."""
+
+    prompt: list[int]
+    max_new_tokens: int
+    stream: Callable[[int], None] | None = None
+    sampling: SamplingParams | None = None
+    # the seed actually used for this request's rows (its own, or one
+    # drawn from the server's host RNG at submit) — stable across
+    # preemption and re-admission
+    seed_used: int = 0
+    tokens: list[int] = dataclasses.field(default_factory=list)
+    # log P(token) under the raw distribution, aligned with `tokens`
+    logprobs: list[float] = dataclasses.field(default_factory=list)
+    _done: threading.Event = dataclasses.field(
+        default_factory=threading.Event)
+    finish_reason: str | None = None  # "eos" | "length" | "stop" | ...
+    # host wall clock (perf_counter): TTFT = emit_times[0] - submit_time
+    submit_time: float | None = None
+    emit_times: list[float] = dataclasses.field(default_factory=list)
+    # absolute perf_counter deadline; the scheduler sweep expires it
+    deadline: float | None = None
+    request_id: str = dataclasses.field(
+        default_factory=lambda: uuid.uuid4().hex[:12])
+    _cancel: threading.Event = dataclasses.field(
+        default_factory=threading.Event)
+    _on_cancel: Callable[["Request"], None] | None = None
+
+    def cancel(self) -> None:
+        """Abort this request (idempotent; a no-op once finished)."""
+        if self._done.is_set() or self._cancel.is_set():
+            return
+        self._cancel.set()
+        if self._on_cancel is not None:
+            self._on_cancel(self)
+
+    @property
+    def cancelled(self) -> bool:
+        return self._cancel.is_set()
+
+    def result(self, timeout: float | None = None) -> list[int]:
+        if not self._done.wait(timeout):
+            raise TimeoutError("generation not finished")
+        if self.finish_reason and self.finish_reason.startswith("error"):
+            raise RuntimeError(f"generation failed: {self.finish_reason}")
+        return self.tokens
+
+    @property
+    def done(self) -> bool:
+        return self._done.is_set()
+
+
+def resolve_seed(sampling: SamplingParams | None, host_rng, lock) -> int:
+    """The request's own seed, or a fresh draw from the server's host RNG
+    (under `lock`), fixed once at submit."""
+    if sampling is not None and sampling.seed is not None:
+        return int(sampling.seed)
+    with lock:
+        return int(host_rng.integers(0, 2 ** 32))
+
+
+def emit_token(req: Request, token: int, logprob: float | None,
+               infer_cfg: InferConfig) -> bool:
+    """Record one generated token on `req`; True when the request just
+    finished (eos / stop sequence / length). Stop sequences are
+    token-level and the matched tokens are removed."""
+    sp = req.sampling
+    if token == infer_cfg.eos_token_id and not (sp and sp.ignore_eos):
+        req.finish_reason = "eos"
+        return True
+    req.tokens.append(token)
+    req.emit_times.append(time.perf_counter())
+    if logprob is not None:
+        req.logprobs.append(float(logprob))
+    if sp and sp.stop:
+        for s in sp.stop:
+            ls = len(s)
+            if len(req.tokens) >= ls and req.tokens[-ls:] == list(s):
+                del req.tokens[-ls:]
+                del req.emit_times[-ls:]
+                drop = len(req.logprobs) - len(req.tokens)
+                if drop > 0:
+                    del req.logprobs[-drop:]
+                req.finish_reason = "stop"
+                return True
+    if req.stream is not None:
+        req.stream(token)
+    if len(req.tokens) >= req.max_new_tokens:
+        req.finish_reason = "length"
+        return True
+    return False
+
+
+def _bucket(n: int, buckets: Sequence[int]) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    raise ValueError(f"prompt of {n} tokens exceeds largest bucket "
+                     f"{buckets[-1]}")

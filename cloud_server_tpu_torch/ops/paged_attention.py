@@ -1,0 +1,206 @@
+"""Paged attention: uniform or ragged query windows against a page pool.
+
+The serving path's cached attention at every window width W (decode
+W = 1, chunked prefill W = chunk, mixed batches with ragged per-row
+`widths`). Layouts are the reference's:
+
+  q        (B, W, H, Dh)
+  pools    (L, P, KH, Dh, ps)   transposed pages, positions minor
+  tables   (B, max_pages) int32, sentinel = P ("no page")
+  lengths  (B,) int32           kv entries INCLUDING the window
+  widths   (B,) int32           valid window rows per slot (<= W)
+
+Row b's valid queries are window indices [0, widths[b]) at absolute
+positions [lengths[b] - widths[b], lengths[b]); rows past their width
+and slots of length 0 produce finite garbage that the caller masks.
+
+Two versions of one function:
+
+  * `paged_attention_ref` — the plain PyTorch version (a port of the
+    reference's `gather_pages` + `paged_attention_xla`): gather every
+    slot's pages into a contiguous cache, then `causal_attention`.
+  * `paged_attention` — the kernel wrapper. On a CUDA tensor it launches
+    the hand-written Hopper kernel `csrc/paged_attention.cu` (or raises);
+    on a CPU tensor it runs the plain version.
+
+The wrapper counts launches in two module counters named after the TPU
+kernels whose shape class each launch serves: `launches_narrow`
+(W <= 32 and B <= 16, the reference's `_paged_attention_kernel`) and
+`launches_wide` (everything else, `_paged_attention_wide_kernel`).
+`plain_calls` counts calls of the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from cloud_server_tpu_torch.ops import cuda_build
+from cloud_server_tpu_torch.ops.attention import causal_attention
+
+# The reference's shape classes (ops/paged_attention.py there).
+NARROW_MAX_W = 32
+NARROW_MAX_B = 16
+KERNEL_HEAD_DIMS = (64, 128)
+
+launches_narrow = 0
+launches_wide = 0
+plain_calls = 0
+
+
+def reset_counters() -> None:
+    global launches_narrow, launches_wide, plain_calls
+    launches_narrow = launches_wide = plain_calls = 0
+
+
+def counters() -> dict:
+    return {"launches_narrow": launches_narrow,
+            "launches_wide": launches_wide, "plain_calls": plain_calls}
+
+
+def is_narrow(b: int, w: int) -> bool:
+    return w <= NARROW_MAX_W and b <= NARROW_MAX_B
+
+
+# ---------------------------------------------------------------------------
+# Plain version
+# ---------------------------------------------------------------------------
+
+
+def gather_pages(pool: torch.Tensor, tables: torch.Tensor,
+                 layer: int = 0) -> torch.Tensor:
+    """(L, P, KH, Dh, ps), (B, MP) -> contiguous (B, MP*ps, KH, Dh) for
+    `layer`. Table entries are clamped into [0, P-1]."""
+    b, mp = tables.shape
+    _, num_pages, kh, d, ps = pool.shape
+    idx = tables.to(pool.device).long().clamp(0, num_pages - 1)
+    pages = pool[int(layer)][idx]                # (B, MP, KH, Dh, ps)
+    return pages.permute(0, 1, 4, 2, 3).reshape(b, mp * ps, kh, d)
+
+
+def paged_attention_ref(q, k_pool, v_pool, lengths, tables, layer=0, *,
+                        scale=None, widths=None, pages_per_block=None,
+                        k_scale_pool=None, v_scale_pool=None):
+    """Plain PyTorch paged attention (gather + masked dense attention).
+    Same arguments and result as `paged_attention`; `pages_per_block`
+    is accepted and unused."""
+    global plain_calls
+    if k_scale_pool is not None or v_scale_pool is not None:
+        raise NotImplementedError("the int8 KV cache is not ported yet")
+    plain_calls += 1
+    b, w = q.shape[:2]
+    dev = q.device
+    lengths = lengths.to(dev)
+    k = gather_pages(k_pool, tables, layer)
+    v = gather_pages(v_pool, tables, layer)
+    anchor = lengths - (w if widths is None else widths.to(dev))
+    pos = anchor[:, None] + torch.arange(w, device=dev)[None, :]
+    return causal_attention(q, k, v, scale=scale, q_positions=pos,
+                            kv_length=lengths)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrapper
+# ---------------------------------------------------------------------------
+
+
+def _kernel():
+    lib = cuda_build.load("paged_attention")
+    fn = lib.paged_attention_bf16
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _int32_on(x: torch.Tensor, device) -> torch.Tensor:
+    return x.to(device=device, dtype=torch.int32).contiguous()
+
+
+def paged_attention(q, k_pool, v_pool, lengths, tables, layer=0, *,
+                    scale=None, pages_per_block=None, widths=None,
+                    k_scale_pool=None, v_scale_pool=None):
+    """Uniform- or ragged-window attention against a paged KV cache.
+
+    Args:
+      q: (B, W, H, Dh); slot b's window sits at absolute positions
+        [lengths[b] - widths[b], lengths[b]). Its kv must already be
+        written to the pools (write-then-attend).
+      k_pool, v_pool: (L, P, KH, Dh, ps) page pools; `layer` selects
+        inside the kernel, so no per-layer slice is materialised.
+      lengths: (B,) int32 kv entries per slot including the window.
+      tables: (B, max_pages) int32 page table; entries past a slot's
+        length may be anything (they are clamped and masked).
+      widths: optional (B,) int32 ragged widths; None = W for every row.
+      pages_per_block: accepted for the reference's signature; the CUDA
+        kernel tiles kv by 64 positions whatever the page size.
+      k_scale_pool, v_scale_pool: the int8 cache's scales — not ported.
+
+    Returns (B, W, H, Dh) in q.dtype. On a CPU tensor this is the plain
+    version; on a CUDA tensor the kernel runs or this raises.
+    """
+    global launches_narrow, launches_wide
+    if q.device.type == "cpu":
+        return paged_attention_ref(
+            q, k_pool, v_pool, lengths, tables, layer, scale=scale,
+            widths=widths, k_scale_pool=k_scale_pool,
+            v_scale_pool=v_scale_pool)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention: unsupported device {q.device}")
+    if k_scale_pool is not None or v_scale_pool is not None:
+        raise NotImplementedError(
+            "the int8 KV-cache variant of the paged-attention kernel is "
+            "not ported yet")
+    b, w, h, d = q.shape
+    if k_pool.dim() != 5 or v_pool.shape != k_pool.shape:
+        raise ValueError(f"pools must both be (L, P, KH, Dh, ps); got "
+                         f"{tuple(k_pool.shape)} and {tuple(v_pool.shape)}")
+    n_layers, num_pages, kh, dp, ps = k_pool.shape
+    if dp != d or h % kh:
+        raise ValueError(f"q {tuple(q.shape)} does not fit pools "
+                         f"{tuple(k_pool.shape)}")
+    if q.dtype != torch.bfloat16 or k_pool.dtype != torch.bfloat16 \
+            or v_pool.dtype != torch.bfloat16:
+        raise TypeError("the CUDA paged-attention kernel takes bfloat16 q "
+                        f"and pools; got {q.dtype}, {k_pool.dtype}, "
+                        f"{v_pool.dtype}")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not in {KERNEL_HEAD_DIMS}")
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {q.device}")
+    if tables.dim() != 2 or tables.shape[0] != b or lengths.shape != (b,):
+        raise ValueError("tables must be (B, max_pages), lengths (B,)")
+    layer = int(layer)
+    if not 0 <= layer < n_layers:
+        raise ValueError(f"layer {layer} out of range [0, {n_layers})")
+    if scale is None:
+        scale = d ** -0.5
+    dev = q.device
+    g = h // kh
+    lens = _int32_on(lengths, dev)
+    tabs = _int32_on(tables, dev)
+    wid = (torch.full((b,), w, dtype=torch.int32, device=dev)
+           if widths is None else _int32_on(widths, dev))
+    # fold the GQA group into rows per kv head: (B, KH, W*G, Dh)
+    qg = q.reshape(b, w, kh, g, d).permute(0, 2, 1, 3, 4).reshape(
+        b, kh, w * g, d).contiguous()
+    out = torch.empty_like(qg)
+    vec_ok = int(ps % 8 == 0 and k_pool.data_ptr() % 16 == 0
+                 and v_pool.data_ptr() % 16 == 0)
+    err = _kernel()(
+        qg.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        lens.data_ptr(), tabs.data_ptr(), wid.data_ptr(), out.data_ptr(),
+        b, kh, w * g, g, d, num_pages, ps, tabs.shape[1], layer,
+        float(scale), vec_ok, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    if is_narrow(b, w):
+        launches_narrow += 1
+    else:
+        launches_wide += 1
+    return out.reshape(b, kh, w, g, d).permute(0, 2, 1, 3, 4).reshape(
+        b, w, h, d)

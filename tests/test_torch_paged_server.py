@@ -1,0 +1,177 @@
+"""The port's PagedInferenceServer against the reference's: greedy tokens
+identical on the staggered mixed-scheduler workload, under a pool small
+enough to force preemption, and with a repeated prefix served from the
+radix cache."""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from cloud_server_tpu.config import InferConfig, ModelConfig
+from cloud_server_tpu.inference.paged_server import (
+    PagedInferenceServer as RefServer)
+from cloud_server_tpu.models import transformer as ref_transformer
+from cloud_server_tpu_torch.config import InferConfig as TInferConfig
+from cloud_server_tpu_torch.config import ModelConfig as TModelConfig
+from cloud_server_tpu_torch.inference.paged_server import (
+    PagedInferenceServer)
+from cloud_server_tpu_torch.inference.sampling import SamplingParams
+from cloud_server_tpu_torch.models.transformer import params_from_numpy
+
+CFG = ModelConfig(
+    vocab_size=64, embed_dim=32, num_layers=2, num_heads=4, num_kv_heads=2,
+    head_dim=8, mlp_dim=64, max_seq_len=256, dtype="float32",
+    param_dtype="float32", remat="none")
+GREEDY = InferConfig(max_decode_len=8, temperature=0.0, eos_token_id=-1,
+                     pad_token_id=0)
+SRV_KW = dict(max_slots=4, max_context=64, page_size=8, prefill_chunk=16,
+              prompt_buckets=[16, 32])
+LONG = [(i * 7) % 60 + 1 for i in range(30)]
+PROMPTS = [[5, 9, 3], [17, 2, 40, 8, 21], LONG, list(range(1, 14))]
+
+
+def _port_cfgs(cfg=CFG, icfg=GREEDY):
+    return (TModelConfig(**dataclasses.asdict(cfg)),
+            TInferConfig(**dataclasses.asdict(icfg)))
+
+
+@pytest.fixture(scope="module")
+def weights():
+    ref = ref_transformer.init_params(CFG, jax.random.key(0))
+    port = params_from_numpy(jax.tree.map(np.asarray, ref),
+                             _port_cfgs()[0], device="cpu")
+    return ref, port
+
+
+def _staggered_run(srv, prompts, max_new):
+    reqs = [srv.submit(p, max_new_tokens=max_new) for p in prompts[:2]]
+    for _ in range(3):
+        srv.step()
+    reqs += [srv.submit(p, max_new_tokens=max_new) for p in prompts[2:]]
+    srv.run_until_idle()
+    return [r.result() for r in reqs]
+
+
+def _port_server(params, cfg=CFG, icfg=GREEDY, **kw):
+    tcfg, ticfg = _port_cfgs(cfg, icfg)
+    return PagedInferenceServer(params, tcfg, ticfg, device="cpu", **kw)
+
+
+@pytest.fixture(scope="module")
+def staggered_reference(weights):
+    """The reference server's tokens on the staggered workload (its XLA
+    attention path; its Pallas kernel is held equal to that path by the
+    reference's own tests)."""
+    return _staggered_run(
+        RefServer(weights[0], CFG, GREEDY, overlap=False, **SRV_KW),
+        PROMPTS, 12)
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_greedy_staggered_tokens_identical(weights, staggered_reference,
+                                           impl):
+    """Mixed scheduler, admissions landing mid-decode: the port's tokens
+    equal the reference's, with either attention implementation."""
+    cfg = dataclasses.replace(CFG, decode_attention_impl=impl)
+    got = _staggered_run(_port_server(weights[1], cfg, **SRV_KW),
+                         PROMPTS, 12)
+    assert got == staggered_reference
+
+
+def test_greedy_identical_under_preemption(weights):
+    """A pool too small for every chain at once: on-demand growth
+    preempts the youngest slot, which re-admits as a continuation; the
+    tokens still equal the reference's."""
+    ref_params, params = weights
+    kw = dict(SRV_KW, num_pages=12)
+    prompts = [LONG[:20], LONG[5:25], list(range(1, 18)), LONG[:9]]
+    ref = RefServer(ref_params, CFG, GREEDY, overlap=False, **kw)
+    want = _staggered_run(ref, prompts, 16)
+    srv = _port_server(params, **kw)
+    got = _staggered_run(srv, prompts, 16)
+    assert ref.preemptions > 0 and srv.preemptions > 0
+    assert got == want
+
+
+def test_repeated_prefix_served_from_cache(weights):
+    """A second request sharing a prompt prefix hits the radix cache (its
+    prefill skips the shared pages) and still decodes the same tokens."""
+    _, params = weights
+    srv = _port_server(params, **SRV_KW)
+    first = srv.generate([LONG], max_new_tokens=6)[0]
+    before = srv.prefix_cache_stats().prefix_hit_pages
+    again = srv.generate([LONG], max_new_tokens=6)[0]
+    assert srv.prefix_cache_stats().prefix_hit_pages > before
+    assert again == first
+
+
+def test_seeded_rows_reproducible_and_batch_independent(weights):
+    """temperature > 0 is held in distribution only, but a seeded
+    request's stream depends on (seed, position) alone: the same request
+    alone or beside others gives the same tokens."""
+    _, params = weights
+    icfg = dataclasses.replace(GREEDY, temperature=1.0)
+    sp = SamplingParams(seed=7, temperature=0.9, top_p=0.9)
+    alone = _port_server(params, icfg=icfg, **SRV_KW)
+    r0 = alone.submit(PROMPTS[2], max_new_tokens=8, sampling=sp)
+    alone.run_until_idle()
+    crowd = _port_server(params, icfg=icfg, **SRV_KW)
+    others = [crowd.submit(p, max_new_tokens=8) for p in PROMPTS[:2]]
+    r1 = crowd.submit(PROMPTS[2], max_new_tokens=8, sampling=sp)
+    crowd.run_until_idle()
+    assert r0.result() == r1.result()
+    assert all(o.done for o in others)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(scheduler="alternating"), dict(spec_drafts=2), dict(qos={}),
+    dict(tracing=0.5), dict(allocation="reserve")])
+def test_unported_features_raise(weights, kw):
+    _, params = weights
+    with pytest.raises(NotImplementedError):
+        _port_server(params, **SRV_KW, **kw)
+
+
+@pytest.mark.parametrize("sampling", [
+    SamplingParams(presence_penalty=0.5), SamplingParams(min_tokens=2),
+    SamplingParams(logit_bias=((3, 1.0),))])
+def test_unported_request_options_raise(weights, sampling):
+    _, params = weights
+    srv = _port_server(params, **SRV_KW)
+    with pytest.raises(NotImplementedError):
+        srv.submit([1, 2, 3], sampling=sampling)
+
+
+def test_default_device_is_cuda():
+    """Without a card the server refuses to start unless asked for the
+    CPU; nothing falls back on its own."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg, icfg = _port_cfgs()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PagedInferenceServer({}, cfg, icfg, **SRV_KW)
+
+
+def test_cancel_deadline_and_background_thread(weights):
+    """A pending request cancels at once; an expired deadline finishes
+    with reason "deadline"; the background scheduler thread serves a
+    request and stops cleanly."""
+    _, params = weights
+    srv = _port_server(params, **SRV_KW)
+    pending = srv.submit(PROMPTS[0], max_new_tokens=4)
+    pending.cancel()
+    assert pending.done and pending.finish_reason == "cancelled"
+    late = srv.submit(PROMPTS[1], max_new_tokens=4, deadline_s=1e-9)
+    srv.run_until_idle()
+    assert late.finish_reason == "deadline"
+    srv.start()
+    try:
+        req = srv.submit(PROMPTS[3], max_new_tokens=5)
+        assert len(req.result(timeout=60)) == 5
+        assert req.finish_reason == "length"
+    finally:
+        srv.stop()
+    assert srv._thread is None

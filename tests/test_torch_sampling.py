@@ -1,0 +1,130 @@
+"""The port's sampling against the reference's: the per-row filter chain
+(filtered_logits_rows), greedy argmax, and the top-k / top-p masks. Draws
+at temperature > 0 come from another generator than the reference's
+threefry, so they are held in distribution."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cloud_server_tpu.config import InferConfig
+from cloud_server_tpu.inference import sampling as ref_s
+from cloud_server_tpu_torch.config import InferConfig as TInferConfig
+from cloud_server_tpu_torch.inference import sampling
+
+V = 50
+
+
+def _logits(seed, b=4):
+    # a moderate spread: with top_p = 1 the cumulative mass of the last
+    # tokens must not round across 1.0 (a float tie both versions may
+    # break either way)
+    return np.random.default_rng(seed).standard_normal((b, V)).astype(
+        np.float32)
+
+
+def _rows(params):
+    cfg = InferConfig(temperature=0.7, top_k=0, top_p=1.0)
+    ref_rows = ref_s.make_rows(params, cfg, [11, 12, 13, 14],
+                               prompt_lens=[3, 3, 3, 3])
+    port_rows = sampling.make_rows(
+        [None if p is None else sampling.SamplingParams(**p.__dict__)
+         for p in params], TInferConfig(temperature=0.7), [11, 12, 13, 14],
+        prompt_lens=[3, 3, 3, 3])
+    for a, b in zip(ref_rows, port_rows):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    return ref_rows, sampling.rows_to(port_rows, "cpu")
+
+
+PARAMS = [None,
+          ref_s.SamplingParams(temperature=1.3, top_k=5),
+          ref_s.SamplingParams(top_p=0.6, min_p=0.05),
+          ref_s.SamplingParams(temperature=0.0, logit_bias=((3, 4.0),))]
+
+
+@pytest.mark.parametrize("extras", [False, True])
+def test_filtered_logits_rows_match_reference(extras):
+    """The whole chain; with `extras` also the allowed-token mask,
+    penalties and the min_tokens EOS suppression."""
+    params = PARAMS
+    if extras:
+        params = PARAMS[:3] + [ref_s.SamplingParams(
+            repetition_penalty=1.3, presence_penalty=0.5,
+            frequency_penalty=0.2, min_tokens=4)]
+    ref_rows, rows = _rows(params)
+    x = _logits(0)
+    kw_r, kw_t = {}, {}
+    if extras:
+        r = np.random.default_rng(9)
+        arrays = dict(prompt_mask=r.random((4, V)) < 0.2,
+                      out_counts=r.integers(0, 3, (4, V)).astype(np.int32),
+                      allowed_mask=r.random((4, V)) < 0.8,
+                      positions=np.asarray([4, 5, 6, 5], np.int32))
+        kw_r = {k: jnp.asarray(v) for k, v in arrays.items()}
+        kw_t = {k: torch.from_numpy(v) for k, v in arrays.items()}
+        kw_r["eos_id"] = kw_t["eos_id"] = 7
+    want_f, want_raw = ref_s.filtered_logits_rows(
+        jnp.asarray(x), ref_rows._replace(
+            **{k: jnp.asarray(v) for k, v in ref_rows._asdict().items()}),
+        **kw_r)
+    got_f, got_raw = sampling.filtered_logits_rows(torch.from_numpy(x), rows,
+                                                   **kw_t)
+    # entries at or below -1e29 are impossible tokens in both versions;
+    # how far below (a masked logit scaled by a penalty or temperature)
+    # can differ where a float tie decides the top-p tail
+    def floor(a):
+        return np.maximum(np.asarray(a), -1e29)
+
+    np.testing.assert_allclose(floor(got_raw.numpy()), floor(want_raw),
+                               atol=1e-5)
+    np.testing.assert_allclose(floor(got_f.numpy()), floor(want_f),
+                               atol=1e-5, rtol=1e-5)
+
+
+def test_greedy_argmax():
+    x = _logits(1)
+    cfg = TInferConfig(temperature=0.0)
+    got = sampling.sample_logits(torch.from_numpy(x), None, cfg)
+    want = ref_s.sample_logits(jnp.asarray(x), None, InferConfig(
+        temperature=0.0))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # greedy rows of the per-row path take the argmax of the raw logits
+    _, rows = _rows(PARAMS)
+    toks = sampling.sample_logits_rows(torch.from_numpy(x), rows,
+                                       torch.full((4,), 5))
+    assert int(toks[3]) == int(np.argmax(x[3] + 4.0 * (np.arange(V) == 3)))
+
+
+@pytest.mark.parametrize("k,p", [(5, 1.0), (0, 0.5), (7, 0.3)])
+def test_top_k_top_p_masks(k, p):
+    x = _logits(2)
+    cfg = InferConfig(temperature=0.8, top_k=k, top_p=p)
+    want = ref_s._filtered_logits(jnp.asarray(x), cfg)
+    got = sampling._filtered_logits(torch.from_numpy(x), TInferConfig(
+        temperature=0.8, top_k=k, top_p=p))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_draws_follow_the_filtered_distribution():
+    """Frequencies of many seeded draws match softmax(filtered logits)."""
+    x = torch.from_numpy(_logits(3, b=1)).repeat(4000, 1)
+    cfg = TInferConfig(temperature=1.0, top_k=6)
+    gen = torch.Generator().manual_seed(0)
+    toks = sampling.sample_logits(x, gen, cfg)
+    probs = torch.softmax(sampling._filtered_logits(x[:1], cfg), -1)[0]
+    freq = torch.bincount(toks, minlength=V).float() / len(toks)
+    assert float((freq - probs).abs().max()) < 0.03
+    assert set(toks.tolist()) <= set(torch.topk(x[0], 6).indices.tolist())
+
+
+def test_row_draws_depend_only_on_seed_and_position():
+    u1 = sampling.row_uniforms(torch.tensor([7, 9]), torch.tensor([3, 3]), V)
+    u2 = sampling.row_uniforms(torch.tensor([1, 7]), torch.tensor([0, 3]), V)
+    assert torch.equal(u1[0], u2[1])
+    assert not torch.equal(u1[0], u1[1])
+    assert float(u1.min()) > 0 and float(u1.max()) < 1
+    # roughly uniform
+    big = sampling.row_uniforms(torch.arange(64), torch.zeros(64), 1000)
+    assert abs(float(big.mean()) - 0.5) < 0.01
