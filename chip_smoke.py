@@ -3,15 +3,23 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from csrc/, then runs four phases and
-prints one JSON line for each:
+Builds the port's CUDA kernels from csrc/ (one nvcc per source, all
+started together), then runs these phases and prints one JSON line for
+each:
 
-  1. device   — the card, its power limit (nvidia-smi), the build time;
+  1. device   — the card, its power limit (nvidia-smi), the build time
+                and every kernel's registers, spills and shared memory;
   2. kernel   — the paged-attention kernel against its plain PyTorch
                 version on the card at Llama-3.1-8B's head shapes (decode,
                 prefill and a ragged mixed batch with a length-0 slot),
                 with the kernel's, the plain version's and one PyTorch
                 library call's times beside the card's lower bound;
+     train_kernel — the four flash-attention kernels (forward, dK/dV,
+                dQ, fused backward) against the plain version at
+                Llama-3.1-8B's head shapes: a blocked case (S 2048), a
+                fused case (S 1024) and a packed case with segment ids;
+     unembed  — the f32-logit unembed (bf16 operands) and its backward
+                against the widened f32 product at the train shapes;
   3. serve    — PagedInferenceServer at the full Llama-3.1-8B width (all
                 32 layers, random bf16 weights from a seed) serving 8
                 greedy requests; a second run on a fresh server must give
@@ -21,18 +29,30 @@ prints one JSON line for each:
      profile  — one mixed (prefill + decode) step and one steady decode
                 step under torch.profiler: wall time, device busy time
                 and idle share, the busiest kernels;
-  4. kernels  — each ported kernel with the TPU kernel it replaces, its
-                launches on phase 3's run and its numbers from phase 2.
+  4. train    — the training CLI (`cloud_server_tpu_torch.train.main`)
+                at Llama-3.1-8B's widths cut to 8 layers (f32 masters,
+                bf16 compute, flash attention, full remat): 6 steps at
+                S 2048, then 2 steps at S 1024 (the fused backward); the
+                kernels' launch counts against layers x steps; one step
+                under torch.profiler; a 2-layer slice whose loss and
+                gradients through the kernels match the plain attention;
+  5. kernels  — each ported kernel with the TPU kernel it replaces, its
+                launches on phases 3 and 4 and its numbers from phase 2.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises and
 the exit code is non-zero. Without a CUDA device, or without the rest of
 the repository beside it, it exits non-zero and prints no result.
+`--kernel-only` stops after phase 2 (a quick check of a kernel change)
+and prints no result.
 """
 
 from __future__ import annotations
 
+import gc
 import json
+import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -51,6 +71,7 @@ ATOL, RTOL, REL_RMS = 8e-3, 1e-2, 1e-2
 DENSE_LOGIT_RTOL = 2.5e-2
 SEED = 0
 CONFIG = "cloud_server_tpu_torch/configs/llama3_1_8b.json"
+TRAIN_CONFIG = "cloud_server_tpu_torch/configs/llama3_1_8b_train.json"
 DEVICE = "cuda"
 
 
@@ -83,14 +104,42 @@ def phase_device() -> dict:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    cuda_build.build_all(["paged_attention"])
+    cuda_build.build_all(["paged_attention", "flash_attention"])
     build_s = time.perf_counter() - t0
     out = {"phase": "device", "name": torch.cuda.get_device_name(0),
            "count": torch.cuda.device_count(), "nvidia_smi": smi,
            "torch": torch.__version__, "cuda": torch.version.cuda,
-           "build_s": round(build_s, 3)}
+           "build_s": round(build_s, 3),
+           "ptxas": {name: ptxas_summary(log) for name, log
+                     in cuda_build.build_logs.items()}}
     emit(out)
     print(smi, flush=True)
+    return out
+
+
+def ptxas_summary(log: str) -> dict:
+    """Per kernel entry: registers, spill bytes and shared memory from
+    nvcc's -Xptxas=-v output."""
+    out: dict = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[name]["smem"] = int(sm.group(1)) if sm else 0
     return out
 
 
@@ -263,16 +312,28 @@ def serve_once(params, cfg, icfg, prompts):
     return reqs, t0, t_end
 
 
-def profile_step(srv) -> dict:
-    """One scheduler step under torch.profiler: its wall time, the device
-    time of every kernel and copy it ran, and the busiest kernels."""
+# Device kernels summed by what they do, matched on lower-cased kernel
+# names in this order; the rest is "other" (casts, norms, the loss).
+PROFILE_GROUPS = (
+    ("optimizer", ("multi_tensor_apply", "adam", "foreach")),
+    ("flash_attention", ("flash_fwd", "flash_bwd", "flash_delta")),
+    ("paged_attention", ("paged_attention",)),
+    ("gemm", ("gemm", "gemv", "nvjet", "cutlass", "xmma")),
+    ("copy", ("memcpy", "memset")),
+)
+
+
+def profile_step(step) -> dict:
+    """One call of `step` (a scheduler or train step) under
+    torch.profiler: its wall time, the device time of every kernel and
+    copy it ran, and the busiest kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        srv.step()
+        step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     per_name: dict[str, float] = {}
@@ -281,11 +342,22 @@ def profile_step(srv) -> dict:
             per_name[e.name] = (per_name.get(e.name, 0.0)
                                 + e.time_range.elapsed_us() / 1e3)
     busy = sum(per_name.values())
-    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
+    # kernel names are long templates: sum the names that share their
+    # first 100 characters, so one entry never hides another
+    short: dict[str, float] = {}
+    for name, ms in per_name.items():
+        short[name[:100]] = short.get(name[:100], 0.0) + ms
+    top = sorted(short.items(), key=lambda kv: -kv[1])[:10]
+    groups: dict[str, float] = {}
+    for name, ms in per_name.items():
+        group = next((g for g, keys in PROFILE_GROUPS
+                      if any(k in name.lower() for k in keys)), "other")
+        groups[group] = groups.get(group, 0.0) + ms
     return {"wall_ms": wall_ms,
             "device_busy_ms": busy if per_name else None,
             "device_idle_share": (1 - busy / wall_ms) if per_name else None,
-            "top_device_ms": {k[:80]: v for k, v in top}}
+            "device_ms_by_group": groups,
+            "top_device_ms": dict(top)}
 
 
 def phase_profile(params, cfg, icfg, prompts) -> dict:
@@ -300,10 +372,10 @@ def phase_profile(params, cfg, icfg, prompts) -> dict:
     for p in prompts:
         srv.submit(p, max_new_tokens=96)
     srv.step()  # warm-up: the first iteration pays one-time set-up
-    mixed = profile_step(srv)
+    mixed = profile_step(srv.step)
     while srv._jobs or srv.num_pending:
         srv.step()
-    decode = profile_step(srv)
+    decode = profile_step(srv.step)
     srv.stop()
     out = {"phase": "profile", "mixed_step": mixed, "decode_step": decode,
            "decode_rounds_per_step": srv.decode_chunk, "live_slots": 8}
@@ -324,7 +396,8 @@ def check_dense_agreement(params, cfg, prompt) -> dict:
     cfg2 = dataclasses.replace(cfg, num_layers=2)
     p2 = dict(params, layers={k: v[:2] for k, v in params["layers"].items()})
     toks = torch.tensor([prompt], device=DEVICE)
-    want = transformer.forward(p2, toks, cfg2)[0, -1]
+    with torch.no_grad():
+        want = transformer.forward(p2, toks, cfg2)[0, -1]
     mp = MAX_CTX // PS
     cache = paged_engine.init_paged_cache(
         cfg2, num_pages=mp, page_size=PS, batch=1, max_pages_per_slot=mp,
@@ -419,6 +492,517 @@ def phase_serve() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 2b: the flash-attention kernels against their plain version
+# ---------------------------------------------------------------------------
+
+# Kernel vs plain, bf16, per output: |err| <= atol + rtol * |plain| for
+# every element, and the error's RMS within rel_rms of the plain output's
+# RMS. From the errors measured on the card (PERF.md, PR 2: relative RMS
+# 2.8-2.9e-3 for out, 3.3-3.4e-3 for dQ/dK, 1.7-2.8e-4 for dV, 4e-8 for
+# the LSE; largest element errors one bf16 ulp of the largest entries):
+# atol is one bf16 ulp at the size of the largest entries of the
+# operands each output sums (|v| up to 4: 2^-6 for out; dK/dQ/dV up to
+# 8: 2^-5), because bf16 rounding of each probability (and of dS) errs
+# in proportion to those terms, not to their often cancelling sum. The
+# largest out error read 0.015625, one ulp at 2-4, and the packed case
+# failed the first atol of 8e-3; dK/dV read 0.031. The RMS limits are
+# 3-4x the largest RMS reading of each output; the LSE is f32 in both,
+# its sums taken in another order (limits about 10x and 25x the
+# readings).
+FLASH_TOL = {
+    "out": (1.6e-2, 1e-2, 1e-2),
+    "lse": (1e-5, 1e-6, 1e-6),
+    "dq": (3.2e-2, 2e-2, 1e-2),
+    "dk": (3.2e-2, 2e-2, 1e-2),
+    "dv": (3.2e-2, 2e-2, 1e-3),
+}
+FLASH_CASES = {
+    # name: (B, S, segments per row or 0); blocks 1024 as in the config
+    "blocked": (4, 2048, 0),   # the train path at S 2048: B3, B4, B5
+    "fused": (4, 1024, 0),     # the train path at S 1024: B3, B6
+    "segments": (2, 2048, 4),  # packed rows, blocked backward
+}
+
+
+def segment_ids(gen, b, s, docs):
+    """(B, S) int32 ids of `docs` documents of random lengths per row."""
+    import torch
+    rows = []
+    for _ in range(b):
+        cuts = torch.randperm(s - 1, generator=gen, device=DEVICE)[:docs - 1]
+        start = torch.zeros(s, dtype=torch.int32, device=DEVICE)
+        start[cuts.sort().values + 1] = 1
+        rows.append(torch.cumsum(start, 0).to(torch.int32))
+    return torch.stack(rows)
+
+
+def visible_pairs(seg, b, s) -> int:
+    """Causally visible (query, key) pairs over the batch, per head."""
+    if seg is None:
+        return b * s * (s + 1) // 2
+    n = 0
+    for row in seg.tolist():
+        counts: dict = {}
+        for x in row:
+            counts[x] = counts.get(x, 0) + 1
+        n += sum(c * (c + 1) // 2 for c in counts.values())
+    return n
+
+
+def flash_bound(pairs_h, nbytes, ops_per_pair_per_dh) -> tuple:
+    ops = ops_per_pair_per_dh * DH * pairs_h * H
+    t_ops = ops / BF16_FLOP_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def compare(name, got, want) -> dict:
+    import torch
+    atol, rtol, rel_lim = FLASH_TOL[name]
+    g, w = got.detach().float(), want.detach().float()
+    if not bool(torch.isfinite(g).all()):
+        raise RuntimeError(f"{name}: non-finite kernel output")
+    diff = (g - w).abs()
+    rel_rms = float(diff.square().mean().sqrt()
+                    / w.square().mean().sqrt().clamp_min(1e-30))
+    return {"max_abs_err": float(diff.max()),
+            "ref_max_abs": float(w.abs().max()), "rel_rms_err": rel_rms,
+            "atol": atol, "rtol": rtol, "rel_rms_limit": rel_lim,
+            "within": bool((diff <= atol + rtol * w.abs()).all())
+            and rel_rms <= rel_lim}
+
+
+def phase_train_kernel() -> dict:
+    import torch
+    import torch.nn.functional as F
+    from cloud_server_tpu_torch.ops import flash_attention as fl
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 1)
+    results = {}
+    failures = []
+    for name, (b, s, docs) in FLASH_CASES.items():
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=DEVICE).to(
+                torch.bfloat16)
+        q, k, v = rnd(b, s, H, DH), rnd(b, s, KH, DH), rnd(b, s, KH, DH)
+        dout = rnd(b, s, H, DH)
+        seg = segment_ids(gen, b, s, docs) if docs else None
+        scale = DH ** -0.5
+        fused = fl.uses_fused_backward(s, s, 1024, 1024)
+
+        # the wrapper, forward and backward, with its launch counts
+        fl.reset_counters()
+        qk, kk, vk = (t.clone().requires_grad_(True) for t in (q, k, v))
+        out_k = fl.flash_attention(qk, kk, vk, segment_ids=seg)
+        out_k.backward(dout)
+        torch.cuda.synchronize()
+        c = fl.counters()
+        want_c = {"launches_fwd": 1, "plain_calls": 0,
+                  "launches_bwd_fused": int(fused),
+                  "launches_bwd_dkdv": int(not fused),
+                  "launches_bwd_dq": int(not fused)}
+        if c != want_c:
+            raise RuntimeError(f"{name}: launches {c}, expected {want_c}")
+
+        # the plain version on the same inputs
+        qp, kp, vp = (t.clone().requires_grad_(True) for t in (q, k, v))
+        out_p, lse_p = fl.flash_attention_ref(qp, kp, vp, seg, scale)
+        out_p.backward(dout)
+
+        # raw C entries on preallocated (B, H, S, Dh) buffers
+        qt = q.transpose(1, 2).contiguous()
+        kt = k.transpose(1, 2).contiguous()
+        vt = v.transpose(1, 2).contiguous()
+        dot = dout.transpose(1, 2).contiguous()
+        out_t = torch.empty_like(qt)
+        lse_t = torch.empty((b, H, s), dtype=torch.float32, device=DEVICE)
+        delta = torch.empty_like(lse_t)
+        dq_t, dk_t, dv_t = (torch.empty_like(x) for x in (qt, kt, vt))
+        dq32 = torch.zeros(qt.shape, dtype=torch.float32, device=DEVICE)
+        segp = None if seg is None else seg.data_ptr()
+        stream = torch.cuda.current_stream().cuda_stream
+        f_fwd = fl._kernel("flash_attention_fwd_bf16")
+        f_dkdv = fl._kernel("flash_attention_bwd_dkdv_bf16")
+        f_dq = fl._kernel("flash_attention_bwd_dq_bf16")
+        f_fused = fl._kernel("flash_attention_bwd_fused_bf16")
+        dims = (b, H, KH, s, DH)
+
+        def check(err):
+            if err:
+                raise RuntimeError(f"{name}: kernel launch failed: {err}")
+
+        def fwd():
+            check(f_fwd(qt.data_ptr(), kt.data_ptr(), vt.data_ptr(), segp,
+                        out_t.data_ptr(), lse_t.data_ptr(), *dims, scale,
+                        stream))
+
+        def dkdv():
+            check(f_dkdv(qt.data_ptr(), kt.data_ptr(), vt.data_ptr(),
+                         out_t.data_ptr(), dot.data_ptr(), lse_t.data_ptr(),
+                         segp, delta.data_ptr(), dk_t.data_ptr(),
+                         dv_t.data_ptr(), *dims, scale, stream))
+
+        def dq():
+            check(f_dq(qt.data_ptr(), kt.data_ptr(), vt.data_ptr(),
+                       dot.data_ptr(), lse_t.data_ptr(), delta.data_ptr(),
+                       segp, dq_t.data_ptr(), *dims, scale, stream))
+
+        def fused_bwd():
+            dq32.zero_()
+            check(f_fused(qt.data_ptr(), kt.data_ptr(), vt.data_ptr(),
+                          out_t.data_ptr(), dot.data_ptr(), lse_t.data_ptr(),
+                          segp, delta.data_ptr(), dq32.data_ptr(),
+                          dk_t.data_ptr(), dv_t.data_ptr(), *dims, scale,
+                          stream))
+
+        fwd()
+        torch.cuda.synchronize()
+        errs = {"out": compare("out", out_k, out_p),
+                "lse": compare("lse", lse_t, lse_p),
+                "dq": compare("dq", qk.grad, qp.grad),
+                "dk": compare("dk", kk.grad, kp.grad),
+                "dv": compare("dv", vk.grad, vp.grad)}
+        for key, e in errs.items():
+            if not e["within"]:
+                failures.append(f"{name}/{key}: {e}")
+
+        pairs = visible_pairs(seg, b, s)
+        e2 = 2  # bf16 bytes
+        qb = b * s * H * DH * e2
+        kvb = b * s * KH * DH * e2
+        lb = b * H * s * 4
+        times = {"fwd_ms": time_ms(fwd, iters=10)}
+        bounds = {"fwd": flash_bound(pairs, 2 * qb + 2 * kvb + lb, 4)}
+        if fused:
+            times["bwd_fused_ms"] = time_ms(fused_bwd, iters=10)
+            bounds["bwd_fused"] = flash_bound(
+                pairs, 4 * qb + 4 * kvb + lb, 10)
+        else:
+            times["bwd_dkdv_ms"] = time_ms(dkdv, iters=10)
+            times["bwd_dq_ms"] = time_ms(dq, iters=10)
+            bounds["bwd_dkdv"] = flash_bound(
+                pairs, 3 * qb + 4 * kvb + lb, 8)
+            bounds["bwd_dq"] = flash_bound(
+                pairs, 3 * qb + 2 * kvb + 2 * lb, 6)
+            # the pair as one function: q, k, v, o, dO and the LSE read
+            # once, dQ, dK, dV written once; 10 * Dh per visible pair
+            bounds["bwd_pair"] = flash_bound(
+                pairs, 4 * qb + 4 * kvb + lb, 10)
+
+        # the plain version: forward, and backward alone
+        times["plain_fwd_ms"] = time_ms(
+            lambda: fl.flash_attention_ref(q, k, v, seg, scale), iters=3,
+            warmup=1)
+        qp2, kp2, vp2 = (t.clone().requires_grad_(True) for t in (q, k, v))
+        o2, _ = fl.flash_attention_ref(qp2, kp2, vp2, seg, scale)
+        times["plain_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+            o2, (qp2, kp2, vp2), dout, retain_graph=True), iters=3,
+            warmup=1)
+        del o2, qp2, kp2, vp2
+
+        # library yardstick: SDPA on repeated-KV heads (never used by the
+        # port); the packed case passes its block-diagonal causal mask
+        ql = qt.clone().requires_grad_(True)
+        kl = kt.repeat_interleave(H // KH, dim=1).requires_grad_(True)
+        vl = vt.repeat_interleave(H // KH, dim=1).requires_grad_(True)
+        if seg is None:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                ql, kl, vl, is_causal=True)
+        else:
+            pos = torch.arange(s, device=DEVICE)
+            mask = ((pos[:, None] >= pos[None, :])[None]
+                    & (seg[:, :, None] == seg[:, None, :]))[:, None]
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                ql, kl, vl, attn_mask=mask)
+        times["library_fwd_ms"] = time_ms(lib, iters=10)
+        ol = lib()
+        times["library_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+            ol, (ql, kl, vl), dot, retain_graph=True), iters=10)
+        del ol, ql, kl, vl
+
+        res = {"phase": "train_kernel", "case": name, "B": b, "S": s,
+               "H": H, "KH": KH, "Dh": DH, "segments_per_row": docs,
+               "backward": "fused" if fused else "blocked",
+               "visible_pairs_per_head": pairs, "errors": errs, **times,
+               "bound_ms": {k: v[0] for k, v in bounds.items()},
+               "bound_by": {k: v[1] for k, v in bounds.items()}}
+        emit(res)
+        results[name] = res
+        del q, k, v, dout, qk, kk, vk, qp, kp, vp, out_k, out_p
+        del qt, kt, vt, dot, out_t, dq_t, dk_t, dv_t, dq32
+        torch.cuda.empty_cache()
+    if failures:
+        raise RuntimeError("flash kernels differ from the plain version "
+                           "beyond the stated bounds: " + "; ".join(failures))
+    return results
+
+
+# ---------------------------------------------------------------------------
+# Phase 2c: the unembed's f32 logits on the card
+# ---------------------------------------------------------------------------
+
+# The port's unembed (bf16 operands, f32 logits through
+# `_MatmulF32Out`) against the widened float32 product of the same bf16
+# values, at the train path's shapes: logits, and the gradients of the
+# mean cross-entropy w.r.t. the hidden states and the f32 master head.
+# Relative RMS error and largest error over the largest reference entry.
+# The logits differ only in summation order (both sum exact products in
+# f32); the backward rounds the f32 dlogits to bf16 before two bf16
+# products and writes dx in bf16, two roundings of up to 2^-9 each.
+# Measured on the card (PERF.md, PR 2): logits 4.4e-6 and 7.4e-6, dx
+# 1.7e-3 and 3.2e-3, dW 1.1e-3 and 2.3e-3; the limits are 3-4x these.
+UNEMBED_TOL = {"logits": (1.5e-5, 2.5e-5), "dx": (5e-3, 1e-2),
+               "dw": (4e-3, 8e-3)}
+
+
+def unembed_errors(n, d, vocab, gen) -> dict:
+    """Errors of the card's unembed, forward and backward, against the
+    widened float32 product on (n, d) hidden states and a (d, vocab)
+    f32 master head with the reference's init scale."""
+    import torch
+    import torch.nn.functional as F
+    from cloud_server_tpu_torch.config import ModelConfig
+    from cloud_server_tpu_torch.models import transformer
+    cfg = ModelConfig(vocab_size=vocab, embed_dim=d, dtype="bfloat16",
+                      param_dtype="float32")
+    x = torch.randn((n, d), generator=gen, device=DEVICE).to(torch.bfloat16)
+    head = torch.randn((d, vocab), generator=gen, device=DEVICE) * d ** -0.5
+    targets = torch.randint(0, vocab, (n,), generator=gen, device=DEVICE)
+
+    def run(xx, hh, fn):
+        xx.requires_grad_(True)
+        hh.requires_grad_(True)
+        logits = fn(xx, hh)
+        F.cross_entropy(logits, targets).backward()
+        return logits.detach(), xx.grad, hh.grad
+
+    got = run(x.clone(), head.clone(), lambda xx, hh: transformer.unembed(
+        xx, {"lm_head": {"kernel": hh}}, cfg))
+    if got[0].dtype != torch.float32:
+        raise RuntimeError(f"unembed gave {got[0].dtype} logits")
+    want = run(x.float(), head.to(torch.bfloat16).float(),
+               lambda xx, hh: xx @ hh)
+    out = {}
+    for key, g, w in zip(("logits", "dx", "dw"), got, want):
+        g, w = g.float(), w.float()
+        diff = (g - w).abs()
+        rel_rms = float(diff.square().mean().sqrt()
+                        / w.square().mean().sqrt())
+        rel_max = float(diff.max() / w.abs().max())
+        rms_lim, max_lim = UNEMBED_TOL[key]
+        out[key] = {"rel_rms_err": rel_rms, "max_err_over_max": rel_max,
+                    "rel_rms_limit": rms_lim, "max_limit": max_lim,
+                    "within": rel_rms <= rms_lim and rel_max <= max_lim}
+    return out
+
+
+def phase_unembed() -> dict:
+    import torch
+    from cloud_server_tpu_torch.config import ModelConfig, TrainConfig, \
+        from_json
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with open(TRAIN_CONFIG) as f:
+        raw = json.load(f)
+    cfg = from_json(ModelConfig, raw["model"])
+    tcfg = from_json(TrainConfig, raw["train"])
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 2)
+    n = tcfg.batch_size * tcfg.seq_len
+    errs = unembed_errors(n, cfg.embed_dim, cfg.vocab_size, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"phase": "unembed", "N": n, "D": cfg.embed_dim,
+           "V": cfg.vocab_size, "errors": errs}
+    emit(out)
+    bad = [k for k, e in errs.items() if not e["within"]]
+    if bad:
+        raise RuntimeError(f"unembed on the card differs from the widened "
+                           f"f32 product beyond the stated bounds: {bad}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: training at Llama-3.1-8B's widths (8 layers)
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 6        # at S 2048: B3 (x2 with remat), B4, B5
+FUSED_STEPS = 2        # at S 1024: B3 (x2), B6
+LOSS_TOL = 0.5         # first loss vs ln V
+# The 2-layer slice, kernels vs plain attention on the card, bf16: the
+# loss within this absolute difference, every gradient leaf's error norm
+# within this share of the plain gradient's norm. The two attentions
+# round to bf16 at other points (the kernel its unnormalised
+# probabilities and dS, the plain version its normalised probabilities),
+# and that difference runs through two layers into the f32 loss;
+# measured 2.6e-4 and 1.2e-2 (PERF.md, PR 2), limits about 8x and 2.5x.
+SLICE_LOSS_ATOL = 2e-3
+SLICE_GRAD_REL = 3e-2
+LOG_DIR = "cloud_server_tpu_torch/_build/smoke_train"
+
+
+def train_run(tag, extra) -> tuple:
+    """One run of the training CLI; returns (final state, JSONL records,
+    launch counts, peak memory, wall seconds)."""
+    import shutil
+    import torch
+    from cloud_server_tpu_torch import train
+    from cloud_server_tpu_torch.ops import flash_attention as fl
+    from cloud_server_tpu_torch.utils.logging import read_jsonl
+    logdir = os.path.join(LOG_DIR, tag)
+    shutil.rmtree(logdir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fl.reset_counters()
+    t0 = time.perf_counter()
+    state = train.main(["--config", TRAIN_CONFIG, "--synthetic", "64",
+                        "--logdir", logdir, *extra])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = fl.counters()
+    peak = torch.cuda.max_memory_allocated()
+    return state, read_jsonl(os.path.join(logdir, "train.jsonl")), counts, \
+        peak, wall
+
+
+def check_run(tag, cfg, recs, counts, steps, fused, vocab) -> None:
+    losses = [r["loss"] for r in recs]
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"{tag}: losses {losses}")
+    if abs(losses[0] - math.log(vocab)) > LOSS_TOL:
+        raise RuntimeError(f"{tag}: first loss {losses[0]} is not within "
+                           f"{LOSS_TOL} of ln V = {math.log(vocab)}")
+    per = cfg.num_layers * steps
+    want = {"launches_fwd": 2 * per if cfg.remat == "full" else per,
+            "launches_bwd_dkdv": 0 if fused else per,
+            "launches_bwd_dq": 0 if fused else per,
+            "launches_bwd_fused": per if fused else 0, "plain_calls": 0}
+    if counts != want:
+        raise RuntimeError(f"{tag}: launches {counts}, expected {want} "
+                           f"({cfg.num_layers} layers x {steps} steps)")
+
+
+def slice_agreement(cfg, tcfg) -> dict:
+    """A 2-layer slice at the same widths: one step's loss and gradients
+    through the flash kernels against the same step through the plain
+    attention ("xla"), same f32 master weights and batch."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from cloud_server_tpu_torch.data.dataset import SyntheticLMDataset
+    from cloud_server_tpu_torch.models import transformer
+    from cloud_server_tpu_torch.ops import flash_attention as fl
+    from cloud_server_tpu_torch.training.optim import flatten
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    params = transformer.init_params(cfg2, SEED, device=DEVICE)
+    ds = SyntheticLMDataset(2, tcfg.seq_len, cfg.vocab_size, seed=SEED)
+    toks = torch.from_numpy(np.stack([ds[i]["tokens"] for i in range(2)]))
+    toks = toks.long().to(DEVICE)
+    out = {}
+    for impl in ("flash", "xla"):
+        p = {g: {n: t.detach().clone().requires_grad_(True)
+                 for n, t in leaves.items()} for g, leaves in params.items()}
+        n0 = fl.launches_fwd
+        loss, _ = transformer.next_token_loss(
+            p, {"tokens": toks}, dataclasses.replace(cfg2,
+                                                     attention_impl=impl))
+        loss.backward()
+        if impl == "flash" and fl.launches_fwd == n0:
+            raise RuntimeError("the 2-layer check did not use the kernels")
+        out[impl] = (float(loss.detach()),
+                     {k: t.grad for k, t in flatten(p)})
+        del p, loss
+    lk, gk = out["flash"]
+    lp, gp = out["xla"]
+    worst = 0.0
+    for k in gp:
+        rel = float((gk[k].float() - gp[k].float()).norm()
+                    / gp[k].float().norm().clamp_min(1e-30))
+        worst = max(worst, rel)
+    res = {"slice_layers": 2, "slice_loss_kernel": lk, "slice_loss_plain": lp,
+           "slice_loss_abs_err": abs(lk - lp),
+           "slice_loss_limit": SLICE_LOSS_ATOL,
+           "slice_grad_worst_rel_err": worst,
+           "slice_grad_rel_limit": SLICE_GRAD_REL}
+    if abs(lk - lp) > SLICE_LOSS_ATOL or worst > SLICE_GRAD_REL:
+        raise RuntimeError(f"2-layer slice: kernels differ from the plain "
+                           f"attention: {res}")
+    return res
+
+
+def phase_train() -> dict:
+    import torch
+    from cloud_server_tpu_torch.config import (ModelConfig, TrainConfig,
+                                               from_json)
+    from cloud_server_tpu_torch.data.dataset import SyntheticLMDataset
+    from cloud_server_tpu_torch.data.loader import _collate, to_device
+    from cloud_server_tpu_torch.training.train_step import make_train_step
+    from cloud_server_tpu_torch.utils.metrics import (
+        param_count, transformer_flops_per_token)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(TRAIN_CONFIG) as f:
+        raw = json.load(f)
+    cfg = from_json(ModelConfig, raw["model"])
+    tcfg = from_json(TrainConfig, raw["train"])
+
+    state, recs, counts, peak, wall = train_run(
+        "s2048", ["--steps", str(TRAIN_STEPS)])
+    check_run("S 2048", cfg, recs, counts, TRAIN_STEPS, False,
+              cfg.vocab_size)
+    n_params = param_count(state.params)
+    steady = recs[1:]
+    step_s = sum(r["step_time_s"] for r in steady) / len(steady)
+    tokens = tcfg.batch_size * tcfg.seq_len
+    flops = transformer_flops_per_token(cfg, tcfg.seq_len)
+    # one more step of the same run under the profiler
+    step_fn = make_train_step(cfg, tcfg)
+    ds = SyntheticLMDataset(tcfg.batch_size, tcfg.seq_len, cfg.vocab_size,
+                            seed=SEED)
+    batch = to_device(_collate(ds, range(tcfg.batch_size)),
+                      torch.device(DEVICE))
+    box = [state]
+
+    def one_step():
+        box[0], _ = step_fn(box[0], batch)
+
+    prof = profile_step(one_step)
+    del state, box, step_fn
+    run1 = {"steps": TRAIN_STEPS, "seq_len": tcfg.seq_len,
+            "batch": tcfg.batch_size, "losses": [r["loss"] for r in recs],
+            "grad_norms": [r["grad_norm"] for r in recs],
+            "step_time_s_steady": step_s,
+            "step_times_s": [r["step_time_s"] for r in recs],
+            "tokens_per_s": tokens / step_s,
+            "mfu": tokens / step_s * flops / BF16_FLOP_PER_S,
+            "peak_mem_gb": peak / 1e9, "wall_s": wall, "counts": counts,
+            "profile_step": prof}
+
+    state, recs2, counts2, peak2, wall2 = train_run(
+        "s1024", ["--steps", str(FUSED_STEPS), "--seq-len", "1024"])
+    check_run("S 1024", cfg, recs2, counts2, FUSED_STEPS, True,
+              cfg.vocab_size)
+    del state
+    run2 = {"steps": FUSED_STEPS, "seq_len": 1024,
+            "losses": [r["loss"] for r in recs2],
+            "step_times_s": [r["step_time_s"] for r in recs2],
+            "peak_mem_gb": peak2 / 1e9, "wall_s": wall2, "counts": counts2}
+    gc.collect()
+    torch.cuda.empty_cache()
+    agree = slice_agreement(cfg, tcfg)
+    total = {k: counts[k] + counts2[k] for k in counts}
+    out = {"phase": "train", "model": "Llama-3.1-8B widths, 8 layers "
+           "(random f32 master weights, bf16 compute)",
+           "layers": cfg.num_layers, "params": n_params,
+           "flops_per_token": flops, "run_s2048": run1, "run_s1024": run2,
+           "counts": total, **agree}
+    emit(out)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -437,9 +1021,14 @@ def main() -> int:
     sys.path.insert(0, here)
     dev = phase_device()
     kern = phase_kernel()
+    fkern = phase_train_kernel()
+    phase_unembed()
     if "--kernel-only" in sys.argv[1:]:
         return 0  # a quick check of a kernel change; prints no result
     serve = phase_serve()
+    gc.collect()
+    torch.cuda.empty_cache()  # the serving model is freed before training
+    train = phase_train()
     counts = serve["counts"]
     wide_err = max(kern["prefill"]["max_abs_err"],
                    kern["ragged"]["max_abs_err"])
@@ -457,6 +1046,36 @@ def main() -> int:
             "launches": launches, "max_abs_err": err, "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
+    tc = train["counts"]
+    blocked, fused = fkern["blocked"], fkern["fused"]
+
+    def err_of(case, *keys):
+        return max(fkern[c]["errors"][k]["max_abs_err"]
+                   for c in case for k in keys)
+
+    for name, line, launches, case, key, err, plain in (
+            ("flash_attention forward", 70, tc["launches_fwd"], blocked,
+             "fwd", err_of(FLASH_CASES, "out"), "plain_fwd_ms"),
+            ("flash_attention dK/dV backward", 205,
+             tc["launches_bwd_dkdv"], blocked, "bwd_dkdv",
+             err_of(("blocked", "segments"), "dk", "dv"), "plain_bwd_ms"),
+            ("flash_attention dQ backward", 295, tc["launches_bwd_dq"],
+             blocked, "bwd_dq", err_of(("blocked", "segments"), "dq"),
+             "plain_bwd_ms"),
+            ("flash_attention fused backward", 261,
+             tc["launches_bwd_fused"], fused, "bwd_fused",
+             err_of(("fused",), "dq", "dk", "dv"), "plain_bwd_ms")):
+        rows.append({
+            "name": f"{name} (B {case['B']}, S {case['S']})",
+            "route": "cuda",
+            "source": "cloud_server_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"cloud_server_tpu/ops/flash_attention.py:{line}",
+            "launches": launches, "max_abs_err": err,
+            "ms": case[f"{key}_ms"], "plain_ms": case[plain],
+            "bound_ms": case["bound_ms"][key],
+            "bound_by": case["bound_by"][key],
+            "library_ms": case["library_fwd_ms" if key == "fwd"
+                               else "library_bwd_ms"]})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})

@@ -8,13 +8,21 @@ in an eager Python loop.
 Precision: activations and weights in `cfg.dtype`; norms, rope, softmax
 and the logits are float32. On the CPU in float32 every product is
 float32. In bfloat16 on the card a product rounds its output to
-bfloat16 — the unembed included, whose logits are then widened to
-float32 (the reference asks its compiler for float32 logits directly).
+bfloat16, except the unembed, which writes float32 logits from bfloat16
+operands as the reference does (`_logits_f32`).
+
+Training: `forward_hidden`/`forward` are differentiable (weights cast to
+`cfg.dtype` inside the graph, so float32 masters get float32 gradients),
+with the remat policy applied per layer and attention from
+`_get_attention_fn` ("xla": plain; "flash": the flash-attention
+kernels). The losses (`next_token_loss`, `hidden_state_loss`,
+`masked_cross_entropy`, the vocab-chunked CE) mirror the reference's.
 """
 
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Any
 
 import numpy as np
@@ -24,8 +32,11 @@ from cloud_server_tpu_torch import resolve_device
 from cloud_server_tpu_torch.config import ModelConfig
 from cloud_server_tpu_torch.ops import (apply_rope, causal_attention,
                                         rms_norm, rope_table, swiglu)
+from cloud_server_tpu_torch.ops.flash_attention import flash_attention
 
 Params = dict
+
+NEG_INF = -1e30  # finite stand-in for -inf (keeps exp/where NaN-free)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -116,14 +127,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
     return out
 
 
-def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> Params:
+def params_from_numpy(tree: dict, cfg: ModelConfig, device=None, *,
+                      keep_param_dtype: bool = False) -> Params:
     """The reference's parameter dict as numpy arrays -> the port's
     parameters on `device` (CUDA unless named), same names, layouts and
     stacked L axis.
     Float32 leaves are cast to cfg.dtype, as the paged server casts its
-    parameters."""
+    parameters; with `keep_param_dtype` (training: float32 masters) they
+    are held at cfg.param_dtype instead."""
     device = resolve_device(device)
-    target = torch_dtype(cfg.dtype)
+    target = torch_dtype(cfg.param_dtype if keep_param_dtype else cfg.dtype)
 
     def conv(x):
         if isinstance(x, dict):
@@ -212,13 +225,49 @@ def _unembed_head(params: Params, cfg: ModelConfig) -> torch.Tensor:
             else params["lm_head"]["kernel"])
 
 
+class _MatmulF32Out(torch.autograd.Function):
+    """(N, D) @ (D, V) in bf16 with float32 output, on the card: one
+    cuBLAS product that accumulates and writes in float32 (the reference's
+    preferred_element_type=float32), never an f32 copy of the head. The
+    backward is two bf16 products."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        return g @ w.T, x.T @ g
+
+
+def _logits_f32(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """x (..., D) @ head (D, V) -> float32 logits, both operands already
+    in the model dtype. float32 operands multiply as they are; on the CPU
+    low-precision operands are widened first (exact products, float32
+    sums); on the card they go through `_MatmulF32Out`."""
+    if x.dtype == torch.float32 and head.dtype == torch.float32:
+        return x @ head
+    if x.device.type == "cpu":
+        return x.float() @ head.float()
+    lead = x.shape[:-1]
+    out = _MatmulF32Out.apply(x.reshape(-1, x.shape[-1]), head)
+    return out.reshape(*lead, head.shape[-1])
+
+
+def apply_logits_softcap(logits: torch.Tensor,
+                         cfg: ModelConfig) -> torch.Tensor:
+    if cfg.logits_softcap > 0:
+        return cfg.logits_softcap * torch.tanh(logits / cfg.logits_softcap)
+    return logits
+
+
 def unembed(x, params: Params, cfg: ModelConfig) -> torch.Tensor:
     """Final-norm'd hidden states (..., D) -> softcapped f32 logits."""
     head = _unembed_head(params, cfg).to(torch_dtype(cfg.dtype))
-    logits = (x @ head).float()
-    if cfg.logits_softcap > 0:
-        logits = cfg.logits_softcap * torch.tanh(logits / cfg.logits_softcap)
-    return logits
+    return apply_logits_softcap(_logits_f32(x, head), cfg)
 
 
 def embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig):
@@ -226,27 +275,228 @@ def embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig):
     return table[tokens.to(table.device).long()].to(torch_dtype(cfg.dtype))
 
 
-def forward_hidden(params: Params, tokens: torch.Tensor,
-                   cfg: ModelConfig) -> torch.Tensor:
-    """(B, S) int -> final-normed hidden states (B, S, D) in cfg.dtype."""
-    if cfg.attention_impl != "xla":
+def _block(x, lp, cfg: ModelConfig, cos, sin, attn_fn):
+    q, k, v = attention_qkv(x, lp, cfg, cos, sin)
+    x = attention_out(x, attn_fn(q, k, v), lp, cfg)
+    return mlp_block(x, lp, cfg)
+
+
+def apply_remat(block, cfg: ModelConfig):
+    """Wrap a layer-block fn with the configured remat policy.
+
+      * "none": save everything.
+      * "full": recompute the whole block in the backward
+        (`torch.utils.checkpoint`, non-reentrant); only the block's
+        input is kept.
+    The reference's "dots" and "attn" (save named residuals) are not
+    ported yet. Without autograd (inference) nothing is checkpointed."""
+    if cfg.remat == "none":
+        return block
+    if cfg.remat == "full":
+        def checkpointed(*args):
+            if not torch.is_grad_enabled():
+                return block(*args)
+            return torch.utils.checkpoint.checkpoint(
+                block, *args, use_reentrant=False)
+        return checkpointed
+    if cfg.remat in ("dots", "attn"):
         raise NotImplementedError(
-            f"attention_impl={cfg.attention_impl!r} is not ported yet "
-            "(only the plain 'xla' path)")
+            f"remat={cfg.remat!r} is not ported yet (use 'full' or 'none')")
+    raise ValueError(f"unknown remat policy: {cfg.remat!r}")
+
+
+def _get_attention_fn(cfg: ModelConfig, segment_ids=None):
+    """The attention-impl dispatch table: "xla" is the plain PyTorch
+    attention, "flash" the flash-attention kernels."""
+    if cfg.attention_impl == "xla":
+        return partial(causal_attention, segment_ids=segment_ids)
+    if cfg.attention_impl == "flash":
+        return partial(flash_attention, segment_ids=segment_ids,
+                       block_q=cfg.flash_block_q,
+                       block_kv=cfg.flash_block_kv)
+    if cfg.attention_impl in ("ring", "ulysses"):
+        raise NotImplementedError(
+            f"attention_impl={cfg.attention_impl!r} (sequence parallel) is "
+            "not ported yet")
+    raise ValueError(f"unknown attention_impl: {cfg.attention_impl!r}")
+
+
+def forward_hidden(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+                   segment_ids: torch.Tensor | None = None) -> torch.Tensor:
+    """(B, S) int -> final-normed hidden states (B, S, D) in cfg.dtype.
+
+    Differentiable: weights are cast to cfg.dtype inside the graph, so
+    float32 masters receive float32 gradients. The stacked layer leaves
+    are split with `unbind`, whose backward stacks the layer gradients
+    once (a per-layer index would zero-fill a full stack per layer)."""
     if cfg.num_experts >= 2:
         raise NotImplementedError("MoE models are not ported yet")
+    if segment_ids is not None:
+        raise NotImplementedError(
+            "packed rows (segment_ids: per-document RoPE positions and "
+            "loss masks) are not ported yet")
     x = embed(params, tokens, cfg)
     cos, sin = rope_table(cfg, tokens.shape[1], device=x.device)
+    block = apply_remat(
+        partial(_block, cfg=cfg, cos=cos, sin=sin,
+                attn_fn=_get_attention_fn(cfg)), cfg)
+    names = sorted(params["layers"])
+    per_layer = [params["layers"][n].unbind(0) for n in names]
     for i in range(cfg.num_layers):
-        lp = layer_params(params, i)
-        q, k, v = attention_qkv(x, lp, cfg, cos, sin)
-        x = attention_out(x, causal_attention(q, k, v), lp, cfg)
-        x = mlp_block(x, lp, cfg)
+        x = block(x, {n: t[i] for n, t in zip(names, per_layer)})
     return rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
 
 
-@torch.no_grad()
-def forward(params: Params, tokens: torch.Tensor,
-            cfg: ModelConfig) -> torch.Tensor:
-    """Full-sequence forward pass: (B, S) int -> (B, S, V) float32."""
-    return unembed(forward_hidden(params, tokens, cfg), params, cfg)
+def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+            segment_ids: torch.Tensor | None = None) -> torch.Tensor:
+    """Full-sequence forward pass: (B, S) int -> (B, S, V) float32
+    logits. Differentiable; call under torch.no_grad() for inference."""
+    return unembed(forward_hidden(params, tokens, cfg, segment_ids),
+                   params, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def masked_cross_entropy(logits: torch.Tensor, batch: dict,
+                         z_loss_coef: float = 0.0):
+    """Next-token CE over full-S logits.
+
+    logits: (B, S, V) f32 for the full sequence (the last position is
+    dropped here); batch: {"tokens": (B, S), optional "mask": (B, S)}.
+    Returns (loss, metrics)."""
+    tokens = batch["tokens"].to(logits.device).long()
+    logits = logits[:, :-1]
+    targets = tokens[:, 1:]
+    mask = batch.get("mask")
+    mask = (torch.ones(targets.shape, device=logits.device)
+            if mask is None else mask[:, 1:].to(logits.device).float())
+    logz = torch.logsumexp(logits, dim=-1)
+    target_logit = torch.gather(logits, -1, targets[..., None])[..., 0]
+    nll = logz - target_logit
+    denom = mask.sum().clamp_min(1.0)
+    loss = (nll * mask).sum() / denom
+    with torch.no_grad():
+        acc = ((logits.argmax(-1) == targets) * mask).sum() / denom
+    metrics = {"loss": loss.detach(), "ppl_log": loss.detach(),
+               "accuracy": acc}
+    if z_loss_coef > 0.0:
+        z = (logz.square() * mask).sum() / denom
+        loss = loss + z_loss_coef * z
+        metrics["z_loss"] = z.detach()
+    return loss, metrics
+
+
+def _chunk_body(x, hc, base, m, l, tgt, bidx, targets, cfg):
+    """One vocab chunk of `_chunked_logz_target_argmax`."""
+    logits = apply_logits_softcap(_logits_f32(x, hc.to(x.dtype)), cfg)
+    c = hc.shape[1]
+    mc = logits.amax(-1)
+    # m doubles as the running best logit, so the argmax update compares
+    # against the pre-update m
+    am = base + logits.argmax(-1)
+    bidx = torch.where(mc > m, am, bidx)
+    m_new = torch.maximum(m, mc)
+    l = l * torch.exp(m - m_new) + torch.exp(logits - m_new[..., None]).sum(-1)
+    in_chunk = (targets >= base) & (targets < base + c)
+    off = (targets - base).clamp(0, c - 1)
+    tl = torch.gather(logits, -1, off[..., None])[..., 0]
+    tgt = torch.where(in_chunk, tl, tgt)
+    return m_new, l, tgt, bidx
+
+
+def _chunked_logz_target_argmax(x, head, targets, cfg: ModelConfig):
+    """Blockwise-vocab logsumexp + target-logit gather + running argmax.
+
+    x: (B, S, D); head: (D, V); targets: (B, S) int. Returns (logz,
+    target_logit, argmax_idx), each (B, S), without materialising
+    (B, S, V) logits: a Python loop over vocab chunks of cfg.vocab_chunk,
+    each checkpointed, so the backward also recomputes the logits one
+    chunk at a time."""
+    b, s, _ = x.shape
+    v = head.shape[1]
+    size = cfg.vocab_chunk
+    dev = x.device
+    m = torch.full((b, s), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, s), dtype=torch.float32, device=dev)
+    tgt = torch.full((b, s), NEG_INF, dtype=torch.float32, device=dev)
+    bidx = torch.zeros((b, s), dtype=torch.long, device=dev)
+    for base in range(0, v, size):
+        hc = head[:, base:base + size]
+        if torch.is_grad_enabled():
+            m, l, tgt, bidx = torch.utils.checkpoint.checkpoint(
+                _chunk_body, x, hc, base, m, l, tgt, bidx, targets, cfg,
+                use_reentrant=False)
+        else:
+            m, l, tgt, bidx = _chunk_body(x, hc, base, m, l, tgt, bidx,
+                                          targets, cfg)
+    return m + torch.log(l), tgt, bidx
+
+
+def _shifted_targets_mask(batch: dict, device=None):
+    """Position i predicts token i+1; the last position is masked out, so
+    the sequence keeps its full length."""
+    tokens = batch["tokens"].to(device).long()
+    targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    mask = batch.get("mask")
+    mask = (torch.ones(tokens.shape, device=tokens.device) if mask is None
+            else mask.to(tokens.device).float())
+    mask = torch.cat([mask[:, 1:], torch.zeros_like(mask[:, :1])], dim=1)
+    return targets, mask
+
+
+def _stats_loss(logz, target_logit, argmax_idx, targets, mask,
+                z_loss_coef: float):
+    """(loss, metrics) from per-position CE statistics."""
+    nll = logz - target_logit
+    denom = mask.sum().clamp_min(1.0)
+    loss = (nll * mask).sum() / denom
+    metrics = {"loss": loss.detach(), "ppl_log": loss.detach(),
+               "accuracy": ((argmax_idx == targets) * mask).sum() / denom}
+    if z_loss_coef > 0.0:
+        z = (logz.square() * mask).sum() / denom
+        loss = loss + z_loss_coef * z
+        metrics["z_loss"] = z.detach()
+    return loss, metrics
+
+
+def fused_cross_entropy(x, params: Params, batch: dict, cfg: ModelConfig,
+                        z_loss_coef: float = 0.0):
+    """Next-token CE over final hidden states, chunked over the vocab."""
+    targets, mask = _shifted_targets_mask(batch, x.device)
+    head = _unembed_head(params, cfg).to(torch_dtype(cfg.dtype))
+    logz, target_logit, argmax_idx = _chunked_logz_target_argmax(
+        x, head, targets, cfg)
+    return _stats_loss(logz, target_logit, argmax_idx, targets, mask,
+                       z_loss_coef)
+
+
+def hidden_state_loss(x, params: Params, batch: dict, cfg: ModelConfig,
+                      z_loss_coef: float = 0.0):
+    """Next-token CE from final hidden states: vocab_chunk > 0 ->
+    chunked; else dense unembed + masked CE. ce_impl="pallas" (the fused
+    CE kernels) is not ported yet."""
+    if cfg.ce_impl == "pallas":
+        raise NotImplementedError(
+            "ce_impl='pallas' (the fused cross-entropy kernels) is not "
+            "ported yet; use ce_impl='dense'")
+    if cfg.vocab_chunk > 0:
+        return fused_cross_entropy(x, params, batch, cfg, z_loss_coef)
+    return masked_cross_entropy(unembed(x, params, cfg), batch, z_loss_coef)
+
+
+def next_token_loss(params: Params, batch: dict, cfg: ModelConfig,
+                    z_loss_coef: float = 0.0):
+    """Causal LM loss. batch: {"tokens": (B, S) int, optional "mask":
+    (B, S)}. Predicts tokens[:, 1:] from tokens[:, :-1]; the forward runs
+    on the full S and the last position is dropped inside the loss.
+    Packed batches ("segment_ids") are not ported yet."""
+    if batch.get("segment_ids") is not None:
+        raise NotImplementedError("packed batches (segment_ids) are not "
+                                  "ported yet")
+    if cfg.ce_impl == "pallas" or cfg.vocab_chunk > 0:
+        x = forward_hidden(params, batch["tokens"], cfg)
+        return hidden_state_loss(x, params, batch, cfg, z_loss_coef)
+    logits = forward(params, batch["tokens"], cfg)
+    return masked_cross_entropy(logits, batch, z_loss_coef)

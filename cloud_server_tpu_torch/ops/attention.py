@@ -19,7 +19,8 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      scale: float | None = None,
                      kv_segment_start: int = 0,
                      q_positions: torch.Tensor | None = None,
-                     kv_length: torch.Tensor | None = None) -> torch.Tensor:
+                     kv_length: torch.Tensor | None = None,
+                     segment_ids: torch.Tensor | None = None) -> torch.Tensor:
     """Causal grouped-query attention.
 
     Args:
@@ -30,6 +31,9 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
       q_positions: optional (B, Sq) absolute query positions; defaults to
         arange(Sq) + kv_segment_start.
       kv_length: optional (B,) number of valid kv entries.
+      segment_ids: optional (B, S) packed-sequence ids (Sq == Skv):
+        attention is further masked to same-segment pairs, the
+        block-diagonal causal structure of packed training rows.
 
     Scores and softmax are float32; the probabilities are cast to q's
     dtype before the product with v, as in the reference.
@@ -53,6 +57,9 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if kv_length is not None:
         valid = kv_pos < kv_length.to(dev)[:, None]
         causal = causal & valid[:, None, :]
+    if segment_ids is not None:
+        seg = segment_ids.to(dev)
+        causal = causal & (seg[:, :, None] == seg[:, None, :])
     scores = torch.where(causal[:, None, None, :, :], scores,
                          torch.tensor(NEG_INF, device=dev))
     probs = torch.exp(scores - scores.amax(dim=-1, keepdim=True))

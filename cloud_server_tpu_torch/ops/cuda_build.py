@@ -23,10 +23,13 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+# nvcc's output of each source built by this process (with -Xptxas=-v:
+# every kernel's registers, spills and shared memory)
+build_logs: dict[str, str] = {}
 
 
 def nvcc() -> str:
@@ -75,6 +78,7 @@ def build_all(names) -> None:
             continue
         proc, tmp, out = job
         log, _ = proc.communicate()
+        build_logs[name] = log
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu:\n{log}")
             continue

@@ -41,6 +41,15 @@ def test_no_forbidden_import_in_source(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+def test_every_training_module_is_checked():
+    """The training slice's modules are among those both checks cover."""
+    mods = set(_modules())
+    for m in ("ops.flash_attention", "training.optim", "training.train_step",
+              "training.loop", "train", "data.dataset", "data.loader",
+              "utils.metrics", "utils.logging", "utils.failure"):
+        assert f"cloud_server_tpu_torch.{m}" in mods, m
+
+
 def test_importing_every_module_loads_no_jax():
     mods = list(_modules())
     code = (

@@ -57,3 +57,118 @@ def test_cuda_kernel_matches_plain(b, w, lengths, widths, d, ps, mp):
     assert bool((diff <= 8e-3 + 1e-2 * ref_abs).all())
     assert float(diff.square().mean().sqrt()
                  / ref_abs.square().mean().sqrt()) <= 1e-2
+
+
+# The flash-attention kernels: the three cases of chip_smoke.py's
+# train_kernel phase, with its tolerances (atol one bf16 ulp at the size
+# of the largest summed entries, rtol, and a relative RMS bound; PERF.md).
+FLASH_TOL = {"out": (1.6e-2, 1e-2, 1e-2), "lse": (1e-5, 1e-6, 1e-6),
+             "dq": (3.2e-2, 2e-2, 1e-2), "dk": (3.2e-2, 2e-2, 1e-2),
+             "dv": (3.2e-2, 2e-2, 1e-3)}
+
+
+def _flash_close(name, got, want):
+    atol, rtol, rel = FLASH_TOL[name]
+    g, w = got.detach().float(), want.detach().float()
+    assert bool(torch.isfinite(g).all()), name
+    diff = (g - w).abs()
+    assert bool((diff <= atol + rtol * w.abs()).all()), name
+    assert float(diff.square().mean().sqrt()
+                 / w.square().mean().sqrt()) <= rel, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,docs", [(4, 2048, 0), (4, 1024, 0),
+                                      (2, 2048, 4)],
+                         ids=["blocked", "fused", "segments"])
+def test_flash_kernels_match_plain(b, s, docs):
+    """Forward, LSE and the three gradients of the flash kernels against
+    the plain version on the card, bf16, at Llama-3.1-8B's head shapes
+    (H 32, KH 8, Dh 128). S 2048 runs the dK/dV + dQ backward, S 1024 the
+    fused one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cloud_server_tpu_torch.ops import flash_attention as fl
+    r = np.random.default_rng(s + docs)
+    q, k, v, dout = (torch.from_numpy(r.standard_normal(shape).astype(
+        np.float32)).cuda().to(torch.bfloat16) for shape in (
+        (b, s, 32, 128), (b, s, 8, 128), (b, s, 8, 128), (b, s, 32, 128)))
+    seg = None
+    if docs:
+        cuts = [np.sort(r.choice(np.arange(1, s), docs - 1, replace=False))
+                for _ in range(b)]
+        seg = torch.from_numpy(np.stack([np.cumsum(np.isin(np.arange(s), c))
+                                         for c in cuts]).astype(np.int32))
+        seg = seg.cuda()
+    fl.reset_counters()
+    kq, kk, kv = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out = fl.flash_attention(kq, kk, kv, segment_ids=seg)
+    out.backward(dout)
+    pq, pk, pv = (t.clone().requires_grad_(True) for t in (q, k, v))
+    want, lse_want = fl.flash_attention_ref(pq, pk, pv, seg)
+    want.backward(dout)
+    torch.cuda.synchronize()
+    fused = s <= 1024
+    assert fl.counters() == {"launches_fwd": 1, "plain_calls": 1,
+                             "launches_bwd_fused": int(fused),
+                             "launches_bwd_dkdv": int(not fused),
+                             "launches_bwd_dq": int(not fused)}
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    _, lse = fl.forward_bhsd(qt, kt, vt, seg, 128 ** -0.5)
+    _flash_close("out", out, want)
+    _flash_close("lse", lse, lse_want)
+    _flash_close("dq", kq.grad, pq.grad)
+    _flash_close("dk", kk.grad, pk.grad)
+    _flash_close("dv", kv.grad, pv.grad)
+
+
+# The unembed on the card: chip_smoke.py's unembed phase on a slice of the
+# train shapes, with its tolerances (relative RMS error, largest error over
+# the largest reference entry; 3-4x the errors measured there): summation
+# order only for the logits; two bf16 roundings of up to 2^-9 in the
+# backward.
+UNEMBED_TOL = {"logits": (1.5e-5, 2.5e-5), "dx": (5e-3, 1e-2),
+               "dw": (4e-3, 8e-3)}
+
+
+@pytest.mark.gpu
+def test_unembed_f32_logits_and_grads_on_card():
+    """bf16 hidden states and an f32 master head (D 4096, 2048 rows, a
+    32768-entry slice of the vocabulary): the logits are float32 and match
+    the widened f32 product; the gradients of the mean cross-entropy
+    w.r.t. the hidden states and the head match the widened product's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.nn.functional as F
+    from cloud_server_tpu_torch.config import ModelConfig
+    from cloud_server_tpu_torch.models import transformer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, d, vocab = 2048, 4096, 32768
+    cfg = ModelConfig(vocab_size=vocab, embed_dim=d, dtype="bfloat16",
+                      param_dtype="float32")
+    r = np.random.default_rng(5)
+    x = torch.from_numpy(r.standard_normal((n, d)).astype(
+        np.float32)).cuda().to(torch.bfloat16)
+    head = torch.from_numpy((r.standard_normal((d, vocab)) * d ** -0.5)
+                            .astype(np.float32)).cuda()
+    targets = torch.from_numpy(r.integers(0, vocab, n)).cuda()
+
+    def run(xx, hh, fn):
+        xx.requires_grad_(True)
+        hh.requires_grad_(True)
+        logits = fn(xx, hh)
+        F.cross_entropy(logits, targets).backward()
+        return logits.detach(), xx.grad, hh.grad
+
+    got = run(x.clone(), head.clone(), lambda xx, hh: transformer.unembed(
+        xx, {"lm_head": {"kernel": hh}}, cfg))
+    assert got[0].dtype == torch.float32
+    want = run(x.float(), head.to(torch.bfloat16).float(),
+               lambda xx, hh: xx @ hh)
+    for key, g, w in zip(("logits", "dx", "dw"), got, want):
+        g, w = g.float(), w.float()
+        diff = (g - w).abs()
+        rms_lim, max_lim = UNEMBED_TOL[key]
+        assert float(diff.square().mean().sqrt()
+                     / w.square().mean().sqrt()) <= rms_lim, key
+        assert float(diff.max() / w.abs().max()) <= max_lim, key

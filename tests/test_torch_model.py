@@ -80,7 +80,7 @@ def test_init_params_distribution():
 
 
 def test_unported_attention_impl_raises():
-    cfg = _tcfg(dataclasses.replace(CONFIGS["mha"], attention_impl="flash"))
+    cfg = _tcfg(dataclasses.replace(CONFIGS["mha"], attention_impl="ring"))
     params = transformer.init_params(cfg, 0, device="cpu")
     with pytest.raises(NotImplementedError):
         transformer.forward(params, torch.zeros((1, 4), dtype=torch.long),
