@@ -20,23 +20,37 @@ each:
                 fused case (S 1024) and a packed case with segment ids;
      unembed  — the f32-logit unembed (bf16 operands) and its backward
                 against the widened f32 product at the train shapes;
+     ce_kernel — the fused-CE kernels (B7 statistics, B8 d and dx) against
+                their plain version at N 8192 x D 4096 x V 128256, with
+                the cuBLAS products alone as the library yardstick;
   3. serve    — PagedInferenceServer at the full Llama-3.1-8B width (all
                 32 layers, random bf16 weights from a seed) serving 8
                 greedy requests; a second run on a fresh server must give
                 the same tokens, and a 2-layer slice of the model must
                 give the plain dense forward's logits through the paged
-                kernel path;
+                kernel path; one steady decode step of 8 seeded requests
+                timed with the threefry draw and with the earlier hash
+                draw;
      profile  — one mixed (prefill + decode) step and one steady decode
                 step under torch.profiler: wall time, device busy time
                 and idle share, the busiest kernels;
   4. train    — the training CLI (`cloud_server_tpu_torch.train.main`)
                 at Llama-3.1-8B's widths cut to 8 layers (f32 masters,
                 bf16 compute, flash attention, full remat): 6 steps at
-                S 2048, then 2 steps at S 1024 (the fused backward); the
-                kernels' launch counts against layers x steps; one step
-                under torch.profiler; a 2-layer slice whose loss and
-                gradients through the kernels match the plain attention;
-  5. kernels  — each ported kernel with the TPU kernel it replaces, its
+                S 2048, then 2 steps at S 1024 (the fused backward), then
+                6 steps at S 2048 with the fused CE (ce_impl "pallas")
+                and evaluation every 3 steps over 2 batches of a token
+                file; the kernels' launch counts against layers x steps
+                (+ evaluations); one step of each S 2048 run under
+                torch.profiler; 2-layer slices whose loss and gradients
+                match the plain attention and the dense CE;
+  5. ckpt     — 1 layer at full width with the fused CE: 4 steps
+                straight; 2 steps with an async checkpoint, restored bit
+                for bit; a resumed run to 4 against the straight run;
+                the checkpoint served (restored params and
+                `generate --checkpoint-dir`) with the in-memory params'
+                tokens; bytes and write/read rates;
+  6. kernels  — each ported kernel with the TPU kernel it replaces, its
                 launches on phases 3 and 4 and its numbers from phase 2.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises and
@@ -72,6 +86,8 @@ DENSE_LOGIT_RTOL = 2.5e-2
 SEED = 0
 CONFIG = "cloud_server_tpu_torch/configs/llama3_1_8b.json"
 TRAIN_CONFIG = "cloud_server_tpu_torch/configs/llama3_1_8b_train.json"
+FUSED_CE_CONFIG = ("cloud_server_tpu_torch/configs/"
+                   "llama3_1_8b_train_fused_ce.json")
 DEVICE = "cuda"
 
 
@@ -104,7 +120,7 @@ def phase_device() -> dict:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    cuda_build.build_all(["paged_attention", "flash_attention"])
+    cuda_build.build_all(["paged_attention", "flash_attention", "fused_ce"])
     build_s = time.perf_counter() - t0
     out = {"phase": "device", "name": torch.cuda.get_device_name(0),
            "count": torch.cuda.device_count(), "nvidia_smi": smi,
@@ -317,6 +333,7 @@ def serve_once(params, cfg, icfg, prompts):
 PROFILE_GROUPS = (
     ("optimizer", ("multi_tensor_apply", "adam", "foreach")),
     ("flash_attention", ("flash_fwd", "flash_bwd", "flash_delta")),
+    ("fused_ce", ("ce_fwd", "ce_dlogits", "ce_dx")),
     ("paged_attention", ("paged_attention",)),
     ("gemm", ("gemm", "gemv", "nvjet", "cutlass", "xmma")),
     ("copy", ("memcpy", "memset")),
@@ -381,6 +398,73 @@ def phase_profile(params, cfg, icfg, prompts) -> dict:
            "decode_rounds_per_step": srv.decode_chunk, "live_slots": 8}
     emit(out)
     return out
+
+
+_MIX = (0x9E3779B97F4A7C15 - (1 << 64), 0xBF58476D1CE4E5B9 - (1 << 64),
+        0x94D049BB133111EB - (1 << 64))
+
+
+def _hash_row_draw(logits, rows, positions, **kw):
+    """The per-row draw the port made before it drew from threefry (a
+    splitmix64 hash of (seed, position, token id) into uniforms, then a
+    Gumbel argmax): the "before" side of the seeded decode step's time."""
+    import torch
+    from cloud_server_tpu_torch.inference import sampling
+
+    def srl(x, k):
+        return (x >> k) & ((1 << (64 - k)) - 1)
+
+    def mix(x):
+        x = (x ^ srl(x, 30)) * _MIX[1]
+        x = (x ^ srl(x, 27)) * _MIX[2]
+        return x ^ srl(x, 31)
+
+    positions = torch.as_tensor(positions, device=logits.device)
+    filt, raw = sampling.filtered_logits_rows(logits, rows,
+                                              positions=positions, **kw)
+    key = mix(rows.seed.long() * _MIX[0] + positions.long())
+    idx = torch.arange(1, logits.shape[-1] + 1, device=logits.device)
+    top = srl(mix(key[:, None] ^ (idx[None, :] * _MIX[0])), 11).double()
+    u = ((top + 0.5) * 2.0 ** -53).float().clamp_(1e-20, 1 - 1e-7)
+    sampled = torch.argmax(filt - torch.log(-torch.log(u)), dim=-1)
+    return torch.where(rows.temperature <= 0.0, raw.argmax(-1), sampled)
+
+
+def seeded_decode_steps(params, cfg, icfg, prompts) -> dict:
+    """One steady decode step of 8 seeded requests (temperature 0.8, each
+    its own seed), timed with the threefry draw and with the earlier hash
+    draw swapped in, in turns (hash, threefry, threefry, hash)."""
+    import torch
+    from cloud_server_tpu_torch.inference import paged_server
+    from cloud_server_tpu_torch.inference.sampling import SamplingParams
+    srv = paged_server.PagedInferenceServer(
+        params, cfg, icfg, max_slots=8, max_context=MAX_CTX, page_size=PS,
+        prefill_chunk=256, seed=SEED, device=DEVICE)
+    for i, p in enumerate(prompts):
+        srv.submit(p, max_new_tokens=512,
+                   sampling=SamplingParams(seed=1000 + i, temperature=0.8))
+    while srv._jobs or srv.num_pending:
+        srv.step()
+    srv.step()  # the first decode-only step
+    threefry = paged_server.sample_logits_rows
+    times: dict = {"hash": [], "threefry": []}
+    try:
+        for name in ("hash", "threefry", "threefry", "hash"):
+            paged_server.sample_logits_rows = (
+                _hash_row_draw if name == "hash" else threefry)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            srv.step()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        paged_server.sample_logits_rows = threefry
+    if srv.num_active != 8:
+        raise RuntimeError("the seeded decode steps did not keep 8 slots")
+    srv.stop()
+    return {"seeded_decode_step_ms_hash_draw": times["hash"],
+            "seeded_decode_step_ms_threefry_draw": times["threefry"],
+            "seeded_decode_rounds_per_step": srv.decode_chunk}
 
 
 def check_dense_agreement(params, cfg, prompt) -> dict:
@@ -486,7 +570,8 @@ def phase_serve() -> dict:
            "decode_tok_per_s_after_last_first_token": decode_tps,
            "ttft_p50_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
            "peak_mem_gb": peak / 1e9, "counts": counts,
-           "second_run_identical": same, **dense}
+           "second_run_identical": same, **dense,
+           **seeded_decode_steps(params, cfg, icfg, prompts)}
     emit(out)
     phase_profile(params, cfg, icfg, prompts)
     return out
@@ -745,7 +830,7 @@ def phase_train_kernel() -> dict:
 # ---------------------------------------------------------------------------
 
 # The port's unembed (bf16 operands, f32 logits through
-# `_MatmulF32Out`) against the widened float32 product of the same bf16
+# `ops.matmul_f32`) against the widened float32 product of the same bf16
 # values, at the train path's shapes: logits, and the gradients of the
 # mean cross-entropy w.r.t. the hidden states and the f32 master head.
 # Relative RMS error and largest error over the largest reference entry.
@@ -825,6 +910,137 @@ def phase_unembed() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 2d: the fused-CE kernels against their plain version
+# ---------------------------------------------------------------------------
+
+# B7 and B8 against the plain version on the same bf16 inputs at the
+# train path's shapes (N = B x S = 8192 rows, D 4096, V 128256, random
+# targets, the cotangents of a mean loss). logz and the target logit are
+# f32 sums of the same bf16 products in another order: absolute limits.
+# An argmax may differ only where the two logits lie within the logz limit
+# of each other. dx and dW are bf16 and carry the bf16 rounding of d,
+# which the two versions may round to neighbouring values: relative RMS
+# error and largest error over the largest entry. Measured on the card
+# (PERF.md): logz 1.9e-6, target logit 0, no argmax differs; dx
+# 7.8e-6 and 2.8e-3 (one bf16 ulp of a large entry), dW 2.5e-6 and
+# 5.3e-4. The limits are about 4x these (the target logit shares logz's).
+CE_TOL = {"logz": 8e-6, "tl": 8e-6, "dx": (3e-5, 1e-2), "dw": (1e-5, 2e-3)}
+CE_SHAPE = (8192, 4096, 128256)
+
+
+def ce_bound(n, d, v, dlogits: bool) -> tuple:
+    """Least time for B7 (2 N D V operations; x, head and the targets
+    read once, three f32/int32 values per row written) or B8 (4 N D V:
+    the logits' recompute and dx; x, head, targets, logz and both
+    cotangents read once, d and dx written once)."""
+    ops = (4 if dlogits else 2) * n * d * v
+    nbytes = (n * d + d * v) * 2 + 4 * n
+    nbytes += (3 * 4 * n + n * v * 2 + n * d * 2) if dlogits else 3 * 4 * n
+    t_ops = ops / BF16_FLOP_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_ce_kernel() -> dict:
+    import torch
+    from cloud_server_tpu_torch.ops import fused_ce as fc
+    from cloud_server_tpu_torch.ops import matmul_f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, d, v = CE_SHAPE
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 3)
+    x = torch.randn((n, d), generator=gen, device=DEVICE).to(torch.bfloat16)
+    head = (torch.randn((d, v), generator=gen, device=DEVICE)
+            * d ** -0.5).to(torch.bfloat16)
+    t = torch.randint(0, v, (n,), generator=gen, device=DEVICE)
+    gz = torch.full((n,), 1.0 / n, device=DEVICE)
+    gt = -gz
+
+    def run(fn):
+        xx = x.clone().requires_grad_(True)
+        hh = head.clone().requires_grad_(True)
+        logz, tl, am = fn(xx, hh, t)
+        ((logz * gz).sum() + (tl * gt).sum()).backward()
+        return logz.detach(), tl.detach(), am, xx.grad, hh.grad
+
+    # the wrapper, forward and backward, with its launch counts
+    fc.reset_counters()
+    got = run(fc.fused_ce_stats)
+    torch.cuda.synchronize()
+    if fc.counters() != {"launches_fwd": 1, "launches_dx": 1,
+                         "plain_calls": 0}:
+        raise RuntimeError(f"fused CE launches {fc.counters()}")
+    want = run(fc.fused_ce_stats_ref)
+    errs = {}
+    for key, g, w in zip(("logz", "tl"), got[:2], want[:2]):
+        if not bool(torch.isfinite(g).all()):
+            raise RuntimeError(f"{key}: non-finite kernel output")
+        err = float((g - w).abs().max())
+        errs[key] = {"max_abs_err": err, "limit": CE_TOL[key],
+                     "within": err <= CE_TOL[key]}
+    logits = torch.mm(x, head, out_dtype=torch.float32)
+    rows = torch.arange(n, device=DEVICE)
+    gap = logits[rows, want[2]] - logits[rows, got[2]]
+    del logits
+    errs["argmax"] = {"differ": int((got[2] != want[2]).sum()),
+                      "differ_beyond_limit": int((gap > CE_TOL["logz"]).sum()),
+                      "largest_gap": float(gap.max())}
+    errs["argmax"]["within"] = errs["argmax"]["differ_beyond_limit"] == 0
+    for key, g, w in zip(("dx", "dw"), got[3:], want[3:]):
+        g, w = g.float(), w.float()
+        diff = (g - w).abs()
+        rms_lim, max_lim = CE_TOL[key]
+        rel_rms = float(diff.square().mean().sqrt()
+                        / w.square().mean().sqrt())
+        rel_max = float(diff.max() / w.abs().max())
+        errs[key] = {"max_abs_err": float(diff.max()),
+                     "rel_rms_err": rel_rms, "max_err_over_max": rel_max,
+                     "rel_rms_limit": rms_lim, "max_limit": max_lim,
+                     "within": rel_rms <= rms_lim and rel_max <= max_lim}
+    logz = got[0]
+    del got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one B7 call and one B8 call of the wrapper's own launch functions
+    t32 = t.to(torch.int32)
+    times = {"b7_ms": time_ms(lambda: fc.forward_stats(x, head, t32),
+                              iters=5, warmup=1),
+             "b8_ms": time_ms(lambda: fc.backward_dx(x, head, t32, logz, gz,
+                                                     gt), iters=3, warmup=1)}
+    dbuf, _ = fc.backward_dx(x, head, t32, logz, gz, gt)
+    with torch.no_grad():
+        times["plain_b7_ms"] = time_ms(
+            lambda: fc.fused_ce_stats_ref(x, head, t), iters=3, warmup=1)
+        times["plain_b8_ms"] = time_ms(
+            lambda: matmul_f32(fc._dlogits_ref(x, head, t, logz, gz, gt),
+                               head.t()).to(x.dtype), iters=3, warmup=1)
+    # library yardstick: the cuBLAS products alone, without the epilogues
+    times["library_b7_ms"] = time_ms(
+        lambda: torch.mm(x, head, out_dtype=torch.float32), iters=5,
+        warmup=1)
+    times["library_b8_ms"] = time_ms(
+        lambda: (torch.mm(x, head, out_dtype=torch.float32),
+                 torch.mm(dbuf, head.t(), out_dtype=torch.float32)),
+        iters=3, warmup=1)
+    b7b, b8b = ce_bound(n, d, v, False), ce_bound(n, d, v, True)
+    out = {"phase": "ce_kernel", "N": n, "D": d, "V": v,
+           "vocab_splits": fc.vocab_splits(n, v, x.device), "errors": errs,
+           **times,
+           "bound_ms": {"b7": b7b[0], "b8": b8b[0]},
+           "bound_by": {"b7": b7b[1], "b8": b8b[1]}}
+    emit(out)
+    del x, head, dbuf
+    gc.collect()
+    torch.cuda.empty_cache()
+    bad = [k for k, e in errs.items() if not e["within"]]
+    if bad:
+        raise RuntimeError(f"fused CE kernels differ from the plain version "
+                           f"beyond the stated bounds: {bad}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: training at Llama-3.1-8B's widths (8 layers)
 # ---------------------------------------------------------------------------
 
@@ -840,16 +1056,28 @@ LOSS_TOL = 0.5         # first loss vs ln V
 # measured 2.6e-4 and 1.2e-2 (PERF.md, PR 2), limits about 8x and 2.5x.
 SLICE_LOSS_ATOL = 2e-3
 SLICE_GRAD_REL = 3e-2
+# The 2-layer slice, fused CE (B7/B8) vs the dense CE, same weights and
+# batch: both take f32 logits of the same bf16 operands and round the
+# logits' gradient to bf16 before the two backward products, so the loss
+# differs in summation order only and the gradients by bf16 roundings.
+# Measured (PERF.md): loss equal, worst leaf 6.1e-3; the loss limit
+# is the f32 resolution of a logsumexp of 128256 terms at 12, the
+# gradient limit about 3x its reading.
+CE_SLICE_LOSS_ATOL = 1e-4
+CE_SLICE_GRAD_REL = 2e-2
+CE_EVAL_EVERY, CE_EVAL_BATCHES = 3, 2   # the fused config's loop section
 LOG_DIR = "cloud_server_tpu_torch/_build/smoke_train"
 
 
-def train_run(tag, extra) -> tuple:
+def train_run(tag, extra, config=TRAIN_CONFIG) -> tuple:
     """One run of the training CLI; returns (final state, JSONL records,
-    launch counts, peak memory, wall seconds)."""
+    launch counts of the flash and the fused-CE kernels, peak memory,
+    wall seconds)."""
     import shutil
     import torch
     from cloud_server_tpu_torch import train
     from cloud_server_tpu_torch.ops import flash_attention as fl
+    from cloud_server_tpu_torch.ops import fused_ce as fc
     from cloud_server_tpu_torch.utils.logging import read_jsonl
     logdir = os.path.join(LOG_DIR, tag)
     shutil.rmtree(logdir, ignore_errors=True)
@@ -857,26 +1085,32 @@ def train_run(tag, extra) -> tuple:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     fl.reset_counters()
+    fc.reset_counters()
     t0 = time.perf_counter()
-    state = train.main(["--config", TRAIN_CONFIG, "--synthetic", "64",
+    state = train.main(["--config", config, "--synthetic", "64",
                         "--logdir", logdir, *extra])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = fl.counters()
+    ce_counts = fc.counters()
     peak = torch.cuda.max_memory_allocated()
-    return state, read_jsonl(os.path.join(logdir, "train.jsonl")), counts, \
-        peak, wall
+    return state, read_jsonl(os.path.join(logdir, "train.jsonl")), \
+        (counts, ce_counts), peak, wall
 
 
-def check_run(tag, cfg, recs, counts, steps, fused, vocab) -> None:
-    losses = [r["loss"] for r in recs]
+def check_run(tag, cfg, recs, counts, steps, fused, vocab,
+              eval_fwd: int = 0) -> None:
+    """Losses and the flash launches against layers x steps; `eval_fwd`
+    forward launches of evaluation (no remat without autograd)."""
+    losses = [r["loss"] for r in recs if "loss" in r]
     if len(losses) != steps or not all(math.isfinite(x) for x in losses):
         raise RuntimeError(f"{tag}: losses {losses}")
     if abs(losses[0] - math.log(vocab)) > LOSS_TOL:
         raise RuntimeError(f"{tag}: first loss {losses[0]} is not within "
                            f"{LOSS_TOL} of ln V = {math.log(vocab)}")
     per = cfg.num_layers * steps
-    want = {"launches_fwd": 2 * per if cfg.remat == "full" else per,
+    want = {"launches_fwd": (2 * per if cfg.remat == "full" else per)
+            + eval_fwd,
             "launches_bwd_dkdv": 0 if fused else per,
             "launches_bwd_dq": 0 if fused else per,
             "launches_bwd_fused": per if fused else 0, "plain_calls": 0}
@@ -885,43 +1119,49 @@ def check_run(tag, cfg, recs, counts, steps, fused, vocab) -> None:
                            f"({cfg.num_layers} layers x {steps} steps)")
 
 
+def _leaf_grads(params, cfg, toks, loss_fn=None):
+    """(loss, {path: grad}) of one loss call on fresh autograd leaves."""
+    from cloud_server_tpu_torch.models import transformer
+    from cloud_server_tpu_torch.training.optim import flatten
+    p = {g: {n: t.detach().clone().requires_grad_(True)
+             for n, t in leaves.items()} for g, leaves in params.items()}
+    loss, _ = transformer.next_token_loss(p, {"tokens": toks}, cfg)
+    loss.backward()
+    return float(loss.detach()), {k: t.grad for k, t in flatten(p)}
+
+
+def _worst_rel(got: dict, want: dict) -> float:
+    return max(float((got[k].float() - want[k].float()).norm()
+                     / want[k].float().norm().clamp_min(1e-30))
+               for k in want)
+
+
+def _slice_batch(cfg, tcfg):
+    import numpy as np
+    import torch
+    from cloud_server_tpu_torch.data.dataset import SyntheticLMDataset
+    ds = SyntheticLMDataset(2, tcfg.seq_len, cfg.vocab_size, seed=SEED)
+    toks = torch.from_numpy(np.stack([ds[i]["tokens"] for i in range(2)]))
+    return toks.long().to(DEVICE)
+
+
 def slice_agreement(cfg, tcfg) -> dict:
     """A 2-layer slice at the same widths: one step's loss and gradients
     through the flash kernels against the same step through the plain
     attention ("xla"), same f32 master weights and batch."""
     import dataclasses
-    import numpy as np
-    import torch
-    from cloud_server_tpu_torch.data.dataset import SyntheticLMDataset
     from cloud_server_tpu_torch.models import transformer
     from cloud_server_tpu_torch.ops import flash_attention as fl
-    from cloud_server_tpu_torch.training.optim import flatten
     cfg2 = dataclasses.replace(cfg, num_layers=2)
     params = transformer.init_params(cfg2, SEED, device=DEVICE)
-    ds = SyntheticLMDataset(2, tcfg.seq_len, cfg.vocab_size, seed=SEED)
-    toks = torch.from_numpy(np.stack([ds[i]["tokens"] for i in range(2)]))
-    toks = toks.long().to(DEVICE)
-    out = {}
-    for impl in ("flash", "xla"):
-        p = {g: {n: t.detach().clone().requires_grad_(True)
-                 for n, t in leaves.items()} for g, leaves in params.items()}
-        n0 = fl.launches_fwd
-        loss, _ = transformer.next_token_loss(
-            p, {"tokens": toks}, dataclasses.replace(cfg2,
-                                                     attention_impl=impl))
-        loss.backward()
-        if impl == "flash" and fl.launches_fwd == n0:
-            raise RuntimeError("the 2-layer check did not use the kernels")
-        out[impl] = (float(loss.detach()),
-                     {k: t.grad for k, t in flatten(p)})
-        del p, loss
-    lk, gk = out["flash"]
-    lp, gp = out["xla"]
-    worst = 0.0
-    for k in gp:
-        rel = float((gk[k].float() - gp[k].float()).norm()
-                    / gp[k].float().norm().clamp_min(1e-30))
-        worst = max(worst, rel)
+    toks = _slice_batch(cfg, tcfg)
+    n0 = fl.launches_fwd
+    lk, gk = _leaf_grads(params, cfg2, toks)
+    if fl.launches_fwd == n0:
+        raise RuntimeError("the 2-layer check did not use the kernels")
+    lp, gp = _leaf_grads(params, dataclasses.replace(
+        cfg2, attention_impl="xla"), toks)
+    worst = _worst_rel(gk, gp)
     res = {"slice_layers": 2, "slice_loss_kernel": lk, "slice_loss_plain": lp,
            "slice_loss_abs_err": abs(lk - lp),
            "slice_loss_limit": SLICE_LOSS_ATOL,
@@ -933,32 +1173,55 @@ def slice_agreement(cfg, tcfg) -> dict:
     return res
 
 
-def phase_train() -> dict:
+def ce_agreement(cfg, tcfg) -> dict:
+    """A 2-layer slice at full width: one step's loss and gradients with
+    ce_impl="pallas" (B7/B8) against ce_impl="dense", same f32 master
+    weights and batch."""
+    import dataclasses
+    from cloud_server_tpu_torch.models import transformer
+    from cloud_server_tpu_torch.ops import fused_ce as fc
+    cfg2 = dataclasses.replace(cfg, num_layers=2, ce_impl="pallas")
+    params = transformer.init_params(cfg2, SEED, device=DEVICE)
+    toks = _slice_batch(cfg, tcfg)
+    n0 = (fc.launches_fwd, fc.launches_dx)
+    lk, gk = _leaf_grads(params, cfg2, toks)
+    if (fc.launches_fwd, fc.launches_dx) == n0:
+        raise RuntimeError("the 2-layer CE check did not use the kernels")
+    ld, gd = _leaf_grads(params, dataclasses.replace(cfg2, ce_impl="dense"),
+                         toks)
+    worst = _worst_rel(gk, gd)
+    res = {"ce_slice_layers": 2, "ce_slice_loss_fused": lk,
+           "ce_slice_loss_dense": ld, "ce_slice_loss_abs_err": abs(lk - ld),
+           "ce_slice_loss_limit": CE_SLICE_LOSS_ATOL,
+           "ce_slice_grad_worst_rel_err": worst,
+           "ce_slice_grad_rel_limit": CE_SLICE_GRAD_REL}
+    if abs(lk - ld) > CE_SLICE_LOSS_ATOL or worst > CE_SLICE_GRAD_REL:
+        raise RuntimeError(f"2-layer slice: the fused CE differs from the "
+                           f"dense CE: {res}")
+    return res
+
+
+def write_eval_tokens(tcfg, vocab) -> str:
+    """A token file of CE_EVAL_BATCHES batches of random tokens, uint32
+    with its .meta.json sidecar (the vocabulary exceeds uint16)."""
+    import numpy as np
+    from cloud_server_tpu_torch.data.dataset import write_token_file
+    os.makedirs(LOG_DIR, exist_ok=True)
+    path = os.path.join(LOG_DIR, "eval.bin")
+    n = CE_EVAL_BATCHES * tcfg.batch_size * tcfg.seq_len
+    write_token_file(path, np.random.default_rng(SEED + 4).integers(
+        0, vocab, n), dtype=np.uint32)
+    with open(path + ".meta.json", "w") as f:
+        json.dump({"dtype": "uint32"}, f)
+    return path
+
+
+def profile_train_step(cfg, tcfg, state) -> dict:
+    """One more step of a run's final state under the profiler."""
     import torch
-    from cloud_server_tpu_torch.config import (ModelConfig, TrainConfig,
-                                               from_json)
     from cloud_server_tpu_torch.data.dataset import SyntheticLMDataset
     from cloud_server_tpu_torch.data.loader import _collate, to_device
     from cloud_server_tpu_torch.training.train_step import make_train_step
-    from cloud_server_tpu_torch.utils.metrics import (
-        param_count, transformer_flops_per_token)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    with open(TRAIN_CONFIG) as f:
-        raw = json.load(f)
-    cfg = from_json(ModelConfig, raw["model"])
-    tcfg = from_json(TrainConfig, raw["train"])
-
-    state, recs, counts, peak, wall = train_run(
-        "s2048", ["--steps", str(TRAIN_STEPS)])
-    check_run("S 2048", cfg, recs, counts, TRAIN_STEPS, False,
-              cfg.vocab_size)
-    n_params = param_count(state.params)
-    steady = recs[1:]
-    step_s = sum(r["step_time_s"] for r in steady) / len(steady)
-    tokens = tcfg.batch_size * tcfg.seq_len
-    flops = transformer_flops_per_token(cfg, tcfg.seq_len)
-    # one more step of the same run under the profiler
     step_fn = make_train_step(cfg, tcfg)
     ds = SyntheticLMDataset(tcfg.batch_size, tcfg.seq_len, cfg.vocab_size,
                             seed=SEED)
@@ -969,19 +1232,50 @@ def phase_train() -> dict:
     def one_step():
         box[0], _ = step_fn(box[0], batch)
 
-    prof = profile_step(one_step)
-    del state, box, step_fn
-    run1 = {"steps": TRAIN_STEPS, "seq_len": tcfg.seq_len,
-            "batch": tcfg.batch_size, "losses": [r["loss"] for r in recs],
-            "grad_norms": [r["grad_norm"] for r in recs],
+    return profile_step(one_step)
+
+
+def run_summary(recs, tcfg, flops, peak, wall, counts, skip=()) -> dict:
+    """Losses, times and rates of one run's JSONL records; the steady step
+    time leaves out the first step and the steps in `skip`."""
+    steps = [r for r in recs if "loss" in r]
+    steady = [r for r in steps[1:] if r["step"] not in skip]
+    step_s = sum(r["step_time_s"] for r in steady) / len(steady)
+    tokens = tcfg.batch_size * tcfg.seq_len
+    return {"steps": len(steps), "seq_len": tcfg.seq_len,
+            "batch": tcfg.batch_size, "losses": [r["loss"] for r in steps],
+            "grad_norms": [r["grad_norm"] for r in steps],
             "step_time_s_steady": step_s,
-            "step_times_s": [r["step_time_s"] for r in recs],
+            "step_times_s": [r["step_time_s"] for r in steps],
             "tokens_per_s": tokens / step_s,
             "mfu": tokens / step_s * flops / BF16_FLOP_PER_S,
-            "peak_mem_gb": peak / 1e9, "wall_s": wall, "counts": counts,
-            "profile_step": prof}
+            "peak_mem_gb": peak / 1e9, "wall_s": wall, "counts": counts}
 
-    state, recs2, counts2, peak2, wall2 = train_run(
+
+def phase_train() -> dict:
+    import torch
+    from cloud_server_tpu_torch.config import (ModelConfig, TrainConfig,
+                                               from_json)
+    from cloud_server_tpu_torch.utils.metrics import (
+        param_count, transformer_flops_per_token)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(TRAIN_CONFIG) as f:
+        raw = json.load(f)
+    cfg = from_json(ModelConfig, raw["model"])
+    tcfg = from_json(TrainConfig, raw["train"])
+    flops = transformer_flops_per_token(cfg, tcfg.seq_len)
+
+    state, recs, (counts, _), peak, wall = train_run(
+        "s2048", ["--steps", str(TRAIN_STEPS)])
+    check_run("S 2048", cfg, recs, counts, TRAIN_STEPS, False,
+              cfg.vocab_size)
+    n_params = param_count(state.params)
+    run1 = run_summary(recs, tcfg, flops, peak, wall, counts)
+    run1["profile_step"] = profile_train_step(cfg, tcfg, state)
+    del state
+
+    state, recs2, (counts2, _), peak2, wall2 = train_run(
         "s1024", ["--steps", str(FUSED_STEPS), "--seq-len", "1024"])
     check_run("S 1024", cfg, recs2, counts2, FUSED_STEPS, True,
               cfg.vocab_size)
@@ -990,15 +1284,224 @@ def phase_train() -> dict:
             "losses": [r["loss"] for r in recs2],
             "step_times_s": [r["step_time_s"] for r in recs2],
             "peak_mem_gb": peak2 / 1e9, "wall_s": wall2, "counts": counts2}
+
+    # the fused CE (B7/B8) with evaluation: the config's loop section
+    # evaluates every CE_EVAL_EVERY steps over CE_EVAL_BATCHES batches
+    with open(FUSED_CE_CONFIG) as f:
+        fcfg = from_json(ModelConfig, json.load(f)["model"])
+    eval_path = write_eval_tokens(tcfg, cfg.vocab_size)
+    state, recs3, (counts3, ce3), peak3, wall3 = train_run(
+        "fused_ce", ["--steps", str(TRAIN_STEPS), "--eval-data", eval_path],
+        config=FUSED_CE_CONFIG)
+    evals = TRAIN_STEPS // CE_EVAL_EVERY
+    check_run("fused CE", fcfg, recs3, counts3, TRAIN_STEPS, False,
+              cfg.vocab_size,
+              eval_fwd=fcfg.num_layers * evals * CE_EVAL_BATCHES)
+    want_ce = {"launches_fwd": TRAIN_STEPS + evals * CE_EVAL_BATCHES,
+               "launches_dx": TRAIN_STEPS, "plain_calls": 0}
+    if ce3 != want_ce:
+        raise RuntimeError(f"fused CE: launches {ce3}, expected {want_ce}")
+    eval_recs = [r for r in recs3 if "eval_loss" in r]
+    if ([r["step"] for r in eval_recs]
+            != list(range(CE_EVAL_EVERY, TRAIN_STEPS + 1, CE_EVAL_EVERY))
+            or not all(math.isfinite(r["eval_loss"])
+                       and abs(r["eval_ppl"] - math.exp(r["eval_loss"]))
+                       <= 1e-6 * r["eval_ppl"] for r in eval_recs)):
+        raise RuntimeError(f"fused CE: eval records {eval_recs}")
+    # a step after an evaluation carries the evaluation's time
+    run3 = run_summary(recs3, tcfg, flops, peak3, wall3, counts3,
+                       skip={r["step"] + 1 for r in eval_recs})
+    run3.update(ce_counts=ce3, evals=[
+        {k: r[k] for k in ("step", "eval_loss", "eval_ppl", "eval_accuracy",
+                           "eval_tokens")} for r in eval_recs],
+        profile_step=profile_train_step(fcfg, tcfg, state))
+    del state
     gc.collect()
     torch.cuda.empty_cache()
     agree = slice_agreement(cfg, tcfg)
-    total = {k: counts[k] + counts2[k] for k in counts}
+    gc.collect()
+    torch.cuda.empty_cache()
+    ce_agree = ce_agreement(cfg, tcfg)
+    total = {k: counts[k] + counts2[k] + counts3[k] for k in counts}
     out = {"phase": "train", "model": "Llama-3.1-8B widths, 8 layers "
            "(random f32 master weights, bf16 compute)",
            "layers": cfg.num_layers, "params": n_params,
            "flops_per_token": flops, "run_s2048": run1, "run_s1024": run2,
-           "counts": total, **agree}
+           "run_fused_ce": run3, "counts": total, "ce_counts": ce3,
+           **agree, **ce_agree}
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: checkpoint, resume and serving the checkpoint (1 layer)
+# ---------------------------------------------------------------------------
+
+CKPT_DIR = "cloud_server_tpu_torch/_build/smoke_ckpt"
+CKPT_STEPS = 4
+# The resumed run's losses at steps 3-4 against the straight run's:
+# restored state is bit-exact, but the embedding backward's atomics may
+# make the card's steps non-bitwise, so the losses agree within this
+# absolute difference (measured equal, PERF.md; the limit is about
+# a hundred f32 ulps of a loss of 12).
+CKPT_LOSS_ATOL = 1e-4
+CKPT_PROMPTS = ["The checkpoint", "serves"]
+CKPT_GEN = ["--max-new", "8", "--temperature", "0", "--max-len", "256",
+            "--page-size", "128", "--prefill-chunk", "128", "--max-slots",
+            "8", "--seed", "0"]
+
+
+def serve_greedy(params, cfg) -> list:
+    """The tokens `generate.main` with CKPT_GEN serves for CKPT_PROMPTS:
+    the same server, built as the CLI builds it."""
+    from cloud_server_tpu_torch.config import InferConfig
+    from cloud_server_tpu_torch.data.tokenizer import ByteTokenizer
+    from cloud_server_tpu_torch.inference.paged_server import (
+        PagedInferenceServer)
+    tok = ByteTokenizer()
+    icfg = InferConfig(max_decode_len=8, temperature=0.0,
+                       eos_token_id=tok.eos_id, pad_token_id=tok.pad_id)
+    srv = PagedInferenceServer(
+        params, cfg, icfg, max_slots=len(CKPT_PROMPTS), max_context=256,
+        page_size=128, decode_chunk=1, prefill_chunk=128, seed=0,
+        device=DEVICE)
+    return srv.generate([tok.encode(p) for p in CKPT_PROMPTS],
+                        max_new_tokens=8)
+
+
+def _states_equal(a, b) -> bool:
+    import torch
+    from cloud_server_tpu_torch.training.checkpoint import _items
+    ia, ma = _items(a)
+    ib, mb = _items(b)
+    return ma == mb and all(
+        sorted(ia[k]) == sorted(ib[k]) and all(
+            torch.equal(ia[k][p].detach(), ib[k][p].detach())
+            for p in ia[k]) for k in ia)
+
+
+def phase_ckpt() -> dict:
+    import contextlib
+    import dataclasses
+    import io
+    import shutil
+    import torch
+    from cloud_server_tpu_torch import generate
+    from cloud_server_tpu_torch.config import (ModelConfig, TrainConfig,
+                                               from_json)
+    from cloud_server_tpu_torch.data.dataset import SyntheticLMDataset
+    from cloud_server_tpu_torch.data.tokenizer import ByteTokenizer
+    from cloud_server_tpu_torch.models.transformer import param_shapes
+    from cloud_server_tpu_torch.training.checkpoint import (
+        Checkpointer, abstract_train_state, restore_params)
+    from cloud_server_tpu_torch.training.loop import LoopConfig, train_loop
+    from cloud_server_tpu_torch.utils.logging import read_jsonl
+    from cloud_server_tpu_torch.utils.metrics import param_count
+    with open(FUSED_CE_CONFIG) as f:
+        raw = json.load(f)
+    cfg = dataclasses.replace(from_json(ModelConfig, raw["model"]),
+                              num_layers=1)
+    tcfg = dataclasses.replace(from_json(TrainConfig, raw["train"]),
+                               total_steps=CKPT_STEPS)
+    ds = SyntheticLMDataset(64, tcfg.seq_len, cfg.vocab_size, seed=SEED)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    ckpt_dir = os.path.join(CKPT_DIR, "run")
+    # params, mu and nu in f32: 12 bytes a parameter per save, and at most
+    # two saves on disk at once (step 4 beside step 2 until retention
+    # removes it), with a margin
+    save_bytes = 12 * sum(math.prod(s) for leaves in
+                          param_shapes(cfg).values() for s in leaves.values())
+    free = shutil.disk_usage(os.path.dirname(CKPT_DIR)).free
+    if free < 2.5 * save_bytes:
+        raise RuntimeError(f"{free / 1e9:.1f} GB free on disk; the ckpt "
+                           f"phase needs {2.5 * save_bytes / 1e9:.1f} GB")
+
+    def losses(tag):
+        recs = read_jsonl(os.path.join(CKPT_DIR, tag, "train.jsonl"))
+        return {r["step"]: r["loss"] for r in recs if "loss" in r}
+
+    def loop_cfg(tag, **kw):
+        return LoopConfig(log_interval=1, logdir=os.path.join(CKPT_DIR, tag),
+                          **kw)
+
+    ck = dict(checkpoint_dir=ckpt_dir, checkpoint_interval=2,
+              max_checkpoints=1, async_checkpoint=True)
+    straight = train_loop(cfg, tcfg, ds, loop_cfg=loop_cfg("straight"),
+                          device=DEVICE)
+    n_params = param_count(straight.params)
+    del straight
+    gc.collect()
+    torch.cuda.empty_cache()
+    first = train_loop(cfg, tcfg, ds, loop_cfg=loop_cfg("first", **ck),
+                       max_steps=2, device=DEVICE)
+    step_dir = os.path.join(ckpt_dir, "2")
+    nbytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                 for f in os.listdir(step_dir))
+    # the async save's own write of its item files (meta.json's write_s)
+    with open(os.path.join(step_dir, "meta.json")) as f:
+        write_s = json.load(f)["write_s"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = Checkpointer(ckpt_dir).restore(
+        abstract_train_state(cfg, tcfg), device=DEVICE)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    if not _states_equal(first, restored):
+        raise RuntimeError("the restored state differs from the saved one")
+    del restored, first
+    gc.collect()
+    torch.cuda.empty_cache()
+    resumed = train_loop(cfg, tcfg, ds, loop_cfg=loop_cfg("resumed", **ck),
+                         device=DEVICE)
+    want, got = losses("straight"), losses("resumed")
+    if sorted(got) != [3, 4] or resumed.step != CKPT_STEPS:
+        raise RuntimeError(f"resume: steps {sorted(got)}")
+    loss_err = max(abs(got[s] - want[s]) for s in got)
+    if not loss_err <= CKPT_LOSS_ATOL:
+        raise RuntimeError(f"resumed losses {got} differ from the straight "
+                           f"run's {want} by {loss_err}")
+
+    # serve the checkpoint: in-memory params, restored params, the CLI
+    mem = {g: {n: t.detach() for n, t in leaves.items()}
+           for g, leaves in resumed.params.items()}
+    toks_mem = serve_greedy(mem, cfg)
+    del resumed, mem
+    gc.collect()
+    torch.cuda.empty_cache()
+    toks_ck = serve_greedy(restore_params(ckpt_dir, cfg, device=DEVICE), cfg)
+    if toks_ck != toks_mem:
+        raise RuntimeError(f"restored params serve {toks_ck}, in-memory "
+                           f"params {toks_mem}")
+    cfg_path = os.path.join(CKPT_DIR, "model.json")
+    with open(cfg_path, "w") as f:
+        json.dump({"model": dataclasses.asdict(cfg)}, f)
+    tok = ByteTokenizer()
+    want_out = "".join(f"=== {p!r}\n{tok.decode(o)}\n"
+                       for p, o in zip(CKPT_PROMPTS, toks_mem))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        generate.main(["--config", cfg_path, "--checkpoint-dir", ckpt_dir,
+                       *[a for p in CKPT_PROMPTS for a in ("--prompt", p)],
+                       *CKPT_GEN])
+    if buf.getvalue() != want_out:
+        raise RuntimeError(f"generate --checkpoint-dir printed "
+                           f"{buf.getvalue()!r}, expected {want_out!r}")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"phase": "ckpt", "model": "Llama-3.1-8B widths, cut to 1 of 32 "
+           "layers (params, mu and nu in f32 per save; random weights)",
+           "disk_free_gb": free / 1e9,
+           "layers": 1, "params": n_params, "ce_impl": cfg.ce_impl,
+           "steps_straight": CKPT_STEPS, "steps_first": 2,
+           "losses_straight": want, "losses_resumed": got,
+           "resumed_loss_max_abs_err": loss_err,
+           "resumed_loss_limit": CKPT_LOSS_ATOL,
+           "restore_bit_exact": True, "bytes_per_save": nbytes,
+           "write_s": write_s, "write_gb_per_s": nbytes / write_s / 1e9,
+           "read_s": read_s, "read_gb_per_s": nbytes / read_s / 1e9,
+           "served_tokens": toks_mem, "restored_serve_identical": True,
+           "generate_checkpoint_dir_identical": True}
     emit(out)
     return out
 
@@ -1019,16 +1522,27 @@ def main() -> int:
         return 2
     os.chdir(here)
     sys.path.insert(0, here)
-    dev = phase_device()
-    kern = phase_kernel()
-    fkern = phase_train_kernel()
-    phase_unembed()
+    seconds: dict = {}
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[fn.__name__[len("phase_"):]] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()  # each phase frees its model and buffers
+        return out
+
+    dev = timed(phase_device)
+    kern = timed(phase_kernel)
+    fkern = timed(phase_train_kernel)
+    timed(phase_unembed)
+    ce = timed(phase_ce_kernel)
     if "--kernel-only" in sys.argv[1:]:
         return 0  # a quick check of a kernel change; prints no result
-    serve = phase_serve()
-    gc.collect()
-    torch.cuda.empty_cache()  # the serving model is freed before training
-    train = phase_train()
+    serve = timed(phase_serve)
+    train = timed(phase_train)
+    timed(phase_ckpt)
+    emit({"phase_seconds": seconds})
     counts = serve["counts"]
     wide_err = max(kern["prefill"]["max_abs_err"],
                    kern["ragged"]["max_abs_err"])
@@ -1076,6 +1590,22 @@ def main() -> int:
             "bound_by": case["bound_by"][key],
             "library_ms": case["library_fwd_ms" if key == "fwd"
                                else "library_bwd_ms"]})
+    n, d, v = CE_SHAPE
+    for name, line, key, launches, err in (
+            ("fused_ce forward", 81, "b7", train["ce_counts"]["launches_fwd"],
+             max(ce["errors"]["logz"]["max_abs_err"],
+                 ce["errors"]["tl"]["max_abs_err"])),
+            ("fused_ce dx backward (d, then d @ head^T)", 131, "b8",
+             train["ce_counts"]["launches_dx"],
+             ce["errors"]["dx"]["max_abs_err"])):
+        rows.append({
+            "name": f"{name} (N {n}, D {d}, V {v})", "route": "cuda",
+            "source": "cloud_server_tpu_torch/csrc/fused_ce.cu",
+            "replaces": f"cloud_server_tpu/ops/fused_ce.py:{line}",
+            "launches": launches, "max_abs_err": err,
+            "ms": ce[f"{key}_ms"], "plain_ms": ce[f"plain_{key}_ms"],
+            "bound_ms": ce["bound_ms"][key], "bound_by": ce["bound_by"][key],
+            "library_ms": ce[f"library_{key}_ms"]})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})

@@ -1,10 +1,10 @@
 """Text generation CLI: `python -m cloud_server_tpu_torch.generate`.
 
-Batch mode of the reference's CLI on the port: weights from a numpy
-`--params-npz` or random-init from `--seed` (training checkpoints are
-not ported yet), byte tokenizer, prompts served
-through the paged continuous-batching server. Runs on the card unless
-`--device cpu` is given.
+Batch mode of the reference's CLI on the port: weights from a training
+checkpoint (`--checkpoint-dir`, `--step`; `--ema` for the EMA-averaged
+weights), from a numpy `--params-npz`, or random-init from `--seed`;
+byte tokenizer; prompts served through the paged continuous-batching
+server. Runs on the card unless `--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -20,6 +20,13 @@ def build_parser() -> argparse.ArgumentParser:
         prog="python -m cloud_server_tpu_torch.generate",
         description="Generate text with the PyTorch paged server.")
     p.add_argument("--config", help="JSON config with a 'model' section")
+    p.add_argument("--checkpoint-dir",
+                   help="training checkpoint directory (omit: random init)")
+    p.add_argument("--step", type=int, help="checkpoint step (default latest)")
+    p.add_argument("--ema", action="store_true",
+                   help="serve the EMA-averaged weights from a checkpoint "
+                   "trained with ema_decay > 0 (reads the checkpoint's "
+                   "'ema' item — one params-sized restore)")
     p.add_argument("--params-npz", metavar="PATH",
                    help="parameters as a .npz of the reference's parameter "
                    "dict under '/'-joined keys (omit: random init from "
@@ -50,6 +57,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device (default cuda; 'cpu' to run on the "
                    "CPU)")
     return p
+
+
+def load_params(model_cfg, checkpoint_dir: str | None, step: int | None,
+                seed: int, device):
+    """Params-only restore of a training checkpoint (no optimizer-moment
+    reads) on `device`; random init from `seed` without one."""
+    from cloud_server_tpu_torch.models import transformer
+    from cloud_server_tpu_torch.training.checkpoint import restore_params
+    if checkpoint_dir is None:
+        print("[generate] no --checkpoint-dir; using random init",
+              file=sys.stderr)
+        return transformer.init_params(model_cfg, seed, device=device)
+    return restore_params(checkpoint_dir, model_cfg, step=step,
+                          device=device)
 
 
 def main(argv=None) -> None:
@@ -86,14 +107,27 @@ def main(argv=None) -> None:
     if not prompts:
         raise SystemExit("no prompts (use --prompt, repeatable, or '-')")
 
-    if args.params_npz:
+    if args.params_npz and args.checkpoint_dir:
+        raise SystemExit("--params-npz and --checkpoint-dir are mutually "
+                         "exclusive")
+    if args.ema:
+        if args.params_npz:
+            raise SystemExit("--ema applies to framework checkpoints")
+        if not args.checkpoint_dir:
+            raise SystemExit("--ema needs --checkpoint-dir")
+        from cloud_server_tpu_torch.training.checkpoint import (
+            restore_ema_params)
+        try:
+            params = restore_ema_params(args.checkpoint_dir, model_cfg,
+                                        step=args.step, device=device)
+        except FileNotFoundError as e:
+            raise SystemExit(str(e))
+    elif args.params_npz:
         params = transformer.params_from_npz(args.params_npz, model_cfg,
                                              device)
     else:
-        print("[generate] no --params-npz; using random init",
-              file=sys.stderr)
-        params = transformer.init_params(model_cfg, args.seed,
-                                         device=device)
+        params = load_params(model_cfg, args.checkpoint_dir, args.step,
+                             args.seed, device)
     infer_cfg = InferConfig(
         max_decode_len=args.max_new, temperature=args.temperature,
         eos_token_id=tok.eos_id, pad_token_id=tok.pad_id or 0)

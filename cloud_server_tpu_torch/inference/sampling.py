@@ -7,13 +7,18 @@ Two tiers share one filter chain, as in the reference:
   * Per-request (`SamplingParams` -> `SamplingRows`, one value per
     slot): `filtered_logits_rows` / `sample_logits_rows`.
 
-Random draws. The reference draws with jax.random (threefry) from
-`fold_in(key(seed), position)`; those bits cannot be reproduced here.
-Greedy output is held token-exact against the reference; temperature
-> 0 is held in distribution only. The per-request path keeps the
-reference's property that a draw depends only on (seed, position) and
-never on which other requests share the batch: its uniforms come from a
-counter-based hash of (seed, position, token id) computed on the device.
+Random draws. The per-request path draws exactly as the reference's
+`jax.vmap(jax.random.categorical)(keys, filtered)` does: row i's key is
+`fold_in(key(seed_i), position_i)` and its token is
+argmax(filtered + gumbel(key, (V,))), both from jax.random's threefry2x32
+ported bit for bit (`utils/prng.py`, on the logits' device). A seeded
+request's tokens are therefore the reference's, token for token, and
+depend only on (seed, position), never on the rest of the batch.
+The server-global path (`sample_logits`) keeps an explicit
+`torch.Generator` and is held in distribution only: the reference splits
+its server key once per dispatch, so its draws depend on how rounds are
+grouped into dispatches, and its schedulers promise token identity only
+for greedy decoding.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import numpy as np
 import torch
 
 from cloud_server_tpu_torch.config import InferConfig
+from cloud_server_tpu_torch.utils import prng
 
 NEG_INF = -1e30
 MAX_LOGIT_BIAS = 64
@@ -287,50 +293,19 @@ def filtered_logits_rows(logits, rows: SamplingRows, *, prompt_mask=None,
     return torch.where(mask, xt, NEG_INF), raw
 
 
-_GOLDEN = 0x9E3779B97F4A7C15 - (1 << 64)
-_MIX1 = 0xBF58476D1CE4E5B9 - (1 << 64)
-_MIX2 = 0x94D049BB133111EB - (1 << 64)
-
-
-def _srl(x: torch.Tensor, s: int) -> torch.Tensor:
-    """Logical right shift of int64 bit patterns."""
-    return (x >> s) & ((1 << (64 - s)) - 1)
-
-
-def _mix64(x: torch.Tensor) -> torch.Tensor:
-    """splitmix64's finaliser on int64 bit patterns (wrapping)."""
-    x = x ^ _srl(x, 30)
-    x = x * _MIX1
-    x = x ^ _srl(x, 27)
-    x = x * _MIX2
-    return x ^ _srl(x, 31)
-
-
-def row_uniforms(seeds: torch.Tensor, positions: torch.Tensor,
-                 vocab: int) -> torch.Tensor:
-    """(B, V) uniforms in (0, 1) that depend only on (seed, position,
-    token id): counter-based, so a row's draws never depend on the rest
-    of the batch."""
-    dev = seeds.device
-    key = _mix64(seeds.long() * _GOLDEN + positions.long())
-    idx = torch.arange(1, vocab + 1, device=dev, dtype=torch.int64)
-    bits = _mix64(key[:, None] ^ (idx[None, :] * _GOLDEN))
-    top = _srl(bits, 11).double()  # 53 random bits
-    return ((top + 0.5) * 2.0 ** -53).float().clamp_(1e-20, 1 - 1e-7)
-
-
 def sample_logits_rows(logits, rows: SamplingRows, positions, *,
                        prompt_mask=None, out_counts=None, eos_id: int = -1,
                        use_bias: bool = True, allowed_mask=None):
     """Per-row draw: (B, V) logits -> (B,) int64. `positions` (B,) are
-    the absolute sequence positions being sampled (the draw counter and
+    the absolute sequence positions being sampled (the fold_in counter and
     the min_tokens reference)."""
     positions = torch.as_tensor(positions, device=logits.device)
     filt, raw = filtered_logits_rows(
         logits, rows, prompt_mask=prompt_mask, out_counts=out_counts,
         positions=positions, eos_id=eos_id, use_bias=use_bias,
         allowed_mask=allowed_mask)
-    u = row_uniforms(rows.seed, positions, logits.shape[-1])
-    sampled = _gumbel_argmax(filt, u)
+    keys = prng.fold_in(prng.key(rows.seed), positions)
+    sampled = torch.argmax(filt + prng.gumbel_low(keys, filt.shape[-1]),
+                           dim=-1)
     greedy = torch.argmax(raw, dim=-1)
     return torch.where(rows.temperature <= 0.0, greedy, sampled)

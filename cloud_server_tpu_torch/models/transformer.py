@@ -9,14 +9,15 @@ Precision: activations and weights in `cfg.dtype`; norms, rope, softmax
 and the logits are float32. On the CPU in float32 every product is
 float32. In bfloat16 on the card a product rounds its output to
 bfloat16, except the unembed, which writes float32 logits from bfloat16
-operands as the reference does (`_logits_f32`).
+operands as the reference does (`ops.matmul_f32`).
 
 Training: `forward_hidden`/`forward` are differentiable (weights cast to
 `cfg.dtype` inside the graph, so float32 masters get float32 gradients),
 with the remat policy applied per layer and attention from
 `_get_attention_fn` ("xla": plain; "flash": the flash-attention
 kernels). The losses (`next_token_loss`, `hidden_state_loss`,
-`masked_cross_entropy`, the vocab-chunked CE) mirror the reference's.
+`masked_cross_entropy`, the vocab-chunked CE, and the fused CE of
+ce_impl="pallas" through the B7/B8 kernels) mirror the reference's.
 """
 
 from __future__ import annotations
@@ -31,8 +32,10 @@ import torch
 from cloud_server_tpu_torch import resolve_device
 from cloud_server_tpu_torch.config import ModelConfig
 from cloud_server_tpu_torch.ops import (apply_rope, causal_attention,
-                                        rms_norm, rope_table, swiglu)
+                                        matmul_f32, rms_norm, rope_table,
+                                        swiglu)
 from cloud_server_tpu_torch.ops.flash_attention import flash_attention
+from cloud_server_tpu_torch.ops.fused_ce import fused_ce_stats
 
 Params = dict
 
@@ -225,38 +228,6 @@ def _unembed_head(params: Params, cfg: ModelConfig) -> torch.Tensor:
             else params["lm_head"]["kernel"])
 
 
-class _MatmulF32Out(torch.autograd.Function):
-    """(N, D) @ (D, V) in bf16 with float32 output, on the card: one
-    cuBLAS product that accumulates and writes in float32 (the reference's
-    preferred_element_type=float32), never an f32 copy of the head. The
-    backward is two bf16 products."""
-
-    @staticmethod
-    def forward(ctx, x, w):
-        ctx.save_for_backward(x, w)
-        return torch.mm(x, w, out_dtype=torch.float32)
-
-    @staticmethod
-    def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        g = g.to(x.dtype)
-        return g @ w.T, x.T @ g
-
-
-def _logits_f32(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
-    """x (..., D) @ head (D, V) -> float32 logits, both operands already
-    in the model dtype. float32 operands multiply as they are; on the CPU
-    low-precision operands are widened first (exact products, float32
-    sums); on the card they go through `_MatmulF32Out`."""
-    if x.dtype == torch.float32 and head.dtype == torch.float32:
-        return x @ head
-    if x.device.type == "cpu":
-        return x.float() @ head.float()
-    lead = x.shape[:-1]
-    out = _MatmulF32Out.apply(x.reshape(-1, x.shape[-1]), head)
-    return out.reshape(*lead, head.shape[-1])
-
-
 def apply_logits_softcap(logits: torch.Tensor,
                          cfg: ModelConfig) -> torch.Tensor:
     if cfg.logits_softcap > 0:
@@ -267,7 +238,7 @@ def apply_logits_softcap(logits: torch.Tensor,
 def unembed(x, params: Params, cfg: ModelConfig) -> torch.Tensor:
     """Final-norm'd hidden states (..., D) -> softcapped f32 logits."""
     head = _unembed_head(params, cfg).to(torch_dtype(cfg.dtype))
-    return apply_logits_softcap(_logits_f32(x, head), cfg)
+    return apply_logits_softcap(matmul_f32(x, head), cfg)
 
 
 def embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig):
@@ -390,7 +361,7 @@ def masked_cross_entropy(logits: torch.Tensor, batch: dict,
 
 def _chunk_body(x, hc, base, m, l, tgt, bidx, targets, cfg):
     """One vocab chunk of `_chunked_logz_target_argmax`."""
-    logits = apply_logits_softcap(_logits_f32(x, hc.to(x.dtype)), cfg)
+    logits = apply_logits_softcap(matmul_f32(x, hc.to(x.dtype)), cfg)
     c = hc.shape[1]
     mc = logits.amax(-1)
     # m doubles as the running best logit, so the argmax update compares
@@ -472,15 +443,28 @@ def fused_cross_entropy(x, params: Params, batch: dict, cfg: ModelConfig,
                        z_loss_coef)
 
 
+def pallas_cross_entropy(x, params: Params, batch: dict, cfg: ModelConfig,
+                         z_loss_coef: float = 0.0):
+    """Next-token CE through the fused CE kernels (`ops/fused_ce.py`):
+    the per-row (logz, target_logit, argmax) come out of B7 without f32
+    logits in device memory, and the backward's products run in the model
+    dtype (B8). Same contract and metrics as `fused_cross_entropy`."""
+    b, s = batch["tokens"].shape
+    targets, mask = _shifted_targets_mask(batch, x.device)
+    head = _unembed_head(params, cfg).to(torch_dtype(cfg.dtype))
+    logz, target_logit, argmax_idx = fused_ce_stats(
+        x.reshape(b * s, -1), head, targets.reshape(-1))
+    return _stats_loss(logz.reshape(b, s), target_logit.reshape(b, s),
+                       argmax_idx.reshape(b, s), targets, mask, z_loss_coef)
+
+
 def hidden_state_loss(x, params: Params, batch: dict, cfg: ModelConfig,
                       z_loss_coef: float = 0.0):
-    """Next-token CE from final hidden states: vocab_chunk > 0 ->
-    chunked; else dense unembed + masked CE. ce_impl="pallas" (the fused
-    CE kernels) is not ported yet."""
+    """Next-token CE from final hidden states: ce_impl="pallas" -> the
+    fused CE kernels; vocab_chunk > 0 -> chunked; else dense unembed +
+    masked CE."""
     if cfg.ce_impl == "pallas":
-        raise NotImplementedError(
-            "ce_impl='pallas' (the fused cross-entropy kernels) is not "
-            "ported yet; use ce_impl='dense'")
+        return pallas_cross_entropy(x, params, batch, cfg, z_loss_coef)
     if cfg.vocab_chunk > 0:
         return fused_cross_entropy(x, params, batch, cfg, z_loss_coef)
     return masked_cross_entropy(unembed(x, params, cfg), batch, z_loss_coef)

@@ -1,0 +1,267 @@
+"""Fused unembed + cross-entropy statistics: per row of x (N, D) against
+head (D, V), (logz f32, target_logit f32, argmax int64) without the
+(N, V) float32 logits.
+
+The reference's contract (`ops/fused_ce.py`): N and V multiples of 128
+(else ValueError); the argmax takes the first index on ties; the forward
+saves x, head, targets and logz; the backward rebuilds
+d = g·softmax + h·onehot per row from the saved logz, rounds d to x's
+dtype, and computes dx = d @ headᵀ (f32 accumulate, in x's dtype) and
+dW = xᵀ @ d (f32, in head's dtype). Differentiable in x and head.
+
+Two versions of one function:
+
+  * `fused_ce_stats_ref` — the plain PyTorch version, a
+    `torch.autograd.Function` whose forward materialises the f32 logits
+    and whose backward follows the steps above (in bf16 it rounds d where
+    the reference does).
+  * `fused_ce_stats` — the kernel wrapper. On a CUDA bf16 tensor its
+    forward launches `csrc/fused_ce.cu`'s B7 entry (the reference's
+    `_fwd_kernel`: the vocabulary split into ranges of whole tiles, one
+    block each, then an in-order combine of the ranges) and its backward
+    launches B8 (the reference's `_dx_kernel`) as two kernels, d from the
+    recomputed logits and then dx = d @ headᵀ; dW stays a library product
+    over the emitted d, as in the reference. Anything the kernels do not
+    take raises. On a CPU tensor it runs the plain version.
+
+Counters, one per TPU kernel: `launches_fwd` counts B7 calls (two CUDA
+launches each: the ranges and their combine), `launches_dx` counts B8
+calls (two CUDA launches each: d, then dx); `plain_calls` counts the
+plain version's forward and backward calls.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from cloud_server_tpu_torch.ops import cuda_build
+from cloud_server_tpu_torch.ops.matmul import matmul_f32
+
+TILE = 128  # N and V must be multiples of it (the reference's rule)
+
+launches_fwd = 0
+launches_dx = 0
+plain_calls = 0
+
+
+def reset_counters() -> None:
+    global launches_fwd, launches_dx, plain_calls
+    launches_fwd = launches_dx = plain_calls = 0
+
+
+def counters() -> dict:
+    return {"launches_fwd": launches_fwd, "launches_dx": launches_dx,
+            "plain_calls": plain_calls}
+
+
+def _check_shapes(x, head) -> None:
+    n, v = x.shape[0], head.shape[1]
+    if n % TILE or v % TILE or n == 0 or v == 0:
+        raise ValueError(
+            f"fused_ce_stats needs N ({n}) and V ({v}) divisible by "
+            f"{TILE}; pad the batch or use the dense/chunked CE path")
+
+
+def _dlogits_ref(x, head, targets, logz, g, h) -> torch.Tensor:
+    """d = g·exp(logits - logz) + h·onehot(targets), rounded to x's dtype."""
+    logits = matmul_f32(x, head)
+    d = g[:, None] * torch.exp(logits - logz[:, None])
+    d[torch.arange(x.shape[0], device=x.device), targets] += h
+    return d.to(x.dtype)
+
+
+def _grads_of_d(x, head, d) -> tuple:
+    """dx = d @ headᵀ in x's dtype and dW = xᵀ @ d in head's dtype, both
+    summed in float32."""
+    return (matmul_f32(d, head.t()).to(x.dtype),
+            matmul_f32(x.t(), d).to(head.dtype))
+
+
+def _cotangents(x, g_logz, g_tl) -> tuple:
+    n = x.shape[0]
+    zeros = torch.zeros(n, dtype=torch.float32, device=x.device)
+    g = zeros if g_logz is None else g_logz.float().contiguous()
+    h = zeros if g_tl is None else g_tl.float().contiguous()
+    return g, h
+
+
+# ---------------------------------------------------------------------------
+# Plain version
+# ---------------------------------------------------------------------------
+
+
+class _FusedCERef(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, head, targets):
+        global plain_calls
+        plain_calls += 1
+        targets = targets.long()
+        logits = matmul_f32(x, head)
+        logz = torch.logsumexp(logits, dim=-1)
+        tl = torch.gather(logits, 1, targets[:, None])[:, 0]
+        am = torch.argmax(logits, dim=-1)
+        ctx.save_for_backward(x, head, targets, logz)
+        ctx.mark_non_differentiable(am)
+        return logz, tl, am
+
+    @staticmethod
+    def backward(ctx, g_logz, g_tl, g_am):
+        global plain_calls
+        plain_calls += 1
+        x, head, targets, logz = ctx.saved_tensors
+        g, h = _cotangents(x, g_logz, g_tl)
+        d = _dlogits_ref(x, head, targets, logz, g, h)
+        dx, dw = _grads_of_d(x, head, d)
+        return dx, dw, None
+
+
+def fused_ce_stats_ref(x, head, targets):
+    """The plain version: x (N, D), head (D, V), targets (N,) int ->
+    (logz (N,) f32, target_logit (N,) f32, argmax (N,) int64)."""
+    _check_shapes(x, head)
+    return _FusedCERef.apply(x, head, targets)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrapper
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # x, head, targets, part_m, part_l, part_tl, part_am, logz, tl, am |
+    # n, d, v, splits | stream
+    "ce_fwd_bf16": [_P] * 10 + [_I] * 4 + [_P],
+    # x, head, targets, logz, g, h, d | n, d, v | stream
+    "ce_dlogits_bf16": [_P] * 7 + [_I] * 3 + [_P],
+    # d, head, dx | n, d, v | stream
+    "ce_dx_bf16": [_P] * 3 + [_I] * 3 + [_P],
+}
+
+
+def _kernel(name: str):
+    """The ctypes function of one C entry of csrc/fused_ce.cu (built at
+    first use)."""
+    fn = getattr(cuda_build.load("fused_ce"), name)
+    if fn.argtypes is None:
+        fn.argtypes = _SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"fused_ce {what} kernel launch failed: CUDA "
+                           f"error {err}")
+
+
+def _validate(x, head, targets) -> None:
+    """Raise on anything the CUDA kernels do not take."""
+    if x.dim() != 2 or head.dim() != 2 or x.shape[1] != head.shape[0]:
+        raise ValueError(f"x {tuple(x.shape)} does not fit head "
+                         f"{tuple(head.shape)}")
+    if targets.shape != (x.shape[0],):
+        raise ValueError(f"targets {tuple(targets.shape)} must be "
+                         f"({x.shape[0]},)")
+    if not (x.dtype == head.dtype == torch.bfloat16):
+        raise TypeError("the CUDA fused-CE kernels take bfloat16 x and "
+                        f"head; got {x.dtype}, {head.dtype}")
+    if x.shape[1] % TILE:
+        raise ValueError(f"the CUDA fused-CE kernels need D ({x.shape[1]}) "
+                         f"divisible by {TILE}")
+    for name, t in (("head", head), ("targets", targets)):
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    for t in (x, head):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("the CUDA fused-CE kernels need contiguous, "
+                             "16-byte aligned x and head")
+
+
+def vocab_splits(n: int, v: int, device) -> int:
+    """Vocabulary ranges of B7: enough blocks (row tiles x ranges) for two
+    per SM, at most one range per vocabulary tile."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(v // TILE, (2 * sms) // (n // TILE)))
+
+
+def forward_stats(x, head, targets32):
+    """One B7 call on validated CUDA tensors: (logz, tl, am int32)."""
+    global launches_fwd
+    n, d = x.shape
+    v = head.shape[1]
+    splits = vocab_splits(n, v, x.device)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    part = torch.empty((4, splits, n), **f32)
+    part_am = torch.empty((splits, n), dtype=torch.int32, device=x.device)
+    logz = torch.empty(n, **f32)
+    tl = torch.empty(n, **f32)
+    am = torch.empty(n, dtype=torch.int32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _check(_kernel("ce_fwd_bf16")(
+        x.data_ptr(), head.data_ptr(), targets32.data_ptr(),
+        part[0].data_ptr(), part[1].data_ptr(), part[2].data_ptr(),
+        part_am.data_ptr(), logz.data_ptr(), tl.data_ptr(), am.data_ptr(),
+        n, d, v, splits, stream), "forward")
+    launches_fwd += 1
+    return logz, tl, am
+
+
+def backward_dx(x, head, targets32, logz, g, h):
+    """One B8 call on validated CUDA tensors: (d (N, V), dx (N, D)), both
+    in x's dtype."""
+    global launches_dx
+    n, dim = x.shape
+    v = head.shape[1]
+    dbuf = torch.empty((n, v), dtype=x.dtype, device=x.device)
+    dx = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _check(_kernel("ce_dlogits_bf16")(
+        x.data_ptr(), head.data_ptr(), targets32.data_ptr(),
+        logz.data_ptr(), g.data_ptr(), h.data_ptr(), dbuf.data_ptr(), n,
+        dim, v, stream), "d_logits")
+    _check(_kernel("ce_dx_bf16")(
+        dbuf.data_ptr(), head.data_ptr(), dx.data_ptr(), n, dim, v, stream),
+        "dx")
+    launches_dx += 1
+    return dbuf, dx
+
+
+class _FusedCE(torch.autograd.Function):
+    """The kernels on (N, D) x and (D, V) head, bf16 CUDA tensors."""
+
+    @staticmethod
+    def forward(ctx, x, head, targets):
+        targets32 = targets.to(torch.int32).contiguous()
+        logz, tl, am = forward_stats(x, head, targets32)
+        ctx.save_for_backward(x, head, targets32, logz)
+        am = am.long()
+        ctx.mark_non_differentiable(am)
+        return logz, tl, am
+
+    @staticmethod
+    def backward(ctx, g_logz, g_tl, g_am):
+        x, head, targets32, logz = ctx.saved_tensors
+        g, h = _cotangents(x, g_logz, g_tl)
+        dbuf, dx = backward_dx(x, head, targets32, logz, g, h)
+        dw = torch.mm(x.t(), dbuf, out_dtype=torch.float32).to(head.dtype)
+        return dx, dw, None
+
+
+def fused_ce_stats(x, head, targets):
+    """x: (N, D) model dtype; head: (D, V) model dtype; targets: (N,) int.
+    Returns (logz (N,) f32, target_logit (N,) f32, argmax (N,) int64),
+    differentiable in x and head. N and V must be multiples of 128. On a
+    CPU tensor this is the plain version; on a CUDA tensor the kernels run
+    or this raises."""
+    _check_shapes(x, head)
+    if x.device.type == "cpu":
+        return fused_ce_stats_ref(x, head, targets)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_ce_stats: unsupported device {x.device}")
+    x, head = x.contiguous(), head.contiguous()
+    _validate(x, head, targets)
+    return _FusedCE.apply(x, head, targets)

@@ -4,13 +4,13 @@ Config comes from a JSON file with optional sections {"model", "train",
 "mesh", "loop"} (the reference's format), with common fields
 overridable from the command line. Data is a flat binary token file
 (`--data`, the `MemmapTokenDataset` format; several as a weighted
-mixture) or `--synthetic N` random examples. Runs on the GPU unless
-`--device cpu` is given.
+mixture) or `--synthetic N` random examples; `--eval-data` adds periodic
+evaluation and `--checkpoint-dir` checkpoints with automatic resume.
+Runs on the GPU unless `--device cpu` is given.
 
-Not ported yet, and refused with NotImplementedError: checkpointing
-(`--checkpoint-dir`, loop.checkpoint_dir), evaluation (`--eval-data`),
-multi-process runs (`--distributed`), LoRA (`--lora-rank`,
-`--init-from`), a mesh with any axis > 1 and a "dcn_mesh" section.
+Not ported yet, and refused with NotImplementedError: multi-process runs
+(`--distributed`), LoRA (`--lora-rank`, `--init-from`), a mesh with any
+axis > 1 and a "dcn_mesh" section.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="flat binary token file (uint16). Repeatable; "
                    "with several, pass 'path:weight' to train on a "
                    "deterministic weighted mixture (weight defaults to 1)")
-    p.add_argument("--eval-data", help="eval token file (not ported yet)")
+    p.add_argument("--eval-data", help="eval token file (same format)")
     p.add_argument("--synthetic", type=int, default=0, metavar="N",
                    help="use N synthetic random examples instead of --data")
     p.add_argument("--steps", type=int, help="override train.total_steps")
@@ -39,8 +39,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seq-len", type=int, help="override train.seq_len")
     p.add_argument("--learning-rate", type=float,
                    help="override train.learning_rate")
-    p.add_argument("--checkpoint-dir", help="not ported yet")
+    p.add_argument("--checkpoint-dir", help="override loop.checkpoint_dir")
     p.add_argument("--logdir", help="override loop.logdir")
+    p.add_argument("--eval-interval", type=int,
+                   help="override loop.eval_interval (defaults to 500 when "
+                   "--eval-data is given and the config leaves it 0)")
     p.add_argument("--distributed", action="store_true",
                    help="multi-process training (not ported yet)")
     p.add_argument("--no-nan-guard", action="store_true",
@@ -83,15 +86,23 @@ def configs_from_args(args) -> tuple:
     }.items() if v is not None}
     if train_over:
         train_cfg = dataclasses.replace(train_cfg, **train_over)
-    if args.logdir is not None:
-        loop_cfg = dataclasses.replace(loop_cfg, logdir=args.logdir)
+    loop_over = {k: v for k, v in {
+        "checkpoint_dir": args.checkpoint_dir, "logdir": args.logdir,
+        "eval_interval": args.eval_interval,
+    }.items() if v is not None}
+    # --eval-data with eval_interval 0 would silently never evaluate
+    if args.eval_data and "eval_interval" not in loop_over \
+            and loop_cfg.eval_interval == 0:
+        loop_over["eval_interval"] = 500
+        print("[train] --eval-data given without eval_interval; "
+              "defaulting loop.eval_interval=500")
+    if loop_over:
+        loop_cfg = dataclasses.replace(loop_cfg, **loop_over)
     return model_cfg, train_cfg, mesh_cfg, loop_cfg
 
 
-def _refuse_unported(args, mesh_cfg, loop_cfg) -> None:
-    for flag, value in (("--checkpoint-dir", args.checkpoint_dir),
-                        ("--eval-data", args.eval_data),
-                        ("--distributed", args.distributed),
+def _refuse_unported(args, mesh_cfg) -> None:
+    for flag, value in (("--distributed", args.distributed),
                         ("--lora-rank", args.lora_rank),
                         ("--init-from", args.init_from)):
         if value:
@@ -100,8 +111,6 @@ def _refuse_unported(args, mesh_cfg, loop_cfg) -> None:
         raise NotImplementedError(
             f"mesh {mesh_cfg.axis_sizes()}: training on more than one "
             "device is not ported yet")
-    if loop_cfg.checkpoint_dir is not None:
-        raise NotImplementedError("loop.checkpoint_dir is not ported yet")
 
 
 def build_dataset(args, train_cfg, model_cfg):
@@ -135,25 +144,29 @@ def main(argv=None):
     """Run the CLI; returns the final TrainState."""
     args = build_parser().parse_args(argv)
     model_cfg, train_cfg, mesh_cfg, loop_cfg = configs_from_args(args)
-    _refuse_unported(args, mesh_cfg, loop_cfg)
+    _refuse_unported(args, mesh_cfg)
 
     from cloud_server_tpu_torch import resolve_device
+    from cloud_server_tpu_torch.data.dataset import MemmapTokenDataset
     from cloud_server_tpu_torch.training.loop import train_loop
     from cloud_server_tpu_torch.utils.failure import (
         NaNGuard, PreemptionHandler, Watchdog)
 
     device = resolve_device(args.device)
     dataset = build_dataset(args, train_cfg, model_cfg)
+    eval_dataset = (MemmapTokenDataset(args.eval_data, train_cfg.seq_len)
+                    if args.eval_data else None)
     hooks = []
     with contextlib.ExitStack() as stack:
         preempt = stack.enter_context(PreemptionHandler())
-        hooks.append(preempt)  # SIGTERM -> clean stop at a step boundary
+        hooks.append(preempt)  # SIGTERM -> save + clean stop
         if not args.no_nan_guard:
             hooks.append(NaNGuard())
         if args.watchdog > 0:
             hooks.append(stack.enter_context(Watchdog(args.watchdog)))
         return train_loop(model_cfg, train_cfg, dataset, mesh_cfg=mesh_cfg,
-                          loop_cfg=loop_cfg, hooks=hooks, device=device)
+                          loop_cfg=loop_cfg, eval_dataset=eval_dataset,
+                          hooks=hooks, device=device)
 
 
 if __name__ == "__main__":

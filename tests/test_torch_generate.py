@@ -1,7 +1,10 @@
 """The port's batch CLI against the reference's: same config, same
 weights (the reference's random init from --seed, handed to the port as
-a .npz), greedy — the same text. Without a GPU the port's CLI refuses to
-run unless given --device cpu."""
+a .npz), greedy — the same text; a training checkpoint of the same
+weights (`--checkpoint-dir`) serves the same text as the .npz, and
+`--ema` serves its EMA tree; the reference's SystemExits for invalid
+combinations. Without a GPU the port's CLI refuses to run unless given
+--device cpu."""
 
 import json
 
@@ -53,6 +56,79 @@ def test_cli_prints_the_reference_text(files, capsys):
     got = capsys.readouterr().out
     assert want.count("===") == 2
     assert got == want
+
+
+@pytest.fixture(scope="module")
+def checkpoint(files, tmp_path_factory):
+    """A training checkpoint (port's format) whose params are the .npz's
+    and whose EMA tree is the reference's init from another seed; that
+    tree also as a .npz."""
+    from cloud_server_tpu_torch.config import ModelConfig as TModelConfig
+    from cloud_server_tpu_torch.config import TrainConfig
+    from cloud_server_tpu_torch.models.transformer import params_from_npz
+    from cloud_server_tpu_torch.training.checkpoint import Checkpointer
+    from cloud_server_tpu_torch.training.optim import EmaState, map_tree
+    from cloud_server_tpu_torch.training.train_step import (
+        train_state_from_params)
+    d = tmp_path_factory.mktemp("ckpt")
+    cfg = TModelConfig(**MODEL)
+    params = params_from_npz(files[1], cfg, "cpu")
+    ema_ref = ref_tf.init_params(ModelConfig(**MODEL), jax.random.key(99))
+    ema_npz = d / "ema.npz"
+    np.savez(ema_npz, **{f"{g}/{n}": np.asarray(v)
+                         for g, leaves in ema_ref.items()
+                         for n, v in leaves.items()})
+    state = train_state_from_params(params, TrainConfig(ema_decay=0.9))
+    adam, _ = state.opt_state
+    ema = map_tree(lambda t: t.detach().clone(),
+                   params_from_npz(ema_npz, cfg, "cpu"))
+    state = state._replace(step=5, opt_state=(adam, EmaState(ema)))
+    with Checkpointer(d / "run", async_save=False) as ckpt:
+        ckpt.save(state)
+    return str(d / "run"), str(ema_npz)
+
+
+def test_checkpoint_dir_serves_the_trained_params(files, checkpoint,
+                                                  capsys):
+    cfg_path, npz = files
+    ckpt_dir, ema_npz = checkpoint
+    outs = []
+    for source in (["--params-npz", npz], ["--checkpoint-dir", ckpt_dir],
+                   ["--checkpoint-dir", ckpt_dir, "--step", "5"],
+                   ["--params-npz", ema_npz],
+                   ["--checkpoint-dir", ckpt_dir, "--ema"]):
+        generate.main(["--config", cfg_path, "--device", "cpu", *source,
+                       *ARGS])
+        outs.append(capsys.readouterr().out)
+    assert outs[0].count("===") == 2
+    assert outs[1] == outs[2] == outs[0]
+    assert outs[4] == outs[3] != outs[0]
+
+
+@pytest.mark.parametrize("extra,message", [
+    (["--ema"], "--ema needs --checkpoint-dir"),
+    (["--ema", "--checkpoint-dir", "CKPT", "--step", "0"], "no 'ema' item"),
+    (["--params-npz", "NPZ", "--checkpoint-dir", "CKPT"],
+     "mutually exclusive"),
+])
+def test_invalid_checkpoint_options_exit(files, tmp_path, extra, message):
+    """The reference's SystemExit for --ema without a checkpoint, and for
+    --ema on a checkpoint that has no EMA item; --params-npz with
+    --checkpoint-dir is refused the same way."""
+    from cloud_server_tpu_torch.config import ModelConfig as TModelConfig
+    from cloud_server_tpu_torch.config import TrainConfig
+    from cloud_server_tpu_torch.training.checkpoint import Checkpointer
+    from cloud_server_tpu_torch.training.train_step import init_train_state
+    cfg_path, npz = files
+    ckpt_dir = tmp_path / "plain"
+    with Checkpointer(ckpt_dir, async_save=False) as ckpt:
+        ckpt.save(init_train_state(TModelConfig(**MODEL), TrainConfig(), 0,
+                                   "cpu"))
+    extra = [str(ckpt_dir) if a == "CKPT" else npz if a == "NPZ" else a
+             for a in extra]
+    with pytest.raises(SystemExit, match=message):
+        generate.main(["--config", cfg_path, "--device", "cpu", *extra,
+                       *ARGS])
 
 
 def test_cli_needs_a_gpu_or_device_cpu(files):

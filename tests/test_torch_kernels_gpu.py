@@ -172,3 +172,61 @@ def test_unembed_f32_logits_and_grads_on_card():
         assert float(diff.square().mean().sqrt()
                      / w.square().mean().sqrt()) <= rms_lim, key
         assert float(diff.max() / w.abs().max()) <= max_lim, key
+
+
+# The fused-CE kernels (B7, B8) against their plain version on the card at
+# a slice of the train shapes, with chip_smoke.py's ce_kernel limits
+# (CE_TOL there; PERF.md): logz and the target logit are f32 sums of the
+# same bf16 products in another order; dx and dW carry the bf16 rounding
+# of d, which the two versions may round to neighbouring values where the
+# logits differ in their last bits.
+CE_TOL = {"logz": 8e-6, "tl": 8e-6, "dx": (3e-5, 1e-2), "dw": (1e-5, 2e-3)}
+
+
+@pytest.mark.gpu
+def test_fused_ce_kernels_match_plain():
+    """B7's statistics and B8's dx, and the dW built from B8's d, against
+    the plain version on bf16 inputs (2048 rows, D 4096, a 32768-entry
+    slice of the vocabulary); the argmax may differ only where the two
+    logits lie within the logz limit of each other."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cloud_server_tpu_torch.ops import fused_ce as fc
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, d, vocab = 2048, 4096, 32768
+    r = np.random.default_rng(6)
+    x = torch.from_numpy(r.standard_normal((n, d)).astype(
+        np.float32)).cuda().to(torch.bfloat16)
+    head = torch.from_numpy((r.standard_normal((d, vocab)) * d ** -0.5)
+                            .astype(np.float32)).cuda().to(torch.bfloat16)
+    t = torch.from_numpy(r.integers(0, vocab, n)).cuda()
+    gz = torch.from_numpy(r.standard_normal(n).astype(np.float32)).cuda()
+    gt = torch.from_numpy(r.standard_normal(n).astype(np.float32)).cuda()
+
+    def run(fn):
+        xx = x.clone().requires_grad_(True)
+        hh = head.clone().requires_grad_(True)
+        logz, tl, am = fn(xx, hh, t)
+        ((logz * gz).sum() + (tl * gt).sum()).backward()
+        return logz.detach(), tl.detach(), am, xx.grad, hh.grad
+
+    fc.reset_counters()
+    got = run(fc.fused_ce_stats)
+    torch.cuda.synchronize()
+    assert fc.counters() == {"launches_fwd": 1, "launches_dx": 1,
+                             "plain_calls": 0}
+    want = run(fc.fused_ce_stats_ref)
+    for key, g, w in zip(("logz", "tl"), got[:2], want[:2]):
+        assert bool(torch.isfinite(g).all()), key
+        assert float((g - w).abs().max()) <= CE_TOL[key], key
+    logits = torch.mm(x, head, out_dtype=torch.float32)
+    rows = torch.arange(n, device="cuda")
+    gap = logits[rows, want[2]] - logits[rows, got[2]]
+    assert float(gap.max()) <= CE_TOL["logz"]
+    for key, g, w in zip(("dx", "dw"), got[3:], want[3:]):
+        g, w = g.float(), w.float()
+        diff = (g - w).abs()
+        rms_lim, max_lim = CE_TOL[key]
+        assert float(diff.square().mean().sqrt()
+                     / w.square().mean().sqrt()) <= rms_lim, key
+        assert float(diff.max() / w.abs().max()) <= max_lim, key

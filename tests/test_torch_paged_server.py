@@ -1,7 +1,8 @@
 """The port's PagedInferenceServer against the reference's: greedy tokens
 identical on the staggered mixed-scheduler workload, under a pool small
 enough to force preemption, and with a repeated prefix served from the
-radix cache."""
+radix cache; seeded requests at temperature > 0 identical token for
+token (both draw from threefry's fold_in(key(seed), position))."""
 
 import dataclasses
 
@@ -13,6 +14,8 @@ import torch
 from cloud_server_tpu.config import InferConfig, ModelConfig
 from cloud_server_tpu.inference.paged_server import (
     PagedInferenceServer as RefServer)
+from cloud_server_tpu.inference.sampling import (
+    SamplingParams as RefSamplingParams)
 from cloud_server_tpu.models import transformer as ref_transformer
 from cloud_server_tpu_torch.config import InferConfig as TInferConfig
 from cloud_server_tpu_torch.config import ModelConfig as TModelConfig
@@ -109,9 +112,8 @@ def test_repeated_prefix_served_from_cache(weights):
 
 
 def test_seeded_rows_reproducible_and_batch_independent(weights):
-    """temperature > 0 is held in distribution only, but a seeded
-    request's stream depends on (seed, position) alone: the same request
-    alone or beside others gives the same tokens."""
+    """A seeded request's stream depends on (seed, position) alone: the
+    same request alone or beside others gives the same tokens."""
     _, params = weights
     icfg = dataclasses.replace(GREEDY, temperature=1.0)
     sp = SamplingParams(seed=7, temperature=0.9, top_p=0.9)
@@ -124,6 +126,36 @@ def test_seeded_rows_reproducible_and_batch_independent(weights):
     crowd.run_until_idle()
     assert r0.result() == r1.result()
     assert all(o.done for o in others)
+
+
+SEEDED = [dict(seed=7, temperature=0.9, top_p=0.9),
+          dict(seed=123456789, temperature=1.3, top_k=12),
+          dict(seed=2 ** 32 - 5, temperature=0.8, min_p=0.05),
+          dict(seed=42, temperature=1.0)]
+
+
+def test_seeded_requests_token_exact_against_reference(weights):
+    """Four seeded requests (temperature, top-k, top-p, min-p) on the
+    staggered workload, some admitted mid-decode: the port's tokens equal
+    the reference's token for token."""
+    ref_params, params = weights
+    icfg = dataclasses.replace(GREEDY, temperature=1.0)
+
+    def run(srv, sp_cls):
+        reqs = [srv.submit(p, max_new_tokens=10, sampling=sp_cls(**kw))
+                for p, kw in zip(PROMPTS[:2], SEEDED[:2])]
+        for _ in range(3):
+            srv.step()
+        reqs += [srv.submit(p, max_new_tokens=10, sampling=sp_cls(**kw))
+                 for p, kw in zip(PROMPTS[2:], SEEDED[2:])]
+        srv.run_until_idle()
+        return [r.result() for r in reqs]
+
+    want = run(RefServer(ref_params, CFG, icfg, overlap=False, **SRV_KW),
+               RefSamplingParams)
+    got = run(_port_server(params, icfg=icfg, **SRV_KW), SamplingParams)
+    assert all(len(t) == 10 for t in want)
+    assert got == want
 
 
 @pytest.mark.parametrize("kw", [

@@ -1,8 +1,13 @@
 """The port's sampling against the reference's: the per-row filter chain
-(filtered_logits_rows), greedy argmax, and the top-k / top-p masks. Draws
-at temperature > 0 come from another generator than the reference's
-threefry, so they are held in distribution."""
+(filtered_logits_rows), greedy argmax, and the top-k / top-p masks. The
+per-request path draws from jax.random's threefry2x32, ported bit for
+bit (`utils/prng.py`): its key, fold_in and bits equal jax's, its Gumbel
+noise is within one float32 ulp of jax's (the two logs round
+differently), and seeded draws are the reference's token for token. The
+server-global path draws from a torch.Generator and is held in
+distribution."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,6 +17,7 @@ from cloud_server_tpu.config import InferConfig
 from cloud_server_tpu.inference import sampling as ref_s
 from cloud_server_tpu_torch.config import InferConfig as TInferConfig
 from cloud_server_tpu_torch.inference import sampling
+from cloud_server_tpu_torch.utils import prng
 
 V = 50
 
@@ -120,11 +126,68 @@ def test_draws_follow_the_filtered_distribution():
 
 
 def test_row_draws_depend_only_on_seed_and_position():
-    u1 = sampling.row_uniforms(torch.tensor([7, 9]), torch.tensor([3, 3]), V)
-    u2 = sampling.row_uniforms(torch.tensor([1, 7]), torch.tensor([0, 3]), V)
-    assert torch.equal(u1[0], u2[1])
-    assert not torch.equal(u1[0], u1[1])
-    assert float(u1.min()) > 0 and float(u1.max()) < 1
-    # roughly uniform
-    big = sampling.row_uniforms(torch.arange(64), torch.zeros(64), 1000)
-    assert abs(float(big.mean()) - 0.5) < 0.01
+    """A row's draw is a function of (seed, position) alone: the same row
+    beside other rows, at another batch index, gives the same token."""
+    x = torch.from_numpy(_logits(5, b=1)).repeat(3, 1)
+    _, rows = _rows([ref_s.SamplingParams(seed=7, temperature=1.0)] * 4)
+    rows3 = sampling.SamplingRows(*(t[:3] for t in rows))
+    alone = sampling.sample_logits_rows(x[:1], sampling.SamplingRows(
+        *(t[:1] for t in rows)), torch.tensor([9]))
+    crowd = sampling.sample_logits_rows(x, rows3, torch.tensor([4, 9, 2]))
+    assert int(crowd[1]) == int(alone[0])
+    k1 = prng.fold_in(prng.key(torch.tensor([7, 9])), torch.tensor([3, 3]))
+    k2 = prng.fold_in(prng.key(torch.tensor([1, 7])), torch.tensor([0, 3]))
+    assert torch.equal(k1[0], k2[1]) and not torch.equal(k1[0], k1[1])
+    u = prng.gumbel_low(k1, 1000)
+    assert bool(torch.isfinite(u).all())
+    # Gumbel(0, 1): mean is the Euler-Mascheroni constant
+    assert abs(float(u.mean()) - 0.5772) < 0.1
+
+
+@pytest.mark.parametrize("seed", [0, 1, 12345, 2 ** 32 - 1])
+def test_threefry_matches_jax_random(seed):
+    """key, fold_in and bits equal jax.random's bit for bit (partitionable
+    threefry, jax's default); the Gumbel draws agree to one float32 ulp
+    at their size (|g| < 16 here: 2e-6)."""
+    positions = [0, 1, 77, 2 ** 31 + 5]
+    keys = prng.fold_in(prng.key(torch.tensor([seed] * len(positions))),
+                        torch.tensor(positions))
+    for i, pos in enumerate(positions):
+        want = jax.random.fold_in(jax.random.key(seed), pos)
+        np.testing.assert_array_equal(
+            keys[i].numpy(),
+            np.asarray(jax.random.key_data(want)).astype(np.int64))
+        np.testing.assert_array_equal(
+            prng.bits(keys[i], 513).numpy(),
+            np.asarray(jax.random.bits(want, (513,))).astype(np.int64))
+        np.testing.assert_allclose(
+            prng.gumbel_low(keys[i], 513).numpy(),
+            np.asarray(jax.random.gumbel(want, (513,))), rtol=0, atol=2e-6)
+
+
+def test_seeded_row_draws_match_reference_token_for_token():
+    """300 seeded rows with temperature, top-k, top-p and min-p at a
+    moderate logit spread, at scattered positions: the same tokens as the
+    reference's jax.vmap(jax.random.categorical) draws."""
+    b = 300
+    r = np.random.default_rng(21)
+    kinds = [dict(temperature=0.9), dict(temperature=1.2, top_k=8),
+             dict(temperature=0.7, top_p=0.8),
+             dict(temperature=1.0, min_p=0.05)]
+    params = [ref_s.SamplingParams(seed=int(r.integers(0, 2 ** 32)),
+                                   **kinds[i % 4]) for i in range(b)]
+    ref_rows = ref_s.make_rows(params, InferConfig(temperature=0.7),
+                               list(range(b)), prompt_lens=[3] * b)
+    port_rows = sampling.make_rows(
+        [sampling.SamplingParams(**p.__dict__) for p in params],
+        TInferConfig(temperature=0.7), list(range(b)), prompt_lens=[3] * b)
+    x = (r.standard_normal((b, V)) * 1.5).astype(np.float32)
+    pos = r.integers(0, 5000, b).astype(np.int32)
+    want = ref_s.sample_logits_rows(
+        jnp.asarray(x), ref_rows._replace(
+            **{k: jnp.asarray(v) for k, v in ref_rows._asdict().items()}),
+        jnp.asarray(pos), use_bias=False)
+    got = sampling.sample_logits_rows(
+        torch.from_numpy(x), sampling.rows_to(port_rows, "cpu"),
+        torch.from_numpy(pos), use_bias=False)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

@@ -14,7 +14,12 @@ from the same numpy weights and batches:
     relative, parameters after the update within 1e-6, with
     microbatch_steps 1 and 2;
   * the losses of a 4-step `train_loop` on SyntheticLMDataset within
-    1e-4 relative of the reference loop's.
+    1e-4 relative of the reference loop's; the same with periodic
+    evaluation and checkpointing on (eval records within 1e-4, eval_ppl
+    = exp(eval_loss));
+  * resume: 4 steps, then a resumed run to 8, equals 8 straight steps bit
+    for bit; a KeyboardInterrupt from a hook saves, a NaN-guard abort
+    does not.
 """
 
 import dataclasses
@@ -254,8 +259,125 @@ def test_train_loop_tracks_reference(tmp_path):
     np.testing.assert_allclose(got, want, rtol=1e-4)
 
 
-@pytest.mark.parametrize("what", ["remat_dots", "ce_pallas", "segments",
-                                  "mesh", "checkpoint", "eval"])
+def _same_init(np_params, monkeypatch):
+    """Start the port's loop from the reference's initial weights (the
+    reference loop draws them from jax.random.key(seed))."""
+    from cloud_server_tpu_torch.training import checkpoint as tckpt
+    from cloud_server_tpu_torch.training import loop as tloop
+
+    def same_init(model_cfg, train_cfg, seed, device):
+        return train_step.train_state_from_params(
+            _port_params(np_params, TINY), train_cfg)
+
+    monkeypatch.setattr(tloop, "init_train_state", same_init)
+    monkeypatch.setattr(tckpt, "init_train_state", same_init)
+
+
+def test_train_loop_with_eval_and_checkpoint_tracks_reference(
+        tmp_path, monkeypatch):
+    from cloud_server_tpu.data.dataset import SyntheticLMDataset as RefDS
+    from cloud_server_tpu.training.loop import LoopConfig as RefLoop
+    from cloud_server_tpu.training.loop import train_loop as ref_loop
+    from cloud_server_tpu_torch.data.dataset import SyntheticLMDataset
+    from cloud_server_tpu_torch.training.checkpoint import all_steps
+
+    tcfg = TrainConfig(learning_rate=1e-2, warmup_steps=2, total_steps=4,
+                       batch_size=4, seq_len=16)
+    knobs = dict(log_interval=1, checkpoint_interval=2, eval_interval=2,
+                 eval_batches=2)
+    ref_loop(TINY, tcfg, RefDS(32, 16, TINY.vocab_size, seed=0),
+             eval_dataset=RefDS(16, 16, TINY.vocab_size, seed=5),
+             loop_cfg=RefLoop(logdir=str(tmp_path / "ref"),
+                              checkpoint_dir=str(tmp_path / "ref_ck"),
+                              **knobs))
+    want = read_jsonl(tmp_path / "ref" / "train.jsonl")
+
+    mesh = make_mesh(MeshConfig())
+    _same_init(_np_tree(ref_init_state(TINY, tcfg, mesh,
+                                       jax.random.key(tcfg.seed)).params),
+               monkeypatch)
+    train_loop(_t(TINY), _t(tcfg),
+               SyntheticLMDataset(32, 16, TINY.vocab_size, seed=0),
+               eval_dataset=SyntheticLMDataset(16, 16, TINY.vocab_size,
+                                               seed=5),
+               loop_cfg=LoopConfig(logdir=str(tmp_path / "port"),
+                                   checkpoint_dir=str(tmp_path / "ck"),
+                                   **knobs),
+               device="cpu")
+    got = read_jsonl(tmp_path / "port" / "train.jsonl")
+    for key in ("loss", "eval_loss", "eval_accuracy"):
+        w = [(r["step"], r[key]) for r in want if key in r]
+        g = [(r["step"], r[key]) for r in got if key in r]
+        assert [s for s, _ in g] == [s for s, _ in w], key
+        np.testing.assert_allclose([x for _, x in g], [x for _, x in w],
+                                   rtol=1e-4, atol=1e-7, err_msg=key)
+    evals = [r for r in got if "eval_loss" in r]
+    assert [r["step"] for r in evals] == [2, 4]
+    for r in evals:
+        assert r["eval_ppl"] == pytest.approx(np.exp(r["eval_loss"]))
+        assert r["eval_tokens"] == 2 * 4 * 15
+    assert all_steps(tmp_path / "ck") == [2, 4]
+
+
+def test_resume_matches_straight_run(tmp_path):
+    """4 steps with checkpoints, then a second run that resumes to 8,
+    ends bit for bit where 8 uninterrupted steps end (the data loader
+    fast-forwards across an epoch boundary: 4 batches per epoch)."""
+    from cloud_server_tpu_torch.data.dataset import SyntheticLMDataset
+    cfg = _t(TINY)
+    tcfg = _t(TrainConfig(learning_rate=1e-2, warmup_steps=2,
+                          total_steps=8, batch_size=4, seq_len=16))
+    ds = SyntheticLMDataset(16, 16, TINY.vocab_size, seed=0)
+    straight = train_loop(cfg, tcfg, ds, device="cpu", loop_cfg=LoopConfig(
+        log_interval=1, logdir=str(tmp_path / "a")))
+    ck = dict(checkpoint_dir=str(tmp_path / "ck"), checkpoint_interval=2,
+              log_interval=1)
+    first = train_loop(cfg, tcfg, ds, device="cpu", max_steps=4,
+                       loop_cfg=LoopConfig(logdir=str(tmp_path / "b"), **ck))
+    assert first.step == 4
+    resumed = train_loop(cfg, tcfg, ds, device="cpu",
+                         loop_cfg=LoopConfig(logdir=str(tmp_path / "c"),
+                                             **ck))
+    assert resumed.step == straight.step == 8
+    for (k, a), (_, b) in zip(optim.flatten(straight.params),
+                              optim.flatten(resumed.params)):
+        assert torch.equal(a.detach(), b.detach()), k
+    want = [r["loss"] for r in read_jsonl(tmp_path / "a" / "train.jsonl")]
+    got = [r["loss"] for r in read_jsonl(tmp_path / "c" / "train.jsonl")]
+    assert got == want[4:]
+
+
+@pytest.mark.parametrize("abort", ["interrupt", "nan_guard"])
+def test_only_a_keyboard_interrupt_saves(tmp_path, abort):
+    """A KeyboardInterrupt (preemption) raised by a hook saves the state
+    of that step; a NaN-guard abort saves nothing (it would checkpoint
+    diverged parameters)."""
+    from cloud_server_tpu_torch.data.dataset import SyntheticLMDataset
+    from cloud_server_tpu_torch.training.checkpoint import all_steps
+    from cloud_server_tpu_torch.utils.failure import (NaNGuard,
+                                                      TrainingDiverged)
+
+    def hook(step, state, metrics):
+        if step == 2:
+            if abort == "interrupt":
+                raise KeyboardInterrupt("preempted")
+            metrics["loss"] = torch.tensor(float("nan"))
+
+    hooks = [hook] + ([NaNGuard(check_interval=1)]
+                      if abort == "nan_guard" else [])
+    with pytest.raises(KeyboardInterrupt if abort == "interrupt"
+                       else TrainingDiverged):
+        train_loop(_t(TINY), _t(TrainConfig(total_steps=6, batch_size=4,
+                                            seq_len=16)),
+                   SyntheticLMDataset(16, 16, TINY.vocab_size, seed=0),
+                   hooks=hooks, device="cpu",
+                   loop_cfg=LoopConfig(checkpoint_dir=str(tmp_path / "ck"),
+                                       checkpoint_interval=100))
+    assert all_steps(tmp_path / "ck") == ([2] if abort == "interrupt"
+                                          else [])
+
+
+@pytest.mark.parametrize("what", ["remat_dots", "segments", "mesh"])
 def test_unported_options_raise(what, tmp_path):
     cfg = _t(TINY)
     params = transformer.init_params(cfg, 0, device="cpu")
@@ -264,18 +386,9 @@ def test_unported_options_raise(what, tmp_path):
         if what == "remat_dots":
             transformer.next_token_loss(
                 params, batch, dataclasses.replace(cfg, remat="dots"))
-        elif what == "ce_pallas":
-            transformer.next_token_loss(
-                params, batch, dataclasses.replace(cfg, ce_impl="pallas"))
         elif what == "segments":
             transformer.next_token_loss(
                 params, {**batch, "segment_ids": torch.zeros((2, 8))}, cfg)
-        elif what == "mesh":
+        else:
             train_step.make_train_step(cfg, _t(TrainConfig()),
                                        tconfig.MeshConfig(fsdp=2))
-        elif what == "checkpoint":
-            train_loop(cfg, _t(TrainConfig()), [], device="cpu",
-                       loop_cfg=LoopConfig(checkpoint_dir=str(tmp_path)))
-        else:
-            train_loop(cfg, _t(TrainConfig()), [], device="cpu",
-                       eval_dataset=[])

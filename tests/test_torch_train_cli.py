@@ -1,14 +1,18 @@
 """The port's training CLI on the CPU: `--device cpu` trains a tiny model
-for 3 steps and writes one JSONL record per step; without it (and
-without a GPU) it refuses; every option that is not ported yet raises
-NotImplementedError."""
+for 3 steps and writes one JSONL record per step; with `--eval-data` and
+`--checkpoint-dir` it evaluates, checkpoints and resumes; without
+`--device cpu` (and without a GPU) it refuses; every option that is not
+ported yet raises NotImplementedError."""
 
 import json
 
+import numpy as np
 import pytest
 import torch
 
 from cloud_server_tpu_torch import train
+from cloud_server_tpu_torch.data.dataset import write_token_file
+from cloud_server_tpu_torch.training.checkpoint import all_steps
 from cloud_server_tpu_torch.utils.logging import read_jsonl
 
 TINY = {"model": {"vocab_size": 64, "embed_dim": 32, "num_layers": 2,
@@ -49,15 +53,47 @@ def test_cli_runs_on_the_gpu_unless_asked(tmp_path):
         train.main(["--config", _config(tmp_path), "--synthetic", "16"])
 
 
+def test_cli_eval_data_checkpoint_dir_and_resume(tmp_path, capsys):
+    """--eval-data (a uint32 token file with its .meta.json sidecar) with
+    no eval interval defaults it to 500 and says so; a second run with
+    --eval-interval 1 and more steps resumes from the checkpoint,
+    evaluates after each step and checkpoints at its end."""
+    eval_path = tmp_path / "eval.bin"
+    write_token_file(eval_path, np.random.default_rng(0).integers(
+        0, 64, 16 * 8), dtype=np.uint32)
+    (tmp_path / "eval.bin.meta.json").write_text(
+        json.dumps({"dtype": "uint32"}))
+    ckpt = tmp_path / "ckpt"
+    common = ["--config", _config(tmp_path), "--synthetic", "16",
+              "--device", "cpu", "--eval-data", str(eval_path),
+              "--checkpoint-dir", str(ckpt)]
+    state = train.main([*common, "--logdir", str(tmp_path / "a")])
+    assert state.step == 3
+    assert "defaulting loop.eval_interval=500" in capsys.readouterr().out
+    assert all_steps(ckpt) == [3]
+    assert not any("eval_loss" in r
+                   for r in read_jsonl(tmp_path / "a" / "train.jsonl"))
+
+    state = train.main([*common, "--logdir", str(tmp_path / "b"),
+                        "--eval-interval", "1", "--steps", "5"])
+    assert state.step == 5
+    assert "resumed from step 3" in capsys.readouterr().out
+    recs = read_jsonl(tmp_path / "b" / "train.jsonl")
+    assert [r["step"] for r in recs if "loss" in r] == [4, 5]
+    evals = [r for r in recs if "eval_loss" in r]
+    assert [r["step"] for r in evals] == [4, 5]
+    # eval_batches (16) batches of 4 rows: the eval loader cycles its
+    # 2 batches, as the reference's does
+    assert all(r["eval_tokens"] == 16 * 4 * 15 for r in evals)
+    assert all_steps(ckpt) == [3, 5]
+
+
 @pytest.mark.parametrize("argv,sections", [
-    (["--checkpoint-dir", "ckpt"], {}),
-    (["--eval-data", "eval.bin"], {}),
     (["--distributed"], {}),
     (["--lora-rank", "4"], {}),
     (["--init-from", "ckpt"], {}),
     ([], {"mesh": {"fsdp": 2}}),
     ([], {"dcn_mesh": {"dp": 2}}),
-    ([], {"loop": {"checkpoint_dir": "ckpt"}}),
 ])
 def test_unported_options_raise(tmp_path, argv, sections):
     with pytest.raises(NotImplementedError):

@@ -40,3 +40,21 @@ def test_unembed_bf16_gives_f32_logits_of_the_reference(softcap):
     assert got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                atol=1e-5 * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_f32_on_the_cpu(dtype):
+    """The float32-output product on the CPU: float32 operands multiply as
+    they are, low-precision ones widened first (exact products), over
+    leading axes, differentiable in both operands."""
+    from cloud_server_tpu_torch.ops import matmul_f32
+    r = np.random.default_rng(5)
+    a = torch.from_numpy(r.standard_normal((2, 3, 16)).astype(np.float32))
+    b = torch.from_numpy(r.standard_normal((16, 24)).astype(np.float32))
+    a, b = a.to(dtype).requires_grad_(True), b.to(dtype).requires_grad_(True)
+    out = matmul_f32(a, b)
+    assert out.dtype == torch.float32 and out.shape == (2, 3, 24)
+    assert torch.equal(out.detach(), a.detach().float() @ b.detach().float())
+    out.sum().backward()
+    assert a.grad.dtype == dtype and b.grad.dtype == dtype
+    assert a.grad.shape == a.shape and b.grad.shape == b.shape
