@@ -13,7 +13,11 @@ each:
                 version on the card at Llama-3.1-8B's head shapes (decode,
                 prefill and a ragged mixed batch with a length-0 slot),
                 with the kernel's, the plain version's and one PyTorch
-                library call's times beside the card's lower bound;
+                library call's times beside the card's lower bound; then
+                each case again on the int8 cache (kernel_int8 lines: the
+                int8 branch against the int8 plain version, its time
+                beside the bf16 kernel's, SDPA over the dequantized cache
+                as the library yardstick);
      train_kernel — the four flash-attention kernels (forward, dK/dV,
                 dQ, fused backward) against the plain version at
                 Llama-3.1-8B's head shapes: a blocked case (S 2048), a
@@ -34,6 +38,15 @@ each:
      profile  — one mixed (prefill + decode) step and one steady decode
                 step under torch.profiler: wall time, device busy time
                 and idle share, the busiest kernels;
+     serve_int8 — the same 8 requests on the int8 KV cache (same params):
+                the pool's bytes against the bf16 pool's, the int8
+                kernels' launches and no plain call, the share of tokens
+                equal to the bf16 run; a 2-layer slice through the int8
+                kernel against the int8 plain path; then HttpFrontend on
+                127.0.0.1 over an int8 server with the 8 requests streamed
+                concurrently through /v1/completions (32 tokens and
+                [DONE] each, /metrics counting them, /v1/embeddings a
+                501) and the client's TTFT and ITL;
   4. train    — the training CLI (`cloud_server_tpu_torch.train.main`)
                 at Llama-3.1-8B's widths cut to 8 layers (f32 masters,
                 bf16 compute, flash attention, full remat): 6 steps at
@@ -51,7 +64,8 @@ each:
                 `generate --checkpoint-dir`) with the in-memory params'
                 tokens; bytes and write/read rates;
   6. kernels  — each ported kernel with the TPU kernel it replaces, its
-                launches on phases 3 and 4 and its numbers from phase 2.
+                launches on phases 3 and 4 (the int8 rows: the HTTP run)
+                and its numbers from phase 2.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises and
 the exit code is non-zero. Without a CUDA device, or without the rest of
@@ -80,6 +94,11 @@ BF16_FLOP_PER_S = 989e12       # H100 SXM data sheet, dense
 # the V terms it weights, not to their (often cancelling) sum. The RMS
 # bound catches a few mis-masked keys or a dropped tile on small outputs.
 ATOL, RTOL, REL_RMS = 8e-3, 1e-2, 1e-2
+# The int8 kernel against the int8 plain version: the bf16 limits. Both
+# fold the same scales into the same int8 values (exact in bf16); they
+# differ where the bf16 kernel does, in the rounding of the scaled
+# probabilities and the order of the sums.
+INT8_TOL = (ATOL, RTOL, REL_RMS)
 # The 2-layer paged path against the plain dense forward: the largest
 # logit error within this share of the largest logit.
 DENSE_LOGIT_RTOL = 2.5e-2
@@ -187,18 +206,21 @@ def make_case(gen, lengths, widths, w):
     return q, k_pool, v_pool, lengths, tables, widths
 
 
-def bound_ms(q, lengths, widths) -> tuple[float, str]:
+def bound_ms(q, lengths, widths, kv_elem: int = 2,
+             scale_bytes: int = 0) -> tuple[float, str]:
     """Least time on the card for this call's work: bytes (q and the
-    output once, every slot's K and V up to its length once) over the
-    memory rate, or the causally visible operations (4 * Dh per
-    query-row-key pair: the two products) over the bf16 tensor rate."""
+    output once, every slot's K and V up to its length once, at
+    `kv_elem` bytes a value plus `scale_bytes` per position and kv head
+    for the int8 cache's scales) over the memory rate, or the causally
+    visible operations (4 * Dh per query-row-key pair: the two products)
+    over the bf16 tensor rate."""
     b, w, h, d = q.shape
     lens = [int(x) for x in lengths.tolist()]
     wids = [int(x) for x in widths.tolist()]
     nbytes = 2 * q.numel() * 2 + 16 * b
     ops = 0
     for n, wd in zip(lens, wids):
-        nbytes += 2 * n * KH * DH * 2
+        nbytes += 2 * n * KH * (DH * kv_elem + scale_bytes)
         # row j of the window sees keys [0, n - wd + j]
         ops += 4 * DH * h * sum(n - wd + j + 1 for j in range(wd))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -226,8 +248,35 @@ def library_call(q, k_pool, v_pool, lengths, tables, widths, layer):
     return lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask)
 
 
-def phase_kernel() -> dict:
+def kernel_errors(name, got, want, valid, limits) -> dict:
+    """Kernel vs plain on the valid rows: every element within atol +
+    rtol * |plain| and the error's RMS within rel_rms of the plain
+    output's RMS; raises otherwise."""
     import torch
+    atol, rtol, rel_lim = limits
+    if not bool(torch.isfinite(got).all()):
+        raise RuntimeError(f"{name}: non-finite kernel output")
+    diff = (got.float() - want.float()).abs()[valid]
+    ref_abs = want.float().abs()[valid]
+    err = float(diff.max())
+    rel_rms = float(diff.square().mean().sqrt()
+                    / ref_abs.square().mean().sqrt())
+    if not (bool((diff <= atol + rtol * ref_abs).all())
+            and rel_rms <= rel_lim):
+        raise RuntimeError(f"{name}: kernel differs from the plain version "
+                           f"beyond atol {atol} + rtol {rtol} or relative "
+                           f"RMS {rel_lim}: max abs error {err}, relative "
+                           f"RMS error {rel_rms}")
+    return {"max_abs_err": err, "ref_max_abs": float(ref_abs.max()),
+            "rel_rms_err": rel_rms, "atol": atol, "rtol": rtol,
+            "rel_rms_limit": rel_lim}
+
+
+def phase_kernel() -> dict:
+    """Each case in bf16, then on the int8 cache: the same bf16 pools
+    quantized by the port's quantize_pool."""
+    import torch
+    from cloud_server_tpu_torch.inference.paged_engine import quantize_pool
     from cloud_server_tpu_torch.ops import paged_attention as pa
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED)
@@ -241,49 +290,37 @@ def phase_kernel() -> dict:
     results = {}
     for name, (lens, wids, w) in cases.items():
         q, kp, vp, lengths, tables, widths = make_case(gen, lens, wids, w)
+        b, _, h, d = q.shape
+        g = h // KH
+        valid = torch.arange(w, device=DEVICE)[None, :] < widths[:, None]
+        valid &= (lengths > 0)[:, None]
+        # the raw C entries the wrapper calls, on preallocated buffers
+        qg = q.reshape(b, w, KH, g, d).permute(0, 2, 1, 3, 4).reshape(
+            b, KH, w * g, d).contiguous()
+        out = torch.empty_like(qg)
+        stream = torch.cuda.current_stream().cuda_stream
+        tail = (lengths.data_ptr(), tables.data_ptr(), widths.data_ptr(),
+                out.data_ptr(), b, KH, w * g, g, d, kp.shape[1], PS,
+                tables.shape[1], layer, d ** -0.5, 1, stream)
+
+        def launcher(fn, *pools):
+            def launch():
+                err_code = fn(qg.data_ptr(), *pools, *tail)
+                if err_code:
+                    raise RuntimeError(f"kernel launch failed: {err_code}")
+            return launch
+
         pa.reset_counters()
         got = pa.paged_attention(q, kp, vp, lengths, tables, layer,
                                  widths=widths)
         torch.cuda.synchronize()
         if pa.launches_narrow + pa.launches_wide != 1:
             raise RuntimeError(f"{name}: the kernel was not launched")
-        if not bool(torch.isfinite(got).all()):
-            raise RuntimeError(f"{name}: non-finite kernel output")
         want = pa.paged_attention_ref(q, kp, vp, lengths, tables, layer,
                                       widths=widths)
-        valid = torch.arange(w, device=DEVICE)[None, :] < widths[:, None]
-        valid &= (lengths > 0)[:, None]
-        diff = (got.float() - want.float()).abs()[valid]
-        ref_abs = want.float().abs()[valid]
-        err = float(diff.max())
-        ref_scale = float(ref_abs.max())
-        rel_rms = float(diff.square().mean().sqrt()
-                        / ref_abs.square().mean().sqrt())
-        if not (bool((diff <= ATOL + RTOL * ref_abs).all())
-                and rel_rms <= REL_RMS):
-            raise RuntimeError(f"{name}: kernel differs from the plain "
-                               f"version beyond atol {ATOL} + rtol {RTOL} "
-                               f"or relative RMS {REL_RMS}: max abs error "
-                               f"{err}, relative RMS error {rel_rms}")
-        # the raw C entry the wrapper calls, on preallocated buffers
-        kern = pa._kernel()
-        b, _, h, d = q.shape
-        g = h // KH
-        qg = q.reshape(b, w, KH, g, d).permute(0, 2, 1, 3, 4).reshape(
-            b, KH, w * g, d).contiguous()
-        out = torch.empty_like(qg)
-        stream = torch.cuda.current_stream().cuda_stream
-
-        def launch():
-            err_code = kern(qg.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-                            lengths.data_ptr(), tables.data_ptr(),
-                            widths.data_ptr(), out.data_ptr(), b, KH, w * g,
-                            g, d, kp.shape[1], PS, tables.shape[1], layer,
-                            d ** -0.5, 1, stream)
-            if err_code:
-                raise RuntimeError(f"kernel launch failed: {err_code}")
-
-        ms = time_ms(launch, iters=50)
+        errs = kernel_errors(name, got, want, valid, (ATOL, RTOL, REL_RMS))
+        ms = time_ms(launcher(pa._kernel(), kp.data_ptr(), vp.data_ptr()),
+                     iters=50)
         plain_ms = time_ms(lambda: pa.paged_attention_ref(
             q, kp, vp, lengths, tables, layer, widths=widths), iters=10)
         library_ms = time_ms(library_call(q, kp, vp, lengths, tables,
@@ -291,14 +328,54 @@ def phase_kernel() -> dict:
         bms, by = bound_ms(q, lengths, widths)
         res = {"phase": "kernel", "case": name, "B": b, "W": w,
                "class": "narrow" if pa.is_narrow(b, w) else "wide",
-               "lengths": lens, "widths": wids, "max_abs_err": err,
-               "ref_max_abs": ref_scale, "rel_rms_err": rel_rms,
-               "atol": ATOL, "rtol": RTOL, "rel_rms_limit": REL_RMS, "ms": ms,
+               "lengths": lens, "widths": wids, **errs, "ms": ms,
                "plain_ms": plain_ms, "library_ms": library_ms,
                "bound_ms": bms, "bound_by": by}
         emit(res)
         results[name] = res
-        del q, kp, vp, got, want, qg, out
+        del got, want
+
+        # the int8 cache: int8 pools + (L, P, KH, ps) f32 scale pools
+        kq, ks = quantize_pool(kp)
+        vq, vs = quantize_pool(vp)
+        scales = dict(k_scale_pool=ks, v_scale_pool=vs)
+        pa.reset_counters()
+        got = pa.paged_attention(q, kq, vq, lengths, tables, layer,
+                                 widths=widths, **scales)
+        torch.cuda.synchronize()
+        c = pa.counters()
+        if (c["launches_narrow_int8"] + c["launches_wide_int8"] != 1
+                or c["launches_narrow"] + c["launches_wide"] != 0):
+            raise RuntimeError(f"{name} int8: launches {c}")
+        want = pa.paged_attention_ref(q, kq, vq, lengths, tables, layer,
+                                      widths=widths, **scales)
+        errs = kernel_errors(f"{name} int8", got, want, valid, INT8_TOL)
+        launch8 = launcher(pa._kernel(int8=True), kq.data_ptr(),
+                           vq.data_ptr(), ks.data_ptr(), vs.data_ptr())
+        ms8 = time_ms(launch8, iters=50)
+        plain8 = time_ms(lambda: pa.paged_attention_ref(
+            q, kq, vq, lengths, tables, layer, widths=widths, **scales),
+            iters=10)
+        # library yardstick: SDPA over the DEQUANTIZED bf16 cache (the
+        # dequantization, and the gather, are not timed)
+        kd = (kq.float() * ks[:, :, :, None, :]).to(torch.bfloat16)
+        vd = (vq.float() * vs[:, :, :, None, :]).to(torch.bfloat16)
+        library8 = time_ms(library_call(q, kd, vd, lengths, tables, widths,
+                                        layer), iters=20)
+        # bf16 again in the same turn, beside the int8 time
+        bf16_again = time_ms(launcher(pa._kernel(), kp.data_ptr(),
+                                      vp.data_ptr()), iters=50)
+        bms8, by8 = bound_ms(q, lengths, widths, kv_elem=1, scale_bytes=4)
+        res8 = {"phase": "kernel_int8", "case": name, "B": b, "W": w,
+                "class": "narrow" if pa.is_narrow(b, w) else "wide",
+                **errs, "ms": ms8, "bf16_ms": [ms, bf16_again],
+                "plain_ms": plain8,
+                "library_ms": library8,
+                "library": "SDPA over the gathered dequantized bf16 cache",
+                "bound_ms": bms8, "bound_by": by8}
+        emit(res8)
+        results[f"{name}_int8"] = res8
+        del q, kp, vp, kq, vq, ks, vs, kd, vd, got, want, qg, out
         torch.cuda.empty_cache()
     return results
 
@@ -311,13 +388,20 @@ PROMPT_LENS = [64, 200, 350, 500, 700, 900, 1200, 1500]
 MAX_NEW = 32
 
 
-def serve_once(params, cfg, icfg, prompts):
+def make_server(params, cfg, icfg):
     from cloud_server_tpu_torch.inference.paged_server import (
         PagedInferenceServer)
+    return PagedInferenceServer(params, cfg, icfg, max_slots=8,
+                                max_context=MAX_CTX, page_size=PS,
+                                prefill_chunk=256, seed=SEED, device=DEVICE)
+
+
+def serve_once(params, cfg, icfg, prompts):
+    """The 8 requests on a fresh server: (requests, start, end, bytes of
+    the server's page pools)."""
     import torch
-    srv = PagedInferenceServer(params, cfg, icfg, max_slots=8,
-                               max_context=MAX_CTX, page_size=PS,
-                               prefill_chunk=256, seed=SEED, device=DEVICE)
+    srv = make_server(params, cfg, icfg)
+    pool_bytes = srv.kv_cache_bytes()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     reqs = [srv.submit(p, max_new_tokens=MAX_NEW) for p in prompts]
@@ -325,7 +409,30 @@ def serve_once(params, cfg, icfg, prompts):
     torch.cuda.synchronize()
     t_end = time.perf_counter()
     del srv
-    return reqs, t0, t_end
+    return reqs, t0, t_end, pool_bytes
+
+
+def check_served(reqs, vocab) -> None:
+    for r in reqs:
+        if r.finish_reason != "length" or len(r.tokens) != MAX_NEW:
+            raise RuntimeError(f"request ended {r.finish_reason!r} with "
+                               f"{len(r.tokens)} tokens")
+        if not all(0 <= t < vocab for t in r.tokens):
+            raise RuntimeError("token id out of the vocabulary")
+
+
+def serving_rates(reqs, t_start, t_end) -> dict:
+    """Prefill and decode tokens/s and TTFT of one in-process run."""
+    first = [r.emit_times[0] for r in reqs]
+    ttft = sorted(f - r.submit_time for f, r in zip(first, reqs))
+    t_all_first = max(first)
+    after = sum(sum(1 for t in r.emit_times if t > t_all_first)
+                for r in reqs)
+    return {"wall_s": t_end - t_start,
+            "prefill_tok_per_s": sum(PROMPT_LENS) / (t_all_first - t_start),
+            "decode_tok_per_s_after_last_first_token":
+                after / max(t_end - t_all_first, 1e-9),
+            "ttft_p50_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1]}
 
 
 # Device kernels summed by what they do, matched on lower-cased kernel
@@ -370,7 +477,9 @@ def profile_step(step) -> dict:
         group = next((g for g, keys in PROFILE_GROUPS
                       if any(k in name.lower() for k in keys)), "other")
         groups[group] = groups.get(group, 0.0) + ms
-    return {"wall_ms": wall_ms,
+    n_kernels = sum(1 for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    return {"wall_ms": wall_ms, "device_kernels": n_kernels,
             "device_busy_ms": busy if per_name else None,
             "device_idle_share": (1 - busy / wall_ms) if per_name else None,
             "device_ms_by_group": groups,
@@ -394,7 +503,8 @@ def phase_profile(params, cfg, icfg, prompts) -> dict:
         srv.step()
     decode = profile_step(srv.step)
     srv.stop()
-    out = {"phase": "profile", "mixed_step": mixed, "decode_step": decode,
+    out = {"phase": "profile", "kv_cache_dtype": cfg.kv_cache_dtype,
+           "mixed_step": mixed, "decode_step": decode,
            "decode_rounds_per_step": srv.decode_chunk, "live_slots": 8}
     emit(out)
     return out
@@ -512,6 +622,265 @@ def check_dense_agreement(params, cfg, prompt) -> dict:
             "top1_equal": bool(int(got.argmax()) == int(want.argmax()))}
 
 
+# The int8 KV cache at full width: pool bytes at max_slots 8, max_context
+# 2048, page size 128, all 32 layers (values + f32 scales; bf16 values).
+INT8_POOL_BYTES, BF16_POOL_BYTES = 1_107_296_256, 2_147_483_648
+HTTP_TIMEOUT = 300
+
+
+def check_int8_agreement(params, cfg, prompt) -> dict:
+    """A 2-layer slice on the int8 cache: the prompt prefilled in
+    256-wide chunks, then one decode step, through the int8 kernel and
+    through the int8 plain version; last logits within DENSE_LOGIT_RTOL
+    of the largest logit."""
+    import dataclasses
+    import torch
+    from cloud_server_tpu_torch.inference import paged_engine
+    from cloud_server_tpu_torch.ops import paged_attention as pa
+    p2 = dict(params, layers={k: v[:2] for k, v in params["layers"].items()})
+    toks = torch.tensor([prompt], device=DEVICE)
+    mp = MAX_CTX // PS
+    logits = {}
+    for impl in ("pallas", "xla"):
+        cfg2 = dataclasses.replace(cfg, num_layers=2, kv_cache_dtype="int8",
+                                   decode_attention_impl=impl)
+        cache = paged_engine.init_paged_cache(
+            cfg2, num_pages=mp, page_size=PS, batch=1,
+            max_pages_per_slot=mp, device=DEVICE)
+        cache = cache._replace(tables=torch.arange(mp,
+                                                   dtype=torch.int32)[None])
+        pa.reset_counters()
+        done = 0
+        while done < toks.shape[1]:
+            take = min(256, toks.shape[1] - done)
+            cache = cache._replace(lengths=torch.tensor([done],
+                                                        dtype=torch.int32))
+            out, cache = paged_engine.window_forward(
+                p2, toks[:, done:done + take], cfg2, cache,
+                logits_at=torch.tensor([take - 1]))
+            done += take
+        nxt = out.argmax(-1)[:, None]
+        cache = cache._replace(lengths=torch.tensor([done],
+                                                    dtype=torch.int32))
+        out, _ = paged_engine.window_forward(p2, nxt, cfg2, cache,
+                                             logits_at=torch.tensor([0]))
+        c = pa.counters()
+        if impl == "pallas" and (c["launches_narrow_int8"] == 0
+                                 or c["launches_wide_int8"] == 0
+                                 or c["plain_calls"]):
+            raise RuntimeError(f"int8 check: kernel launches {c}")
+        if impl == "xla" and c["plain_calls"] == 0:
+            raise RuntimeError(f"int8 check: plain calls {c}")
+        logits[impl] = out[0]
+    scale = float(logits["xla"].abs().max())
+    err = float((logits["pallas"] - logits["xla"]).abs().max())
+    if not err <= DENSE_LOGIT_RTOL * scale:
+        raise RuntimeError(f"int8 kernel path logits differ from the int8 "
+                           f"plain path: {err} vs scale {scale}")
+    return {"int8_logits_max_abs_err": err, "int8_logits_max_abs": scale,
+            "int8_logits_err_limit": DENSE_LOGIT_RTOL * scale,
+            "int8_top1_equal": bool(int(logits["pallas"].argmax())
+                                    == int(logits["xla"].argmax()))}
+
+
+class IdTokenizer:
+    """Renders token id i as "<i>": every token adds text, so the SSE
+    stream carries one chunk per token and the client reads the ids back
+    (the byte tokenizer drops the ids of a 128256-entry vocabulary)."""
+
+    def encode(self, text: str) -> list[int]:
+        return [int(t) for t in re.findall(r"<(\d+)>", text)]
+
+    def decode(self, ids) -> str:
+        return "".join(f"<{int(i)}>" for i in ids)
+
+
+def stream_completion(addr, prompt, max_tokens) -> dict:
+    """One streaming /v1/completions request: the ids of its text chunks,
+    their client-side arrival times, the final chunk and [DONE]."""
+    import urllib.request
+    body = json.dumps({"prompt": prompt, "max_tokens": max_tokens,
+                       "temperature": 0.0, "stream": True}).encode()
+    t0 = time.perf_counter()
+    req = urllib.request.Request(f"http://{addr}/v1/completions", data=body)
+    ids, times, events, done = [], [], [], False
+    with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT) as resp:
+        for raw in resp:
+            line = raw.decode().strip()
+            if not line:
+                continue
+            if line == "data: [DONE]":
+                done = True
+                continue
+            ev = json.loads(line[len("data: "):])
+            events.append(ev)
+            new = IdTokenizer().encode(ev["choices"][0]["text"])
+            if new:
+                ids += new
+                times += [time.perf_counter()] * len(new)
+    return {"t0": t0, "ids": ids, "times": times, "done": done,
+            "finish_reason": events[-1]["choices"][0]["finish_reason"]}
+
+
+def http_clients(addr: str, max_tokens: int) -> int:
+    """`--http-clients ADDR MAX_TOKENS`: stream one /v1/completions per
+    prompt (a JSON list on stdin) concurrently, one thread each; print
+    the results as one JSON line."""
+    import threading
+    prompts = json.loads(sys.stdin.read())
+    results: list = [None] * len(prompts)
+    errors: list = []
+
+    def client(i):
+        try:
+            results[i] = stream_completion(addr, prompts[i], max_tokens)
+        except Exception as exc:  # noqa: BLE001 — reported below
+            errors.append(f"request {i}: {exc!r}")
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(HTTP_TIMEOUT)
+    if errors or any(t.is_alive() for t in threads):
+        print(f"HTTP clients failed: {errors}", file=sys.stderr)
+        return 1
+    print(json.dumps(results), flush=True)
+    return 0
+
+
+def http_run(srv, prompts) -> dict:
+    """HttpFrontend on 127.0.0.1:0 over a started server: 8 concurrent
+    streaming /v1/completions, then /metrics and a 501 for
+    /v1/embeddings."""
+    import urllib.error
+    import urllib.request
+    from cloud_server_tpu_torch.inference.http_server import HttpFrontend
+    front = HttpFrontend(srv, tokenizer=IdTokenizer()).start()
+    try:
+        host, port = front.address
+        addr = f"{host}:{port}"
+        # the clients run in a process of their own, so their threads do
+        # not share the server's interpreter lock
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--http-clients",
+             addr, str(MAX_NEW)], input=json.dumps(prompts),
+            capture_output=True,
+            text=True, timeout=HTTP_TIMEOUT + 60)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"HTTP clients failed:\n{proc.stderr[-4000:]}")
+        results = json.loads(proc.stdout.strip().splitlines()[-1])
+        for i, r in enumerate(results):
+            if not (r["done"] and len(r["ids"]) == MAX_NEW
+                    and r["finish_reason"] == "length"):
+                raise RuntimeError(f"HTTP request {i}: {len(r['ids'])} "
+                                   f"tokens, finish {r['finish_reason']}, "
+                                   f"[DONE] {r['done']}")
+        with urllib.request.urlopen(f"http://{addr}/metrics",
+                                    timeout=60) as resp:
+            prom = dict(ln.rsplit(" ", 1)
+                        for ln in resp.read().decode().splitlines()
+                        if ln and not ln.startswith("#"))
+        want = {"cloud_server_requests_submitted_total": len(prompts),
+                "cloud_server_ttft_seconds_count": len(prompts),
+                "cloud_server_itl_seconds_count": len(prompts)
+                * (MAX_NEW - 1),
+                "cloud_server_tokens_emitted_total": len(prompts) * MAX_NEW}
+        seen = {k: float(prom[k]) for k in want}
+        if seen != {k: float(v) for k, v in want.items()}:
+            raise RuntimeError(f"/metrics counts {seen}, expected {want}")
+        try:
+            urllib.request.urlopen(urllib.request.Request(
+                f"http://{addr}/v1/embeddings",
+                data=json.dumps({"input": [1, 2, 3]}).encode()), timeout=60)
+            emb = 200
+        except urllib.error.HTTPError as err:
+            emb = err.code
+        if emb != 501:
+            raise RuntimeError(f"/v1/embeddings answered {emb}, not 501")
+    finally:
+        front.stop()
+    ttft = sorted(r["times"][0] - r["t0"] for r in results)
+    itl = sorted(b - a for r in results
+                 for a, b in zip(r["times"], r["times"][1:]))
+    return {"http_requests": len(prompts), "http_wall_s": wall,
+            "http_ttft_p50_s": ttft[len(ttft) // 2],
+            "http_ttft_max_s": ttft[-1],
+            "http_itl_p50_s": itl[len(itl) // 2],
+            "http_itl_p99_s": itl[min(len(itl) - 1, int(0.99 * len(itl)))],
+            "http_metrics": seen, "embeddings_status": emb,
+            "http_ids": [r["ids"] for r in results]}
+
+
+def serve_int8(params, cfg, icfg, prompts, bf16_tokens, bf16_bytes) -> dict:
+    """The serving phase's 8 requests on the int8 cache: in process (the
+    pool's bytes, the kernels' launches, agreement with the bf16 run),
+    the int8 kernel path against the int8 plain path on one request,
+    then the same requests over HTTP, streamed concurrently."""
+    import dataclasses
+    import torch
+    from cloud_server_tpu_torch.ops import paged_attention as pa
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    torch.cuda.reset_peak_memory_stats()
+    pa.reset_counters()
+    reqs, t_start, t_end, pool_bytes = serve_once(params, cfg8, icfg,
+                                                  prompts)
+    counts = pa.counters()
+    peak = torch.cuda.max_memory_allocated()
+    check_served(reqs, cfg.vocab_size)
+    if (counts["launches_narrow_int8"] <= 0
+            or counts["launches_wide_int8"] <= 0 or counts["plain_calls"]
+            or counts["launches_narrow"] or counts["launches_wide"]):
+        raise RuntimeError(f"int8 serve: launches {counts}")
+    if (pool_bytes, bf16_bytes) != (INT8_POOL_BYTES, BF16_POOL_BYTES):
+        raise RuntimeError(f"pool bytes int8 {pool_bytes}, bf16 "
+                           f"{bf16_bytes}; expected {INT8_POOL_BYTES}, "
+                           f"{BF16_POOL_BYTES}")
+    toks = [r.tokens for r in reqs]
+    same = sum(a == b for x, y in zip(toks, bf16_tokens)
+               for a, b in zip(x, y))
+    agree = check_int8_agreement(params, cfg, prompts[2])
+    out = {"phase": "serve_int8", "kv_cache_dtype": "int8",
+           **serving_rates(reqs, t_start, t_end), "peak_mem_gb": peak / 1e9,
+           "kv_pool_bytes": pool_bytes, "bf16_kv_pool_bytes": bf16_bytes,
+           "kv_pool_ratio": pool_bytes / bf16_bytes, "counts": counts,
+           "tokens_equal_to_bf16_share": same / (len(toks) * MAX_NEW),
+           **agree}
+
+    del reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_profile(params, cfg8, icfg, prompts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    srv = make_server(params, cfg8, icfg).start()
+    try:
+        pa.reset_counters()
+        http = http_run(srv, prompts)
+        torch.cuda.synchronize()
+        http_counts = pa.counters()
+    finally:
+        srv.stop()
+    if (http_counts["launches_narrow_int8"] <= 0
+            or http_counts["launches_wide_int8"] <= 0
+            or http_counts["plain_calls"]):
+        raise RuntimeError(f"int8 HTTP serve: launches {http_counts}")
+    ids = http.pop("http_ids")
+    out.update(http, http_counts=http_counts,
+               http_tokens_equal_to_in_process_share=sum(
+                   a == b for x, y in zip(ids, toks)
+                   for a, b in zip(x, y)) / (len(toks) * MAX_NEW))
+    emit(out)
+    print(f"int8 HTTP: TTFT p50 {out['http_ttft_p50_s']:.4f} s, max "
+          f"{out['http_ttft_max_s']:.4f} s; ITL p50 "
+          f"{out['http_itl_p50_s']:.4f} s, p99 {out['http_itl_p99_s']:.4f} s",
+          flush=True)
+    return out
+
+
 def phase_serve() -> dict:
     import numpy as np
     import torch
@@ -535,29 +904,19 @@ def phase_serve() -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     pa.reset_counters()
-    reqs, t_start, t_end = serve_once(params, cfg, icfg, prompts)
+    reqs, t_start, t_end, pool_bytes = serve_once(params, cfg, icfg,
+                                                  prompts)
     counts = pa.counters()
     peak = torch.cuda.max_memory_allocated()
-    for r in reqs:
-        if r.finish_reason != "length" or len(r.tokens) != MAX_NEW:
-            raise RuntimeError(f"request ended {r.finish_reason!r} with "
-                               f"{len(r.tokens)} tokens")
-        if not all(0 <= t < cfg.vocab_size for t in r.tokens):
-            raise RuntimeError("token id out of the vocabulary")
+    check_served(reqs, cfg.vocab_size)
     if counts["launches_narrow"] <= 0 or counts["launches_wide"] <= 0:
         raise RuntimeError(f"kernel classes not both launched: {counts}")
     if counts["plain_calls"] != 0:
         raise RuntimeError(f"plain attention ran on the path: {counts}")
-    first = [r.emit_times[0] for r in reqs]
-    ttft = sorted(f - r.submit_time for f, r in zip(first, reqs))
-    t_all_first = max(first)
-    prefill_tps = sum(PROMPT_LENS) / (t_all_first - t_start)
-    after = sum(sum(1 for t in r.emit_times if t > t_all_first)
-                for r in reqs)
-    decode_tps = after / max(t_end - t_all_first, 1e-9)
 
-    reqs2, _, _ = serve_once(params, cfg, icfg, prompts)
+    reqs2, _, _, _ = serve_once(params, cfg, icfg, prompts)
     same = [r.tokens for r in reqs] == [r.tokens for r in reqs2]
+    del reqs2
     if not same:
         raise RuntimeError("a second run of the same requests gave other "
                            "tokens")
@@ -565,15 +924,17 @@ def phase_serve() -> dict:
     out = {"phase": "serve", "model": "Llama-3.1-8B (random bf16 weights)",
            "layers": cfg.num_layers, "requests": len(reqs),
            "prompt_tokens": sum(PROMPT_LENS), "max_new_tokens": MAX_NEW,
-           "init_s": init_s, "wall_s": t_end - t_start,
-           "prefill_tok_per_s": prefill_tps,
-           "decode_tok_per_s_after_last_first_token": decode_tps,
-           "ttft_p50_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
-           "peak_mem_gb": peak / 1e9, "counts": counts,
-           "second_run_identical": same, **dense,
+           "init_s": init_s, **serving_rates(reqs, t_start, t_end),
+           "peak_mem_gb": peak / 1e9, "kv_pool_bytes": pool_bytes,
+           "counts": counts, "second_run_identical": same, **dense,
            **seeded_decode_steps(params, cfg, icfg, prompts)}
     emit(out)
     phase_profile(params, cfg, icfg, prompts)
+    tokens = [r.tokens for r in reqs]
+    del reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["int8"] = serve_int8(params, cfg, icfg, prompts, tokens, pool_bytes)
     return out
 
 
@@ -1507,6 +1868,8 @@ def phase_ckpt() -> dict:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--http-clients"]:
+        return http_clients(sys.argv[2], int(sys.argv[3]))
     try:
         import torch
     except ImportError:
@@ -1547,16 +1910,25 @@ def main() -> int:
     wide_err = max(kern["prefill"]["max_abs_err"],
                    kern["ragged"]["max_abs_err"])
     rows = []
-    for cls, case, line, launches, err in (
+    # the int8 rows: launches from the int8 cache served over HTTP
+    counts8 = serve["int8"]["http_counts"]
+    wide_err8 = max(kern["prefill_int8"]["max_abs_err"],
+                    kern["ragged_int8"]["max_abs_err"])
+    for cls, case, line, launches, err, branch in (
             ("narrow", "decode", 96, counts["launches_narrow"],
-             kern["decode"]["max_abs_err"]),
-            ("wide", "prefill", 434, counts["launches_wide"], wide_err)):
+             kern["decode"]["max_abs_err"], ""),
+            ("wide", "prefill", 434, counts["launches_wide"], wide_err, ""),
+            ("narrow", "decode_int8", 96, counts8["launches_narrow_int8"],
+             kern["decode_int8"]["max_abs_err"], " (int8 branch)"),
+            ("wide", "prefill_int8", 434, counts8["launches_wide_int8"],
+             wide_err8, " (int8 branch)")):
         k = kern[case]
         rows.append({
             "name": f"paged_attention ({cls} class, {case} case)",
             "route": "cuda",
             "source": "cloud_server_tpu_torch/csrc/paged_attention.cu",
-            "replaces": f"cloud_server_tpu/ops/paged_attention.py:{line}",
+            "replaces": f"cloud_server_tpu/ops/paged_attention.py:{line}"
+                        f"{branch}",
             "launches": launches, "max_abs_err": err, "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"]})

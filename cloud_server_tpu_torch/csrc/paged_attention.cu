@@ -36,6 +36,19 @@
 // 16-bit shared loads per register, for P V the B operand (t, d) reads two
 // neighbouring positions in one 32-bit load.
 //
+// The int8 KV cache (the reference kernels' `int8_kv=True` branch): the
+// kernel is a template on the pool's element type. With int8 pools it also
+// takes the two (L, P, KH, ps) f32 scale pools, one absmax scale per
+// position and kv head. A K/V tile is loaded 8 int8 positions (8 bytes) per
+// thread and converted to bf16 on its way into the same shared tiles (exact:
+// |x| <= 127), so the tensor-core path is the bf16 one; the tile's 64 k- and
+// v-scales go to shared memory beside it, zero past the block's last
+// visible key. Scales are per key column, constant along Dh, so they fold
+// into the columns: s = (q . k_int8) * kscale[c] * scale before the mask,
+// and the P.V operand is p * vscale[c], rounded to bf16. The running sum l
+// adds the UNSCALED probabilities, as the reference's does: the v-scale
+// belongs to the values, not to the softmax.
+//
 // What bounds it on an H100: at decode (W = 1, W*G = 4 rows per kv head)
 // the K/V page bytes, so it is memory-bound; for wide prefill windows
 // (W*G = 1024 rows) the tensor-core FLOPs. This first version does neither
@@ -45,6 +58,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mma_bf16.cuh"
 
@@ -58,20 +73,47 @@ constexpr int kTile = 64;                     // kv positions per tile
 constexpr int kPad = 8;                       // shared row padding (bf16)
 constexpr float kNegInf = -0.7f * 3.402823466e38f;
 
-template <int HEAD_DIM>
+// 8 consecutive pool elements as 8 bf16 packed in 16 bytes: a 16-byte
+// load of bf16, or an 8-byte load of int8 converted exactly to bf16.
+__device__ __forceinline__ uint4 load8(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+__device__ __forceinline__ uint4 load8(const int8_t* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const int8_t* x = reinterpret_cast<const int8_t*>(&raw);
+  return make_uint4(pack_floats(x[0], x[1]), pack_floats(x[2], x[3]),
+                    pack_floats(x[4], x[5]), pack_floats(x[6], x[7]));
+}
+
+__device__ __forceinline__ __nv_bfloat16 to_bf16(__nv_bfloat16 x) {
+  return x;
+}
+
+__device__ __forceinline__ __nv_bfloat16 to_bf16(int8_t x) {
+  return __float2bfloat16(static_cast<float>(x));
+}
+
+// T is the pool's element type: __nv_bfloat16, or int8_t with scale pools.
+template <int HEAD_DIM, typename T>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
-    const __nv_bfloat16* __restrict__ q,       // (B, KH, WG, Dh)
-    const __nv_bfloat16* __restrict__ k_pool,  // (L, P, KH, Dh, ps)
-    const __nv_bfloat16* __restrict__ v_pool,  // (L, P, KH, Dh, ps)
-    const int* __restrict__ lengths,           // (B,)
-    const int* __restrict__ tables,            // (B, max_pages)
-    const int* __restrict__ widths,            // (B,)
-    __nv_bfloat16* __restrict__ out,           // (B, KH, WG, Dh)
+    const __nv_bfloat16* __restrict__ q,  // (B, KH, WG, Dh)
+    const T* __restrict__ k_pool,         // (L, P, KH, Dh, ps)
+    const T* __restrict__ v_pool,         // (L, P, KH, Dh, ps)
+    const float* __restrict__ k_scales,   // (L, P, KH, ps); int8 only
+    const float* __restrict__ v_scales,   // (L, P, KH, ps); int8 only
+    const int* __restrict__ lengths,      // (B,)
+    const int* __restrict__ tables,       // (B, max_pages)
+    const int* __restrict__ widths,       // (B,)
+    __nv_bfloat16* __restrict__ out,      // (B, KH, WG, Dh)
     int kv_heads, int wg, int group, int num_pages, int page_size,
     int max_pages, long long layer_offset, float scale, int vec_ok) {
   static_assert(HEAD_DIM % 16 == 0, "head_dim must be a multiple of 16");
+  constexpr bool kInt8 = std::is_same<T, int8_t>::value;
   __shared__ __align__(16) __nv_bfloat16 ks[HEAD_DIM][kTile + kPad];
   __shared__ __align__(16) __nv_bfloat16 vs[HEAD_DIM][kTile + kPad];
+  __shared__ float kss[kInt8 ? kTile : 1];  // the tile's scales (int8)
+  __shared__ float vss[kInt8 ? kTile : 1];
 
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -92,9 +134,11 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
 
   const long long head_stride = static_cast<long long>(HEAD_DIM) * page_size;
   const long long page_stride = head_stride * kv_heads;
-  const __nv_bfloat16* kbase = k_pool + layer_offset + h * head_stride;
-  const __nv_bfloat16* vbase = v_pool + layer_offset + h * head_stride;
+  const T* kbase = k_pool + layer_offset + h * head_stride;
+  const T* vbase = v_pool + layer_offset + h * head_stride;
   const int* table = tables + static_cast<long long>(b) * max_pages;
+  // scale pools: (L, P, KH, ps), the value pools without their Dh axis
+  const long long scale_layer = layer_offset / HEAD_DIM;
 
   const int wrow = row0 + warp * kRowsPerWarp;
   const bool warp_active = wrow < wg;
@@ -141,8 +185,8 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
         const long long off = page * page_stride +
                               static_cast<long long>(d) * page_size +
                               pos % page_size;
-        kw = *reinterpret_cast<const uint4*>(kbase + off);
-        vw = *reinterpret_cast<const uint4*>(vbase + off);
+        kw = load8(kbase + off);
+        vw = load8(vbase + off);
       } else {
         __nv_bfloat16* ke = reinterpret_cast<__nv_bfloat16*>(&kw);
         __nv_bfloat16* ve = reinterpret_cast<__nv_bfloat16*>(&vw);
@@ -155,13 +199,32 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
             const long long off = page * page_stride +
                                   static_cast<long long>(d) * page_size +
                                   p % page_size;
-            ke[i] = kbase[off];
-            ve[i] = vbase[off];
+            ke[i] = to_bf16(kbase[off]);
+            ve[i] = to_bf16(vbase[off]);
           }
         }
       }
       *reinterpret_cast<uint4*>(&ks[d][c8]) = kw;
       *reinterpret_cast<uint4*>(&vs[d][c8]) = vw;
+    }
+    if constexpr (kInt8) {
+      if (tid < kTile) {
+        const int p = t0 + tid;
+        float kscale = 0.f, vscale = 0.f;
+        if (p < kv_end) {
+          const int page = min(
+              max(table[min(p / page_size, max_pages - 1)], 0),
+              num_pages - 1);
+          const long long off =
+              scale_layer +
+              (static_cast<long long>(page) * kv_heads + h) * page_size +
+              p % page_size;
+          kscale = k_scales[off];
+          vscale = v_scales[off];
+        }
+        kss[tid] = kscale;
+        vss[tid] = vscale;
+      }
     }
     __syncthreads();
     if (!warp_active) continue;
@@ -192,9 +255,12 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
       for (int j = 0; j < 2; ++j) {
         const int col = t0 + nt * 8 + tig * 2 + j;
         const bool in_len = col < kv_len;
-        s[nt][j] = (in_len && col <= pos_lo) ? s[nt][j] * scale : kNegInf;
+        // int8: the key's scale folds into its score column
+        float cs = scale;
+        if constexpr (kInt8) cs = kss[nt * 8 + tig * 2 + j] * scale;
+        s[nt][j] = (in_len && col <= pos_lo) ? s[nt][j] * cs : kNegInf;
         s[nt][2 + j] =
-            (in_len && col <= pos_hi) ? s[nt][2 + j] * scale : kNegInf;
+            (in_len && col <= pos_hi) ? s[nt][2 + j] * cs : kNegInf;
         mx_lo = fmaxf(mx_lo, s[nt][j]);
         mx_hi = fmaxf(mx_hi, s[nt][2 + j]);
       }
@@ -218,6 +284,19 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     }
     l_lo = l_lo * corr_lo + sum_lo;
     l_hi = l_hi * corr_hi + sum_hi;
+    if constexpr (kInt8) {
+      // after the row sum: l holds unscaled probabilities, the P.V
+      // operand carries the value's scale
+#pragma unroll
+      for (int nt = 0; nt < kTile / 8; ++nt) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float vsc = vss[nt * 8 + tig * 2 + j];
+          s[nt][j] *= vsc;
+          s[nt][2 + j] *= vsc;
+        }
+      }
+    }
 #pragma unroll
     for (int nt = 0; nt < HEAD_DIM / 8; ++nt) {
       acc[nt][0] *= corr_lo;
@@ -261,17 +340,13 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   }
 }
 
-}  // namespace
-
-// C entry, bound with ctypes. Pointers are device pointers of contiguous
-// tensors; `stream` is the caller's cudaStream_t. Allocates nothing and
-// does not synchronise. Returns cudaGetLastError() after the launch.
-extern "C" int paged_attention_bf16(
-    const void* q, const void* k_pool, const void* v_pool,
-    const void* lengths, const void* tables, const void* widths, void* out,
-    int batch, int kv_heads, int wg, int group, int head_dim, int num_pages,
-    int page_size, int max_pages, int layer, float scale, int vec_ok,
-    void* stream) {
+template <typename T>
+int launch(const void* q, const void* k_pool, const void* v_pool,
+           const void* k_scales, const void* v_scales, const void* lengths,
+           const void* tables, const void* widths, void* out, int batch,
+           int kv_heads, int wg, int group, int head_dim, int num_pages,
+           int page_size, int max_pages, int layer, float scale, int vec_ok,
+           void* stream) {
   (void)cudaGetLastError();
   if (batch <= 0 || wg <= 0) return 0;
   const dim3 grid((wg + kRows - 1) / kRows, kv_heads, batch);
@@ -279,25 +354,58 @@ extern "C" int paged_attention_bf16(
                                  kv_heads * head_dim * page_size;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k_pool);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v_pool);
+  const auto* kp = static_cast<const T*>(k_pool);
+  const auto* vp = static_cast<const T*>(v_pool);
+  const auto* ksp = static_cast<const float*>(k_scales);
+  const auto* vsp = static_cast<const float*>(v_scales);
   const auto* lp = static_cast<const int*>(lengths);
   const auto* tp = static_cast<const int*>(tables);
   const auto* wp = static_cast<const int*>(widths);
   auto* op = static_cast<__nv_bfloat16*>(out);
   switch (head_dim) {
     case 64:
-      paged_attention_kernel<64><<<grid, kThreads, 0, s>>>(
-          qp, kp, vp, lp, tp, wp, op, kv_heads, wg, group, num_pages,
-          page_size, max_pages, layer_offset, scale, vec_ok);
+      paged_attention_kernel<64, T><<<grid, kThreads, 0, s>>>(
+          qp, kp, vp, ksp, vsp, lp, tp, wp, op, kv_heads, wg, group,
+          num_pages, page_size, max_pages, layer_offset, scale, vec_ok);
       break;
     case 128:
-      paged_attention_kernel<128><<<grid, kThreads, 0, s>>>(
-          qp, kp, vp, lp, tp, wp, op, kv_heads, wg, group, num_pages,
-          page_size, max_pages, layer_offset, scale, vec_ok);
+      paged_attention_kernel<128, T><<<grid, kThreads, 0, s>>>(
+          qp, kp, vp, ksp, vsp, lp, tp, wp, op, kv_heads, wg, group,
+          num_pages, page_size, max_pages, layer_offset, scale, vec_ok);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// C entries, bound with ctypes. Pointers are device pointers of contiguous
+// tensors; `stream` is the caller's cudaStream_t. They allocate nothing
+// and do not synchronise, and return cudaGetLastError() after the launch.
+extern "C" int paged_attention_bf16(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* lengths, const void* tables, const void* widths, void* out,
+    int batch, int kv_heads, int wg, int group, int head_dim, int num_pages,
+    int page_size, int max_pages, int layer, float scale, int vec_ok,
+    void* stream) {
+  return launch<__nv_bfloat16>(
+      q, k_pool, v_pool, nullptr, nullptr, lengths, tables, widths, out,
+      batch, kv_heads, wg, group, head_dim, num_pages, page_size, max_pages,
+      layer, scale, vec_ok, stream);
+}
+
+// The int8 KV cache: int8 pools with their (L, P, KH, ps) f32 scale pools.
+extern "C" int paged_attention_int8(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scales, const void* v_scales, const void* lengths,
+    const void* tables, const void* widths, void* out, int batch,
+    int kv_heads, int wg, int group, int head_dim, int num_pages,
+    int page_size, int max_pages, int layer, float scale, int vec_ok,
+    void* stream) {
+  return launch<int8_t>(
+      q, k_pool, v_pool, k_scales, v_scales, lengths, tables, widths, out,
+      batch, kv_heads, wg, group, head_dim, num_pages, page_size, max_pages,
+      layer, scale, vec_ok, stream);
 }

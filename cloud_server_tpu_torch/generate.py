@@ -1,10 +1,13 @@
 """Text generation CLI: `python -m cloud_server_tpu_torch.generate`.
 
-Batch mode of the reference's CLI on the port: weights from a training
-checkpoint (`--checkpoint-dir`, `--step`; `--ema` for the EMA-averaged
-weights), from a numpy `--params-npz`, or random-init from `--seed`;
-byte tokenizer; prompts served through the paged continuous-batching
-server. Runs on the card unless `--device cpu` is given.
+The reference's CLI on the port: weights from a training checkpoint
+(`--checkpoint-dir`, `--step`; `--ema` for the EMA-averaged weights),
+from a numpy `--params-npz`, or random-init from `--seed`; byte
+tokenizer; the paged continuous-batching server, optionally with the
+int8 KV cache (`--kv-cache-int8`). Batch mode serves the `--prompt`s and
+prints them; `--serve-http PORT` runs the server behind the HTTP
+frontend until interrupted. Runs on the card unless `--device cpu` is
+given.
 """
 
 from __future__ import annotations
@@ -34,6 +37,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prompt", action="append", default=[],
                    help="prompt text (repeatable); '-' reads lines from stdin")
     p.add_argument("--max-new", type=int, default=128)
+    p.add_argument("--kv-cache-int8", action="store_true",
+                   help="store the KV cache int8-quantized (about half the "
+                   "cache memory; the scales fold into the attention "
+                   "math, so there is no dequantized cache copy)")
+    p.add_argument("--serve-http", type=int, metavar="PORT", default=None,
+                   help="instead of batch generation, run the continuous-"
+                   "batching server behind the HTTP frontend (POST "
+                   "/generate, /v1/completions, /v1/chat/completions; GET "
+                   "/healthz, /metrics, /stats); 0 picks a free port")
+    p.add_argument("--access-log", metavar="PATH", nargs="?",
+                   const="stderr", default=None,
+                   help="with --serve-http: structured JSON access log, "
+                   "one line per request, to PATH (JSONL) or, with no "
+                   "value, stderr. Off by default.")
     p.add_argument("--temperature", type=float, default=0.8)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--max-len", type=int, default=0,
@@ -90,6 +107,8 @@ def main(argv=None) -> None:
         with open(args.config) as f:
             raw = json.load(f)
     model_cfg = from_json(ModelConfig, raw.get("model", {}))
+    if args.kv_cache_int8:
+        model_cfg = dataclasses.replace(model_cfg, kv_cache_dtype="int8")
     if args.decode_impl is not None:
         model_cfg = dataclasses.replace(
             model_cfg, decode_attention_impl=args.decode_impl)
@@ -104,7 +123,7 @@ def main(argv=None) -> None:
             prompts.extend(line.rstrip("\n") for line in sys.stdin)
         else:
             prompts.append(prm)
-    if not prompts:
+    if not prompts and args.serve_http is None:
         raise SystemExit("no prompts (use --prompt, repeatable, or '-')")
 
     if args.params_npz and args.checkpoint_dir:
@@ -132,23 +151,54 @@ def main(argv=None) -> None:
         max_decode_len=args.max_new, temperature=args.temperature,
         eos_token_id=tok.eos_id, pad_token_id=tok.pad_id or 0)
 
+    def make_server(max_len: int, max_slots: int) -> PagedInferenceServer:
+        ps = args.page_size
+        max_context = -(-max_len // ps) * ps  # round up to a page multiple
+        prefill_chunk = -(-max(ps, args.prefill_chunk) // ps) * ps
+        return PagedInferenceServer(
+            params, model_cfg, infer_cfg, max_slots=max_slots,
+            max_context=max_context, page_size=ps,
+            num_pages=args.num_pages or None,
+            decode_chunk=args.decode_chunk, prefill_chunk=prefill_chunk,
+            seed=args.seed, device=device)
+
+    if args.serve_http is not None:
+        serve_http(make_server(args.max_len or model_cfg.max_seq_len,
+                               args.max_slots),
+                   tok, args.serve_http, args.access_log)
+        return
     encoded = [tok.encode(p) or [0] for p in prompts]
     longest = max(len(e) for e in encoded)
     max_len = args.max_len or min(model_cfg.max_seq_len,
                                   longest + args.max_new + 1)
-    ps = args.page_size
-    max_context = -(-max_len // ps) * ps
-    prefill_chunk = -(-max(ps, args.prefill_chunk) // ps) * ps
-    srv = PagedInferenceServer(
-        params, model_cfg, infer_cfg,
-        max_slots=min(args.max_slots, len(encoded)),
-        max_context=max_context, page_size=ps,
-        num_pages=args.num_pages or None, decode_chunk=args.decode_chunk,
-        prefill_chunk=prefill_chunk, seed=args.seed, device=device)
+    srv = make_server(max_len, min(args.max_slots, len(encoded)))
     outs = srv.generate(encoded, max_new_tokens=args.max_new)
     for prompt, out in zip(prompts, outs):
         print(f"=== {prompt!r}")
         print(tok.decode(out))
+
+
+def serve_http(srv, tok, port: int, access_log: str | None) -> None:
+    """Run `srv` behind the HTTP frontend on 127.0.0.1:`port` until
+    interrupted, then stop both."""
+    import signal
+
+    from cloud_server_tpu_torch.inference.http_server import HttpFrontend
+    srv.start()
+    front = HttpFrontend(srv, tokenizer=tok, port=port,
+                         access_log=(True if access_log == "stderr"
+                                     else access_log)).start()
+    host, bound = front.address
+    print(f"[generate] serving on http://{host}:{bound} — try:\n"
+          f"  curl -N -s {host}:{bound}/generate "
+          "-d '{\"prompt\": \"hello\"}'", file=sys.stderr, flush=True)
+    try:
+        signal.pause()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        front.stop()
+        srv.stop()
 
 
 if __name__ == "__main__":

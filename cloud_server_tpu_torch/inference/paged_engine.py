@@ -20,6 +20,12 @@ that is how writes "drop" without a device sync: sentinel table entries
 positions past the table's reach are simply not in the write list.
 Shared pages are never written: the allocator guarantees writes happen
 at positions >= every sharing slot's private start.
+
+The int8 KV cache (`cfg.kv_cache_dtype == "int8"`): int8 pools plus
+(L, P, KH, ps) f32 scale pools, one absmax scale per position and kv
+head. A write quantizes the window's k and v (`engine._kv_quant`) and
+stores values and scales through the same write plan, so a page and its
+scales always travel together by page id.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ import torch
 
 from cloud_server_tpu_torch import resolve_device
 from cloud_server_tpu_torch.config import ModelConfig
-from cloud_server_tpu_torch.inference.engine import _mlp_apply
+from cloud_server_tpu_torch.inference.engine import _kv_quant, _mlp_apply
 from cloud_server_tpu_torch.models import transformer
 from cloud_server_tpu_torch.ops import rms_norm, rope_table
 from cloud_server_tpu_torch.ops.paged_attention import (paged_attention,
@@ -44,10 +50,13 @@ PALLAS_MAX_W = 256
 class PagedKVCache(NamedTuple):
     """Page pool + per-slot view. One pool serves every slot and layer."""
 
-    k: torch.Tensor        # (L, num_pages, KH, Dh, ps) on the device
+    k: torch.Tensor        # (L, num_pages, KH, Dh, ps) on the device,
+    #                        cfg.dtype or int8
     v: torch.Tensor        # (L, num_pages, KH, Dh, ps) — transposed pages
     lengths: torch.Tensor  # (B,) int32 on the host — committed kv entries
     tables: torch.Tensor   # (B, max_pages_per_slot) int32 on the host
+    k_scale: torch.Tensor | None = None  # (L, num_pages, KH, ps) f32
+    v_scale: torch.Tensor | None = None  # scales of int8 pools, else None
 
     @property
     def page_size(self) -> int:
@@ -66,30 +75,56 @@ def _host_i32(x) -> torch.Tensor:
     return torch.as_tensor(x).to(device="cpu", dtype=torch.int32)
 
 
-def make_cache(k, v, lengths, tables) -> PagedKVCache:
+def make_cache(k, v, lengths, tables, k_scale=None,
+               v_scale=None) -> PagedKVCache:
     """A cache view over existing pools with host metadata."""
     return PagedKVCache(k=k, v=v, lengths=_host_i32(lengths),
-                        tables=_host_i32(tables))
+                        tables=_host_i32(tables), k_scale=k_scale,
+                        v_scale=v_scale)
 
 
 def init_paged_cache(cfg: ModelConfig, *, num_pages: int, page_size: int,
                      batch: int, max_pages_per_slot: int,
                      device=None) -> PagedKVCache:
-    """Zeroed pool on `device`; all tables at the sentinel."""
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError("the int8 KV cache is not ported yet")
-    if cfg.kv_cache_dtype != "model":
+    """Zeroed pool on `device` (int8 with zeroed scale pools when
+    cfg.kv_cache_dtype == "int8"); all tables at the sentinel."""
+    if cfg.kv_cache_dtype not in ("model", "int8"):
         raise ValueError(f"unknown kv_cache_dtype: {cfg.kv_cache_dtype!r}")
     dev = resolve_device(device)
     shape = (cfg.num_layers, num_pages, cfg.num_kv_heads, cfg.head_dim,
              page_size)
+    meta = dict(lengths=torch.zeros((batch,), dtype=torch.int32),
+                tables=torch.full((batch, max_pages_per_slot), num_pages,
+                                  dtype=torch.int32))
+    if cfg.kv_cache_dtype == "int8":
+        sshape = shape[:3] + (page_size,)
+        return PagedKVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=dev),
+            v=torch.zeros(shape, dtype=torch.int8, device=dev),
+            k_scale=torch.zeros(sshape, dtype=torch.float32, device=dev),
+            v_scale=torch.zeros(sshape, dtype=torch.float32, device=dev),
+            **meta)
     dtype = transformer.torch_dtype(cfg.dtype)
-    return PagedKVCache(
-        k=torch.zeros(shape, dtype=dtype, device=dev),
-        v=torch.zeros(shape, dtype=dtype, device=dev),
-        lengths=torch.zeros((batch,), dtype=torch.int32),
-        tables=torch.full((batch, max_pages_per_slot), num_pages,
-                          dtype=torch.int32))
+    return PagedKVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
+                        v=torch.zeros(shape, dtype=dtype, device=dev),
+                        **meta)
+
+
+def quantize_pool(pool: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """int8-quantize a transposed page pool (L, P, KH, Dh, ps): absmax over
+    Dh (axis 3), the per-(position, head) granularity `_write_window`
+    stores. Returns (int8 pool, (L, P, KH, ps) f32 scales)."""
+    q, sc = _kv_quant(pool.transpose(3, 4))
+    return q.transpose(3, 4).contiguous(), sc[..., 0].contiguous()
+
+
+def hbm_bytes(cache: PagedKVCache) -> int:
+    """Device bytes held by the pools (values, and the int8 cache's
+    scales)."""
+    n = cache.k.numel() * cache.k.element_size() * 2
+    if cache.k_scale is not None:
+        n += cache.k_scale.numel() * 4 * 2
+    return n
 
 
 def write_plan(cache: PagedKVCache, w: int, widths=None):
@@ -116,12 +151,18 @@ def write_plan(cache: PagedKVCache, w: int, widths=None):
 def _write_window(cache: PagedKVCache, layer: int, k, v, plan) -> None:
     """Write fresh (B, W, KH, Dh) k/v through the page table, in place
     (the reference donates the pools to its compiled step and rebuilds
-    them; here the pool tensors are updated where they lie)."""
+    them; here the pool tensors are updated where they lie). An int8
+    cache stores each written position quantized, with its scales."""
     rows, cols, pages, offs = plan
     if rows.numel() == 0:
         return
-    for pool, src in ((cache.k, k), (cache.v, v)):
-        pool[layer][pages, :, :, offs] = src[rows, cols].to(pool.dtype)
+    for pool, spool, src in ((cache.k, cache.k_scale, k),
+                             (cache.v, cache.v_scale, v)):
+        fresh = src[rows, cols]                  # (N, KH, Dh)
+        if spool is not None:
+            fresh, sc = _kv_quant(fresh)
+            spool[layer][pages, :, offs] = sc[..., 0]
+        pool[layer][pages, :, :, offs] = fresh.to(pool.dtype)
 
 
 @torch.no_grad()
@@ -168,7 +209,8 @@ def window_forward(params, tokens: torch.Tensor, cfg: ModelConfig,
         q, k, v = transformer.attention_qkv(x, lp, cfg, cos, sin, rope_pos)
         _write_window(cache, layer, k, v, plan)
         o = attend(q, cache.k, cache.v, lens_dev, tables_dev, layer,
-                   widths=widths_dev)
+                   widths=widths_dev, k_scale_pool=cache.k_scale,
+                   v_scale_pool=cache.v_scale)
         x = transformer.attention_out(x, o, lp, cfg)
         x = _mlp_apply(x, lp, cfg)
 

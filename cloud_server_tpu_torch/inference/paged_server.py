@@ -31,13 +31,20 @@ Write-safety rules (see paged_engine): a slot's chain always covers its
 next dispatch's window writes; positions past a row's width write
 nothing.
 
+The int8 KV cache (`cfg.kv_cache_dtype == "int8"`) keeps int8 pools
+and their f32 scale pools side by side; pages move only by page id, so
+a shared radix page carries its scales with it. A `ServingMetrics` is
+always on (TTFT, ITL, queue wait, e2e, lifecycle counters), and the
+scrape path mirrors occupancy, pool and prefix-cache state into it
+(`metrics_snapshot`, the HTTP frontend's `/metrics` and `/stats`).
+
 Not ported yet, and refused with NotImplementedError where a caller asks
 for them: the alternating scheduler and the overlap pipeline (`overlap`
 is accepted; the sequential loop runs and gives the same tokens),
 speculation and draft models, grammar/regex, multi-LoRA, penalties and
-logit_bias, min_tokens, QoS, SLO, tracing, faults, brownout, the anomaly
-watchdog, migration and handoff, metrics, the flight recorder and the
-iteration profile, `embed`, tensor parallelism, the int8 KV cache and
+logit_bias, min_tokens, QoS, SLO, tracing and trace capture, faults,
+brownout, the anomaly watchdog, migration and handoff, the flight
+recorder and the iteration profile, `embed`, tensor parallelism and
 the full-reservation paging policy (`allocation="reserve"`).
 """
 
@@ -65,6 +72,7 @@ from cloud_server_tpu_torch.inference.server import (
     resolve_seed)
 from cloud_server_tpu_torch.models import transformer
 from cloud_server_tpu_torch.ops import rope_table
+from cloud_server_tpu_torch.utils.serving_metrics import ServingMetrics
 
 
 def _pow2_buckets(lo: int, hi: int) -> list[int]:
@@ -149,7 +157,6 @@ class PagedInferenceServer:
             "tensor-parallel serving (mesh)": mesh is not None,
             f"allocation={allocation!r} (only 'ondemand')":
                 allocation != "ondemand",
-            "metrics": metrics is not None,
             "the flight recorder": flight_recorder_size is not None,
             "QoS": qos is not None or bool(infer_cfg.qos_config),
             "request tracing": (tracing is not None
@@ -164,7 +171,6 @@ class PagedInferenceServer:
                          or bool(infer_cfg.brownout_config)),
             "the anomaly watchdog": (anomaly is not None
                                      or bool(infer_cfg.anomaly_config)),
-            "the int8 KV cache": cfg.kv_cache_dtype == "int8",
             "MoE models": cfg.num_experts >= 2,
         }
         for what, asked in refused.items():
@@ -203,6 +209,8 @@ class PagedInferenceServer:
             cfg, num_pages=num_pages, page_size=page_size, batch=max_slots,
             max_pages_per_slot=self.max_pages_per_slot, device=self.device)
         self.k_pool, self.v_pool = cache.k, cache.v
+        # the int8 cache's (L, P, KH, ps) f32 scale pools, else None
+        self.k_scale_pool, self.v_scale_pool = cache.k_scale, cache.v_scale
         self._rope = rope_table(cfg, max_context, device=self.device)
         # host-authoritative scheduling state
         self.tables = np.full((max_slots, self.max_pages_per_slot),
@@ -218,6 +226,9 @@ class PagedInferenceServer:
         self._gen.manual_seed(int(seed))
 
         self.preemptions = 0
+        self.tokens_emitted = 0  # lifetime emitted tokens (metrics)
+        self.metrics = metrics if metrics is not None else ServingMetrics()
+        self.metrics.registry.add_collector(self._collect_metrics)
         self._admit_seq = 0
         self._slots: list[_Slot | None] = [None] * max_slots
         self._jobs: list[_AdmitJob] = []
@@ -300,6 +311,10 @@ class PagedInferenceServer:
                 raise QueueFullError(
                     f"pending queue is full ({self.max_pending} requests);"
                     " retry later")
+            # telemetry before the append: once queued, the scheduler
+            # thread may admit (even finish) the request
+            req.record_event("submit", req.submit_time)
+            self.metrics.observe_submit(req)
             self._pending.append(req)
             self._work.notify()
         return req
@@ -314,6 +329,13 @@ class PagedInferenceServer:
         self._complete(req)
 
     def _complete(self, req: Request) -> None:
+        """Terminal bookkeeping for every path that ends a request
+        (finish / cancel / fail): lifecycle metrics, then unblock
+        waiters."""
+        self.metrics.observe_finish(req)
+        # a finished request's cancel() is a no-op: drop the bound method,
+        # so requests a caller keeps do not keep the server and its pools
+        req._on_cancel = None
         req._done.set()
 
     def generate(self, prompts, *, max_new_tokens=None):
@@ -325,6 +347,9 @@ class PagedInferenceServer:
     def embed(self, prompts):
         raise _not_ported("embed")
 
+    def request_trace(self, steps: int, logdir: str) -> None:
+        raise _not_ported("trace capture (POST /debug/trace)")
+
     @property
     def num_active(self) -> int:
         return sum(s is not None for s in self._slots)
@@ -334,13 +359,36 @@ class PagedInferenceServer:
         with self._lock:
             return len(self._pending)
 
+    @property
+    def ready(self) -> bool:
+        """Readiness (vs liveness): False while draining or stopped, so
+        load balancers stop routing new work here while in-flight
+        requests finish."""
+        return not self._draining and not self._stop.is_set()
+
     def prefix_cache_stats(self):
         return self.allocator.stats()
 
+    def kv_cache_bytes(self) -> int:
+        """Device bytes of the page pools (and the int8 cache's scales)."""
+        return paged_engine.hbm_bytes(self._cache(self.lengths, self.tables))
+
     # -- internals ----------------------------------------------------------
 
+    def _cache(self, lengths, tables) -> paged_engine.PagedKVCache:
+        """A view of the device pools with host `lengths`/`tables`."""
+        return paged_engine.make_cache(self.k_pool, self.v_pool, lengths,
+                                       tables, self.k_scale_pool,
+                                       self.v_scale_pool)
+
     def _emit(self, req: Request, token: int, logprob: float) -> bool:
-        return emit_token(req, token, logprob, self.infer_cfg)
+        n0 = len(req.emit_times)
+        done = emit_token(req, token, logprob, self.infer_cfg)
+        if not (done and req.finish_reason == "eos"):
+            self.tokens_emitted += 1  # stop-truncated tokens still count
+        if len(req.emit_times) > n0:  # a stop match truncates instead
+            self.metrics.observe_emit(req)
+        return done
 
     def _committed(self, slot_id: int) -> list[int]:
         """The slot's committed token stream, truncated to the written-KV
@@ -420,8 +468,10 @@ class PagedInferenceServer:
                 staged.append(slot_id)
         for req in doomed:
             self._complete(req)
+        now = time.perf_counter()  # one clock read per admission burst
         for slot_id in staged:
             slot = self._slots[slot_id]
+            self.metrics.observe_admit(slot.req, now)
             rem_toks = slot.prompt[slot.shared_len:]
             job = _AdmitJob(
                 slots=[slot_id],
@@ -448,6 +498,7 @@ class PagedInferenceServer:
         sid = max(candidates, key=lambda s: self._slots[s].admit_seq)
         slot = self._release_slot(sid, self._committed(sid))
         self.preemptions += 1
+        self.metrics.observe_requeue(slot.req, time.perf_counter())
         with self._lock:
             self._pending.appendleft(slot.req)
         return True
@@ -536,11 +587,10 @@ class PagedInferenceServer:
         at = torch.zeros((len(lengths),), dtype=torch.long)
         toks, lps = [], []
         for _ in range(n_rounds):
-            cache = paged_engine.make_cache(self.k_pool, self.v_pool,
-                                            lengths, tables)
             logits, _ = paged_engine.window_forward(
-                self.params, last_t[:, None], self.cfg, cache,
-                logits_at=at, rope=self._rope)
+                self.params, last_t[:, None], self.cfg,
+                self._cache(lengths, tables), logits_at=at,
+                rope=self._rope)
             last_t = self._sample(logits, samp, lengths + 1, use_rows)
             lengths = lengths + 1
             toks.append(last_t)
@@ -681,11 +731,10 @@ class PagedInferenceServer:
     def _prefill_group(self, pf: dict, use_rows: bool):
         """The ragged prefill half: one window_forward over the selected
         chunks; first-token candidates at each row's sample position."""
-        cache = paged_engine.make_cache(self.k_pool, self.v_pool,
-                                        pf["g_lens"], pf["g_tables"])
         chunk = torch.as_tensor(pf["chunk"], device=self.device)
         logits, _ = paged_engine.window_forward(
-            self.params, chunk, self.cfg, cache,
+            self.params, chunk, self.cfg,
+            self._cache(pf["g_lens"], pf["g_tables"]),
             logits_at=torch.as_tensor(pf["sample_at"]),
             widths=pf["widths"], rope=self._rope)
         toks = self._sample(logits, pf["samp_g"],
@@ -819,20 +868,38 @@ class PagedInferenceServer:
         self._thread.start()
         return self
 
+    def drain(self, timeout: float | None = None, *,
+              _resume_on_timeout: bool = True) -> bool:
+        """Graceful drain: refuse new submissions and let everything
+        already accepted run to completion. Returns True once idle and
+        stays draining (resume() accepts again, stop() shuts down). On
+        timeout returns False and accepts again, unless
+        `_resume_on_timeout` is False (stop(drain=True), which must not
+        accept a request only to fail it)."""
+        with self._lock:
+            self._draining = True
+        deadline = (None if timeout is None
+                    else time.perf_counter() + timeout)
+        while self.num_pending or self.num_active or self._jobs:
+            if deadline is not None and time.perf_counter() > deadline:
+                if _resume_on_timeout:
+                    self.resume()
+                return False
+            if self._thread is None:
+                self.step()
+            else:
+                time.sleep(0.002)
+        return True
+
+    def resume(self) -> None:
+        """Accept submissions again after a drain."""
+        with self._lock:
+            self._draining = False
+
     def stop(self, drain: bool = False,
              timeout: float | None = None) -> None:
         if drain and not self._stop.is_set():
-            with self._lock:
-                self._draining = True
-            deadline = (None if timeout is None
-                        else time.perf_counter() + timeout)
-            while self.num_pending or self.num_active or self._jobs:
-                if deadline is not None and time.perf_counter() > deadline:
-                    break
-                if self._thread is None:
-                    self.step()
-                else:
-                    time.sleep(0.002)
+            self.drain(timeout, _resume_on_timeout=False)
         self._stop.set()
         with self._lock:
             self._work.notify_all()
@@ -842,6 +909,64 @@ class PagedInferenceServer:
         if self.num_pending or self.num_active or self._jobs:
             self._fail_all(RuntimeError(
                 "server stopped before the request completed"))
+
+
+    # -- observability ------------------------------------------------------
+
+    def _collect_metrics(self) -> None:
+        """Scrape-path mirror of host scheduler and allocator state into
+        the registry (never touched on the serving path). The families
+        and their help texts are the reference's."""
+        reg = self.metrics.registry
+        reg.gauge("active_slots",
+                  "Requests currently decoding").set(self.num_active)
+        reg.gauge("pending_requests",
+                  "Queued requests awaiting admission").set(
+                      self.num_pending)
+        reg.gauge("admission_jobs",
+                  "Chunked-prefill admission jobs in flight").set(
+                      len(self._jobs))
+        reg.counter("tokens_emitted_total",
+                    "Lifetime generated tokens").set_total(
+                        self.tokens_emitted)
+        reg.counter("preemptions_total",
+                    "Lifetime on-demand-paging preemptions").set_total(
+                        self.preemptions)
+        stats = self.allocator.stats()
+        reg.gauge("pages_total",
+                  "KV page pool size").set(stats.pages_total)
+        reg.gauge("pages_free",
+                  "Unallocated KV pages").set(stats.pages_free)
+        reg.gauge("pages_cached",
+                  "Refcount-0 prefix-cached KV pages (evictable)").set(
+                      stats.pages_cached)
+        reg.gauge("pages_active",
+                  "KV pages referenced by live slots").set(
+                      stats.pages_active)
+        reg.counter("prefix_hit_pages_total",
+                    "Admission pages served from the radix prefix cache"
+                    ).set_total(stats.prefix_hit_pages)
+        reg.counter("prefix_miss_pages_total",
+                    "Admission pages that missed the radix prefix cache"
+                    ).set_total(stats.prefix_miss_pages)
+        reg.counter("prefix_evictions_total",
+                    "Prefix-cache pages evicted under memory pressure"
+                    ).set_total(stats.evictions)
+        reg.counter("prefix_hit_tokens_total",
+                    "Token value of prefix-cache page hits (prefill "
+                    "work the cache absorbed)").set_total(
+                        stats.hits_tokens)
+        reg.counter("pages_allocated_total",
+                    "Fresh KV pages handed out by the allocator"
+                    ).set_total(self.allocator.pages_allocated)
+        reg.counter("pages_released_total",
+                    "KV pages whose refcount reached zero (cached or "
+                    "freed)").set_total(self.allocator.pages_released)
+
+    def metrics_snapshot(self) -> dict:
+        """Mergeable snapshot of every registered metric (the /metrics
+        and /stats source)."""
+        return self.metrics.registry.snapshot()
 
 
 def _params_on(params, device):

@@ -55,17 +55,28 @@ class Request:
     deadline: float | None = None
     request_id: str = dataclasses.field(
         default_factory=lambda: uuid.uuid4().hex[:12])
+    # lifecycle timeline (name, perf_counter) for the serving metrics:
+    # submit, admit, first token, preempt-requeue, finish:<reason>.
+    # admit_time is the FIRST admission (queue wait survives preemption)
+    admit_time: float | None = None
+    events: list[tuple[str, float]] = dataclasses.field(
+        default_factory=list)
     _cancel: threading.Event = dataclasses.field(
         default_factory=threading.Event)
     _on_cancel: Callable[["Request"], None] | None = None
+
+    def record_event(self, name: str, t: float | None = None) -> None:
+        self.events.append((name, time.perf_counter() if t is None
+                            else t))
 
     def cancel(self) -> None:
         """Abort this request (idempotent; a no-op once finished)."""
         if self._done.is_set() or self._cancel.is_set():
             return
         self._cancel.set()
-        if self._on_cancel is not None:
-            self._on_cancel(self)
+        hook = self._on_cancel  # read once: completion clears it
+        if hook is not None:
+            hook(self)
 
     @property
     def cancelled(self) -> bool:

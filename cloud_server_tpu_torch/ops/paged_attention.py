@@ -23,11 +23,17 @@ Two versions of one function:
     the hand-written Hopper kernel `csrc/paged_attention.cu` (or raises);
     on a CPU tensor it runs the plain version.
 
-The wrapper counts launches in two module counters named after the TPU
+The int8 KV cache: int8 pools plus (L, P, KH, ps) f32 absmax scale
+pools (`k_scale_pool`, `v_scale_pool`, one scale per position and kv
+head). Both versions fold the scales into the score and probability
+columns; neither builds a dequantized cache.
+
+The wrapper counts launches in module counters named after the TPU
 kernels whose shape class each launch serves: `launches_narrow`
 (W <= 32 and B <= 16, the reference's `_paged_attention_kernel`) and
-`launches_wide` (everything else, `_paged_attention_wide_kernel`).
-`plain_calls` counts calls of the plain version.
+`launches_wide` (everything else, `_paged_attention_wide_kernel`), and
+`launches_narrow_int8` / `launches_wide_int8` for the same classes on
+the int8 cache. `plain_calls` counts calls of the plain version.
 """
 
 from __future__ import annotations
@@ -46,17 +52,24 @@ KERNEL_HEAD_DIMS = (64, 128)
 
 launches_narrow = 0
 launches_wide = 0
+launches_narrow_int8 = 0
+launches_wide_int8 = 0
 plain_calls = 0
 
 
 def reset_counters() -> None:
     global launches_narrow, launches_wide, plain_calls
+    global launches_narrow_int8, launches_wide_int8
     launches_narrow = launches_wide = plain_calls = 0
+    launches_narrow_int8 = launches_wide_int8 = 0
 
 
 def counters() -> dict:
     return {"launches_narrow": launches_narrow,
-            "launches_wide": launches_wide, "plain_calls": plain_calls}
+            "launches_wide": launches_wide,
+            "launches_narrow_int8": launches_narrow_int8,
+            "launches_wide_int8": launches_wide_int8,
+            "plain_calls": plain_calls}
 
 
 def is_narrow(b: int, w: int) -> bool:
@@ -79,6 +92,16 @@ def gather_pages(pool: torch.Tensor, tables: torch.Tensor,
     return pages.permute(0, 1, 4, 2, 3).reshape(b, mp * ps, kh, d)
 
 
+def gather_scale_pages(scale_pool: torch.Tensor, tables: torch.Tensor,
+                       layer: int = 0) -> torch.Tensor:
+    """(L, P, KH, ps), (B, MP) -> (B, MP*ps, KH, 1) f32 for `layer`."""
+    b, mp = tables.shape
+    _, num_pages, kh, ps = scale_pool.shape
+    idx = tables.to(scale_pool.device).long().clamp(0, num_pages - 1)
+    pages = scale_pool[int(layer)][idx]          # (B, MP, KH, ps)
+    return pages.permute(0, 1, 3, 2).reshape(b, mp * ps, kh, 1)
+
+
 def paged_attention_ref(q, k_pool, v_pool, lengths, tables, layer=0, *,
                         scale=None, widths=None, pages_per_block=None,
                         k_scale_pool=None, v_scale_pool=None):
@@ -86,18 +109,23 @@ def paged_attention_ref(q, k_pool, v_pool, lengths, tables, layer=0, *,
     Same arguments and result as `paged_attention`; `pages_per_block`
     is accepted and unused."""
     global plain_calls
-    if k_scale_pool is not None or v_scale_pool is not None:
-        raise NotImplementedError("the int8 KV cache is not ported yet")
+    if (k_scale_pool is None) != (v_scale_pool is None):
+        raise ValueError("k_scale_pool and v_scale_pool must be given "
+                         "together")
     plain_calls += 1
     b, w = q.shape[:2]
     dev = q.device
     lengths = lengths.to(dev)
     k = gather_pages(k_pool, tables, layer)
     v = gather_pages(v_pool, tables, layer)
+    scales = {}
+    if k_scale_pool is not None:
+        scales = dict(k_scale=gather_scale_pages(k_scale_pool, tables, layer),
+                      v_scale=gather_scale_pages(v_scale_pool, tables, layer))
     anchor = lengths - (w if widths is None else widths.to(dev))
     pos = anchor[:, None] + torch.arange(w, device=dev)[None, :]
     return causal_attention(q, k, v, scale=scale, q_positions=pos,
-                            kv_length=lengths)
+                            kv_length=lengths, **scales)
 
 
 # ---------------------------------------------------------------------------
@@ -105,11 +133,14 @@ def paged_attention_ref(q, k_pool, v_pool, lengths, tables, layer=0, *,
 # ---------------------------------------------------------------------------
 
 
-def _kernel():
+def _kernel(int8: bool = False):
+    """The C entry for bf16 pools, or for int8 pools (which takes the two
+    scale-pool pointers after the value pools)."""
     lib = cuda_build.load("paged_attention")
-    fn = lib.paged_attention_bf16
+    fn = lib.paged_attention_int8 if int8 else lib.paged_attention_bf16
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * (9 if int8 else 7)
+                       + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -128,20 +159,23 @@ def paged_attention(q, k_pool, v_pool, lengths, tables, layer=0, *,
       q: (B, W, H, Dh); slot b's window sits at absolute positions
         [lengths[b] - widths[b], lengths[b]). Its kv must already be
         written to the pools (write-then-attend).
-      k_pool, v_pool: (L, P, KH, Dh, ps) page pools; `layer` selects
-        inside the kernel, so no per-layer slice is materialised.
+      k_pool, v_pool: (L, P, KH, Dh, ps) page pools (bf16, or int8 with
+        the scale pools); `layer` selects inside the kernel, so no
+        per-layer slice is materialised.
       lengths: (B,) int32 kv entries per slot including the window.
       tables: (B, max_pages) int32 page table; entries past a slot's
         length may be anything (they are clamped and masked).
       widths: optional (B,) int32 ragged widths; None = W for every row.
       pages_per_block: accepted for the reference's signature; the CUDA
         kernel tiles kv by 64 positions whatever the page size.
-      k_scale_pool, v_scale_pool: the int8 cache's scales — not ported.
+      k_scale_pool, v_scale_pool: (L, P, KH, ps) f32 scales of int8
+        pools, given together or not at all.
 
     Returns (B, W, H, Dh) in q.dtype. On a CPU tensor this is the plain
     version; on a CUDA tensor the kernel runs or this raises.
     """
     global launches_narrow, launches_wide
+    global launches_narrow_int8, launches_wide_int8
     if q.device.type == "cpu":
         return paged_attention_ref(
             q, k_pool, v_pool, lengths, tables, layer, scale=scale,
@@ -149,10 +183,6 @@ def paged_attention(q, k_pool, v_pool, lengths, tables, layer=0, *,
             v_scale_pool=v_scale_pool)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
-    if k_scale_pool is not None or v_scale_pool is not None:
-        raise NotImplementedError(
-            "the int8 KV-cache variant of the paged-attention kernel is "
-            "not ported yet")
     b, w, h, d = q.shape
     if k_pool.dim() != 5 or v_pool.shape != k_pool.shape:
         raise ValueError(f"pools must both be (L, P, KH, Dh, ps); got "
@@ -161,16 +191,34 @@ def paged_attention(q, k_pool, v_pool, lengths, tables, layer=0, *,
     if dp != d or h % kh:
         raise ValueError(f"q {tuple(q.shape)} does not fit pools "
                          f"{tuple(k_pool.shape)}")
-    if q.dtype != torch.bfloat16 or k_pool.dtype != torch.bfloat16 \
-            or v_pool.dtype != torch.bfloat16:
-        raise TypeError("the CUDA paged-attention kernel takes bfloat16 q "
-                        f"and pools; got {q.dtype}, {k_pool.dtype}, "
-                        f"{v_pool.dtype}")
+    int8 = k_scale_pool is not None or v_scale_pool is not None
+    pool_dtype = torch.int8 if int8 else torch.bfloat16
+    if q.dtype != torch.bfloat16 or k_pool.dtype != pool_dtype \
+            or v_pool.dtype != pool_dtype:
+        raise TypeError(f"the CUDA paged-attention kernel takes bfloat16 q "
+                        f"and {pool_dtype} pools"
+                        f"{' with scale pools' if int8 else ''}; got "
+                        f"{q.dtype}, {k_pool.dtype}, {v_pool.dtype}")
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"head_dim {d} not in {KERNEL_HEAD_DIMS}")
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {q.device}")
+    scale_ptrs = []
+    if int8:
+        for name, t in (("k_scale_pool", k_scale_pool),
+                        ("v_scale_pool", v_scale_pool)):
+            if t is None:
+                raise ValueError("k_scale_pool and v_scale_pool must be "
+                                 "given together")
+            if (t.shape != (n_layers, num_pages, kh, ps)
+                    or t.dtype != torch.float32 or t.device != q.device
+                    or not t.is_contiguous()):
+                raise ValueError(
+                    f"{name} must be contiguous float32 "
+                    f"{(n_layers, num_pages, kh, ps)} on {q.device}; got "
+                    f"{t.dtype} {tuple(t.shape)} on {t.device}")
+            scale_ptrs.append(t.data_ptr())
     if tables.dim() != 2 or tables.shape[0] != b or lengths.shape != (b,):
         raise ValueError("tables must be (B, max_pages), lengths (B,)")
     layer = int(layer)
@@ -188,17 +236,23 @@ def paged_attention(q, k_pool, v_pool, lengths, tables, layer=0, *,
     qg = q.reshape(b, w, kh, g, d).permute(0, 2, 1, 3, 4).reshape(
         b, kh, w * g, d).contiguous()
     out = torch.empty_like(qg)
-    vec_ok = int(ps % 8 == 0 and k_pool.data_ptr() % 16 == 0
-                 and v_pool.data_ptr() % 16 == 0)
-    err = _kernel()(
-        qg.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+    # 8 positions per vector load: 16 bytes of bf16, 8 of int8
+    align = 8 * k_pool.element_size()
+    vec_ok = int(ps % 8 == 0 and k_pool.data_ptr() % align == 0
+                 and v_pool.data_ptr() % align == 0)
+    err = _kernel(int8)(
+        qg.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *scale_ptrs,
         lens.data_ptr(), tabs.data_ptr(), wid.data_ptr(), out.data_ptr(),
         b, kh, w * g, g, d, num_pages, ps, tabs.shape[1], layer,
         float(scale), vec_ok, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")
-    if is_narrow(b, w):
+    if int8 and is_narrow(b, w):
+        launches_narrow_int8 += 1
+    elif int8:
+        launches_wide_int8 += 1
+    elif is_narrow(b, w):
         launches_narrow += 1
     else:
         launches_wide += 1

@@ -1,0 +1,559 @@
+"""The port's HTTP frontend against the reference's, on loopback.
+
+The reference's `HttpFrontend` over the reference's `PagedInferenceServer`
+and the port's over the port's, greedy, with the same weights (crossed as
+numpy arrays) and the byte tokenizer: the same requests give the same
+answers (/generate NDJSON, /v1/completions with n, logprobs, stop and SSE
+streaming, /v1/chat/completions plain and streamed, /v1/models), the
+same errors (400, 404, 429) and the same serving-metric counts. Requests
+for what the port does not have yet answer 501 naming the feature. The
+int8 KV cache serves over HTTP, and `generate --serve-http` runs it.
+Every fixture stops its servers and frontends in a `finally`, and every
+request has a timeout, so a hang fails a test instead of stalling the
+suite."""
+
+import dataclasses
+import json
+import os
+import signal
+import socket
+import subprocess
+import sys
+import time
+import urllib.error
+import urllib.request
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+
+from cloud_server_tpu.config import InferConfig, ModelConfig
+from cloud_server_tpu.data.tokenizer import get_tokenizer
+from cloud_server_tpu.inference.http_server import (
+    HttpFrontend as RefFrontend)
+from cloud_server_tpu.inference.paged_server import (
+    PagedInferenceServer as RefServer)
+from cloud_server_tpu.models import transformer as ref_tf
+from cloud_server_tpu_torch.config import InferConfig as TInferConfig
+from cloud_server_tpu_torch.config import ModelConfig as TModelConfig
+from cloud_server_tpu_torch.data.tokenizer import ByteTokenizer
+from cloud_server_tpu_torch.inference.http_server import HttpFrontend
+from cloud_server_tpu_torch.inference.paged_server import (
+    PagedInferenceServer)
+from cloud_server_tpu_torch.models.transformer import params_from_numpy
+from net_compat import loopback_disconnect_detectable
+
+ROOT = Path(__file__).resolve().parent.parent
+CFG = ModelConfig(
+    vocab_size=300, embed_dim=32, num_layers=2, num_heads=4, num_kv_heads=2,
+    head_dim=8, mlp_dim=64, max_seq_len=128, dtype="float32",
+    param_dtype="float32", remat="none")
+GREEDY = InferConfig(max_decode_len=8, temperature=0.0, eos_token_id=-1,
+                     pad_token_id=0)
+SRV_KW = dict(max_slots=2, max_context=64, page_size=8, prefill_chunk=16,
+              prompt_buckets=[16, 48])
+TIMEOUT = 120
+
+
+def _tcfg(cfg):
+    return TModelConfig(**dataclasses.asdict(cfg))
+
+
+@pytest.fixture(scope="module")
+def weights():
+    ref = ref_tf.init_params(CFG, jax.random.key(0))
+    return ref, params_from_numpy(jax.tree.map(np.asarray, ref), _tcfg(CFG),
+                                  device="cpu")
+
+
+class _Pair:
+    """A reference and a port server, each behind its frontend; `close`
+    stops everything that was started."""
+
+    def __init__(self, weights, cfg=CFG, icfg=GREEDY, start=True,
+                 front_kw=None, **kw):
+        self.started = []
+        try:
+            kw = {**SRV_KW, **kw}
+            self.ref_srv = RefServer(weights[0], cfg, icfg, overlap=False,
+                                     **kw)
+            self.started.append(self.ref_srv)
+            self.port_srv = PagedInferenceServer(
+                weights[1], _tcfg(cfg),
+                TInferConfig(**dataclasses.asdict(icfg)), device="cpu", **kw)
+            self.started.append(self.port_srv)
+            if start:
+                self.ref_srv.start()
+                self.port_srv.start()
+            self.ref = RefFrontend(self.ref_srv,
+                                   tokenizer=get_tokenizer("byte")).start()
+            self.started.append(self.ref)
+            self.port = HttpFrontend(self.port_srv, tokenizer=ByteTokenizer(),
+                                     **(front_kw or {})).start()
+            self.started.append(self.port)
+        except BaseException:
+            self.close()
+            raise
+
+    def close(self):
+        for obj in reversed(self.started):
+            obj.stop()
+        self.started = []
+
+
+@pytest.fixture(scope="module")
+def pair(weights):
+    p = _Pair(weights)
+    try:
+        yield p
+    finally:
+        p.close()
+
+
+def _url(front, path):
+    host, port = front.address
+    return f"http://{host}:{port}{path}"
+
+
+def _request(front, path, payload=None, data=None):
+    """(status, headers, body lines); an HTTP error's body is returned,
+    not raised. A POST when `payload` or `data` is given."""
+    if payload is not None:
+        data = json.dumps(payload).encode()
+    req = urllib.request.Request(_url(front, path), data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=TIMEOUT) as resp:
+            return (resp.status, dict(resp.headers),
+                    [ln.decode().rstrip("\n") for ln in resp if ln.strip()])
+    except urllib.error.HTTPError as err:
+        return (err.code, dict(err.headers),
+                [ln.decode().rstrip("\n") for ln in err if ln.strip()])
+
+
+def _json(front, path, payload=None):
+    """The JSON answer of a 200 (the final line of an NDJSON stream)."""
+    status, _, lines = _request(front, path, payload)
+    assert status == 200, (status, lines)
+    return json.loads(lines[-1])
+
+
+def _sse(lines):
+    assert lines[-1] == "data: [DONE]"
+    return [json.loads(ln[len("data: "):]) for ln in lines[:-1]]
+
+
+def _both(pair, path, payload=None):
+    return (_request(pair.ref, path, payload),
+            _request(pair.port, path, payload))
+
+
+# --------------------------------------------------------------------------
+# the same answers
+# --------------------------------------------------------------------------
+
+
+def test_generate_ndjson_same_tokens(pair):
+    (rs, rh, rl), (ps, ph, pl) = _both(
+        pair, "/generate", {"tokens": [5, 9, 3], "max_new_tokens": 6})
+    assert rs == ps == 200
+    assert ph["Content-Type"] == rh["Content-Type"] == "application/x-ndjson"
+    want, got = [json.loads(x) for x in rl], [json.loads(x) for x in pl]
+    assert got[-1]["done"] is True and got[-1]["finish_reason"] == "length"
+    assert got[-1]["tokens"] == want[-1]["tokens"]
+    assert len(got[-1]["tokens"]) == 6
+    np.testing.assert_allclose(got[-1]["logprobs"], want[-1]["logprobs"],
+                               atol=1e-5)
+    # the streamed lines carry the same tokens, logprobs and text
+    assert [x["token"] for x in got[:-1]] == got[-1]["tokens"]
+    assert [x["text"] for x in got[:-1]] == [x["text"] for x in want[:-1]]
+    np.testing.assert_allclose([x["logprob"] for x in got[:-1]],
+                               got[-1]["logprobs"])
+
+
+def _same_completion(want, got):
+    assert got["object"] == want["object"]
+    assert got["usage"] == want["usage"]
+    assert len(got["choices"]) == len(want["choices"])
+    for w, g in zip(want["choices"], got["choices"]):
+        lw, lg = w.pop("logprobs"), g.pop("logprobs")
+        assert g == w
+        if lw is None:
+            assert lg is None
+        else:
+            assert lg["tokens"] == lw["tokens"]
+            np.testing.assert_allclose(lg["token_logprobs"],
+                                       lw["token_logprobs"], atol=1e-5)
+
+
+@pytest.mark.parametrize("body", [
+    {"prompt": "ab", "max_tokens": 6},
+    {"prompt": [5, 9, 3], "max_tokens": 4, "n": 2, "logprobs": 1},
+    {"prompt": [[5, 9, 3], "xy"], "max_tokens": 3},
+    {"prompt": "ab", "max_tokens": 3, "best_of": 2},
+    {"prompt": "ab", "max_tokens": 3, "response_format": {"type": "text"}},
+], ids=["text", "n_logprobs", "two_prompts", "best_of", "format_text"])
+def test_completions_same_choices(pair, body):
+    (rs, _, rl), (ps, _, pl) = _both(pair, "/v1/completions", body)
+    assert rs == ps == 200
+    _same_completion(json.loads(rl[0]), json.loads(pl[0]))
+
+
+def test_completions_stop_tokens(pair):
+    """A token-id stop sequence taken from the greedy output ends both
+    completions before it, with finish_reason "stop"."""
+    toks = _json(pair.port, "/generate", {"tokens": [5, 9, 3],
+                                          "max_new_tokens": 8})["tokens"]
+    body = {"prompt": [5, 9, 3], "max_tokens": 8, "stop": [toks[2:4]]}
+    (rs, _, rl), (ps, _, pl) = _both(pair, "/v1/completions", body)
+    want, got = json.loads(rl[0]), json.loads(pl[0])
+    assert got["choices"][0]["finish_reason"] == "stop"
+    assert got["usage"]["completion_tokens"] < 8
+    _same_completion(want, got)
+
+
+def test_completions_sse_stream(pair):
+    body = {"prompt": "ab", "max_tokens": 6, "stream": True}
+    (rs, rh, rl), (ps, ph, pl) = _both(pair, "/v1/completions", body)
+    assert rs == ps == 200
+    assert ph["Content-Type"] == rh["Content-Type"] == "text/event-stream"
+    want, got = _sse(rl), _sse(pl)
+    text = "".join(e["choices"][0]["text"] for e in got)
+    assert text == "".join(e["choices"][0]["text"] for e in want)
+    assert got[-1]["choices"][0]["finish_reason"] == "length"
+    assert want[-1]["choices"][0]["finish_reason"] == "length"
+    plain = _json(pair.port, "/v1/completions",
+                  {"prompt": "ab", "max_tokens": 6})
+    assert text == plain["choices"][0]["text"]
+
+
+def test_chat_plain_and_stream(pair):
+    body = {"messages": [{"role": "system", "content": "s"},
+                         {"role": "user", "content": "hi"}],
+            "max_tokens": 6}
+    (_, _, rl), (_, _, pl) = _both(pair, "/v1/chat/completions", body)
+    want, got = json.loads(rl[0]), json.loads(pl[0])
+    assert got["object"] == "chat.completion"
+    assert got["choices"] == want["choices"]
+    assert got["usage"] == want["usage"]
+    (_, _, rl), (_, _, pl) = _both(pair, "/v1/chat/completions",
+                                   {**body, "stream": True})
+    want_ev, got_ev = _sse(rl), _sse(pl)
+    assert got_ev[0]["choices"][0]["delta"] == {"role": "assistant"}
+
+    def content(events):
+        return "".join(e["choices"][0]["delta"].get("content", "")
+                       for e in events)
+
+    assert content(got_ev) == content(want_ev) == \
+        got["choices"][0]["message"]["content"]
+    assert got_ev[-1]["choices"][0]["finish_reason"] == \
+        want_ev[-1]["choices"][0]["finish_reason"]
+
+
+def test_models_and_healthz(pair):
+    assert _json(pair.port, "/v1/models") == _json(pair.ref, "/v1/models")
+    want, got = _json(pair.ref, "/healthz"), _json(pair.port, "/healthz")
+    assert got == want == {"ok": True, "ready": True, "active": 0,
+                           "pending": 0}
+
+
+def test_healthz_readiness_tracks_drain(weights):
+    """`ready` flips false while the backend drains and back on resume,
+    and stays false once it stops; `ok` stays true throughout."""
+    srv = PagedInferenceServer(weights[1], _tcfg(CFG),
+                               TInferConfig(**dataclasses.asdict(GREEDY)),
+                               device="cpu", **SRV_KW).start()
+    front = None
+    try:
+        front = HttpFrontend(srv).start()
+        assert _json(front, "/healthz") == {"ok": True, "ready": True,
+                                            "active": 0, "pending": 0}
+        assert srv.drain() is True  # idle: quiesces at once
+        h = _json(front, "/healthz")
+        assert h["ok"] is True and h["ready"] is False
+        with pytest.raises(RuntimeError, match="draining"):
+            srv.submit([1, 2], max_new_tokens=2)
+        srv.resume()
+        assert _json(front, "/healthz")["ready"] is True
+        srv.stop()
+        assert _json(front, "/healthz")["ready"] is False
+    finally:
+        if front is not None:
+            front.stop()
+        srv.stop()
+
+
+# --------------------------------------------------------------------------
+# the same errors
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("method,path,data", [
+    ("POST", "/generate", b"{not json"),
+    ("POST", "/generate", b'{"nonsense": 1}'),
+    ("POST", "/generate", b'[1, 2]'),
+    ("POST", "/v1/completions", b'{"prompt": "ab", "temperature": -2.0}'),
+    ("POST", "/v1/completions", b'{"prompt": "ab", "n": 0}'),
+    ("POST", "/v1/chat/completions", b'{"messages": []}'),
+    ("POST", "/bogus", b'{"tokens": [1]}'),
+    ("GET", "/bogus", None),
+    ("GET", "/stats?n=x", None),
+], ids=["bad_json", "no_prompt", "not_object", "temperature", "n",
+        "messages", "post_404", "get_404", "bad_query"])
+def test_same_error_answers(pair, method, path, data):
+    """400 for malformed requests and 404 for unknown paths, with the
+    reference's bodies."""
+    got = _request(pair.port, path, data=data)
+    want = _request(pair.ref, path, data=data)
+    assert got[0] == want[0] and got[0] in (400, 404)
+    assert got[2] == want[2]
+
+
+def test_queue_full_answers_429(weights):
+    """Neither scheduler runs, so the one pending seat stays taken: both
+    frontends answer 429 with a Retry-After header and the same body."""
+    p = _Pair(weights, start=False, max_pending=1)
+    try:
+        held = [p.ref_srv.submit([5, 9, 3], max_new_tokens=2),
+                p.port_srv.submit([5, 9, 3], max_new_tokens=2)]
+        body = {"prompt": [5, 9, 3], "max_tokens": 4}
+        want = _request(p.ref, "/v1/completions", body)
+        got = _request(p.port, "/v1/completions", body)
+        assert got[0] == want[0] == 429
+        assert got[1]["Retry-After"] == want[1]["Retry-After"] == "1"
+        assert json.loads(got[2][0]) == json.loads(want[2][0])
+        stream = _request(p.port, "/generate", {"tokens": [1, 2]})
+        assert stream[0] == 429
+        held[1].cancel()
+        assert held[1].finish_reason == "cancelled"
+    finally:
+        p.close()
+
+
+# --------------------------------------------------------------------------
+# the same metrics
+# --------------------------------------------------------------------------
+
+
+def _prom(front):
+    status, headers, lines = _request(front, "/metrics")
+    assert status == 200 and headers["Content-Type"].startswith(
+        "text/plain")
+    values = dict(ln.rsplit(" ", 1) for ln in lines
+                  if not ln.startswith("#"))
+    families = {ln.split()[2] for ln in lines if ln.startswith("# TYPE")}
+    return values, families
+
+
+def test_metrics_counts_match_reference(weights):
+    """The same request sequence on fresh servers: TTFT, ITL, queue-wait
+    and e2e histogram counts and the lifecycle counters equal the
+    reference's; ITL counts tokens - 1 per request; the port's metric
+    families are a subset of the reference's; /stats agrees."""
+    p = _Pair(weights)
+    try:
+        news = [6, 3, 1]
+        for i, n in enumerate(news):
+            _json(p.port, "/generate", {"tokens": [5 + i, 9, 3],
+                                        "max_new_tokens": n})
+            _json(p.ref, "/generate", {"tokens": [5 + i, 9, 3],
+                                       "max_new_tokens": n})
+        for front in (p.port, p.ref):
+            _sse(_request(front, "/v1/completions",
+                          {"prompt": "ab", "max_tokens": 4,
+                           "stream": True})[2])
+        news.append(4)
+        got, got_fam = _prom(p.port)
+        want, want_fam = _prom(p.ref)
+        assert got_fam <= want_fam
+        for name in ("ttft_seconds_count", "itl_seconds_count",
+                     "queue_wait_seconds_count", "e2e_seconds_count",
+                     "requests_submitted_total", "requests_finished_total",
+                     "tokens_emitted_total", "preemptions_total",
+                     "pages_total", "pages_active"):
+            key = f"cloud_server_{name}"
+            assert float(got[key]) == float(want[key]), name
+        assert float(got["cloud_server_ttft_seconds_count"]) == len(news)
+        assert float(got["cloud_server_itl_seconds_count"]) == sum(
+            n - 1 for n in news)
+        assert float(got["cloud_server_tokens_emitted_total"]) == sum(news)
+        assert 'cloud_server_itl_seconds_bucket{le="+Inf"}' in got
+        stats = _json(p.port, "/stats?n=4")
+        ref_stats = _json(p.ref, "/stats?n=4")
+        for name in ("cloud_server_ttft_seconds", "cloud_server_itl_seconds",
+                     "cloud_server_queue_wait_seconds"):
+            assert stats["latency"][name]["count"] == \
+                ref_stats["latency"][name]["count"]
+        assert set(stats) == {"active", "pending", "latency", "counters",
+                              "gauges"}
+        assert stats["counters"]["cloud_server_requests_finished_total"] == 4
+    finally:
+        p.close()
+
+
+# --------------------------------------------------------------------------
+# 501 for what the port does not have yet
+# --------------------------------------------------------------------------
+
+UNPORTED = [
+    ("/generate", {"tokens": [5, 9, 3], "presence_penalty": 0.5},
+     "penalties"),
+    ("/generate", {"tokens": [5, 9, 3], "logit_bias": {"42": 3.0}},
+     "logit_bias"),
+    ("/generate", {"tokens": [5, 9, 3], "min_tokens": 2}, "min_tokens"),
+    ("/generate", {"tokens": [5, 9, 3], "regex": "[ab]+"}, "regex"),
+    ("/v1/completions", {"prompt": "ab", "frequency_penalty": 0.3},
+     "penalties"),
+    ("/v1/completions", {"prompt": "ab", "repetition_penalty": 1.2,
+                         "stream": True}, "penalties"),
+    ("/v1/completions", {"prompt": "ab", "logit_bias": {"7": 1.0},
+                         "n": 2}, "logit_bias"),
+    ("/v1/completions", {"prompt": "ab",
+                         "response_format": {"type": "json_object"}},
+     "response_format"),
+    ("/v1/chat/completions", {"messages": [{"role": "user",
+                                            "content": "hi"}],
+                              "response_format": {
+                                  "type": "json_schema",
+                                  "json_schema": {"schema": {
+                                      "type": "object"}}}},
+     "response_format"),
+    ("/v1/chat/completions", {"messages": [{"role": "user",
+                                            "content": "hi"}],
+                              "min_tokens": 1, "stream": True},
+     "min_tokens"),
+    ("/v1/embeddings", {"input": "ab"}, "embed"),
+    ("/debug/trace", {"steps": 1, "logdir": "unused"}, "trace capture"),
+]
+
+
+@pytest.mark.parametrize("path,body,feature", UNPORTED,
+                         ids=[f"{p}-{f}" for p, _, f in UNPORTED])
+def test_unported_options_answer_501(pair, path, body, feature):
+    """The port's server raises NotImplementedError for each; the
+    frontend answers 501 with a JSON error naming the feature, before
+    any header of a streaming response; the server keeps serving."""
+    status, headers, lines = _request(pair.port, path, body)
+    assert status == 501
+    assert headers["Content-Type"] == "application/json"
+    err = json.loads(lines[0])["error"]
+    assert feature in err and "not ported" in err
+    assert pair.port_srv.num_pending == 0
+    ok = _json(pair.port, "/generate", {"tokens": [1, 2],
+                                        "max_new_tokens": 2})
+    assert len(ok["tokens"]) == 2
+
+
+# --------------------------------------------------------------------------
+# the int8 KV cache over HTTP, the access log, the CLI, disconnects
+# --------------------------------------------------------------------------
+
+
+def test_int8_round_trip(weights, tmp_path):
+    """Both servers on an int8 cache: a streamed completion and a
+    /generate give the same tokens; the access log records each request
+    as one JSON line."""
+    log = tmp_path / "access.jsonl"
+    p = _Pair(weights, cfg=dataclasses.replace(CFG, kv_cache_dtype="int8"),
+              front_kw={"access_log": str(log)})
+    try:
+        assert str(p.port_srv.k_pool.dtype) == "torch.int8"
+        body = {"prompt": [5, 9, 3], "max_tokens": 7, "stream": True}
+        want = _sse(_request(p.ref, "/v1/completions", body)[2])
+        got = _sse(_request(p.port, "/v1/completions", body)[2])
+        assert [e["choices"][0]["text"] for e in got] == \
+            [e["choices"][0]["text"] for e in want]
+        gen = {"tokens": [17, 2, 40, 8], "max_new_tokens": 6}
+        assert _json(p.port, "/generate", gen)["tokens"] == \
+            _json(p.ref, "/generate", gen)["tokens"]
+    finally:
+        p.close()
+    recs = [json.loads(x) for x in log.read_text().splitlines()]
+    access = [r for r in recs if r.get("event") == "access"]
+    assert [(r["method"], r["path"], r["status"]) for r in access] == [
+        ("POST", "/v1/completions", 200), ("POST", "/generate", 200)]
+    assert all(r["duration_ms"] >= 0 and r["request_id"] for r in access)
+
+
+def test_disconnect_cancels_streaming_request(weights):
+    """A /generate client that walks away mid-stream: its request is
+    cancelled long before its budget and the server keeps serving."""
+    if not loopback_disconnect_detectable():
+        pytest.skip("a loopback peer's close never surfaces as a send "
+                    "error here (tests/net_compat.py)")
+    icfg = dataclasses.replace(GREEDY, max_decode_len=200)
+    srv = PagedInferenceServer(
+        weights[1], _tcfg(CFG), TInferConfig(**dataclasses.asdict(icfg)),
+        device="cpu", max_slots=2, max_context=256, page_size=8,
+        prefill_chunk=16, prompt_buckets=[16]).start()
+    front = None
+    try:
+        front = HttpFrontend(srv).start()
+        host, port = front.address
+        body = json.dumps({"tokens": [5, 9, 3],
+                           "max_new_tokens": 200}).encode()
+        s = socket.create_connection((host, port), timeout=30)
+        s.sendall((f"POST /generate HTTP/1.1\r\nHost: {host}\r\n"
+                   f"Content-Length: {len(body)}\r\n\r\n").encode() + body)
+        s.recv(1024)  # generation is running
+        s.close()
+        deadline = time.time() + 60
+        while time.time() < deadline and (srv.num_active or srv._jobs):
+            time.sleep(0.05)
+        assert srv.num_active == 0 and srv.tokens_emitted < 150
+        snap = srv.metrics_snapshot()
+        assert snap["cloud_server_requests_cancelled_total"]["value"] == 1
+        r = srv.submit([5, 9, 3], max_new_tokens=4)
+        assert len(r.result(timeout=TIMEOUT)) == 4
+    finally:
+        if front is not None:
+            front.stop()
+        srv.stop()
+
+
+def test_generate_cli_serves_int8_over_http(tmp_path):
+    """`generate --device cpu --kv-cache-int8 --serve-http 0` binds a free
+    port, serves a completion on the int8 cache and stops on SIGINT."""
+    cfg = tmp_path / "tiny.json"
+    cfg.write_text(json.dumps({"model": {
+        "vocab_size": 300, "embed_dim": 32, "num_layers": 2,
+        "num_heads": 4, "num_kv_heads": 2, "head_dim": 8, "mlp_dim": 64,
+        "max_seq_len": 64, "dtype": "float32", "param_dtype": "float32"}}))
+    log = tmp_path / "access.jsonl"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "cloud_server_tpu_torch.generate",
+         "--config", str(cfg), "--device", "cpu", "--kv-cache-int8",
+         "--serve-http", "0", "--page-size", "8", "--prefill-chunk", "16",
+         "--max-slots", "2", "--temperature", "0", "--access-log", str(log)],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+        stderr=subprocess.PIPE, stdout=subprocess.DEVNULL, text=True)
+    try:
+        addr = None
+        deadline = time.time() + TIMEOUT
+        while addr is None and time.time() < deadline:
+            line = proc.stderr.readline()
+            if not line:
+                break
+            if "serving on http://" in line:
+                addr = line.split("http://")[1].split()[0]
+        assert addr is not None, "the server never reported its address"
+        req = urllib.request.Request(
+            f"http://{addr}/v1/completions",
+            data=json.dumps({"prompt": "hi", "max_tokens": 5}).encode())
+        with urllib.request.urlopen(req, timeout=TIMEOUT) as resp:
+            comp = json.loads(resp.read())
+        assert comp["usage"]["completion_tokens"] == 5
+        assert comp["choices"][0]["finish_reason"] == "length"
+        proc.send_signal(signal.SIGINT)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        proc.stderr.close()
+    access = [r for r in map(json.loads, log.read_text().splitlines())
+              if r.get("event") == "access"]
+    assert [(r["path"], r["status"]) for r in access] == [
+        ("/v1/completions", 200)]

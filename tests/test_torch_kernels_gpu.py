@@ -59,6 +59,72 @@ def test_cuda_kernel_matches_plain(b, w, lengths, widths, d, ps, mp):
                  / ref_abs.square().mean().sqrt()) <= 1e-2
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,w,lengths,widths,d,ps,mp", [
+    (8, 1, [1537, 2048, 977, 1800, 64, 1200, 1501, 333], None, 128, 128, 16),
+    (2, 256, [2048, 1400], None, 128, 128, 16),
+    (5, 256, [1700, 900, 1024, 77, 0], [1, 1, 256, 77, 0], 128, 128, 16),
+    # head_dim 64, and page sizes off the 8-byte int8 vector path (12)
+    (3, 40, [200, 41, 500], [40, 3, 17], 64, 16, 40),
+    (3, 5, [7, 300, 96], None, 128, 12, 30)],
+    ids=["decode", "prefill", "ragged", "dh64", "ps12"])
+def test_cuda_kernel_int8_matches_plain(b, w, lengths, widths, d, ps, mp):
+    """The int8 branch of the kernel (int8 pools + f32 scale pools from
+    the port's quantize_pool) against the int8 plain version on the card,
+    bf16 q, with the bf16 kernel's tolerance; the launch counts under the
+    int8 class counters."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cloud_server_tpu_torch.inference.paged_engine import quantize_pool
+    case = _case(17, b=b, w=w, lengths=lengths, widths=widths, d=d,
+                 ps=ps, mp=mp)
+    q = torch.from_numpy(case[0]).cuda().to(torch.bfloat16)
+    kq, ks = quantize_pool(torch.from_numpy(case[1]).cuda())
+    vq, vs = quantize_pool(torch.from_numpy(case[2]).cuda())
+    lens, tabs, wid = (torch.from_numpy(x).cuda().to(torch.int32)
+                       for x in case[3:])
+    pa.reset_counters()
+    got = pa.paged_attention(q, kq, vq, lens, tabs, 1, widths=wid,
+                             k_scale_pool=ks, v_scale_pool=vs)
+    torch.cuda.synchronize()
+    c = pa.counters()
+    assert (c["launches_narrow_int8"] + c["launches_wide_int8"] == 1
+            and c["launches_narrow"] + c["launches_wide"] == 0)
+    want = pa.paged_attention_ref(q, kq, vq, lens, tabs, 1, widths=wid,
+                                  k_scale_pool=ks, v_scale_pool=vs)
+    valid = ((torch.arange(w, device="cuda")[None, :] < wid[:, None])
+             & (lens > 0)[:, None])
+    assert bool(torch.isfinite(got).all())
+    diff = (got.float() - want.float()).abs()[valid]
+    ref_abs = want.float().abs()[valid]
+    assert bool((diff <= 8e-3 + 1e-2 * ref_abs).all())
+    assert float(diff.square().mean().sqrt()
+                 / ref_abs.square().mean().sqrt()) <= 1e-2
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_int8_checks_its_inputs():
+    """The wrapper refuses what the int8 kernel does not take: bf16 pools
+    with scales, one scale pool alone, scale pools of the wrong dtype."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cloud_server_tpu_torch.inference.paged_engine import quantize_pool
+    case = _case(19, b=2, w=1, lengths=[100, 7], widths=None, mp=4)
+    q = torch.from_numpy(case[0]).cuda().to(torch.bfloat16)
+    kp = torch.from_numpy(case[1]).cuda()
+    kq, ks = quantize_pool(kp)
+    lens, tabs = (torch.from_numpy(x).cuda().to(torch.int32)
+                  for x in case[3:5])
+    with pytest.raises(TypeError):
+        pa.paged_attention(q, kp.bfloat16(), kp.bfloat16(), lens, tabs, 0,
+                           k_scale_pool=ks, v_scale_pool=ks)
+    with pytest.raises(ValueError):
+        pa.paged_attention(q, kq, kq, lens, tabs, 0, k_scale_pool=ks)
+    with pytest.raises(ValueError):
+        pa.paged_attention(q, kq, kq, lens, tabs, 0, k_scale_pool=ks,
+                           v_scale_pool=ks.double())
+
+
 # The flash-attention kernels: the three cases of chip_smoke.py's
 # train_kernel phase, with its tolerances (atol one bf16 ulp at the size
 # of the largest summed entries, rtol, and a relative RMS bound; PERF.md).

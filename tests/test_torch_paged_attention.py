@@ -118,17 +118,7 @@ def test_counters_and_shape_class():
     case = _case(11, b=2, w=1, h=4, kh=2)
     _port(case, 0)
     assert pa.counters() == {"launches_narrow": 0, "launches_wide": 0,
-                             "plain_calls": 1}
+                             "launches_narrow_int8": 0,
+                             "launches_wide_int8": 0, "plain_calls": 1}
     assert pa.is_narrow(16, 32) and not pa.is_narrow(17, 1)
     assert not pa.is_narrow(2, 33)
-
-
-def test_int8_pools_raise():
-    case = _case(12, b=1, w=1, h=2, kh=2)
-    q, kp, vp, lens, tabs, _ = case
-    scales = torch.ones(kp.shape[:3] + (kp.shape[-1],))
-    with pytest.raises(NotImplementedError):
-        pa.paged_attention(torch.from_numpy(q), torch.from_numpy(kp),
-                           torch.from_numpy(vp), torch.from_numpy(lens),
-                           torch.from_numpy(tabs), 0, k_scale_pool=scales,
-                           v_scale_pool=scales)

@@ -5,6 +5,8 @@ radix cache; seeded requests at temperature > 0 identical token for
 token (both draw from threefry's fold_in(key(seed), position))."""
 
 import dataclasses
+import gc
+import weakref
 
 import jax
 import numpy as np
@@ -207,3 +209,19 @@ def test_cancel_deadline_and_background_thread(weights):
     finally:
         srv.stop()
     assert srv._thread is None
+
+
+def test_finished_requests_do_not_pin_the_server(weights):
+    """A caller that keeps finished requests does not keep the server and
+    its page pools alive, and cancel() on them stays a no-op."""
+    _, params = weights
+    srv = _port_server(params, **SRV_KW)
+    reqs = [srv.submit(p, max_new_tokens=3) for p in PROMPTS[:2]]
+    srv.run_until_idle()
+    alive = weakref.ref(srv)
+    del srv
+    gc.collect()
+    assert alive() is None
+    for r in reqs:
+        r.cancel()
+        assert r.finish_reason == "length" and len(r.result()) == 3
