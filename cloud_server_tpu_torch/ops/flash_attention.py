@@ -180,6 +180,13 @@ def _validate(q, k, v, seg) -> None:
                              "tensors")
 
 
+def _aligned(t):
+    """t, or a copy of it if its data is not 16-byte aligned: the TMA
+    copies of the forward and dK/dV kernels read whole rows from
+    16-byte aligned addresses."""
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 def _dims(q, k):
     b, h, s, d = q.shape
     return b, h, k.shape[1], s, d
@@ -218,7 +225,7 @@ class _FlashBHSD(torch.autograd.Function):
     def backward(ctx, dout):
         global launches_bwd_dkdv, launches_bwd_dq, launches_bwd_fused
         q, k, v, out, lse, seg = ctx.saved_tensors
-        dout = dout.contiguous()
+        dout = _aligned(dout.contiguous())
         b, h, kh, s, d = _dims(q, k)
         scale = ctx.scale
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -273,8 +280,8 @@ def flash_attention(q, k, v, *, scale=None, block_q: int = 1024,
     qt = q.transpose(1, 2).contiguous()
     kt = k.transpose(1, 2).contiguous()
     vt = v.transpose(1, 2).contiguous()
-    seg = (None if segment_ids is None else
-           segment_ids.to(device=q.device, dtype=torch.int32).contiguous())
+    seg = (None if segment_ids is None else _aligned(
+        segment_ids.to(device=q.device, dtype=torch.int32).contiguous()))
     _validate(qt, kt, vt, seg)
     out = _FlashBHSD.apply(qt, kt, vt, seg, scale, block_q, block_kv)
     return out.transpose(1, 2)

@@ -118,3 +118,16 @@ def test_block_rule_matches_reference(seq, block):
     got = fl.default_block(seq, block)
     assert got == ref_fa._default_block(seq, block)
     assert fl.uses_fused_backward(seq, seq, block, block) == (seq <= got)
+
+
+def test_unaligned_rows_are_copied_for_the_kernels():
+    """The TMA kernels read 16-byte aligned rows: an aligned tensor goes
+    to them as it is, an unaligned view as an aligned copy of its
+    values."""
+    seg = torch.arange(40, dtype=torch.int32)
+    assert fl._aligned(seg) is seg
+    view = seg[1:33]
+    assert view.data_ptr() % 16
+    got = fl._aligned(view)
+    assert got.data_ptr() % 16 == 0
+    assert torch.equal(got, view)

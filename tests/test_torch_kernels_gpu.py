@@ -125,9 +125,9 @@ def test_cuda_kernel_int8_checks_its_inputs():
                            v_scale_pool=ks.double())
 
 
-# The flash-attention kernels: the three cases of chip_smoke.py's
-# train_kernel phase, with its tolerances (atol one bf16 ulp at the size
-# of the largest summed entries, rtol, and a relative RMS bound; PERF.md).
+# The flash-attention kernels: the cases of chip_smoke.py's train_kernel
+# phase, with its tolerances (atol one bf16 ulp at the size of the
+# largest summed entries, rtol, and a relative RMS bound; PERF.md).
 FLASH_TOL = {"out": (1.6e-2, 1e-2, 1e-2), "lse": (1e-5, 1e-6, 1e-6),
              "dq": (3.2e-2, 2e-2, 1e-2), "dk": (3.2e-2, 2e-2, 1e-2),
              "dv": (3.2e-2, 2e-2, 1e-3)}
@@ -144,21 +144,24 @@ def _flash_close(name, got, want):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,s,docs", [(4, 2048, 0), (4, 1024, 0),
-                                      (2, 2048, 4)],
-                         ids=["blocked", "fused", "segments"])
-def test_flash_kernels_match_plain(b, s, docs):
+@pytest.mark.parametrize("b,s,docs,d", [(4, 2048, 0, 128), (4, 1024, 0, 128),
+                                        (2, 2048, 4, 128), (2, 2048, 0, 64),
+                                        (1, 1984, 0, 128)],
+                         ids=["blocked", "fused", "segments", "dh64",
+                              "s1984"])
+def test_flash_kernels_match_plain(b, s, docs, d):
     """Forward, LSE and the three gradients of the flash kernels against
-    the plain version on the card, bf16, at Llama-3.1-8B's head shapes
-    (H 32, KH 8, Dh 128). S 2048 runs the dK/dV + dQ backward, S 1024 the
-    fused one."""
+    the plain version on the card, bf16, at Llama-3.1-8B's head counts
+    (H 32, KH 8) and head dims 128 and 64. S 2048 runs the dK/dV + dQ
+    backward, S 1024 the fused one; S 1984 ends in a partial 128-row
+    tile."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from cloud_server_tpu_torch.ops import flash_attention as fl
-    r = np.random.default_rng(s + docs)
+    r = np.random.default_rng(s + docs + 128 - d)
     q, k, v, dout = (torch.from_numpy(r.standard_normal(shape).astype(
         np.float32)).cuda().to(torch.bfloat16) for shape in (
-        (b, s, 32, 128), (b, s, 8, 128), (b, s, 8, 128), (b, s, 32, 128)))
+        (b, s, 32, d), (b, s, 8, d), (b, s, 8, d), (b, s, 32, d)))
     seg = None
     if docs:
         cuts = [np.sort(r.choice(np.arange(1, s), docs - 1, replace=False))
@@ -180,7 +183,7 @@ def test_flash_kernels_match_plain(b, s, docs):
                              "launches_bwd_dkdv": int(not fused),
                              "launches_bwd_dq": int(not fused)}
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    _, lse = fl.forward_bhsd(qt, kt, vt, seg, 128 ** -0.5)
+    _, lse = fl.forward_bhsd(qt, kt, vt, seg, d ** -0.5)
     _flash_close("out", out, want)
     _flash_close("lse", lse, lse_want)
     _flash_close("dq", kq.grad, pq.grad)
