@@ -20,9 +20,12 @@ each:
                 as the library yardstick);
      train_kernel — the four flash-attention kernels (forward, dK/dV,
                 dQ, fused backward) against the plain version at
-                Llama-3.1-8B's head shapes: a blocked case (S 2048), a
-                fused case (S 1024), a packed case with segment ids, a
-                head-dim-64 case and S 1984 (a partial 128-row tile);
+                Llama-3.1-8B's head shapes: blocked cases (S 2048; packed
+                with segment ids; head dim 64), fused cases (S 1024; the
+                same three), S 1984 (a partial 128-row tile), S 1000 and
+                S 2000 (padded by the wrapper); each kernel timed in
+                turns with SDPA (the blocked pair dK/dV + dQ as a whole
+                too);
      unembed  — the f32-logit unembed (bf16 operands) and its backward
                 against the widened f32 product at the train shapes;
      ce_kernel — the fused-CE kernels (B7 statistics, B8 d and dx) against
@@ -975,7 +978,26 @@ FLASH_CASES = {
     "segments": (2, 2048, 4, 128),  # packed rows, blocked backward
     "dh64": (2, 2048, 0, 64),       # head dim 64, blocked backward
     "s1984": (1, 1984, 0, 128),     # S not a multiple of the 128-row tiles
+    "s1000": (2, 1000, 0, 128),     # padded to 1024, fused (block 1000)
+    "s2000": (1, 2000, 0, 128),     # padded to 2048, blocked (block 16)
+    "fused_segments": (2, 1024, 4, 128),  # packed rows, fused backward
+    "fused_dh64": (2, 1024, 0, 64),       # head dim 64, fused backward
 }
+# Kernels and their yardsticks are timed in alternating rounds on one
+# card (each round one time_ms of each); the median and range stand.
+TURNS = 7
+
+
+def time_turns(fns: dict, rounds: int = TURNS, iters: int = 10) -> dict:
+    """{name: fn} -> {name: (median ms, min, max)} over `rounds` rounds
+    that time every function in turn."""
+    import statistics
+    ms: dict = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            ms[name].append(time_ms(fn, iters=iters, warmup=1))
+    return {name: (statistics.median(v), min(v), max(v))
+            for name, v in ms.items()}
 
 
 def segment_ids(gen, b, s, docs):
@@ -1065,23 +1087,25 @@ def phase_train_kernel() -> dict:
         out_p, lse_p = fl.flash_attention_ref(qp, kp, vp, seg, scale)
         out_p.backward(dout)
 
-        # raw C entries on preallocated (B, H, S, Dh) buffers
-        qt = q.transpose(1, 2).contiguous()
-        kt = k.transpose(1, 2).contiguous()
-        vt = v.transpose(1, 2).contiguous()
-        dot = dout.transpose(1, 2).contiguous()
+        # raw C entries on preallocated kernel-layout buffers, S padded
+        # as the wrapper pads it
+        s_pad = fl.padded_len(s)
+        qt, kt, vt, dot = (fl.to_kernel_layout(x, s_pad)
+                           for x in (q, k, v, dout))
+        segt = None if seg is None else fl.pad_segments(seg, s_pad)
         out_t = torch.empty_like(qt)
-        lse_t = torch.empty((b, H, s), dtype=torch.float32, device=DEVICE)
+        lse_t = torch.empty((b, H, s_pad), dtype=torch.float32,
+                            device=DEVICE)
         delta = torch.empty_like(lse_t)
         dq_t, dk_t, dv_t = (torch.empty_like(x) for x in (qt, kt, vt))
-        dq32 = torch.zeros(qt.shape, dtype=torch.float32, device=DEVICE)
-        segp = None if seg is None else seg.data_ptr()
+        dq32 = torch.empty(qt.shape, dtype=torch.float32, device=DEVICE)
+        segp = None if segt is None else segt.data_ptr()
         stream = torch.cuda.current_stream().cuda_stream
         f_fwd = fl._kernel("flash_attention_fwd_bf16")
         f_dkdv = fl._kernel("flash_attention_bwd_dkdv_bf16")
         f_dq = fl._kernel("flash_attention_bwd_dq_bf16")
         f_fused = fl._kernel("flash_attention_bwd_fused_bf16")
-        dims = (b, H, KH, s, dh)
+        dims = (b, H, KH, s_pad, dh)
 
         def check(err):
             if err:
@@ -1103,18 +1127,21 @@ def phase_train_kernel() -> dict:
                        dot.data_ptr(), lse_t.data_ptr(), delta.data_ptr(),
                        segp, dq_t.data_ptr(), *dims, scale, stream))
 
-        def fused_bwd():
-            dq32.zero_()
+        def pair():  # the blocked backward as the wrapper runs it
+            dkdv()
+            dq()
+
+        def fused_bwd():  # zeroing, the kernel and dQ's conversion
             check(f_fused(qt.data_ptr(), kt.data_ptr(), vt.data_ptr(),
                           out_t.data_ptr(), dot.data_ptr(), lse_t.data_ptr(),
                           segp, delta.data_ptr(), dq32.data_ptr(),
-                          dk_t.data_ptr(), dv_t.data_ptr(), *dims, scale,
-                          stream))
+                          dq_t.data_ptr(), dk_t.data_ptr(), dv_t.data_ptr(),
+                          *dims, scale, stream))
 
         fwd()
         torch.cuda.synchronize()
         errs = {"out": compare("out", out_k, out_p),
-                "lse": compare("lse", lse_t, lse_p),
+                "lse": compare("lse", lse_t[..., :s], lse_p),
                 "dq": compare("dq", qk.grad, qp.grad),
                 "dk": compare("dk", kk.grad, kp.grad),
                 "dv": compare("dv", vk.grad, vp.grad)}
@@ -1127,15 +1154,11 @@ def phase_train_kernel() -> dict:
         qb = b * s * H * dh * e2
         kvb = b * s * KH * dh * e2
         lb = b * H * s * 4
-        times = {"fwd_ms": time_ms(fwd, iters=10)}
         bounds = {"fwd": flash_bound(pairs, 2 * qb + 2 * kvb + lb, 4, dh)}
         if fused:
-            times["bwd_fused_ms"] = time_ms(fused_bwd, iters=10)
             bounds["bwd_fused"] = flash_bound(
                 pairs, 4 * qb + 4 * kvb + lb, 10, dh)
         else:
-            times["bwd_dkdv_ms"] = time_ms(dkdv, iters=10)
-            times["bwd_dq_ms"] = time_ms(dq, iters=10)
             bounds["bwd_dkdv"] = flash_bound(
                 pairs, 3 * qb + 4 * kvb + lb, 8, dh)
             bounds["bwd_dq"] = flash_bound(
@@ -1146,9 +1169,9 @@ def phase_train_kernel() -> dict:
                 pairs, 4 * qb + 4 * kvb + lb, 10, dh)
 
         # the plain version: forward, and backward alone
-        times["plain_fwd_ms"] = time_ms(
+        times = {"plain_fwd_ms": time_ms(
             lambda: fl.flash_attention_ref(q, k, v, seg, scale), iters=3,
-            warmup=1)
+            warmup=1)}
         qp2, kp2, vp2 = (t.clone().requires_grad_(True) for t in (q, k, v))
         o2, _ = fl.flash_attention_ref(qp2, kp2, vp2, seg, scale)
         times["plain_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
@@ -1156,11 +1179,14 @@ def phase_train_kernel() -> dict:
             warmup=1)
         del o2, qp2, kp2, vp2
 
-        # library yardstick: SDPA on repeated-KV heads (never used by the
-        # port); the packed case passes its block-diagonal causal mask
-        ql = qt.clone().requires_grad_(True)
-        kl = kt.repeat_interleave(H // KH, dim=1).requires_grad_(True)
-        vl = vt.repeat_interleave(H // KH, dim=1).requires_grad_(True)
+        # library yardstick: SDPA on repeated-KV heads at the unpadded S
+        # (never used by the port); the packed cases pass their
+        # block-diagonal causal mask
+        ql, kl, vl, dol = (x.transpose(1, 2).contiguous()
+                           for x in (q, k, v, dout))
+        ql.requires_grad_(True)
+        kl = kl.repeat_interleave(H // KH, dim=1).requires_grad_(True)
+        vl = vl.repeat_interleave(H // KH, dim=1).requires_grad_(True)
         if seg is None:
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 ql, kl, vl, is_causal=True)
@@ -1170,11 +1196,18 @@ def phase_train_kernel() -> dict:
                     & (seg[:, :, None] == seg[:, None, :]))[:, None]
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 ql, kl, vl, attn_mask=mask)
-        times["library_fwd_ms"] = time_ms(lib, iters=10)
         ol = lib()
-        times["library_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
-            ol, (ql, kl, vl), dot, retain_graph=True), iters=10)
-        del ol, ql, kl, vl
+        turns = {"fwd": fwd, "library_fwd": lib}
+        if fused:
+            turns["bwd_fused"] = fused_bwd
+        else:
+            turns.update(bwd_dkdv=dkdv, bwd_dq=dq, bwd_pair=pair)
+        turns["library_bwd"] = lambda: torch.autograd.grad(
+            ol, (ql, kl, vl), dol, retain_graph=True)
+        for key, (med, lo, hi) in time_turns(turns).items():
+            times[f"{key}_ms"] = med
+            times[f"{key}_range_ms"] = [lo, hi]
+        del ol, ql, kl, vl, dol
 
         res = {"phase": "train_kernel", "case": name, "B": b, "S": s,
                "H": H, "KH": KH, "Dh": dh, "segments_per_row": docs,
@@ -1185,7 +1218,7 @@ def phase_train_kernel() -> dict:
         emit(res)
         results[name] = res
         del q, k, v, dout, qk, kk, vk, qp, kp, vp, out_k, out_p
-        del qt, kt, vt, dot, out_t, dq_t, dk_t, dv_t, dq32
+        del qt, kt, vt, dot, out_t, dq_t, dk_t, dv_t, dq32, segt
         torch.cuda.empty_cache()
     if failures:
         raise RuntimeError("flash kernels differ from the plain version "
@@ -1942,6 +1975,7 @@ def main() -> int:
     tc = train["counts"]
     blocked, fused = fkern["blocked"], fkern["fused"]
     blocked_cases = [c for c, r in fkern.items() if r["backward"] == "blocked"]
+    fused_cases = [c for c, r in fkern.items() if r["backward"] == "fused"]
 
     def err_of(case, *keys):
         return max(fkern[c]["errors"][k]["max_abs_err"]
@@ -1958,7 +1992,7 @@ def main() -> int:
              "plain_bwd_ms"),
             ("flash_attention fused backward", 261,
              tc["launches_bwd_fused"], fused, "bwd_fused",
-             err_of(("fused",), "dq", "dk", "dv"), "plain_bwd_ms")):
+             err_of(fused_cases, "dq", "dk", "dv"), "plain_bwd_ms")):
         rows.append({
             "name": f"{name} (B {case['B']}, S {case['S']})",
             "route": "cuda",

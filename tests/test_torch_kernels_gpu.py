@@ -146,15 +146,22 @@ def _flash_close(name, got, want):
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,s,docs,d", [(4, 2048, 0, 128), (4, 1024, 0, 128),
                                         (2, 2048, 4, 128), (2, 2048, 0, 64),
-                                        (1, 1984, 0, 128)],
+                                        (1, 1984, 0, 128), (2, 1000, 0, 128),
+                                        (1, 2000, 0, 128), (2, 1024, 4, 128),
+                                        (2, 1024, 0, 64), (2, 900, 3, 128),
+                                        (1, 40, 0, 64)],
                          ids=["blocked", "fused", "segments", "dh64",
-                              "s1984"])
+                              "s1984", "s1000", "s2000", "fused_segments",
+                              "fused_dh64", "s900", "s40"])
 def test_flash_kernels_match_plain(b, s, docs, d):
     """Forward, LSE and the three gradients of the flash kernels against
     the plain version on the card, bf16, at Llama-3.1-8B's head counts
     (H 32, KH 8) and head dims 128 and 64. S 2048 runs the dK/dV + dQ
-    backward, S 1024 the fused one; S 1984 ends in a partial 128-row
-    tile."""
+    backward, S 1024 the fused one (also packed and at Dh 64); S 1984
+    ends in a partial 128-row tile; S 1000 (fused) and S 2000 (blocked,
+    the reference's block 16) run padded to a multiple of 64, S 900
+    (fused, packed) and S 40 (fused, Dh 64) padded to 960 and 64, whose
+    last 128-row tile is half empty."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from cloud_server_tpu_torch.ops import flash_attention as fl
@@ -177,15 +184,18 @@ def test_flash_kernels_match_plain(b, s, docs, d):
     want, lse_want = fl.flash_attention_ref(pq, pk, pv, seg)
     want.backward(dout)
     torch.cuda.synchronize()
-    fused = s <= 1024
+    fused = fl.uses_fused_backward(s, s, 1024, 1024)
+    assert fused == (s <= 1024)
     assert fl.counters() == {"launches_fwd": 1, "plain_calls": 1,
                              "launches_bwd_fused": int(fused),
                              "launches_bwd_dkdv": int(not fused),
                              "launches_bwd_dq": int(not fused)}
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    _, lse = fl.forward_bhsd(qt, kt, vt, seg, d ** -0.5)
+    s_pad = fl.padded_len(s)
+    qt, kt, vt = (fl.to_kernel_layout(t, s_pad) for t in (q, k, v))
+    segt = None if seg is None else fl.pad_segments(seg, s_pad)
+    _, lse = fl.forward_bhsd(qt, kt, vt, segt, d ** -0.5)
     _flash_close("out", out, want)
-    _flash_close("lse", lse, lse_want)
+    _flash_close("lse", lse[..., :s], lse_want)
     _flash_close("dq", kq.grad, pq.grad)
     _flash_close("dk", kk.grad, pk.grad)
     _flash_close("dv", kv.grad, pv.grad)
