@@ -29,8 +29,9 @@ each:
      unembed  — the f32-logit unembed (bf16 operands) and its backward
                 against the widened f32 product at the train shapes;
      ce_kernel — the fused-CE kernels (B7 statistics, B8 d and dx) against
-                their plain version at N 8192 x D 4096 x V 128256, with
-                the cuBLAS products alone as the library yardstick;
+                their plain version at N 8192 x D 4096 x V 128256, timed
+                in turns with the cuBLAS products alone (the library
+                yardstick) and beside their bound;
   3. serve    — PagedInferenceServer at the full Llama-3.1-8B width (all
                 32 layers, random bf16 weights from a seed) serving 8
                 greedy requests; a second run on a fresh server must give
@@ -448,7 +449,7 @@ def serving_rates(reqs, t_start, t_end) -> dict:
 PROFILE_GROUPS = (
     ("optimizer", ("multi_tensor_apply", "adam", "foreach")),
     ("flash_attention", ("flash_fwd", "flash_bwd", "flash_delta")),
-    ("fused_ce", ("ce_fwd", "ce_dlogits", "ce_dx")),
+    ("fused_ce", ("ce_gemm", "ce_fwd")),
     ("paged_attention", ("paged_attention",)),
     ("gemm", ("gemm", "gemv", "nvjet", "cutlass", "xmma")),
     ("copy", ("memcpy", "memset")),
@@ -1403,35 +1404,48 @@ def phase_ce_kernel() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # one B7 call and one B8 call of the wrapper's own launch functions
+    # B7 and B8 (the wrapper's own launch functions) in turns with their
+    # cuBLAS yardsticks, the products alone without the epilogues: with
+    # f32 output (library_*, the kernels line's library_ms; x @ head then
+    # writes 4.2 GB of logits that B7 never writes) and with bf16 output
+    # (library_*_bf16: 2.1 GB, as B8's d launch writes); and B8's two
+    # launches alone
     t32 = t.to(torch.int32)
-    times = {"b7_ms": time_ms(lambda: fc.forward_stats(x, head, t32),
-                              iters=5, warmup=1),
-             "b8_ms": time_ms(lambda: fc.backward_dx(x, head, t32, logz, gz,
-                                                     gt), iters=3, warmup=1)}
-    dbuf, _ = fc.backward_dx(x, head, t32, logz, gz, gt)
+    dbuf, dx = fc.backward_dx(x, head, t32, logz, gz, gt)
+    turns = time_turns({
+        "b7": lambda: fc.forward_stats(x, head, t32),
+        "library_b7": lambda: torch.mm(x, head, out_dtype=torch.float32),
+        "library_b7_bf16": lambda: torch.mm(x, head),
+        "b8": lambda: fc.backward_dx(x, head, t32, logz, gz, gt),
+        "library_b8": lambda: (
+            torch.mm(x, head, out_dtype=torch.float32),
+            torch.mm(dbuf, head.t(), out_dtype=torch.float32)),
+        "library_b8_bf16": lambda: (torch.mm(x, head),
+                                    torch.mm(dbuf, head.t())),
+        "b8_d": lambda: fc._launch_dlogits(x, head, t32, logz, gz, gt,
+                                           dbuf),
+        "b8_dx": lambda: fc._launch_dx(dbuf, head, dx),
+        "library_b8_dx": lambda: torch.mm(dbuf, head.t(),
+                                          out_dtype=torch.float32)},
+        iters=3)
+    times = {f"{k}_ms": m for k, (m, _, _) in turns.items()}
+    times["range_ms"] = {k: [lo, hi] for k, (_, lo, hi) in turns.items()}
     with torch.no_grad():
         times["plain_b7_ms"] = time_ms(
             lambda: fc.fused_ce_stats_ref(x, head, t), iters=3, warmup=1)
         times["plain_b8_ms"] = time_ms(
             lambda: matmul_f32(fc._dlogits_ref(x, head, t, logz, gz, gt),
                                head.t()).to(x.dtype), iters=3, warmup=1)
-    # library yardstick: the cuBLAS products alone, without the epilogues
-    times["library_b7_ms"] = time_ms(
-        lambda: torch.mm(x, head, out_dtype=torch.float32), iters=5,
-        warmup=1)
-    times["library_b8_ms"] = time_ms(
-        lambda: (torch.mm(x, head, out_dtype=torch.float32),
-                 torch.mm(dbuf, head.t(), out_dtype=torch.float32)),
-        iters=3, warmup=1)
     b7b, b8b = ce_bound(n, d, v, False), ce_bound(n, d, v, True)
     out = {"phase": "ce_kernel", "N": n, "D": d, "V": v,
-           "vocab_splits": fc.vocab_splits(n, v, x.device), "errors": errs,
-           **times,
+           "vocab_splits": fc.device_splits(n, v, x.device),
+           "errors": errs, **times,
            "bound_ms": {"b7": b7b[0], "b8": b8b[0]},
-           "bound_by": {"b7": b7b[1], "b8": b8b[1]}}
+           "bound_by": {"b7": b7b[1], "b8": b8b[1]},
+           "share_of_bound": {"b7": b7b[0] / times["b7_ms"],
+                              "b8": b8b[0] / times["b8_ms"]}}
     emit(out)
-    del x, head, dbuf
+    del x, head, dbuf, dx
     gc.collect()
     torch.cuda.empty_cache()
     bad = [k for k, e in errs.items() if not e["within"]]
@@ -2006,10 +2020,12 @@ def main() -> int:
                                else "library_bwd_ms"]})
     n, d, v = CE_SHAPE
     for name, line, key, launches, err in (
-            ("fused_ce forward", 81, "b7", train["ce_counts"]["launches_fwd"],
+            ("fused_ce forward (TMA + wgmma)", 81, "b7",
+             train["ce_counts"]["launches_fwd"],
              max(ce["errors"]["logz"]["max_abs_err"],
                  ce["errors"]["tl"]["max_abs_err"])),
-            ("fused_ce dx backward (d, then d @ head^T)", 131, "b8",
+            ("fused_ce dx backward (TMA + wgmma: d, then d @ head^T)", 131,
+             "b8",
              train["ce_counts"]["launches_dx"],
              ce["errors"]["dx"]["max_abs_err"])):
         rows.append({

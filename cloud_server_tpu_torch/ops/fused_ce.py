@@ -17,22 +17,31 @@ Two versions of one function:
     the reference does).
   * `fused_ce_stats` — the kernel wrapper. On a CUDA bf16 tensor its
     forward launches `csrc/fused_ce.cu`'s B7 entry (the reference's
-    `_fwd_kernel`: the vocabulary split into ranges of whole tiles, one
-    block each, then an in-order combine of the ranges) and its backward
-    launches B8 (the reference's `_dx_kernel`) as two kernels, d from the
-    recomputed logits and then dx = d @ headᵀ; dW stays a library product
-    over the emitted d, as in the reference. Anything the kernels do not
-    take raises. On a CPU tensor it runs the plain version.
+    `_fwd_kernel`: the vocabulary split into ranges of whole 256-column
+    tiles, one block per row tile and range, blocks in pairs that share
+    head's tiles, then an in-order combine of the ranges) and its
+    backward launches B8 (the reference's `_dx_kernel`) as two kernels, d
+    from the recomputed logits and then dx = d @ headᵀ; dW stays a
+    library product over the emitted d, as in the reference. Anything the
+    kernels do not take raises. On a CPU tensor it runs the plain version.
+  * `stats_by_ranges_ref` — the plain forward statistics computed the way
+    the B7 kernel orders them: per vocabulary range, then combined in
+    order. `ce_schedule` lists the kernels' work units in launch order
+    (the arithmetic of `unit_of` in the CUDA source, whose host entry
+    `ce_units` the card tests compare it with), `vocab_splits` picks the
+    number of ranges.
 
 Counters, one per TPU kernel: `launches_fwd` counts B7 calls (two CUDA
 launches each: the ranges and their combine), `launches_dx` counts B8
-calls (two CUDA launches each: d, then dx); `plain_calls` counts the
-plain version's forward and backward calls.
+calls (two CUDA launches each: d, then dx, counted at the dx launch that
+ends every call); `plain_calls` counts the plain version's forward and
+backward calls.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -40,6 +49,10 @@ from cloud_server_tpu_torch.ops import cuda_build
 from cloud_server_tpu_torch.ops.matmul import matmul_f32
 
 TILE = 128  # N and V must be multiples of it (the reference's rule)
+COL_TILE = 256  # the kernels' output tile: 128 rows x 256 columns
+# row tiles per raster group, kRowGroup in csrc/fused_ce.cu (for the tests)
+ROW_GROUP = 16  # B7 and d
+DX_ROW_GROUP = 8  # dx
 
 launches_fwd = 0
 launches_dx = 0
@@ -126,6 +139,80 @@ def fused_ce_stats_ref(x, head, targets):
 
 
 # ---------------------------------------------------------------------------
+# The kernels' work schedule, and the statistics in its order
+# ---------------------------------------------------------------------------
+
+
+def col_tiles(cols: int) -> int:
+    return -(-cols // COL_TILE)
+
+
+def vocab_splits(n: int, v: int, sms: int) -> int:
+    """Vocabulary ranges of B7 and d: a multiple of sms / gcd(N / 128,
+    sms), so that the (row tile, range) units fill whole waves of `sms`
+    SMs, near 16 tiles a range, and at most one range per tile."""
+    rows = n // TILE
+    wave = sms // math.gcd(rows, sms)
+    tiles = col_tiles(v)
+    return min(tiles, wave * max(1, round(tiles / (16 * wave))))
+
+
+def range_tiles(split: int, splits: int, tiles: int) -> tuple:
+    """Column tiles [t0, t1) of range `split` of `splits`."""
+    return split * tiles // splits, (split + 1) * tiles // splits
+
+
+def ce_schedule(row_tiles: int, tiles: int, splits: int,
+                group: int) -> list:
+    """The kernels' work units in launch order, (row tile, range, t0, t1):
+    groups of `group` row tiles (fewer in the last), the row tile fastest
+    within a group, then the range; each block walks tiles t0 .. t1 - 1
+    in order. The arithmetic of `unit_of` in csrc/fused_ce.cu."""
+    units = []
+    per_group = group * splits
+    for b in range(row_tiles * splits):
+        grp, rem = divmod(b, per_group)
+        rows = min(group, row_tiles - grp * group)
+        split, r = divmod(rem, rows)
+        units.append((grp * group + r, split, *range_tiles(split, splits,
+                                                           tiles)))
+    return units
+
+
+def stats_by_ranges_ref(x, head, targets, splits: int) -> tuple:
+    """(logz, target_logit, argmax int64) as B7 orders the work: the
+    statistics of each vocabulary range (whole 256-column tiles, the
+    ranges of `range_tiles`) and then the ranges combined in order, a later
+    range taking the argmax only on a strictly greater max."""
+    _check_shapes(x, head)
+    v = head.shape[1]
+    tiles = col_tiles(v)
+    if not 1 <= splits <= tiles:
+        raise ValueError(f"splits {splits} outside [1, {tiles}]")
+    targets = targets.long()
+    m = l = tl = am = None
+    for split in range(splits):
+        t0, t1 = range_tiles(split, splits, tiles)
+        c0, c1 = t0 * COL_TILE, min(t1 * COL_TILE, v)
+        logits = matmul_f32(x, head[:, c0:c1])
+        m2, a2 = logits.max(dim=-1)
+        l2 = torch.exp(logits - m2[:, None]).sum(dim=-1)
+        inside = (targets >= c0) & (targets < c1)
+        t2 = torch.where(
+            inside, torch.gather(logits, 1, (targets - c0).clamp(
+                0, c1 - c0 - 1)[:, None])[:, 0], torch.zeros_like(m2))
+        if m is None:
+            m, l, tl, am = m2, l2, t2, a2 + c0
+            continue
+        mn = torch.maximum(m, m2)
+        l = l * torch.exp(m - mn) + l2 * torch.exp(m2 - mn)
+        tl = tl + t2
+        am = torch.where(m2 > m, a2 + c0, am)
+        m = mn
+    return m + torch.log(l), tl, am
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrapper
 # ---------------------------------------------------------------------------
 
@@ -135,10 +222,12 @@ _SIGNATURES = {
     # x, head, targets, part_m, part_l, part_tl, part_am, logz, tl, am |
     # n, d, v, splits | stream
     "ce_fwd_bf16": [_P] * 10 + [_I] * 4 + [_P],
-    # x, head, targets, logz, g, h, d | n, d, v | stream
-    "ce_dlogits_bf16": [_P] * 7 + [_I] * 3 + [_P],
+    # x, head, targets, logz, g, h, d | n, d, v, splits | stream
+    "ce_dlogits_bf16": [_P] * 7 + [_I] * 4 + [_P],
     # d, head, dx | n, d, v | stream
     "ce_dx_bf16": [_P] * 3 + [_I] * 3 + [_P],
+    # n, cols, splits, dx | out (host int32, (N / 128 * splits, 4))
+    "ce_units": [_I] * 4 + [_P],
 }
 
 
@@ -181,11 +270,10 @@ def _validate(x, head, targets) -> None:
                              "16-byte aligned x and head")
 
 
-def vocab_splits(n: int, v: int, device) -> int:
-    """Vocabulary ranges of B7: enough blocks (row tiles x ranges) for two
-    per SM, at most one range per vocabulary tile."""
+def device_splits(n: int, v: int, device) -> int:
+    """`vocab_splits` for the SMs of `device`."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(v // TILE, (2 * sms) // (n // TILE)))
+    return vocab_splits(n, v, sms)
 
 
 def forward_stats(x, head, targets32):
@@ -193,7 +281,7 @@ def forward_stats(x, head, targets32):
     global launches_fwd
     n, d = x.shape
     v = head.shape[1]
-    splits = vocab_splits(n, v, x.device)
+    splits = device_splits(n, v, x.device)
     f32 = dict(dtype=torch.float32, device=x.device)
     part = torch.empty((4, splits, n), **f32)
     part_am = torch.empty((splits, n), dtype=torch.int32, device=x.device)
@@ -210,23 +298,38 @@ def forward_stats(x, head, targets32):
     return logz, tl, am
 
 
-def backward_dx(x, head, targets32, logz, g, h):
-    """One B8 call on validated CUDA tensors: (d (N, V), dx (N, D)), both
-    in x's dtype."""
-    global launches_dx
+def _launch_dlogits(x, head, targets32, logz, g, h, dbuf) -> None:
+    """B8's first launch: d (N, V) into dbuf. Counts nothing: a B8 call
+    is counted at its dx launch."""
     n, dim = x.shape
     v = head.shape[1]
-    dbuf = torch.empty((n, v), dtype=x.dtype, device=x.device)
-    dx = torch.empty_like(x)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     _check(_kernel("ce_dlogits_bf16")(
         x.data_ptr(), head.data_ptr(), targets32.data_ptr(),
         logz.data_ptr(), g.data_ptr(), h.data_ptr(), dbuf.data_ptr(), n,
-        dim, v, stream), "d_logits")
+        dim, v, device_splits(n, v, x.device),
+        torch.cuda.current_stream(x.device).cuda_stream), "d_logits")
+
+
+def _launch_dx(dbuf, head, dx) -> None:
+    """B8's second launch, which ends every B8 call: dx = d @ headᵀ into
+    dx, counted in `launches_dx`."""
+    global launches_dx
+    n, dim = dx.shape
     _check(_kernel("ce_dx_bf16")(
-        dbuf.data_ptr(), head.data_ptr(), dx.data_ptr(), n, dim, v, stream),
+        dbuf.data_ptr(), head.data_ptr(), dx.data_ptr(), n, dim,
+        head.shape[1], torch.cuda.current_stream(dx.device).cuda_stream),
         "dx")
     launches_dx += 1
+
+
+def backward_dx(x, head, targets32, logz, g, h):
+    """One B8 call on validated CUDA tensors: (d (N, V), dx (N, D)), both
+    in x's dtype."""
+    dbuf = torch.empty((x.shape[0], head.shape[1]), dtype=x.dtype,
+                       device=x.device)
+    dx = torch.empty_like(x)
+    _launch_dlogits(x, head, targets32, logz, g, h, dbuf)
+    _launch_dx(dbuf, head, dx)
     return dbuf, dx
 
 

@@ -189,3 +189,87 @@ def test_pallas_loss_and_grads_match_reference(name, masked, z, tied):
     for path, want in want_flat.items():
         np.testing.assert_allclose(got_flat[path].numpy(), want, rtol=5e-4,
                                    atol=1e-5, err_msg=path)
+
+
+# The B7 kernel's order of work: vocabulary ranges of whole 256-column
+# tiles (V 1664 is 6.5 of them: the last range ends in a half tile),
+# each range's statistics, then the ranges combined in order. The data
+# make every logit exact in float32 (integers times multiples of 1/8), so
+# ties are exact: equal columns straddle tile and range boundaries and
+# are often the largest, and the first index must win across ranges.
+RANGE_SPLITS = [1, 2, 3, 7]
+TIE_COLS = [255, 256, 511, 512, 767, 768, 1023, 1024, 1663]
+
+
+def _tie_case(n=128, d=32, v=1664, seed=11):
+    r = np.random.default_rng(seed)
+    x = r.integers(-1, 3, (n, d)).astype(np.float32)
+    w = (r.integers(-4, 5, (d, v)) / 8).astype(np.float32)
+    w[:, TIE_COLS] = 0.5
+    t = r.integers(0, v, n).astype(np.int32)
+    t[:4] = TIE_COLS[1:5]  # target logits on tied columns too
+    return x, w, t
+
+
+@pytest.mark.parametrize("splits", RANGE_SPLITS)
+def test_stats_by_ranges_match_reference(splits):
+    x, w, t = _tie_case()
+    want = ref_fc.fused_ce_stats(jnp.asarray(x), jnp.asarray(w),
+                                 jnp.asarray(t))
+    got = fc.stats_by_ranges_ref(torch.from_numpy(x), torch.from_numpy(w),
+                                 torch.from_numpy(t), splits)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), rtol=0,
+                               atol=1e-5)
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    # the tied columns win for some rows, and then the first of them
+    assert (got[2].numpy() == TIE_COLS[0]).any()
+    assert not np.isin(got[2].numpy(), TIE_COLS[1:]).any()
+
+
+# (N, V) of the schedule: the half tile (V 384 and 32896), N an odd
+# multiple of 128 (2176), and the train shape.
+SCHEDULE_SHAPES = [(n, v) for n in (128, 2176, 8192)
+                   for v in (384, 32896, 128256)]
+
+
+@pytest.mark.parametrize("n,v", SCHEDULE_SHAPES)
+def test_schedule_covers_every_tile_once_in_order(n, v):
+    """B7's and d's units: every (row tile, vocabulary tile) exactly once,
+    each range a run of increasing tiles that follows the previous range,
+    whole waves of 132 SMs where the ranges allow it, and a first wave
+    within one raster group on at most ROW_GROUP row tiles. dx's units:
+    every (row tile, D tile) once, the blocks of a raster group launched
+    together on one D tile."""
+    rows, tiles = n // fc.TILE, fc.col_tiles(v)
+    splits = fc.vocab_splits(n, v, sms=132)
+    assert 1 <= splits <= tiles
+    units = fc.ce_schedule(rows, tiles, splits, fc.ROW_GROUP)
+    assert len(units) == rows * splits
+    seen = np.zeros((rows, tiles), np.int64)
+    ranges = {}
+    for row, split, t0, t1 in units:
+        assert t0 < t1
+        seen[row, t0:t1] += 1
+        assert ranges.setdefault(split, (t0, t1)) == (t0, t1)
+    assert (seen == 1).all()
+    bounds = [ranges[s] for s in range(splits)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == tiles
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    assert sorted((r, s) for r, s, _, _ in units) == [
+        (r, s) for r in range(rows) for s in range(splits)]
+    if splits < tiles:
+        assert len(units) % 132 == 0
+    if fc.ROW_GROUP * splits >= 132:  # a wave within one raster group
+        assert len({r for r, _, _, _ in units[:132]}) <= fc.ROW_GROUP
+
+    dtiles = fc.col_tiles(4096)
+    group = min(fc.DX_ROW_GROUP, rows)
+    dx_units = fc.ce_schedule(rows, dtiles, dtiles, fc.DX_ROW_GROUP)
+    assert sorted((r, s) for r, s, _, _ in dx_units) == [
+        (r, s) for r in range(rows) for s in range(dtiles)]
+    assert all((t0, t1) == (s, s + 1) for _, s, t0, t1 in dx_units)
+    # blocks launched together share one D tile of head
+    assert [s for _, s, _, _ in dx_units[:group * dtiles]] == [
+        s for s in range(dtiles) for _ in range(group)]

@@ -262,25 +262,48 @@ def test_unembed_f32_logits_and_grads_on_card():
 CE_TOL = {"logz": 8e-6, "tl": 8e-6, "dx": (3e-5, 1e-2), "dw": (1e-5, 2e-3)}
 
 
+# (N, V, case): the base slice; V 32896 = 257 x 128 (the last 256-column
+# tile half past V); N 2176 = 17 x 128; ties: equal head columns, the
+# largest for many rows, straddling a 256-column tile boundary and the
+# boundary of two vocabulary ranges, where the first index must win; and
+# rows whose g or h cotangent is 0.
+CE_CASES = [(2048, 32768, "base"), (2048, 32896, "half_tile"),
+            (2176, 32768, "odd_rows"), (2048, 32768, "ties"),
+            (2048, 32896, "zero_cotangents")]
+
+
 @pytest.mark.gpu
-def test_fused_ce_kernels_match_plain():
+@pytest.mark.parametrize("n,vocab,case", CE_CASES)
+def test_fused_ce_kernels_match_plain(n, vocab, case):
     """B7's statistics and B8's dx, and the dW built from B8's d, against
-    the plain version on bf16 inputs (2048 rows, D 4096, a 32768-entry
-    slice of the vocabulary); the argmax may differ only where the two
-    logits lie within the logz limit of each other."""
+    the plain version on bf16 inputs (D 4096, a slice of the vocabulary);
+    the argmax may differ only where the two logits lie within the logz
+    limit of each other, and on tied columns it is the first of them."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from cloud_server_tpu_torch.ops import fused_ce as fc
     torch.backends.cuda.matmul.allow_tf32 = False
-    n, d, vocab = 2048, 4096, 32768
+    d = 4096
     r = np.random.default_rng(6)
     x = torch.from_numpy(r.standard_normal((n, d)).astype(
         np.float32)).cuda().to(torch.bfloat16)
-    head = torch.from_numpy((r.standard_normal((d, vocab)) * d ** -0.5)
-                            .astype(np.float32)).cuda().to(torch.bfloat16)
+    head_np = (r.standard_normal((d, vocab)) * d ** -0.5).astype(np.float32)
+    tied = []
+    if case == "ties":
+        splits = fc.vocab_splits(n, vocab,
+                                 torch.cuda.get_device_properties(
+                                     0).multi_processor_count)
+        first = fc.range_tiles(1, splits, fc.col_tiles(vocab))[0]
+        edge = first * fc.COL_TILE  # first column of the second range
+        tied = [255, 256, edge - 1, edge, vocab - 1]
+        head_np[:, tied] = 4 * head_np[:, :1]
+    head = torch.from_numpy(head_np).cuda().to(torch.bfloat16)
     t = torch.from_numpy(r.integers(0, vocab, n)).cuda()
     gz = torch.from_numpy(r.standard_normal(n).astype(np.float32)).cuda()
     gt = torch.from_numpy(r.standard_normal(n).astype(np.float32)).cuda()
+    if case == "zero_cotangents":
+        gz[::3] = 0
+        gt[1::3] = 0
 
     def run(fn):
         xx = x.clone().requires_grad_(True)
@@ -302,6 +325,19 @@ def test_fused_ce_kernels_match_plain():
     rows = torch.arange(n, device="cuda")
     gap = logits[rows, want[2]] - logits[rows, got[2]]
     assert float(gap.max()) <= CE_TOL["logz"]
+    if tied:
+        on_tie = torch.isin(got[2], torch.tensor(tied, device="cuda"))
+        assert bool(on_tie.any())
+        assert bool((got[2][on_tie] == tied[0]).all())
+    # the plain statistics in the kernel's order, over the ranges the
+    # wrapper chose for this card
+    with torch.no_grad():
+        by_ranges = fc.stats_by_ranges_ref(
+            x, head, t, fc.device_splits(n, vocab, x.device))
+    for key, g, w in zip(("logz", "tl"), got[:2], by_ranges[:2]):
+        assert float((g - w).abs().max()) <= CE_TOL[key], key
+    gap = logits[rows, by_ranges[2]] - logits[rows, got[2]]
+    assert float(gap.abs().max()) <= CE_TOL["logz"]
     for key, g, w in zip(("dx", "dw"), got[3:], want[3:]):
         g, w = g.float(), w.float()
         diff = (g - w).abs()
@@ -309,3 +345,31 @@ def test_fused_ce_kernels_match_plain():
         assert float(diff.square().mean().sqrt()
                      / w.square().mean().sqrt()) <= rms_lim, key
         assert float(diff.max() / w.abs().max()) <= max_lim, key
+
+
+# (N, V): the shapes of tests/test_torch_fused_ce.py's schedule test
+CE_SCHEDULE_SHAPES = [(n, v) for n in (128, 2176, 8192)
+                      for v in (384, 32896, 128256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,v", CE_SCHEDULE_SHAPES)
+def test_ce_schedule_matches_the_kernels_units(n, v):
+    """The wrapper's ce_schedule, which the CPU tests check, lists the
+    units that csrc/fused_ce.cu's unit_of gives each block (its host
+    entry ce_units): for B7 and d on this card's ranges, and for dx."""
+    import ctypes
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cloud_server_tpu_torch.ops import fused_ce as fc
+    d = 4096
+    rows = n // fc.TILE
+    for cols, splits, is_dx, group in (
+            (v, fc.device_splits(n, v, torch.device("cuda")), 0,
+             fc.ROW_GROUP),
+            (d, fc.col_tiles(d), 1, fc.DX_ROW_GROUP)):
+        out = np.zeros((rows * splits, 4), np.int32)
+        assert fc._kernel("ce_units")(
+            n, cols, splits, is_dx, out.ctypes.data_as(ctypes.c_void_p)) == 0
+        want = fc.ce_schedule(rows, fc.col_tiles(cols), splits, group)
+        assert [tuple(u) for u in out.tolist()] == want
