@@ -9,15 +9,18 @@ each:
 
   1. device   — the card, its power limit (nvidia-smi), the build time
                 and every kernel's registers, spills and shared memory;
-  2. kernel   — the paged-attention kernel against its plain PyTorch
-                version on the card at Llama-3.1-8B's head shapes (decode,
-                prefill and a ragged mixed batch with a length-0 slot),
-                with the kernel's, the plain version's and one PyTorch
-                library call's times beside the card's lower bound; then
-                each case again on the int8 cache (kernel_int8 lines: the
-                int8 branch against the int8 plain version, its time
-                beside the bf16 kernel's, SDPA over the dequantized cache
-                as the library yardstick);
+  2. kernel   — the two paged-attention kernels against their plain
+                PyTorch version on the card at Llama-3.1-8B's head shapes
+                (the narrow kernel: decode and a verify window of 32; the
+                wide kernel: prefill and a ragged mixed batch with a
+                length-0 slot), the kernel timed warm from a CUDA graph in
+                turns with one PyTorch library call (SDPA), and cold
+                (decode, prefill: a rotation over layers whose K/V bytes
+                exceed 4x the L2), beside the plain version's time and the
+                card's lower bound; then each case again on the int8 cache
+                (kernel_int8 lines: against the int8 plain version, beside
+                the bf16 kernel's time, SDPA over the dequantized cache as
+                the library yardstick);
      train_kernel — the four flash-attention kernels (forward, dK/dV,
                 dQ, fused backward) against the plain version at
                 Llama-3.1-8B's head shapes: blocked cases (S 2048; packed
@@ -194,17 +197,17 @@ def ptxas_summary(log: str) -> dict:
 H, KH, DH, PS, MAX_CTX = 32, 8, 128, 128, 2048
 
 
-def make_case(gen, lengths, widths, w):
-    """Random bf16 pools (2 layers) and a distinct random paging of every
-    slot's context at Llama-3.1-8B's head shapes."""
+def make_case(gen, lengths, widths, w, layers: int = 2):
+    """Random bf16 pools and a distinct random paging of every slot's
+    context at Llama-3.1-8B's head shapes."""
     import torch
     b = len(lengths)
     mp = MAX_CTX // PS
     num_pages = b * mp + 3
     dev = DEVICE
-    k_pool = torch.randn((2, num_pages, KH, DH, PS), generator=gen,
+    k_pool = torch.randn((layers, num_pages, KH, DH, PS), generator=gen,
                          device=dev).to(torch.bfloat16)
-    v_pool = torch.randn((2, num_pages, KH, DH, PS), generator=gen,
+    v_pool = torch.randn((layers, num_pages, KH, DH, PS), generator=gen,
                          device=dev).to(torch.bfloat16)
     q = torch.randn((b, w, H, DH), generator=gen, device=dev).to(
         torch.bfloat16)
@@ -281,65 +284,147 @@ def kernel_errors(name, got, want, valid, limits) -> dict:
             "rel_rms_limit": rel_lim}
 
 
+def graph_ms(calls, reps: int = 5) -> float:
+    """Device time per call of `calls` (functions that each launch one
+    kernel): captured once into a CUDA graph, replayed `reps` times
+    between CUDA events, so the host's time per launch is not timed."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in calls:  # warm-up outside the capture
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in calls:
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * len(calls))
+    del graph
+    return ms
+
+
+# Kernel-phase cases: (lengths, widths, W). decode and verify run the
+# narrow kernel (B 8; W 1 and the narrow class's widest window, 32),
+# prefill and ragged the wide one. Cases draw their data in this order
+# from one generator, so a case added at the end leaves the others' data
+# as it was.
+PAGED_CASES = {
+    "decode": ([1537, 2048, 977, 1800, 64, 1200, 1501, 333], [1] * 8, 1),
+    "prefill": ([2048, 1400], [256, 256], 256),
+    "ragged": ([1700, 900, 1024, 77, 0], [1, 1, 256, 77, 0], 256),
+    "verify": ([1537, 2048, 977, 1800, 64, 1200, 1501, 333], [32] * 8, 32),
+}
+# Cases also timed cold: each call reads another layer of a pool whose
+# K/V bytes for the case exceed COLD_L2_MULT x the 50 MB L2, as the
+# serving path reads layer after layer.
+COLD_CASES = ("decode", "prefill")
+L2_BYTES = 50e6
+COLD_L2_MULT = 4
+KERNEL_ITERS = 20  # calls in each timing graph (warm)
+
+
+def kv_bytes(lengths, kv_elem: int, scale_bytes: int = 0) -> int:
+    """K and V bytes of every slot's visible keys, one layer."""
+    return 2 * sum(int(n) for n in lengths) * KH * (DH * kv_elem
+                                                    + scale_bytes)
+
+
 def phase_kernel() -> dict:
-    """Each case in bf16, then on the int8 cache: the same bf16 pools
-    quantized by the port's quantize_pool."""
+    """Each case in bf16, then on the int8 cache (the same bf16 pools
+    quantized by the port's quantize_pool): the wrapper against its plain
+    version, the kernel's time warm (one layer, in turns with SDPA over
+    the gathered cache) and, for COLD_CASES, cold (rotating over layers)."""
+    import statistics
     import torch
     from cloud_server_tpu_torch.inference.paged_engine import quantize_pool
     from cloud_server_tpu_torch.ops import paged_attention as pa
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED)
-    cases = {
-        "decode": ([1537, 2048, 977, 1800, 64, 1200, 1501, 333],
-                   [1] * 8, 1),
-        "prefill": ([2048, 1400], [256, 256], 256),
-        "ragged": ([1700, 900, 1024, 77, 0], [1, 1, 256, 77, 0], 256),
-    }
+    # the cold pools (timed, not checked) from their own generator
+    cold_gen = torch.Generator(device=DEVICE)
+    cold_gen.manual_seed(SEED + 1)
     layer = 1
     results = {}
-    for name, (lens, wids, w) in cases.items():
+
+    def timed_in_turns(kernel_calls, library):
+        """Warm kernel time (graph) and SDPA (events) in TURNS rounds."""
+        ks, ls = [], []
+        for _ in range(TURNS):
+            ks.append(graph_ms(kernel_calls))
+            ls.append(time_ms(library, iters=10, warmup=1))
+        return (statistics.median(ks), min(ks), max(ks),
+                statistics.median(ls))
+
+    def cold_ms(lens, wids, w, int8):
+        """The kernel reading a different layer at every call of a pool
+        of enough layers that a rotation's K/V bytes exceed
+        COLD_L2_MULT x L2."""
+        ws = kv_bytes(lens, 1 if int8 else 2, 4 if int8 else 0)
+        n_layers = math.ceil(COLD_L2_MULT * L2_BYTES / ws) + 1
+        q, kp, vp, lengths, tables, widths = make_case(
+            cold_gen, lens, wids, w, layers=n_layers)
+        kw = {}
+        if int8:
+            kp, ks = quantize_pool(kp)
+            vp, vs = quantize_pool(vp)
+            kw = dict(k_scale_pool=ks, v_scale_pool=vs)
+        calls = [(lambda i=i: pa.paged_attention(
+            q, kp, vp, lengths, tables, i, widths=widths, **kw))
+            for i in list(range(n_layers)) * 2]
+        ms = graph_ms(calls, reps=3)
+        del q, kp, vp, kw
+        torch.cuda.empty_cache()
+        return ms, n_layers
+
+    for name, (lens, wids, w) in PAGED_CASES.items():
         q, kp, vp, lengths, tables, widths = make_case(gen, lens, wids, w)
-        b, _, h, d = q.shape
-        g = h // KH
+        b = q.shape[0]
         valid = torch.arange(w, device=DEVICE)[None, :] < widths[:, None]
         valid &= (lengths > 0)[:, None]
-        # the raw C entries the wrapper calls, on preallocated buffers
-        qg = q.reshape(b, w, KH, g, d).permute(0, 2, 1, 3, 4).reshape(
-            b, KH, w * g, d).contiguous()
-        out = torch.empty_like(qg)
-        stream = torch.cuda.current_stream().cuda_stream
-        tail = (lengths.data_ptr(), tables.data_ptr(), widths.data_ptr(),
-                out.data_ptr(), b, KH, w * g, g, d, kp.shape[1], PS,
-                tables.shape[1], layer, d ** -0.5, 1, stream)
-
-        def launcher(fn, *pools):
-            def launch():
-                err_code = fn(qg.data_ptr(), *pools, *tail)
-                if err_code:
-                    raise RuntimeError(f"kernel launch failed: {err_code}")
-            return launch
+        cls = ("narrow" if pa.uses_narrow_kernel(b, w, H // KH)
+               else "wide")
 
         pa.reset_counters()
         got = pa.paged_attention(q, kp, vp, lengths, tables, layer,
                                  widths=widths)
         torch.cuda.synchronize()
-        if pa.launches_narrow + pa.launches_wide != 1:
-            raise RuntimeError(f"{name}: the kernel was not launched")
+        if pa.counters()[f"launches_{cls}"] != 1:
+            raise RuntimeError(f"{name}: the {cls} kernel was not launched: "
+                               f"{pa.counters()}")
         want = pa.paged_attention_ref(q, kp, vp, lengths, tables, layer,
                                       widths=widths)
         errs = kernel_errors(name, got, want, valid, (ATOL, RTOL, REL_RMS))
-        ms = time_ms(launcher(pa._kernel(), kp.data_ptr(), vp.data_ptr()),
-                     iters=50)
+        calls = [lambda: pa.paged_attention(q, kp, vp, lengths, tables,
+                                            layer, widths=widths)
+                 ] * KERNEL_ITERS
+        ms, ms_lo, ms_hi, library_ms = timed_in_turns(
+            calls, library_call(q, kp, vp, lengths, tables, widths, layer))
         plain_ms = time_ms(lambda: pa.paged_attention_ref(
             q, kp, vp, lengths, tables, layer, widths=widths), iters=10)
-        library_ms = time_ms(library_call(q, kp, vp, lengths, tables,
-                                          widths, layer), iters=20)
         bms, by = bound_ms(q, lengths, widths)
+        splits = {}
+        if cls == "narrow":
+            splits = {"splits": [pa.narrow_splits(
+                b, w, KH, H // KH, DH, int8, tables.shape[1], PS)
+                for int8 in (False, True)]}
         res = {"phase": "kernel", "case": name, "B": b, "W": w,
-               "class": "narrow" if pa.is_narrow(b, w) else "wide",
-               "lengths": lens, "widths": wids, **errs, "ms": ms,
-               "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": bms, "bound_by": by}
+               "class": cls, **splits, "lengths": lens, "widths": wids,
+               **errs,
+               "ms": ms, "ms_range": [ms_lo, ms_hi], "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": bms, "bound_by": by}
+        if name in COLD_CASES:
+            res["ms_cold"], res["cold_layers"] = cold_ms(lens, wids, w,
+                                                         False)
         emit(res)
         results[name] = res
         del got, want
@@ -353,38 +438,39 @@ def phase_kernel() -> dict:
                                  widths=widths, **scales)
         torch.cuda.synchronize()
         c = pa.counters()
-        if (c["launches_narrow_int8"] + c["launches_wide_int8"] != 1
+        if (c[f"launches_{cls}_int8"] != 1
                 or c["launches_narrow"] + c["launches_wide"] != 0):
             raise RuntimeError(f"{name} int8: launches {c}")
         want = pa.paged_attention_ref(q, kq, vq, lengths, tables, layer,
                                       widths=widths, **scales)
         errs = kernel_errors(f"{name} int8", got, want, valid, INT8_TOL)
-        launch8 = launcher(pa._kernel(int8=True), kq.data_ptr(),
-                           vq.data_ptr(), ks.data_ptr(), vs.data_ptr())
-        ms8 = time_ms(launch8, iters=50)
-        plain8 = time_ms(lambda: pa.paged_attention_ref(
-            q, kq, vq, lengths, tables, layer, widths=widths, **scales),
-            iters=10)
+        calls8 = [lambda: pa.paged_attention(q, kq, vq, lengths, tables,
+                                             layer, widths=widths, **scales)
+                  ] * KERNEL_ITERS
         # library yardstick: SDPA over the DEQUANTIZED bf16 cache (the
         # dequantization, and the gather, are not timed)
         kd = (kq.float() * ks[:, :, :, None, :]).to(torch.bfloat16)
         vd = (vq.float() * vs[:, :, :, None, :]).to(torch.bfloat16)
-        library8 = time_ms(library_call(q, kd, vd, lengths, tables, widths,
-                                        layer), iters=20)
+        ms8, lo8, hi8, library8 = timed_in_turns(
+            calls8, library_call(q, kd, vd, lengths, tables, widths, layer))
+        plain8 = time_ms(lambda: pa.paged_attention_ref(
+            q, kq, vq, lengths, tables, layer, widths=widths, **scales),
+            iters=10)
         # bf16 again in the same turn, beside the int8 time
-        bf16_again = time_ms(launcher(pa._kernel(), kp.data_ptr(),
-                                      vp.data_ptr()), iters=50)
+        bf16_again = graph_ms(calls)
         bms8, by8 = bound_ms(q, lengths, widths, kv_elem=1, scale_bytes=4)
         res8 = {"phase": "kernel_int8", "case": name, "B": b, "W": w,
-                "class": "narrow" if pa.is_narrow(b, w) else "wide",
-                **errs, "ms": ms8, "bf16_ms": [ms, bf16_again],
-                "plain_ms": plain8,
+                "class": cls, **errs, "ms": ms8, "ms_range": [lo8, hi8],
+                "bf16_ms": [ms, bf16_again], "plain_ms": plain8,
                 "library_ms": library8,
                 "library": "SDPA over the gathered dequantized bf16 cache",
                 "bound_ms": bms8, "bound_by": by8}
+        if name in COLD_CASES:
+            res8["ms_cold"], res8["cold_layers"] = cold_ms(lens, wids, w,
+                                                           True)
         emit(res8)
         results[f"{name}_int8"] = res8
-        del q, kp, vp, kq, vq, ks, vs, kd, vd, got, want, qg, out
+        del q, kp, vp, kq, vq, ks, vs, kd, vd, got, want, calls, calls8
         torch.cuda.empty_cache()
     return results
 
@@ -450,7 +536,7 @@ PROFILE_GROUPS = (
     ("optimizer", ("multi_tensor_apply", "adam", "foreach")),
     ("flash_attention", ("flash_fwd", "flash_bwd", "flash_delta")),
     ("fused_ce", ("ce_gemm", "ce_fwd")),
-    ("paged_attention", ("paged_attention",)),
+    ("paged_attention", ("paged_attention", "paged_narrow", "paged_wide")),
     ("gemm", ("gemm", "gemv", "nvjet", "cutlass", "xmma")),
     ("copy", ("memcpy", "memset")),
 )
@@ -1961,31 +2047,36 @@ def main() -> int:
     timed(phase_ckpt)
     emit({"phase_seconds": seconds})
     counts = serve["counts"]
-    wide_err = max(kern["prefill"]["max_abs_err"],
-                   kern["ragged"]["max_abs_err"])
     rows = []
     # the int8 rows: launches from the int8 cache served over HTTP
     counts8 = serve["int8"]["http_counts"]
-    wide_err8 = max(kern["prefill_int8"]["max_abs_err"],
-                    kern["ragged_int8"]["max_abs_err"])
-    for cls, case, line, launches, err, branch in (
-            ("narrow", "decode", 96, counts["launches_narrow"],
-             kern["decode"]["max_abs_err"], ""),
-            ("wide", "prefill", 434, counts["launches_wide"], wide_err, ""),
-            ("narrow", "decode_int8", 96, counts8["launches_narrow_int8"],
-             kern["decode_int8"]["max_abs_err"], " (int8 branch)"),
-            ("wide", "prefill_int8", 434, counts8["launches_wide_int8"],
-             wide_err8, " (int8 branch)")):
+
+    def worst(*cases):
+        return max(kern[c]["max_abs_err"] for c in cases)
+
+    for kernel, case, line, launches, err, branch in (
+            ("paged_narrow_kernel", "decode", 96, counts["launches_narrow"],
+             worst("decode", "verify"), ""),
+            ("paged_wide_kernel", "prefill", 434, counts["launches_wide"],
+             worst("prefill", "ragged"), ""),
+            ("paged_narrow_kernel", "decode_int8", 96,
+             counts8["launches_narrow_int8"],
+             worst("decode_int8", "verify_int8"), " (int8 branch)"),
+            ("paged_wide_kernel", "prefill_int8", 434,
+             counts8["launches_wide_int8"],
+             worst("prefill_int8", "ragged_int8"), " (int8 branch)")):
         k = kern[case]
         rows.append({
-            "name": f"paged_attention ({cls} class, {case} case)",
+            "name": f"paged_attention: {kernel}, {k['class']} class "
+                    f"({case} case)",
             "route": "cuda",
             "source": "cloud_server_tpu_torch/csrc/paged_attention.cu",
             "replaces": f"cloud_server_tpu/ops/paged_attention.py:{line}"
                         f"{branch}",
             "launches": launches, "max_abs_err": err, "ms": k["ms"],
-            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
+            "ms_cold": k["ms_cold"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": k["library_ms"]})
     tc = train["counts"]
     blocked, fused = fkern["blocked"], fkern["fused"]
     blocked_cases = [c for c, r in fkern.items() if r["backward"] == "blocked"]

@@ -378,7 +378,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1) flash_fwd_wgmma_kernel(
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk) {
-        wgmma_rs_mn<D>(acc, pa[kk],
+        wgmma_rs<D>(acc, pa[kk],
                        sw128_desc(vs + kk * 16 * 128, 2 * kBoxBytes));
       }
       wgmma_commit();
@@ -696,7 +696,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1) flash_bwd_dq_wgmma_kernel(
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk) {
-        wgmma_rs_mn<D>(dq, da[kk],
+        wgmma_rs<D>(dq, da[kk],
                        sw128_desc(ks + kk * 16 * 128, 2 * kBoxBytes));
       }
       wgmma_commit();
@@ -998,7 +998,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1) flash_bwd_kv_wgmma_kernel(
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
-          wgmma_rs_mn<D>(dv, pa[kk],
+          wgmma_rs<D>(dv, pa[kk],
                          sw128_desc(dos + kk * 16 * 128, kBoxBytes));
         }
         wgmma_commit();
@@ -1021,7 +1021,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1) flash_bwd_kv_wgmma_kernel(
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
-          wgmma_rs_mn<D>(dk, da[kk], sw128_desc(qs + kk * 16 * 128, kBoxBytes));
+          wgmma_rs<D>(dk, da[kk], sw128_desc(qs + kk * 16 * 128, kBoxBytes));
         }
         wgmma_commit();
         if constexpr (kDq) {

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA kernels
-// (flash_attention.cu, fused_ce.cu): shared-memory addresses, mbarriers,
-// TMA loads and stores, setmaxnreg, wgmma descriptors and products, and
-// the host's lookup of the driver's tensor-map encoder.
+// (flash_attention.cu, fused_ce.cu, paged_attention.cu): shared-memory
+// addresses, mbarriers, TMA loads and stores, clusters, setmaxnreg, wgmma
+// descriptors and products, and the host's lookup of the driver's
+// tensor-map encoder.
 #pragma once
 
 #include <cuda.h>
@@ -196,6 +197,23 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
                : "memory");
 }
 
+// Loads from the shared memory of another block of the cluster (an
+// address from mapa_shared), after a cluster_sync that published it: no
+// memory clobber, so that loads from several blocks are in flight at once.
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ float4 ld_cluster_f32x4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
+
 // One box of a 2-D tensor map into the same shared-memory offset of every
 // block of the cluster in `mask`; each one's barrier at `bar`'s offset
 // receives the bytes.
@@ -299,9 +317,9 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
 }
 
 // D (64 x 64, f32) (+)= A (64 x 16) B (16 x 64); A and B in shared memory,
-// both K-major, or both MN-major with kMn (the transpose bits); scale_d 0
-// overwrites D.
-template <int kMn = 0>
+// both K-major, or both MN-major with kMn (the transpose bits), or B alone
+// MN-major with kTransB; scale_d 0 overwrites D.
+template <int kMn = 0, int kTransB = kMn>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
                                              uint64_t db, int scale_d) {
   asm volatile(
@@ -312,7 +330,7 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
       "%29, %30, %31}, "
-      "%32, %33, p, 1, 1, %35, %35;\n"
+      "%32, %33, p, 1, 1, %35, %36;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -321,7 +339,7 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(kMn));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kMn), "n"(kTransB));
 }
 
 // D (64 x 256, f32) (+)= A (64 x 16) B (16 x 256); A and B in shared
@@ -379,10 +397,11 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t da,
 }
 
 // D (64 x 128, f32) += A (64 x 16, bf16 registers) B (16 x 128); B in
-// shared memory, MN-major (the transpose bit).
-__device__ __forceinline__ void wgmma_rs_n128_mn(float (&d)[64],
-                                                 const uint32_t (&a)[4],
-                                                 uint64_t db) {
+// shared memory, MN-major with kTransB (the transpose bit), else K-major.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -393,7 +412,7 @@ __device__ __forceinline__ void wgmma_rs_n128_mn(float (&d)[64],
       "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
       "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
       "%57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -408,14 +427,16 @@ __device__ __forceinline__ void wgmma_rs_n128_mn(float (&d)[64],
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(kTransB));
 }
 
 // D (64 x 64, f32) += A (64 x 16, bf16 registers) B (16 x 64); B in shared
-// memory, MN-major (the transpose bit).
-__device__ __forceinline__ void wgmma_rs_n64_mn(float (&d)[32],
-                                                const uint32_t (&a)[4],
-                                                uint64_t db) {
+// memory, MN-major with kTransB (the transpose bit), else K-major.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -424,7 +445,7 @@ __device__ __forceinline__ void wgmma_rs_n64_mn(float (&d)[32],
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
       "%29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -433,20 +454,21 @@ __device__ __forceinline__ void wgmma_rs_n64_mn(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(kTransB));
 }
 
 // The RS product at the output width N (64 or 128): accumulator N / 2
-// floats a thread.
-template <int N>
-__device__ __forceinline__ void wgmma_rs_mn(float (&d)[N / 2],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db) {
+// floats a thread; B MN-major with kTransB (the default), else K-major.
+template <int N, int kTransB = 1>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
   if constexpr (N == 128) {
-    wgmma_rs_n128_mn(d, a, db);
+    wgmma_rs_n128<kTransB>(d, a, db);
   } else {
-    static_assert(N == 64, "wgmma_rs_mn: N is 64 or 128");
-    wgmma_rs_n64_mn(d, a, db);
+    static_assert(N == 64, "wgmma_rs: N is 64 or 128");
+    wgmma_rs_n64<kTransB>(d, a, db);
   }
 }
 

@@ -20,8 +20,11 @@ Two versions of one function:
     reference's `gather_pages` + `paged_attention_xla`): gather every
     slot's pages into a contiguous cache, then `causal_attention`.
   * `paged_attention` — the kernel wrapper. On a CUDA tensor it launches
-    the hand-written Hopper kernel `csrc/paged_attention.cu` (or raises);
-    on a CPU tensor it runs the plain version.
+    one of the two hand-written Hopper kernels of
+    `csrc/paged_attention.cu` (or raises): the narrow kernel (split-KV in
+    clusters of blocks, one launch) for the reference's narrow class, the
+    wide kernel (TMA, an mbarrier ring and wgmma) for the rest. On a CPU
+    tensor it runs the plain version.
 
 The int8 KV cache: int8 pools plus (L, P, KH, ps) f32 absmax scale
 pools (`k_scale_pool`, `v_scale_pool`, one scale per position and kv
@@ -29,11 +32,13 @@ head). Both versions fold the scales into the score and probability
 columns; neither builds a dequantized cache.
 
 The wrapper counts launches in module counters named after the TPU
-kernels whose shape class each launch serves: `launches_narrow`
-(W <= 32 and B <= 16, the reference's `_paged_attention_kernel`) and
-`launches_wide` (everything else, `_paged_attention_wide_kernel`), and
-`launches_narrow_int8` / `launches_wide_int8` for the same classes on
-the int8 cache. `plain_calls` counts calls of the plain version.
+kernels each CUDA kernel replaces: `launches_narrow` counts the narrow
+kernel (the reference's `_paged_attention_kernel`: W <= 32 and B <= 16)
+and `launches_wide` the wide one (`_paged_attention_wide_kernel`:
+everything else, and a narrow-class call whose W * G rows exceed
+NARROW_MAX_ROWS), `launches_narrow_int8` / `launches_wide_int8` the
+same kernels on the int8 cache. `plain_calls` counts calls of the plain
+version.
 """
 
 from __future__ import annotations
@@ -132,6 +137,51 @@ def paged_attention_ref(q, k_pool, v_pool, lengths, tables, layer=0, *,
 # Kernel wrapper
 # ---------------------------------------------------------------------------
 
+# The narrow kernel takes at most this many folded rows (W * G) a kv head;
+# it splits each (slot, kv head)'s keys over a cluster of up to 8 blocks,
+# as many as fill one wave of the card at its occupancy (chosen in
+# csrc/paged_attention.cu from the shapes and the device, never from the
+# lengths; `narrow_splits` reports the count).
+NARROW_MAX_ROWS = 128
+TILE = 64  # kv positions a tile
+# Loaders of csrc/paged_attention.cu: TMA boxes of a tile (page sizes
+# that are a multiple of TILE, 16-byte aligned pools), cp.async of 8
+# positions (page sizes that are a multiple of 8), element by element.
+LOADER_TMA, LOADER_VEC, LOADER_SCALAR = 0, 1, 2
+
+
+def uses_narrow_kernel(b: int, w: int, g: int) -> bool:
+    """The narrow kernel serves the reference's narrow class where its
+    W * G rows fit one block; any other call runs the wide kernel."""
+    return is_narrow(b, w) and w * g <= NARROW_MAX_ROWS
+
+
+def narrow_splits(b: int, w: int, kh: int, g: int, d: int, int8: bool,
+                  max_pages: int, page_size: int) -> int:
+    """Blocks of the narrow kernel's cluster for each (slot, kv head) at
+    these shapes on the current CUDA device (0 where it does not run)."""
+    fn = cuda_build.load("paged_attention").paged_attention_narrow_splits
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 8
+        fn.restype = ctypes.c_int
+    return fn(b, w, kh, g, d, int(int8), max_pages, page_size)
+
+
+def loader_mode(page_size: int, pool_ptrs, scale_ptrs, elem_size: int,
+                rows: int) -> int:
+    """TMA where a tile is one box inside a page and every pointer the
+    copies start from is 16-byte aligned (the pool, seen as `rows` rows
+    of page_size, within the maps' 32-bit coordinates); cp.async where
+    page_size % 8 == 0 and the pools are aligned to 8 positions; else by
+    element."""
+    if (page_size % TILE == 0 and rows < 2 ** 31
+            and all(p % 16 == 0 for p in (*pool_ptrs, *scale_ptrs))):
+        return LOADER_TMA
+    if page_size % 8 == 0 and all(p % (8 * elem_size) == 0
+                                  for p in pool_ptrs):
+        return LOADER_VEC
+    return LOADER_SCALAR
+
 
 def _kernel(int8: bool = False):
     """The C entry for bf16 pools, or for int8 pools (which takes the two
@@ -140,8 +190,9 @@ def _kernel(int8: bool = False):
     fn = lib.paged_attention_int8 if int8 else lib.paged_attention_bf16
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * (9 if int8 else 7)
-                       + [ctypes.c_int] * 9
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 10
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -158,21 +209,24 @@ def paged_attention(q, k_pool, v_pool, lengths, tables, layer=0, *,
     Args:
       q: (B, W, H, Dh); slot b's window sits at absolute positions
         [lengths[b] - widths[b], lengths[b]). Its kv must already be
-        written to the pools (write-then-attend).
+        written to the pools (write-then-attend). The kernels read it
+        through its strides.
       k_pool, v_pool: (L, P, KH, Dh, ps) page pools (bf16, or int8 with
         the scale pools); `layer` selects inside the kernel, so no
         per-layer slice is materialised.
       lengths: (B,) int32 kv entries per slot including the window.
       tables: (B, max_pages) int32 page table; entries past a slot's
         length may be anything (they are clamped and masked).
-      widths: optional (B,) int32 ragged widths; None = W for every row.
+      widths: optional (B,) int32 ragged widths; None = W for every row
+        (the kernels take a null pointer, so nothing is filled).
       pages_per_block: accepted for the reference's signature; the CUDA
-        kernel tiles kv by 64 positions whatever the page size.
+        kernels tile kv by 64 positions whatever the page size.
       k_scale_pool, v_scale_pool: (L, P, KH, ps) f32 scales of int8
         pools, given together or not at all.
 
     Returns (B, W, H, Dh) in q.dtype. On a CPU tensor this is the plain
-    version; on a CUDA tensor the kernel runs or this raises.
+    version; on a CUDA tensor one kernel launches (the narrow one for the
+    narrow class, else the wide one) or this raises.
     """
     global launches_narrow, launches_wide
     global launches_narrow_int8, launches_wide_int8
@@ -221,40 +275,45 @@ def paged_attention(q, k_pool, v_pool, lengths, tables, layer=0, *,
             scale_ptrs.append(t.data_ptr())
     if tables.dim() != 2 or tables.shape[0] != b or lengths.shape != (b,):
         raise ValueError("tables must be (B, max_pages), lengths (B,)")
+    if widths is not None and widths.shape != (b,):
+        raise ValueError(f"widths must be (B,); got {tuple(widths.shape)}")
     layer = int(layer)
     if not 0 <= layer < n_layers:
         raise ValueError(f"layer {layer} out of range [0, {n_layers})")
     if scale is None:
         scale = d ** -0.5
     dev = q.device
+    out = torch.empty((b, w, h, d), dtype=q.dtype, device=dev)
+    if b == 0 or w == 0:
+        return out
     g = h // kh
     lens = _int32_on(lengths, dev)
     tabs = _int32_on(tables, dev)
-    wid = (torch.full((b,), w, dtype=torch.int32, device=dev)
-           if widths is None else _int32_on(widths, dev))
-    # fold the GQA group into rows per kv head: (B, KH, W*G, Dh)
-    qg = q.reshape(b, w, kh, g, d).permute(0, 2, 1, 3, 4).reshape(
-        b, kh, w * g, d).contiguous()
-    out = torch.empty_like(qg)
-    # 8 positions per vector load: 16 bytes of bf16, 8 of int8
-    align = 8 * k_pool.element_size()
-    vec_ok = int(ps % 8 == 0 and k_pool.data_ptr() % align == 0
-                 and v_pool.data_ptr() % align == 0)
+    wid = None if widths is None else _int32_on(widths, dev)
+    # the kernels read q's rows in 16-byte pieces through its strides
+    if (q.stride(3) != 1 or q.data_ptr() % 16
+            or any(st % 8 for st in q.stride()[:3])):
+        q = q.contiguous()
+    narrow = uses_narrow_kernel(b, w, g)
+    loader = loader_mode(ps, (k_pool.data_ptr(), v_pool.data_ptr()),
+                         scale_ptrs, k_pool.element_size(),
+                         n_layers * num_pages * kh * d)
     err = _kernel(int8)(
-        qg.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *scale_ptrs,
-        lens.data_ptr(), tabs.data_ptr(), wid.data_ptr(), out.data_ptr(),
-        b, kh, w * g, g, d, num_pages, ps, tabs.shape[1], layer,
-        float(scale), vec_ok, torch.cuda.current_stream(dev).cuda_stream)
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *scale_ptrs,
+        lens.data_ptr(), tabs.data_ptr(),
+        None if wid is None else wid.data_ptr(), out.data_ptr(),
+        *q.stride()[:3], *out.stride()[:3], b, w, kh, g, d, num_pages, ps,
+        tabs.shape[1], n_layers, layer, float(scale), loader, int(narrow),
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")
-    if int8 and is_narrow(b, w):
+    if int8 and narrow:
         launches_narrow_int8 += 1
     elif int8:
         launches_wide_int8 += 1
-    elif is_narrow(b, w):
+    elif narrow:
         launches_narrow += 1
     else:
         launches_wide += 1
-    return out.reshape(b, kh, w, g, d).permute(0, 2, 1, 3, 4).reshape(
-        b, w, h, d)
+    return out

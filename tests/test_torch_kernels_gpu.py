@@ -23,32 +23,56 @@ def _case(seed, *, b, w, lengths, widths, h=32, kh=8, d=128, ps=128, mp=16):
     return q, k_pool, v_pool, np.asarray(lengths), tables, np.asarray(widths)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("b,w,lengths,widths,d,ps,mp", [
-    (8, 1, [1537, 2048, 977, 1800, 64, 1200, 1501, 333], None, 128, 128, 16),
-    (2, 256, [2048, 1400], None, 128, 128, 16),
-    (5, 256, [1700, 900, 1024, 77, 0], [1, 1, 256, 77, 0], 128, 128, 16),
-    # head_dim 64, and page sizes off the 16-byte vector path (12)
-    (3, 40, [200, 41, 500], [40, 3, 17], 64, 16, 40),
-    (3, 5, [7, 300, 96], None, 128, 12, 30)])
-def test_cuda_kernel_matches_plain(b, w, lengths, widths, d, ps, mp):
-    """The Hopper kernel against the plain version on the card, bf16,
-    at Llama-3.1-8B's head shapes and at other head dims and page sizes
-    (H 32, KH 8). Tolerance, as in chip_smoke.py: about one bf16 ulp,
-    |err| <= 8e-3 + 1e-2 * |plain|, and the error's RMS within 1% of the
-    plain output's RMS."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    case = _case(13, b=b, w=w, lengths=lengths, widths=widths, d=d,
-                 ps=ps, mp=mp)
-    q, kp, vp = (torch.from_numpy(x).cuda().to(torch.bfloat16)
-                 for x in case[:3])
-    lens, tabs, wid = (torch.from_numpy(x).cuda().to(torch.int32)
-                       for x in case[3:])
-    pa.reset_counters()
-    got = pa.paged_attention(q, kp, vp, lens, tabs, 1, widths=wid)
-    assert pa.launches_narrow + pa.launches_wide == 1
-    want = pa.paged_attention_ref(q, kp, vp, lens, tabs, 1, widths=wid)
+# (B, W, lengths, widths, Dh, ps, max_pages) at H 32, KH 8 (G 4). The
+# narrow kernel takes W <= 32 and B <= 16 (split-KV in clusters of up to 8
+# blocks); the wide kernel the rest (row blocks of 128 folded rows).
+# ps % 64 == 0 runs the TMA loader, ps 16 the cp.async one, ps 12 the
+# element-wise one.
+PAGED_CASES = [
+    pytest.param(8, 1, [1537, 2048, 977, 1800, 64, 1200, 1501, 333], None,
+                 128, 128, 16, id="decode"),
+    pytest.param(2, 256, [2048, 1400], None, 128, 128, 16, id="prefill"),
+    pytest.param(5, 256, [1700, 900, 1024, 77, 0], [1, 1, 256, 77, 0], 128,
+                 128, 16, id="ragged"),
+    # head_dim 64, and page sizes off the TMA box (16) and off the 8-wide
+    # copies (12)
+    pytest.param(3, 40, [200, 41, 500], [40, 3, 17], 64, 16, 40, id="dh64"),
+    pytest.param(3, 5, [7, 300, 96], None, 128, 12, 30, id="ps12"),
+    # decode width in the wide class (B > 16)
+    pytest.param(17, 1, [1 + 121 * i for i in range(17)], None, 128, 128,
+                 16, id="wide_decode"),
+    # the narrow class's edge: 128 folded rows, clusters of 8
+    pytest.param(16, 32, [32 + 127 * i for i in range(16)], None, 128, 128,
+                 16, id="narrow_edge"),
+    # whole wide row blocks past a slot's width (they write zeros), a
+    # width-1 row of length 1
+    pytest.param(4, 256, [2000, 300, 256, 1], [3, 256, 40, 1], 128, 128, 16,
+                 id="ragged_dead_blocks"),
+    # lengths across the tile (64) and split (4 tiles) boundaries, and
+    # shorter than one tile: narrow, then wide
+    pytest.param(8, 1, [1, 63, 64, 65, 256, 257, 1025, 2047], None, 128,
+                 128, 16, id="narrow_split_edges"),
+    pytest.param(4, 8, [8, 70, 520, 1999], [8, 2, 8, 5], 128, 128, 16,
+                 id="verify_split_edges"),
+    pytest.param(3, 40, [40, 129, 700], [40, 5, 33], 128, 128, 16,
+                 id="wide_tile_edges"),
+    # ps 64, the smallest TMA page: a tile is a whole page
+    pytest.param(4, 1, [1, 64, 65, 900], None, 128, 64, 16, id="narrow_ps64"),
+    pytest.param(2, 48, [48, 700], None, 128, 64, 12, id="wide_ps64"),
+    # the cp.async and element-wise loaders on the other kernel
+    pytest.param(3, 1, [16, 100, 333], None, 128, 16, 30, id="narrow_ps16"),
+    pytest.param(2, 40, [40, 200], [40, 7], 128, 12, 30, id="wide_ps12"),
+    # head dim 64 through the TMA loader, both kernels
+    pytest.param(4, 8, [300, 70, 1, 2000], [8, 3, 1, 8], 64, 128, 16,
+                 id="narrow_dh64"),
+    pytest.param(2, 64, [64, 900], None, 64, 128, 8, id="wide_dh64"),
+]
+
+
+def _check_paged(got, want, w, lens, wid):
+    """Tolerance, as in chip_smoke.py: about one bf16 ulp, |err| <= 8e-3 +
+    1e-2 * |plain|, and the error's RMS within 1% of the plain output's
+    RMS, on the rows inside each slot's width; every row finite."""
     valid = ((torch.arange(w, device="cuda")[None, :] < wid[:, None])
              & (lens > 0)[:, None])
     assert bool(torch.isfinite(got).all())
@@ -59,20 +83,48 @@ def test_cuda_kernel_matches_plain(b, w, lengths, widths, d, ps, mp):
                  / ref_abs.square().mean().sqrt()) <= 1e-2
 
 
+def _launched_class(b, w, int8):
+    """The counter the call must have moved, and the others at 0."""
+    narrow = pa.uses_narrow_kernel(b, w, 32 // 8)
+    want = {"launches_narrow": 0, "launches_wide": 0,
+            "launches_narrow_int8": 0, "launches_wide_int8": 0,
+            "plain_calls": 0}
+    want[("launches_narrow" if narrow else "launches_wide")
+         + ("_int8" if int8 else "")] = 1
+    return want
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,w,lengths,widths,d,ps,mp", [
-    (8, 1, [1537, 2048, 977, 1800, 64, 1200, 1501, 333], None, 128, 128, 16),
-    (2, 256, [2048, 1400], None, 128, 128, 16),
-    (5, 256, [1700, 900, 1024, 77, 0], [1, 1, 256, 77, 0], 128, 128, 16),
-    # head_dim 64, and page sizes off the 8-byte int8 vector path (12)
-    (3, 40, [200, 41, 500], [40, 3, 17], 64, 16, 40),
-    (3, 5, [7, 300, 96], None, 128, 12, 30)],
-    ids=["decode", "prefill", "ragged", "dh64", "ps12"])
+@pytest.mark.parametrize("b,w,lengths,widths,d,ps,mp", PAGED_CASES)
+def test_cuda_kernel_matches_plain(b, w, lengths, widths, d, ps, mp):
+    """The Hopper kernels (narrow and wide) against the plain version on
+    the card, bf16, at Llama-3.1-8B's head shapes and at other head dims
+    and page sizes (H 32, KH 8); uniform windows reach the kernels with a
+    null widths pointer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    case = _case(13, b=b, w=w, lengths=lengths, widths=widths, d=d,
+                 ps=ps, mp=mp)
+    q, kp, vp = (torch.from_numpy(x).cuda().to(torch.bfloat16)
+                 for x in case[:3])
+    lens, tabs, wid = (torch.from_numpy(x).cuda().to(torch.int32)
+                       for x in case[3:])
+    wid_arg = None if widths is None else wid
+    pa.reset_counters()
+    got = pa.paged_attention(q, kp, vp, lens, tabs, 1, widths=wid_arg)
+    torch.cuda.synchronize()
+    assert pa.counters() == _launched_class(b, w, False)
+    want = pa.paged_attention_ref(q, kp, vp, lens, tabs, 1, widths=wid)
+    _check_paged(got, want, w, lens, wid)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,w,lengths,widths,d,ps,mp", PAGED_CASES)
 def test_cuda_kernel_int8_matches_plain(b, w, lengths, widths, d, ps, mp):
-    """The int8 branch of the kernel (int8 pools + f32 scale pools from
-    the port's quantize_pool) against the int8 plain version on the card,
-    bf16 q, with the bf16 kernel's tolerance; the launch counts under the
-    int8 class counters."""
+    """The int8 kernels (int8 pools + f32 scale pools from the port's
+    quantize_pool) against the int8 plain version on the card, bf16 q,
+    with the bf16 kernels' tolerance; the launch counts under the int8
+    counters."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from cloud_server_tpu_torch.inference.paged_engine import quantize_pool
@@ -83,23 +135,178 @@ def test_cuda_kernel_int8_matches_plain(b, w, lengths, widths, d, ps, mp):
     vq, vs = quantize_pool(torch.from_numpy(case[2]).cuda())
     lens, tabs, wid = (torch.from_numpy(x).cuda().to(torch.int32)
                        for x in case[3:])
+    wid_arg = None if widths is None else wid
     pa.reset_counters()
-    got = pa.paged_attention(q, kq, vq, lens, tabs, 1, widths=wid,
+    got = pa.paged_attention(q, kq, vq, lens, tabs, 1, widths=wid_arg,
                              k_scale_pool=ks, v_scale_pool=vs)
     torch.cuda.synchronize()
-    c = pa.counters()
-    assert (c["launches_narrow_int8"] + c["launches_wide_int8"] == 1
-            and c["launches_narrow"] + c["launches_wide"] == 0)
+    assert pa.counters() == _launched_class(b, w, True)
     want = pa.paged_attention_ref(q, kq, vq, lens, tabs, 1, widths=wid,
                                   k_scale_pool=ks, v_scale_pool=vs)
+    _check_paged(got, want, w, lens, wid)
+
+
+def _reference_kernel_arithmetic(q, kq, ks, vq, vs, lens, tabs, wids,
+                                 layer):
+    """The reference kernels' int8 arithmetic, which the CUDA kernels keep:
+    an online softmax over 64-key tiles in log2 units, each tile's
+    unnormalized probabilities times the value scales rounded to bf16
+    before P.V, one division by the row sum at the end. The plain version
+    rounds normalized probabilities instead, so on rows with a few visible
+    keys the two differ by up to two roundings of terms as large as the
+    values themselves."""
+    neg = -0.7 * float(torch.finfo(torch.float32).max)
+    b, w, h, d = q.shape
+    kh = kq.shape[2]
+    g = h // kh
+    k = pa.gather_pages(kq, tabs, layer).float()
+    v = pa.gather_pages(vq, tabs, layer).float()
+    ksc = pa.gather_scale_pages(ks, tabs, layer)[..., 0]
+    vsc = pa.gather_scale_pages(vs, tabs, layer)[..., 0]
+    out = torch.zeros(b, w, h, d, device=q.device)
+    log2_scale = d ** -0.5 * 1.4426950408889634
+    for bi in range(b):
+        kv_len, width = int(lens[bi]), int(wids[bi])
+        anchor = kv_len - width
+        rows = anchor + torch.arange(w, device=q.device)
+        qb = q[bi].float().reshape(w, kh, g, d)
+        for hh in range(kh):
+            m = torch.full((w, g), neg, device=q.device)
+            l = torch.zeros(w, g, device=q.device)
+            acc = torch.zeros(w, g, d, device=q.device)
+            for t0 in range(0, max(0, min(kv_len, anchor + width)), 64):
+                cols = torch.arange(t0, t0 + 64, device=q.device)
+                s = torch.einsum("wgd,td->wgt", qb[:, hh], k[bi, cols, hh])
+                s = s * (log2_scale * ksc[bi, cols, hh])
+                seen = (cols[None] <= rows[:, None]) & (cols[None] < kv_len)
+                s = torch.where(seen[:, None], s,
+                                torch.tensor(neg, device=q.device))
+                m_new = torch.maximum(m, s.amax(-1))
+                corr = torch.exp2(m - m_new)
+                p = torch.exp2(s - m_new[..., None])
+                l = l * corr + p.sum(-1)
+                pv = (p * vsc[bi, cols, hh]).to(torch.bfloat16).float()
+                acc = acc * corr[..., None] + torch.einsum(
+                    "wgt,td->wgd", pv, v[bi, cols, hh])
+                m = m_new
+            out[bi, :, hh * g:(hh + 1) * g] = acc / l.clamp_min(1e-30)[
+                ..., None]
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,w,lengths,widths,d", [
+    (4, 8, [8, 70, 1, 2000], [8, 3, 1, 8], 64),
+    (3, 40, [40, 41, 77], [40, 2, 77], 128)], ids=["narrow", "wide"])
+def test_cuda_kernel_int8_few_keys_match_reference_arithmetic(
+        b, w, lengths, widths, d):
+    """Rows that see a few keys, on int8 pools: the kernels against the
+    reference kernels' own arithmetic (`_reference_kernel_arithmetic`)
+    within 2^-7 of each value plus 1e-3 (the bf16 rounding of the output
+    and the order of f32 sums, which split-KV changes), every row
+    finite. Against the plain version these rows sit at INT8_TOL's
+    elementwise limit (PERF.md)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cloud_server_tpu_torch.inference.paged_engine import quantize_pool
+    case = _case(17, b=b, w=w, lengths=lengths, widths=widths, d=d)
+    q = torch.from_numpy(case[0]).cuda().to(torch.bfloat16)
+    kq, ks = quantize_pool(torch.from_numpy(case[1]).cuda())
+    vq, vs = quantize_pool(torch.from_numpy(case[2]).cuda())
+    lens, tabs, wid = (torch.from_numpy(x).cuda().to(torch.int32)
+                       for x in case[3:])
+    got = pa.paged_attention(q, kq, vq, lens, tabs, 1, widths=wid,
+                             k_scale_pool=ks, v_scale_pool=vs).float()
+    want = _reference_kernel_arithmetic(q, kq, ks, vq, vs, lens, tabs, wid,
+                                        1).float()
     valid = ((torch.arange(w, device="cuda")[None, :] < wid[:, None])
              & (lens > 0)[:, None])
     assert bool(torch.isfinite(got).all())
-    diff = (got.float() - want.float()).abs()[valid]
-    ref_abs = want.float().abs()[valid]
-    assert bool((diff <= 8e-3 + 1e-2 * ref_abs).all())
-    assert float(diff.square().mean().sqrt()
-                 / ref_abs.square().mean().sqrt()) <= 1e-2
+    diff = (got - want).abs()[valid]
+    assert bool((diff <= 1e-3 + 2.0 ** -7 * want.abs()[valid]).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,kh,w", [(8, 8, 1), (8, 8, 32), (64, 8, 1),
+                                    (64, 8, 32)],
+                         ids=["mha_decode", "mha_verify", "g8_decode",
+                              "g8_verify"])
+def test_cuda_kernel_group_sizes(h, kh, w):
+    """Groups of 1 (MHA) and 8 query heads a kv head, bf16 and int8: at
+    G 8 a W 32 window folds into 256 rows, more than the narrow kernel
+    takes, so that narrow-class call runs the wide kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cloud_server_tpu_torch.inference.paged_engine import quantize_pool
+    b = 3
+    case = _case(29, b=b, w=w, lengths=[w, 500, 1300], widths=None, h=h,
+                 kh=kh, mp=12)
+    q, kp, vp = (torch.from_numpy(x).cuda().to(torch.bfloat16)
+                 for x in case[:3])
+    lens, tabs, wid = (torch.from_numpy(x).cuda().to(torch.int32)
+                       for x in case[3:])
+    kq, ks = quantize_pool(torch.from_numpy(case[1]).cuda())
+    vq, vs = quantize_pool(torch.from_numpy(case[2]).cuda())
+    narrow = pa.uses_narrow_kernel(b, w, h // kh)
+    assert narrow == (h // kh * w <= 128)
+    for pools, scales in (((kp, vp), {}),
+                          ((kq, vq), dict(k_scale_pool=ks, v_scale_pool=vs))):
+        pa.reset_counters()
+        got = pa.paged_attention(q, *pools, lens, tabs, 1, **scales)
+        torch.cuda.synchronize()
+        key = ("launches_narrow" if narrow else "launches_wide") + (
+            "_int8" if scales else "")
+        assert pa.counters()[key] == 1
+        want = pa.paged_attention_ref(q, *pools, lens, tabs, 1, widths=wid,
+                                      **scales)
+        _check_paged(got, want, w, lens, wid)
+
+
+@pytest.mark.gpu
+def test_narrow_split_count():
+    """The narrow kernel's blocks per (slot, kv head): 1 to 8, at most one
+    for every two tiles of a full table, 0 for shapes it does not take."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for int8 in (False, True):
+        for b, w in ((1, 1), (8, 1), (16, 1), (8, 32)):
+            n = pa.narrow_splits(b, w, 8, 4, 128, int8, 16, 128)
+            assert 1 <= n <= 8, (b, w, int8, n)
+        assert pa.narrow_splits(8, 1, 8, 4, 128, int8, 1, 64) == 1
+        assert pa.narrow_splits(8, 1, 8, 4, 128, int8, 2, 128) <= 2
+        assert pa.narrow_splits(8, 33, 8, 4, 128, int8, 16, 128) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,w", [(8, 1), (2, 40)], ids=["narrow", "wide"])
+def test_cuda_kernel_layouts(b, w):
+    """q read through its strides (a view of a wider tensor) gives the
+    contiguous copy's output bit for bit; a null widths pointer gives the
+    uniform widths tensor's output bit for bit; rows of a wide row block
+    past every slot's width are zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lengths = [300 + 97 * i for i in range(b)]
+    case = _case(23, b=b, w=w, lengths=lengths, widths=None, mp=8)
+    kp, vp = (torch.from_numpy(x).cuda().to(torch.bfloat16)
+              for x in case[1:3])
+    lens, tabs, wid = (torch.from_numpy(x).cuda().to(torch.int32)
+                       for x in case[3:])
+    wide_q = torch.from_numpy(np.concatenate([case[0], case[0]], axis=-1))
+    q_view = wide_q.cuda().to(torch.bfloat16)[..., :128]
+    assert not q_view.is_contiguous()
+    q = q_view.contiguous()
+    got = pa.paged_attention(q, kp, vp, lens, tabs, 0)
+    assert torch.equal(pa.paged_attention(q_view, kp, vp, lens, tabs, 0),
+                       got)
+    assert torch.equal(pa.paged_attention(q, kp, vp, lens, tabs, 0,
+                                          widths=wid), got)
+    if w == 40:
+        # rows 32 .. 39 of the window (folded rows 128 ..) form a block
+        # wholly past width 32
+        short = torch.full_like(wid, 32)
+        out = pa.paged_attention(q, kp, vp, lens, tabs, 0, widths=short)
+        assert bool((out[:, 32:] == 0).all())
 
 
 @pytest.mark.gpu

@@ -74,6 +74,25 @@ def test_plain_matches_reference(w, h, kh):
                 atol=2e-4, rtol=2e-4)
 
 
+@pytest.mark.parametrize("b,w", [(17, 1), (16, 32)],
+                         ids=["wide_b17_w1", "narrow_b16_w32"])
+def test_plain_matches_reference_class_edges(b, w):
+    """The two shapes where the classes meet, which the CUDA wrapper sends
+    to different kernels: B 17 x W 1 runs the reference's wide kernel and
+    B 16 x W 32 its narrow kernel (interpret mode); the port's plain
+    version against both and against the XLA path."""
+    mp = 6
+    case = _case(b * 100 + w, b=b, w=w, h=4, kh=2, mp=mp,
+                 num_pages=b * mp + 3)
+    assert pa.is_narrow(b, w) == (b <= 16)
+    got = _port(case, 1)
+    np.testing.assert_allclose(
+        got, _ref(ref_pa.paged_attention_xla, case, 1), atol=ATOL, rtol=ATOL)
+    np.testing.assert_allclose(
+        got, _ref(ref_pa.paged_attention, case, 1, pages_per_block=2,
+                  interpret=True), atol=2e-4, rtol=2e-4)
+
+
 def test_wide_kernel_interpret_matches_plain():
     case = _case(5, b=2, w=48, h=4, kh=2, mp=12,
                  lengths=[96, 60], widths=[48, 17])
@@ -122,3 +141,32 @@ def test_counters_and_shape_class():
                              "launches_wide_int8": 0, "plain_calls": 1}
     assert pa.is_narrow(16, 32) and not pa.is_narrow(17, 1)
     assert not pa.is_narrow(2, 33)
+
+
+@pytest.mark.parametrize("b,w,g,narrow", [
+    (8, 1, 4, True), (16, 32, 4, True), (17, 1, 4, False),
+    (16, 33, 4, False), (16, 32, 8, False), (2, 256, 4, False)])
+def test_kernel_for_each_class(b, w, g, narrow):
+    """The CUDA wrapper's dispatch: the narrow kernel for the reference's
+    narrow class where its W * G rows fit one block (128), else the wide
+    kernel."""
+    assert pa.uses_narrow_kernel(b, w, g) == narrow
+
+
+@pytest.mark.parametrize("ps,pools,scales,elem,rows,loader", [
+    (128, (0, 1 << 20), (), 2, 1 << 20, pa.LOADER_TMA),
+    (64, (256, 512), (1024, 2048), 1, 1 << 20, pa.LOADER_TMA),
+    (128, (0, 8), (), 1, 1 << 20, pa.LOADER_VEC),     # a pool off 16 bytes
+    (128, (0, 8), (), 2, 1 << 20, pa.LOADER_SCALAR),  # ... off 8 positions
+    (128, (0, 0), (4, 0), 1, 1 << 20, pa.LOADER_VEC),  # a scale pool
+    (128, (0, 0), (), 2, 1 << 31, pa.LOADER_VEC),     # past the maps' rows
+    (16, (0, 16), (), 2, 1 << 20, pa.LOADER_VEC),
+    (16, (0, 8), (), 1, 1 << 20, pa.LOADER_VEC),
+    (16, (0, 8), (), 2, 1 << 20, pa.LOADER_SCALAR),
+    (12, (0, 16), (), 2, 1 << 20, pa.LOADER_SCALAR)])
+def test_loader_for_page_size_and_alignment(ps, pools, scales, elem, rows,
+                                            loader):
+    """TMA where a 64-position tile is one box inside a page and every
+    pointer is 16-byte aligned; cp.async of 8 positions where ps % 8 == 0
+    and the pools are aligned to them; else element by element."""
+    assert pa.loader_mode(ps, pools, scales, elem, rows) == loader
