@@ -36,25 +36,42 @@ each:
                 in turns with the cuBLAS products alone (the library
                 yardstick) and beside their bound;
   3. serve    — PagedInferenceServer at the full Llama-3.1-8B width (all
-                32 layers, random bf16 weights from a seed) serving 8
-                greedy requests; a second run on a fresh server must give
-                the same tokens, and a 2-layer slice of the model must
-                give the plain dense forward's logits through the paged
-                kernel path; one steady decode step of 8 seeded requests
-                timed with the threefry draw and with the earlier hash
-                draw;
-     profile  — one mixed (prefill + decode) step and one steady decode
-                step under torch.profiler: wall time, device busy time
-                and idle share, the busiest kernels;
+                32 layers, random bf16 weights from a seed) on the path a
+                user gets: the mixed scheduler, the overlap pipeline and
+                one captured CUDA graph per program shape, serving 8
+                greedy requests (the kernels' counts read right after
+                it, replays included); the same requests then give the
+                same tokens with graphs off (every program launched
+                eagerly) and on a second fresh server; a 2-layer slice of
+                the model must give the plain dense forward's logits
+                through the paged kernel path; under the alternating
+                scheduler (programs of other shapes) each request's
+                tokens are the same up to a divergence at a near tie
+                (both tokens within the run's 25th-percentile top-2 gap
+                of the dense forward's top logit), and on a 2-layer
+                float32 slice token for token; 8 server-global seeded
+                requests, and 8 requests each with its own seed and
+                top-p, give the same tokens graphed and with graphs
+                off, and steady seeded decode steps of both graphed
+                servers are timed;
+     profile  — on the served server, pipelined mixed steps (admissions
+                landing) and steady decode steps (8 live slots), several
+                of each under torch.profiler: per step the wall time,
+                the host's launch API calls (kernels and graphs), the
+                device kernels, busy time and idle share, the busiest
+                kernels;
      serve_int8 — the same 8 requests on the int8 KV cache (same params):
                 the pool's bytes against the bf16 pool's, the int8
-                kernels' launches and no plain call, the share of tokens
-                equal to the bf16 run; a 2-layer slice through the int8
-                kernel against the int8 plain path; then HttpFrontend on
-                127.0.0.1 over an int8 server with the 8 requests streamed
-                concurrently through /v1/completions (32 tokens and
-                [DONE] each, /metrics counting them, /v1/embeddings a
-                501) and the client's TTFT and ITL;
+                kernels' launches and no plain call, the same tokens with
+                graphs off, the share of tokens equal to the bf16 run; a
+                2-layer slice through the int8 kernel against the int8
+                plain path; the profile; then HttpFrontend on 127.0.0.1
+                over that server (its programs captured) with 8 fresh
+                requests streamed concurrently through /v1/completions
+                (32 tokens and [DONE] each, /metrics counting them,
+                /v1/embeddings a 501) and the client's TTFT and ITL,
+                then the same prompts in process on a fresh server with
+                graphs off (the share of tokens equal reported);
   4. train    — the training CLI (`cloud_server_tpu_torch.train.main`)
                 at Llama-3.1-8B's widths cut to 8 layers (f32 masters,
                 bf16 compute, flash attention, full remat): 6 steps at
@@ -92,6 +109,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12       # H100 SXM data sheet, dense
@@ -481,39 +499,150 @@ def phase_kernel() -> dict:
 
 PROMPT_LENS = [64, 200, 350, 500, 700, 900, 1200, 1500]
 MAX_NEW = 32
+# Decode budget of the profile and the seeded-step runs, long enough for
+# several steady decode steps after the admissions.
+LONG_NEW = 96
+# Pipelined steps profiled together (a steady step commits iteration N
+# and launches N+1, so one step alone is not a whole iteration).
+PROFILE_STEPS = 3
+# The steady seeded decode steps timed.
+SEEDED_STEPS = 4
+# Host API calls that launch work on the card, as torch.profiler lists
+# them among its CPU events (CUPTI's runtime and low-level CUDA APIs).
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+               "cuLaunchKernelEx", "cudaGraphLaunch")
 
 
-def make_server(params, cfg, icfg):
+def make_server(params, cfg, icfg, **kw):
+    """The serving path a user gets: the mixed scheduler with the overlap
+    pipeline and captured CUDA graphs (`cuda_graphs=False`, a check only,
+    launches every program eagerly)."""
     from cloud_server_tpu_torch.inference.paged_server import (
         PagedInferenceServer)
     return PagedInferenceServer(params, cfg, icfg, max_slots=8,
                                 max_context=MAX_CTX, page_size=PS,
-                                prefill_chunk=256, seed=SEED, device=DEVICE)
+                                prefill_chunk=256, seed=SEED, device=DEVICE,
+                                **kw)
 
 
-def serve_once(params, cfg, icfg, prompts):
-    """The 8 requests on a fresh server: (requests, start, end, bytes of
-    the server's page pools)."""
+def make_prompts(rng, vocab):
+    return [rng.integers(0, vocab, n).tolist() for n in PROMPT_LENS]
+
+
+def serve_once(params, cfg, icfg, prompts, srv=None, max_new=MAX_NEW,
+               sampling=None, **kw):
+    """The requests on `srv` (a fresh server by default), request i with
+    `sampling[i]` when given: (requests, start, end, bytes of the
+    server's page pools)."""
     import torch
-    srv = make_server(params, cfg, icfg)
+    srv = srv if srv is not None else make_server(params, cfg, icfg, **kw)
     pool_bytes = srv.kv_cache_bytes()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    reqs = [srv.submit(p, max_new_tokens=MAX_NEW) for p in prompts]
+    reqs = [srv.submit(p, max_new_tokens=max_new,
+                       sampling=sampling[i] if sampling else None)
+            for i, p in enumerate(prompts)]
     srv.run_until_idle()
     torch.cuda.synchronize()
     t_end = time.perf_counter()
-    del srv
     return reqs, t0, t_end, pool_bytes
 
 
-def check_served(reqs, vocab) -> None:
+def check_served(reqs, vocab, max_new=MAX_NEW) -> None:
     for r in reqs:
-        if r.finish_reason != "length" or len(r.tokens) != MAX_NEW:
+        if r.finish_reason != "length" or len(r.tokens) != max_new:
             raise RuntimeError(f"request ended {r.finish_reason!r} with "
                                f"{len(r.tokens)} tokens")
         if not all(0 <= t < vocab for t in r.tokens):
             raise RuntimeError("token id out of the vocabulary")
+
+
+def same_tokens(what, reqs, want) -> None:
+    got = [r.tokens for r in reqs]
+    if got != want:
+        n = sum(a != b for x, y in zip(got, want) for a, b in zip(x, y))
+        raise RuntimeError(f"{what}: {n} tokens differ")
+
+
+def near_tie_divergence(what, reqs, want, prompts, params, cfg) -> dict:
+    """Two schedules of the same greedy requests in bf16: their programs
+    differ in shape, so a near tie between two tokens may break the
+    other way (`schedulers_in_f32` shows the schedules equal where
+    rounding cannot break a tie). Each request's tokens must be equal up
+    to its first divergence, and there both runs' tokens must lie near
+    the top of the plain dense forward's logits over the same context:
+    both within the 25th percentile of that forward's top-2 gaps over
+    every position `want` decoded, measured in this run. A divergence
+    that is no tie lands at an ordinary gap and fails three times in
+    four."""
+    import numpy as np
+    import torch
+    from cloud_server_tpu_torch.models import transformer
+    top2, at_div = [], []
+    equal = total = 0
+    for r, w, prompt in zip(reqs, want, prompts):
+        total += len(w.tokens)
+        i = next((j for j, (a, b) in enumerate(zip(r.tokens, w.tokens))
+                  if a != b), len(w.tokens))
+        equal += i
+        seq = torch.tensor([prompt + w.tokens[:-1]], device=DEVICE)
+        with torch.no_grad():
+            h = transformer.forward_hidden(params, seq, cfg)
+            logits = transformer.unembed(h[:, len(prompt) - 1:], params,
+                                         cfg)[0].float()
+        best = logits.topk(2, dim=-1).values
+        top2 += (best[:, 0] - best[:, 1]).tolist()
+        if i < len(w.tokens):
+            top = float(best[i, 0])
+            at_div.append(max(top - float(logits[i, w.tokens[i]]),
+                              top - float(logits[i, r.tokens[i]])))
+    limit = float(np.percentile(top2, 25))
+    if any(g > limit for g in at_div):
+        raise RuntimeError(f"{what}: requests diverged {at_div} below the "
+                           f"dense forward's top logit, past the limit "
+                           f"{limit} (top-2 gaps p25)")
+    return {"equal_share_before_divergence": equal / total,
+            "diverged_requests": len(at_div),
+            "divergence_gaps_below_top_logit": at_div,
+            "divergence_gap_limit_p25_top2": limit,
+            "top2_gap_p5_p50": [float(np.percentile(top2, 5)),
+                                float(np.percentile(top2, 50))]}
+
+
+def schedulers_in_f32(params, cfg, prompts) -> dict:
+    """The alternating scheduler against the default one where rounding
+    cannot break a tie: a 2-layer slice of the model at full width in
+    float32 (TF32 off; the plain attention path, the kernels taking bf16
+    and int8 pools only), greedy, both graphed: the same tokens."""
+    import dataclasses
+    import torch
+    from cloud_server_tpu_torch.config import InferConfig
+
+    def f32(tree):
+        if isinstance(tree, dict):
+            return {k: f32(v) for k, v in tree.items()}
+        return tree.float()
+
+    cfg32 = dataclasses.replace(cfg, num_layers=2, dtype="float32",
+                                param_dtype="float32",
+                                decode_attention_impl="xla")
+    p32 = f32(dict(params, layers={k: v[:2] for k, v in
+                                   params["layers"].items()}))
+    icfg = InferConfig(max_decode_len=MAX_NEW, temperature=0.0,
+                       eos_token_id=-1, pad_token_id=0)
+    runs = {}
+    for sched in ("mixed", "alternating"):
+        srv = make_server(p32, cfg32, icfg, scheduler=sched)
+        reqs, _, _, _ = serve_once(p32, cfg32, icfg, prompts, srv=srv)
+        check_served(reqs, cfg.vocab_size)
+        runs[sched] = ([r.tokens for r in reqs], len(srv._programs))
+        srv.stop()
+    del p32
+    same_tokens("alternating vs mixed in float32",
+                [types.SimpleNamespace(tokens=t)
+                 for t in runs["alternating"][0]], runs["mixed"][0])
+    return {"f32_alternating_equals_mixed": True,
+            "f32_programs": {k: v[1] for k, v in runs.items()}}
 
 
 def serving_rates(reqs, t_start, t_end) -> dict:
@@ -542,24 +671,32 @@ PROFILE_GROUPS = (
 )
 
 
-def profile_step(step) -> dict:
-    """One call of `step` (a scheduler or train step) under
-    torch.profiler: its wall time, the device time of every kernel and
-    copy it ran, and the busiest kernels."""
+def profile_step(step, n: int = 1) -> dict:
+    """`n` calls of `step` (scheduler or train steps) under torch.profiler,
+    per call: the wall time, the host's launch API calls (kernel launches
+    and graph launches), the device kernels and copies, their time and
+    the device's idle share; the busiest kernels and the device time by
+    group over the window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step()
+        for _ in range(n):
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     per_name: dict[str, float] = {}
+    n_kernels = 0
+    launches: dict[str, int] = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
+            n_kernels += 1
             per_name[e.name] = (per_name.get(e.name, 0.0)
                                 + e.time_range.elapsed_us() / 1e3)
+        elif e.name in LAUNCH_APIS:
+            launches[e.name] = launches.get(e.name, 0) + 1
     busy = sum(per_name.values())
     # kernel names are long templates: sum the names that share their
     # first 100 characters, so one entry never hides another
@@ -571,105 +708,122 @@ def profile_step(step) -> dict:
     for name, ms in per_name.items():
         group = next((g for g, keys in PROFILE_GROUPS
                       if any(k in name.lower() for k in keys)), "other")
-        groups[group] = groups.get(group, 0.0) + ms
-    n_kernels = sum(1 for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
-    return {"wall_ms": wall_ms, "device_kernels": n_kernels,
-            "device_busy_ms": busy if per_name else None,
+        groups[group] = groups.get(group, 0.0) + ms / n
+    return {"steps": n, "wall_ms": wall_ms / n,
+            "host_launch_calls": sum(launches.values()) / n,
+            "host_launch_calls_by_api": {k: v / n
+                                         for k, v in launches.items()},
+            "device_kernels": n_kernels / n,
+            "device_busy_ms": busy / n if per_name else None,
             "device_idle_share": (1 - busy / wall_ms) if per_name else None,
             "device_ms_by_group": groups,
             "top_device_ms": dict(top)}
 
 
-def phase_profile(params, cfg, icfg, prompts) -> dict:
-    """Where one mixed (prefill) step and one steady decode step spend
-    their time, on a fresh server with a longer decode budget so the
-    decode step runs its full decode_chunk rounds."""
-    from cloud_server_tpu_torch.inference.paged_server import (
-        PagedInferenceServer)
-    srv = PagedInferenceServer(params, cfg, icfg, max_slots=8,
-                               max_context=MAX_CTX, page_size=PS,
-                               prefill_chunk=256, seed=SEED, device=DEVICE)
-    for p in prompts:
-        srv.submit(p, max_new_tokens=96)
-    srv.step()  # warm-up: the first iteration pays one-time set-up
-    mixed = profile_step(srv.step)
-    while srv._jobs or srv.num_pending:
-        srv.step()
-    decode = profile_step(srv.step)
-    srv.stop()
+def phase_profile(srv, cfg, rng) -> dict:
+    """Where pipelined mixed steps (admissions landing) and steady decode
+    steps (8 live slots) spend their time, on a server that has served
+    before. A run of 8 fresh prompts of the usual lengths captures any
+    program the longer budget needs; a second run of other fresh prompts
+    (the same lengths, so the same schedule and programs, and no prefix
+    hits) is profiled: PROFILE_STEPS mixed steps after the fill step, then
+    PROFILE_STEPS steady decode steps."""
+
+    def run(prompts, profiled: bool):
+        for p in prompts:
+            srv.submit(p, max_new_tokens=LONG_NEW)
+        srv.step()  # the pipeline's fill step
+        mixed = profile_step(srv.step, PROFILE_STEPS) if profiled else None
+        while srv._jobs or srv.num_pending:
+            srv.step()
+        for _ in range(2):
+            srv.step()
+        decode = (profile_step(srv.step, PROFILE_STEPS) if profiled
+                  else None)
+        live = srv.num_active
+        srv.run_until_idle()
+        return mixed, decode, live
+
+    run(make_prompts(rng, cfg.vocab_size), False)
+    captured = len(srv._programs)
+    mixed, decode, live = run(make_prompts(rng, cfg.vocab_size), True)
+    if len(srv._programs) != captured:
+        raise RuntimeError("the profiled steps captured "
+                           f"{len(srv._programs) - captured} programs")
+    if live != 8:
+        raise RuntimeError(f"{live} slots live in the profiled decode "
+                           "steps, not 8")
     out = {"phase": "profile", "kv_cache_dtype": cfg.kv_cache_dtype,
            "mixed_step": mixed, "decode_step": decode,
-           "decode_rounds_per_step": srv.decode_chunk, "live_slots": 8}
+           "decode_rounds_per_step": srv.decode_chunk, "live_slots": live,
+           "programs_captured": captured}
     emit(out)
     return out
 
 
-_MIX = (0x9E3779B97F4A7C15 - (1 << 64), 0xBF58476D1CE4E5B9 - (1 << 64),
-        0x94D049BB133111EB - (1 << 64))
-
-
-def _hash_row_draw(logits, rows, positions, **kw):
-    """The per-row draw the port made before it drew from threefry (a
-    splitmix64 hash of (seed, position, token id) into uniforms, then a
-    Gumbel argmax): the "before" side of the seeded decode step's time."""
+def seeded_run(params, cfg, icfg, rng, prompts, what,
+               sampling=None) -> tuple:
+    """The 8 requests, sampled, through captured graphs and through
+    eager launches: the same tokens. Then, on the graphed server, 8
+    fresh prompts with a longer budget, and SEEDED_STEPS steady decode
+    steps timed (host clock, each step synchronised): (their ms, decode
+    rounds a step)."""
     import torch
-    from cloud_server_tpu_torch.inference import sampling
-
-    def srl(x, k):
-        return (x >> k) & ((1 << (64 - k)) - 1)
-
-    def mix(x):
-        x = (x ^ srl(x, 30)) * _MIX[1]
-        x = (x ^ srl(x, 27)) * _MIX[2]
-        return x ^ srl(x, 31)
-
-    positions = torch.as_tensor(positions, device=logits.device)
-    filt, raw = sampling.filtered_logits_rows(logits, rows,
-                                              positions=positions, **kw)
-    key = mix(rows.seed.long() * _MIX[0] + positions.long())
-    idx = torch.arange(1, logits.shape[-1] + 1, device=logits.device)
-    top = srl(mix(key[:, None] ^ (idx[None, :] * _MIX[0])), 11).double()
-    u = ((top + 0.5) * 2.0 ** -53).float().clamp_(1e-20, 1 - 1e-7)
-    sampled = torch.argmax(filt - torch.log(-torch.log(u)), dim=-1)
-    return torch.where(rows.temperature <= 0.0, raw.argmax(-1), sampled)
-
-
-def seeded_decode_steps(params, cfg, icfg, prompts) -> dict:
-    """One steady decode step of 8 seeded requests (temperature 0.8, each
-    its own seed), timed with the threefry draw and with the earlier hash
-    draw swapped in, in turns (hash, threefry, threefry, hash)."""
-    import torch
-    from cloud_server_tpu_torch.inference import paged_server
-    from cloud_server_tpu_torch.inference.sampling import SamplingParams
-    srv = paged_server.PagedInferenceServer(
-        params, cfg, icfg, max_slots=8, max_context=MAX_CTX, page_size=PS,
-        prefill_chunk=256, seed=SEED, device=DEVICE)
-    for i, p in enumerate(prompts):
-        srv.submit(p, max_new_tokens=512,
-                   sampling=SamplingParams(seed=1000 + i, temperature=0.8))
+    fresh = make_prompts(rng, cfg.vocab_size)
+    eager, _, _, _ = serve_once(params, cfg, icfg, prompts,
+                                sampling=sampling, cuda_graphs=False)
+    srv = make_server(params, cfg, icfg)
+    graphed, _, _, _ = serve_once(params, cfg, icfg, prompts, srv=srv,
+                                  sampling=sampling)
+    check_served(graphed, cfg.vocab_size)
+    same_tokens(f"{what} graphed vs graphs off", graphed,
+                [r.tokens for r in eager])
+    per_row = any(x is True for key in srv._programs._programs
+                  for x in key)
+    if per_row != bool(sampling):
+        raise RuntimeError(f"{what}: per-row sampling programs {per_row}")
+    for i, p in enumerate(fresh):
+        srv.submit(p, max_new_tokens=LONG_NEW,
+                   sampling=sampling[i] if sampling else None)
     while srv._jobs or srv.num_pending:
         srv.step()
-    srv.step()  # the first decode-only step
-    threefry = paged_server.sample_logits_rows
-    times: dict = {"hash": [], "threefry": []}
-    try:
-        for name in ("hash", "threefry", "threefry", "hash"):
-            paged_server.sample_logits_rows = (
-                _hash_row_draw if name == "hash" else threefry)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            srv.step()
-            torch.cuda.synchronize()
-            times[name].append((time.perf_counter() - t0) * 1e3)
-    finally:
-        paged_server.sample_logits_rows = threefry
+    for _ in range(2):
+        srv.step()
+    times = []
+    for _ in range(SEEDED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv.step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
     if srv.num_active != 8:
-        raise RuntimeError("the seeded decode steps did not keep 8 slots")
+        raise RuntimeError(f"{what}: the decode steps did not keep 8 slots")
     srv.stop()
-    return {"seeded_decode_step_ms_hash_draw": times["hash"],
-            "seeded_decode_step_ms_threefry_draw": times["threefry"],
-            "seeded_decode_rounds_per_step": srv.decode_chunk}
+    return times, srv.decode_chunk
+
+
+def seeded_runs(params, cfg, rng, prompts) -> dict:
+    """`seeded_run` twice: server-global seeded sampling (InferConfig
+    temperature 0.8, top-k 50: every row draws from the server's key,
+    split once per dispatch), then per request (a greedy server, each
+    request with its own seed, temperature 0.8 and top-p 0.9: the
+    programs that sample per row)."""
+    from cloud_server_tpu_torch.config import InferConfig
+    from cloud_server_tpu_torch.inference.sampling import SamplingParams
+    base = dict(max_decode_len=MAX_NEW, eos_token_id=-1, pad_token_id=0)
+    glob, rounds = seeded_run(params, cfg, InferConfig(temperature=0.8, top_k=50,
+                                               **base),
+                      rng, prompts, "server-global seeded")
+    rows, _ = seeded_run(params, cfg, InferConfig(temperature=0.0, **base),
+                      rng, prompts, "per-request seeded",
+                      [SamplingParams(seed=1000 + i, temperature=0.8,
+                                      top_p=0.9)
+                       for i in range(len(prompts))])
+    return {"seeded_graphed_equals_graphs_off": True,
+            "per_request_seeded_graphed_equals_graphs_off": True,
+            "seeded_decode_step_ms": glob,
+            "per_request_seeded_decode_step_ms": rows,
+            "seeded_decode_rounds_per_step": rounds}
 
 
 def check_dense_agreement(params, cfg, prompt) -> dict:
@@ -845,10 +999,20 @@ def http_clients(addr: str, max_tokens: int) -> int:
     return 0
 
 
+def metric_values(addr: str) -> dict:
+    """The /metrics sample lines as {name: value text}."""
+    import urllib.request
+    with urllib.request.urlopen(f"http://{addr}/metrics",
+                                timeout=60) as resp:
+        return dict(ln.rsplit(" ", 1)
+                    for ln in resp.read().decode().splitlines()
+                    if ln and not ln.startswith("#"))
+
+
 def http_run(srv, prompts) -> dict:
     """HttpFrontend on 127.0.0.1:0 over a started server: 8 concurrent
-    streaming /v1/completions, then /metrics and a 501 for
-    /v1/embeddings."""
+    streaming /v1/completions, the /metrics counts they added, and a 501
+    for /v1/embeddings."""
     import urllib.error
     import urllib.request
     from cloud_server_tpu_torch.inference.http_server import HttpFrontend
@@ -856,6 +1020,7 @@ def http_run(srv, prompts) -> dict:
     try:
         host, port = front.address
         addr = f"{host}:{port}"
+        before = metric_values(addr)
         # the clients run in a process of their own, so their threads do
         # not share the server's interpreter lock
         t0 = time.perf_counter()
@@ -874,17 +1039,13 @@ def http_run(srv, prompts) -> dict:
                 raise RuntimeError(f"HTTP request {i}: {len(r['ids'])} "
                                    f"tokens, finish {r['finish_reason']}, "
                                    f"[DONE] {r['done']}")
-        with urllib.request.urlopen(f"http://{addr}/metrics",
-                                    timeout=60) as resp:
-            prom = dict(ln.rsplit(" ", 1)
-                        for ln in resp.read().decode().splitlines()
-                        if ln and not ln.startswith("#"))
+        prom = metric_values(addr)
         want = {"cloud_server_requests_submitted_total": len(prompts),
                 "cloud_server_ttft_seconds_count": len(prompts),
                 "cloud_server_itl_seconds_count": len(prompts)
                 * (MAX_NEW - 1),
                 "cloud_server_tokens_emitted_total": len(prompts) * MAX_NEW}
-        seen = {k: float(prom[k]) for k in want}
+        seen = {k: float(prom[k]) - float(before.get(k, 0)) for k in want}
         if seen != {k: float(v) for k, v in want.items()}:
             raise RuntimeError(f"/metrics counts {seen}, expected {want}")
         try:
@@ -910,19 +1071,22 @@ def http_run(srv, prompts) -> dict:
             "http_ids": [r["ids"] for r in results]}
 
 
-def serve_int8(params, cfg, icfg, prompts, bf16_tokens, bf16_bytes) -> dict:
+def serve_int8(params, cfg, icfg, prompts, bf16_tokens, bf16_bytes,
+               rng) -> dict:
     """The serving phase's 8 requests on the int8 cache: in process (the
-    pool's bytes, the kernels' launches, agreement with the bf16 run),
-    the int8 kernel path against the int8 plain path on one request,
-    then the same requests over HTTP, streamed concurrently."""
+    pool's bytes, the kernels' launches, the same tokens with graphs off,
+    agreement with the bf16 run), the int8 kernel path against the int8
+    plain path on one request, the profile, then 8 fresh prompts over
+    HTTP, streamed concurrently, and in process with graphs off."""
     import dataclasses
     import torch
     from cloud_server_tpu_torch.ops import paged_attention as pa
     cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
     torch.cuda.reset_peak_memory_stats()
+    srv = make_server(params, cfg8, icfg)
     pa.reset_counters()
     reqs, t_start, t_end, pool_bytes = serve_once(params, cfg8, icfg,
-                                                  prompts)
+                                                  prompts, srv=srv)
     counts = pa.counters()
     peak = torch.cuda.max_memory_allocated()
     check_served(reqs, cfg.vocab_size)
@@ -935,6 +1099,9 @@ def serve_int8(params, cfg, icfg, prompts, bf16_tokens, bf16_bytes) -> dict:
                            f"{bf16_bytes}; expected {INT8_POOL_BYTES}, "
                            f"{BF16_POOL_BYTES}")
     toks = [r.tokens for r in reqs]
+    eager, _, _, _ = serve_once(params, cfg8, icfg, prompts,
+                                cuda_graphs=False)
+    same_tokens("int8 graphed vs graphs off", eager, toks)
     same = sum(a == b for x, y in zip(toks, bf16_tokens)
                for a, b in zip(x, y))
     agree = check_int8_agreement(params, cfg, prompts[2])
@@ -942,32 +1109,44 @@ def serve_int8(params, cfg, icfg, prompts, bf16_tokens, bf16_bytes) -> dict:
            **serving_rates(reqs, t_start, t_end), "peak_mem_gb": peak / 1e9,
            "kv_pool_bytes": pool_bytes, "bf16_kv_pool_bytes": bf16_bytes,
            "kv_pool_ratio": pool_bytes / bf16_bytes, "counts": counts,
+           "graphed_equals_graphs_off": True,
            "tokens_equal_to_bf16_share": same / (len(toks) * MAX_NEW),
            **agree}
 
-    del reqs
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_profile(params, cfg8, icfg, prompts)
-    gc.collect()
-    torch.cuda.empty_cache()
-    srv = make_server(params, cfg8, icfg).start()
+    del reqs, eager
+    phase_profile(srv, cfg8, rng)
+    # HTTP on the same server, its programs captured: 8 fresh prompts of
+    # the usual lengths (no prefix hits), streamed concurrently
+    http_prompts = make_prompts(rng, cfg.vocab_size)
+    srv.start()
     try:
         pa.reset_counters()
-        http = http_run(srv, prompts)
+        http = http_run(srv, http_prompts)
         torch.cuda.synchronize()
         http_counts = pa.counters()
+        captures = len(srv._programs)
+        capture_s = srv._programs.capture_seconds()
     finally:
         srv.stop()
     if (http_counts["launches_narrow_int8"] <= 0
             or http_counts["launches_wide_int8"] <= 0
             or http_counts["plain_calls"]):
         raise RuntimeError(f"int8 HTTP serve: launches {http_counts}")
-    ids = http.pop("http_ids")
+    # the same prompts in process, on a fresh server with graphs off:
+    # requests that arrived together there and one by one over HTTP are
+    # batched otherwise, so a near tie may break the other way
+    del srv
+    local, _, _, _ = serve_once(params, cfg8, icfg, http_prompts,
+                                cuda_graphs=False)
+    got = http.pop("http_ids")
+    same = sum(a == b for r, ids in zip(local, got)
+               for a, b in zip(r.tokens, ids))
     out.update(http, http_counts=http_counts,
-               http_tokens_equal_to_in_process_share=sum(
-                   a == b for x, y in zip(ids, toks)
-                   for a, b in zip(x, y)) / (len(toks) * MAX_NEW))
+               programs_after_http=captures, capture_s=capture_s,
+               http_tokens_equal_to_in_process_share=same / (len(got)
+                                                             * MAX_NEW),
+               http_requests_equal_to_in_process=sum(
+                   r.tokens == ids for r, ids in zip(local, got)))
     emit(out)
     print(f"int8 HTTP: TTFT p50 {out['http_ttft_p50_s']:.4f} s, max "
           f"{out['http_ttft_max_s']:.4f} s; ITL p50 "
@@ -994,42 +1173,69 @@ def phase_serve() -> dict:
     icfg = InferConfig(max_decode_len=MAX_NEW, temperature=0.0,
                        eos_token_id=-1, pad_token_id=0)
     rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
-               for n in PROMPT_LENS]
+    prompts = make_prompts(rng, cfg.vocab_size)
 
+    # the main path: the default server (mixed scheduler, overlap,
+    # captured graphs); the counts are read right after it
     torch.cuda.reset_peak_memory_stats()
+    srv = make_server(params, cfg, icfg)
     pa.reset_counters()
     reqs, t_start, t_end, pool_bytes = serve_once(params, cfg, icfg,
-                                                  prompts)
+                                                  prompts, srv=srv)
     counts = pa.counters()
     peak = torch.cuda.max_memory_allocated()
+    programs = len(srv._programs)
+    capture_s = srv._programs.capture_seconds()
     check_served(reqs, cfg.vocab_size)
     if counts["launches_narrow"] <= 0 or counts["launches_wide"] <= 0:
         raise RuntimeError(f"kernel classes not both launched: {counts}")
     if counts["plain_calls"] != 0:
         raise RuntimeError(f"plain attention ran on the path: {counts}")
-
-    reqs2, _, _, _ = serve_once(params, cfg, icfg, prompts)
-    same = [r.tokens for r in reqs] == [r.tokens for r in reqs2]
-    del reqs2
-    if not same:
-        raise RuntimeError("a second run of the same requests gave other "
-                           "tokens")
+    tokens = [r.tokens for r in reqs]
+    seconds = {"main": t_end - t_start}
+    t0 = time.perf_counter()
+    eager, _, _, _ = serve_once(params, cfg, icfg, prompts,
+                                cuda_graphs=False)
+    same_tokens("graphed vs graphs off", eager, tokens)
+    seconds["graphs_off"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again, _, _, _ = serve_once(params, cfg, icfg, prompts)
+    same_tokens("a second run of the same requests", again, tokens)
+    seconds["second_run"] = time.perf_counter() - t0
     dense = check_dense_agreement(params, cfg, prompts[2])
+    t0 = time.perf_counter()
+    alt, _, _, _ = serve_once(params, cfg, icfg, prompts,
+                              scheduler="alternating")
+    alternating = near_tie_divergence("the alternating scheduler", alt,
+                                      reqs, prompts, params, cfg)
+    alternating.update(schedulers_in_f32(params, cfg, prompts))
+    seconds["alternating"] = time.perf_counter() - t0
+    del eager, again, alt
+    gc.collect()
+    t0 = time.perf_counter()
+    seeded = seeded_runs(params, cfg, rng, prompts)
+    seconds["seeded"] = time.perf_counter() - t0
     out = {"phase": "serve", "model": "Llama-3.1-8B (random bf16 weights)",
            "layers": cfg.num_layers, "requests": len(reqs),
            "prompt_tokens": sum(PROMPT_LENS), "max_new_tokens": MAX_NEW,
            "init_s": init_s, **serving_rates(reqs, t_start, t_end),
            "peak_mem_gb": peak / 1e9, "kv_pool_bytes": pool_bytes,
-           "counts": counts, "second_run_identical": same, **dense,
-           **seeded_decode_steps(params, cfg, icfg, prompts)}
-    emit(out)
-    phase_profile(params, cfg, icfg, prompts)
-    tokens = [r.tokens for r in reqs]
+           "counts": counts, "programs_captured": programs,
+           "capture_s": capture_s, "graphed_equals_graphs_off": True,
+           "second_run_identical": True,
+           "alternating_vs_mixed": alternating, **dense, **seeded}
     del reqs
+    t0 = time.perf_counter()
+    phase_profile(srv, cfg, rng)
+    seconds["profile"] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    emit(out)
+    srv.stop()
+    del srv
     gc.collect()
     torch.cuda.empty_cache()
-    out["int8"] = serve_int8(params, cfg, icfg, prompts, tokens, pool_bytes)
+    out["int8"] = serve_int8(params, cfg, icfg, prompts, tokens, pool_bytes,
+                             rng)
     return out
 
 

@@ -66,6 +66,25 @@ def build_parser() -> argparse.ArgumentParser:
                    "page_size)")
     p.add_argument("--prefill-chunk", type=int, default=256,
                    help="admission window width")
+    p.add_argument("--scheduler", choices=["mixed", "alternating"],
+                   default="mixed",
+                   help="scheduling under admission churn: 'mixed' "
+                   "(default) fuses chunked prefills and decode rows into "
+                   "one token-budget program per iteration; 'alternating' "
+                   "runs separate prefill-chunk and decode programs")
+    p.add_argument("--no-overlap", action="store_true",
+                   help="disable the pipelined scheduler: by default the "
+                   "host plans each iteration while the card runs the "
+                   "previous one (mixed scheduler only)")
+    p.add_argument("--flight-recorder", type=int, default=0, metavar="N",
+                   help="per-iteration flight-recorder ring size for "
+                   "/stats post-mortems (0 = config default)")
+    p.add_argument("--no-iteration-profile", action="store_true",
+                   help="disable the iteration-phase profiler (on by "
+                   "default: per-iteration sweep/admission/build/device/"
+                   "commit/epilogue attribution in flight records, the "
+                   "cloud_server_iter_phase_ms histograms, /stats "
+                   "iteration_profile and GET /debug/scheduler_trace)")
     p.add_argument("--decode-impl", choices=["xla", "pallas"], default=None,
                    help="cached-attention implementation: 'pallas' selects "
                    "the CUDA paged-attention kernel, 'xla' the plain "
@@ -160,7 +179,11 @@ def main(argv=None) -> None:
             max_context=max_context, page_size=ps,
             num_pages=args.num_pages or None,
             decode_chunk=args.decode_chunk, prefill_chunk=prefill_chunk,
-            seed=args.seed, device=device)
+            seed=args.seed, device=device, scheduler=args.scheduler,
+            overlap=False if args.no_overlap else None,
+            flight_recorder_size=args.flight_recorder or None,
+            iteration_profile=(False if args.no_iteration_profile
+                               else None))
 
     if args.serve_http is not None:
         serve_http(make_server(args.max_len or model_cfg.max_seq_len,

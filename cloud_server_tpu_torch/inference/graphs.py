@@ -1,0 +1,218 @@
+"""Captured programs: one CUDA graph per shape key, one replay per
+scheduler dispatch.
+
+The counterpart of the reference's jitted `_mixed_step`,
+`_decode_rounds` and `_prefill_chunk`, whose compile cache is keyed by
+their static shapes. Here a `Program` owns, for one shape key (kind, row
+bucket, width bucket, n_rounds, use_rows), static input buffers on the
+device, pinned host staging for them, and the pinned host buffers its
+results land in. A launch is:
+
+  1. the staged numpy arrays written into the pinned staging;
+  2. one non-blocking host-to-device copy per input;
+  3. on CUDA, a replay of the program's graph (captured at its first
+     launch: one eager warm-up run on a side stream, then the capture,
+     in `capture_error_mode="thread_local"` because the HTTP frontend
+     runs the scheduler on its own thread); on the CPU, the same
+     function on the same buffers;
+  4. one non-blocking device-to-host copy per result, then one event.
+
+`wait()` is the iteration's one host sync: it waits on that event and
+returns the results as numpy. Every program of a `ProgramCache` shares
+one graph memory pool (graphs run one at a time, in stream order, and
+every result is copied out right after its replay, so a later replay
+may reuse an earlier graph's freed intermediates). `release()` drops
+the graphs, their buffers and the pool.
+
+There is no fallback: a capture or replay that fails raises. A cache
+made with `capture=False` runs the same function eagerly on the same
+buffers on the card: a switch for checking graphs against eager
+launches (the counterpart of `jax.disable_jit`), not a mode to serve
+in.
+
+Kernel counters see replays: while a graph captures, the paged
+attention wrapper counts calls that launch nothing, so the capture takes
+those counts back, keeps them, and adds them again on every replay
+(`ops.paged_attention.add_counts`).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from cloud_server_tpu_torch.ops import paged_attention as _pa
+
+# Program launches and waits, lifetime (tests read them: a steady
+# pipelined step makes one of each).
+launches = 0
+syncs = 0
+
+
+# One warm-up and one capture stream per device for every program:
+# cuBLAS keeps a workspace for each stream it has run on, so a stream per
+# capture would hold one more workspace per program for good.
+_streams: dict = {}
+
+
+def _sub(a: dict, b: dict) -> dict:
+    return {k: a[k] - b.get(k, 0) for k in a}
+
+
+def _stream(device, use: str) -> torch.cuda.Stream:
+    stream = _streams.get((device, use))
+    if stream is None:
+        stream = _streams[(device, use)] = torch.cuda.Stream(device)
+    return stream
+
+
+class Program:
+    """One shape key's static buffers, and its graph once captured.
+
+    `fn(ctx, bufs) -> {name: tensor}` reads only the input buffers
+    `bufs`, the tensors it reaches through `ctx` (weights, page pools),
+    and constants; it writes the pools in place and returns its
+    results."""
+
+    def __init__(self, fn: Callable, ctx, inputs: dict, device,
+                 capture: bool, pool):
+        self.fn, self.ctx, self.device = fn, ctx, device
+        cuda = device.type == "cuda"
+        self._cuda, self._capture, self._pool = cuda, capture and cuda, pool
+        self.dev_in = {k: torch.zeros(shape, dtype=dtype, device=device)
+                       for k, (shape, dtype) in inputs.items()}
+        self._host_in = {k: torch.zeros(shape, dtype=dtype, pin_memory=cuda)
+                         for k, (shape, dtype) in inputs.items()}
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self._dev_out: dict | None = None
+        self._host_out: dict | None = None
+        self.replay_counts: dict = {}
+        self.capture_s = 0.0  # host seconds of the warm-up and capture
+        self._in_done = torch.cuda.Event() if cuda else None
+        self._done = torch.cuda.Event() if cuda else None
+
+    def _capture_graph(self) -> None:
+        """Warm the program up on a side stream (real launches), then
+        capture it. `torch.cuda.graph` would also synchronise the card
+        and empty the allocator's device and pinned-host caches before
+        every capture; a server captures a dozen programs or more, so the
+        capture is begun and ended here directly."""
+        t0 = time.perf_counter()
+        cur = torch.cuda.current_stream(self.device)
+        side = _stream(self.device, "warm-up")
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self.fn(self.ctx, self.dev_in)
+        cur.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        cap = _stream(self.device, "capture")
+        cap.wait_stream(cur)
+        before = _pa.counters()
+        try:
+            with torch.cuda.stream(cap):
+                graph.capture_begin(self._pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    out = self.fn(self.ctx, self.dev_in)
+                except BaseException:
+                    try:
+                        graph.capture_end()
+                    except RuntimeError:
+                        pass  # an invalidated capture; `fn`'s error stands
+                    raise
+                graph.capture_end()
+        finally:
+            recorded = _sub(_pa.counters(), before)
+            _pa.add_counts({k: -n for k, n in recorded.items()})
+        self.graph, self._dev_out = graph, out
+        self.replay_counts = recorded
+        self.capture_s = time.perf_counter() - t0
+
+    def launch(self, staged: dict) -> None:
+        """Stage `staged` ({input name: numpy array}, every input) and
+        launch the program asynchronously."""
+        global launches
+        launches += 1
+        if self._cuda and self._in_done is not None:
+            self._in_done.synchronize()  # the last launch's copies read it
+        for k, host in self._host_in.items():
+            host.numpy()[...] = staged[k]
+            self.dev_in[k].copy_(host, non_blocking=True)
+        if not self._cuda:
+            self._host_out = self.fn(self.ctx, self.dev_in)
+            return
+        self._in_done.record()
+        if self._capture:
+            if self.graph is None:
+                self._capture_graph()
+            self.graph.replay()
+            _pa.add_counts(self.replay_counts)
+        else:
+            self._dev_out = self.fn(self.ctx, self.dev_in)
+        if self._host_out is None:
+            self._host_out = {
+                k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                for k, v in self._dev_out.items()}
+        for k, host in self._host_out.items():
+            host.copy_(self._dev_out[k], non_blocking=True)
+        self._done.record()
+
+    def wait(self) -> dict:
+        """The one host sync: the launched program's results as numpy."""
+        global syncs
+        syncs += 1
+        if self._cuda:
+            self._done.synchronize()
+        return {k: v.numpy().copy() for k, v in self._host_out.items()}
+
+    def release(self) -> None:
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = self._dev_out = self._host_out = None
+        self.dev_in = self._host_in = {}
+
+
+class ProgramCache:
+    """The programs of one server, by shape key, sharing one graph
+    memory pool. Programs are made (and on CUDA captured) lazily at their
+    first launch."""
+
+    def __init__(self, device, capture: bool = True):
+        self.device = torch.device(device)
+        self.capture = capture
+        self._programs: dict = {}
+        self._pool = None
+
+    def __len__(self) -> int:
+        return len(self._programs)
+
+    def capture_seconds(self) -> float:
+        """Host seconds spent warming up and capturing the programs."""
+        return sum(p.capture_s for p in self._programs.values())
+
+    def get(self, key, fn: Callable, ctx, staged: dict) -> Program:
+        """The program of shape `key`, made at its first use with input
+        buffers shaped like `staged` ({name: numpy array})."""
+        prog = self._programs.get(key)
+        if prog is None:
+            if (self._pool is None and self.capture
+                    and self.device.type == "cuda"):
+                self._pool = torch.cuda.graph_pool_handle()
+            inputs = {k: (np.shape(a), torch.from_numpy(np.asarray(a)).dtype)
+                      for k, a in staged.items()}
+            prog = Program(fn, ctx, inputs, self.device, self.capture,
+                           self._pool)
+            self._programs[key] = prog
+        return prog
+
+    def release(self) -> None:
+        """Drop every graph, its buffers and the shared pool (they are
+        made again at the next launch)."""
+        for prog in self._programs.values():
+            prog.release()
+        self._programs.clear()
+        self._pool = None
+

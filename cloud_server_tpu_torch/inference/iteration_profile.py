@@ -1,17 +1,36 @@
-"""The iteration profile's read side: the `/stats` summary and the
-scheduler-timeline Chrome-trace export.
+"""Iteration-phase profiler: host-gap attribution for the scheduler's
+iterations, and its read side (the `/stats` summary and the
+scheduler-timeline Chrome-trace export).
 
-A copy of what the HTTP frontend imports from the reference's
-inference/iteration_profile.py (pure host-side Python). The profiler
-itself, which stamps per-phase times on every scheduler iteration, is
-not ported yet: the port's server registers no phase histograms and has
-no flight recorder, so `profile_summary` returns None for its snapshots
-and the frontend answers `/debug/scheduler_trace` with a 404, as the
-reference does for a backend without them. Both functions serve any
-snapshot or flight records that carry the reference's fields.
+A copy of the reference's inference/iteration_profile.py (pure
+host-side Python). Phases, one contiguous partition of an iteration,
+stamped at boundaries the scheduler already crosses:
+
+    sweep       cancelled-request reaping at the top of step()
+    admission   admission, token-budget planning, chain extension and
+                preemption policy — the host deciding what to dispatch
+    build       host array staging up to the program launch
+    device      the launch through the one host sync (the wait on the
+                program's event) — the only phase that waits on the card
+    commit      token emits and bookkeeping on the synced results
+    launch      (overlapped iterations only) the ledger patch and the
+                next program's launch after the commit
+    epilogue    flight-recorder bookkeeping at the end of the iteration
+
+Sequential iterations: `host_gap_frac` = everything but `device` over
+the duration. Overlapped iterations (the pipelined scheduler): sweep,
+admission and build run while the card executes the previous
+iteration's program, so they fold into `overlap_ms` (and the `overlap`
+histogram series), `device` is the residual wait, and `host_gap_frac`
+measures only the serialized tail (commit + launch + epilogue). A busy
+record's `host_ms + device_wait_ms (+ overlap_ms) == duration_ms`.
+A mark is one `perf_counter` read and one dict add; the profiler does
+no device work.
 """
 
 from __future__ import annotations
+
+from time import perf_counter
 
 from cloud_server_tpu_torch.utils.serving_metrics import histogram_percentile
 
@@ -20,6 +39,11 @@ from cloud_server_tpu_torch.utils.serving_metrics import histogram_percentile
 PHASES = ("sweep", "admission", "build", "device", "commit", "launch",
           "epilogue")
 
+# Phases that run concurrently with the in-flight program when the
+# pipelined scheduler has a dispatch outstanding; they fold into the
+# `overlap` histogram label and `overlap_ms`.
+OVERLAP_PHASES = ("sweep", "admission", "build")
+
 # Histogram label set: the fine-grained phases plus the folded
 # `overlap` series overlapped iterations observe instead of their
 # sweep/admission/build split (keeping `profile_summary`'s host-gap
@@ -27,8 +51,14 @@ PHASES = ("sweep", "admission", "build", "device", "commit", "launch",
 # fine split of overlapped iterations stays in the flight records).
 HIST_PHASES = PHASES + ("overlap",)
 
-# Histogram family (one labeled series per phase) that
-# `profile_summary` walks.
+# Millisecond bucket ladder for the per-phase histograms, fixed at
+# registration so replica snapshots merge bucket for bucket.
+PHASE_MS_BUCKETS: tuple[float, ...] = (
+    0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0,
+    250.0, 500.0, 1000.0, 5000.0)
+
+# Histogram family (one labeled series per phase): registered by the
+# server, walked by `profile_summary`.
 PHASE_FAMILY = "iter_phase_ms"
 _FULL_FAMILY = f"cloud_server_{PHASE_FAMILY}"
 
@@ -40,6 +70,94 @@ _ITER_ARG_KEYS = ("iteration", "scheduler", "n_live", "decode_rounds",
                   "host_gap_frac", "preemptions", "pending", "n_jobs",
                   "overlap", "overlap_ms", "inflight_depth",
                   "overlap_launch_lead_ms")
+
+
+class IterationProfiler:
+    """Host-side phase clock for one scheduler iteration.
+
+    `begin()` opens the iteration; `mark(phase)` attributes the time
+    since the previous mark to `phase` (marks accumulate, so a phase
+    visited several times in one iteration — `build`/`device` per chunk
+    on the alternating scheduler — sums). Both return the time they
+    read, so callers reuse it instead of reading the clock again."""
+
+    __slots__ = ("t0", "_last", "_acc")
+
+    def __init__(self):
+        self.t0 = 0.0
+        self._last = 0.0
+        self._acc: dict[str, float] = {}
+
+    def begin(self) -> float:
+        t = perf_counter()
+        self.t0 = self._last = t
+        self._acc = {}
+        return t
+
+    def mark(self, phase: str) -> float:
+        t = perf_counter()
+        acc = self._acc
+        acc[phase] = acc.get(phase, 0.0) + (t - self._last)
+        self._last = t
+        return t
+
+    def phases_ms(self) -> dict[str, float]:
+        """Accumulated per-phase milliseconds, canonical order; they
+        partition [t0, last mark]."""
+        acc = self._acc
+        return {p: acc[p] * 1e3 for p in PHASES if p in acc}
+
+
+def register_phase_hists(registry) -> dict:
+    """Register the per-phase histogram family on a server's registry
+    (one labeled series per phase); returns the phase -> Histogram dict
+    the per-iteration observe path indexes."""
+    return {
+        p: registry.histogram(
+            PHASE_FAMILY,
+            "Scheduler iteration time by phase (milliseconds)",
+            buckets=PHASE_MS_BUCKETS, labels={"phase": p})
+        for p in HIST_PHASES}
+
+
+def resolve_profiler(profile,
+                     cfg_enabled: bool = True) -> IterationProfiler | None:
+    """`profile` may be a ready IterationProfiler, True/False, "off", or
+    None (falling back to `InferConfig.iteration_profile`). Returns None
+    when disabled."""
+    if profile is False or profile == "off":
+        return None
+    if isinstance(profile, IterationProfiler):
+        return profile
+    if profile is True:
+        return IterationProfiler()
+    if profile is None:
+        return IterationProfiler() if cfg_enabled else None
+    raise ValueError(
+        "iteration_profile must be True, False, 'off', None, or an "
+        f"IterationProfiler; got {profile!r}")
+
+
+def derive_gap_fields(phases_ms: dict[str, float],
+                      duration_ms: float,
+                      overlapped: bool = False) -> dict[str, float]:
+    """The derived flight-record fields of one iteration's phase split:
+    host milliseconds (the serialized host work), the device wait, and
+    the host-gap fraction; overlapped iterations move sweep, admission
+    and build into `overlap_ms`."""
+    device = phases_ms.get("device", 0.0)
+    if overlapped:
+        overlap = sum(phases_ms.get(p, 0.0) for p in OVERLAP_PHASES)
+        host = sum(v for k, v in phases_ms.items()
+                   if k != "device" and k not in OVERLAP_PHASES)
+        return {"host_ms": host, "device_wait_ms": device,
+                "overlap_ms": overlap,
+                "host_gap_frac": host / duration_ms if duration_ms > 0
+                else 0.0}
+    host = sum(v for k, v in phases_ms.items() if k != "device")
+    return {"host_ms": host, "device_wait_ms": device,
+            "host_gap_frac": host / duration_ms if duration_ms > 0
+            else 0.0}
 
 
 def profile_summary(snapshot: dict) -> dict | None:

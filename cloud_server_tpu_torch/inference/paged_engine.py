@@ -11,13 +11,20 @@ the card when `decode_attention_impl == "pallas"`, else the plain gather
 + attention). `window_forward` does not advance `lengths`: the caller
 commits however many window positions survive.
 
-Where the metadata lives. The pools live on the device. `lengths` and
-`tables` are host-authoritative (the server keeps them in numpy), so the
-cache carries them as CPU int32 tensors. Which window positions write
-where is decided on the host, once per call, from those host arrays —
-that is how writes "drop" without a device sync: sentinel table entries
-(page id == num_pages), positions past a ragged row's width, and
-positions past the table's reach are simply not in the write list.
+Where the metadata lives. The pools live on the device, and so do the
+`lengths` and `tables` a server passes in (its captured programs read
+them from static device buffers; the host keeps the authoritative copy
+in numpy). A cache made from numpy metadata carries CPU tensors, which
+`window_forward` moves to the pools' device first. Inside the forward
+everything is fixed-shape device work, with no host read and no
+host-to-device copy, so a CUDA graph can capture it: the write plan
+covers all B x W window positions, and a position that must not write
+(at window index >= widths[b], past the table's reach, or on a sentinel
+or otherwise out-of-pool page) writes to the scratch page instead. The
+pools hold one page more than the tables may name: page `num_pages`,
+the tables' sentinel id, which no kernel reads for a live position
+(past each slot's length, attention masks it). Only the scratch page
+takes duplicate targets, so the scatter is exact for every real page.
 Shared pages are never written: the allocator guarantees writes happen
 at positions >= every sharing slot's private start.
 
@@ -50,12 +57,12 @@ PALLAS_MAX_W = 256
 class PagedKVCache(NamedTuple):
     """Page pool + per-slot view. One pool serves every slot and layer."""
 
-    k: torch.Tensor        # (L, num_pages, KH, Dh, ps) on the device,
-    #                        cfg.dtype or int8
-    v: torch.Tensor        # (L, num_pages, KH, Dh, ps) — transposed pages
+    k: torch.Tensor        # (L, num_pages + 1, KH, Dh, ps) on the device,
+    #                        cfg.dtype or int8; the last page is scratch
+    v: torch.Tensor        # (L, num_pages + 1, KH, Dh, ps) — transposed
     lengths: torch.Tensor  # (B,) int32 on the host — committed kv entries
     tables: torch.Tensor   # (B, max_pages_per_slot) int32 on the host
-    k_scale: torch.Tensor | None = None  # (L, num_pages, KH, ps) f32
+    k_scale: torch.Tensor | None = None  # (L, num_pages + 1, KH, ps) f32
     v_scale: torch.Tensor | None = None  # scales of int8 pools, else None
 
     @property
@@ -64,34 +71,40 @@ class PagedKVCache(NamedTuple):
 
     @property
     def num_pages(self) -> int:
-        return self.k.shape[1]
+        """Pages the tables may name; the pools hold the scratch page
+        besides, at id num_pages (the sentinel)."""
+        return self.k.shape[1] - 1
 
     @property
     def max_context(self) -> int:
         return self.tables.shape[1] * self.page_size
 
 
-def _host_i32(x) -> torch.Tensor:
-    return torch.as_tensor(x).to(device="cpu", dtype=torch.int32)
+def _i32(x) -> torch.Tensor:
+    """int32 metadata: numpy and lists on the host, tensors where they
+    lie."""
+    return torch.as_tensor(x).to(dtype=torch.int32)
 
 
 def make_cache(k, v, lengths, tables, k_scale=None,
                v_scale=None) -> PagedKVCache:
-    """A cache view over existing pools with host metadata."""
-    return PagedKVCache(k=k, v=v, lengths=_host_i32(lengths),
-                        tables=_host_i32(tables), k_scale=k_scale,
+    """A cache view over existing pools with int32 metadata. The pools
+    carry the scratch page last (see the module docstring)."""
+    return PagedKVCache(k=k, v=v, lengths=_i32(lengths),
+                        tables=_i32(tables), k_scale=k_scale,
                         v_scale=v_scale)
 
 
 def init_paged_cache(cfg: ModelConfig, *, num_pages: int, page_size: int,
                      batch: int, max_pages_per_slot: int,
                      device=None) -> PagedKVCache:
-    """Zeroed pool on `device` (int8 with zeroed scale pools when
-    cfg.kv_cache_dtype == "int8"); all tables at the sentinel."""
+    """Zeroed pool of `num_pages` pages and the scratch page on `device`
+    (int8 with zeroed scale pools when cfg.kv_cache_dtype == "int8"); all
+    tables at the sentinel."""
     if cfg.kv_cache_dtype not in ("model", "int8"):
         raise ValueError(f"unknown kv_cache_dtype: {cfg.kv_cache_dtype!r}")
     dev = resolve_device(device)
-    shape = (cfg.num_layers, num_pages, cfg.num_kv_heads, cfg.head_dim,
+    shape = (cfg.num_layers, num_pages + 1, cfg.num_kv_heads, cfg.head_dim,
              page_size)
     meta = dict(lengths=torch.zeros((batch,), dtype=torch.int32),
                 tables=torch.full((batch, max_pages_per_slot), num_pages,
@@ -119,46 +132,46 @@ def quantize_pool(pool: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def hbm_bytes(cache: PagedKVCache) -> int:
-    """Device bytes held by the pools (values, and the int8 cache's
-    scales)."""
-    n = cache.k.numel() * cache.k.element_size() * 2
+    """Device bytes of the pools' `num_pages` pages (values, and the int8
+    cache's scales); the scratch page is not counted."""
+    per_page = cache.k[:, 0].numel() * cache.k.element_size()
     if cache.k_scale is not None:
-        n += cache.k_scale.numel() * 4 * 2
-    return n
+        per_page += cache.k_scale[:, 0].numel() * 4
+    return 2 * per_page * cache.num_pages
 
 
 def write_plan(cache: PagedKVCache, w: int, widths=None):
-    """Host-side write list for a W-wide window: (rows, cols, pages,
-    offsets) of every window position that really writes. Dropped:
-    positions at window index >= widths[b], positions whose page slot is
-    past the table, and sentinel (or otherwise out-of-pool) pages."""
-    lengths = cache.lengths.long()
-    tables = cache.tables.long()
+    """Fixed-shape write targets of a W-wide window on the pools' device:
+    (valid (B, W) bool, pages (B, W), offsets (B, W)) int64. Not valid,
+    and aimed at the scratch page: positions at window index >=
+    widths[b], positions whose page slot is past the table, and sentinel
+    (or otherwise out-of-pool) pages."""
+    dev = cache.k.device
+    lengths = cache.lengths.to(dev).long()
+    tables = cache.tables.to(dev).long()
     ps, mp = cache.page_size, tables.shape[1]
-    col = torch.arange(w)
+    col = torch.arange(w, device=dev)
     pos = lengths[:, None] + col[None, :]
     valid = pos >= 0
     if widths is not None:
-        valid &= col[None, :] < _host_i32(widths).long()[:, None]
+        valid &= col[None, :] < torch.as_tensor(widths).to(dev).long()[:, None]
     slot = torch.div(pos, ps, rounding_mode="floor")
     valid &= slot < mp
     page = tables.gather(1, slot.clamp(0, mp - 1))
     valid &= (page >= 0) & (page < cache.num_pages)
-    rows, cols = valid.nonzero(as_tuple=True)
-    return rows, cols, page[rows, cols], (pos % ps)[rows, cols]
+    return valid, torch.where(valid, page, cache.num_pages), pos % ps
 
 
 def _write_window(cache: PagedKVCache, layer: int, k, v, plan) -> None:
     """Write fresh (B, W, KH, Dh) k/v through the page table, in place
     (the reference donates the pools to its compiled step and rebuilds
-    them; here the pool tensors are updated where they lie). An int8
-    cache stores each written position quantized, with its scales."""
-    rows, cols, pages, offs = plan
-    if rows.numel() == 0:
-        return
+    them; here the pool tensors are updated where they lie). Positions
+    that must not write land on the scratch page. An int8 cache stores
+    each written position quantized, with its scales."""
+    pages, offs = plan[1].reshape(-1), plan[2].reshape(-1)
     for pool, spool, src in ((cache.k, cache.k_scale, k),
                              (cache.v, cache.v_scale, v)):
-        fresh = src[rows, cols]                  # (N, KH, Dh)
+        fresh = src.reshape(-1, *src.shape[2:])      # (N, KH, Dh)
         if spool is not None:
             fresh, sc = _kv_quant(fresh)
             spool[layer][pages, :, offs] = sc[..., 0]
@@ -187,22 +200,24 @@ def window_forward(params, tokens: torch.Tensor, cfg: ModelConfig,
     """
     dev = cache.k.device
     b, w = tokens.shape
-    lengths = cache.lengths.long()
-    pos = lengths[:, None] + torch.arange(w)[None, :]
+    lengths = cache.lengths.to(dev).long()
+    pos = lengths[:, None] + torch.arange(w, device=dev)[None, :]
     # positions past the table (garbage rows) read the last rope entry,
     # as the reference's clamped gather does
-    rope_pos = pos.clamp(0, cache.max_context - 1).to(dev)
+    rope_pos = pos.clamp(0, cache.max_context - 1)
     cos, sin = rope if rope is not None else rope_table(
         cfg, cache.max_context, device=dev)
     x = transformer.embed(params, tokens, cfg)
 
     use_kernel = cfg.decode_attention_impl == "pallas" and w <= PALLAS_MAX_W
     attend = paged_attention if use_kernel else paged_attention_ref
-    lens_after = lengths + (w if widths is None else _host_i32(widths))
-    lens_dev = lens_after.to(device=dev, dtype=torch.int32)
-    tables_dev = cache.tables.to(dev)
-    widths_dev = None if widths is None else _host_i32(widths).to(dev)
-    plan = tuple(t.to(dev) for t in write_plan(cache, w, widths))
+    widths_dev = (None if widths is None
+                  else torch.as_tensor(widths).to(device=dev,
+                                                  dtype=torch.int32))
+    lens_dev = (lengths + (w if widths is None else widths_dev.long())).to(
+        torch.int32)
+    tables_dev = cache.tables.to(device=dev, dtype=torch.int32)
+    plan = write_plan(cache, w, widths_dev)
 
     for layer in range(cfg.num_layers):
         lp = transformer.layer_params(params, layer)

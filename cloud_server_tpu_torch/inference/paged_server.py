@@ -1,78 +1,102 @@
 """Paged continuous-batching server: block-table KV, shared prefixes,
-chunked prefill, stall-free mixed batching.
+chunked prefill, stall-free mixed batching, one program per iteration.
 
-A port of the reference's `PagedInferenceServer` with its sequential
-mixed scheduler:
+A port of the reference's `PagedInferenceServer`:
 
   * Memory scales with resident tokens: the pool is `num_pages` pages; a
     slot holds ceil(context / ps) of them.
   * Radix prefix reuse at page granularity (inference/block_allocator.py):
     a request whose token prefix matches cached pages skips prefill for
     them.
-  * Chunked prefill under a token budget: while admissions are in
-    flight, each iteration runs ONE ragged prefill group (every admitting
-    slot the budget selected, each at its own width) followed by the full
-    multi-round decode of every live slot, then ONE host sync.
-  * Exact staging: a decode dispatch carries one row per live slot, a
-    prefill group one row per selected admission at the widest row's
-    width. The reference pads both to compile-shape buckets; eager
-    PyTorch compiles nothing and the kernel takes ragged widths.
+  * Two schedulers under admission churn. "mixed" (default): while
+    admissions are in flight, each iteration is ONE program — a ragged
+    prefill group (every admitting slot the token budget selected, each
+    at its own width) followed by the multi-round decode of every live
+    slot. "alternating": per-bucket prefill-chunk programs, then a decode
+    program, each iteration.
+  * Bucketed staging, the reference's compile shapes: decode rows are
+    the live slots compacted and padded to a power of two (padding rows
+    carry sentinel tables, so they write nothing), or exactly the slots
+    when every slot is live; a prefill group is padded to a power of two
+    rows and a `_mixed_buckets` width; padding rows sample with neutral
+    fills. Each (kind, row bucket, width bucket, n_rounds, use_rows) is
+    one captured CUDA graph (inference/graphs.py), replayed with its
+    inputs copied in from pinned host staging and its results copied out
+    to pinned host buffers, then one event: the iteration's one host
+    sync is the wait on that event.
+  * The overlap pipeline (mixed scheduler, `overlap` on by default):
+    iteration N+1 is planned on the host while the card runs N; a
+    steady step then commits N and launches N+1 — one launch and one
+    sync per step. Slots reaped while a dispatch is in flight are
+    released right after its commit.
   * On-demand paging: chains grow before each decode dispatch; on pool
     exhaustion the youngest slot is preempted (its pages go to the radix
     cache, its request requeues as a continuation).
+  * Seeded server-global sampling splits one threefry key as the
+    reference splits its own (once per dispatch, then per half and per
+    round), so with the reference's staged shapes the draws are its
+    token for token.
 
 Scheduling state is host-authoritative (tables, lengths, active,
 last_token in numpy); the device owns the page pools, updated in place
-by every dispatch. The reference's `lax.scan` over decode rounds is a
-Python loop here; its results stay on the device until the iteration's
-one sync.
+by every program. The reference's `lax.scan` over decode rounds is a
+Python loop inside the captured program.
 
 Write-safety rules (see paged_engine): a slot's chain always covers its
-next dispatch's window writes; positions past a row's width write
-nothing.
+next dispatch's window writes; positions past a row's width and rows on
+sentinel tables write nothing a kernel reads.
 
 The int8 KV cache (`cfg.kv_cache_dtype == "int8"`) keeps int8 pools
 and their f32 scale pools side by side; pages move only by page id, so
 a shared radix page carries its scales with it. A `ServingMetrics` is
 always on (TTFT, ITL, queue wait, e2e, lifecycle counters), and the
 scrape path mirrors occupancy, pool and prefix-cache state into it
-(`metrics_snapshot`, the HTTP frontend's `/metrics` and `/stats`).
+(`metrics_snapshot`, the HTTP frontend's `/metrics` and `/stats`). The
+flight recorder keeps one record per busy iteration (`flight_window`),
+with the iteration profile's phase split (`iteration_profile_stats`,
+`/debug/scheduler_trace`).
 
 Not ported yet, and refused with NotImplementedError where a caller asks
-for them: the alternating scheduler and the overlap pipeline (`overlap`
-is accepted; the sequential loop runs and gives the same tokens),
-speculation and draft models, grammar/regex, multi-LoRA, penalties and
-logit_bias, min_tokens, QoS, SLO, tracing and trace capture, faults,
-brownout, the anomaly watchdog, migration and handoff, the flight
-recorder and the iteration profile, `embed`, tensor parallelism and
-the full-reservation paging policy (`allocation="reserve"`).
+for them: speculation and draft models, grammar/regex, multi-LoRA,
+penalties and logit_bias, min_tokens, QoS, SLO, tracing and trace
+capture, faults, brownout, the anomaly watchdog, migration and handoff,
+`embed`, tensor parallelism and the full-reservation paging policy
+(`allocation="reserve"`).
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import math
 import threading
 import time
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from cloud_server_tpu_torch import resolve_device
 from cloud_server_tpu_torch.config import InferConfig, ModelConfig
-from cloud_server_tpu_torch.inference import paged_engine
+from cloud_server_tpu_torch.inference import graphs, paged_engine
 from cloud_server_tpu_torch.inference.block_allocator import BlockAllocator
+from cloud_server_tpu_torch.inference.cache_telemetry import (
+    register_cache_hists)
+from cloud_server_tpu_torch.inference.iteration_profile import (
+    OVERLAP_PHASES, derive_gap_fields, profile_summary,
+    register_phase_hists, resolve_profiler)
 from cloud_server_tpu_torch.inference.sampling import (
-    SamplingParams, SamplingRows, make_rows, rows_to, sample_logits,
+    _BIAS_PAD, SamplingParams, SamplingRows, make_rows, sample_logits,
     sample_logits_rows)
 from cloud_server_tpu_torch.inference.server import (
     QueueFullError, Request, _bucket, _token_logprobs, emit_token,
     resolve_seed)
 from cloud_server_tpu_torch.models import transformer
 from cloud_server_tpu_torch.ops import rope_table
-from cloud_server_tpu_torch.utils.serving_metrics import ServingMetrics
+from cloud_server_tpu_torch.utils import prng
+from cloud_server_tpu_torch.utils.serving_metrics import (FlightRecorder,
+                                                          ServingMetrics)
 
 
 def _pow2_buckets(lo: int, hi: int) -> list[int]:
@@ -83,19 +107,161 @@ def _pow2_buckets(lo: int, hi: int) -> list[int]:
     return out + [hi]
 
 
-# The smallest prefill chunk: when decode alone fills the token budget,
-# the oldest admission still advances by this many tokens (the
-# reference's smallest remainder bucket).
-_MIN_PREFILL_CHUNK = 16
+def _pad_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
 
 
-def _take_samp_rows(samp_rows, idx) -> SamplingRows:
-    return SamplingRows(*(dst[idx] for dst in samp_rows))
+# Neutral per-field fills for padding rows of a gathered SamplingRows
+# (temperature 0 = greedy, rep/top_p 1, bias slots out of the vocab):
+# padding samples are discarded, but must stay finite. Fields absent
+# here fill with 0.
+_SAMP_PAD_FILLS = {"top_p": 1.0, "rep": 1.0, "bias_ids": _BIAS_PAD}
+
+
+def _gather_samp_rows(samp_rows, idx, n_real) -> SamplingRows:
+    """Per-slot SamplingRows rows gathered at `idx` (pre-clipped), with
+    rows past n_real overwritten by the neutral pad fills."""
+    out = []
+    for name, dst in zip(SamplingRows._fields, samp_rows):
+        rows = dst[idx].copy()
+        rows[n_real:] = _SAMP_PAD_FILLS.get(name, 0)
+        out.append(rows)
+    return SamplingRows(*out)
+
+
+def _samp_staged(prefix: str, rows: SamplingRows) -> dict:
+    """A SamplingRows as program inputs (seeds widened to int64)."""
+    return {prefix + name: (np.asarray(a, np.int64) if name == "seed"
+                            else np.asarray(a))
+            for name, a in zip(SamplingRows._fields, rows)}
 
 
 def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported to the PyTorch "
                                "server yet")
+
+
+# ---------------------------------------------------------------------------
+# Program bodies (captured per shape key by inference/graphs.py)
+# ---------------------------------------------------------------------------
+
+
+class _Model(NamedTuple):
+    """What every program reads besides its input buffers."""
+
+    params: dict
+    cfg: ModelConfig
+    infer_cfg: InferConfig
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: torch.Tensor | None
+    v_scale: torch.Tensor | None
+    rope: tuple
+
+
+def _cache(m: _Model, lengths, tables) -> paged_engine.PagedKVCache:
+    return paged_engine.make_cache(m.k, m.v, lengths, tables, m.k_scale,
+                                   m.v_scale)
+
+
+def _rows_in(bufs: dict, prefix: str) -> SamplingRows:
+    return SamplingRows(*(bufs[prefix + name]
+                          for name in SamplingRows._fields))
+
+
+def _prefill_core(m: _Model, bufs: dict, key, *, ragged: bool,
+                  use_rows: bool):
+    """One admission window for a (padded) G-row group: `chunk` (G, Wc)
+    at positions [g_lens, g_lens + Wc) per row, each row's first-token
+    candidate sampled at `sample_at` (per-request rows at position
+    `prompt_lens`, else the server-global draw from `key`). `ragged`
+    groups (the mixed scheduler) carry per-row `widths`; padding rows
+    have width 0 and sentinel tables. Returns (toks (G,), lps (G,))."""
+    logits, _ = paged_engine.window_forward(
+        m.params, bufs["chunk"], m.cfg,
+        _cache(m, bufs["g_lens"], bufs["g_tables"]),
+        logits_at=bufs["sample_at"],
+        widths=bufs["widths"] if ragged else None, rope=m.rope)
+    if use_rows:
+        toks = sample_logits_rows(logits, _rows_in(bufs, "samp_g."),
+                                  bufs["prompt_lens"].long(),
+                                  use_bias=False)
+    else:
+        toks = sample_logits(logits, key, m.infer_cfg)
+    return toks, _token_logprobs(logits, toks)
+
+
+def _decode_plain_core(m: _Model, bufs: dict, key, *, n_rounds: int,
+                       use_rows: bool) -> dict:
+    """n_rounds plain decode steps (W = 1) of the staged rows: `live`
+    rows advance one token a round, the rest (padding rows, on sentinel
+    tables) are frozen. The server-global draw of round r uses
+    split(key, n_rounds)[r]. Returns toks (R, B), lps (R, B), lens (B,),
+    last (B,)."""
+    lengths = bufs["d_lens"].long()
+    tables = bufs["d_tables"]
+    last = bufs["d_last"].long()
+    live = bufs["live"]
+    samp = _rows_in(bufs, "samp_d.") if use_rows else None
+    keys = prng.split(key, n_rounds)
+    at = torch.zeros_like(lengths)
+    pad = m.infer_cfg.pad_token_id
+    toks, lps = [], []
+    for r in range(n_rounds):
+        logits, _ = paged_engine.window_forward(
+            m.params, last[:, None], m.cfg, _cache(m, lengths, tables),
+            logits_at=at, rope=m.rope)
+        if use_rows:
+            # the sampled token sits at position lengths + 1 (`last`
+            # occupies `lengths`)
+            tok = sample_logits_rows(logits, samp, lengths + 1,
+                                     use_bias=False)
+        else:
+            tok = sample_logits(logits, keys[r], m.infer_cfg)
+        lps.append(_token_logprobs(logits, tok))
+        tok = torch.where(live, tok, pad)
+        lengths = torch.where(live, lengths + 1, lengths)
+        last = torch.where(live, tok, last)
+        toks.append(tok)
+    return {"toks": torch.stack(toks), "lps": torch.stack(lps),
+            "lens": lengths, "last": last}
+
+
+def _mixed_step(m: _Model, bufs: dict, *, n_rounds: int, use_rows_p: bool,
+                use_rows_d: bool) -> dict:
+    """ONE token-budget mixed iteration: the ragged prefill group, then
+    (n_rounds > 0) the multi-round decode of the live rows. The key
+    splits into (prefill, decode) keys, as the reference's does."""
+    key_p, key_d = prng.split(bufs["rng"], 2)
+    ptoks, plps = _prefill_core(m, bufs, key_p, ragged=True,
+                                use_rows=use_rows_p)
+    out = {"ptoks": ptoks, "plps": plps}
+    if n_rounds > 0:
+        out.update(_decode_plain_core(m, bufs, key_d, n_rounds=n_rounds,
+                                      use_rows=use_rows_d))
+    return out
+
+
+def _decode_rounds(m: _Model, bufs: dict, *, n_rounds: int,
+                   use_rows: bool) -> dict:
+    return _decode_plain_core(m, bufs, bufs["rng"], n_rounds=n_rounds,
+                              use_rows=use_rows)
+
+
+def _prefill_chunk(m: _Model, bufs: dict, *, use_rows: bool) -> dict:
+    """The alternating scheduler's admission program: one uniform-width
+    chunk of a bucketed group."""
+    toks, lps = _prefill_core(m, bufs, bufs["rng"], ragged=False,
+                              use_rows=use_rows)
+    return {"ptoks": toks, "plps": lps}
+
+
+# ---------------------------------------------------------------------------
+# Host-side scheduler
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass
@@ -111,18 +277,72 @@ class _Slot:
 
 @dataclasses.dataclass
 class _AdmitJob:
-    """An in-flight chunked admission of ONE slot with token-granular
-    progress: `done` advances by whatever width the budget granted."""
+    """An in-flight chunked admission: one bucketed group of slots
+    (alternating scheduler) or ONE slot with token-granular progress
+    (mixed scheduler: `done` advances by whatever width the budget
+    granted that iteration, so chunk_w/n_chunks are unused there)."""
 
     slots: list[int]
-    rows: np.ndarray               # (1, rem) remainder tokens
-    rem_lens: np.ndarray           # (1,) true remainder length
-    base_lens: np.ndarray          # (1,) shared_len
-    prompt_lens: np.ndarray        # (1,)
-    toks: np.ndarray               # captured first-token candidate
+    chunk_w: int
+    n_chunks: int
+    rows: np.ndarray               # (G, n_chunks*chunk_w) remainder tokens
+    rem_lens: np.ndarray           # (G,) true remainder lengths
+    base_lens: np.ndarray          # (G,) shared_len per row
+    prompt_lens: np.ndarray        # (G,)
+    toks: np.ndarray               # captured first-token candidates
     lps: np.ndarray
     got: np.ndarray                # bool — sample captured yet
-    done: int = 0
+    next_chunk: int = 0
+    done: int = 0                  # mixed: remainder tokens prefilled
+    # pipelined scheduler: remainder tokens DISPATCHED (committed `done`
+    # plus what the in-flight dispatch carries); the planner selects
+    # chunks from this cursor so a launch-ahead never re-prefills tokens
+    # already in flight. Equal to `done` when nothing is in flight.
+    planned: int = 0
+
+
+@dataclasses.dataclass
+class _Plan:
+    """A planned iteration (pipelined scheduler): everything the launch
+    needs, built against the planned frame while the previous dispatch
+    runs. `_launch_plan` rewrites only the data-dependent decode inputs
+    (d_lens / d_last / d_tables / live_g) from the just-committed
+    ledger."""
+
+    kind: str                       # "mixed" | "decode"
+    sel: list                       # [(job, take, d0)] — empty for decode
+    activating: list                # slot ids whose admission completes
+    n_rounds: int
+    win: int
+    live_ids: np.ndarray
+    sl_d: np.ndarray | None
+    live_g: np.ndarray
+    d_lens: np.ndarray
+    d_tables: np.ndarray
+    d_last: np.ndarray
+    samp_d: SamplingRows
+    owners: list                    # _Slot per live row (identity guard)
+    pf: dict | None                 # prefill-half arrays (mixed only)
+    use_rows_p: bool
+    use_rows_d: bool
+    stats: dict
+
+
+@dataclasses.dataclass
+class _Inflight:
+    """One launched-but-uncommitted dispatch: the program whose event
+    the commit waits on, and the host context the commit needs."""
+
+    kind: str
+    program: graphs.Program
+    sel: list
+    activating: list
+    live_ids: np.ndarray
+    owners: list
+    n_rounds: int
+    win: int
+    stats: dict
+    t_launch: float
 
 
 class PagedInferenceServer:
@@ -130,7 +350,10 @@ class PagedInferenceServer:
 
     Client API: submit / generate / step / run_until_idle / start / stop
     / serve_forever. `device` defaults to CUDA; pass device="cpu" to run
-    on the CPU.
+    on the CPU. `cuda_graphs=False` runs every program eagerly on its
+    buffers instead of replaying a captured graph: a check of the graphs
+    against eager launches (the counterpart of `jax.disable_jit`), not a
+    serving mode.
     """
 
     def __init__(self, params, cfg: ModelConfig, infer_cfg: InferConfig, *,
@@ -142,29 +365,27 @@ class PagedInferenceServer:
                  mesh=None, allocation: str = "ondemand",
                  draft_params=None, draft_cfg: ModelConfig | None = None,
                  tokenizer=None, max_pending: int | None = None,
+                 admit_decode_chunk: int | None = 1,
                  scheduler: str | None = None,
                  mixed_token_budget: int | None = None,
                  metrics=None, flight_recorder_size: int | None = None,
                  qos=None, tracing=None, slo=None, spec_control=None,
                  iteration_profile=None, faults=None, brownout=None,
-                 anomaly=None, overlap: bool | None = None, device=None):
-        sched = scheduler if scheduler is not None else infer_cfg.scheduler
+                 anomaly=None, overlap: bool | None = None, device=None,
+                 cuda_graphs: bool = True):
         refused = {
-            "scheduler='alternating'": sched == "alternating",
             "speculative decoding (spec_drafts > 0)": spec_drafts > 0,
             "draft-model speculation": (draft_params is not None
                                         or draft_cfg is not None),
             "tensor-parallel serving (mesh)": mesh is not None,
             f"allocation={allocation!r} (only 'ondemand')":
                 allocation != "ondemand",
-            "the flight recorder": flight_recorder_size is not None,
             "QoS": qos is not None or bool(infer_cfg.qos_config),
             "request tracing": (tracing is not None
                                 or infer_cfg.trace_sample_rate > 0
                                 or infer_cfg.trace_tail_capacity > 0),
             "SLO tracking": slo is not None or bool(infer_cfg.slo_config),
             "adaptive speculation control": spec_control is not None,
-            "the iteration profile": bool(iteration_profile),
             "fault injection": (faults is not None
                                 or bool(infer_cfg.fault_plan)),
             "brownout": (brownout is not None
@@ -176,16 +397,25 @@ class PagedInferenceServer:
         for what, asked in refused.items():
             if asked:
                 raise _not_ported(what)
-        if sched != "mixed":
+        sched = scheduler if scheduler is not None else infer_cfg.scheduler
+        if sched not in ("mixed", "alternating"):
             raise ValueError(f"unknown scheduler: {sched!r}")
+        if admit_decode_chunk is not None and admit_decode_chunk < 1:
+            raise ValueError("admit_decode_chunk must be >= 1 or None")
+        del tokenizer
         self.device = resolve_device(device)
         self.params = transformer.cast_params(
             _params_on(params, self.device), cfg)
         self.cfg = cfg
         self.infer_cfg = infer_cfg
-        # `overlap` is accepted and the sequential loop runs either way:
-        # the reference documents identical outputs with it on or off
-        del overlap, tokenizer
+        self.scheduler = sched
+        self._mixed_enabled = sched == "mixed"
+        # the pipelined scheduler runs the mixed scheduler only; the
+        # alternating scheduler keeps its sequential per-chunk loop
+        self.overlap = bool(infer_cfg.overlap if overlap is None
+                            else overlap)
+        self._overlap_enabled = self.overlap and self._mixed_enabled
+        self.admit_decode_chunk = admit_decode_chunk
         self.max_slots = max_slots
         self.page_size = page_size
         self.decode_chunk = max(1, decode_chunk)
@@ -204,6 +434,13 @@ class PagedInferenceServer:
         if prompt_buckets is None:
             prompt_buckets = _pow2_buckets(16, max_context)
         self.prompt_buckets = sorted(prompt_buckets)
+        # remainders bucket to a pow2 <= prefill_chunk (single-chunk
+        # jobs) or a prefill_chunk multiple (multi-chunk jobs)
+        self._rem_buckets = _pow2_buckets(16, self.prefill_chunk)
+        # dispatch-width buckets of the mixed prefill group
+        self._mixed_buckets = sorted(
+            set(_pow2_buckets(16, self.prefill_chunk))
+            | {_pad_pow2(self.window)})
 
         cache = paged_engine.init_paged_cache(
             cfg, num_pages=num_pages, page_size=page_size, batch=max_slots,
@@ -212,23 +449,45 @@ class PagedInferenceServer:
         # the int8 cache's (L, P, KH, ps) f32 scale pools, else None
         self.k_scale_pool, self.v_scale_pool = cache.k_scale, cache.v_scale
         self._rope = rope_table(cfg, max_context, device=self.device)
+        self._model = _Model(self.params, cfg, infer_cfg, self.k_pool,
+                             self.v_pool, self.k_scale_pool,
+                             self.v_scale_pool, self._rope)
+        self._programs = graphs.ProgramCache(self.device,
+                                             capture=cuda_graphs)
         # host-authoritative scheduling state
         self.tables = np.full((max_slots, self.max_pages_per_slot),
                               num_pages, np.int32)
         self.lengths = np.zeros((max_slots,), np.int32)
         self.active = np.zeros((max_slots,), bool)
         self.last_token = np.zeros((max_slots,), np.int32)
+        self.stop_len = np.zeros((max_slots,), np.int32)
         self.samp_rows = make_rows([None] * max_slots, infer_cfg,
                                    [0] * max_slots)
         self._needs_rows = np.zeros((max_slots,), bool)
         self._host_rng = np.random.default_rng(seed)
-        self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(int(seed))
+        # the server-global key, jax.random.key(seed)'s words, split once
+        # per dispatch (`_next_rng`)
+        self._rng = (0, int(seed) & 0xFFFFFFFF)
 
         self.preemptions = 0
         self.tokens_emitted = 0  # lifetime emitted tokens (metrics)
         self.metrics = metrics if metrics is not None else ServingMetrics()
         self.metrics.registry.add_collector(self._collect_metrics)
+        # flight recorder: one record per busy iteration
+        self.flight = FlightRecorder(
+            flight_recorder_size if flight_recorder_size is not None
+            else infer_cfg.flight_recorder_size)
+        self._iter_stats: dict = {}
+        self._profiler = resolve_profiler(iteration_profile,
+                                          infer_cfg.iteration_profile)
+        self._phase_hists = ({} if self._profiler is None else
+                             register_phase_hists(self.metrics.registry))
+        self._cache_hists = register_cache_hists(self.metrics.registry)
+        self.allocator.telemetry.attach_hists(self._cache_hists)
+        # idle vs dead: an idle scheduler keeps counting idle iterations
+        # while last_busy_ts ages; a dead one freezes both
+        self.idle_iterations = 0
+        self.last_busy_ts = 0.0
         self._admit_seq = 0
         self._slots: list[_Slot | None] = [None] * max_slots
         self._jobs: list[_AdmitJob] = []
@@ -248,6 +507,13 @@ class PagedInferenceServer:
         self._work = threading.Condition(self._lock)
         self._step_lock = threading.Lock()
         self._draining = False
+        self._inflight: _Inflight | None = None
+        # deferred sweep reaps: (slot_id, _Slot, reason) marked while a
+        # dispatch is in flight; released right after its commit
+        self._reaped: list[tuple[int, _Slot, str]] = []
+        # perf_counter stamp of the launch made THIS iteration (the
+        # flight record's t_launch)
+        self._iter_launch_ts: float | None = None
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
 
@@ -371,15 +637,10 @@ class PagedInferenceServer:
 
     def kv_cache_bytes(self) -> int:
         """Device bytes of the page pools (and the int8 cache's scales)."""
-        return paged_engine.hbm_bytes(self._cache(self.lengths, self.tables))
+        return paged_engine.hbm_bytes(_cache(self._model, self.lengths,
+                                             self.tables))
 
     # -- internals ----------------------------------------------------------
-
-    def _cache(self, lengths, tables) -> paged_engine.PagedKVCache:
-        """A view of the device pools with host `lengths`/`tables`."""
-        return paged_engine.make_cache(self.k_pool, self.v_pool, lengths,
-                                       tables, self.k_scale_pool,
-                                       self.v_scale_pool)
 
     def _emit(self, req: Request, token: int, logprob: float) -> bool:
         n0 = len(req.emit_times)
@@ -412,13 +673,55 @@ class PagedInferenceServer:
         slot = self._release_slot(slot_id, self._committed(slot_id))
         self._complete(slot.req)
 
+    # -- programs -----------------------------------------------------------
+
+    def _next_rng(self) -> np.ndarray:
+        """The reference's `self._rng, sub = jax.random.split(self._rng)`
+        on the host: a fresh key for one dispatch."""
+        k0, k1 = self._rng
+        self._rng = prng.threefry2x32(k0, k1, 0, 0)
+        return np.asarray(prng.threefry2x32(k0, k1, 0, 1), np.int64)
+
+    def _launch(self, key: tuple, fn, staged: dict) -> graphs.Program:
+        """Launch the program of shape `key` on `staged` inputs (with a
+        fresh server key); the caller waits on it."""
+        staged["rng"] = self._next_rng()
+        prog = self._programs.get(key, fn, self._model, staged)
+        prog.launch(staged)
+        return prog
+
+    def _decode_staged(self, lens, tables, last, live_g, samp,
+                       use_rows: bool) -> dict:
+        staged = {"d_lens": np.asarray(lens, np.int32),
+                  "d_tables": np.asarray(tables, np.int32),
+                  "d_last": np.asarray(last, np.int32),
+                  "live": np.asarray(live_g, bool)}
+        if use_rows:
+            staged.update(_samp_staged("samp_d.", samp))
+        return staged
+
+    def _prefill_staged(self, pf: dict, use_rows: bool) -> dict:
+        staged = {k: pf[k] for k in ("chunk", "widths", "g_lens",
+                                     "g_tables", "sample_at",
+                                     "prompt_lens")}
+        if use_rows:
+            staged.update(_samp_staged("samp_g.", pf["samp_g"]))
+        return staged
+
     # -- admission ----------------------------------------------------------
 
+    def _rem_bucket(self, rem: int) -> int:
+        if rem <= self.prefill_chunk:
+            return _bucket(rem, self._rem_buckets)
+        return -(-rem // self.prefill_chunk) * self.prefill_chunk
+
     def _start_admissions(self) -> None:
-        """Pop pending requests into slots (pages permitting), one chunked
-        admission job each. A request that carries generated tokens is a
-        continuation (it was preempted): its admission prompt is prompt +
-        tokens, so the prefix walk re-hits the pages it released."""
+        """Pop pending requests into slots (pages permitting) and build
+        their chunked-prefill jobs: one job per slot (mixed) or one per
+        remainder bucket (alternating). A request that carries generated
+        tokens is a continuation (it was preempted): its admission prompt
+        is prompt + tokens, so the prefix walk re-hits the pages it
+        released."""
         staged: list[int] = []
         doomed: list[Request] = []
         with self._lock:
@@ -456,6 +759,7 @@ class PagedInferenceServer:
                 self.tables[slot_id, :] = self.allocator.num_pages
                 self.tables[slot_id, :len(slot.pages)] = slot.pages
                 self.lengths[slot_id] = shared_len
+                self.stop_len[slot_id] = slot.stop_len
                 self.active[slot_id] = False  # live once admission is done
                 row = make_rows([req.sampling], self.infer_cfg,
                                 [req.seed_used],
@@ -468,21 +772,133 @@ class PagedInferenceServer:
                 staged.append(slot_id)
         for req in doomed:
             self._complete(req)
+        if not staged:
+            return
         now = time.perf_counter()  # one clock read per admission burst
         for slot_id in staged:
+            self.metrics.observe_admit(self._slots[slot_id].req, now)
+        pad_tok = self.infer_cfg.pad_token_id
+        if self._mixed_enabled:
+            # one job per slot: progress is token-granular, widths are
+            # chosen per iteration by the token budget
+            for slot_id in staged:
+                slot = self._slots[slot_id]
+                rem_toks = slot.prompt[slot.shared_len:]
+                rb = self._rem_bucket(len(rem_toks))
+                job = _AdmitJob(
+                    slots=[slot_id], chunk_w=rb, n_chunks=1,
+                    rows=np.full((1, rb), pad_tok, np.int32),
+                    rem_lens=np.asarray([len(rem_toks)], np.int32),
+                    base_lens=np.asarray([slot.shared_len], np.int32),
+                    prompt_lens=np.asarray([len(slot.prompt)], np.int32),
+                    toks=np.zeros((1,), np.int32),
+                    lps=np.zeros((1,), np.float64),
+                    got=np.zeros((1,), bool))
+                job.rows[0, :len(rem_toks)] = rem_toks
+                self._jobs.append(job)
+            return
+        # group by remainder bucket => uniform chunk schedule per job
+        by_bucket: dict[int, list[int]] = {}
+        for slot_id in staged:
             slot = self._slots[slot_id]
-            self.metrics.observe_admit(slot.req, now)
-            rem_toks = slot.prompt[slot.shared_len:]
+            rb = self._rem_bucket(len(slot.prompt) - slot.shared_len)
+            by_bucket.setdefault(rb, []).append(slot_id)
+        for rb, slot_ids in by_bucket.items():
+            w = min(rb, self.prefill_chunk)
+            n_chunks = -(-rb // w)
+            g = len(slot_ids)
             job = _AdmitJob(
-                slots=[slot_id],
-                rows=np.asarray([rem_toks], np.int32),
-                rem_lens=np.asarray([len(rem_toks)], np.int32),
-                base_lens=np.asarray([slot.shared_len], np.int32),
-                prompt_lens=np.asarray([len(slot.prompt)], np.int32),
-                toks=np.zeros((1,), np.int32),
-                lps=np.zeros((1,), np.float64),
-                got=np.zeros((1,), bool))
+                slots=list(slot_ids), chunk_w=w, n_chunks=n_chunks,
+                rows=np.full((g, n_chunks * w), pad_tok, np.int32),
+                rem_lens=np.zeros((g,), np.int32),
+                base_lens=np.zeros((g,), np.int32),
+                prompt_lens=np.zeros((g,), np.int32),
+                toks=np.zeros((g,), np.int32),
+                lps=np.zeros((g,), np.float64),
+                got=np.zeros((g,), bool))
+            for i, sid in enumerate(slot_ids):
+                slot = self._slots[sid]
+                rem_toks = slot.prompt[slot.shared_len:]
+                job.rows[i, :len(rem_toks)] = rem_toks
+                job.rem_lens[i] = len(rem_toks)
+                job.base_lens[i] = slot.shared_len
+                job.prompt_lens[i] = len(slot.prompt)
             self._jobs.append(job)
+
+    def _run_one_chunk(self, job: _AdmitJob) -> None:
+        """The alternating scheduler's admission program: one chunk of a
+        bucketed group, padded to a power of two rows, then its sync."""
+        c = job.next_chunk
+        w = job.chunk_w
+        g = len(job.slots)
+        gp = _pad_pow2(g)
+
+        def pad_rows(a, fill):
+            if g == gp:
+                return a
+            padded = np.full((gp,) + a.shape[1:], fill, a.dtype)
+            padded[:g] = a
+            return padded
+
+        st = self._iter_stats  # flight recorder: prefill share per iter
+        st.setdefault("scheduler", self.scheduler)
+        st["prefill_tokens"] = st.get("prefill_tokens", 0) + w * g
+        sl = np.asarray(job.slots)
+        g_tables = np.full((gp, self.max_pages_per_slot),
+                           self.allocator.num_pages, np.int32)
+        g_tables[:g] = self.tables[sl]
+        in_range = ((job.rem_lens - 1) >= c * w) & (
+            (job.rem_lens - 1) < (c + 1) * w)
+        sl_pad = np.zeros((gp,), np.int64)
+        sl_pad[:g] = sl
+        use_rows = bool(self._needs_rows[sl].any())
+        staged = {
+            "chunk": pad_rows(np.ascontiguousarray(
+                job.rows[:, c * w:(c + 1) * w]),
+                self.infer_cfg.pad_token_id),
+            "g_lens": pad_rows(job.base_lens + c * w, 0),
+            "g_tables": g_tables,
+            "sample_at": pad_rows(
+                np.clip(job.rem_lens - 1 - c * w, 0, w - 1), 0),
+            "prompt_lens": pad_rows(job.prompt_lens, 0)}
+        if use_rows:
+            staged.update(_samp_staged("samp_g.", _gather_samp_rows(
+                self.samp_rows, sl_pad, g)))
+        prof = self._profiler
+        if prof is not None:
+            # per-chunk marks accumulate into the iteration's phases
+            prof.mark("build")
+        out = self._launch(("chunk", gp, w, use_rows),
+                           functools.partial(_prefill_chunk,
+                                             use_rows=use_rows),
+                           staged).wait()
+        if prof is not None:
+            prof.mark("device")
+        toks, lps = out["ptoks"][:g], out["plps"][:g]
+        job.toks = np.where(in_range, toks, job.toks)
+        job.lps = np.where(in_range, lps, job.lps)
+        job.got |= in_range
+        job.next_chunk += 1
+
+        if job.next_chunk >= job.n_chunks:
+            # admission complete: activate slots, emit first tokens
+            for i, sid in enumerate(job.slots):
+                slot = self._slots[sid]
+                assert bool(job.got[i]), "first-token sample never captured"
+                self.lengths[sid] = len(slot.prompt)
+                self.last_token[sid] = int(job.toks[i])
+                if slot.req._cancel.is_set():
+                    slot = self._release_slot(sid, self._committed(sid))
+                    slot.req.finish_reason = "cancelled"
+                    self._complete(slot.req)
+                    continue
+                self.active[sid] = True
+                if self._emit(slot.req, int(job.toks[i]),
+                              float(job.lps[i])):
+                    self._finish(sid)
+            self._jobs.remove(job)
+        if prof is not None:
+            prof.mark("commit")
 
     # -- decode -------------------------------------------------------------
 
@@ -549,87 +965,125 @@ class PagedInferenceServer:
                 break
         return n_eff
 
-    def _chunk_rounds(self) -> int:
-        """Rounds for a decode-only dispatch: decode_chunk, bounded by the
-        tightest remaining budget, rounded down to a power of two."""
+
+    def _chunk_rounds(self, active=None) -> int:
+        """Rounds of a decode-only dispatch: decode_chunk (shrunk to
+        admit_decode_chunk while admission jobs are in flight), bounded
+        by the tightest remaining budget, rounded down to a power of
+        two. `active` overrides the live mask (the planner's planned
+        frame)."""
+        if active is None:
+            active = self.active
         rem = [s.req.max_new_tokens - len(s.req.tokens)
                for i, s in enumerate(self._slots)
-               if s is not None and self.active[i]]
+               if s is not None and active[i]]
         if not rem:
             return 1
-        n = max(1, min(self.decode_chunk, -(-min(rem) // self.window)))
+        chunk = self.decode_chunk
+        if self._jobs and self.admit_decode_chunk is not None:
+            chunk = self.admit_decode_chunk
+        n = max(1, min(chunk, -(-min(rem) // self.window)))
         p = 1
         while p * 2 <= n:
             p *= 2
         return p
 
-    def _gather_decode_rows(self):
-        """Compacted decode sub-batch: exactly one row per live slot."""
-        live_ids = np.flatnonzero(self.active)
-        return (live_ids, self.lengths[live_ids], self.tables[live_ids],
-                self.last_token[live_ids],
-                _take_samp_rows(self.samp_rows, live_ids))
+    def _gather_decode_rows(self, active=None):
+        """Compacted decode sub-batch: one row per live slot, padded to a
+        power of two; rows past the live count carry sentinel tables, so
+        their writes drop. A fully live batch stages the slots as they
+        are (rows ARE slots, `sl` None). `active` overrides the live mask
+        (the planner's planned frame; the gathered lengths and last
+        tokens are placeholders there, re-read at launch).
 
-    def _sample(self, logits, samp, positions, use_rows: bool):
-        if use_rows:
-            return sample_logits_rows(logits, rows_to(samp, self.device),
-                                      positions, use_bias=False)
-        return sample_logits(logits, self._gen, self.infer_cfg)
-
-    def _decode_rounds(self, lengths, tables, last, samp, n_rounds: int,
-                       use_rows: bool):
-        """n_rounds plain decode steps (W = 1) of the live rows, each
-        advancing one token per round. Lengths advance on the host;
-        sampled tokens stay on the device. Returns (lengths', last'
-        (device), toks (R, B), lps (R, B)) — toks/lps still on the
-        device."""
-        last_t = torch.as_tensor(last, device=self.device).long()
-        at = torch.zeros((len(lengths),), dtype=torch.long)
-        toks, lps = [], []
-        for _ in range(n_rounds):
-            logits, _ = paged_engine.window_forward(
-                self.params, last_t[:, None], self.cfg,
-                self._cache(lengths, tables), logits_at=at,
-                rope=self._rope)
-            last_t = self._sample(logits, samp, lengths + 1, use_rows)
-            lengths = lengths + 1
-            toks.append(last_t)
-            lps.append(_token_logprobs(logits, last_t))
-        return lengths, last_t, torch.stack(toks), torch.stack(lps)
+        Returns (live_ids, sl, live_g, lengths, tables, last, samp)."""
+        if active is None:
+            active = self.active
+        live_ids = np.flatnonzero(active)
+        if len(live_ids) == self.max_slots:
+            return (live_ids, None, active.copy(), self.lengths,
+                    self.tables, self.last_token, self.samp_rows)
+        bg = _pad_pow2(max(len(live_ids), 1))
+        nl = len(live_ids)
+        sl = np.full((bg,), self.max_slots, np.int32)
+        sl[:nl] = live_ids
+        slr = np.clip(sl, 0, self.max_slots - 1)
+        live_g = np.zeros((bg,), bool)
+        live_g[:nl] = True
+        lengths = self.lengths[slr].copy()
+        tables = self.tables[slr].copy()
+        tables[nl:] = self.allocator.num_pages
+        last = self.last_token[slr].copy()
+        samp = _gather_samp_rows(self.samp_rows, slr, nl)
+        return live_ids, sl, live_g, lengths, tables, last, samp
 
     def _decode_dispatch(self) -> None:
+        """A decode-only iteration: one program of n_rounds rounds over
+        the compacted live rows, then its sync."""
+        prof = self._profiler
         n = self._chunk_rounds()
         n_eff = self._extend_chains(n)
         if n_eff <= 0 or not self.active.any():
             return  # transient page famine
-        while n > n_eff:
+        while n > n_eff:  # round counts stay powers of two
             n //= 2
         n = max(1, n)
-        live_ids, lengths, tables, last, samp = self._gather_decode_rows()
-        use_rows = bool(self._needs_rows[live_ids].any())
-        lens, last_t, toks, lps = self._decode_rounds(
-            lengths, tables, last, samp, n, use_rows)
-        # the iteration's one host sync
-        self._commit_decode_rows(live_ids, toks.cpu().numpy(),
-                                 lps.cpu().numpy(), lens,
-                                 last_t.cpu().numpy())
+        if prof is not None:
+            prof.mark("admission")
+        live_ids, sl, live_g, lengths, tables, last, samp = \
+            self._gather_decode_rows()
+        self._iter_stats.update(
+            scheduler=self.scheduler, n_live=len(live_ids),
+            decode_rounds=n, decode_tokens=len(live_ids) * n,
+            decode_rows=int(live_g.shape[0]),
+            compaction_ratio=len(live_ids) / max(int(live_g.shape[0]), 1))
+        use_rows = bool((self._needs_rows & self.active).any())
+        staged = self._decode_staged(lengths, tables, last, live_g, samp,
+                                     use_rows)
+        if prof is not None:
+            prof.mark("build")
+        out = self._launch(("decode", len(live_g), n, use_rows),
+                           functools.partial(_decode_rounds, n_rounds=n,
+                                             use_rows=use_rows),
+                           staged).wait()
+        if prof is not None:
+            prof.mark("device")
+        self._commit_decode_rows(live_ids, out["toks"], out["lps"],
+                                 out["lens"], out["last"])
+        if prof is not None:
+            prof.mark("commit")
 
-    def _commit_decode_rows(self, live_ids, toks, lps, lens, last) -> None:
+    def _commit_decode_rows(self, live_ids, toks, lps, lens, last,
+                            owners=None) -> None:
         """Scatter a compacted decode dispatch's results back to slots
-        and emit, round by round."""
-        self.lengths[live_ids] = lens
-        self.last_token[live_ids] = last
+        and emit, round by round. `owners` (pipelined scheduler): the
+        _Slot each row was planned for — a row's slot may have been
+        released and re-occupied between launch and commit, so the
+        ledger writes and emits are identity-guarded per row."""
+        nl = len(live_ids)
+        if owners is None:
+            self.lengths[live_ids] = lens[:nl]
+            self.last_token[live_ids] = last[:nl]
+        else:
+            for i in range(nl):
+                sid = int(live_ids[i])
+                if self._slots[sid] is owners[i] and self.active[sid]:
+                    self.lengths[sid] = lens[i]
+                    self.last_token[sid] = last[i]
         for r in range(toks.shape[0]):
             for i, sid in enumerate(live_ids):
                 slot = self._slots[sid]
-                if slot is None or not self.active[sid]:
+                if slot is None or not self.active[sid] \
+                        or (owners is not None and slot is not owners[i]):
                     continue
                 if self._emit(slot.req, int(toks[r, i]), float(lps[r, i])):
                     self._finish(sid)
 
     def _complete_admission_chunks(self, sel, ptoks, plps) -> None:
         """Prefill progress on the synced first-token candidates: capture
-        samples in range, advance `done`, activate completed admissions."""
+        samples in range, advance `done` (and `planned`, to keep it
+        ahead), and activate completed admissions — the one completion
+        block of the sequential and the pipelined paths."""
         for i, (job, take, d0) in enumerate(sel):
             sid = job.slots[0]
             rl = int(job.rem_lens[0])
@@ -638,6 +1092,7 @@ class PagedInferenceServer:
                 job.lps[0] = plps[i]
                 job.got[0] = True
             job.done = d0 + take
+            job.planned = max(job.planned, job.done)
             if job.done < rl:
                 continue
             slot = self._slots[sid]
@@ -657,19 +1112,21 @@ class PagedInferenceServer:
 
     # -- mixed (stall-free) scheduling --------------------------------------
 
-    def _mixed_rounds(self, n_live: int, prefill_demand: int,
-                      win: int) -> int:
+    def _mixed_rounds(self, n_live: int, prefill_demand: int, win: int,
+                      active=None) -> int:
         """Decode rounds for a mixed iteration: the full steady-state
         count, squeezed to leave the budget one minimal prefill chunk
         when admissions wait, floored at one, a power of two."""
+        if active is None:
+            active = self.active
         rem = [s.req.max_new_tokens - len(s.req.tokens)
                for i, s in enumerate(self._slots)
-               if s is not None and self.active[i]]
+               if s is not None and active[i]]
         if not rem or not n_live:
             return 0
         n = max(1, min(self.decode_chunk, -(-min(rem) // win)))
         if prefill_demand > 0:
-            fit = (self.mixed_token_budget - _MIN_PREFILL_CHUNK) \
+            fit = (self.mixed_token_budget - self._rem_buckets[0]) \
                 // (n_live * win)
             n = min(n, max(fit, 1))
         p = 1
@@ -677,41 +1134,52 @@ class PagedInferenceServer:
             p *= 2
         return p
 
-    def _select_prefill(self, jobs, n_live: int, win: int, n_rounds: int):
-        """Token-budget prefill selection, FIFO: decode rows are funded
-        first, each job takes up to `prefill_chunk` tokens of its
-        remainder, and when decode alone saturates the budget the oldest
-        admission still gets one minimal chunk. [(job, take, offset)]."""
+    def _select_prefill(self, jobs, n_live: int, win: int, n_rounds: int,
+                        planned: bool):
+        """Token-budget prefill selection, FIFO, shared by the sequential
+        path (cursor `done`) and the planner (cursor `planned`): decode
+        rows are funded first, each job takes up to `prefill_chunk`
+        tokens of its remainder, and when decode alone saturates the
+        budget the oldest admission still gets one minimal chunk.
+        Returns [(job, take, cursor)]."""
+
+        def cur(j):
+            return j.planned if planned else j.done
+
         sel: list[tuple[_AdmitJob, int, int]] = []
         left = self.mixed_token_budget - n_live * win * n_rounds
         for job in jobs:
             if left <= 0:
                 break
-            take = min(int(job.rem_lens[0]) - job.done, left,
+            take = min(int(job.rem_lens[0]) - cur(job), left,
                        self.prefill_chunk)
             if take <= 0:
                 continue
-            sel.append((job, take, job.done))
+            sel.append((job, take, cur(job)))
             left -= take
         if jobs and not sel:
             job = jobs[0]
-            take = min(int(job.rem_lens[0]) - job.done, _MIN_PREFILL_CHUNK)
-            sel = [(job, take, job.done)]
+            take = min(int(job.rem_lens[0]) - cur(job),
+                       self._rem_buckets[0])
+            sel = [(job, take, cur(job))]
         return sel
 
     def _build_prefill_group(self, sel) -> dict:
-        """Host staging of the ragged prefill group: one row per selected
-        admission chunk at its own width, staged at the widest row's
-        width."""
+        """Numpy staging of a mixed iteration's ragged prefill half: one
+        row per selected admission chunk at its own width, padded to a
+        power of two rows and a `_mixed_buckets` width; padding rows have
+        width 0, sentinel tables and neutral sampling rows."""
         g = len(sel)
-        w = max(t for _, t, _ in sel)
-        chunk = np.full((g, w), self.infer_cfg.pad_token_id, np.int32)
-        widths = np.zeros((g,), np.int32)
-        g_lens = np.zeros((g,), np.int32)
-        g_tables = np.zeros((g, self.max_pages_per_slot), np.int32)
-        sample_at = np.zeros((g,), np.int32)
-        slot_ids = np.zeros((g,), np.int64)
-        prompt_lens = np.zeros((g,), np.int32)
+        gp = _pad_pow2(max(g, 1))
+        w = _bucket(max([t for _, t, _ in sel] + [1]), self._mixed_buckets)
+        chunk = np.full((gp, w), self.infer_cfg.pad_token_id, np.int32)
+        widths = np.zeros((gp,), np.int32)
+        g_lens = np.zeros((gp,), np.int32)
+        g_tables = np.full((gp, self.max_pages_per_slot),
+                           self.allocator.num_pages, np.int32)
+        sample_at = np.zeros((gp,), np.int32)
+        slot_ids = np.full((gp,), self.max_slots, np.int32)
+        prompt_lens = np.zeros((gp,), np.int32)
         for i, (job, take, d0) in enumerate(sel):
             sid = job.slots[0]
             rl = int(job.rem_lens[0])
@@ -722,31 +1190,42 @@ class PagedInferenceServer:
             sample_at[i] = min(max(rl - 1 - d0, 0), take - 1)
             slot_ids[i] = sid
             prompt_lens[i] = int(job.prompt_lens[0])
+        sl_real = np.clip(slot_ids, 0, self.max_slots - 1)
+        sel_mask = np.zeros((self.max_slots,), bool)
+        sel_mask[[job.slots[0] for job, _, _ in sel]] = True
         return {"chunk": chunk, "widths": widths, "g_lens": g_lens,
                 "g_tables": g_tables, "sample_at": sample_at,
                 "prompt_lens": prompt_lens,
-                "samp_g": _take_samp_rows(self.samp_rows, slot_ids),
-                "sel_ids": slot_ids}
+                "samp_g": _gather_samp_rows(self.samp_rows, sl_real, g),
+                "sel_mask": sel_mask}
 
-    def _prefill_group(self, pf: dict, use_rows: bool):
-        """The ragged prefill half: one window_forward over the selected
-        chunks; first-token candidates at each row's sample position."""
-        chunk = torch.as_tensor(pf["chunk"], device=self.device)
-        logits, _ = paged_engine.window_forward(
-            self.params, chunk, self.cfg,
-            self._cache(pf["g_lens"], pf["g_tables"]),
-            logits_at=torch.as_tensor(pf["sample_at"]),
-            widths=pf["widths"], rope=self._rope)
-        toks = self._sample(logits, pf["samp_g"],
-                            pf["prompt_lens"].astype(np.int64), use_rows)
-        return toks, _token_logprobs(logits, toks)
+    def _mixed_key(self, pf: dict, n_rounds: int, n_rows_d: int,
+                   use_rows_p: bool, use_rows_d: bool):
+        """The mixed program of this iteration's shapes and its key."""
+        key = ("mixed", pf["chunk"].shape[0], pf["chunk"].shape[1],
+               n_rows_d if n_rounds else 0, n_rounds, use_rows_p,
+               use_rows_d and n_rounds > 0)
+        fn = functools.partial(_mixed_step, n_rounds=n_rounds,
+                               use_rows_p=use_rows_p,
+                               use_rows_d=key[-1])
+        return key, fn
+
+    def _mixed_staged(self, pf, use_rows_p, n_rounds, live_g, lens, tables,
+                      last, samp, use_rows_d) -> dict:
+        staged = self._prefill_staged(pf, use_rows_p)
+        if n_rounds > 0:
+            staged.update(self._decode_staged(lens, tables, last, live_g,
+                                              samp, use_rows_d))
+        return staged
 
     def _mixed_dispatch(self) -> None:
-        """One token-budget iteration: the ragged prefill group plus the
-        multi-round decode of every live slot, then one host sync."""
+        """One token-budget iteration: the multi-round decode of every
+        live slot plus as many prefill-chunk tokens as fit under
+        `mixed_token_budget`, ONE program, then its sync. Admitting slots
+        not selected this iteration are not staged at all."""
         demand = sum(int(j.rem_lens[0]) - j.done for j in self._jobs)
         n_live = int(self.active.sum())
-        win = 1
+        win = self.window
         n_rounds = self._mixed_rounds(n_live, demand, win)
         if n_rounds > 0:
             n_eff = self._extend_chains(n_rounds)
@@ -756,69 +1235,527 @@ class PagedInferenceServer:
                 while n_rounds > n_eff:
                     n_rounds //= 2
                 n_rounds = max(1, n_rounds)
-        n_live = int(self.active.sum()) if n_rounds > 0 else 0
-        sel = self._select_prefill(self._jobs, n_live, win, n_rounds)
+        live = (self.active if n_rounds > 0
+                else np.zeros((self.max_slots,), bool))
+        n_live = int(live.sum())
+        sel = self._select_prefill(self._jobs, n_live, win, n_rounds,
+                                   planned=False)
+        prof = self._profiler
+        if prof is not None:
+            prof.mark("admission")
         if not sel and not n_rounds:
             return
-
+        self._iter_stats.update(
+            scheduler="mixed", n_live=n_live, decode_rounds=n_rounds,
+            decode_tokens=n_live * win * n_rounds,
+            prefill_tokens=sum(t for _, t, _ in sel))
         pf = self._build_prefill_group(sel)
-        use_rows_p = bool(self._needs_rows[pf["sel_ids"]].any())
-        ptoks, plps = self._prefill_group(pf, use_rows_p)
+        use_rows_p = bool((self._needs_rows & pf["sel_mask"]).any())
+        live_ids, _, live_g, d_lens, d_tables, d_last, samp_d = \
+            self._gather_decode_rows()
+        self._iter_stats.update(
+            decode_rows=int(live_g.shape[0]) if n_rounds else 0,
+            compaction_ratio=(n_live / max(int(live_g.shape[0]), 1)
+                              if n_rounds else 1.0))
+        use_rows_d = bool((self._needs_rows & live).any())
+        key, fn = self._mixed_key(pf, n_rounds, len(live_g), use_rows_p,
+                                  use_rows_d)
+        staged = self._mixed_staged(pf, use_rows_p, n_rounds, live_g,
+                                    d_lens, d_tables, d_last, samp_d,
+                                    use_rows_d)
+        if prof is not None:
+            prof.mark("build")
+        out = self._launch(key, fn, staged).wait()
+        if prof is not None:
+            prof.mark("device")
+        if n_rounds > 0:
+            self._commit_decode_rows(live_ids, out["toks"], out["lps"],
+                                     out["lens"], out["last"])
+        self._complete_admission_chunks(sel, out["ptoks"], out["plps"])
+        if prof is not None:
+            prof.mark("commit")
 
-        if n_rounds > 0:
-            live_ids, lengths, tables, last, samp = \
-                self._gather_decode_rows()
-            use_rows_d = bool(self._needs_rows[live_ids].any())
-            lens, last_t, toks, lps = self._decode_rounds(
-                lengths, tables, last, samp, n_rounds, use_rows_d)
-        # the iteration's one host sync
-        ptoks, plps = ptoks.cpu().numpy(), plps.cpu().numpy()
-        if n_rounds > 0:
-            self._commit_decode_rows(live_ids, toks.cpu().numpy(),
-                                     lps.cpu().numpy(), lens,
-                                     last_t.cpu().numpy())
-        self._complete_admission_chunks(sel, ptoks, plps)
+    # -- pipelined scheduling (overlap on) ----------------------------------
+    #
+    # Each step plans iteration N+1 against the PLANNED frame while the
+    # card runs iteration N, waits on N's event and commits it, patches
+    # the plan's data-dependent inputs from the just-committed ledger,
+    # and launches. The plan functions never release pages or tear down
+    # slots: a page freed under an in-flight dispatch could be handed
+    # out while the card still writes it.
+
+    def _extend_chains_planned(self, n_rounds: int, planned_len,
+                               planned_active) -> int:
+        """Planned-frame chain growth for a launch-ahead dispatch: cover
+        each planned-live slot's worst-case window writes from its
+        planned length (committed length + the in-flight rounds). Never
+        preempts or fails a request: on famine it takes the pages there
+        are and bounds the dispatch to the rounds every chain covers (0
+        drops the decode half; the pipeline drains and the next
+        sequential iteration runs the full escalation)."""
+        n_eff = n_rounds
+        for sid in range(self.max_slots):
+            slot = self._slots[sid]
+            if slot is None or not planned_active[sid]:
+                continue
+            need_len = min(int(planned_len[sid]) + n_rounds * self.window,
+                           slot.stop_len + self.window)
+            delta = -(-need_len // self.page_size) - len(slot.pages)
+            if delta > 0:
+                grab = min(delta, self.allocator.available)
+                fresh = self.allocator.alloc(grab) if grab > 0 else None
+                if fresh:
+                    start = len(slot.pages)
+                    slot.pages.extend(fresh)
+                    self.tables[sid, start:len(slot.pages)] = fresh
+            covered = len(slot.pages) * self.page_size
+            r_ok = max(0, (covered - int(planned_len[sid])) // self.window)
+            n_eff = min(n_eff, r_ok)
+        return n_eff
+
+    def _plan_iteration(self) -> _Plan | None:
+        """Plan, and stage in numpy, the NEXT dispatch against the
+        planned frame: the committed ledger plus the in-flight dispatch's
+        deterministic effects (job cursors advanced by its takes, slots
+        it completes counted live, lengths at their rounds upper bound).
+        Returns None when there is nothing to dispatch (the pipeline
+        drains). Mutates nothing of the committed ledger beyond
+        job.planned cursors and chain growth."""
+        prof = self._profiler
+        infl = self._inflight
+        planned_active = self.active.copy()
+        planned_len = self.lengths.copy()
+        if infl is not None:
+            if infl.n_rounds > 0:
+                for i, sid_ in enumerate(infl.live_ids):
+                    sid = int(sid_)
+                    if planned_active[sid] \
+                            and self._slots[sid] is infl.owners[i]:
+                        planned_len[sid] = min(
+                            int(planned_len[sid])
+                            + infl.n_rounds * infl.win,
+                            int(self.stop_len[sid]) + self.window)
+            for sid in infl.activating:
+                slot = self._slots[sid]
+                if slot is not None:
+                    planned_active[sid] = True
+                    planned_len[sid] = len(slot.prompt)
+        jobs = [j for j in self._jobs if j.planned < int(j.rem_lens[0])]
+        if not jobs and not planned_active.any():
+            return None
+        stats: dict = {}
+        win = self.window
+        if jobs:
+            # a token-budget mixed iteration (mirrors _mixed_dispatch)
+            demand = sum(int(j.rem_lens[0]) - j.planned for j in jobs)
+            n_live = int(planned_active.sum())
+            n_rounds = self._mixed_rounds(n_live, demand, win,
+                                          active=planned_active)
+            if n_rounds > 0:
+                n_eff = self._extend_chains_planned(
+                    n_rounds, planned_len, planned_active)
+                if n_eff <= 0:
+                    n_rounds = 0
+                else:
+                    while n_rounds > n_eff:
+                        n_rounds //= 2
+                    n_rounds = max(1, n_rounds)
+            live = (planned_active if n_rounds > 0
+                    else np.zeros((self.max_slots,), bool))
+            n_live = int(live.sum())
+            sel = self._select_prefill(jobs, n_live, win, n_rounds,
+                                       planned=True)
+            if not sel and not n_rounds:
+                return None
+            activating: list[int] = []
+            for job, take, d0 in sel:
+                job.planned = d0 + take
+                if job.planned >= int(job.rem_lens[0]):
+                    activating.append(job.slots[0])
+            stats.update(
+                scheduler="mixed", n_live=n_live, decode_rounds=n_rounds,
+                decode_tokens=n_live * win * n_rounds,
+                prefill_tokens=sum(t for _, t, _ in sel))
+            if prof is not None:
+                prof.mark("admission")
+            pf = self._build_prefill_group(sel)
+            live_ids, sl_d, live_g, d_lens, d_tables, d_last, samp_d = \
+                self._gather_decode_rows(live)
+            stats.update(
+                decode_rows=int(live_g.shape[0]) if n_rounds else 0,
+                compaction_ratio=(n_live / max(int(live_g.shape[0]), 1)
+                                  if n_rounds else 1.0))
+            if n_rounds == 0:
+                live_g = np.zeros_like(live_g)
+            plan = _Plan(
+                kind="mixed", sel=sel, activating=activating,
+                n_rounds=n_rounds, win=win, live_ids=live_ids, sl_d=sl_d,
+                live_g=live_g, d_lens=d_lens, d_tables=d_tables,
+                d_last=d_last, samp_d=samp_d,
+                owners=[self._slots[int(s)] for s in live_ids], pf=pf,
+                use_rows_p=bool((self._needs_rows & pf["sel_mask"]).any()),
+                use_rows_d=bool((self._needs_rows & live).any()),
+                stats=stats)
+        else:
+            # a pure-decode iteration (mirrors _decode_dispatch)
+            n = self._chunk_rounds(active=planned_active)
+            n_eff = self._extend_chains_planned(n, planned_len,
+                                                planned_active)
+            if n_eff <= 0:
+                return None
+            while n > n_eff:
+                n //= 2
+            n = max(1, n)
+            if prof is not None:
+                prof.mark("admission")
+            live_ids, sl_d, live_g, d_lens, d_tables, d_last, samp_d = \
+                self._gather_decode_rows(planned_active)
+            stats.update(
+                scheduler=self.scheduler, n_live=len(live_ids),
+                decode_rounds=n, decode_tokens=len(live_ids) * n,
+                decode_rows=int(live_g.shape[0]),
+                compaction_ratio=(len(live_ids)
+                                  / max(int(live_g.shape[0]), 1)))
+            plan = _Plan(
+                kind="decode", sel=[], activating=[], n_rounds=n, win=win,
+                live_ids=live_ids, sl_d=sl_d, live_g=live_g, d_lens=d_lens,
+                d_tables=d_tables, d_last=d_last, samp_d=samp_d,
+                owners=[self._slots[int(s)] for s in live_ids], pf=None,
+                use_rows_p=False,
+                use_rows_d=bool((self._needs_rows & planned_active).any()),
+                stats=stats)
+        if prof is not None:
+            prof.mark("build")
+        return plan
+
+    def _launch_plan(self, plan: _Plan) -> None:
+        """Patch the plan's data-dependent decode inputs from the
+        just-committed ledger (a (rows,) re-gather of lengths, last
+        tokens and table rows; rows whose slot died at the commit go
+        dead), then launch it without waiting: the sync is the next
+        step's `_commit_inflight`."""
+        prof = self._profiler
+        live_ids = plan.live_ids
+        nl = len(live_ids)
+        if nl and plan.n_rounds > 0:
+            if plan.sl_d is None:
+                # rows ARE slots: the ledger is the patch (dead slots
+                # already carry sentinel tables and active=False)
+                plan.live_g = self.active.copy()
+                plan.d_lens = self.lengths
+                plan.d_tables = self.tables
+                plan.d_last = self.last_token
+            else:
+                for i in range(nl):
+                    sid = int(live_ids[i])
+                    alive = (self._slots[sid] is plan.owners[i]
+                             and self.active[sid])
+                    plan.live_g[i] = alive
+                    plan.d_lens[i] = self.lengths[sid]
+                    plan.d_last[i] = self.last_token[sid]
+                    plan.d_tables[i] = self.tables[sid]
+            if plan.kind == "decode" and not plan.live_g[:nl].any():
+                # every planned row died at the commit: drain instead of
+                # launching an inert program
+                return
+        if plan.kind == "mixed":
+            key, fn = self._mixed_key(plan.pf, plan.n_rounds,
+                                      len(plan.live_g), plan.use_rows_p,
+                                      plan.use_rows_d)
+            staged = self._mixed_staged(
+                plan.pf, plan.use_rows_p, plan.n_rounds, plan.live_g,
+                plan.d_lens, plan.d_tables, plan.d_last, plan.samp_d,
+                plan.use_rows_d)
+        else:
+            key = ("decode", len(plan.live_g), plan.n_rounds,
+                   plan.use_rows_d)
+            fn = functools.partial(_decode_rounds, n_rounds=plan.n_rounds,
+                                   use_rows=plan.use_rows_d)
+            staged = self._decode_staged(plan.d_lens, plan.d_tables,
+                                         plan.d_last, plan.live_g,
+                                         plan.samp_d, plan.use_rows_d)
+        prog = self._launch(key, fn, staged)
+        t = (prof.mark("launch") if prof is not None
+             else time.perf_counter())
+        self._iter_launch_ts = t
+        self._inflight = _Inflight(
+            kind=plan.kind, program=prog, sel=plan.sel,
+            activating=plan.activating, live_ids=live_ids,
+            owners=plan.owners, n_rounds=plan.n_rounds, win=plan.win,
+            stats=plan.stats, t_launch=t)
+
+    def _commit_inflight(self) -> None:
+        """Wait on the in-flight dispatch's event and commit it: the
+        serialized part of a pipelined step. The ledger writes, emits,
+        activations and deferred reaps run on the synced results,
+        guarded per row by the owners captured at plan time."""
+        infl, self._inflight = self._inflight, None
+        t_wait = time.perf_counter()
+        out = infl.program.wait()
+        prof = self._profiler
+        if prof is not None:
+            prof.mark("device")
+        st = infl.stats
+        st["overlap"] = True
+        st["inflight_depth"] = 1
+        # how long the card ran ahead of the host needing its results
+        st["overlap_launch_lead_ms"] = (t_wait - infl.t_launch) * 1e3
+        self._iter_stats = st
+        if infl.n_rounds > 0:
+            self._commit_decode_rows(infl.live_ids, out["toks"],
+                                     out["lps"], out["lens"], out["last"],
+                                     owners=infl.owners)
+        if infl.kind == "mixed":
+            self._complete_admission_chunks(infl.sel, out["ptoks"],
+                                            out["plps"])
+        self._apply_reaps()
+        if prof is not None:
+            prof.mark("commit")
+
+    def _overlap_sweep(self) -> None:
+        """Sweep for a pipelined step: cancelled or deadline-expired slot
+        holders are only MARKED (active=False, queued on `_reaped`) —
+        the in-flight dispatch still writes their pages — and released
+        by `_apply_reaps` right after the commit. Pending expiry is pure
+        host state and runs as in the sequential sweep."""
+        job_slots = {s for job in self._jobs for s in job.slots}
+        marked = {sid for sid, _, _ in self._reaped}
+        now = None
+        for sid, slot in enumerate(self._slots):
+            if slot is None or sid in job_slots or sid in marked:
+                continue
+            if slot.req._cancel.is_set():
+                self.active[sid] = False
+                self._reaped.append((sid, slot, "cancelled"))
+                continue
+            if slot.req.deadline is not None:
+                if now is None:
+                    now = time.perf_counter()
+                if now > slot.req.deadline:
+                    self.active[sid] = False
+                    self._reaped.append((sid, slot, "deadline"))
+        self._expire_pending(now)
+
+    def _apply_reaps(self) -> None:
+        """The deferred half of `_overlap_sweep`, after the commit: the
+        marked slots' pages hold committed KV now, so they release
+        through the content-keyed path and the requests complete."""
+        if not self._reaped:
+            return
+        reaped, self._reaped = self._reaped, []
+        for sid, slot, reason in reaped:
+            if self._slots[sid] is not slot:
+                continue  # already torn down (failure path)
+            s = self._release_slot(sid, self._committed(sid))
+            s.req.finish_reason = reason
+            self._complete(s.req)
+
+    def _step_overlap(self) -> int:
+        """One pipelined iteration. With a dispatch in flight: plan N+1
+        while the card runs N, then wait on and commit N, then launch
+        N+1 — one launch and one sync per step. With nothing in flight
+        (cold start, after a drain or a famine): the sequential
+        iteration, then the pipeline is primed by planning and launching
+        the next dispatch before returning."""
+        with self._step_lock:
+            prof = self._profiler
+            if prof is not None:
+                prof.begin()
+            al = self.allocator
+            al.telemetry.iteration = self.flight.iterations + 1
+            c0 = (al.pages_allocated, al.pages_released, al.evictions)
+            if self._inflight is None:
+                self._sweep_cancelled()
+                if prof is not None:
+                    prof.mark("sweep")
+                self._start_admissions()
+                if prof is not None:
+                    prof.mark("admission")
+                self._iter_stats = {}
+                p0 = self.preemptions
+                t0 = prof.t0 if prof is not None else time.perf_counter()
+                if self._jobs:
+                    self._mixed_dispatch()
+                elif self.active.any():
+                    self._decode_dispatch()
+                if self._jobs or self.active.any():
+                    plan = self._plan_iteration()
+                    if plan is not None:
+                        self._launch_plan(plan)
+                self._record_iteration(t0, p0, c0)
+                if self._iter_stats:
+                    self.last_busy_ts = self._iter_stats["ts"]
+                else:
+                    self.idle_iterations += 1
+            else:
+                self._overlap_sweep()
+                if prof is not None:
+                    prof.mark("sweep")
+                self._start_admissions()
+                if prof is not None:
+                    prof.mark("admission")
+                p0 = self.preemptions
+                t0 = prof.t0 if prof is not None else time.perf_counter()
+                plan = self._plan_iteration()
+                self._commit_inflight()
+                if plan is not None:
+                    self._launch_plan(plan)
+                self._record_iteration(t0, p0, c0)
+                self.last_busy_ts = self._iter_stats["ts"]
+            return self.num_active
 
     # -- the scheduler loop -------------------------------------------------
 
     def _sweep_cancelled(self) -> None:
         """Reap cancelled and deadline-expired requests that hold a slot
-        (not mid-admission), and expired pending requests."""
+        (not mid-admission: admission checks the cancel flag at
+        activation), and expired pending requests. The clock is read
+        only when a live request carries a deadline."""
         job_slots = {s for job in self._jobs for s in job.slots}
-        now = time.perf_counter()
+        now = None
         for sid, slot in enumerate(self._slots):
             if slot is None or sid in job_slots:
                 continue
-            reason = None
             if slot.req._cancel.is_set():
-                reason = "cancelled"
-            elif slot.req.deadline is not None and now > slot.req.deadline:
-                reason = "deadline"
-            if reason is not None:
                 slot = self._release_slot(sid, self._committed(sid))
-                slot.req.finish_reason = reason
+                slot.req.finish_reason = "cancelled"
                 self._complete(slot.req)
+                continue
+            if slot.req.deadline is not None:
+                if now is None:
+                    now = time.perf_counter()
+                if now > slot.req.deadline:
+                    slot = self._release_slot(sid, self._committed(sid))
+                    slot.req.finish_reason = "deadline"
+                    self._complete(slot.req)
+        self._expire_pending(now)
+
+    def _expire_pending(self, now: float | None) -> None:
+        """Reap deadline-expired pending requests (pure host-queue state,
+        safe with a dispatch in flight)."""
         with self._lock:
-            expired = [r for r in self._pending
-                       if r.deadline is not None and now > r.deadline]
-            for r in expired:
-                self._pending.remove(r)
+            expired = []
+            if any(r.deadline is not None for r in self._pending):
+                if now is None:
+                    now = time.perf_counter()
+                keep = collections.deque()
+                for r in self._pending:
+                    if r.deadline is not None and now > r.deadline:
+                        expired.append(r)
+                    else:
+                        keep.append(r)
+                self._pending = keep
         for r in expired:
             r.finish_reason = "deadline"
             self._complete(r)
 
     def step(self) -> int:
         """One scheduler iteration: reap cancellations, start admissions,
-        then dispatch — the fused mixed iteration while any admission is
-        in flight, else a multi-round decode dispatch. Thread-safe."""
+        then dispatch — with the mixed scheduler, ONE program while any
+        admission is in flight, else a multi-round decode program; with
+        the alternating scheduler, each group's prefill-chunk program
+        then a decode program. With overlap on (mixed scheduler, the
+        default) the iteration is pipelined (`_step_overlap`).
+        Thread-safe."""
+        if self._overlap_enabled:
+            return self._step_overlap()
+        return self._step_sequential()
+
+    def _step_sequential(self) -> int:
+        """The sequential iteration (overlap off, or the alternating
+        scheduler)."""
         with self._step_lock:
+            prof = self._profiler
+            if prof is not None:
+                prof.begin()
+            al = self.allocator
+            al.telemetry.iteration = self.flight.iterations + 1
+            c0 = (al.pages_allocated, al.pages_released, al.evictions)
             self._sweep_cancelled()
+            if prof is not None:
+                prof.mark("sweep")
             self._start_admissions()
-            if self._jobs:
+            if prof is not None:
+                prof.mark("admission")
+            self._iter_stats = {}
+            p0 = self.preemptions
+            t0 = prof.t0 if prof is not None else time.perf_counter()
+            if self._mixed_enabled and self._jobs:
                 self._mixed_dispatch()
-            elif self.active.any():
-                self._decode_dispatch()
+            else:
+                for job in list(self._jobs):
+                    self._run_one_chunk(job)
+                if self.active.any():
+                    self._decode_dispatch()
+            self._record_iteration(t0, p0, c0)
+            if self._iter_stats:
+                self.last_busy_ts = self._iter_stats["ts"]
+            else:
+                self.idle_iterations += 1
             return self.num_active
+
+    def _record_iteration(self, t0: float, p0: int,
+                          c0: tuple[int, int, int]) -> None:
+        """Flight-recorder epilogue of one busy iteration: the dispatch
+        paths filled `_iter_stats` with their token split; this adds the
+        budget, occupancy and pool fields and the phase split, and
+        appends one record. Idle iterations record nothing."""
+        st = self._iter_stats
+        if not st:
+            return
+        st["tokens_scheduled"] = (st.get("decode_tokens", 0)
+                                  + st.get("prefill_tokens", 0))
+        if st.get("scheduler") == "mixed":
+            st["budget_tokens"] = self.mixed_token_budget
+            st["budget_utilization"] = (st["tokens_scheduled"]
+                                        / self.mixed_token_budget)
+        # every preemption requeues its request at the queue front, so
+        # this one field is both the preemption and the requeue count
+        st["preemptions"] = self.preemptions - p0
+        st["n_jobs"] = len(self._jobs)
+        st["pending"] = self.num_pending
+        al = self.allocator
+        st["pages_allocated"] = al.pages_allocated - c0[0]
+        st["pages_released"] = al.pages_released - c0[1]
+        st["pages_evicted"] = al.evictions - c0[2]
+        free, cached = len(al._free), len(al._evictable)
+        st["pool_free"] = free
+        st["pool_cached"] = cached
+        st["pool_active"] = al.num_pages - free - cached
+        frac = (free + cached) / max(al.num_pages, 1)
+        st["pool_evictable_frac"] = frac
+        self._cache_hists["evictable_frac"].observe(frac)
+        prof = self._profiler
+        if prof is not None:
+            now = prof.mark("epilogue")
+            phases = prof.phases_ms()
+            st["t_start"] = t0
+            st["phases_ms"] = phases
+            st["duration_ms"] = (now - t0) * 1e3
+            overlapped = bool(st.get("overlap"))
+            st.update(derive_gap_fields(phases, st["duration_ms"],
+                                        overlapped))
+            hists = self._phase_hists
+            if overlapped:
+                # sweep/admission/build ran under the in-flight program:
+                # they fold into the `overlap` series
+                hists["overlap"].observe(
+                    sum(phases.get(p, 0.0) for p in OVERLAP_PHASES))
+                for p, v in phases.items():
+                    if p not in OVERLAP_PHASES:
+                        hists[p].observe(v)
+            else:
+                for p, v in phases.items():
+                    hists[p].observe(v)
+        else:
+            st["duration_ms"] = (time.perf_counter() - t0) * 1e3
+        if self._iter_launch_ts is not None:
+            # the launch-ahead made THIS step (the Perfetto inflight
+            # track pairs it with the next record's device wait)
+            st["t_launch"] = self._iter_launch_ts
+            self._iter_launch_ts = None
+        st["ts"] = time.time()
+        self.flight.record(**st)
 
     def run_until_idle(self) -> None:
         while self.num_pending or self.num_active or self._jobs:
@@ -837,6 +1774,11 @@ class PagedInferenceServer:
                     slot.req.finish_reason = f"error: {exc!r}"
                     self._complete(slot.req)
             self._jobs.clear()
+            # drop the launched-but-uncommitted dispatch: its results
+            # belong to requests that just failed, and any work it
+            # still runs precedes every later program on the stream
+            self._inflight = None
+            self._reaped.clear()
         for req in pending:
             req.finish_reason = f"error: {exc!r}"
             self._complete(req)
@@ -852,6 +1794,8 @@ class PagedInferenceServer:
                 self._stop.set()
                 return
             if busy:
+                # a pipelined step's sync may return at once: yield so
+                # stream writers and result() waiters run
                 time.sleep(0)
             if busy == 0 and self.num_pending == 0 and not self._jobs:
                 with self._work:
@@ -898,6 +1842,9 @@ class PagedInferenceServer:
 
     def stop(self, drain: bool = False,
              timeout: float | None = None) -> None:
+        """Stop the scheduler thread, fail whatever is still live, and
+        release the captured programs and their memory pool (they are
+        captured again if the server serves again)."""
         if drain and not self._stop.is_set():
             self.drain(timeout, _resume_on_timeout=False)
         self._stop.set()
@@ -909,7 +1856,11 @@ class PagedInferenceServer:
         if self.num_pending or self.num_active or self._jobs:
             self._fail_all(RuntimeError(
                 "server stopped before the request completed"))
-
+        with self._step_lock:
+            self._inflight = None
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._programs.release()
 
     # -- observability ------------------------------------------------------
 
@@ -932,6 +1883,14 @@ class PagedInferenceServer:
         reg.counter("preemptions_total",
                     "Lifetime on-demand-paging preemptions").set_total(
                         self.preemptions)
+        # idle vs dead: an idle scheduler keeps counting while the gauge
+        # ages; a dead one freezes both
+        reg.counter("idle_iterations_total",
+                    "step() calls that dispatched nothing").set_total(
+                        self.idle_iterations)
+        reg.gauge("last_busy_ts",
+                  "Unix time of the last busy iteration (0 until the "
+                  "first)").set(self.last_busy_ts)
         stats = self.allocator.stats()
         reg.gauge("pages_total",
                   "KV page pool size").set(stats.pages_total)
@@ -967,6 +1926,23 @@ class PagedInferenceServer:
         """Mergeable snapshot of every registered metric (the /metrics
         and /stats source)."""
         return self.metrics.registry.snapshot()
+
+    def iteration_profile_stats(self) -> dict | None:
+        """The /stats `iteration_profile` summary: per-phase
+        count/mean/p50/p99 ms and the aggregate host-gap fraction, from
+        the per-phase histograms. None with profiling disabled."""
+        return profile_summary(self.metrics_snapshot())
+
+    def overlap_stats(self) -> dict:
+        """The /stats `overlap` block: the knob's resolved state and the
+        live pipeline depth. Scrape path only."""
+        return {"enabled": self.overlap, "active": self._overlap_enabled,
+                "inflight_depth": 0 if self._inflight is None else 1}
+
+    def flight_window(self, n: int | None = None) -> list[dict]:
+        """The last `n` (default: all retained) flight-recorder records,
+        oldest first."""
+        return self.flight.window(n)
 
 
 def _params_on(params, device):

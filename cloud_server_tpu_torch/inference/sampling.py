@@ -3,7 +3,7 @@
 Two tiers share one filter chain, as in the reference:
 
   * Server-global (`InferConfig` scalars): `sample_logits`, drawing from
-    an explicit `torch.Generator`.
+    one threefry key per call.
   * Per-request (`SamplingParams` -> `SamplingRows`, one value per
     slot): `filtered_logits_rows` / `sample_logits_rows`.
 
@@ -14,11 +14,12 @@ argmax(filtered + gumbel(key, (V,))), both from jax.random's threefry2x32
 ported bit for bit (`utils/prng.py`, on the logits' device). A seeded
 request's tokens are therefore the reference's, token for token, and
 depend only on (seed, position), never on the rest of the batch.
-The server-global path (`sample_logits`) keeps an explicit
-`torch.Generator` and is held in distribution only: the reference splits
-its server key once per dispatch, so its draws depend on how rounds are
-grouped into dispatches, and its schedulers promise token identity only
-for greedy decoding.
+The server-global path draws as the reference's
+`jax.random.categorical(key, filtered)` does: argmax(filtered +
+gumbel(key, (rows, V))), one key for the whole (rows, V) draw. The
+server splits its key where the reference's splits (once per dispatch,
+then per half and per round), and stages the reference's rows, so its
+seeded server-global tokens are the reference's too.
 """
 
 from __future__ import annotations
@@ -68,19 +69,15 @@ def _filtered_logits(logits: torch.Tensor, cfg: InferConfig) -> torch.Tensor:
     return x
 
 
-def _gumbel_argmax(logits: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """Categorical draw from softmax(logits) given uniforms in (0, 1)."""
-    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
-
-
-def sample_logits(logits: torch.Tensor, generator: torch.Generator | None,
+def sample_logits(logits: torch.Tensor, key: torch.Tensor,
                   cfg: InferConfig) -> torch.Tensor:
-    """logits: (B, V) f32 -> (B,) int64 token ids."""
+    """logits: (B, V) f32 -> (B,) int64 token ids; `key` is one (2,)
+    threefry key on the logits' device (`utils/prng.py`)."""
     if cfg.temperature <= 0.0:
         return torch.argmax(logits, dim=-1)
-    u = torch.rand(logits.shape, generator=generator, device=logits.device,
-                   dtype=torch.float32).clamp_(min=1e-20, max=1 - 1e-7)
-    return _gumbel_argmax(_filtered_logits(logits, cfg), u)
+    filt = _filtered_logits(logits, cfg)
+    return torch.argmax(filt + prng.gumbel_low(key, tuple(filt.shape)),
+                        dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -77,8 +77,7 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if segment_ids is not None:
         seg = segment_ids.to(dev)
         causal = causal & (seg[:, :, None] == seg[:, None, :])
-    scores = torch.where(causal[:, None, None, :, :], scores,
-                         torch.tensor(NEG_INF, device=dev))
+    scores = torch.where(causal[:, None, None, :, :], scores, NEG_INF)
     probs = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
     probs = probs / probs.sum(dim=-1, keepdim=True)
     if v_scale is not None:

@@ -38,7 +38,9 @@ and `launches_wide` the wide one (`_paged_attention_wide_kernel`:
 everything else, and a narrow-class call whose W * G rows exceed
 NARROW_MAX_ROWS), `launches_narrow_int8` / `launches_wide_int8` the
 same kernels on the int8 cache. `plain_calls` counts calls of the plain
-version.
+version. A call made while a CUDA graph captures launches nothing: the
+capture takes its counts back and each replay adds them
+(`add_counts`, inference/graphs.py).
 """
 
 from __future__ import annotations
@@ -75,6 +77,14 @@ def counters() -> dict:
             "launches_narrow_int8": launches_narrow_int8,
             "launches_wide_int8": launches_wide_int8,
             "plain_calls": plain_calls}
+
+
+def add_counts(delta: dict) -> None:
+    """Add `delta` (a dict shaped like `counters()`) to the counters: a
+    CUDA graph's replay launches what its capture recorded (see
+    inference/graphs.py), though no Python call runs."""
+    for name, n in delta.items():
+        globals()[name] += n
 
 
 def is_narrow(b: int, w: int) -> bool:

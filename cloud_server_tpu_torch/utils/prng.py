@@ -8,17 +8,28 @@ whatever device its inputs are on:
   * `key(seed)`       — jax.random.key(seed) for a seed in [0, 2**32):
                         the words (0, seed);
   * `fold_in(k, n)`   — jax.random.fold_in: threefry2x32(k, (0, n));
-  * `bits(k, v)`      — jax.random.bits(k, (v,)) with
-                        jax_threefry_partitionable (jax's default): word
-                        i is hi ^ lo of threefry2x32(k, (0, i));
-  * `gumbel_low(k, v)` — jax.random.gumbel(k, (v,)) in float32 (its
+  * `split(k, n)`     — jax.random.split(k, n): key i is
+                        threefry2x32(k, (0, i)), i.e. fold_in(k, i);
+  * `bits(k, shape)`  — jax.random.bits(k, shape) with
+                        jax_threefry_partitionable (jax's default): the
+                        word at flat index i of `shape` is hi ^ lo of
+                        threefry2x32(k, (i >> 32, i & 0xFFFFFFFF)), so a
+                        (R, V) draw's row r is the flat run
+                        [r * V, (r + 1) * V) whatever R is;
+  * `gumbel_low(k, shape)` — jax.random.gumbel(k, shape) in float32 (its
                         default "low" mode): uniforms in [tiny, 1) from
                         the 23 high bits, then -log(-log(u)).
 
-`jax.random.categorical(k, logits)` is argmax(logits + gumbel_low(k, V)).
+`jax.random.categorical(k, logits)` over (..., V) logits is
+argmax(logits + gumbel_low(k, logits.shape)).
+
+`threefry2x32` also takes plain Python ints, which is how a host keeps a
+key without a tensor op per split.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -28,13 +39,14 @@ _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _TINY = torch.finfo(torch.float32).tiny
 
 
-def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+def _rotl(x, r: int):
     return ((x << r) | (x >> (32 - r))) & _MASK
 
 
-def threefry2x32(k0, k1, x0, x1) -> tuple[torch.Tensor, torch.Tensor]:
+def threefry2x32(k0, k1, x0, x1):
     """The 20-round Threefry-2x32 block on uint32 words held in int64
-    tensors (broadcasting); returns the two output words."""
+    tensors (broadcasting) or Python ints; returns the two output
+    words."""
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     x0 = (x0 + ks[0]) & _MASK
     x1 = (x1 + ks[1]) & _MASK
@@ -60,17 +72,30 @@ def fold_in(k: torch.Tensor, n) -> torch.Tensor:
     return torch.stack([y0, y1], dim=-1)
 
 
-def bits(k: torch.Tensor, v: int) -> torch.Tensor:
-    """(..., v) uint32 words (in int64) of jax.random.bits(k, (v,))."""
-    i = torch.arange(v, device=k.device, dtype=torch.int64)
+def split(k: torch.Tensor, n: int) -> torch.Tensor:
+    """(..., n, 2) keys of jax.random.split(k, n)."""
+    i = torch.arange(n, device=k.device, dtype=torch.int64)
     y0, y1 = threefry2x32(k[..., 0, None], k[..., 1, None],
                           torch.zeros_like(i), i)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def bits(k: torch.Tensor, shape) -> torch.Tensor:
+    """(*k.shape[:-1], *shape) uint32 words (in int64) of
+    jax.random.bits(k, shape); an int `shape` means (shape,)."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    i = torch.arange(math.prod(shape), device=k.device,
+                     dtype=torch.int64).reshape(shape)
+    tail = (...,) + (None,) * len(shape)
+    y0, y1 = threefry2x32(k[..., 0][tail], k[..., 1][tail], i >> 32,
+                          i & _MASK)
     return y0 ^ y1
 
 
-def gumbel_low(k: torch.Tensor, v: int) -> torch.Tensor:
-    """(..., v) float32 draws of jax.random.gumbel(k, (v,))."""
-    mant = (bits(k, v) >> 9) | 0x3F800000
+def gumbel_low(k: torch.Tensor, shape) -> torch.Tensor:
+    """(*k.shape[:-1], *shape) float32 draws of jax.random.gumbel(k,
+    shape)."""
+    mant = (bits(k, shape) >> 9) | 0x3F800000
     u = mant.to(torch.int32).view(torch.float32) - 1.0
     u = torch.clamp(u * (1.0 - _TINY) + _TINY, min=_TINY)
     return -torch.log(-torch.log(u))

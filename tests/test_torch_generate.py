@@ -58,6 +58,40 @@ def test_cli_prints_the_reference_text(files, capsys):
     assert got == want
 
 
+@pytest.mark.parametrize("flags", [
+    ["--scheduler", "alternating"], ["--no-overlap"],
+    ["--flight-recorder", "4", "--no-iteration-profile"]],
+    ids=["alternating", "no_overlap", "recorder_no_profile"])
+def test_scheduler_flags_print_the_reference_text(files, capsys, flags,
+                                                  monkeypatch):
+    """The scheduler, overlap, flight-recorder and profiler flags reach
+    the server and change no token: the same text as the reference's CLI
+    given the same flags."""
+    cfg_path, npz = files
+    ref_generate.main(["--config", cfg_path, "--decode-impl", "xla",
+                       *ARGS, *flags])
+    want = capsys.readouterr().out
+    seen = {}
+    from cloud_server_tpu_torch.inference import paged_server
+
+    class Spy(paged_server.PagedInferenceServer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            seen.update(scheduler=self.scheduler, overlap=self.overlap,
+                        flight=self.flight.capacity,
+                        profiled=self._profiler is not None)
+
+    monkeypatch.setattr(paged_server, "PagedInferenceServer", Spy)
+    generate.main(["--config", cfg_path, "--params-npz", npz,
+                   "--device", "cpu", *ARGS, *flags])
+    assert capsys.readouterr().out == want
+    assert seen["scheduler"] == (
+        "alternating" if "alternating" in flags else "mixed")
+    assert seen["overlap"] == ("--no-overlap" not in flags)
+    assert seen["flight"] == (4 if "--flight-recorder" in flags else 256)
+    assert seen["profiled"] == ("--no-iteration-profile" not in flags)
+
+
 @pytest.fixture(scope="module")
 def checkpoint(files, tmp_path_factory):
     """A training checkpoint (port's format) whose params are the .npz's

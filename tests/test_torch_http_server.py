@@ -386,8 +386,23 @@ def test_metrics_counts_match_reference(weights):
                      "cloud_server_queue_wait_seconds"):
             assert stats["latency"][name]["count"] == \
                 ref_stats["latency"][name]["count"]
-        assert set(stats) == {"active", "pending", "latency", "counters",
-                              "gauges"}
+        # the flight recorder, the overlap block and the iteration
+        # profile answer as the reference's do; what the port lacks
+        # (the cache, speculation, fault blocks) stays absent
+        assert {"active", "pending", "latency", "counters", "gauges",
+                "flight_recorder", "overlap", "iteration_profile"} \
+            == set(stats) - {"cache"}
+        assert set(stats) <= set(ref_stats)
+        assert stats["overlap"] == {"enabled": True, "active": True,
+                                    "inflight_depth": 0}
+        # the reference pair runs sequentially: its records carry every
+        # field but the pipelined iterations' own
+        ref_keys = set().union(*ref_stats["flight_recorder"]) | {
+            "overlap", "inflight_depth", "overlap_launch_lead_ms",
+            "overlap_ms", "t_launch"}
+        assert stats["flight_recorder"]
+        for rec in stats["flight_recorder"]:
+            assert set(rec) <= ref_keys
         assert stats["counters"]["cloud_server_requests_finished_total"] == 4
     finally:
         p.close()

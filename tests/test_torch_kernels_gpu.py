@@ -580,3 +580,207 @@ def test_ce_schedule_matches_the_kernels_units(n, v):
             n, cols, splits, is_dx, out.ctypes.data_as(ctypes.c_void_p)) == 0
         want = fc.ce_schedule(rows, fc.col_tiles(cols), splits, group)
         assert [tuple(u) for u in out.tolist()] == want
+
+
+# --------------------------------------------------------------------------
+# The server's captured programs (inference/graphs.py)
+# --------------------------------------------------------------------------
+
+# A small model the kernels take (head dim 64, page size 64 for the TMA
+# loader), 2 layers, random bf16 weights from a seed.
+GRAPH_PROMPTS = [[(7 * i + 3 * j) % 500 + 1 for j in range(n)]
+                 for i, n in enumerate((5, 90, 200, 33, 150, 64))]
+
+
+def _graph_server(cuda_graphs=True, kv="model", temperature=0.0,
+                  impl="pallas", top_p=1.0, **kw):
+    from cloud_server_tpu_torch.config import InferConfig, ModelConfig
+    from cloud_server_tpu_torch.inference.paged_server import (
+        PagedInferenceServer)
+    from cloud_server_tpu_torch.models import transformer
+    cfg = ModelConfig(vocab_size=512, embed_dim=256, num_layers=2,
+                      num_heads=4, num_kv_heads=2, head_dim=64, mlp_dim=512,
+                      max_seq_len=512, dtype="bfloat16",
+                      param_dtype="bfloat16", remat="none",
+                      decode_attention_impl=impl, kv_cache_dtype=kv)
+    icfg = InferConfig(max_decode_len=16, temperature=temperature,
+                       top_k=40 if temperature else 0, top_p=top_p,
+                       eos_token_id=-1, pad_token_id=0)
+    params = transformer.init_params(cfg, 0, device="cuda")
+    srv_kw = dict(max_slots=4, max_context=512, page_size=64,
+                  prefill_chunk=128, seed=5, device="cuda",
+                  cuda_graphs=cuda_graphs)
+    srv_kw.update(kw)
+    return PagedInferenceServer(params, cfg, icfg, **srv_kw)
+
+
+def _staggered_graph_run(srv, max_new=12, per_request=False):
+    """Request i samples with its own seed, temperature and top-p when
+    `per_request` (the programs that sample per row), else as the
+    server's config says."""
+    from cloud_server_tpu_torch.inference.sampling import SamplingParams
+
+    def submit(i):
+        sp = (SamplingParams(seed=100 + i, temperature=0.8, top_p=0.9)
+              if per_request else None)
+        return srv.submit(GRAPH_PROMPTS[i], max_new_tokens=max_new,
+                          sampling=sp)
+
+    reqs = [submit(i) for i in range(3)]
+    for _ in range(2):
+        srv.step()
+    reqs += [submit(i) for i in range(3, len(GRAPH_PROMPTS))]
+    srv.run_until_idle()
+    torch.cuda.synchronize()
+    return [r.result() for r in reqs]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "kv,temperature,top_p,per_request,scheduler,overlap", [
+        ("model", 0.0, 1.0, False, "mixed", True),
+        ("int8", 0.0, 1.0, False, "mixed", True),
+        ("model", 0.9, 1.0, False, "mixed", True),
+        ("model", 0.0, 1.0, False, "mixed", False),
+        ("model", 0.9, 1.0, False, "alternating", False),
+        ("model", 0.9, 0.9, False, "mixed", True),
+        ("model", 0.0, 1.0, True, "mixed", True),
+        ("model", 0.0, 1.0, True, "alternating", False)],
+    ids=["bf16", "int8", "seeded", "sequential", "alternating_seeded",
+         "seeded_top_p", "per_request_seeded",
+         "alternating_per_request_seeded"])
+def test_graphed_server_matches_graphs_off(kv, temperature, top_p,
+                                           per_request, scheduler, overlap):
+    """The same staggered requests (6 prompts on 4 slots: admissions
+    landing mid-decode, compacted decode rows) through captured graphs
+    and through eager launches on the same buffers give the same tokens,
+    greedy, int8, server-global seeded (top-k, and top-p) and per-request
+    seeded (per-row programs); and the graphed run's kernel counts are
+    the eager run's plus one warm-up per captured program."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    runs = {}
+    for graphed in (False, True):
+        srv = _graph_server(graphed, kv, temperature, top_p=top_p,
+                            scheduler=scheduler, overlap=overlap)
+        pa.reset_counters()
+        toks = _staggered_graph_run(srv, per_request=per_request)
+        per_row = any(x is True for key in srv._programs._programs
+                      for x in key)
+        counts = pa.counters()
+        warm = {k: sum(p.replay_counts.get(k, 0)
+                       for p in srv._programs._programs.values())
+                for k in counts}
+        runs[graphed] = (toks, counts, warm, len(srv._programs))
+        srv.stop()
+        assert per_row == per_request
+    (eager, c_eager, _, _), (graphed, c_graph, warm, n_prog) = (
+        runs[False], runs[True])
+    assert all(len(t) == 12 for t in graphed)
+    assert graphed == eager
+    assert n_prog >= 2
+    assert c_graph["plain_calls"] == c_eager["plain_calls"] == 0
+    sfx = "_int8" if kv == "int8" else ""
+    for name in ("launches_narrow" + sfx, "launches_wide" + sfx):
+        assert c_eager[name] > 0
+        assert c_graph[name] == c_eager[name] + warm[name]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["model", "int8"])
+def test_graphed_plain_attention_server(kv):
+    """The plain attention path (decode_attention_impl "xla") captures
+    too: the same tokens graphed and with graphs off, every call counted
+    as a plain call and none as a kernel launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    runs = []
+    for graphed in (False, True):
+        srv = _graph_server(graphed, kv, impl="xla")
+        pa.reset_counters()
+        runs.append((_staggered_graph_run(srv, max_new=6), pa.counters()))
+        srv.stop()
+    (eager, c_eager), (graphed, c_graph) = runs
+    assert graphed == eager and all(len(t) == 6 for t in graphed)
+    for c in (c_eager, c_graph):
+        assert c["plain_calls"] > 0
+        assert c["launches_narrow"] == c["launches_wide"] == 0
+
+
+@pytest.mark.gpu
+def test_graph_replays_add_to_counters():
+    """A replay launches what its capture recorded: the capture itself
+    adds nothing (its counts are taken back), and each later replay of
+    the same program adds its recorded counts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    srv = _graph_server()
+    srv.submit(GRAPH_PROMPTS[1], max_new_tokens=40)
+    while srv._jobs or srv.num_pending:
+        srv.step()
+    srv.step()  # the decode program is captured by now
+    torch.cuda.synchronize()
+    decode = [p for k, p in srv._programs._programs.items()
+              if k[0] == "decode"]
+    assert decode and decode[0].graph is not None
+    per = decode[0].replay_counts
+    assert per["launches_narrow"] > 0 and per["plain_calls"] == 0
+    before = pa.counters()
+    srv.step()
+    torch.cuda.synchronize()
+    after = pa.counters()
+    assert after["launches_narrow"] - before["launches_narrow"] == \
+        per["launches_narrow"]
+    srv.stop()
+
+
+@pytest.mark.gpu
+def test_capture_failure_raises(monkeypatch):
+    """A program that cannot be captured (here: a host read inside it)
+    raises out of step(); nothing falls back to eager launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cloud_server_tpu_torch.inference import paged_server as ps
+    real = ps._mixed_step
+
+    def with_host_read(m, bufs, **kw):
+        out = real(m, bufs, **kw)
+        out["ptoks"].sum().item()  # refused while a graph captures
+        return out
+
+    monkeypatch.setattr(ps, "_mixed_step", with_host_read)
+    srv = _graph_server(overlap=False)
+    req = srv.submit(GRAPH_PROMPTS[0], max_new_tokens=4)
+    with pytest.raises(RuntimeError):
+        srv.step()
+    assert not req.done and not req.tokens
+    monkeypatch.setattr(ps, "_mixed_step", real)
+    srv._programs.release()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_stop_releases_graph_memory():
+    """stop() releases the captured graphs, their buffers and their pool:
+    device memory falls back from what the captures held, and a second
+    serve (captured again) falls back to the same level."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import gc
+    srv = _graph_server()
+    levels = []
+    for _ in range(2):
+        srv.start()
+        reqs = [srv.submit(p, max_new_tokens=8) for p in GRAPH_PROMPTS]
+        for r in reqs:
+            r.result(timeout=300)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        assert len(srv._programs) > 0
+        srv.stop()
+        gc.collect()
+        levels.append((held, torch.cuda.memory_allocated()))
+        assert len(srv._programs) == 0
+    (held1, after1), (held2, after2) = levels
+    assert held1 > after1 and held2 > after2
+    assert after2 == after1

@@ -233,8 +233,12 @@ def test_window_forward_int8(weights, impl, w, ragged):
         ref_params, jnp.asarray(tokens), CFG, rcache, logits_at=at,
         widths=None if widths is None else jnp.asarray(widths))
     t = torch.from_numpy
-    tcache = paged_engine.make_cache(t(kq.copy()), t(vq.copy()), lengths,
-                                     tables, t(ks.copy()), t(vs.copy()))
+
+    def scratch(pool):  # the port's pools carry the scratch page last
+        return t(np.concatenate([pool, np.zeros_like(pool[:, :1])], 1))
+
+    tcache = paged_engine.make_cache(scratch(kq), scratch(vq), lengths,
+                                     tables, scratch(ks), scratch(vs))
     cfg = TModelConfig(**dataclasses.asdict(
         dataclasses.replace(CFG, decode_attention_impl=impl)))
     got, tcache = paged_engine.window_forward(
@@ -242,15 +246,15 @@ def test_window_forward_int8(weights, impl, w, ragged):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                atol=1e-4)
     for mine, theirs in ((tcache.k, rcache.k), (tcache.v, rcache.v)):
-        diff = np.abs(mine.numpy().astype(np.int32)
+        diff = np.abs(mine.numpy()[:, :NP].astype(np.int32)
                       - np.asarray(theirs).astype(np.int32))
         assert diff.max() <= 1 and (diff > 0).mean() < 1e-3
     for mine, theirs in ((tcache.k_scale, rcache.k_scale),
                          (tcache.v_scale, rcache.v_scale)):
-        np.testing.assert_allclose(mine.numpy(), np.asarray(theirs),
+        np.testing.assert_allclose(mine.numpy()[:, :NP], np.asarray(theirs),
                                    rtol=1e-6, atol=0)
     # the window was written: the pools differ from their inputs
-    assert not np.array_equal(tcache.k_scale.numpy(), ks)
+    assert not np.array_equal(tcache.k_scale.numpy()[:, :NP], ks)
 
 
 def test_init_paged_cache_int8_and_hbm_bytes():
@@ -259,7 +263,10 @@ def test_init_paged_cache_int8_and_hbm_bytes():
     cache = paged_engine.init_paged_cache(tcfg, device="cpu", **kw)
     ref = ref_pe.init_paged_cache(CFG, **kw)
     assert cache.k.dtype == torch.int8 and cache.k_scale.dtype == torch.float32
-    assert tuple(cache.k_scale.shape) == ref.k_scale.shape
+    # the reference's pools and, last, the scratch page
+    assert cache.num_pages == NP
+    assert tuple(cache.k_scale[:, :NP].shape) == ref.k_scale.shape
+    assert tuple(cache.k[:, :NP].shape) == ref.k.shape
     assert paged_engine.hbm_bytes(cache) == ref_pe.hbm_bytes(ref)
     bf = paged_engine.init_paged_cache(
         dataclasses.replace(tcfg, kv_cache_dtype="model"), device="cpu", **kw)

@@ -1,6 +1,7 @@
 """The port's window_forward against the reference's: logits and the
 written pools, for uniform and ragged windows, float32 on the CPU. A
-write through a sentinel table leaves the pool unchanged."""
+write through a sentinel table leaves the pool's pages unchanged (it
+lands on the scratch page the port's pools carry last)."""
 
 import dataclasses
 
@@ -42,6 +43,12 @@ def _state(seed, b):
     return k, v, tables
 
 
+def _with_scratch(pool: np.ndarray) -> torch.Tensor:
+    """The port's pool: the reference's pages and the scratch page."""
+    return torch.from_numpy(np.concatenate(
+        [pool, np.zeros_like(pool[:, :1])], axis=1))
+
+
 def _run_both(weights, tokens, lengths, k, v, tables, impl, widths=None,
               **kw):
     ref_params, params = weights
@@ -54,9 +61,8 @@ def _run_both(weights, tokens, lengths, k, v, tables, impl, widths=None,
     rw = None if widths is None else jnp.asarray(widths)
     want, rcache = ref_pe.window_forward(ref_params, jnp.asarray(tokens),
                                          CFG, rcache, widths=rw, **kw)
-    tcache = paged_engine.make_cache(torch.from_numpy(k.copy()),
-                                     torch.from_numpy(v.copy()), lengths,
-                                     tables)
+    tcache = paged_engine.make_cache(_with_scratch(k), _with_scratch(v),
+                                     lengths, tables)
     tkw = {key: (torch.from_numpy(np.asarray(val))
                  if key == "logits_at" and val is not None else val)
            for key, val in kw.items()}
@@ -76,8 +82,10 @@ def test_uniform_window_logits_and_pools(weights, impl, w):
                                   impl, logits_at=np.asarray([w - 1, 0, 1]))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                atol=1e-4)
-    np.testing.assert_allclose(tc.k.numpy(), np.asarray(rc.k), atol=1e-5)
-    np.testing.assert_allclose(tc.v.numpy(), np.asarray(rc.v), atol=1e-5)
+    np.testing.assert_allclose(tc.k.numpy()[:, :NP], np.asarray(rc.k),
+                               atol=1e-5)
+    np.testing.assert_allclose(tc.v.numpy()[:, :NP], np.asarray(rc.v),
+                               atol=1e-5)
     assert torch.equal(tc.lengths, torch.from_numpy(lengths))
 
 
@@ -94,8 +102,10 @@ def test_ragged_window_all_logits_and_pools(weights):
     valid = np.arange(7)[None, :] < widths[:, None]
     np.testing.assert_allclose(got.numpy()[valid], np.asarray(want)[valid],
                                rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(tc.k.numpy(), np.asarray(rc.k), atol=1e-5)
-    np.testing.assert_allclose(tc.v.numpy(), np.asarray(rc.v), atol=1e-5)
+    np.testing.assert_allclose(tc.k.numpy()[:, :NP], np.asarray(rc.k),
+                               atol=1e-5)
+    np.testing.assert_allclose(tc.v.numpy()[:, :NP], np.asarray(rc.v),
+                               atol=1e-5)
 
 
 def test_sentinel_table_writes_drop(weights):
@@ -104,29 +114,55 @@ def test_sentinel_table_writes_drop(weights):
     _, params = weights
     k, v, _ = _state(4, 1)
     tables = np.full((2, MP), NP, np.int32)
-    cache = paged_engine.make_cache(torch.from_numpy(k.copy()),
-                                    torch.from_numpy(v.copy()),
+    cache = paged_engine.make_cache(_with_scratch(k), _with_scratch(v),
                                     np.asarray([0, 13], np.int32), tables)
     tokens = torch.from_numpy(
         np.random.default_rng(5).integers(0, CFG.vocab_size, (2, 3)))
     logits, cache = paged_engine.window_forward(
         params, tokens, TModelConfig(**dataclasses.asdict(CFG)), cache,
         logits_at=torch.zeros(2, dtype=torch.long))
-    assert torch.equal(cache.k, torch.from_numpy(k))
-    assert torch.equal(cache.v, torch.from_numpy(v))
+    assert torch.equal(cache.k[:, :NP], torch.from_numpy(k))
+    assert torch.equal(cache.v[:, :NP], torch.from_numpy(v))
     assert bool(torch.isfinite(logits).all())
 
 
 def test_write_plan_drops_what_the_reference_drops():
+    # 4 pages and the scratch page (id 4, the sentinel)
     cache = paged_engine.make_cache(
-        torch.zeros((1, 4, 1, 2, 4)), torch.zeros((1, 4, 1, 2, 4)),
+        torch.zeros((1, 5, 1, 2, 4)), torch.zeros((1, 5, 1, 2, 4)),
         np.asarray([2, 6, 0], np.int32),
         np.asarray([[0, 4], [1, 2], [3, 4]], np.int32))
-    rows, cols, pages, offs = paged_engine.write_plan(
+    valid, pages, offs = paged_engine.write_plan(
         cache, 3, widths=np.asarray([3, 3, 0], np.int32))
-    got = sorted(zip(rows.tolist(), cols.tolist(), pages.tolist(),
-                     offs.tolist()))
+    # fixed shape: every window position has a target, and `valid` says
+    # which of them write; the others aim at the scratch page
+    assert valid.shape == pages.shape == offs.shape == (3, 3)
+    assert (pages.numpy()[~valid.numpy()] == 4).all()
+    rows, cols = np.nonzero(valid.numpy())
+    got = sorted(zip(rows.tolist(), cols.tolist(),
+                     pages.numpy()[rows, cols].tolist(),
+                     offs.numpy()[rows, cols].tolist()))
     # slot 0: positions 2, 3 in page 0; position 4 is a sentinel page.
     # slot 1: positions 6, 7 in page 2 (slot 1); position 8 is past the
     # table. slot 2: width 0 writes nothing.
     assert got == [(0, 0, 0, 2), (0, 1, 0, 3), (1, 0, 2, 2), (1, 1, 2, 3)]
+
+
+@pytest.mark.parametrize("widths", [None, np.asarray([2, 3, 0], np.int32)])
+def test_dropped_positions_never_clobber_a_write(weights, widths):
+    """Positions that must not write (a slot on sentinel tables, positions
+    past a row's width) land on the scratch page, so a valid write to
+    page 0's position 0 in the same window survives: the pools' pages
+    equal the reference's (which drops them)."""
+    k, v, _ = _state(6, 1)
+    tables = np.full((3, MP), NP, np.int32)
+    tables[0, :2] = [0, 1]            # slot 0 writes page 0 from offset 0
+    lengths = np.asarray([0, 5, 9], np.int32)
+    tokens = np.random.default_rng(7).integers(0, CFG.vocab_size, (3, 3))
+    _, _, rc, tc = _run_both(weights, tokens, lengths, k, v, tables,
+                             "pallas", widths=widths, logits_at=None)
+    np.testing.assert_allclose(tc.k.numpy()[:, :NP], np.asarray(rc.k),
+                               atol=1e-5)
+    np.testing.assert_allclose(tc.v.numpy()[:, :NP], np.asarray(rc.v),
+                               atol=1e-5)
+    assert not np.array_equal(tc.k.numpy()[:, 0, :, :, 0], k[:, 0, :, :, 0])

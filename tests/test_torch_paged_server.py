@@ -161,7 +161,7 @@ def test_seeded_requests_token_exact_against_reference(weights):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(scheduler="alternating"), dict(spec_drafts=2), dict(qos={}),
+    dict(brownout={}), dict(spec_drafts=2), dict(qos={}),
     dict(tracing=0.5), dict(allocation="reserve")])
 def test_unported_features_raise(weights, kw):
     _, params = weights

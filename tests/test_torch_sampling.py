@@ -4,8 +4,9 @@ per-request path draws from jax.random's threefry2x32, ported bit for
 bit (`utils/prng.py`): its key, fold_in and bits equal jax's, its Gumbel
 noise is within one float32 ulp of jax's (the two logs round
 differently), and seeded draws are the reference's token for token. The
-server-global path draws from a torch.Generator and is held in
-distribution."""
+server-global path draws from one key over the whole (rows, V) logits,
+as jax.random.categorical does, and is the reference's token for token
+too."""
 
 import jax
 import jax.numpy as jnp
@@ -117,8 +118,7 @@ def test_draws_follow_the_filtered_distribution():
     """Frequencies of many seeded draws match softmax(filtered logits)."""
     x = torch.from_numpy(_logits(3, b=1)).repeat(4000, 1)
     cfg = TInferConfig(temperature=1.0, top_k=6)
-    gen = torch.Generator().manual_seed(0)
-    toks = sampling.sample_logits(x, gen, cfg)
+    toks = sampling.sample_logits(x, prng.key(0), cfg)
     probs = torch.softmax(sampling._filtered_logits(x[:1], cfg), -1)[0]
     freq = torch.bincount(toks, minlength=V).float() / len(toks)
     assert float((freq - probs).abs().max()) < 0.03
@@ -142,6 +142,49 @@ def test_row_draws_depend_only_on_seed_and_position():
     assert bool(torch.isfinite(u).all())
     # Gumbel(0, 1): mean is the Euler-Mascheroni constant
     assert abs(float(u.mean()) - 0.5772) < 0.1
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2 ** 32 - 3])
+def test_split_and_2d_bits_match_jax_random(seed):
+    """split(k, n) and a (rows, V) bits/gumbel draw equal jax.random's:
+    the partitionable layout numbers the elements of the whole shape, so
+    row r of a (R, V) draw is the flat run [r V, (r + 1) V)."""
+    k = prng.key(torch.tensor(seed))
+    jk = jax.random.key(seed)
+    for n in (1, 2, 8):
+        np.testing.assert_array_equal(
+            prng.split(k, n).numpy(), np.asarray(jax.random.key_data(
+                jax.random.split(jk, n))).astype(np.int64))
+    sub = prng.split(prng.split(k, 2)[1], 4)[3]
+    jsub = jax.random.split(jax.random.split(jk)[1], 4)[3]
+    np.testing.assert_array_equal(
+        prng.bits(sub, (3, 77)).numpy(),
+        np.asarray(jax.random.bits(jsub, (3, 77))).astype(np.int64))
+    np.testing.assert_allclose(
+        prng.gumbel_low(sub, (5, 33)).numpy(),
+        np.asarray(jax.random.gumbel(jsub, (5, 33))), rtol=0, atol=2e-6)
+    # the host's split on plain ints: the server's `_next_rng`
+    words = prng.threefry2x32(0, seed, 0, 1)
+    np.testing.assert_array_equal(
+        np.asarray(words), prng.split(k, 2)[1].numpy())
+
+
+@pytest.mark.parametrize("top_k,top_p", [(0, 1.0), (7, 1.0), (0, 0.7)])
+def test_server_global_draws_match_reference(top_k, top_p):
+    """sample_logits(logits, key, cfg) over (rows, V) logits: the
+    reference's jax.random.categorical tokens, for 64 keys down a split
+    chain and rows at a moderate logit spread."""
+    cfg = InferConfig(temperature=0.8, top_k=top_k, top_p=top_p)
+    tcfg = TInferConfig(temperature=0.8, top_k=top_k, top_p=top_p)
+    x = (np.random.default_rng(3).standard_normal((6, V)) * 1.5).astype(
+        np.float32)
+    jk, k = jax.random.key(11), prng.key(torch.tensor(11))
+    for _ in range(64):
+        jk, jsub = jax.random.split(jk)
+        k, sub = prng.split(k, 2)
+        want = ref_s.sample_logits(jnp.asarray(x), jsub, cfg)
+        got = sampling.sample_logits(torch.from_numpy(x), sub, tcfg)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("seed", [0, 1, 12345, 2 ** 32 - 1])
