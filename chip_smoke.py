@@ -11,13 +11,14 @@ each:
                 and every kernel's registers, spills and shared memory;
   2. kernel   — the two paged-attention kernels against their plain
                 PyTorch version on the card at Llama-3.1-8B's head shapes
-                (the narrow kernel: decode and a verify window of 32; the
-                wide kernel: prefill and a ragged mixed batch with a
-                length-0 slot), the kernel timed warm from a CUDA graph in
-                turns with one PyTorch library call (SDPA), and cold
-                (decode, prefill: a rotation over layers whose K/V bytes
-                exceed 4x the L2), beside the plain version's time and the
-                card's lower bound; then each case again on the int8 cache
+                (the narrow kernel: decode and verify windows of 32 and
+                5; the wide kernel: prefill and a ragged mixed batch with
+                a length-0 slot) and at Llama-3.2-1B's head dim 64
+                (decode, prefill), the kernel timed warm from a CUDA
+                graph in turns with one PyTorch library call (SDPA), and
+                cold (decode, prefill: a rotation over layers whose K/V
+                bytes exceed 4x the L2), beside the plain version's time
+                and the card's lower bound; then each case again on the int8 cache
                 (kernel_int8 lines: against the int8 plain version, beside
                 the bf16 kernel's time, SDPA over the dequantized cache as
                 the library yardstick);
@@ -72,6 +73,25 @@ each:
                 /v1/embeddings a 501) and the client's TTFT and ITL,
                 then the same prompts in process on a fresh server with
                 graphs off (the share of tokens equal reported);
+     spec     — in-server speculation (4 drafts a round, fixed length)
+                at the same width and requests: n-gram drafts, then a
+                Llama-3.2-1B-width draft model on its own pools (the
+                kernels' counts read over both: B1 on the W 5 verify
+                windows, both kernels at the draft's head dim 64), each
+                held against the plain greedy tokens by the near-tie
+                rule, with its acceptance, its capture cost and one
+                steady step under torch.profiler (the tokens it
+                commits); the target drafting for itself (its own
+                pools; steady acceptance >= 0.9 on a 2-layer float32
+                slice; in bf16 at full depth every rejected draft at a
+                near tie and >= 0.8 accepted); 8 seeded requests with
+                penalties, logit_bias and min_tokens through n-gram
+                speculation under the adaptive controller, graphed ==
+                graphs off; a regex request in process, a second
+                pattern registered while its decode dispatch is in
+                flight (that program released only after its commit),
+                and response_format json_object over HTTP, each held
+                against its DFA;
   4. train    — the training CLI (`cloud_server_tpu_torch.train.main`)
                 at Llama-3.1-8B's widths cut to 8 layers (f32 masters,
                 bf16 compute, flash attention, full remat): 6 steps at
@@ -89,8 +109,10 @@ each:
                 `generate --checkpoint-dir`) with the in-memory params'
                 tokens; bytes and write/read rates;
   6. kernels  — each ported kernel with the TPU kernel it replaces, its
-                launches on phases 3 and 4 (the int8 rows: the HTTP run)
-                and its numbers from phase 2.
+                launches on phases 3 and 4 (the int8 rows: the HTTP run;
+                the verify_w5, decode_d64 and prefill_d64 rows: the
+                speculating servers of the spec phase) and its numbers
+                from phase 2.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises and
 the exit code is non-zero. Without a CUDA device, or without the rest of
@@ -215,19 +237,19 @@ def ptxas_summary(log: str) -> dict:
 H, KH, DH, PS, MAX_CTX = 32, 8, 128, 128, 2048
 
 
-def make_case(gen, lengths, widths, w, layers: int = 2):
+def make_case(gen, lengths, widths, w, layers: int = 2, dh: int = DH):
     """Random bf16 pools and a distinct random paging of every slot's
-    context at Llama-3.1-8B's head shapes."""
+    context at Llama-3.1-8B's head shapes (Llama-3.2-1B's at dh 64)."""
     import torch
     b = len(lengths)
     mp = MAX_CTX // PS
     num_pages = b * mp + 3
     dev = DEVICE
-    k_pool = torch.randn((layers, num_pages, KH, DH, PS), generator=gen,
+    k_pool = torch.randn((layers, num_pages, KH, dh, PS), generator=gen,
                          device=dev).to(torch.bfloat16)
-    v_pool = torch.randn((layers, num_pages, KH, DH, PS), generator=gen,
+    v_pool = torch.randn((layers, num_pages, KH, dh, PS), generator=gen,
                          device=dev).to(torch.bfloat16)
-    q = torch.randn((b, w, H, DH), generator=gen, device=dev).to(
+    q = torch.randn((b, w, H, dh), generator=gen, device=dev).to(
         torch.bfloat16)
     perm = torch.randperm(num_pages, generator=gen, device=dev)
     tables = perm[:b * mp].reshape(b, mp).to(torch.int32)
@@ -250,9 +272,9 @@ def bound_ms(q, lengths, widths, kv_elem: int = 2,
     nbytes = 2 * q.numel() * 2 + 16 * b
     ops = 0
     for n, wd in zip(lens, wids):
-        nbytes += 2 * n * KH * (DH * kv_elem + scale_bytes)
+        nbytes += 2 * n * KH * (d * kv_elem + scale_bytes)
         # row j of the window sees keys [0, n - wd + j]
-        ops += 4 * DH * h * sum(n - wd + j + 1 for j in range(wd))
+        ops += 4 * d * h * sum(n - wd + j + 1 for j in range(wd))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / BF16_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -331,16 +353,22 @@ def graph_ms(calls, reps: int = 5) -> float:
     return ms
 
 
-# Kernel-phase cases: (lengths, widths, W). decode and verify run the
-# narrow kernel (B 8; W 1 and the narrow class's widest window, 32),
-# prefill and ragged the wide one. Cases draw their data in this order
-# from one generator, so a case added at the end leaves the others' data
-# as it was.
+# Kernel-phase cases: (lengths, widths, W[, head dim]). decode and verify
+# run the narrow kernel (B 8; W 1 and the narrow class's widest window,
+# 32), prefill and ragged the wide one; verify_w5 is speculation's
+# verify window (4 drafts), decode_d64 and prefill_d64 a Llama-3.2-1B
+# draft model's head shape (H 32, KH 8, Dh 64). Cases draw their data in
+# this order from one generator, so a case added at the end leaves the
+# others' data as it was.
+SPEC_LENGTHS = [1537, 2048, 977, 1800, 64, 1200, 1501, 333]
 PAGED_CASES = {
-    "decode": ([1537, 2048, 977, 1800, 64, 1200, 1501, 333], [1] * 8, 1),
+    "decode": (SPEC_LENGTHS, [1] * 8, 1),
     "prefill": ([2048, 1400], [256, 256], 256),
     "ragged": ([1700, 900, 1024, 77, 0], [1, 1, 256, 77, 0], 256),
-    "verify": ([1537, 2048, 977, 1800, 64, 1200, 1501, 333], [32] * 8, 32),
+    "verify": (SPEC_LENGTHS, [32] * 8, 32),
+    "verify_w5": (SPEC_LENGTHS, [5] * 8, 5),
+    "decode_d64": (SPEC_LENGTHS, [1] * 8, 1, 64),
+    "prefill_d64": ([2048, 1400], [256, 256], 256, 64),
 }
 # Cases also timed cold: each call reads another layer of a pool whose
 # K/V bytes for the case exceed COLD_L2_MULT x the 50 MB L2, as the
@@ -351,9 +379,10 @@ COLD_L2_MULT = 4
 KERNEL_ITERS = 20  # calls in each timing graph (warm)
 
 
-def kv_bytes(lengths, kv_elem: int, scale_bytes: int = 0) -> int:
+def kv_bytes(lengths, kv_elem: int, scale_bytes: int = 0,
+             dh: int = DH) -> int:
     """K and V bytes of every slot's visible keys, one layer."""
-    return 2 * sum(int(n) for n in lengths) * KH * (DH * kv_elem
+    return 2 * sum(int(n) for n in lengths) * KH * (dh * kv_elem
                                                     + scale_bytes)
 
 
@@ -404,8 +433,10 @@ def phase_kernel() -> dict:
         torch.cuda.empty_cache()
         return ms, n_layers
 
-    for name, (lens, wids, w) in PAGED_CASES.items():
-        q, kp, vp, lengths, tables, widths = make_case(gen, lens, wids, w)
+    for name, (lens, wids, w, *dh) in PAGED_CASES.items():
+        dh = dh[0] if dh else DH
+        q, kp, vp, lengths, tables, widths = make_case(gen, lens, wids, w,
+                                                       dh=dh)
         b = q.shape[0]
         valid = torch.arange(w, device=DEVICE)[None, :] < widths[:, None]
         valid &= (lengths > 0)[:, None]
@@ -433,9 +464,9 @@ def phase_kernel() -> dict:
         splits = {}
         if cls == "narrow":
             splits = {"splits": [pa.narrow_splits(
-                b, w, KH, H // KH, DH, int8, tables.shape[1], PS)
+                b, w, KH, H // KH, dh, int8, tables.shape[1], PS)
                 for int8 in (False, True)]}
-        res = {"phase": "kernel", "case": name, "B": b, "W": w,
+        res = {"phase": "kernel", "case": name, "B": b, "W": w, "Dh": dh,
                "class": cls, **splits, "lengths": lens, "widths": wids,
                **errs,
                "ms": ms, "ms_range": [ms_lo, ms_hi], "plain_ms": plain_ms,
@@ -478,6 +509,7 @@ def phase_kernel() -> dict:
         bf16_again = graph_ms(calls)
         bms8, by8 = bound_ms(q, lengths, widths, kv_elem=1, scale_bytes=4)
         res8 = {"phase": "kernel_int8", "case": name, "B": b, "W": w,
+                "Dh": dh,
                 "class": cls, **errs, "ms": ms8, "ms_range": [lo8, hi8],
                 "bf16_ms": [ms, bf16_again], "plain_ms": plain8,
                 "library_ms": library8,
@@ -564,6 +596,18 @@ def same_tokens(what, reqs, want) -> None:
         raise RuntimeError(f"{what}: {n} tokens differ")
 
 
+def dense_logits(params, cfg, prompt, tokens):
+    """The plain dense forward's f32 logits at every position that
+    predicts one of `tokens` after `prompt`: (len(tokens), V)."""
+    import torch
+    from cloud_server_tpu_torch.models import transformer
+    seq = torch.tensor([prompt + tokens[:-1]], device=DEVICE)
+    with torch.no_grad():
+        h = transformer.forward_hidden(params, seq, cfg)
+        return transformer.unembed(h[:, len(prompt) - 1:], params,
+                                   cfg)[0].float()
+
+
 def near_tie_divergence(what, reqs, want, prompts, params, cfg) -> dict:
     """Two schedules of the same greedy requests in bf16: their programs
     differ in shape, so a near tie between two tokens may break the
@@ -576,8 +620,6 @@ def near_tie_divergence(what, reqs, want, prompts, params, cfg) -> dict:
     that is no tie lands at an ordinary gap and fails three times in
     four."""
     import numpy as np
-    import torch
-    from cloud_server_tpu_torch.models import transformer
     top2, at_div = [], []
     equal = total = 0
     for r, w, prompt in zip(reqs, want, prompts):
@@ -585,11 +627,7 @@ def near_tie_divergence(what, reqs, want, prompts, params, cfg) -> dict:
         i = next((j for j, (a, b) in enumerate(zip(r.tokens, w.tokens))
                   if a != b), len(w.tokens))
         equal += i
-        seq = torch.tensor([prompt + w.tokens[:-1]], device=DEVICE)
-        with torch.no_grad():
-            h = transformer.forward_hidden(params, seq, cfg)
-            logits = transformer.unembed(h[:, len(prompt) - 1:], params,
-                                         cfg)[0].float()
+        logits = dense_logits(params, cfg, prompt, w.tokens)
         best = logits.topk(2, dim=-1).values
         top2 += (best[:, 0] - best[:, 1]).tolist()
         if i < len(w.tokens):
@@ -609,14 +647,11 @@ def near_tie_divergence(what, reqs, want, prompts, params, cfg) -> dict:
                                 float(np.percentile(top2, 50))]}
 
 
-def schedulers_in_f32(params, cfg, prompts) -> dict:
-    """The alternating scheduler against the default one where rounding
-    cannot break a tie: a 2-layer slice of the model at full width in
-    float32 (TF32 off; the plain attention path, the kernels taking bf16
-    and int8 pools only), greedy, both graphed: the same tokens."""
+def f32_slice(params, cfg) -> tuple:
+    """A 2-layer slice of the model at full width in float32 (TF32 off;
+    the plain attention path, the kernels taking bf16 and int8 pools
+    only), where rounding cannot break a tie: (params, cfg)."""
     import dataclasses
-    import torch
-    from cloud_server_tpu_torch.config import InferConfig
 
     def f32(tree):
         if isinstance(tree, dict):
@@ -626,8 +661,16 @@ def schedulers_in_f32(params, cfg, prompts) -> dict:
     cfg32 = dataclasses.replace(cfg, num_layers=2, dtype="float32",
                                 param_dtype="float32",
                                 decode_attention_impl="xla")
-    p32 = f32(dict(params, layers={k: v[:2] for k, v in
-                                   params["layers"].items()}))
+    return f32(dict(params, layers={k: v[:2] for k, v in
+                                    params["layers"].items()})), cfg32
+
+
+def schedulers_in_f32(params, cfg, prompts) -> dict:
+    """The alternating scheduler against the default one on the float32
+    slice (`f32_slice`), greedy, both graphed: the same tokens."""
+    import torch
+    from cloud_server_tpu_torch.config import InferConfig
+    p32, cfg32 = f32_slice(params, cfg)
     icfg = InferConfig(max_decode_len=MAX_NEW, temperature=0.0,
                        eos_token_id=-1, pad_token_id=0)
     runs = {}
@@ -778,8 +821,8 @@ def seeded_run(params, cfg, icfg, rng, prompts, what,
     check_served(graphed, cfg.vocab_size)
     same_tokens(f"{what} graphed vs graphs off", graphed,
                 [r.tokens for r in eager])
-    per_row = any(x is True for key in srv._programs._programs
-                  for x in key)
+    per_row = any(dict(key[2]).get(f) for key in srv._programs.keys()
+                  for f in ("rows", "rows_p", "rows_d"))
     if per_row != bool(sampling):
         raise RuntimeError(f"{what}: per-row sampling programs {per_row}")
     for i, p in enumerate(fresh):
@@ -1155,6 +1198,397 @@ def serve_int8(params, cfg, icfg, prompts, bf16_tokens, bf16_bytes,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 3b: speculation, grammar and the A12 options at full width
+# ---------------------------------------------------------------------------
+
+DRAFT_CONFIG = "cloud_server_tpu_torch/configs/llama3_2_1b_draft.json"
+SPEC_DRAFTS = 4
+# Self-drafting (the target as its own draft) runs the target G+1 times
+# a round as the draft: one round a program keeps its captures short.
+SELF_DRAFT_ROUNDS = 1
+# Steady speculative steps read in each window.
+SPEC_WINDOW_STEPS = 1
+# A random draft proposes what the target would pick almost never; the
+# target drafting for itself accepts every draft up to rounding: read
+# over steady steps (no request's budget truncates a window) on the
+# float32 slice, where rounding cannot break a tie, it must accept at
+# least SELF_DRAFT_MIN_ACCEPT. In bf16 at full depth the draft's W 1
+# and the verify's W 5 logits come from other GEMM tilings and differ
+# by rounding, so a random model's near ties turn some drafts down:
+# every rejected draft must lie at a near tie (`rejections_at_ties`),
+# and over the whole run (no budget truncates a window) it must accept
+# at least SELF_DRAFT_BF16_FLOOR (the card read 0.859, PERF.md).
+SELF_DRAFT_MIN_ACCEPT = 0.9
+SELF_DRAFT_BF16_FLOOR = 0.8
+BYTE_EOS = 257  # the byte tokenizer's EOS, inside the 128256 vocabulary
+GRAMMAR_REGEX = r"-?[0-9]{1,8}(\.[0-9]{1,4})?"
+GRAMMAR_WORD = r"[a-z]{4,12}"
+# Decode budget of the steady speculative windows: a step commits up to
+# 8 rounds x 5 tokens a row, so the window's 8 slots must outlast it;
+# they are cancelled after it.
+SPEC_LONG_NEW = 256
+GRAMMAR_NEW = 24
+
+
+class Latin1Tokenizer:
+    """The frontend's byte tokenizer with text as Latin-1, one character
+    a byte, so the HTTP client reads back exactly the bytes the grammar
+    saw."""
+
+    def encode(self, text: str) -> list[int]:
+        return list(text.encode("latin-1"))
+
+    def decode(self, ids) -> str:
+        return bytes(i for i in ids if 0 <= i < 256).decode("latin-1")
+
+
+def spec_run(srv, prompts, vocab, profiled: bool = True) -> tuple:
+    """The 8 requests on a fixed-length speculating server with a long
+    budget: their admissions, two steps, then SPEC_WINDOW_STEPS steady
+    steps (8 live slots; under the profiler when `profiled`) with the
+    tokens each step commits and the drafts it drafts and accepts; then
+    the requests are cancelled. Returns (requests, window)."""
+    reqs = [srv.submit(p, max_new_tokens=SPEC_LONG_NEW) for p in prompts]
+    while srv._jobs or srv.num_pending:
+        srv.step()
+    for _ in range(2):
+        srv.step()
+    c0 = (srv.decode_tokens_committed, srv.decode_rounds,
+          srv.spec_tokens_drafted, srv.spec_tokens_accepted)
+    if profiled:
+        window = profile_step(srv.step, SPEC_WINDOW_STEPS)
+    else:
+        window = {"steps": SPEC_WINDOW_STEPS}
+        for _ in range(SPEC_WINDOW_STEPS):
+            srv.step()
+    live = srv.num_active
+    c1 = (srv.decode_tokens_committed, srv.decode_rounds,
+          srv.spec_tokens_drafted, srv.spec_tokens_accepted)
+    while min(len(r.tokens) for r in reqs) < MAX_NEW:
+        srv.step()  # every request's first MAX_NEW tokens are checked
+    for r in reqs:
+        r.cancel()
+    srv.run_until_idle()
+    if live != 8:
+        raise RuntimeError(f"{live} slots live in the steady spec steps")
+    d = [b - a for a, b in zip(c0, c1)]
+    window.update(tokens_committed_per_step=d[0] / SPEC_WINDOW_STEPS,
+                  tokens_committed_per_round=d[0] / max(d[1], 1),
+                  drafted_per_step=d[2] / SPEC_WINDOW_STEPS,
+                  accepted_per_step=d[3] / SPEC_WINDOW_STEPS)
+    return reqs, window
+
+
+def spec_summary(srv, what, reqs, want, prompts, params, cfg) -> dict:
+    """One speculating run's first MAX_NEW tokens a request held against
+    the plain greedy run (the near-tie rule), with its acceptance and
+    its programs' capture cost."""
+    for r in reqs:
+        if len(r.tokens) < MAX_NEW or not all(0 <= t < cfg.vocab_size
+                                              for t in r.tokens):
+            raise RuntimeError(f"{what}: {len(r.tokens)} tokens before "
+                               "the cancel, or ids out of the vocabulary")
+    reqs = [types.SimpleNamespace(tokens=r.tokens[:MAX_NEW]) for r in reqs]
+    stats = srv.speculation_stats()
+    return {"near_tie": near_tie_divergence(what, reqs, want, prompts,
+                                            params, cfg),
+            "tokens_drafted": stats["tokens_drafted"],
+            "tokens_accepted": stats["tokens_accepted"],
+            "accept_rate": stats["accept_rate"],
+            "tokens_per_round": (srv.decode_tokens_committed
+                                 / max(srv.decode_rounds, 1)),
+            "programs_captured": len(srv._programs),
+            "capture_s": srv._programs.capture_seconds()}
+
+
+def record_rejections(srv) -> list:
+    """Log, through `srv`'s commit of decode rounds, every speculative
+    round of a row that turned a draft down: (request, index in its
+    tokens of the target's own token at the first rejected draft). A
+    round the request's budget cut short is no rejection."""
+    log = []
+    commit = srv._commit_decode_rows
+
+    def logged(live_ids, toks, lps, counts, lens, last, drafted=None,
+               owners=None):
+        for i, sid in enumerate(live_ids if drafted is not None else ()):
+            slot = srv._slots[sid]
+            if (slot is None or not srv.active[sid]
+                    or (owners is not None and slot is not owners[i])):
+                continue
+            pos = len(slot.req.tokens)
+            for r in range(counts.shape[0]):
+                c = int(counts[r, i])
+                if 0 < c <= int(drafted[i]) \
+                        and pos + c < slot.req.max_new_tokens:
+                    log.append((slot.req, pos + c - 1))
+                pos += c
+        commit(live_ids, toks, lps, counts, lens, last, drafted, owners)
+
+    srv._commit_decode_rows = logged
+    return log
+
+
+def rejections_at_ties(what, log, reqs, prompts, params, cfg) -> dict:
+    """Where the target drafting for itself turned a draft down, among
+    each request's first MAX_NEW tokens: the draft's W 1 and the
+    verify's W 5 logits differ only by rounding, so each rejected
+    position must be a near tie, its top-2 gap under the plain dense
+    forward (over the run's own tokens) within the 25th percentile of
+    that forward's top-2 gaps over every position. A fault that turns
+    drafts down (a stale page, a shifted window) lands at ordinary gaps
+    and fails three times in four per rejection."""
+    import numpy as np
+    gaps = {}
+    for r, prompt in zip(reqs, prompts):
+        best = dense_logits(params, cfg, prompt,
+                            r.tokens[:MAX_NEW]).topk(2, dim=-1).values
+        gaps[id(r)] = (best[:, 0] - best[:, 1]).tolist()
+    every = [g for gs in gaps.values() for g in gs]
+    at = [gaps[id(req)][p] for req, p in log if p < MAX_NEW]
+    limit = float(np.percentile(every, 25))
+    if any(g > limit for g in at):
+        raise RuntimeError(f"{what}: drafts rejected at top-2 gaps {at}, "
+                           f"past the limit {limit} (top-2 gaps p25)")
+    return {"rejections": len(at), "rejection_top2_gaps": at,
+            "rejection_gap_limit_p25_top2": limit,
+            "top2_gap_p5_p50": [float(np.percentile(every, 5)),
+                                float(np.percentile(every, 50))]}
+
+
+def grammar_check(dfa, ids, finish_reason: str) -> dict:
+    """Every emitted prefix is live in the byte DFA; a generation that
+    ended on EOS ends in an accepting state."""
+    from cloud_server_tpu_torch.inference.grammar import DEAD
+    body = [t for t in ids if t != BYTE_EOS]
+    st = 0
+    for t in body:
+        if not 0 <= t < 256:
+            raise RuntimeError(f"grammar: token {t} is not a byte")
+        st = dfa.run(st, bytes([t]))
+        if st == DEAD:
+            raise RuntimeError(f"grammar: dead prefix {bytes(body)!r}")
+    if finish_reason not in ("eos", "stop", "length"):
+        raise RuntimeError(f"grammar: the request ended {finish_reason!r}")
+    ended = finish_reason in ("eos", "stop")
+    if ended and not dfa.accept[st]:
+        raise RuntimeError(f"grammar: ended outside the language: "
+                           f"{bytes(body)!r}")
+    return {"tokens": len(body), "ended_on_eos": ended,
+            "text": bytes(body).decode("latin-1")}
+
+
+def grammar_runs(srv) -> dict:
+    """On a speculating server with the overlap pipeline: a regex request
+    in process, and while its first decode dispatch is in flight a
+    second request with another pattern, which rebuilds the grammar
+    stack under that dispatch (it must still commit: its program is
+    released only after); then, the server started, response_format
+    json_object over HTTP. Every output holds against its DFA."""
+    import urllib.request
+    from cloud_server_tpu_torch.inference import grammar
+    from cloud_server_tpu_torch.inference.http_server import HttpFrontend
+    from cloud_server_tpu_torch.inference.sampling import SamplingParams
+    req = srv.submit(list(b"value: "), max_new_tokens=GRAMMAR_NEW,
+                     sampling=SamplingParams(regex=GRAMMAR_REGEX))
+    while not req.tokens:
+        srv.step()
+    if srv._inflight is None or req._done.is_set():
+        raise RuntimeError("grammar: no decode dispatch in flight")
+    stack_one = srv.grammar_stack_bytes()
+    dropped = srv._programs.dropped
+    word = srv.submit(list(b"word: "), max_new_tokens=GRAMMAR_NEW,
+                      sampling=SamplingParams(regex=GRAMMAR_WORD))
+    srv.run_until_idle()
+    out = {"in_process": grammar_check(
+        grammar.compile_byte_dfa(GRAMMAR_REGEX), req.tokens,
+        req.finish_reason),
+        "second_pattern_mid_decode": grammar_check(
+            grammar.compile_byte_dfa(GRAMMAR_WORD), word.tokens,
+            word.finish_reason),
+        "stack_bytes_one_pattern": stack_one,
+        "programs_released_by_new_pattern": (srv._programs.dropped
+                                             - dropped),
+        "released_after_their_commit": srv._programs.dropped_in_flight}
+    if srv._programs.dropped_in_flight < 1:
+        raise RuntimeError("grammar: the new pattern released no program "
+                           "in flight")
+    front = HttpFrontend(srv.start(), tokenizer=Latin1Tokenizer()).start()
+    try:
+        host, port = front.address
+        body = json.dumps({"prompt": "{", "max_tokens": GRAMMAR_NEW,
+                           "response_format": {"type": "json_object"}})
+        with urllib.request.urlopen(urllib.request.Request(
+                f"http://{host}:{port}/v1/completions",
+                data=body.encode()), timeout=HTTP_TIMEOUT) as resp:
+            status = resp.status
+            choice = json.loads(resp.read())["choices"][0]
+    finally:
+        front.stop()
+    if status != 200:
+        raise RuntimeError(f"json_object over HTTP answered {status}")
+    out["http_json_object"] = grammar_check(
+        grammar.compile_byte_dfa(grammar.json_object_regex()),
+        list(choice["text"].encode("latin-1")), choice["finish_reason"])
+    out["stack_bytes_three_patterns"] = srv.grammar_stack_bytes()
+    out["stack_shape"] = list(srv._model.grammar[0].shape)
+    return out
+
+
+def serve_spec(params, cfg, prompts, plain_tokens, rng) -> dict:
+    """In-server speculation at Llama-3.1-8B width (random weights), the
+    mixed scheduler with the overlap pipeline and captured graphs, 8
+    greedy requests at the fixed draft length: n-gram drafts, then a
+    Llama-3.2-1B-width draft model (the counts read over both: verify
+    windows on the narrow kernel, the draft's head dim 64 on both
+    kernels), each held against the plain greedy tokens by the near-tie
+    rule; the target drafting for itself (its own pools), which must
+    accept nearly everything; per-request seeded sampling with
+    penalties, logit_bias and min_tokens through n-gram speculation
+    under the default adaptive controller, graphed against graphs off;
+    a grammar request in process and json_object over HTTP; steady
+    steps of each speculation source profiled."""
+    import torch
+    from cloud_server_tpu_torch.config import (InferConfig, ModelConfig,
+                                               from_json)
+    from cloud_server_tpu_torch.data.tokenizer import ByteTokenizer
+    from cloud_server_tpu_torch.inference.sampling import SamplingParams
+    from cloud_server_tpu_torch.models import transformer
+    from cloud_server_tpu_torch.ops import paged_attention as pa
+    t_phase = time.perf_counter()
+    with open(DRAFT_CONFIG) as f:
+        dcfg = from_json(ModelConfig, json.load(f)["model"])
+    dparams = transformer.init_params(dcfg, SEED + 1, device=DEVICE)
+    icfg = InferConfig(max_decode_len=MAX_NEW, temperature=0.0,
+                       eos_token_id=-1, pad_token_id=0)
+    want = [types.SimpleNamespace(tokens=t) for t in plain_tokens]
+    seconds = {}
+
+    # the main path of this slice: n-gram, then draft-model speculation,
+    # at the fixed draft length (`--spec-control off`: on random weights
+    # the adaptive controller, which the seeded run below keeps on,
+    # turns drafting off); each run's steady steps are profiled
+    t0 = time.perf_counter()
+    pa.reset_counters()
+    ngram = make_server(params, cfg, icfg, spec_drafts=SPEC_DRAFTS,
+                        spec_control=False)
+    ng_reqs, ng_prof = spec_run(ngram, prompts, cfg.vocab_size)
+    draft = make_server(params, cfg, icfg, spec_drafts=SPEC_DRAFTS,
+                        spec_control=False, draft_params=dparams,
+                        draft_cfg=dcfg)
+    dm_reqs, dm_prof = spec_run(draft, prompts, cfg.vocab_size)
+    torch.cuda.synchronize()
+    counts = pa.counters()
+    seconds["main"] = time.perf_counter() - t0
+    if (counts["launches_narrow_verify"] <= 0
+            or counts["launches_narrow_d64"] <= 0
+            or counts["launches_wide_d64"] <= 0
+            or counts["launches_wide"] <= 0 or counts["plain_calls"]):
+        raise RuntimeError(f"spec serve: launches {counts}")
+    out = {"phase": "spec", "model": "Llama-3.1-8B target, Llama-3.2-1B "
+           "width draft (random bf16 weights)", "spec_drafts": SPEC_DRAFTS,
+           "counts": counts,
+           "ngram": spec_summary(ngram, "n-gram speculation", ng_reqs,
+                                 want, prompts, params, cfg),
+           "draft_model": spec_summary(draft, "draft-model speculation",
+                                       dm_reqs, want, prompts, params,
+                                       cfg)}
+    out["ngram"]["profile"] = ng_prof
+    out["draft_model"]["profile"] = dm_prof
+    ngram.stop()
+    draft.stop()
+    del ngram, draft, dparams, ng_reqs, dm_reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the target as its own draft: the same tensors, its own pools
+    t0 = time.perf_counter()
+    selfd = make_server(params, cfg, icfg, spec_drafts=SPEC_DRAFTS,
+                        spec_control=False, draft_params=params,
+                        draft_cfg=cfg, decode_chunk=SELF_DRAFT_ROUNDS)
+    rejected = record_rejections(selfd)
+    sd_reqs, sd_steady = spec_run(selfd, prompts, cfg.vocab_size,
+                                  profiled=False)
+    ties = rejections_at_ties("self-draft speculation", rejected, sd_reqs,
+                              prompts, params, cfg)
+    sd = out["self_draft"] = spec_summary(
+        selfd, "self-draft speculation", sd_reqs, want, prompts, params,
+        cfg)
+    sd["rejections_at_ties"] = ties
+    sd["steady"] = sd_steady
+    sd["steady_accept_rate"] = (sd_steady["accepted_per_step"]
+                                / max(sd_steady["drafted_per_step"], 1e-9))
+    selfd.stop()
+    del selfd, sd_reqs
+    p32, cfg32 = f32_slice(params, cfg)
+    selfd = make_server(p32, cfg32, icfg, spec_drafts=SPEC_DRAFTS,
+                        spec_control=False, draft_params=p32,
+                        draft_cfg=cfg32, decode_chunk=SELF_DRAFT_ROUNDS)
+    _, f32_steady = spec_run(selfd, prompts, cfg.vocab_size,
+                             profiled=False)
+    selfd.stop()
+    del selfd, p32
+    sd["f32_slice_steady_accept_rate"] = (
+        f32_steady["accepted_per_step"]
+        / max(f32_steady["drafted_per_step"], 1e-9))
+    seconds["self_draft"] = time.perf_counter() - t0
+    if (sd["f32_slice_steady_accept_rate"] < SELF_DRAFT_MIN_ACCEPT
+            or sd["accept_rate"] < SELF_DRAFT_BF16_FLOOR):
+        raise RuntimeError(
+            f"self-draft accepted {sd['f32_slice_steady_accept_rate']} of "
+            f"its steady drafts in float32 (at least "
+            f"{SELF_DRAFT_MIN_ACCEPT}), {sd['accept_rate']} of its drafts "
+            f"in bf16 (at least {SELF_DRAFT_BF16_FLOOR})")
+
+    # per-request seeded sampling with the A12 options through n-gram
+    # speculation: graphed == graphs off, token for token
+    t0 = time.perf_counter()
+    icfg_s = InferConfig(max_decode_len=MAX_NEW, temperature=0.0,
+                         eos_token_id=BYTE_EOS, pad_token_id=0)
+    sampling = [SamplingParams(
+        seed=2000 + i, temperature=0.8, top_p=0.9, repetition_penalty=1.2,
+        frequency_penalty=0.5, logit_bias=((BYTE_EOS, 3.0), (17 + i, 2.0)),
+        min_tokens=8) for i in range(len(prompts))]
+    runs = {}
+    for graphed in (False, True):
+        srv = make_server(params, cfg, icfg_s, spec_drafts=SPEC_DRAFTS,
+                          cuda_graphs=graphed, tokenizer=ByteTokenizer())
+        reqs, _, _, _ = serve_once(params, cfg, icfg_s, prompts, srv=srv,
+                                   sampling=sampling)
+        runs[graphed] = ([r.tokens for r in reqs],
+                         srv.speculation_stats(), srv)
+        if not graphed:
+            srv.stop()
+    same_tokens("seeded A12 speculation graphed vs graphs off",
+                [types.SimpleNamespace(tokens=t) for t in runs[True][0]],
+                runs[False][0])
+    lens = [len(t) for t in runs[True][0]]
+    if min(lens) < 8:
+        raise RuntimeError(f"min_tokens 8 not held: lengths {lens}")
+    seconds["seeded"] = time.perf_counter() - t0
+    out["seeded_a12"] = {"graphed_equals_graphs_off": True,
+                         "lengths": lens,
+                         "tokens_drafted": runs[True][1]["tokens_drafted"],
+                         "tokens_accepted": runs[True][1]["tokens_accepted"]}
+
+    # grammar on the graphed seeded server, in process then over HTTP
+    t0 = time.perf_counter()
+    srv = runs[True][2]
+    try:
+        out["grammar"] = grammar_runs(srv)
+    finally:
+        srv.stop()
+    seconds["grammar"] = time.perf_counter() - t0
+    del srv, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds["total"] = time.perf_counter() - t_phase
+    out["seconds"] = seconds
+    emit(out)
+    return out
+
+
 def phase_serve() -> dict:
     import numpy as np
     import torch
@@ -1236,6 +1670,9 @@ def phase_serve() -> dict:
     torch.cuda.empty_cache()
     out["int8"] = serve_int8(params, cfg, icfg, prompts, tokens, pool_bytes,
                              rng)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["spec"] = serve_spec(params, cfg, prompts, tokens, rng)
     return out
 
 
@@ -2281,6 +2718,26 @@ def main() -> int:
                         f"{branch}",
             "launches": launches, "max_abs_err": err, "ms": k["ms"],
             "ms_cold": k["ms_cold"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": k["library_ms"]})
+    # this slice's shapes, with launches from the speculating servers
+    spec_counts = serve["spec"]["counts"]
+    for kernel, case, line, launches in (
+            ("paged_narrow_kernel", "verify_w5", 96,
+             spec_counts["launches_narrow_verify"]),
+            ("paged_narrow_kernel", "decode_d64", 96,
+             spec_counts["launches_narrow_d64"]),
+            ("paged_wide_kernel", "prefill_d64", 434,
+             spec_counts["launches_wide_d64"])):
+        k = kern[case]
+        rows.append({
+            "name": f"paged_attention: {kernel}, {k['class']} class "
+                    f"({case} case: B {k['B']}, W {k['W']}, Dh {k['Dh']})",
+            "route": "cuda",
+            "source": "cloud_server_tpu_torch/csrc/paged_attention.cu",
+            "replaces": f"cloud_server_tpu/ops/paged_attention.py:{line}",
+            "launches": launches, "max_abs_err": k["max_abs_err"],
+            "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"]})
     tc = train["counts"]

@@ -4,10 +4,13 @@ The reference's CLI on the port: weights from a training checkpoint
 (`--checkpoint-dir`, `--step`; `--ema` for the EMA-averaged weights),
 from a numpy `--params-npz`, or random-init from `--seed`; byte
 tokenizer; the paged continuous-batching server, optionally with the
-int8 KV cache (`--kv-cache-int8`). Batch mode serves the `--prompt`s and
-prints them; `--serve-http PORT` runs the server behind the HTTP
-frontend until interrupted. Runs on the card unless `--device cpu` is
-given.
+int8 KV cache (`--kv-cache-int8`) and in-server speculation
+(`--spec-drafts` n-gram drafts, or a draft model from `--draft-config`).
+Batch mode serves the `--prompt`s and prints them; `--serve-http PORT`
+runs the server behind the HTTP frontend until interrupted. Runs on the
+card unless `--device cpu` is given. The contiguous server
+(`--contiguous`) and the speculative batch API (`--ngram-draft`) are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -52,9 +55,14 @@ def build_parser() -> argparse.ArgumentParser:
                    "one line per request, to PATH (JSONL) or, with no "
                    "value, stderr. Off by default.")
     p.add_argument("--temperature", type=float, default=0.8)
+    p.add_argument("--top-k", type=int, default=0)
+    p.add_argument("--top-p", type=float, default=1.0)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--max-len", type=int, default=0,
                    help="server cache length (default: fits prompt+max-new)")
+    p.add_argument("--add-bos", action="store_true",
+                   help="prepend BOS to prompts (only if training data "
+                   "contained BOS)")
     p.add_argument("--decode-chunk", type=int, default=1,
                    help="decode steps per scheduler iteration")
     p.add_argument("--max-slots", type=int, default=8,
@@ -76,6 +84,40 @@ def build_parser() -> argparse.ArgumentParser:
                    help="disable the pipelined scheduler: by default the "
                    "host plans each iteration while the card runs the "
                    "previous one (mixed scheduler only)")
+    p.add_argument("--mixed-token-budget", type=int, default=0,
+                   help="mixed scheduler: tokens per iteration (decode "
+                   "rows first, prefill fills the rest; 0 = auto: "
+                   "max_slots * (decode window * decode_chunk + "
+                   "prefill_chunk), i.e. work-conserving)")
+    p.add_argument("--spec-drafts", type=int, default=0,
+                   help="in-server speculative decoding with N n-gram "
+                   "draft tokens per round (exact accept rule: the "
+                   "output distribution is unchanged)")
+    p.add_argument("--spec-control", metavar="FILE_OR_JSON", default=None,
+                   help="adaptive speculation knobs (JSON object/string "
+                   "or file path: low/high accept-rate hysteresis, ewma, "
+                   "cooldown, probe_period, initial draft length). "
+                   "Omitted: the default adaptive controller whenever "
+                   "speculation is on; 'off' pins the fixed length")
+    p.add_argument("--draft-config", metavar="JSON",
+                   help="in-server speculation with a small draft model "
+                   "sharing the tokenizer (JSON config, model section): "
+                   "the draft keeps its own paged cache and proposes "
+                   "--num-draft tokens per round, in batch mode and with "
+                   "--serve-http")
+    p.add_argument("--draft-checkpoint-dir",
+                   help="draft model checkpoint (omit: random init from "
+                   "--seed + 1, only useful for smoke tests)")
+    p.add_argument("--num-draft", type=int, default=4,
+                   help="draft tokens proposed per speculative round "
+                   "(with --draft-config and no --spec-drafts)")
+    p.add_argument("--contiguous", action="store_true",
+                   help="the fixed-slot contiguous server (not ported "
+                   "yet)")
+    p.add_argument("--ngram-draft", action="store_true",
+                   help="the speculative batch API with n-gram drafts "
+                   "(not ported yet; in-server n-gram speculation is "
+                   "--spec-drafts)")
     p.add_argument("--flight-recorder", type=int, default=0, metavar="N",
                    help="per-iteration flight-recorder ring size for "
                    "/stats post-mortems (0 = config default)")
@@ -131,6 +173,24 @@ def main(argv=None) -> None:
     if args.decode_impl is not None:
         model_cfg = dataclasses.replace(
             model_cfg, decode_attention_impl=args.decode_impl)
+    if args.spec_drafts and args.contiguous:
+        raise SystemExit(
+            "--spec-drafts is the paged server's in-server speculation; "
+            "it cannot run with --contiguous (use --ngram-draft/"
+            "--draft-config for the batch API instead)")
+    if args.spec_drafts and args.ngram_draft:
+        raise SystemExit(
+            "--spec-drafts (in-server n-gram) and --ngram-draft (batch "
+            "API) are mutually exclusive speculation paths")
+    if args.contiguous:
+        raise NotImplementedError(
+            "the contiguous server (--contiguous) is not ported to the "
+            "PyTorch server yet")
+    if args.ngram_draft:
+        raise NotImplementedError(
+            "the speculative batch API (--ngram-draft) is not ported to "
+            "the PyTorch server yet; in-server n-gram speculation is "
+            "--spec-drafts")
     tok = ByteTokenizer()
     if tok.vocab_size > model_cfg.vocab_size:
         raise SystemExit(
@@ -168,7 +228,17 @@ def main(argv=None) -> None:
                              args.seed, device)
     infer_cfg = InferConfig(
         max_decode_len=args.max_new, temperature=args.temperature,
+        top_k=args.top_k, top_p=args.top_p,
         eos_token_id=tok.eos_id, pad_token_id=tok.pad_id or 0)
+    draft_params = draft_cfg = None
+    if args.draft_config:
+        with open(args.draft_config) as f:
+            draft_cfg = from_json(ModelConfig, json.load(f).get("model", {}))
+        draft_params = load_params(draft_cfg, args.draft_checkpoint_dir,
+                                   None, args.seed + 1, device)
+    spec = args.spec_drafts
+    if draft_cfg is not None and spec == 0:
+        spec = args.num_draft  # --draft-config implies speculation
 
     def make_server(max_len: int, max_slots: int) -> PagedInferenceServer:
         ps = args.page_size
@@ -181,19 +251,25 @@ def main(argv=None) -> None:
             decode_chunk=args.decode_chunk, prefill_chunk=prefill_chunk,
             seed=args.seed, device=device, scheduler=args.scheduler,
             overlap=False if args.no_overlap else None,
+            mixed_token_budget=args.mixed_token_budget,
+            spec_drafts=spec, spec_control=args.spec_control,
+            draft_params=draft_params, draft_cfg=draft_cfg,
             flight_recorder_size=args.flight_recorder or None,
             iteration_profile=(False if args.no_iteration_profile
-                               else None))
+                               else None),
+            tokenizer=tok)  # regex-constrained requests compile against it
 
     if args.serve_http is not None:
         serve_http(make_server(args.max_len or model_cfg.max_seq_len,
                                args.max_slots),
                    tok, args.serve_http, args.access_log)
         return
-    encoded = [tok.encode(p) or [0] for p in prompts]
+    encoded = [tok.encode(p, add_bos=args.add_bos
+                          and tok.bos_id is not None) or [0]
+               for p in prompts]
     longest = max(len(e) for e in encoded)
     max_len = args.max_len or min(model_cfg.max_seq_len,
-                                  longest + args.max_new + 1)
+                                  longest + args.max_new + spec + 1)
     srv = make_server(max_len, min(args.max_slots, len(encoded)))
     outs = srv.generate(encoded, max_new_tokens=args.max_new)
     for prompt, out in zip(prompts, outs):

@@ -2,11 +2,12 @@
 scheduler dispatch.
 
 The counterpart of the reference's jitted `_mixed_step`,
-`_decode_rounds` and `_prefill_chunk`, whose compile cache is keyed by
-their static shapes. Here a `Program` owns, for one shape key (kind, row
-bucket, width bucket, n_rounds, use_rows), static input buffers on the
-device, pinned host staging for them, and the pinned host buffers its
-results land in. A launch is:
+`_decode_rounds`, `_spec_rounds` and `_prefill_chunk`, whose compile
+cache is keyed by their static arguments and shapes. Here a `Program`
+owns, for one key (the server's: body, static switches, input shapes,
+and the grammar stack's generation for a program that reads it), static
+input buffers on the device, pinned host staging for them, and the
+pinned host buffers its results land in. A launch is:
 
   1. the staged numpy arrays written into the pinned staging;
   2. one non-blocking host-to-device copy per input;
@@ -96,16 +97,25 @@ class Program:
 
     def _capture_graph(self) -> None:
         """Warm the program up on a side stream (real launches), then
-        capture it. `torch.cuda.graph` would also synchronise the card
-        and empty the allocator's device and pinned-host caches before
-        every capture; a server captures a dozen programs or more, so the
-        capture is begun and ended here directly."""
+        capture it. The warm-up's writes to the pools repeat at the
+        replay with the same values; the per-slot state it updates
+        (`ctx.mutable_state()`: counts, DFA states, token history) is
+        put back as it was, so the replay applies each update once.
+        `torch.cuda.graph` would also synchronise the card and empty the
+        allocator's device and pinned-host caches before every capture;
+        a server captures a dozen programs or more, so the capture is
+        begun and ended here directly."""
         t0 = time.perf_counter()
         cur = torch.cuda.current_stream(self.device)
         side = _stream(self.device, "warm-up")
         side.wait_stream(cur)
+        state = getattr(self.ctx, "mutable_state", list)()
         with torch.cuda.stream(side):
+            saved = [t.clone() for t in state]
             self.fn(self.ctx, self.dev_in)
+            for t, s in zip(state, saved):
+                t.copy_(s)
+            del saved
         cur.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         cap = _stream(self.device, "capture")
@@ -185,9 +195,14 @@ class ProgramCache:
         self.capture = capture
         self._programs: dict = {}
         self._pool = None
+        self.dropped = 0   # programs released by `drop`, lifetime
+        self.dropped_in_flight = 0  # of those, kept until their wait
 
     def __len__(self) -> int:
         return len(self._programs)
+
+    def keys(self) -> list:
+        return list(self._programs)
 
     def capture_seconds(self) -> float:
         """Host seconds spent warming up and capturing the programs."""
@@ -207,6 +222,24 @@ class ProgramCache:
                            self._pool)
             self._programs[key] = prog
         return prog
+
+    def drop(self, stale: Callable, busy: Program | None = None) -> list:
+        """Release the programs whose key `stale(key)` names (they read
+        a tensor that has been replaced); the next launch of such a shape
+        makes, and on CUDA captures, the program again. `busy`, a program
+        launched but not yet waited on, is taken out unreleased and
+        returned: the caller releases it after its wait."""
+        gone = [k for k in self._programs if stale(k)]
+        kept = []
+        for k in gone:
+            prog = self._programs.pop(k)
+            if prog is busy:
+                kept.append(prog)
+            else:
+                prog.release()
+        self.dropped += len(gone)
+        self.dropped_in_flight += len(kept)
+        return kept
 
     def release(self) -> None:
         """Drop every graph, its buffers and the shared pool (they are

@@ -13,6 +13,7 @@ are the reference's:
   POST /v1/completions        OpenAI-compatible completion: prompt
                     (string, token list, or list of either), max_tokens,
                     temperature, top_p, stop, seed, n, best_of, logprobs,
+                    penalties, logit_bias, min_tokens, response_format,
                     stream (SSE chunks, final `data: [DONE]`).
   POST /v1/chat/completions   OpenAI-compatible chat through a minimal
                     role-tagged template (or the tokenizer's own); stream
@@ -36,13 +37,13 @@ ValueError, TypeError, KeyError or AttributeError raised while parsing or
 submitting), 404 for unknown paths, 429 with a `Retry-After` header when
 the backend's `max_pending` bound refuses a submit, 503 when the
 scheduler has stopped. New in the port: a request for something the
-port does not have yet — penalties, `logit_bias`, `min_tokens`, regex
-or `response_format` (grammar-constrained decoding), embeddings, trace
-capture — answers **501** with a JSON `{"error": ...}` naming the
-feature. The server raises `NotImplementedError` for those, also when
-`submit` raises inside a streaming request before any header is sent;
-the frontend never turns it into a 500, a dropped connection or a
-stream that hangs.
+port does not have yet — embeddings, trace capture — answers **501**
+with a JSON `{"error": ...}` naming the feature. The server raises
+`NotImplementedError` for those, also when `submit` raises inside a
+streaming request before any header is sent; the frontend never turns
+it into a 500, a dropped connection or a stream that hangs. Penalties,
+`logit_bias`, `min_tokens`, `regex` and `response_format` (json_object,
+json_schema) are served as the reference serves them.
 
 Lifecycle: a streaming client that disconnects mid-generation cancels
 its request (the scheduler frees the slot and pages within one step).
@@ -69,6 +70,8 @@ import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
+from cloud_server_tpu_torch.inference.grammar import (json_object_regex,
+                                                     json_schema_regex)
 from cloud_server_tpu_torch.inference.iteration_profile import (
     profile_summary, scheduler_chrome_trace)
 from cloud_server_tpu_torch.inference.request_trace import (
@@ -868,20 +871,34 @@ class HttpFrontend:
     # -- OpenAI-compatible endpoints ----------------------------------------
 
     def _openai_sampling(self, body: dict):
-        """(max_tokens, SamplingParams) with OpenAI aliases folded in
-        (max_tokens). A `response_format` of type json_object or
-        json_schema needs grammar-constrained decoding, which the port
-        does not have yet; other types change nothing, as in the
-        reference."""
+        """(max_tokens, SamplingParams) with OpenAI aliases folded in:
+        max_tokens; response_format {"type": "json_object"} -> the
+        bounded-depth JSON grammar; response_format {"type":
+        "json_schema", "json_schema": {"schema": {...}}} -> the schema
+        compiled through json_schema_regex (closed objects, declared key
+        order). Other types change nothing, as in the reference."""
         max_new = body.get("max_tokens", body.get("max_new_tokens"))
         if max_new is not None and not isinstance(max_new, int):
             raise ValueError('"max_tokens" must be an int')
         rf = body.get("response_format")
-        if isinstance(rf, dict) and rf.get("type") in ("json_object",
-                                                      "json_schema"):
-            raise NotImplementedError(
-                "response_format (grammar-constrained decoding) is not "
-                "ported to the PyTorch server yet")
+        if isinstance(rf, dict) and rf.get("type") == "json_object":
+            body = dict(body)
+            body.setdefault("regex", json_object_regex())
+        elif isinstance(rf, dict) and rf.get("type") == "json_schema":
+            wrapper = rf.get("json_schema")
+            if not isinstance(wrapper, dict):
+                raise ValueError('response_format json_schema needs a '
+                                 '"json_schema" object')
+            schema = wrapper.get("schema")
+            if schema is None:  # a bare schema in place of the wrapper
+                looks = ("type", "properties", "enum", "const", "anyOf",
+                         "oneOf")
+                if not any(k in wrapper for k in looks):
+                    raise ValueError(
+                        'response_format json_schema needs a "schema"')
+                schema = wrapper
+            body = dict(body)
+            body.setdefault("regex", json_schema_regex(schema))
         return max_new, _parse_sampling(body, self.tokenizer)
 
     def _prompt_variants(self, body: dict) -> list[list[int]]:

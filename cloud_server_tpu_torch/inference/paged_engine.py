@@ -37,6 +37,7 @@ scales always travel together by page id.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -189,7 +190,8 @@ def window_forward(params, tokens: torch.Tensor, cfg: ModelConfig,
         [lengths[b], lengths[b] + W), on the pools' device.
       logits_at: (B,) in-window indices — return (B, V) f32 logits at
         that position per slot.
-      all_logits: return (B, W, V) f32. With neither, returns None.
+      all_logits: return (B, W, V) f32 (speculation's verify windows,
+        counted as such by the kernel). With neither, returns None.
       widths: optional (B,) ragged valid widths: positions at window
         index >= widths[b] neither write kv nor anchor attention.
       rope: optional precomputed (cos, sin) for cache.max_context
@@ -210,7 +212,8 @@ def window_forward(params, tokens: torch.Tensor, cfg: ModelConfig,
     x = transformer.embed(params, tokens, cfg)
 
     use_kernel = cfg.decode_attention_impl == "pallas" and w <= PALLAS_MAX_W
-    attend = paged_attention if use_kernel else paged_attention_ref
+    attend = (functools.partial(paged_attention, verify=all_logits)
+              if use_kernel else paged_attention_ref)
     widths_dev = (None if widths is None
                   else torch.as_tensor(widths).to(device=dev,
                                                   dtype=torch.int32))

@@ -19,11 +19,13 @@ A port of the reference's `PagedInferenceServer`:
     carry sentinel tables, so they write nothing), or exactly the slots
     when every slot is live; a prefill group is padded to a power of two
     rows and a `_mixed_buckets` width; padding rows sample with neutral
-    fills. Each (kind, row bucket, width bucket, n_rounds, use_rows) is
-    one captured CUDA graph (inference/graphs.py), replayed with its
-    inputs copied in from pinned host staging and its results copied out
-    to pinned host buffers, then one event: the iteration's one host
-    sync is the wait on that event.
+    fills. Each program (its body, static switches — rounds, draft
+    count, per-row sampling, bias, grammar, penalty state — and input
+    shapes; with the grammar stack's generation when it reads the
+    stack) is one captured CUDA graph (inference/graphs.py), replayed
+    with its inputs copied in from pinned host staging and its results
+    copied out to pinned host buffers, then one event: the iteration's
+    one host sync is the wait on that event.
   * The overlap pipeline (mixed scheduler, `overlap` on by default):
     iteration N+1 is planned on the host while the card runs N; a
     steady step then commits N and launches N+1 — one launch and one
@@ -37,10 +39,23 @@ A port of the reference's `PagedInferenceServer`:
     round), so with the reference's staged shapes the draws are its
     token for token.
 
+  * Speculation is the decode loop when `spec_drafts` > 0: per-slot
+    n-gram proposals from each slot's token history, or a draft model
+    (`draft_params`/`draft_cfg`) decoding against its own pools on the
+    same page ids, verified in one W = drafts + 1 window and committed
+    with the exact accept rule (inference/speculative.py), under both
+    schedulers and the overlap pipeline. Adaptive per-slot draft lengths
+    (inference/spec_control.py) are on by default.
+  * Per-request sampling rows carry penalties, logit_bias and min_tokens,
+    and regex-constrained decoding (inference/grammar.py): each slot's
+    DFA state masks its logits, through speculative windows too.
+
 Scheduling state is host-authoritative (tables, lengths, active,
-last_token in numpy); the device owns the page pools, updated in place
-by every program. The reference's `lax.scan` over decode rounds is a
-Python loop inside the captured program.
+last_token in numpy); the device owns the page pools and the per-slot
+state programs carry across iterations (`_Model`: penalty counts, DFA
+states, the token history), updated in place by every program. The
+reference's `lax.scan` over decode rounds is a Python loop inside the
+captured program.
 
 Write-safety rules (see paged_engine): a slot's chain always covers its
 next dispatch's window writes; positions past a row's width and rows on
@@ -57,10 +72,9 @@ with the iteration profile's phase split (`iteration_profile_stats`,
 `/debug/scheduler_trace`).
 
 Not ported yet, and refused with NotImplementedError where a caller asks
-for them: speculation and draft models, grammar/regex, multi-LoRA,
-penalties and logit_bias, min_tokens, QoS, SLO, tracing and trace
-capture, faults, brownout, the anomaly watchdog, migration and handoff,
-`embed`, tensor parallelism and the full-reservation paging policy
+for them: multi-LoRA, QoS, SLO, tracing and trace capture, faults,
+brownout, the anomaly watchdog, migration and handoff, `embed`, tensor
+parallelism, MoE models and the full-reservation paging policy
 (`allocation="reserve"`).
 """
 
@@ -72,7 +86,7 @@ import functools
 import math
 import threading
 import time
-from typing import NamedTuple, Sequence
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -83,15 +97,20 @@ from cloud_server_tpu_torch.inference import graphs, paged_engine
 from cloud_server_tpu_torch.inference.block_allocator import BlockAllocator
 from cloud_server_tpu_torch.inference.cache_telemetry import (
     register_cache_hists)
+from cloud_server_tpu_torch.inference.grammar import DEAD as _GDEAD
 from cloud_server_tpu_torch.inference.iteration_profile import (
     OVERLAP_PHASES, derive_gap_fields, profile_summary,
     register_phase_hists, resolve_profiler)
 from cloud_server_tpu_torch.inference.sampling import (
-    _BIAS_PAD, SamplingParams, SamplingRows, make_rows, sample_logits,
-    sample_logits_rows)
+    _BIAS_PAD, SamplingParams, SamplingRows, make_rows, sample_from_probs,
+    sample_logits, sample_logits_rows, sampling_probs, sampling_probs_rows)
 from cloud_server_tpu_torch.inference.server import (
     QueueFullError, Request, _bucket, _token_logprobs, emit_token,
     resolve_seed)
+from cloud_server_tpu_torch.inference.spec_control import resolve_controller
+from cloud_server_tpu_torch.inference.speculative import (
+    _TAG_DRAFT, _accept_drafts, _accept_point_mass, _ngram_drafts,
+    _row_pos_keys, sample_from_probs_keyed)
 from cloud_server_tpu_torch.models import transformer
 from cloud_server_tpu_torch.ops import rope_table
 from cloud_server_tpu_torch.utils import prng
@@ -149,17 +168,42 @@ def _not_ported(what: str):
 # ---------------------------------------------------------------------------
 
 
-class _Model(NamedTuple):
-    """What every program reads besides its input buffers."""
+class _Model:
+    """What every program reads besides its input buffers: the weights,
+    the page pools (and the draft model's, on the same page ids), the
+    rope tables, and the per-slot device state that lives across
+    programs. Every per-slot tensor carries one scratch row past
+    `max_slots` (and `hist` one scratch column past `max_context`):
+    padding rows carry the sentinel slot id, so their scatters land
+    there, the counterpart of the reference's mode="drop". Programs
+    update this state in place, never rebind it, so a replayed graph
+    writes where the next program reads.
 
-    params: dict
-    cfg: ModelConfig
-    infer_cfg: InferConfig
-    k: torch.Tensor
-    v: torch.Tensor
-    k_scale: torch.Tensor | None
-    v_scale: torch.Tensor | None
-    rope: tuple
+      hist     (S+1, C+1) int32  committed tokens per slot (n-gram
+               speculation only, else None)
+      gstate   (S+1,) int32      each slot's grammar DFA state
+      pm, oc   (S+1, V) bool / int32  prompt presence and generated
+               counts for penalties; None until a request needs them
+      grammar  ((Gn, S_max, V) int32 tables, (Gn, S_max) bool accepts)
+               of the registered patterns; None until one registers
+    """
+
+    def __init__(self, params, cfg, infer_cfg, pools, rope, *, draft=None,
+                 hist=None, gstate=None):
+        self.params, self.cfg, self.infer_cfg = params, cfg, infer_cfg
+        self.k, self.v, self.k_scale, self.v_scale = pools
+        self.rope = rope
+        # (params, cfg, pools, rope) of the draft model, or None
+        self.draft = draft
+        self.hist, self.gstate = hist, gstate
+        self.pm = self.oc = None
+        self.grammar = None
+
+    def mutable_state(self) -> list:
+        """The per-slot tensors a program updates besides the pools (a
+        graph's warm-up run restores them, see graphs.Program)."""
+        return [t for t in (self.hist, self.gstate, self.pm, self.oc)
+                if t is not None]
 
 
 def _cache(m: _Model, lengths, tables) -> paged_engine.PagedKVCache:
@@ -167,95 +211,417 @@ def _cache(m: _Model, lengths, tables) -> paged_engine.PagedKVCache:
                                    m.v_scale)
 
 
+def _draft_cache(m: _Model, lengths, tables) -> paged_engine.PagedKVCache:
+    _, _, (k, v, ks, vs), _ = m.draft
+    return paged_engine.make_cache(k, v, lengths, tables, ks, vs)
+
+
 def _rows_in(bufs: dict, prefix: str) -> SamplingRows:
     return SamplingRows(*(bufs[prefix + name]
                           for name in SamplingRows._fields))
 
 
-def _prefill_core(m: _Model, bufs: dict, key, *, ragged: bool,
-                  use_rows: bool):
+def _grammar_mask(grammar, gid, st, eos_id: int):
+    """Next-state rows and the allowed-token mask from DFA states. gid:
+    (B,) or (B, 1); st: (B,) or (B, W). DEAD states allow nothing; EOS is
+    allowed exactly at accepting states; gid 0 (the identity grammar) is
+    live at state 0 whatever state a slot's previous occupant left."""
+    tb, ac = grammar
+    gid = gid.long()
+    ident = gid == 0
+    idx = torch.where(ident, 0, st.long().clamp(min=0))
+    nrow = tb[gid, idx]
+    live_st = (st != _GDEAD) | ident
+    amask = (nrow != _GDEAD) & live_st[..., None]
+    if eos_id >= 0:
+        amask[..., eos_id] = ac[gid, idx] & live_st
+    return nrow, amask
+
+
+def _grammar_step(grammar, gid, st, tok):
+    """DFA states after `tok`; DEAD stays DEAD."""
+    tb, _ = grammar
+    nxt = tb[gid.long(), st.long().clamp(min=0), tok.long()]
+    return torch.where(st == _GDEAD, st, nxt)
+
+
+def _prefill_core(m: _Model, bufs: dict, key, *, ragged: bool, rows: bool,
+                  bias: bool, grammar: bool, has_pen: bool,
+                  scatter_prompt: bool):
     """One admission window for a (padded) G-row group: `chunk` (G, Wc)
-    at positions [g_lens, g_lens + Wc) per row, each row's first-token
+    at positions [g_lens, g_lens + Wc) per row; each row's first-token
     candidate sampled at `sample_at` (per-request rows at position
     `prompt_lens`, else the server-global draw from `key`). `ragged`
-    groups (the mixed scheduler) carry per-row `widths`; padding rows
-    have width 0 and sentinel tables. Returns (toks (G,), lps (G,))."""
+    groups (the mixed scheduler) carry per-row `widths` and, when the
+    prompts scatter, a `scatter_mask` of the rows at their first chunk;
+    padding rows have width 0, sentinel tables and the sentinel slot id.
+
+    Per-slot state, as the reference's `_prefill_core`: with
+    `scatter_prompt` each row's admission prompt rebuilds its penalty
+    state (positions < orig_lens are prompt presence, the rest are
+    tokens generated before a preemption, counted as output) and lands
+    in `hist`; rows whose sample is captured in this chunk
+    (`count_mask`) count their first token and set their DFA state
+    (`grammar`: the first token is sampled under the grammar's mask from
+    the resume state `gst0_g`). The draft model prefills the same chunk
+    into its pools. Returns (toks (G,), lps (G,))."""
     logits, _ = paged_engine.window_forward(
         m.params, bufs["chunk"], m.cfg,
         _cache(m, bufs["g_lens"], bufs["g_tables"]),
         logits_at=bufs["sample_at"],
         widths=bufs["widths"] if ragged else None, rope=m.rope)
-    if use_rows:
-        toks = sample_logits_rows(logits, _rows_in(bufs, "samp_g."),
-                                  bufs["prompt_lens"].long(),
-                                  use_bias=False)
+    slot_ids = bufs["slot_ids"].long()
+    count = bufs["count_mask"]
+    prompt_lens = bufs["prompt_lens"].long()
+    pm = oc = None
+    if scatter_prompt:
+        prompt_rows = bufs["prompt_rows"].long()
+        g, pb = prompt_rows.shape
+        sc_ids = slot_ids
+        if ragged:
+            sc_ids = torch.where(bufs["scatter_mask"], slot_ids,
+                                 m.gstate.shape[0] - 1)
+        cols = torch.arange(pb, device=slot_ids.device)[None, :]
+        if has_pen:
+            vsz = m.pm.shape[1]
+            orig = bufs["orig_lens"].long()[:, None]
+            pm_rows = torch.zeros((g, vsz + 1), dtype=torch.bool,
+                                  device=slot_ids.device).scatter_(
+                1, torch.where(cols < orig, prompt_rows, vsz), True)
+            oc_cols = torch.where((cols >= orig)
+                                  & (cols < prompt_lens[:, None]),
+                                  prompt_rows, vsz)
+            oc_rows = torch.zeros((g, vsz + 1), dtype=torch.int32,
+                                  device=slot_ids.device).scatter_add_(
+                1, oc_cols, torch.ones_like(oc_cols, dtype=torch.int32))
+            m.pm[sc_ids] = pm_rows[:, :vsz]
+            m.oc[sc_ids] = oc_rows[:, :vsz]
+        if m.hist is not None:
+            keep = cols < prompt_lens[:, None]
+            if ragged:
+                keep &= bufs["scatter_mask"][:, None]
+            hcols = torch.where(keep, cols, m.hist.shape[1] - 1)
+            m.hist[sc_ids[:, None].expand(g, pb), hcols] = \
+                prompt_rows.to(m.hist.dtype)
+    if has_pen:
+        pm, oc = m.pm[slot_ids], m.oc[slot_ids]
+    amask = nrow = None
+    if grammar:
+        nrow, amask = _grammar_mask(m.grammar, bufs["gid_g"],
+                                    bufs["gst0_g"],
+                                    m.infer_cfg.eos_token_id)
+    if rows:
+        toks = sample_logits_rows(
+            logits, _rows_in(bufs, "samp_g."), prompt_lens, prompt_mask=pm,
+            out_counts=oc, eos_id=m.infer_cfg.eos_token_id, use_bias=bias,
+            allowed_mask=amask)
     else:
         toks = sample_logits(logits, key, m.infer_cfg)
+    if grammar:
+        # only rows captured in this chunk: a multi-chunk job revisits
+        # rows whose state an earlier chunk already set
+        nstate = nrow[torch.arange(toks.shape[0], device=toks.device),
+                      toks]
+        cap = torch.where(count, slot_ids, m.gstate.shape[0] - 1)
+        m.gstate[cap] = nstate.to(m.gstate.dtype)
+    if has_pen:
+        # the captured first token is the slot's first generated token
+        m.oc.index_put_((slot_ids, toks), count.to(torch.int32),
+                        accumulate=True)
+    if m.draft is not None:
+        dparams, dcfg, _, drope = m.draft
+        paged_engine.window_forward(
+            dparams, bufs["chunk"], dcfg,
+            _draft_cache(m, bufs["g_lens"], bufs["g_tables"]),
+            widths=bufs["widths"] if ragged else None, rope=drope)
     return toks, _token_logprobs(logits, toks)
 
 
+def _decode_state(m: _Model, bufs: dict, rows: bool, grammar: bool,
+                  has_pen: bool):
+    """The decode cores' prologue: the staged rows' views of the
+    per-slot state (`d_sids` names each row's slot; padding rows carry
+    the sentinel, so they read and write the scratch row)."""
+    sids = bufs["d_sids"].long()
+    pm = oc = gstate = None
+    if rows and has_pen:
+        pm, oc = m.pm[sids], m.oc[sids]
+    if grammar:
+        gstate = m.gstate[sids]
+    return sids, pm, oc, gstate
+
+
 def _decode_plain_core(m: _Model, bufs: dict, key, *, n_rounds: int,
-                       use_rows: bool) -> dict:
+                       rows: bool, bias: bool, grammar: bool,
+                       has_pen: bool) -> dict:
     """n_rounds plain decode steps (W = 1) of the staged rows: `live`
     rows advance one token a round, the rest (padding rows, on sentinel
     tables) are frozen. The server-global draw of round r uses
-    split(key, n_rounds)[r]. Returns toks (R, B), lps (R, B), lens (B,),
-    last (B,)."""
+    split(key, n_rounds)[r]; per-request rows sample at position
+    lengths + 1 with their penalty counts and grammar masks, advanced
+    every round. Returns toks (R, B), lps (R, B), counts (R, B) (1 a live
+    row), lens (B,), last (B,)."""
     lengths = bufs["d_lens"].long()
     tables = bufs["d_tables"]
     last = bufs["d_last"].long()
     live = bufs["live"]
-    samp = _rows_in(bufs, "samp_d.") if use_rows else None
+    sids, pm, oc, gstate = _decode_state(m, bufs, rows, grammar, has_pen)
+    samp = _rows_in(bufs, "samp_d.") if rows else None
+    gid = bufs["d_gid"] if grammar else None
     keys = prng.split(key, n_rounds)
     at = torch.zeros_like(lengths)
+    bi = torch.arange(lengths.shape[0], device=lengths.device)
     pad = m.infer_cfg.pad_token_id
+    eos = m.infer_cfg.eos_token_id
     toks, lps = [], []
     for r in range(n_rounds):
+        if m.hist is not None:
+            # `last` sits at position `lengths`: the history stays an
+            # unbroken token sequence for n-gram lookups
+            cols = torch.where(live, lengths, m.hist.shape[1] - 1)
+            m.hist[sids, cols] = last.to(m.hist.dtype)
         logits, _ = paged_engine.window_forward(
             m.params, last[:, None], m.cfg, _cache(m, lengths, tables),
             logits_at=at, rope=m.rope)
-        if use_rows:
-            # the sampled token sits at position lengths + 1 (`last`
-            # occupies `lengths`)
+        amask = None
+        if grammar:
+            nrow, amask = _grammar_mask(m.grammar, gid, gstate, eos)
+        if rows:
             tok = sample_logits_rows(logits, samp, lengths + 1,
-                                     use_bias=False)
+                                     prompt_mask=pm, out_counts=oc,
+                                     eos_id=eos, use_bias=bias,
+                                     allowed_mask=amask)
+            if oc is not None:
+                oc = oc.index_put((bi, tok), live.to(oc.dtype),
+                                  accumulate=True)
         else:
             tok = sample_logits(logits, keys[r], m.infer_cfg)
+        if grammar:
+            # sticky DEAD: a dead row must never resurrect
+            gstate = torch.where(live & (gstate != _GDEAD), nrow[bi, tok],
+                                 gstate)
         lps.append(_token_logprobs(logits, tok))
         tok = torch.where(live, tok, pad)
         lengths = torch.where(live, lengths + 1, lengths)
         last = torch.where(live, tok, last)
         toks.append(tok)
+    if grammar:
+        m.gstate[sids] = gstate
+    if oc is not None:
+        m.oc[sids] = oc
     return {"toks": torch.stack(toks), "lps": torch.stack(lps),
+            "counts": torch.stack([live.to(torch.int32)] * n_rounds),
             "lens": lengths, "last": last}
 
 
-def _mixed_step(m: _Model, bufs: dict, *, n_rounds: int, use_rows_p: bool,
-                use_rows_d: bool) -> dict:
+def _spec_core(m: _Model, bufs: dict, key, *, n_rounds: int, n_drafts: int,
+               limited: bool, rows: bool, bias: bool, grammar: bool,
+               has_pen: bool) -> dict:
+    """n_rounds speculative rounds of the staged rows, as the
+    reference's `_spec_core`. Each round drafts `n_drafts` tokens per row
+    — from the draft model, decoding against its own pools (G+1 steps:
+    step j writes the draft kv of its input token at lengths + j), or
+    from the row's history (n-gram) — scores the (G+1)-token window in
+    one target pass, and commits the accepted prefix plus the
+    corrective/bonus token, capped at `d_stop` and (`limited`) at
+    `d_limit` + 1 tokens a row.
+
+    Penalties and grammar stay exact through the window: position i's
+    target distribution uses the counts and the DFA state after
+    drafts[:i], and the draft model's step j uses the same
+    construction. Per-request rows draw on position-keyed streams
+    (`speculative`), server-global rows on split(key, n_rounds)[r].
+
+    Returns toks (R, B, G+1), lps (R, B, G+1), counts (R, B), lens (B,),
+    last (B,)."""
+    g = n_drafts
+    lengths = bufs["d_lens"].long()
+    tables = bufs["d_tables"]
+    last = bufs["d_last"].long()
+    live = bufs["live"]
+    stop_len = bufs["d_stop"].long()
+    limit = bufs["d_limit"].long() if limited else None
+    sids, pm, oc, gstate = _decode_state(m, bufs, rows, grammar, has_pen)
+    samp = _rows_in(bufs, "samp_d.") if rows else None
+    seeds = samp.seed if rows else None
+    gid = bufs["d_gid"] if grammar else None
+    dev = lengths.device
+    b = lengths.shape[0]
+    bi = torch.arange(b, device=dev)
+    j = torch.arange(g + 1, device=dev)[None, :]
+    pad = m.infer_cfg.pad_token_id
+    eos = m.infer_cfg.eos_token_id
+    vsz = m.cfg.vocab_size
+    keys = prng.split(key, n_rounds)
+    toks_r, lps_r, counts_r = [], [], []
+    for r in range(n_rounds):
+        key_acc, key_draft = prng.split(keys[r], 2).unbind(-2)
+        can_commit = live & (lengths < stop_len)
+        if m.draft is not None:
+            dparams, dcfg, _, drope = m.draft
+            tok, run_cnt, st_d = last, oc, gstate
+            drafts_l, qps = [], []
+            for step in range(g + 1):
+                key_draft, kd = prng.split(key_draft, 2).unbind(-2)
+                dlogits, _ = paged_engine.window_forward(
+                    dparams, tok[:, None], dcfg,
+                    _draft_cache(m, lengths + step, tables),
+                    logits_at=torch.zeros_like(lengths), rope=drope)
+                dmask = (_grammar_mask(m.grammar, gid, st_d, eos)[1]
+                         if grammar else None)
+                pos = lengths + 1 + step
+                if rows:
+                    qp = sampling_probs_rows(
+                        dlogits, samp, prompt_mask=pm, out_counts=run_cnt,
+                        positions=pos, eos_id=eos, use_bias=bias,
+                        allowed_mask=dmask)
+                    nxt = sample_from_probs_keyed(
+                        qp, _row_pos_keys(seeds, pos, _TAG_DRAFT))
+                else:
+                    qp = sampling_probs(dlogits, m.infer_cfg)
+                    nxt = sample_from_probs(qp, kd)
+                if step < g:
+                    if run_cnt is not None:
+                        run_cnt = run_cnt.index_put(
+                            (bi, nxt), torch.ones_like(nxt, dtype=oc.dtype),
+                            accumulate=True)
+                    if grammar:
+                        st_d = _grammar_step(m.grammar, gid, st_d, nxt)
+                tok = nxt
+                drafts_l.append(nxt)
+                qps.append(qp)
+            drafts = torch.stack(drafts_l[:g], dim=1)
+            q_probs = torch.stack(qps[:g], dim=1)
+        else:
+            # `last` is the committed token at position `lengths`: write
+            # it before drafting, so bigrams across the prompt/output
+            # boundary see the true sequence
+            hcol = torch.where(live, lengths, m.hist.shape[1] - 1)
+            m.hist[sids, hcol] = last.to(m.hist.dtype)
+            hist_rows = m.hist[sids, :-1]
+            valid = lengths + 1
+            t_prev2 = hist_rows[bi, (valid - 2).clamp(min=0)].long()
+            drafts = _ngram_drafts(hist_rows, valid, t_prev2, last, g, pad)
+        window = torch.cat([last[:, None], drafts], dim=1)
+        vlogits, _ = paged_engine.window_forward(
+            m.params, window, m.cfg, _cache(m, lengths, tables),
+            all_logits=True, rope=m.rope)
+        amask_w = None
+        if grammar:
+            # position i's mask comes from the state after drafts[:i]
+            sts = [gstate]
+            for jj in range(g):
+                sts.append(_grammar_step(m.grammar, gid, sts[-1],
+                                         drafts[:, jj]))
+            _, amask_w = _grammar_mask(m.grammar, gid[:, None],
+                                       torch.stack(sts, dim=1), eos)
+        if rows:
+            counts_w = None
+            if pm is not None:
+                # counts at window position i: base + drafts before i
+                onehot = torch.nn.functional.one_hot(drafts, vsz).to(
+                    oc.dtype)
+                cum = torch.cumsum(onehot, dim=1)
+                counts_w = oc[:, None, :] + torch.cat(
+                    [torch.zeros_like(cum[:, :1]), cum], dim=1)
+            p_probs = sampling_probs_rows(
+                vlogits, samp, prompt_mask=pm, out_counts=counts_w,
+                positions=(lengths + 1)[:, None] + j, eos_id=eos,
+                use_bias=bias, allowed_mask=amask_w)
+        else:
+            p_probs = sampling_probs(vlogits, m.infer_cfg)
+        pos0 = lengths + 1 if rows else None
+        if m.draft is not None:
+            n_acc, x = _accept_drafts(drafts, q_probs, p_probs, key_acc,
+                                      seeds=seeds, pos0=pos0)
+        else:
+            n_acc, x = _accept_point_mass(drafts, p_probs, key_acc,
+                                          seeds=seeds, pos0=pos0)
+        drafts_x = torch.cat([drafts, x[:, None]], dim=1)
+        committed = torch.where(j < n_acc[:, None], drafts_x,
+                                torch.where(j == n_acc[:, None],
+                                            x[:, None], pad))
+        count = torch.where(can_commit, n_acc + 1, 0)
+        if limit is not None:
+            count = torch.minimum(count, limit + 1)
+        count = torch.minimum(count, (stop_len - lengths).clamp(min=0))
+        took = j < count[:, None]
+        toks = torch.where(took, committed, pad)
+        # log P(tok) under the raw target distribution at each position
+        lps = torch.log_softmax(vlogits.float(), dim=-1).gather(
+            -1, toks.clamp(min=0)[..., None])[..., 0]
+        if m.hist is not None:
+            # committed[j] sits at position lengths + 1 + j
+            hcols = torch.where(took, (lengths + 1)[:, None] + j,
+                                m.hist.shape[1] - 1)
+            m.hist[sids[:, None].expand_as(hcols), hcols] = \
+                toks.to(m.hist.dtype)
+        if oc is not None:
+            oc = oc.index_put((bi[:, None].expand_as(toks), toks),
+                              took.to(oc.dtype), accumulate=True)
+        if grammar:
+            st = gstate
+            for jj in range(g + 1):
+                nxt = _grammar_step(m.grammar, gid, st, toks[:, jj])
+                st = torch.where(took[:, jj], nxt, st)
+            gstate = st
+        last_idx = (count - 1).clamp(min=0)
+        last = torch.where(count > 0, committed[bi, last_idx], last)
+        lengths = lengths + count
+        toks_r.append(toks)
+        lps_r.append(lps)
+        counts_r.append(count)
+    if grammar:
+        m.gstate[sids] = gstate
+    if oc is not None:
+        m.oc[sids] = oc
+    return {"toks": torch.stack(toks_r), "lps": torch.stack(lps_r),
+            "counts": torch.stack(counts_r), "lens": lengths, "last": last}
+
+
+def _decode_core(m: _Model, bufs: dict, key, *, n_rounds: int,
+                 n_drafts: int, limited: bool, rows: bool, bias: bool,
+                 grammar: bool, has_pen: bool) -> dict:
+    if n_drafts > 0:
+        return _spec_core(m, bufs, key, n_rounds=n_rounds,
+                          n_drafts=n_drafts, limited=limited, rows=rows,
+                          bias=bias, grammar=grammar, has_pen=has_pen)
+    return _decode_plain_core(m, bufs, key, n_rounds=n_rounds, rows=rows,
+                              bias=bias, grammar=grammar, has_pen=has_pen)
+
+
+def _mixed_step(m: _Model, bufs: dict, *, n_rounds: int, n_drafts: int,
+                limited: bool, scatter_prompt: bool, rows_p: bool,
+                bias_p: bool, rows_d: bool, bias_d: bool, grammar: bool,
+                has_pen: bool) -> dict:
     """ONE token-budget mixed iteration: the ragged prefill group, then
-    (n_rounds > 0) the multi-round decode of the live rows. The key
-    splits into (prefill, decode) keys, as the reference's does."""
+    (n_rounds > 0) the multi-round decode of the live rows, plain or
+    speculative (n_drafts > 0; the draft model's chunk prefill rides in
+    the prefill half). The key splits into (prefill, decode) keys, as
+    the reference's does."""
     key_p, key_d = prng.split(bufs["rng"], 2)
-    ptoks, plps = _prefill_core(m, bufs, key_p, ragged=True,
-                                use_rows=use_rows_p)
+    ptoks, plps = _prefill_core(m, bufs, key_p, ragged=True, rows=rows_p,
+                                bias=bias_p, grammar=grammar,
+                                has_pen=has_pen,
+                                scatter_prompt=scatter_prompt)
     out = {"ptoks": ptoks, "plps": plps}
     if n_rounds > 0:
-        out.update(_decode_plain_core(m, bufs, key_d, n_rounds=n_rounds,
-                                      use_rows=use_rows_d))
+        out.update(_decode_core(m, bufs, key_d, n_rounds=n_rounds,
+                                n_drafts=n_drafts, limited=limited,
+                                rows=rows_d, bias=bias_d, grammar=grammar,
+                                has_pen=has_pen))
     return out
 
 
-def _decode_rounds(m: _Model, bufs: dict, *, n_rounds: int,
-                   use_rows: bool) -> dict:
-    return _decode_plain_core(m, bufs, bufs["rng"], n_rounds=n_rounds,
-                              use_rows=use_rows)
+def _decode_rounds(m: _Model, bufs: dict, **statics) -> dict:
+    return _decode_core(m, bufs, bufs["rng"], **statics)
 
 
-def _prefill_chunk(m: _Model, bufs: dict, *, use_rows: bool) -> dict:
+def _prefill_chunk(m: _Model, bufs: dict, **statics) -> dict:
     """The alternating scheduler's admission program: one uniform-width
     chunk of a bucketed group."""
     toks, lps = _prefill_core(m, bufs, bufs["rng"], ragged=False,
-                              use_rows=use_rows)
+                              **statics)
     return {"ptoks": toks, "plps": lps}
 
 
@@ -288,6 +654,7 @@ class _AdmitJob:
     rows: np.ndarray               # (G, n_chunks*chunk_w) remainder tokens
     rem_lens: np.ndarray           # (G,) true remainder lengths
     base_lens: np.ndarray          # (G,) shared_len per row
+    prompt_rows: np.ndarray        # (G, admission bucket) prompts
     prompt_lens: np.ndarray        # (G,)
     toks: np.ndarray               # captured first-token candidates
     lps: np.ndarray
@@ -302,6 +669,22 @@ class _AdmitJob:
 
 
 @dataclasses.dataclass
+class _DecodeRows:
+    """The staged decode rows (`_gather_decode_rows`): the live slots
+    compacted and padded to a power of two, or the slots themselves when
+    every slot is live (`sl` None)."""
+
+    sl: np.ndarray | None           # slot per row, sentinel-padded
+    live: np.ndarray                # (rows,) bool
+    lens: np.ndarray
+    tables: np.ndarray
+    last: np.ndarray
+    stop: np.ndarray
+    samp: SamplingRows
+    gid: np.ndarray
+
+
+@dataclasses.dataclass
 class _Plan:
     """A planned iteration (pipelined scheduler): everything the launch
     needs, built against the planned frame while the previous dispatch
@@ -313,18 +696,14 @@ class _Plan:
     sel: list                       # [(job, take, d0)] — empty for decode
     activating: list                # slot ids whose admission completes
     n_rounds: int
-    win: int
+    win: int                        # g_iter + 1
+    g_iter: int                     # draft tokens a row this dispatch
+    spec_lens: list | None          # per-live-row draft caps (adaptive)
     live_ids: np.ndarray
-    sl_d: np.ndarray | None
-    live_g: np.ndarray
-    d_lens: np.ndarray
-    d_tables: np.ndarray
-    d_last: np.ndarray
-    samp_d: SamplingRows
+    rows: _DecodeRows
     owners: list                    # _Slot per live row (identity guard)
     pf: dict | None                 # prefill-half arrays (mixed only)
-    use_rows_p: bool
-    use_rows_d: bool
+    flags: dict                     # the program's static switches
     stats: dict
 
 
@@ -341,6 +720,8 @@ class _Inflight:
     owners: list
     n_rounds: int
     win: int
+    g_iter: int
+    spec_lens: list | None
     stats: dict
     t_launch: float
 
@@ -374,9 +755,6 @@ class PagedInferenceServer:
                  anomaly=None, overlap: bool | None = None, device=None,
                  cuda_graphs: bool = True):
         refused = {
-            "speculative decoding (spec_drafts > 0)": spec_drafts > 0,
-            "draft-model speculation": (draft_params is not None
-                                        or draft_cfg is not None),
             "tensor-parallel serving (mesh)": mesh is not None,
             f"allocation={allocation!r} (only 'ondemand')":
                 allocation != "ondemand",
@@ -385,7 +763,6 @@ class PagedInferenceServer:
                                 or infer_cfg.trace_sample_rate > 0
                                 or infer_cfg.trace_tail_capacity > 0),
             "SLO tracking": slo is not None or bool(infer_cfg.slo_config),
-            "adaptive speculation control": spec_control is not None,
             "fault injection": (faults is not None
                                 or bool(infer_cfg.fault_plan)),
             "brownout": (brownout is not None
@@ -402,11 +779,21 @@ class PagedInferenceServer:
             raise ValueError(f"unknown scheduler: {sched!r}")
         if admit_decode_chunk is not None and admit_decode_chunk < 1:
             raise ValueError("admit_decode_chunk must be >= 1 or None")
-        del tokenizer
+        if (draft_params is None) != (draft_cfg is None):
+            raise ValueError("pass draft_params and draft_cfg together")
+        if draft_cfg is not None and spec_drafts <= 0:
+            raise ValueError("a draft model needs spec_drafts > 0")
+        if draft_cfg is not None and draft_cfg.vocab_size != cfg.vocab_size:
+            raise ValueError(
+                f"draft vocab_size={draft_cfg.vocab_size} != target "
+                f"vocab_size={cfg.vocab_size}; speculative verification "
+                "compares their token distributions elementwise")
         self.device = resolve_device(device)
         self.params = transformer.cast_params(
             _params_on(params, self.device), cfg)
         self.cfg = cfg
+        self.draft_cfg = draft_cfg
+        self.tokenizer = tokenizer
         self.infer_cfg = infer_cfg
         self.scheduler = sched
         self._mixed_enabled = sched == "mixed"
@@ -419,7 +806,8 @@ class PagedInferenceServer:
         self.max_slots = max_slots
         self.page_size = page_size
         self.decode_chunk = max(1, decode_chunk)
-        self.window = 1  # kv slack per decode round (no speculation)
+        self.spec_drafts = spec_drafts
+        self.window = spec_drafts + 1  # kv slack per decode round
         if max_context % page_size:
             raise ValueError(f"{max_context=} must be a multiple of "
                              f"{page_size=}")
@@ -434,6 +822,10 @@ class PagedInferenceServer:
         if prompt_buckets is None:
             prompt_buckets = _pow2_buckets(16, max_context)
         self.prompt_buckets = sorted(prompt_buckets)
+        # continuations (preempted requests re-admitted with their
+        # generated tokens) can outgrow the client-facing buckets
+        self._admit_buckets = sorted(set(self.prompt_buckets)
+                                     | {max_context})
         # remainders bucket to a pow2 <= prefill_chunk (single-chunk
         # jobs) or a prefill_chunk multiple (multi-chunk jobs)
         self._rem_buckets = _pow2_buckets(16, self.prefill_chunk)
@@ -449,9 +841,32 @@ class PagedInferenceServer:
         # the int8 cache's (L, P, KH, ps) f32 scale pools, else None
         self.k_scale_pool, self.v_scale_pool = cache.k_scale, cache.v_scale
         self._rope = rope_table(cfg, max_context, device=self.device)
-        self._model = _Model(self.params, cfg, infer_cfg, self.k_pool,
-                             self.v_pool, self.k_scale_pool,
-                             self.v_scale_pool, self._rope)
+        draft = None
+        if draft_cfg is not None:
+            # the draft model's own pools, in its geometry, on the same
+            # page ids (and scratch page) as the target's: one allocator
+            # covers both, and a shared prefix page carries both kvs
+            dcache = paged_engine.init_paged_cache(
+                draft_cfg, num_pages=num_pages, page_size=page_size,
+                batch=max_slots, max_pages_per_slot=self.max_pages_per_slot,
+                device=self.device)
+            draft = (transformer.cast_params(
+                _params_on(draft_params, self.device), draft_cfg),
+                     draft_cfg,
+                     (dcache.k, dcache.v, dcache.k_scale, dcache.v_scale),
+                     rope_table(draft_cfg, max_context, device=self.device))
+        # n-gram speculation reads each slot's token history; nothing
+        # else does, so only such a server keeps it
+        ngram = spec_drafts > 0 and draft_cfg is None
+        self._model = _Model(
+            self.params, cfg, infer_cfg,
+            (self.k_pool, self.v_pool, self.k_scale_pool,
+             self.v_scale_pool), self._rope, draft=draft,
+            hist=(torch.zeros((max_slots + 1, max_context + 1),
+                              dtype=torch.int32, device=self.device)
+                  if ngram else None),
+            gstate=torch.zeros((max_slots + 1,), dtype=torch.int32,
+                               device=self.device))
         self._programs = graphs.ProgramCache(self.device,
                                              capture=cuda_graphs)
         # host-authoritative scheduling state
@@ -464,6 +879,19 @@ class PagedInferenceServer:
         self.samp_rows = make_rows([None] * max_slots, infer_cfg,
                                    [0] * max_slots)
         self._needs_rows = np.zeros((max_slots,), bool)
+        self._has_bias = np.zeros((max_slots,), bool)
+        # regex-constrained decoding: the registered patterns, stacked
+        # into the (Gn, S_max, V) device table on the scheduler thread
+        # (`_sync_grammar_stack`); per slot a grammar id and the DFA
+        # state to resume from at (re-)admission
+        self._grammar_cache = None
+        self._patterns: list[str] = []
+        self._pattern_gid: dict[str, int] = {}
+        self._grammar_gen = 0      # generation of the device stack
+        self._grammar_built = 0    # patterns the device stack holds
+        self._gid = np.zeros((max_slots,), np.int32)
+        self._gstate0 = np.zeros((max_slots,), np.int32)
+        self.orig_len = np.zeros((max_slots,), np.int32)
         self._host_rng = np.random.default_rng(seed)
         # the server-global key, jax.random.key(seed)'s words, split once
         # per dispatch (`_next_rng`)
@@ -471,6 +899,18 @@ class PagedInferenceServer:
 
         self.preemptions = 0
         self.tokens_emitted = 0  # lifetime emitted tokens (metrics)
+        # committed tokens per decode round (mean accepted length + 1)
+        self.decode_rounds = 0
+        self.decode_tokens_committed = 0
+        # speculation ledger: tokens drafted on committing rows' behalf
+        # (each row's own draft length a round) vs the drafts committed
+        self.spec_tokens_drafted = 0
+        self.spec_tokens_accepted = 0
+        # adaptive draft lengths (inference/spec_control.py), fed by the
+        # per-round counts each commit already has; None = fixed length
+        self.spec_control = resolve_controller(
+            spec_control, infer_cfg.spec_control_config, spec_drafts,
+            has_draft_model=draft_cfg is not None)
         self.metrics = metrics if metrics is not None else ServingMetrics()
         self.metrics.registry.add_collector(self._collect_metrics)
         # flight recorder: one record per busy iteration
@@ -508,6 +948,9 @@ class PagedInferenceServer:
         self._step_lock = threading.Lock()
         self._draining = False
         self._inflight: _Inflight | None = None
+        # a dropped program still in flight, with what it reads; freed
+        # once a commit has waited on it (`_sync_grammar_stack`)
+        self._retired: list = []
         # deferred sweep reaps: (slot_id, _Slot, reason) marked while a
         # dispatch is in flight; released right after its commit
         self._reaped: list[tuple[int, _Slot, str]] = []
@@ -535,15 +978,6 @@ class PagedInferenceServer:
             raise _not_ported("router failover and migration")
         if handoff is not None:
             raise _not_ported("disaggregated prefill/decode handoff")
-        if sampling is not None:
-            if sampling.needs_penalty_state():
-                raise _not_ported("repetition/presence/frequency penalties")
-            if sampling.logit_bias:
-                raise _not_ported("logit_bias")
-            if sampling.regex is not None:
-                raise _not_ported("regex-constrained decoding")
-            if sampling.min_tokens > 0:
-                raise _not_ported("min_tokens")
         if deadline_s is not None and not (
                 math.isfinite(deadline_s) and deadline_s > 0):
             raise ValueError("deadline_s must be a finite positive "
@@ -553,11 +987,19 @@ class PagedInferenceServer:
         _bucket(len(prompt), self.prompt_buckets)  # raises if too long
         max_new = (self.infer_cfg.max_decode_len if max_new_tokens is None
                    else max_new_tokens)
+        # leave room for the last speculative window's writes
         max_new = min(max_new, self.max_context - len(prompt) - self.window)
         if max_new <= 0:
             raise ValueError(
                 f"prompt of {len(prompt)} tokens leaves no room to decode "
                 f"within max_context={self.max_context}")
+        if sampling is not None and sampling.regex is not None:
+            if self.infer_cfg.eos_token_id < 0:
+                raise ValueError(
+                    "regex-constrained decoding needs eos_token_id >= 0 "
+                    "(completion is signalled by EOS at an accepting "
+                    "state)")
+            self._grammar_gid(sampling.regex)  # compile now; 400 here
         # without a QoS registry the reference drops the tenant too
         del tenant, trace_ctx
         req = Request(prompt=list(prompt), max_new_tokens=max_new,
@@ -667,11 +1109,91 @@ class PagedInferenceServer:
         self.active[slot_id] = False
         self.lengths[slot_id] = 0
         self._needs_rows[slot_id] = False
+        self._has_bias[slot_id] = False
+        self._gid[slot_id] = 0
+        self._gstate0[slot_id] = 0
+        if self.spec_control is not None:
+            self.spec_control.on_release(slot_id)
         return slot
 
     def _finish(self, slot_id: int) -> None:
         slot = self._release_slot(slot_id, self._committed(slot_id))
         self._complete(slot.req)
+
+    # -- grammar and penalty state ------------------------------------------
+
+    def _grammar_gid(self, pattern: str) -> int:
+        """Register a pattern (compiled on the caller's thread, so a bad
+        regex is the client's ValueError); returns its grammar id. The
+        device stack is rebuilt on the scheduler thread before the next
+        admission (`_sync_grammar_stack`)."""
+        gid = self._pattern_gid.get(pattern)
+        if gid is not None:
+            return gid
+        if self.tokenizer is None:
+            raise ValueError(
+                "regex-constrained requests need a tokenizer: construct "
+                "PagedInferenceServer(..., tokenizer=...)")
+        from cloud_server_tpu_torch.inference import grammar as _g
+        if self._grammar_cache is None:
+            self._grammar_cache = _g.GrammarCache(self.tokenizer,
+                                                  self.cfg.vocab_size)
+        self._grammar_cache.get(pattern)  # compile (raises on bad regex)
+        with self._lock:
+            if pattern not in self._pattern_gid:
+                self._patterns.append(pattern)
+                self._pattern_gid[pattern] = len(self._patterns)
+            return self._pattern_gid[pattern]
+
+    def _sync_grammar_stack(self) -> None:
+        """Scheduler thread: when patterns registered since the last
+        build, upload the new (Gn, S_max, V) stack — gid 0 the identity
+        grammar (everything allowed, state stays 0), gid i pattern i-1,
+        rows past a grammar's states DEAD — and release the programs
+        that read the old one: a captured graph keeps the address it
+        was captured with. The dispatch in flight (overlap pipeline)
+        may be one of them: it and the old stack stay alive until its
+        commit has waited on it."""
+        with self._lock:
+            patterns = list(self._patterns)
+        if len(patterns) == self._grammar_built:
+            return
+        dfas = [self._grammar_cache.get(pat) for pat in patterns]
+        s_max = max([d.num_states for d in dfas] + [1])
+        v = self.cfg.vocab_size
+        tables = np.full((len(dfas) + 1, s_max, v), _GDEAD, np.int32)
+        accept = np.zeros((len(dfas) + 1, s_max), bool)
+        tables[0] = 0
+        accept[0] = True
+        for i, d in enumerate(dfas, start=1):
+            tables[i, :d.num_states] = d.next_state
+            accept[i, :d.num_states] = d.accept
+        stale = self._grammar_gen
+        busy = self._inflight.program if self._inflight else None
+        kept = self._programs.drop(lambda key: key[1] == stale, busy)
+        if kept:  # it reads the old stack until `_commit_inflight`
+            self._retired += kept + [self._model.grammar]
+        self._model.grammar = (torch.as_tensor(tables).to(self.device),
+                               torch.as_tensor(accept).to(self.device))
+        self._grammar_gen += 1
+        self._grammar_built = len(patterns)
+
+    def grammar_stack_bytes(self) -> int:
+        """Device bytes of the grammar stack (0 before any pattern)."""
+        if self._model.grammar is None:
+            return 0
+        return sum(t.numel() * t.element_size()
+                   for t in self._model.grammar)
+
+    def _ensure_penalty_state(self) -> None:
+        """Materialise the (slots, V) penalty state at the first request
+        that needs it; programs are keyed by its presence."""
+        m = self._model
+        if m.pm is not None:
+            return
+        shape = (self.max_slots + 1, self.cfg.vocab_size)
+        m.pm = torch.zeros(shape, dtype=torch.bool, device=self.device)
+        m.oc = torch.zeros(shape, dtype=torch.int32, device=self.device)
 
     # -- programs -----------------------------------------------------------
 
@@ -682,31 +1204,67 @@ class PagedInferenceServer:
         self._rng = prng.threefry2x32(k0, k1, 0, 0)
         return np.asarray(prng.threefry2x32(k0, k1, 0, 1), np.int64)
 
-    def _launch(self, key: tuple, fn, staged: dict) -> graphs.Program:
-        """Launch the program of shape `key` on `staged` inputs (with a
-        fresh server key); the caller waits on it."""
+    def _launch(self, body, flags: dict, staged: dict) -> graphs.Program:
+        """Launch `body` with its static switches `flags` on `staged`
+        inputs (with a fresh server key); the caller waits on it. A
+        program is keyed by its body, switches and input shapes, and by
+        the grammar stack's generation when it reads the stack."""
         staged["rng"] = self._next_rng()
-        prog = self._programs.get(key, fn, self._model, staged)
+        key = (body.__name__,
+               self._grammar_gen if flags.get("grammar") else -1,
+               tuple(sorted(flags.items())),
+               tuple((k, np.shape(a)) for k, a in sorted(staged.items())))
+        prog = self._programs.get(key, functools.partial(body, **flags),
+                                  self._model, staged)
         prog.launch(staged)
         return prog
 
-    def _decode_staged(self, lens, tables, last, live_g, samp,
-                       use_rows: bool) -> dict:
-        staged = {"d_lens": np.asarray(lens, np.int32),
-                  "d_tables": np.asarray(tables, np.int32),
-                  "d_last": np.asarray(last, np.int32),
-                  "live": np.asarray(live_g, bool)}
+    def _decode_staged(self, rows: _DecodeRows, spec_lens, *, spec: bool,
+                       use_rows: bool, grammar: bool) -> dict:
+        """A decode half's inputs: the rows, with their stop lengths when
+        speculating and their draft caps when `spec_lens` (per live row)
+        bounds them."""
+        sl = rows.sl
+        if sl is None:  # rows ARE slots
+            sl = np.arange(self.max_slots, dtype=np.int32)
+        staged = {"d_lens": np.asarray(rows.lens, np.int32),
+                  "d_tables": np.asarray(rows.tables, np.int32),
+                  "d_last": np.asarray(rows.last, np.int32),
+                  "live": np.asarray(rows.live, bool),
+                  "d_sids": np.asarray(sl, np.int32)}
+        if spec:
+            staged["d_stop"] = np.asarray(rows.stop, np.int32)
+        if spec_lens is not None:  # padding rows commit nothing anyway
+            lim = np.zeros((len(rows.live),), np.int32)
+            lim[:len(spec_lens)] = spec_lens
+            staged["d_limit"] = lim
         if use_rows:
-            staged.update(_samp_staged("samp_d.", samp))
+            staged.update(_samp_staged("samp_d.", rows.samp))
+        if grammar:
+            staged["d_gid"] = np.asarray(rows.gid, np.int32)
         return staged
 
-    def _prefill_staged(self, pf: dict, use_rows: bool) -> dict:
-        staged = {k: pf[k] for k in ("chunk", "widths", "g_lens",
-                                     "g_tables", "sample_at",
-                                     "prompt_lens")}
+    def _prefill_staged(self, pf: dict, *, ragged: bool, use_rows: bool,
+                        grammar: bool, scatter: bool) -> dict:
+        names = ["chunk", "g_lens", "g_tables", "sample_at", "prompt_lens",
+                 "slot_ids", "count_mask"]
+        if ragged:
+            names.append("widths")
+        if scatter:
+            names += ["prompt_rows", "orig_lens"]
+            if ragged:
+                names.append("scatter_mask")
+        if grammar:
+            names += ["gid_g", "gst0_g"]
+        staged = {k: pf[k] for k in names}
         if use_rows:
             staged.update(_samp_staged("samp_g.", pf["samp_g"]))
         return staged
+
+    def _scatters_prompts(self) -> bool:
+        """Whether an admission's first chunk writes its prompt into the
+        per-slot state (penalty counts, the n-gram history)."""
+        return self._model.pm is not None or self._model.hist is not None
 
     # -- admission ----------------------------------------------------------
 
@@ -721,13 +1279,19 @@ class PagedInferenceServer:
         remainder bucket (alternating). A request that carries generated
         tokens is a continuation (it was preempted): its admission prompt
         is prompt + tokens, so the prefix walk re-hits the pages it
-        released."""
+        released, and a constrained one resumes its DFA mid-pattern."""
+        self._sync_grammar_stack()
         staged: list[int] = []
         doomed: list[Request] = []
         with self._lock:
             free = [i for i, s in enumerate(self._slots) if s is None]
             while self._pending and free:
                 req = self._pending[0]
+                sp = req.sampling
+                if (sp is not None and sp.regex is not None
+                        and self._pattern_gid[sp.regex]
+                        > self._grammar_built):
+                    break  # registered after this iteration's upload
                 prompt = list(req.prompt) + list(req.tokens)
                 remaining = req.max_new_tokens - len(req.tokens)
                 shared, shared_len = self.allocator.lookup_prefix(prompt)
@@ -761,14 +1325,30 @@ class PagedInferenceServer:
                 self.lengths[slot_id] = shared_len
                 self.stop_len[slot_id] = slot.stop_len
                 self.active[slot_id] = False  # live once admission is done
-                row = make_rows([req.sampling], self.infer_cfg,
-                                [req.seed_used],
+                row = make_rows([sp], self.infer_cfg, [req.seed_used],
                                 prompt_lens=[len(req.prompt)])
                 for dst, src in zip(self.samp_rows, row):
                     dst[slot_id] = src[0]
                 self._needs_rows[slot_id] = (
-                    req.sampling is not None
-                    and req.sampling.needs_device_rows(self.infer_cfg))
+                    sp is not None and sp.needs_device_rows(self.infer_cfg))
+                self._has_bias[slot_id] = sp is not None and bool(
+                    sp.logit_bias)
+                if sp is not None and sp.regex is not None:
+                    # submit() registered the pattern; a continuation
+                    # replays its generated tokens through the DFA
+                    self._gid[slot_id] = self._pattern_gid[sp.regex]
+                    self._gstate0[slot_id] = self._grammar_cache.get(
+                        sp.regex).walk(req.tokens)
+                else:
+                    self._gid[slot_id] = 0
+                    self._gstate0[slot_id] = 0
+                if sp is not None and sp.needs_penalty_state():
+                    self._ensure_penalty_state()
+                self.orig_len[slot_id] = len(req.prompt)
+                if self.spec_control is not None:
+                    # fresh controller state; a continuation re-prefills
+                    # the draft cache, so its staleness clears with it
+                    self.spec_control.on_admit(slot_id)
                 staged.append(slot_id)
         for req in doomed:
             self._complete(req)
@@ -785,16 +1365,19 @@ class PagedInferenceServer:
                 slot = self._slots[slot_id]
                 rem_toks = slot.prompt[slot.shared_len:]
                 rb = self._rem_bucket(len(rem_toks))
+                pb = _bucket(len(slot.prompt), self._admit_buckets)
                 job = _AdmitJob(
                     slots=[slot_id], chunk_w=rb, n_chunks=1,
                     rows=np.full((1, rb), pad_tok, np.int32),
                     rem_lens=np.asarray([len(rem_toks)], np.int32),
                     base_lens=np.asarray([slot.shared_len], np.int32),
+                    prompt_rows=np.full((1, pb), pad_tok, np.int32),
                     prompt_lens=np.asarray([len(slot.prompt)], np.int32),
                     toks=np.zeros((1,), np.int32),
                     lps=np.zeros((1,), np.float64),
                     got=np.zeros((1,), bool))
                 job.rows[0, :len(rem_toks)] = rem_toks
+                job.prompt_rows[0, :len(slot.prompt)] = slot.prompt
                 self._jobs.append(job)
             return
         # group by remainder bucket => uniform chunk schedule per job
@@ -807,11 +1390,14 @@ class PagedInferenceServer:
             w = min(rb, self.prefill_chunk)
             n_chunks = -(-rb // w)
             g = len(slot_ids)
+            pb = _bucket(max(len(self._slots[s].prompt) for s in slot_ids),
+                         self._admit_buckets)
             job = _AdmitJob(
                 slots=list(slot_ids), chunk_w=w, n_chunks=n_chunks,
                 rows=np.full((g, n_chunks * w), pad_tok, np.int32),
                 rem_lens=np.zeros((g,), np.int32),
                 base_lens=np.zeros((g,), np.int32),
+                prompt_rows=np.full((g, pb), pad_tok, np.int32),
                 prompt_lens=np.zeros((g,), np.int32),
                 toks=np.zeros((g,), np.int32),
                 lps=np.zeros((g,), np.float64),
@@ -822,6 +1408,7 @@ class PagedInferenceServer:
                 job.rows[i, :len(rem_toks)] = rem_toks
                 job.rem_lens[i] = len(rem_toks)
                 job.base_lens[i] = slot.shared_len
+                job.prompt_rows[i, :len(slot.prompt)] = slot.prompt
                 job.prompt_lens[i] = len(slot.prompt)
             self._jobs.append(job)
 
@@ -851,27 +1438,35 @@ class PagedInferenceServer:
             (job.rem_lens - 1) < (c + 1) * w)
         sl_pad = np.zeros((gp,), np.int64)
         sl_pad[:g] = sl
-        use_rows = bool(self._needs_rows[sl].any())
-        staged = {
+        pad_tok = self.infer_cfg.pad_token_id
+        pf = {
             "chunk": pad_rows(np.ascontiguousarray(
-                job.rows[:, c * w:(c + 1) * w]),
-                self.infer_cfg.pad_token_id),
+                job.rows[:, c * w:(c + 1) * w]), pad_tok),
             "g_lens": pad_rows(job.base_lens + c * w, 0),
             "g_tables": g_tables,
             "sample_at": pad_rows(
                 np.clip(job.rem_lens - 1 - c * w, 0, w - 1), 0),
-            "prompt_lens": pad_rows(job.prompt_lens, 0)}
-        if use_rows:
-            staged.update(_samp_staged("samp_g.", _gather_samp_rows(
-                self.samp_rows, sl_pad, g)))
+            "prompt_lens": pad_rows(job.prompt_lens, 0),
+            "slot_ids": pad_rows(sl.astype(np.int32), self.max_slots),
+            "count_mask": pad_rows(in_range, False),
+            "prompt_rows": pad_rows(job.prompt_rows, pad_tok),
+            "orig_lens": pad_rows(self.orig_len[sl], 0),
+            "gid_g": pad_rows(self._gid[sl], 0),
+            "gst0_g": pad_rows(self._gstate0[sl], 0),
+            "samp_g": _gather_samp_rows(self.samp_rows, sl_pad, g)}
+        flags = dict(rows=bool(self._needs_rows[sl].any()),
+                     bias=bool(self._has_bias[sl].any()),
+                     grammar=bool((self._gid[sl] > 0).any()),
+                     has_pen=self._model.pm is not None,
+                     scatter_prompt=c == 0 and self._scatters_prompts())
+        staged = self._prefill_staged(
+            pf, ragged=False, use_rows=flags["rows"],
+            grammar=flags["grammar"], scatter=flags["scatter_prompt"])
         prof = self._profiler
         if prof is not None:
             # per-chunk marks accumulate into the iteration's phases
             prof.mark("build")
-        out = self._launch(("chunk", gp, w, use_rows),
-                           functools.partial(_prefill_chunk,
-                                             use_rows=use_rows),
-                           staged).wait()
+        out = self._launch(_prefill_chunk, flags, staged).wait()
         if prof is not None:
             prof.mark("device")
         toks, lps = out["ptoks"][:g], out["plps"][:g]
@@ -965,7 +1560,6 @@ class PagedInferenceServer:
                 break
         return n_eff
 
-
     def _chunk_rounds(self, active=None) -> int:
         """Rounds of a decode-only dispatch: decode_chunk (shrunk to
         admit_decode_chunk while admission jobs are in flight), bounded
@@ -990,19 +1584,22 @@ class PagedInferenceServer:
 
     def _gather_decode_rows(self, active=None):
         """Compacted decode sub-batch: one row per live slot, padded to a
-        power of two; rows past the live count carry sentinel tables, so
-        their writes drop. A fully live batch stages the slots as they
-        are (rows ARE slots, `sl` None). `active` overrides the live mask
-        (the planner's planned frame; the gathered lengths and last
-        tokens are placeholders there, re-read at launch).
+        power of two; rows past the live count carry sentinel tables and
+        the sentinel slot id, so their writes drop. A fully live batch
+        stages the slots as they are (rows ARE slots, `sl` None).
+        `active` overrides the live mask (the planner's planned frame;
+        the gathered lengths and last tokens are placeholders there,
+        re-read at launch).
 
-        Returns (live_ids, sl, live_g, lengths, tables, last, samp)."""
+        Returns (live_ids, _DecodeRows)."""
         if active is None:
             active = self.active
         live_ids = np.flatnonzero(active)
         if len(live_ids) == self.max_slots:
-            return (live_ids, None, active.copy(), self.lengths,
-                    self.tables, self.last_token, self.samp_rows)
+            return live_ids, _DecodeRows(
+                sl=None, live=active.copy(), lens=self.lengths,
+                tables=self.tables, last=self.last_token,
+                stop=self.stop_len, samp=self.samp_rows, gid=self._gid)
         bg = _pad_pow2(max(len(live_ids), 1))
         nl = len(live_ids)
         sl = np.full((bg,), self.max_slots, np.int32)
@@ -1010,16 +1607,65 @@ class PagedInferenceServer:
         slr = np.clip(sl, 0, self.max_slots - 1)
         live_g = np.zeros((bg,), bool)
         live_g[:nl] = True
-        lengths = self.lengths[slr].copy()
         tables = self.tables[slr].copy()
         tables[nl:] = self.allocator.num_pages
-        last = self.last_token[slr].copy()
-        samp = _gather_samp_rows(self.samp_rows, slr, nl)
-        return live_ids, sl, live_g, lengths, tables, last, samp
+        gid = self._gid[slr].copy()
+        gid[nl:] = 0
+        return live_ids, _DecodeRows(
+            sl=sl, live=live_g, lens=self.lengths[slr].copy(),
+            tables=tables, last=self.last_token[slr].copy(),
+            stop=self.stop_len[slr].copy(),
+            samp=_gather_samp_rows(self.samp_rows, slr, nl), gid=gid)
+
+    def _spec_plan(self, live_ids):
+        """This dispatch's speculation: (draft count, per-live-row draft
+        caps). A fixed-length server plans (spec_drafts, None); with the
+        adaptive controller the width is quantized to {0, spec_drafts}
+        (each row's cap bounds its commits), and all-zero lengths plan
+        plain decode."""
+        if self.spec_drafts <= 0 or len(live_ids) == 0:
+            return 0, None
+        if self.spec_control is None:
+            return self.spec_drafts, None
+        lens = [self.spec_control.draft_len(int(s)) for s in live_ids]
+        if max(lens) <= 0:
+            return 0, None
+        return self.spec_drafts, lens
+
+    def _drafted_rows(self, g_iter: int, spec_lens, nl: int):
+        """Per-live-row drafted-token counts for the speculation ledger
+        (None when plain decode ran)."""
+        if g_iter <= 0:
+            return None
+        return spec_lens if spec_lens is not None else [g_iter] * nl
+
+    def _stage_spec_stats(self, g_iter: int, n_live: int,
+                          st: dict | None = None) -> None:
+        """Flight-recorder speculation fields of this iteration (the
+        drafted/accepted tokens land at the commit). `st` overrides the
+        destination (a planned iteration's stats)."""
+        if self.spec_drafts <= 0:
+            return
+        if st is None:
+            st = self._iter_stats
+        st["spec_rows"] = n_live if g_iter > 0 else 0
+        st["spec_window"] = g_iter + 1 if g_iter > 0 else 1
+        if self.spec_control is not None:
+            st["spec_draft_lens"] = self.spec_control.draft_lengths()
+
+    def _decode_flags(self, live, g_iter: int, spec_lens,
+                      n_rounds: int) -> dict:
+        """A decode program's static switches for the slots `live`."""
+        return {"n_rounds": n_rounds, "n_drafts": g_iter,
+                "limited": spec_lens is not None,
+                "rows": bool((self._needs_rows & live).any()),
+                "bias": bool((self._has_bias & live).any()),
+                "grammar": bool(((self._gid > 0) & live).any()),
+                "has_pen": self._model.pm is not None}
 
     def _decode_dispatch(self) -> None:
         """A decode-only iteration: one program of n_rounds rounds over
-        the compacted live rows, then its sync."""
+        the compacted live rows, plain or speculative, then its sync."""
         prof = self._profiler
         n = self._chunk_rounds()
         n_eff = self._extend_chains(n)
@@ -1030,36 +1676,57 @@ class PagedInferenceServer:
         n = max(1, n)
         if prof is not None:
             prof.mark("admission")
-        live_ids, sl, live_g, lengths, tables, last, samp = \
-            self._gather_decode_rows()
+        live_ids, rows = self._gather_decode_rows()
+        g_iter, spec_lens = self._spec_plan(live_ids)
         self._iter_stats.update(
             scheduler=self.scheduler, n_live=len(live_ids),
-            decode_rounds=n, decode_tokens=len(live_ids) * n,
-            decode_rows=int(live_g.shape[0]),
-            compaction_ratio=len(live_ids) / max(int(live_g.shape[0]), 1))
-        use_rows = bool((self._needs_rows & self.active).any())
-        staged = self._decode_staged(lengths, tables, last, live_g, samp,
-                                     use_rows)
+            decode_rounds=n,
+            decode_tokens=len(live_ids) * (g_iter + 1) * n,
+            decode_rows=int(rows.live.shape[0]),
+            compaction_ratio=len(live_ids) / max(int(rows.live.shape[0]),
+                                                 1))
+        self._stage_spec_stats(g_iter, len(live_ids))
+        flags = self._decode_flags(self.active, g_iter, spec_lens, n)
+        staged = self._decode_staged(rows, spec_lens, spec=g_iter > 0,
+                                     use_rows=flags["rows"],
+                                     grammar=flags["grammar"])
         if prof is not None:
             prof.mark("build")
-        out = self._launch(("decode", len(live_g), n, use_rows),
-                           functools.partial(_decode_rounds, n_rounds=n,
-                                             use_rows=use_rows),
-                           staged).wait()
+        out = self._launch(_decode_rounds, flags, staged).wait()
         if prof is not None:
             prof.mark("device")
-        self._commit_decode_rows(live_ids, out["toks"], out["lps"],
-                                 out["lens"], out["last"])
+        self._commit_decode_out(live_ids, out, g_iter, spec_lens, n)
         if prof is not None:
             prof.mark("commit")
 
-    def _commit_decode_rows(self, live_ids, toks, lps, lens, last,
-                            owners=None) -> None:
-        """Scatter a compacted decode dispatch's results back to slots
-        and emit, round by round. `owners` (pipelined scheduler): the
-        _Slot each row was planned for — a row's slot may have been
-        released and re-occupied between launch and commit, so the
-        ledger writes and emits are identity-guarded per row."""
+    def _commit_decode_out(self, live_ids, out: dict, g_iter: int,
+                           spec_lens, n_rounds: int, owners=None) -> None:
+        """A decode program's results to `_commit_decode_rows` (a plain
+        round's tokens are windows of one)."""
+        toks, lps = out["toks"], out["lps"]
+        if g_iter <= 0:
+            toks, lps = toks[:, :, None], lps[:, :, None]
+            if self.spec_drafts > 0 and self.spec_control is not None:
+                # every live slot decoded plainly: draft caches miss
+                # these positions, n-gram slots accrue probe credit
+                self.spec_control.on_plain_dispatch(
+                    [int(s) for s in live_ids], n_rounds)
+        self._commit_decode_rows(
+            live_ids, toks, lps, out["counts"], out["lens"], out["last"],
+            self._drafted_rows(g_iter, spec_lens, len(live_ids)),
+            owners=owners)
+
+    def _commit_decode_rows(self, live_ids, toks, lps, counts, lens, last,
+                            drafted=None, owners=None) -> None:
+        """Scatter a compacted decode dispatch's (R, B, G+1) results back
+        to slots and emit round by round, each row its `counts[r]`
+        tokens. `owners` (pipelined scheduler): the _Slot each row was
+        planned for — a row's slot may have been released and
+        re-occupied between launch and commit, so the ledger writes and
+        emits are identity-guarded per row. `drafted` (per-live-row draft
+        lengths, None when plain decode ran) funds the speculation
+        ledger and feeds the adaptive controller: per committed round a
+        row drafted its length and accepted count - 1 of them."""
         nl = len(live_ids)
         if owners is None:
             self.lengths[live_ids] = lens[:nl]
@@ -1070,14 +1737,36 @@ class PagedInferenceServer:
                 if self._slots[sid] is owners[i] and self.active[sid]:
                     self.lengths[sid] = lens[i]
                     self.last_token[sid] = last[i]
+        self.decode_rounds += int(counts.shape[0]) * nl
+        self.decode_tokens_committed += int(counts.sum())
+        sp_drafted = sp_accepted = 0
         for r in range(toks.shape[0]):
             for i, sid in enumerate(live_ids):
                 slot = self._slots[sid]
                 if slot is None or not self.active[sid] \
                         or (owners is not None and slot is not owners[i]):
                     continue
-                if self._emit(slot.req, int(toks[r, i]), float(lps[r, i])):
-                    self._finish(sid)
+                c = int(counts[r, i])
+                if drafted is not None and c > 0:
+                    d = int(drafted[i])
+                    a = min(max(c - 1, 0), d)
+                    sp_drafted += d
+                    sp_accepted += a
+                    if self.spec_control is not None:
+                        self.spec_control.observe(sid, d, a)
+                for t in range(c):
+                    if self._emit(slot.req, int(toks[r, i, t]),
+                                  float(lps[r, i, t])):
+                        self._finish(sid)
+                        break
+        if drafted is not None:
+            self.spec_tokens_drafted += sp_drafted
+            self.spec_tokens_accepted += sp_accepted
+            st = self._iter_stats
+            st["spec_tokens_drafted"] = (
+                st.get("spec_tokens_drafted", 0) + sp_drafted)
+            st["spec_tokens_accepted"] = (
+                st.get("spec_tokens_accepted", 0) + sp_accepted)
 
     def _complete_admission_chunks(self, sel, ptoks, plps) -> None:
         """Prefill progress on the synced first-token candidates: capture
@@ -1115,8 +1804,10 @@ class PagedInferenceServer:
     def _mixed_rounds(self, n_live: int, prefill_demand: int, win: int,
                       active=None) -> int:
         """Decode rounds for a mixed iteration: the full steady-state
-        count, squeezed to leave the budget one minimal prefill chunk
-        when admissions wait, floored at one, a power of two."""
+        count at this iteration's window `win` (current draft count + 1,
+        a live slot's honest claim on the budget), squeezed to leave the
+        budget one minimal prefill chunk when admissions wait, floored at
+        one, a power of two."""
         if active is None:
             active = self.active
         rem = [s.req.max_new_tokens - len(s.req.tokens)
@@ -1138,10 +1829,10 @@ class PagedInferenceServer:
                         planned: bool):
         """Token-budget prefill selection, FIFO, shared by the sequential
         path (cursor `done`) and the planner (cursor `planned`): decode
-        rows are funded first, each job takes up to `prefill_chunk`
-        tokens of its remainder, and when decode alone saturates the
-        budget the oldest admission still gets one minimal chunk.
-        Returns [(job, take, cursor)]."""
+        rows are funded first (`win` tokens a round each), each job takes
+        up to `prefill_chunk` tokens of its remainder, and when decode
+        alone saturates the budget the oldest admission still gets one
+        minimal chunk. Returns [(job, take, cursor)]."""
 
         def cur(j):
             return j.planned if planned else j.done
@@ -1168,11 +1859,14 @@ class PagedInferenceServer:
         """Numpy staging of a mixed iteration's ragged prefill half: one
         row per selected admission chunk at its own width, padded to a
         power of two rows and a `_mixed_buckets` width; padding rows have
-        width 0, sentinel tables and neutral sampling rows."""
+        width 0, sentinel tables and slot ids, and neutral sampling rows.
+        Rows at their first chunk carry their admission prompt
+        (`scatter_mask`) for the per-slot state."""
+        pad_tok = self.infer_cfg.pad_token_id
         g = len(sel)
         gp = _pad_pow2(max(g, 1))
         w = _bucket(max([t for _, t, _ in sel] + [1]), self._mixed_buckets)
-        chunk = np.full((gp, w), self.infer_cfg.pad_token_id, np.int32)
+        chunk = np.full((gp, w), pad_tok, np.int32)
         widths = np.zeros((gp,), np.int32)
         g_lens = np.zeros((gp,), np.int32)
         g_tables = np.full((gp, self.max_pages_per_slot),
@@ -1180,42 +1874,74 @@ class PagedInferenceServer:
         sample_at = np.zeros((gp,), np.int32)
         slot_ids = np.full((gp,), self.max_slots, np.int32)
         prompt_lens = np.zeros((gp,), np.int32)
+        orig_lens = np.zeros((gp,), np.int32)
+        countm = np.zeros((gp,), bool)
+        scatm = np.zeros((gp,), bool)
+        scat_plens = [int(job.prompt_lens[0]) for job, _, d0 in sel
+                      if d0 == 0]
+        pb = (_bucket(max(scat_plens), self._admit_buckets)
+              if scat_plens else self._admit_buckets[0])
+        prompt_rows = np.full((gp, pb), pad_tok, np.int32)
         for i, (job, take, d0) in enumerate(sel):
             sid = job.slots[0]
             rl = int(job.rem_lens[0])
+            pl = int(job.prompt_lens[0])
             chunk[i, :take] = job.rows[0, d0:d0 + take]
             widths[i] = take
             g_lens[i] = int(job.base_lens[0]) + d0
             g_tables[i] = self.tables[sid]
             sample_at[i] = min(max(rl - 1 - d0, 0), take - 1)
             slot_ids[i] = sid
-            prompt_lens[i] = int(job.prompt_lens[0])
+            prompt_lens[i] = pl
+            orig_lens[i] = self.orig_len[sid]
+            countm[i] = d0 <= rl - 1 < d0 + take
+            scatm[i] = d0 == 0
+            if d0 == 0:
+                prompt_rows[i, :pl] = job.prompt_rows[0, :pl]
         sl_real = np.clip(slot_ids, 0, self.max_slots - 1)
+        gid_g = self._gid[sl_real].copy()
+        gid_g[g:] = 0
+        gst0_g = self._gstate0[sl_real].copy()
+        gst0_g[g:] = 0
         sel_mask = np.zeros((self.max_slots,), bool)
         sel_mask[[job.slots[0] for job, _, _ in sel]] = True
         return {"chunk": chunk, "widths": widths, "g_lens": g_lens,
                 "g_tables": g_tables, "sample_at": sample_at,
-                "prompt_lens": prompt_lens,
+                "prompt_lens": prompt_lens, "slot_ids": slot_ids,
+                "count_mask": countm, "scatter_mask": scatm,
+                "prompt_rows": prompt_rows, "orig_lens": orig_lens,
+                "gid_g": gid_g, "gst0_g": gst0_g,
                 "samp_g": _gather_samp_rows(self.samp_rows, sl_real, g),
                 "sel_mask": sel_mask}
 
-    def _mixed_key(self, pf: dict, n_rounds: int, n_rows_d: int,
-                   use_rows_p: bool, use_rows_d: bool):
-        """The mixed program of this iteration's shapes and its key."""
-        key = ("mixed", pf["chunk"].shape[0], pf["chunk"].shape[1],
-               n_rows_d if n_rounds else 0, n_rounds, use_rows_p,
-               use_rows_d and n_rounds > 0)
-        fn = functools.partial(_mixed_step, n_rounds=n_rounds,
-                               use_rows_p=use_rows_p,
-                               use_rows_d=key[-1])
-        return key, fn
+    def _mixed_flags(self, pf: dict, live, g_iter: int, spec_lens,
+                     n_rounds: int) -> dict:
+        """The mixed program's static switches: its prefill half over
+        the selected slots, its decode half over `live`, one grammar
+        switch for both."""
+        sel = pf["sel_mask"]
+        dec = n_rounds > 0
+        return {"n_rounds": n_rounds, "n_drafts": g_iter if dec else 0,
+                "limited": dec and spec_lens is not None,
+                "rows_d": dec and bool((self._needs_rows & live).any()),
+                "bias_d": dec and bool((self._has_bias & live).any()),
+                "rows_p": bool((self._needs_rows & sel).any()),
+                "bias_p": bool((self._has_bias & sel).any()),
+                "grammar": bool(((self._gid > 0) & (live | sel)).any()),
+                "has_pen": self._model.pm is not None,
+                "scatter_prompt": (bool(pf["scatter_mask"].any())
+                                   and self._scatters_prompts())}
 
-    def _mixed_staged(self, pf, use_rows_p, n_rounds, live_g, lens, tables,
-                      last, samp, use_rows_d) -> dict:
-        staged = self._prefill_staged(pf, use_rows_p)
-        if n_rounds > 0:
-            staged.update(self._decode_staged(lens, tables, last, live_g,
-                                              samp, use_rows_d))
+    def _mixed_staged(self, pf: dict, flags: dict, rows: _DecodeRows,
+                      spec_lens) -> dict:
+        staged = self._prefill_staged(
+            pf, ragged=True, use_rows=flags["rows_p"],
+            grammar=flags["grammar"], scatter=flags["scatter_prompt"])
+        if flags["n_rounds"] > 0:
+            staged.update(self._decode_staged(
+                rows, spec_lens if flags["limited"] else None,
+                spec=flags["n_drafts"] > 0, use_rows=flags["rows_d"],
+                grammar=flags["grammar"]))
         return staged
 
     def _mixed_dispatch(self) -> None:
@@ -1225,8 +1951,8 @@ class PagedInferenceServer:
         not selected this iteration are not staged at all."""
         demand = sum(int(j.rem_lens[0]) - j.done for j in self._jobs)
         n_live = int(self.active.sum())
-        win = self.window
-        n_rounds = self._mixed_rounds(n_live, demand, win)
+        g0, _ = self._spec_plan(np.flatnonzero(self.active))
+        n_rounds = self._mixed_rounds(n_live, demand, g0 + 1)
         if n_rounds > 0:
             n_eff = self._extend_chains(n_rounds)
             if n_eff <= 0 or not self.active.any():
@@ -1238,6 +1964,9 @@ class PagedInferenceServer:
         live = (self.active if n_rounds > 0
                 else np.zeros((self.max_slots,), bool))
         n_live = int(live.sum())
+        # re-planned: _extend_chains may have preempted a slot
+        g_iter, spec_lens = self._spec_plan(np.flatnonzero(self.active))
+        win = g_iter + 1
         sel = self._select_prefill(self._jobs, n_live, win, n_rounds,
                                    planned=False)
         prof = self._profiler
@@ -1249,28 +1978,24 @@ class PagedInferenceServer:
             scheduler="mixed", n_live=n_live, decode_rounds=n_rounds,
             decode_tokens=n_live * win * n_rounds,
             prefill_tokens=sum(t for _, t, _ in sel))
+        if n_rounds > 0:
+            self._stage_spec_stats(g_iter, n_live)
         pf = self._build_prefill_group(sel)
-        use_rows_p = bool((self._needs_rows & pf["sel_mask"]).any())
-        live_ids, _, live_g, d_lens, d_tables, d_last, samp_d = \
-            self._gather_decode_rows()
+        live_ids, rows = self._gather_decode_rows()
         self._iter_stats.update(
-            decode_rows=int(live_g.shape[0]) if n_rounds else 0,
-            compaction_ratio=(n_live / max(int(live_g.shape[0]), 1)
+            decode_rows=int(rows.live.shape[0]) if n_rounds else 0,
+            compaction_ratio=(n_live / max(int(rows.live.shape[0]), 1)
                               if n_rounds else 1.0))
-        use_rows_d = bool((self._needs_rows & live).any())
-        key, fn = self._mixed_key(pf, n_rounds, len(live_g), use_rows_p,
-                                  use_rows_d)
-        staged = self._mixed_staged(pf, use_rows_p, n_rounds, live_g,
-                                    d_lens, d_tables, d_last, samp_d,
-                                    use_rows_d)
+        flags = self._mixed_flags(pf, live, g_iter, spec_lens, n_rounds)
+        staged = self._mixed_staged(pf, flags, rows, spec_lens)
         if prof is not None:
             prof.mark("build")
-        out = self._launch(key, fn, staged).wait()
+        out = self._launch(_mixed_step, flags, staged).wait()
         if prof is not None:
             prof.mark("device")
         if n_rounds > 0:
-            self._commit_decode_rows(live_ids, out["toks"], out["lps"],
-                                     out["lens"], out["last"])
+            self._commit_decode_out(live_ids, out, flags["n_drafts"],
+                                    spec_lens, n_rounds)
         self._complete_admission_chunks(sel, out["ptoks"], out["plps"])
         if prof is not None:
             prof.mark("commit")
@@ -1288,10 +2013,10 @@ class PagedInferenceServer:
                                planned_active) -> int:
         """Planned-frame chain growth for a launch-ahead dispatch: cover
         each planned-live slot's worst-case window writes from its
-        planned length (committed length + the in-flight rounds). Never
-        preempts or fails a request: on famine it takes the pages there
-        are and bounds the dispatch to the rounds every chain covers (0
-        drops the decode half; the pipeline drains and the next
+        planned length (committed length + the in-flight rounds' upper
+        bound). Never preempts or fails a request: on famine it takes the
+        pages there are and bounds the dispatch to the rounds every chain
+        covers (0 drops the decode half; the pipeline drains and the next
         sequential iteration runs the full escalation)."""
         n_eff = n_rounds
         for sid in range(self.max_slots):
@@ -1317,10 +2042,11 @@ class PagedInferenceServer:
         """Plan, and stage in numpy, the NEXT dispatch against the
         planned frame: the committed ledger plus the in-flight dispatch's
         deterministic effects (job cursors advanced by its takes, slots
-        it completes counted live, lengths at their rounds upper bound).
-        Returns None when there is nothing to dispatch (the pipeline
-        drains). Mutates nothing of the committed ledger beyond
-        job.planned cursors and chain growth."""
+        it completes counted live, lengths at their upper bound of
+        rounds x window: a speculative dispatch commits between 0 and
+        G+1 tokens a row a round). Returns None when there is nothing to
+        dispatch (the pipeline drains). Mutates nothing of the committed
+        ledger beyond job.planned cursors and chain growth."""
         prof = self._profiler
         infl = self._inflight
         planned_active = self.active.copy()
@@ -1344,11 +2070,14 @@ class PagedInferenceServer:
         if not jobs and not planned_active.any():
             return None
         stats: dict = {}
-        win = self.window
         if jobs:
-            # a token-budget mixed iteration (mirrors _mixed_dispatch)
+            # a token-budget mixed iteration (mirrors _mixed_dispatch);
+            # the planner never preempts, so one speculation plan holds
             demand = sum(int(j.rem_lens[0]) - j.planned for j in jobs)
             n_live = int(planned_active.sum())
+            g_iter, spec_lens = self._spec_plan(
+                np.flatnonzero(planned_active))
+            win = g_iter + 1
             n_rounds = self._mixed_rounds(n_live, demand, win,
                                           active=planned_active)
             if n_rounds > 0:
@@ -1376,25 +2105,25 @@ class PagedInferenceServer:
                 scheduler="mixed", n_live=n_live, decode_rounds=n_rounds,
                 decode_tokens=n_live * win * n_rounds,
                 prefill_tokens=sum(t for _, t, _ in sel))
+            if n_rounds > 0:
+                self._stage_spec_stats(g_iter, n_live, st=stats)
             if prof is not None:
                 prof.mark("admission")
             pf = self._build_prefill_group(sel)
-            live_ids, sl_d, live_g, d_lens, d_tables, d_last, samp_d = \
-                self._gather_decode_rows(live)
+            live_ids, rows = self._gather_decode_rows(live)
             stats.update(
-                decode_rows=int(live_g.shape[0]) if n_rounds else 0,
-                compaction_ratio=(n_live / max(int(live_g.shape[0]), 1)
+                decode_rows=int(rows.live.shape[0]) if n_rounds else 0,
+                compaction_ratio=(n_live / max(int(rows.live.shape[0]), 1)
                                   if n_rounds else 1.0))
             if n_rounds == 0:
-                live_g = np.zeros_like(live_g)
+                rows.live = np.zeros_like(rows.live)
             plan = _Plan(
                 kind="mixed", sel=sel, activating=activating,
-                n_rounds=n_rounds, win=win, live_ids=live_ids, sl_d=sl_d,
-                live_g=live_g, d_lens=d_lens, d_tables=d_tables,
-                d_last=d_last, samp_d=samp_d,
+                n_rounds=n_rounds, win=win, g_iter=g_iter,
+                spec_lens=spec_lens, live_ids=live_ids, rows=rows,
                 owners=[self._slots[int(s)] for s in live_ids], pf=pf,
-                use_rows_p=bool((self._needs_rows & pf["sel_mask"]).any()),
-                use_rows_d=bool((self._needs_rows & live).any()),
+                flags=self._mixed_flags(pf, live, g_iter, spec_lens,
+                                        n_rounds),
                 stats=stats)
         else:
             # a pure-decode iteration (mirrors _decode_dispatch)
@@ -1408,22 +2137,23 @@ class PagedInferenceServer:
             n = max(1, n)
             if prof is not None:
                 prof.mark("admission")
-            live_ids, sl_d, live_g, d_lens, d_tables, d_last, samp_d = \
-                self._gather_decode_rows(planned_active)
+            live_ids, rows = self._gather_decode_rows(planned_active)
+            g_iter, spec_lens = self._spec_plan(live_ids)
             stats.update(
                 scheduler=self.scheduler, n_live=len(live_ids),
-                decode_rounds=n, decode_tokens=len(live_ids) * n,
-                decode_rows=int(live_g.shape[0]),
+                decode_rounds=n,
+                decode_tokens=len(live_ids) * (g_iter + 1) * n,
+                decode_rows=int(rows.live.shape[0]),
                 compaction_ratio=(len(live_ids)
-                                  / max(int(live_g.shape[0]), 1)))
+                                  / max(int(rows.live.shape[0]), 1)))
+            self._stage_spec_stats(g_iter, len(live_ids), st=stats)
+            flags = self._decode_flags(planned_active, g_iter, spec_lens, n)
             plan = _Plan(
-                kind="decode", sel=[], activating=[], n_rounds=n, win=win,
-                live_ids=live_ids, sl_d=sl_d, live_g=live_g, d_lens=d_lens,
-                d_tables=d_tables, d_last=d_last, samp_d=samp_d,
+                kind="decode", sel=[], activating=[], n_rounds=n,
+                win=g_iter + 1, g_iter=g_iter, spec_lens=spec_lens,
+                live_ids=live_ids, rows=rows,
                 owners=[self._slots[int(s)] for s in live_ids], pf=None,
-                use_rows_p=False,
-                use_rows_d=bool((self._needs_rows & planned_active).any()),
-                stats=stats)
+                flags=flags, stats=stats)
         if prof is not None:
             prof.mark("build")
         return plan
@@ -1437,44 +2167,37 @@ class PagedInferenceServer:
         prof = self._profiler
         live_ids = plan.live_ids
         nl = len(live_ids)
+        rows = plan.rows
         if nl and plan.n_rounds > 0:
-            if plan.sl_d is None:
+            if rows.sl is None:
                 # rows ARE slots: the ledger is the patch (dead slots
                 # already carry sentinel tables and active=False)
-                plan.live_g = self.active.copy()
-                plan.d_lens = self.lengths
-                plan.d_tables = self.tables
-                plan.d_last = self.last_token
+                rows.live = self.active.copy()
+                rows.lens = self.lengths
+                rows.tables = self.tables
+                rows.last = self.last_token
             else:
                 for i in range(nl):
                     sid = int(live_ids[i])
-                    alive = (self._slots[sid] is plan.owners[i]
-                             and self.active[sid])
-                    plan.live_g[i] = alive
-                    plan.d_lens[i] = self.lengths[sid]
-                    plan.d_last[i] = self.last_token[sid]
-                    plan.d_tables[i] = self.tables[sid]
-            if plan.kind == "decode" and not plan.live_g[:nl].any():
+                    rows.live[i] = (self._slots[sid] is plan.owners[i]
+                                    and self.active[sid])
+                    rows.lens[i] = self.lengths[sid]
+                    rows.last[i] = self.last_token[sid]
+                    rows.tables[i] = self.tables[sid]
+            if plan.kind == "decode" and not rows.live[:nl].any():
                 # every planned row died at the commit: drain instead of
                 # launching an inert program
                 return
         if plan.kind == "mixed":
-            key, fn = self._mixed_key(plan.pf, plan.n_rounds,
-                                      len(plan.live_g), plan.use_rows_p,
-                                      plan.use_rows_d)
-            staged = self._mixed_staged(
-                plan.pf, plan.use_rows_p, plan.n_rounds, plan.live_g,
-                plan.d_lens, plan.d_tables, plan.d_last, plan.samp_d,
-                plan.use_rows_d)
+            prog = self._launch(_mixed_step, plan.flags, self._mixed_staged(
+                plan.pf, plan.flags, rows, plan.spec_lens))
         else:
-            key = ("decode", len(plan.live_g), plan.n_rounds,
-                   plan.use_rows_d)
-            fn = functools.partial(_decode_rounds, n_rounds=plan.n_rounds,
-                                   use_rows=plan.use_rows_d)
-            staged = self._decode_staged(plan.d_lens, plan.d_tables,
-                                         plan.d_last, plan.live_g,
-                                         plan.samp_d, plan.use_rows_d)
-        prog = self._launch(key, fn, staged)
+            f = plan.flags
+            staged = self._decode_staged(rows, plan.spec_lens,
+                                         spec=plan.g_iter > 0,
+                                         use_rows=f["rows"],
+                                         grammar=f["grammar"])
+            prog = self._launch(_decode_rounds, f, staged)
         t = (prof.mark("launch") if prof is not None
              else time.perf_counter())
         self._iter_launch_ts = t
@@ -1482,16 +2205,19 @@ class PagedInferenceServer:
             kind=plan.kind, program=prog, sel=plan.sel,
             activating=plan.activating, live_ids=live_ids,
             owners=plan.owners, n_rounds=plan.n_rounds, win=plan.win,
+            g_iter=plan.g_iter, spec_lens=plan.spec_lens,
             stats=plan.stats, t_launch=t)
 
     def _commit_inflight(self) -> None:
         """Wait on the in-flight dispatch's event and commit it: the
         serialized part of a pipelined step. The ledger writes, emits,
-        activations and deferred reaps run on the synced results,
-        guarded per row by the owners captured at plan time."""
+        speculation feedback, activations and deferred reaps run on the
+        synced results, guarded per row by the owners captured at plan
+        time."""
         infl, self._inflight = self._inflight, None
         t_wait = time.perf_counter()
         out = infl.program.wait()
+        self._release_retired()
         prof = self._profiler
         if prof is not None:
             prof.mark("device")
@@ -1500,17 +2226,26 @@ class PagedInferenceServer:
         st["inflight_depth"] = 1
         # how long the card ran ahead of the host needing its results
         st["overlap_launch_lead_ms"] = (t_wait - infl.t_launch) * 1e3
+        # installed before the commit: its speculation fields belong to
+        # this record
         self._iter_stats = st
         if infl.n_rounds > 0:
-            self._commit_decode_rows(infl.live_ids, out["toks"],
-                                     out["lps"], out["lens"], out["last"],
-                                     owners=infl.owners)
+            self._commit_decode_out(infl.live_ids, out, infl.g_iter,
+                                    infl.spec_lens, infl.n_rounds,
+                                    owners=infl.owners)
         if infl.kind == "mixed":
             self._complete_admission_chunks(infl.sel, out["ptoks"],
                                             out["plps"])
         self._apply_reaps()
         if prof is not None:
             prof.mark("commit")
+
+    def _release_retired(self) -> None:
+        """After a wait: every program launched before it has run."""
+        for held in self._retired:
+            if isinstance(held, graphs.Program):
+                held.release()
+        self._retired.clear()
 
     def _overlap_sweep(self) -> None:
         """Sweep for a pipelined step: cancelled or deadline-expired slot
@@ -1860,6 +2595,7 @@ class PagedInferenceServer:
             self._inflight = None
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
+            self._release_retired()
             self._programs.release()
 
     # -- observability ------------------------------------------------------
@@ -1880,6 +2616,12 @@ class PagedInferenceServer:
         reg.counter("tokens_emitted_total",
                     "Lifetime generated tokens").set_total(
                         self.tokens_emitted)
+        reg.counter("decode_rounds_total",
+                    "Lifetime decode dispatch rounds").set_total(
+                        self.decode_rounds)
+        reg.counter("decode_tokens_committed_total",
+                    "Lifetime tokens committed by decode rounds"
+                    ).set_total(self.decode_tokens_committed)
         reg.counter("preemptions_total",
                     "Lifetime on-demand-paging preemptions").set_total(
                         self.preemptions)
@@ -1891,6 +2633,20 @@ class PagedInferenceServer:
         reg.gauge("last_busy_ts",
                   "Unix time of the last busy iteration (0 until the "
                   "first)").set(self.last_busy_ts)
+        reg.counter("spec_tokens_drafted_total",
+                    "Draft tokens proposed on committing rows' behalf"
+                    ).set_total(self.spec_tokens_drafted)
+        reg.counter("spec_tokens_accepted_total",
+                    "Draft tokens accepted and committed"
+                    ).set_total(self.spec_tokens_accepted)
+        rate = (self.spec_control.accept_rate()
+                if self.spec_control is not None else
+                self.spec_tokens_accepted
+                / max(self.spec_tokens_drafted, 1))
+        reg.gauge("spec_accept_rate",
+                  "Rolling speculative accept rate (accepted/drafted "
+                  "per committed round; lifetime ratio without the "
+                  "adaptive controller)").set(rate)
         stats = self.allocator.stats()
         reg.gauge("pages_total",
                   "KV page pool size").set(stats.pages_total)
@@ -1932,6 +2688,27 @@ class PagedInferenceServer:
         count/mean/p50/p99 ms and the aggregate host-gap fraction, from
         the per-phase histograms. None with profiling disabled."""
         return profile_summary(self.metrics_snapshot())
+
+    def speculation_stats(self) -> dict:
+        """The /stats `speculation` summary, the reference's fields."""
+        out = {
+            "enabled": self.spec_drafts > 0,
+            "source": ("off" if self.spec_drafts <= 0 else
+                       "draft_model" if self.draft_cfg is not None
+                       else "ngram"),
+            "max_drafts": self.spec_drafts,
+            "adaptive": self.spec_control is not None,
+            "tokens_drafted": self.spec_tokens_drafted,
+            "tokens_accepted": self.spec_tokens_accepted,
+            "accept_rate": (self.spec_tokens_accepted
+                            / max(self.spec_tokens_drafted, 1)),
+        }
+        if self.spec_control is not None:
+            out["rolling_accept_rate"] = self.spec_control.accept_rate()
+            out["draft_lens"] = {
+                str(k): v
+                for k, v in self.spec_control.draft_lengths().items()}
+        return out
 
     def overlap_stats(self) -> dict:
         """The /stats `overlap` block: the knob's resolved state and the

@@ -3,9 +3,11 @@
 Two tiers share one filter chain, as in the reference:
 
   * Server-global (`InferConfig` scalars): `sample_logits`, drawing from
-    one threefry key per call.
+    one threefry key per call; `sampling_probs` / `sample_from_probs`,
+    the same distribution as probabilities (speculation's accept rule).
   * Per-request (`SamplingParams` -> `SamplingRows`, one value per
-    slot): `filtered_logits_rows` / `sample_logits_rows`.
+    slot): `filtered_logits_rows` / `sample_logits_rows`, and
+    `sampling_probs_rows`.
 
 Random draws. The per-request path draws exactly as the reference's
 `jax.vmap(jax.random.categorical)(keys, filtered)` does: row i's key is
@@ -75,9 +77,23 @@ def sample_logits(logits: torch.Tensor, key: torch.Tensor,
     threefry key on the logits' device (`utils/prng.py`)."""
     if cfg.temperature <= 0.0:
         return torch.argmax(logits, dim=-1)
-    filt = _filtered_logits(logits, cfg)
-    return torch.argmax(filt + prng.gumbel_low(key, tuple(filt.shape)),
-                        dim=-1)
+    return prng.categorical(key, _filtered_logits(logits, cfg))
+
+
+def sampling_probs(logits: torch.Tensor, cfg: InferConfig) -> torch.Tensor:
+    """The distribution `sample_logits` draws from: (..., V) f32
+    probabilities after temperature / top-k / top-p (one-hot argmax for
+    greedy). Speculation's accept rule measures acceptance against it."""
+    if cfg.temperature <= 0.0:
+        return torch.nn.functional.one_hot(
+            torch.argmax(logits, dim=-1), logits.shape[-1]).float()
+    return torch.softmax(_filtered_logits(logits, cfg), dim=-1)
+
+
+def sample_from_probs(probs: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+    """Categorical draw from (..., V) probabilities with one key ->
+    (...,) int64, as the reference's over log(max(p, 1e-30))."""
+    return prng.categorical(key, torch.log(torch.clamp(probs, min=1e-30)))
 
 
 # ---------------------------------------------------------------------------
@@ -302,7 +318,24 @@ def sample_logits_rows(logits, rows: SamplingRows, positions, *,
         positions=positions, eos_id=eos_id, use_bias=use_bias,
         allowed_mask=allowed_mask)
     keys = prng.fold_in(prng.key(rows.seed), positions)
-    sampled = torch.argmax(filt + prng.gumbel_low(keys, filt.shape[-1]),
-                           dim=-1)
+    sampled = prng.categorical(keys, filt)
     greedy = torch.argmax(raw, dim=-1)
     return torch.where(rows.temperature <= 0.0, greedy, sampled)
+
+
+def sampling_probs_rows(logits, rows: SamplingRows, *, prompt_mask=None,
+                        out_counts=None, positions=None, eos_id: int = -1,
+                        use_bias: bool = True, allowed_mask=None):
+    """The per-row distribution `sample_logits_rows` draws from, over
+    (B, ..., V) logits (a verify window passes cumulative `out_counts`
+    and per-position `positions`, so penalties and min_tokens stay exact
+    position by position)."""
+    filt, raw = filtered_logits_rows(
+        logits, rows, prompt_mask=prompt_mask, out_counts=out_counts,
+        positions=positions, eos_id=eos_id, use_bias=use_bias,
+        allowed_mask=allowed_mask)
+    probs = torch.softmax(filt, dim=-1)
+    onehot = torch.nn.functional.one_hot(
+        torch.argmax(raw, dim=-1), logits.shape[-1]).to(probs.dtype)
+    return torch.where(_expand(rows.temperature <= 0.0, probs), onehot,
+                       probs)

@@ -37,8 +37,11 @@ kernel (the reference's `_paged_attention_kernel`: W <= 32 and B <= 16)
 and `launches_wide` the wide one (`_paged_attention_wide_kernel`:
 everything else, and a narrow-class call whose W * G rows exceed
 NARROW_MAX_ROWS), `launches_narrow_int8` / `launches_wide_int8` the
-same kernels on the int8 cache. `plain_calls` counts calls of the plain
-version. A call made while a CUDA graph captures launches nothing: the
+same kernels on the int8 cache. Three counters break the bf16 launches
+down further: `launches_narrow_verify` (narrow launches of speculation's
+verify windows, the calls made with `verify=True`), `launches_narrow_d64`
+and `launches_wide_d64` (head dim 64, a Llama-3.2-1B draft model's).
+`plain_calls` counts calls of the plain version. A call made while a CUDA graph captures launches nothing: the
 capture takes its counts back and each replay adds them
 (`add_counts`, inference/graphs.py).
 """
@@ -61,22 +64,23 @@ launches_narrow = 0
 launches_wide = 0
 launches_narrow_int8 = 0
 launches_wide_int8 = 0
+launches_narrow_verify = 0
+launches_narrow_d64 = 0
+launches_wide_d64 = 0
 plain_calls = 0
+
+_COUNTERS = ("launches_narrow", "launches_wide", "launches_narrow_int8",
+             "launches_wide_int8", "launches_narrow_verify",
+             "launches_narrow_d64", "launches_wide_d64", "plain_calls")
 
 
 def reset_counters() -> None:
-    global launches_narrow, launches_wide, plain_calls
-    global launches_narrow_int8, launches_wide_int8
-    launches_narrow = launches_wide = plain_calls = 0
-    launches_narrow_int8 = launches_wide_int8 = 0
+    for name in _COUNTERS:
+        globals()[name] = 0
 
 
 def counters() -> dict:
-    return {"launches_narrow": launches_narrow,
-            "launches_wide": launches_wide,
-            "launches_narrow_int8": launches_narrow_int8,
-            "launches_wide_int8": launches_wide_int8,
-            "plain_calls": plain_calls}
+    return {name: globals()[name] for name in _COUNTERS}
 
 
 def add_counts(delta: dict) -> None:
@@ -213,7 +217,7 @@ def _int32_on(x: torch.Tensor, device) -> torch.Tensor:
 
 def paged_attention(q, k_pool, v_pool, lengths, tables, layer=0, *,
                     scale=None, pages_per_block=None, widths=None,
-                    k_scale_pool=None, v_scale_pool=None):
+                    k_scale_pool=None, v_scale_pool=None, verify=False):
     """Uniform- or ragged-window attention against a paged KV cache.
 
     Args:
@@ -233,6 +237,8 @@ def paged_attention(q, k_pool, v_pool, lengths, tables, layer=0, *,
         kernels tile kv by 64 positions whatever the page size.
       k_scale_pool, v_scale_pool: (L, P, KH, ps) f32 scales of int8
         pools, given together or not at all.
+      verify: the windows are speculation's verify windows; only the
+        launch counters read it.
 
     Returns (B, W, H, Dh) in q.dtype. On a CPU tensor this is the plain
     version; on a CUDA tensor one kernel launches (the narrow one for the
@@ -240,6 +246,7 @@ def paged_attention(q, k_pool, v_pool, lengths, tables, layer=0, *,
     """
     global launches_narrow, launches_wide
     global launches_narrow_int8, launches_wide_int8
+    global launches_narrow_verify, launches_narrow_d64, launches_wide_d64
     if q.device.type == "cpu":
         return paged_attention_ref(
             q, k_pool, v_pool, lengths, tables, layer, scale=scale,
@@ -324,6 +331,9 @@ def paged_attention(q, k_pool, v_pool, lengths, tables, layer=0, *,
         launches_wide_int8 += 1
     elif narrow:
         launches_narrow += 1
+        launches_narrow_verify += bool(verify)
+        launches_narrow_d64 += d == 64
     else:
         launches_wide += 1
+        launches_wide_d64 += d == 64
     return out

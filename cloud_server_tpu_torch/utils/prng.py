@@ -16,12 +16,16 @@ whatever device its inputs are on:
                         threefry2x32(k, (i >> 32, i & 0xFFFFFFFF)), so a
                         (R, V) draw's row r is the flat run
                         [r * V, (r + 1) * V) whatever R is;
+  * `uniform(k, shape)` — jax.random.uniform(k, shape) in float32:
+                        [0, 1) from the 23 high bits of each word;
   * `gumbel_low(k, shape)` — jax.random.gumbel(k, shape) in float32 (its
                         default "low" mode): uniforms in [tiny, 1) from
-                        the 23 high bits, then -log(-log(u)).
-
-`jax.random.categorical(k, logits)` over (..., V) logits is
-argmax(logits + gumbel_low(k, logits.shape)).
+                        the 23 high bits, then -log(-log(u));
+  * `categorical(k, logits)` — jax.random.categorical(k, logits) over
+                        (..., V) logits: argmax(logits +
+                        gumbel_low(k, logits.shape)) with one key for the
+                        whole draw, or one key per row when `k` carries
+                        the logits' batch shape.
 
 `threefry2x32` also takes plain Python ints, which is how a host keeps a
 key without a tensor op per split.
@@ -66,7 +70,12 @@ def key(seed) -> torch.Tensor:
 
 
 def fold_in(k: torch.Tensor, n) -> torch.Tensor:
-    """jax.random.fold_in(k, n) for n in [0, 2**32)."""
+    """jax.random.fold_in(k, n) for n in [0, 2**32): a tensor, or a
+    Python int (kept on the host: no copy to the device, which a CUDA
+    graph capture refuses)."""
+    if isinstance(n, int):
+        y0, y1 = threefry2x32(k[..., 0], k[..., 1], 0, n & _MASK)
+        return torch.stack([y0, y1], dim=-1)
     n = torch.as_tensor(n, device=k.device).long() & _MASK
     y0, y1 = threefry2x32(k[..., 0], k[..., 1], torch.zeros_like(n), n)
     return torch.stack([y0, y1], dim=-1)
@@ -92,10 +101,25 @@ def bits(k: torch.Tensor, shape) -> torch.Tensor:
     return y0 ^ y1
 
 
+def uniform(k: torch.Tensor, shape) -> torch.Tensor:
+    """(*k.shape[:-1], *shape) float32 draws of jax.random.uniform(k,
+    shape) in [0, 1)."""
+    mant = (bits(k, shape) >> 9) | 0x3F800000
+    return mant.to(torch.int32).view(torch.float32) - 1.0
+
+
 def gumbel_low(k: torch.Tensor, shape) -> torch.Tensor:
     """(*k.shape[:-1], *shape) float32 draws of jax.random.gumbel(k,
     shape)."""
-    mant = (bits(k, shape) >> 9) | 0x3F800000
-    u = mant.to(torch.int32).view(torch.float32) - 1.0
+    u = uniform(k, shape)
     u = torch.clamp(u * (1.0 - _TINY) + _TINY, min=_TINY)
     return -torch.log(-torch.log(u))
+
+
+def categorical(k: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """jax.random.categorical(k, logits) over the last axis -> int64.
+    A (2,) key draws the whole (..., V) block as jax does with one key;
+    a (B, 2) key draws row b of (B, V) logits with key b, as
+    `jax.vmap(jax.random.categorical)` does."""
+    shape = tuple(logits.shape) if k.dim() == 1 else logits.shape[-1]
+    return torch.argmax(logits + gumbel_low(k, shape), dim=-1)

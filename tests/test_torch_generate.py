@@ -170,3 +170,124 @@ def test_cli_needs_a_gpu_or_device_cpu(files):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         generate.main(["--config", files[0], *ARGS])
+
+
+@pytest.fixture(scope="module")
+def draft_config(tmp_path_factory):
+    d = tmp_path_factory.mktemp("draft")
+    path = d / "draft.json"
+    path.write_text(json.dumps({"model": {
+        **MODEL, "embed_dim": 16, "num_layers": 1, "num_heads": 2,
+        "num_kv_heads": 2, "mlp_dim": 32,
+        # the reference's batch API runs the contiguous engine, which
+        # has no kernel path
+        "decode_attention_impl": "xla"}}))
+    return str(path)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--spec-drafts", "2"],
+    ["--spec-drafts", "3", "--spec-control", "off", "--scheduler",
+     "alternating"],
+    ["--draft-config", "DRAFT", "--num-draft", "2"],
+    ["--top-k", "5", "--top-p", "0.9", "--temperature", "0.7"],
+    ["--mixed-token-budget", "24", "--add-bos"]],
+    ids=["spec_ngram", "spec_fixed_alternating", "draft_model",
+         "top_k_top_p", "budget_bos"])
+def test_new_flags_print_the_reference_text(files, draft_config, capsys,
+                                            flags, monkeypatch):
+    """The speculation, sampling, budget and BOS flags reach the server:
+    the same text as the reference's CLI given the same flags (with a
+    draft model the reference's batch mode runs its speculative batch
+    API and the port its in-server speculation: greedy, the same
+    tokens). Both draft models are the reference's init from --seed + 1,
+    the port's crossed as numpy arrays."""
+    cfg_path, npz = files
+    flags = [draft_config if a == "DRAFT" else a for a in flags]
+    ref_generate.main(["--config", cfg_path, "--decode-impl", "xla",
+                       *ARGS, *flags])
+    want = capsys.readouterr().out
+    seen = {}
+    from cloud_server_tpu_torch.inference import paged_server
+
+    class Spy(paged_server.PagedInferenceServer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            seen.update(spec=self.spec_drafts, budget=self.mixed_token_budget,
+                        adaptive=self.spec_control is not None,
+                        draft=self.draft_cfg is not None,
+                        top=(self.infer_cfg.top_k, self.infer_cfg.top_p))
+
+    if "--draft-config" in flags:
+        # the draft's random init: the reference's, as the port's weights
+        def load(cfg, ckpt, step, seed, device):
+            from cloud_server_tpu_torch.models.transformer import (
+                params_from_numpy)
+            ref = ref_tf.init_params(ModelConfig(**{
+                k: getattr(cfg, k) for k in MODEL}), jax.random.key(seed))
+            return params_from_numpy(jax.tree.map(np.asarray, ref), cfg,
+                                     device=device)
+        monkeypatch.setattr(generate, "load_params", load)
+    monkeypatch.setattr(paged_server, "PagedInferenceServer", Spy)
+    generate.main(["--config", cfg_path, "--params-npz", npz,
+                   "--device", "cpu", *ARGS, *flags])
+    assert capsys.readouterr().out == want
+    assert seen["spec"] == (2 if "--num-draft" in flags else
+                            int(flags[1]) if flags[0] == "--spec-drafts"
+                            else 0)
+    assert seen["draft"] == ("--draft-config" in flags)
+    assert seen["adaptive"] == (seen["spec"] > 0 and "off" not in flags)
+    if "--mixed-token-budget" in flags:
+        assert seen["budget"] == 24
+    if "--top-k" in flags:
+        assert seen["top"] == (5, 0.9)
+
+
+@pytest.mark.parametrize("extra,message", [
+    (["--spec-drafts", "2", "--contiguous"], "cannot run with --contiguous"),
+    (["--spec-drafts", "2", "--ngram-draft"], "mutually exclusive"),
+])
+def test_spec_flag_refusals_match_the_reference(files, extra, message):
+    """The reference's SystemExits for --spec-drafts with --contiguous
+    or with --ngram-draft, word for word."""
+    cfg_path, npz = files
+    with pytest.raises(SystemExit, match=message) as want:
+        ref_generate.main(["--config", cfg_path, *ARGS, *extra])
+    with pytest.raises(SystemExit, match=message) as got:
+        generate.main(["--config", cfg_path, "--params-npz", npz,
+                       "--device", "cpu", *ARGS, *extra])
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("flag", ["--contiguous", "--ngram-draft"])
+def test_unported_paths_raise(files, flag):
+    cfg_path, npz = files
+    with pytest.raises(NotImplementedError, match="not ported"):
+        generate.main(["--config", cfg_path, "--params-npz", npz,
+                       "--device", "cpu", *ARGS, flag])
+
+
+def test_draft_config_is_llama_3_2_1b():
+    """The draft config maps Llama-3.2-1B's published config.json onto
+    ModelConfig, and speculation compares its vocabulary with the
+    Llama-3.1-8B target's element for element."""
+    from cloud_server_tpu_torch.config import ModelConfig as TModelConfig
+    from cloud_server_tpu_torch.config import from_json
+    from pathlib import Path
+    root = Path(__file__).resolve().parent.parent / "cloud_server_tpu_torch"
+    root = str(root / "configs") + "/"
+    with open(root + "llama3_2_1b_draft.json") as f:
+        raw = json.load(f)
+    assert "Llama-3.2-1B" in raw["_source"] and len(raw["_source"]) <= 200
+    cfg = from_json(TModelConfig, raw["model"])
+    with open(root + "llama3_1_8b.json") as f:
+        target = from_json(TModelConfig, json.load(f)["model"])
+    assert (cfg.vocab_size, cfg.embed_dim, cfg.num_layers, cfg.num_heads,
+            cfg.num_kv_heads, cfg.head_dim, cfg.mlp_dim) == (
+        128256, 2048, 16, 32, 8, 64, 8192)
+    assert (cfg.rope_theta, cfg.rope_scaling, cfg.rope_scaling_factor,
+            cfg.rope_low_freq_factor, cfg.rope_high_freq_factor,
+            cfg.rope_original_max_len) == (500000.0, "llama3", 32.0, 1.0,
+                                           4.0, 8192)
+    assert cfg.tie_embeddings and cfg.dtype == "bfloat16"
+    assert cfg.vocab_size == target.vocab_size

@@ -6,8 +6,10 @@ numpy arrays) and the byte tokenizer: the same requests give the same
 answers (/generate NDJSON, /v1/completions with n, logprobs, stop and SSE
 streaming, /v1/chat/completions plain and streamed, /v1/models), the
 same errors (400, 404, 429) and the same serving-metric counts. Requests
-for what the port does not have yet answer 501 naming the feature. The
-int8 KV cache serves over HTTP, and `generate --serve-http` runs it.
+for what the port does not have yet answer 501 naming the feature;
+penalties, logit_bias, min_tokens, regex and response_format answer as
+the reference's, through n-gram speculation. The int8 KV cache serves
+over HTTP, and `generate --serve-http` runs it.
 Every fixture stops its servers and frontends in a `finally`, and every
 request has a timeout, so a hang fails a test instead of stalling the
 suite."""
@@ -72,16 +74,17 @@ class _Pair:
     stops everything that was started."""
 
     def __init__(self, weights, cfg=CFG, icfg=GREEDY, start=True,
-                 front_kw=None, **kw):
+                 front_kw=None, ref_kw=None, port_kw=None, **kw):
         self.started = []
         try:
             kw = {**SRV_KW, **kw}
             self.ref_srv = RefServer(weights[0], cfg, icfg, overlap=False,
-                                     **kw)
+                                     **kw, **(ref_kw or {}))
             self.started.append(self.ref_srv)
             self.port_srv = PagedInferenceServer(
                 weights[1], _tcfg(cfg),
-                TInferConfig(**dataclasses.asdict(icfg)), device="cpu", **kw)
+                TInferConfig(**dataclasses.asdict(icfg)), device="cpu", **kw,
+                **(port_kw or {}))
             self.started.append(self.port_srv)
             if start:
                 self.ref_srv.start()
@@ -386,12 +389,13 @@ def test_metrics_counts_match_reference(weights):
                      "cloud_server_queue_wait_seconds"):
             assert stats["latency"][name]["count"] == \
                 ref_stats["latency"][name]["count"]
-        # the flight recorder, the overlap block and the iteration
-        # profile answer as the reference's do; what the port lacks
-        # (the cache, speculation, fault blocks) stays absent
+        # the flight recorder, the overlap block, the iteration profile
+        # and the speculation summary answer as the reference's do; what
+        # the port lacks (the cache, fault blocks) stays absent
         assert {"active", "pending", "latency", "counters", "gauges",
-                "flight_recorder", "overlap", "iteration_profile"} \
-            == set(stats) - {"cache"}
+                "flight_recorder", "overlap", "iteration_profile",
+                "speculation"} == set(stats) - {"cache"}
+        assert stats["speculation"] == ref_stats["speculation"]
         assert set(stats) <= set(ref_stats)
         assert stats["overlap"] == {"enabled": True, "active": True,
                                     "inflight_depth": 0}
@@ -413,32 +417,6 @@ def test_metrics_counts_match_reference(weights):
 # --------------------------------------------------------------------------
 
 UNPORTED = [
-    ("/generate", {"tokens": [5, 9, 3], "presence_penalty": 0.5},
-     "penalties"),
-    ("/generate", {"tokens": [5, 9, 3], "logit_bias": {"42": 3.0}},
-     "logit_bias"),
-    ("/generate", {"tokens": [5, 9, 3], "min_tokens": 2}, "min_tokens"),
-    ("/generate", {"tokens": [5, 9, 3], "regex": "[ab]+"}, "regex"),
-    ("/v1/completions", {"prompt": "ab", "frequency_penalty": 0.3},
-     "penalties"),
-    ("/v1/completions", {"prompt": "ab", "repetition_penalty": 1.2,
-                         "stream": True}, "penalties"),
-    ("/v1/completions", {"prompt": "ab", "logit_bias": {"7": 1.0},
-                         "n": 2}, "logit_bias"),
-    ("/v1/completions", {"prompt": "ab",
-                         "response_format": {"type": "json_object"}},
-     "response_format"),
-    ("/v1/chat/completions", {"messages": [{"role": "user",
-                                            "content": "hi"}],
-                              "response_format": {
-                                  "type": "json_schema",
-                                  "json_schema": {"schema": {
-                                      "type": "object"}}}},
-     "response_format"),
-    ("/v1/chat/completions", {"messages": [{"role": "user",
-                                            "content": "hi"}],
-                              "min_tokens": 1, "stream": True},
-     "min_tokens"),
     ("/v1/embeddings", {"input": "ab"}, "embed"),
     ("/debug/trace", {"steps": 1, "logdir": "unused"}, "trace capture"),
 ]
@@ -459,6 +437,107 @@ def test_unported_options_answer_501(pair, path, body, feature):
     ok = _json(pair.port, "/generate", {"tokens": [1, 2],
                                         "max_new_tokens": 2})
     assert len(ok["tokens"]) == 2
+
+
+# --------------------------------------------------------------------------
+# penalties, logit_bias, min_tokens, regex and response_format
+# --------------------------------------------------------------------------
+
+CHAT = [{"role": "user", "content": "hi"}]
+DECODING = [
+    ("/generate", {"tokens": [5, 9, 3], "presence_penalty": 0.5}),
+    ("/generate", {"tokens": [5, 9, 3], "logit_bias": {"42": 3.0}}),
+    ("/generate", {"tokens": [5, 9, 3], "min_tokens": 4}),
+    ("/generate", {"tokens": [5, 9, 3], "regex": "[ab]+"}),
+    ("/v1/completions", {"prompt": "ab", "frequency_penalty": 0.3}),
+    ("/v1/completions", {"prompt": "ab", "repetition_penalty": 1.2,
+                         "stream": True}),
+    ("/v1/completions", {"prompt": "ab", "logit_bias": {"7": 1.0},
+                         "n": 2}),
+    ("/v1/completions", {"prompt": "ab",
+                         "response_format": {"type": "json_object"}}),
+    ("/v1/chat/completions", {"messages": CHAT, "response_format": {
+        "type": "json_schema", "json_schema": {"schema": {
+            "type": "object", "properties": {"a": {"type": "integer"}},
+            "required": ["a"]}}}}),
+    ("/v1/chat/completions", {"messages": CHAT, "min_tokens": 1,
+                              "stream": True}),
+]
+DECODING_IDS = ["generate-penalties", "generate-logit_bias",
+                "generate-min_tokens", "generate-regex",
+                "completions-penalties", "completions-penalties_stream",
+                "completions-logit_bias_n", "completions-json_object",
+                "chat-json_schema", "chat-min_tokens_stream"]
+
+
+@pytest.fixture(scope="module")
+def decoding_pair(weights):
+    """Both servers with the byte tokenizer (regex compiles against it)
+    and its EOS (a grammar ends on EOS at an accepting state), n-gram
+    speculation on."""
+    tok = ByteTokenizer()
+    icfg = dataclasses.replace(GREEDY, eos_token_id=tok.eos_id,
+                               max_decode_len=12)
+    p = _Pair(weights, icfg=icfg, spec_drafts=2, max_slots=4,
+              max_context=128, ref_kw={"tokenizer": get_tokenizer("byte")},
+              port_kw={"tokenizer": tok})
+    try:
+        yield p
+    finally:
+        p.close()
+
+
+def _text_of(path, lines):
+    if path == "/generate":
+        return json.loads(lines[-1])["tokens"]
+    if lines[-1] == "data: [DONE]":
+        return [e["choices"][0].get("text", e["choices"][0].get(
+            "delta", {}).get("content", "")) for e in _sse(lines)]
+    out = json.loads(lines[0])
+    return [c.get("text", c.get("message")) for c in out["choices"]]
+
+
+@pytest.mark.parametrize("path,body", DECODING, ids=DECODING_IDS)
+def test_decoding_options_answer_like_the_reference(decoding_pair, path,
+                                                    body):
+    """What answered 501 before (penalties, logit_bias, min_tokens,
+    regex, response_format json_object and json_schema) now answers 200
+    with the reference server's tokens and text, through n-gram
+    speculation."""
+    (rs, _, rl), (ps, _, pl) = _both(decoding_pair, path,
+                                     {**body, "max_tokens": 12,
+                                      "max_new_tokens": 12})
+    assert rs == ps == 200, (rl, pl)
+    assert _text_of(path, pl) == _text_of(path, rl)
+
+
+def test_json_object_output_is_json(decoding_pair):
+    """A finished json_object completion parses as a JSON object."""
+    out = _json(decoding_pair.port, "/v1/completions", {
+        "prompt": "{", "max_tokens": 64,
+        "response_format": {"type": "json_object"}})
+    choice = out["choices"][0]
+    if choice["finish_reason"] == "stop":
+        assert isinstance(json.loads(choice["text"]), dict)
+    else:
+        assert choice["text"].startswith("{")
+
+
+def test_stats_carry_speculation(decoding_pair):
+    _json(decoding_pair.port, "/generate", {"tokens": [3, 4, 5, 3, 4, 5,
+                                                       3, 4],
+                                            "max_new_tokens": 8})
+    _json(decoding_pair.ref, "/generate", {"tokens": [3, 4, 5, 3, 4, 5,
+                                                      3, 4],
+                                           "max_new_tokens": 8})
+    spec = _json(decoding_pair.port, "/stats")["speculation"]
+    want = _json(decoding_pair.ref, "/stats")["speculation"]
+    assert spec["source"] == "ngram" and spec["max_drafts"] == 2
+    assert spec["tokens_drafted"] > 0
+    assert set(spec) == set(want)
+    metrics = _request(decoding_pair.port, "/metrics")[2]
+    assert any(ln.startswith("cloud_server_spec_tokens_drafted_total")
+               for ln in metrics)
 
 
 # --------------------------------------------------------------------------

@@ -83,14 +83,18 @@ def _check_paged(got, want, w, lens, wid):
                  / ref_abs.square().mean().sqrt()) <= 1e-2
 
 
-def _launched_class(b, w, int8):
-    """The counter the call must have moved, and the others at 0."""
+def _launched_class(b, w, int8, d=128):
+    """The counters the call must have moved (its class, and the bf16
+    breakdowns by verify window and head dim; the calls below flag every
+    window wider than 1 as a verify), and the others at 0."""
     narrow = pa.uses_narrow_kernel(b, w, 32 // 8)
-    want = {"launches_narrow": 0, "launches_wide": 0,
-            "launches_narrow_int8": 0, "launches_wide_int8": 0,
-            "plain_calls": 0}
+    want = dict.fromkeys(pa.counters(), 0)
     want[("launches_narrow" if narrow else "launches_wide")
          + ("_int8" if int8 else "")] = 1
+    if not int8:
+        want["launches_narrow_verify"] = int(narrow and w > 1)
+        want["launches_narrow_d64"] = int(narrow and d == 64)
+        want["launches_wide_d64"] = int(not narrow and d == 64)
     return want
 
 
@@ -111,9 +115,10 @@ def test_cuda_kernel_matches_plain(b, w, lengths, widths, d, ps, mp):
                        for x in case[3:])
     wid_arg = None if widths is None else wid
     pa.reset_counters()
-    got = pa.paged_attention(q, kp, vp, lens, tabs, 1, widths=wid_arg)
+    got = pa.paged_attention(q, kp, vp, lens, tabs, 1, widths=wid_arg,
+                             verify=w > 1)
     torch.cuda.synchronize()
-    assert pa.counters() == _launched_class(b, w, False)
+    assert pa.counters() == _launched_class(b, w, False, d)
     want = pa.paged_attention_ref(q, kp, vp, lens, tabs, 1, widths=wid)
     _check_paged(got, want, w, lens, wid)
 
@@ -665,8 +670,8 @@ def test_graphed_server_matches_graphs_off(kv, temperature, top_p,
                             scheduler=scheduler, overlap=overlap)
         pa.reset_counters()
         toks = _staggered_graph_run(srv, per_request=per_request)
-        per_row = any(x is True for key in srv._programs._programs
-                      for x in key)
+        per_row = any(dict(key[2]).get(f) for key in srv._programs.keys()
+                      for f in ("rows", "rows_p", "rows_d"))
         counts = pa.counters()
         warm = {k: sum(p.replay_counts.get(k, 0)
                        for p in srv._programs._programs.values())
@@ -684,6 +689,57 @@ def test_graphed_server_matches_graphs_off(kv, temperature, top_p,
     for name in ("launches_narrow" + sfx, "launches_wide" + sfx):
         assert c_eager[name] > 0
         assert c_graph[name] == c_eager[name] + warm[name]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("draft,per_request,scheduler,overlap", [
+    (False, False, "mixed", True), (True, False, "mixed", True),
+    (False, True, "mixed", True), (True, True, "alternating", False)],
+    ids=["ngram", "draft", "ngram_seeded_penalties",
+         "alternating_draft_seeded_penalties"])
+def test_graphed_spec_server_matches_graphs_off(draft, per_request,
+                                                scheduler, overlap):
+    """Speculation (2 drafts a round, n-gram or a 1-layer draft model at
+    head dim 64 on its own pools) through captured graphs and through
+    eager launches gives the same tokens, greedy and per-request seeded
+    with penalties and a logit_bias (the per-slot state a capture's
+    warm-up must leave as it found it); the verify windows run on the
+    narrow kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cloud_server_tpu_torch.config import ModelConfig
+    from cloud_server_tpu_torch.inference.sampling import SamplingParams
+    from cloud_server_tpu_torch.models import transformer
+    kw = dict(spec_drafts=2, spec_control=False, scheduler=scheduler,
+              overlap=overlap)
+    if draft:
+        dcfg = ModelConfig(vocab_size=512, embed_dim=128, num_layers=1,
+                           num_heads=2, num_kv_heads=2, head_dim=64,
+                           mlp_dim=256, max_seq_len=512, dtype="bfloat16",
+                           param_dtype="bfloat16", remat="none",
+                           decode_attention_impl="pallas")
+        kw.update(draft_cfg=dcfg,
+                  draft_params=transformer.init_params(dcfg, 1,
+                                                       device="cuda"))
+    runs = {}
+    for graphed in (False, True):
+        srv = _graph_server(graphed, **kw)
+        pa.reset_counters()
+        reqs = [srv.submit(p, max_new_tokens=12, sampling=(
+            SamplingParams(seed=200 + i, temperature=0.8, top_p=0.9,
+                           frequency_penalty=0.5, presence_penalty=0.3,
+                           logit_bias=((5, 2.0),))
+            if per_request else None))
+            for i, p in enumerate(GRAPH_PROMPTS)]
+        srv.run_until_idle()
+        torch.cuda.synchronize()
+        runs[graphed] = ([r.result() for r in reqs], pa.counters())
+        srv.stop()
+    assert runs[True][0] == runs[False][0]
+    assert all(len(t) == 12 for t in runs[True][0])
+    for _, counts in runs.values():
+        assert counts["launches_narrow_verify"] > 0
+        assert counts["plain_calls"] == 0
 
 
 @pytest.mark.gpu
@@ -721,7 +777,7 @@ def test_graph_replays_add_to_counters():
     srv.step()  # the decode program is captured by now
     torch.cuda.synchronize()
     decode = [p for k, p in srv._programs._programs.items()
-              if k[0] == "decode"]
+              if k[0] == "_decode_rounds"]
     assert decode and decode[0].graph is not None
     per = decode[0].replay_counts
     assert per["launches_narrow"] > 0 and per["plain_calls"] == 0

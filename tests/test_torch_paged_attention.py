@@ -138,7 +138,10 @@ def test_counters_and_shape_class():
     _port(case, 0)
     assert pa.counters() == {"launches_narrow": 0, "launches_wide": 0,
                              "launches_narrow_int8": 0,
-                             "launches_wide_int8": 0, "plain_calls": 1}
+                             "launches_wide_int8": 0,
+                             "launches_narrow_verify": 0,
+                             "launches_narrow_d64": 0,
+                             "launches_wide_d64": 0, "plain_calls": 1}
     assert pa.is_narrow(16, 32) and not pa.is_narrow(17, 1)
     assert not pa.is_narrow(2, 33)
 

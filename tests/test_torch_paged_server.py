@@ -161,7 +161,7 @@ def test_seeded_requests_token_exact_against_reference(weights):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(brownout={}), dict(spec_drafts=2), dict(qos={}),
+    dict(brownout={}), dict(slo={}), dict(qos={}),
     dict(tracing=0.5), dict(allocation="reserve")])
 def test_unported_features_raise(weights, kw):
     _, params = weights
@@ -169,14 +169,14 @@ def test_unported_features_raise(weights, kw):
         _port_server(params, **SRV_KW, **kw)
 
 
-@pytest.mark.parametrize("sampling", [
-    SamplingParams(presence_penalty=0.5), SamplingParams(min_tokens=2),
-    SamplingParams(logit_bias=((3, 1.0),))])
-def test_unported_request_options_raise(weights, sampling):
+@pytest.mark.parametrize("kw", [
+    dict(adapter="a"), dict(handoff=lambda req: None),
+    dict(fail_handler=lambda req: False)])
+def test_unported_request_options_raise(weights, kw):
     _, params = weights
     srv = _port_server(params, **SRV_KW)
     with pytest.raises(NotImplementedError):
-        srv.submit([1, 2, 3], sampling=sampling)
+        srv.submit([1, 2, 3], **kw)
 
 
 def test_default_device_is_cuda():

@@ -234,3 +234,46 @@ def test_seeded_row_draws_match_reference_token_for_token():
         torch.from_numpy(x), sampling.rows_to(port_rows, "cpu"),
         torch.from_numpy(pos), use_bias=False)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("window", [False, True], ids=["rows", "window"])
+@pytest.mark.parametrize("use_bias", [False, True])
+def test_sampling_probs_rows_match_reference(window, use_bias):
+    """The distribution speculation's accept rule compares against:
+    penalties (per window position, cumulative counts), logit_bias,
+    min_tokens and the allowed-token mask, within 1e-6; greedy rows are
+    one-hot."""
+    params = [ref_s.SamplingParams(repetition_penalty=1.3,
+                                   presence_penalty=0.5,
+                                   frequency_penalty=0.2, min_tokens=4),
+              ref_s.SamplingParams(temperature=1.3, top_k=5,
+                                   logit_bias=((3, 4.0), (7, -2.0))),
+              ref_s.SamplingParams(top_p=0.6, min_p=0.05,
+                                   presence_penalty=0.3),
+              ref_s.SamplingParams(temperature=0.0, logit_bias=((3, 4.0),),
+                                   frequency_penalty=0.4)]
+    ref_rows, rows = _rows(params)
+    r = np.random.default_rng(3)
+    w = 3 if window else None
+    shape = (4, w, V) if window else (4, V)
+    x = r.standard_normal(shape).astype(np.float32)
+    arrays = dict(prompt_mask=r.random((4, V)) < 0.2,
+                  out_counts=r.integers(0, 3, shape).astype(np.int32),
+                  allowed_mask=r.random(shape) < 0.8,
+                  positions=(np.asarray([[4, 5, 6]] * 4, np.int32)
+                             if window else
+                             np.asarray([4, 5, 6, 5], np.int32)))
+    arrays["allowed_mask"][..., 7] = True  # EOS stays allowed
+    kw_r = {k: jnp.asarray(v) for k, v in arrays.items()}
+    kw_t = {k: torch.from_numpy(v) for k, v in arrays.items()}
+    want = ref_s.sampling_probs_rows(
+        jnp.asarray(x), ref_rows._replace(
+            **{k: jnp.asarray(v) for k, v in ref_rows._asdict().items()}),
+        eos_id=7, use_bias=use_bias, **kw_r)
+    got = sampling.sampling_probs_rows(torch.from_numpy(x), rows, eos_id=7,
+                                       use_bias=use_bias, **kw_t)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6,
+                               rtol=0)
+    # row 0 is held below min_tokens at position 4: EOS impossible
+    assert float(got[0, ..., 7].max()) == 0.0
+    assert set(np.unique(got[3].numpy())) <= {0.0, 1.0}
