@@ -61,6 +61,21 @@ each:
                 the host's launch API calls (kernels and graphs), the
                 device kernels, busy time and idle share, the busiest
                 kernels;
+     policy   — a fresh server with every policy of the host layer
+                configured (QoS over three tenants with DRR admission,
+                SLO tracking, tracing at 100% with a tail ring,
+                brownout, the anomaly watchdog arming a profiler window
+                and a debug bundle, a seeded fault plan): 12 requests,
+                4 a tenant, the plain tokens up to near ties and the
+                DRR admission order (the first two steps' captures
+                inside a profiler window); one steady decode step under
+                torch.profiler against the plain one (1 graph launch,
+                the same kernel count, busy within 3%); three 1 ms
+                deadlines firing deadline_spike (a bundle, a 2-step
+                trace with the narrow kernel's events); two 100 ms
+                stalls; the routes over HttpFrontend and POST
+                /debug/trace; a dispatch fault with a dispatch in
+                flight failing every request, stop() returning;
      serve_int8 — the same 8 requests on the int8 KV cache (same params):
                 the pool's bytes against the bf16 pool's, the int8
                 kernels' launches and no plain call, the same tokens with
@@ -543,6 +558,11 @@ SEEDED_STEPS = 4
 # them among its CPU events (CUPTI's runtime and low-level CUDA APIs).
 LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                "cuLaunchKernelEx", "cudaGraphLaunch")
+# Host API calls that copy, set or wait on the card (name prefixes): a
+# host sync added to a step (.item(), .cpu(), synchronize) shows here.
+HOST_COPY_APIS = ("cudaMemcpy", "cudaMemset", "cuMemcpy", "cuMemset",
+                  "cudaStreamSynchronize", "cudaEventSynchronize",
+                  "cudaDeviceSynchronize", "cudaStreamWaitEvent")
 
 
 def make_server(params, cfg, icfg, **kw):
@@ -717,10 +737,14 @@ PROFILE_GROUPS = (
 def profile_step(step, n: int = 1) -> dict:
     """`n` calls of `step` (scheduler or train steps) under torch.profiler,
     per call: the wall time, the host's launch API calls (kernel launches
-    and graph launches), the device kernels and copies, their time and
-    the device's idle share; the busiest kernels and the device time by
-    group over the window."""
+    and graph launches), its copy and sync API calls, the device kernels
+    and copies (the copy records by name), their time and the device's
+    idle share; the busiest kernels and the device time by
+    group over the window. The profiler's own records are read, not the
+    FunctionEvent tree it builds from them on request (seconds of host
+    time for the 15,000 kernels of a serving step)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -731,15 +755,26 @@ def profile_step(step, n: int = 1) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     per_name: dict[str, float] = {}
+    per_count: dict[str, int] = {}
     n_kernels = 0
     launches: dict[str, int] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+    host_copies: dict[str, int] = {}
+    copies: dict[str, int] = {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if (getattr(e, "is_hidden_event", lambda: False)()
+                or name.startswith("[memory]")):
+            continue
+        if e.device_type() == DeviceType.CUDA:
             n_kernels += 1
-            per_name[e.name] = (per_name.get(e.name, 0.0)
-                                + e.time_range.elapsed_us() / 1e3)
-        elif e.name in LAUNCH_APIS:
-            launches[e.name] = launches.get(e.name, 0) + 1
+            per_name[name] = per_name.get(name, 0.0) + e.duration_ns() / 1e6
+            per_count[name] = per_count.get(name, 0) + 1
+            if "memcpy" in name.lower() or "memset" in name.lower():
+                copies[name] = copies.get(name, 0) + 1
+        elif name in LAUNCH_APIS:
+            launches[name] = launches.get(name, 0) + 1
+        elif name.startswith(HOST_COPY_APIS):
+            host_copies[name] = host_copies.get(name, 0) + 1
     busy = sum(per_name.values())
     # kernel names are long templates: sum the names that share their
     # first 100 characters, so one entry never hides another
@@ -748,19 +783,37 @@ def profile_step(step, n: int = 1) -> dict:
         short[name[:100]] = short.get(name[:100], 0.0) + ms
     top = sorted(short.items(), key=lambda kv: -kv[1])[:10]
     groups: dict[str, float] = {}
+    group_counts: dict[str, float] = {}
     for name, ms in per_name.items():
         group = next((g for g, keys in PROFILE_GROUPS
                       if any(k in name.lower() for k in keys)), "other")
         groups[group] = groups.get(group, 0.0) + ms / n
+        group_counts[group] = (group_counts.get(group, 0)
+                               + per_count[name] / n)
     return {"steps": n, "wall_ms": wall_ms / n,
             "host_launch_calls": sum(launches.values()) / n,
             "host_launch_calls_by_api": {k: v / n
                                          for k, v in launches.items()},
+            "host_copy_sync_calls_by_api": {k: v / n
+                                            for k, v in host_copies.items()},
             "device_kernels": n_kernels / n,
+            "device_copies_by_name": {k: v / n for k, v in copies.items()},
             "device_busy_ms": busy / n if per_name else None,
             "device_idle_share": (1 - busy / wall_ms) if per_name else None,
             "device_ms_by_group": groups,
+            "device_kernels_by_group": group_counts,
             "top_device_ms": dict(top)}
+
+
+def mean_profile(profs: list) -> dict:
+    """The mean of profile_step readings (numbers, and dicts of them
+    key by key)."""
+    def mean(vals):
+        if isinstance(vals[0], dict):
+            return {k: mean([v.get(k, 0.0) for v in vals])
+                    for k in set().union(*vals)}
+        return None if None in vals else sum(vals) / len(vals)
+    return {k: mean([p[k] for p in profs]) for k in profs[0]}
 
 
 def phase_profile(srv, cfg, rng) -> dict:
@@ -1042,22 +1095,32 @@ def http_clients(addr: str, max_tokens: int) -> int:
     return 0
 
 
+def http_call(addr: str, path: str, body=None,
+              timeout: float = 60) -> tuple:
+    """GET `path`, or POST `body` as JSON: (status, response bytes; None
+    for an error status)."""
+    import urllib.error
+    import urllib.request
+    data = None if body is None else json.dumps(body).encode()
+    try:
+        with urllib.request.urlopen(urllib.request.Request(
+                f"http://{addr}{path}", data=data), timeout=timeout) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as err:
+        return err.code, None
+
+
 def metric_values(addr: str) -> dict:
     """The /metrics sample lines as {name: value text}."""
-    import urllib.request
-    with urllib.request.urlopen(f"http://{addr}/metrics",
-                                timeout=60) as resp:
-        return dict(ln.rsplit(" ", 1)
-                    for ln in resp.read().decode().splitlines()
-                    if ln and not ln.startswith("#"))
+    return dict(ln.rsplit(" ", 1)
+                for ln in http_call(addr, "/metrics")[1].decode().splitlines()
+                if ln and not ln.startswith("#"))
 
 
 def http_run(srv, prompts) -> dict:
     """HttpFrontend on 127.0.0.1:0 over a started server: 8 concurrent
     streaming /v1/completions, the /metrics counts they added, and a 501
     for /v1/embeddings."""
-    import urllib.error
-    import urllib.request
     from cloud_server_tpu_torch.inference.http_server import HttpFrontend
     front = HttpFrontend(srv, tokenizer=IdTokenizer()).start()
     try:
@@ -1091,13 +1154,7 @@ def http_run(srv, prompts) -> dict:
         seen = {k: float(prom[k]) - float(before.get(k, 0)) for k in want}
         if seen != {k: float(v) for k, v in want.items()}:
             raise RuntimeError(f"/metrics counts {seen}, expected {want}")
-        try:
-            urllib.request.urlopen(urllib.request.Request(
-                f"http://{addr}/v1/embeddings",
-                data=json.dumps({"input": [1, 2, 3]}).encode()), timeout=60)
-            emb = 200
-        except urllib.error.HTTPError as err:
-            emb = err.code
+        emb = http_call(addr, "/v1/embeddings", {"input": [1, 2, 3]})[0]
         if emb != 501:
             raise RuntimeError(f"/v1/embeddings answered {emb}, not 501")
     finally:
@@ -1386,7 +1443,6 @@ def grammar_runs(srv) -> dict:
     stack under that dispatch (it must still commit: its program is
     released only after); then, the server started, response_format
     json_object over HTTP. Every output holds against its DFA."""
-    import urllib.request
     from cloud_server_tpu_torch.inference import grammar
     from cloud_server_tpu_torch.inference.http_server import HttpFrontend
     from cloud_server_tpu_torch.inference.sampling import SamplingParams
@@ -1417,17 +1473,16 @@ def grammar_runs(srv) -> dict:
     front = HttpFrontend(srv.start(), tokenizer=Latin1Tokenizer()).start()
     try:
         host, port = front.address
-        body = json.dumps({"prompt": "{", "max_tokens": GRAMMAR_NEW,
-                           "response_format": {"type": "json_object"}})
-        with urllib.request.urlopen(urllib.request.Request(
-                f"http://{host}:{port}/v1/completions",
-                data=body.encode()), timeout=HTTP_TIMEOUT) as resp:
-            status = resp.status
-            choice = json.loads(resp.read())["choices"][0]
+        status, raw = http_call(
+            f"{host}:{port}", "/v1/completions",
+            {"prompt": "{", "max_tokens": GRAMMAR_NEW,
+             "response_format": {"type": "json_object"}},
+            timeout=HTTP_TIMEOUT)
     finally:
         front.stop()
     if status != 200:
         raise RuntimeError(f"json_object over HTTP answered {status}")
+    choice = json.loads(raw)["choices"][0]
     out["http_json_object"] = grammar_check(
         grammar.compile_byte_dfa(grammar.json_object_regex()),
         list(choice["text"].encode("latin-1")), choice["finish_reason"])
@@ -1664,6 +1719,9 @@ def phase_serve() -> dict:
     seconds["profile"] = time.perf_counter() - t0
     out["seconds"] = seconds
     emit(out)
+    # the plain server stays up: its steady steps are timed and
+    # profiled in turns with the policy server's
+    out["policy"] = phase_policy(params, cfg, icfg, prompts, tokens, srv)
     srv.stop()
     del srv
     gc.collect()
@@ -1674,6 +1732,443 @@ def phase_serve() -> dict:
     torch.cuda.empty_cache()
     out["spec"] = serve_spec(params, cfg, prompts, tokens, rng)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 3b: the host policy layer on the serving path
+# ---------------------------------------------------------------------------
+
+POLICY_QOS = {"tenants": {
+    "chat": {"weight": 4.0, "priority": "interactive"},
+    "batch": {"weight": 2.0, "priority": "batch"},
+    "bulk": {"weight": 1.0, "priority": "best_effort", "max_pending": 2}}}
+POLICY_TENANTS = ["chat", "batch", "bulk"]
+# the three classes of inference/slo.py's documented config
+POLICY_SLO = {"windows_s": [60, 300, 3600], "classes": {
+    "interactive": {"objective": 0.99, "ttft_s": 0.5, "itl_s": 0.1,
+                    "queue_wait_s": 0.25, "e2e_s": 30.0},
+    "batch": {"objective": 0.95, "ttft_s": 5.0, "e2e_s": 120.0},
+    "default": {"objective": 0.99, "e2e_s": 60.0}}}
+# graded every busy iteration; it would shed only a queue head older
+# than 5 s (utilization and host gap are bounded by 1, so their
+# thresholds never cross: a fresh server's captures are host time)
+POLICY_BROWNOUT = {"pending_age_s": 5.0, "budget_utilization": 1.01,
+                   "host_gap_frac": 1.01, "hold_s": 1.0}
+# the rules this run's counts decide; the wall-clock EWMA rules are off
+# so that one deadline_spike is the only activation edge
+POLICY_RULES_OFF = ["slo_burn", "latency_shift", "cache_collapse",
+                    "breaker_flap", "preempt_spike", "host_gap", "wedged"]
+# the reference's debug_bundle keys
+BUNDLE_KEYS = {"schema", "trigger", "ts", "anomaly", "metrics", "profile",
+               "flight", "traces", "tail_traces", "tail_retention", "slo",
+               "cache", "brownout", "migration", "faults", "overlap"}
+# decode budget of the policy phase's steady requests: its timed and
+# profiled steps, deadline, capture, stall and route windows all fall inside it
+POLICY_NEW = 256
+# the order of the policy phase's profiled steps: two ABBA rounds, the
+# second reversed, so a drift of the card's clocks weighs on both alike
+POLICY_PROFILE_TURNS = ("plain", "policy", "policy", "plain",
+                        "policy", "plain", "plain", "policy")
+
+
+def trace_kernels(logdir) -> dict:
+    """The device kernels of the torch.profiler trace(s) in `logdir`:
+    the trace files, kernel events, and paged_narrow_kernel events."""
+    files = sorted(os.path.join(d, f) for d, _, fs in os.walk(logdir)
+                   for f in fs if f.endswith(".pt.trace.json"))
+    kernels = narrow = 0
+    for path in files:
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+        for e in events:
+            if e.get("cat") == "kernel":
+                kernels += 1
+                narrow += "paged_narrow_kernel" in e.get("name", "")
+    return {"files": len(files), "kernel_events": kernels,
+            "paged_narrow_kernel_events": narrow}
+
+
+def drr_replay(qos_cfg, events) -> list:
+    """The admission order the port's qos.py gives for the same submits:
+    a fresh TenantRegistry fed the run's submits (refused ones too) and,
+    at each admission burst, asked as many times as the server admitted
+    then (pages and slots decide how many, DRR which), and once more,
+    uncharged, where an injected page famine cut a burst short."""
+    from cloud_server_tpu_torch.inference.qos import TenantRegistry
+    reg = TenantRegistry(qos_cfg)
+    pending, order = [], []
+    for ev in events:
+        if ev[0] == "submit":
+            _, i, tenant, n, ok = ev
+            try:
+                reg.gate_submit(tenant, n)
+            except Exception:  # noqa: BLE001 — a refusal the server saw
+                if ok:
+                    raise
+            if ok:
+                pending.append(types.SimpleNamespace(
+                    i=i, tenant=tenant, prompt=[0] * n, tokens=[]))
+        elif ev[0] == "famine":
+            reg.next_admission_index(pending)
+        else:
+            for _ in ev[1]:
+                r = pending.pop(reg.next_admission_index(pending))
+                reg.charge_admission(r.tenant, len(r.prompt))
+                reg.on_pending_removed(r.tenant)
+                order.append(r.i)
+    return order
+
+
+def policy_run(srv, jobs, max_new) -> tuple:
+    """Serve `jobs` [(index, prompt, tenant)] on `srv` by hand-driven
+    steps, retrying refused submits (an injected rejection, a tenant at
+    its pending bound) after each step; the admissions of each step are
+    read in slot order (a burst fills free slots in ascending order).
+    Returns (requests by index, events for drr_replay, refusals)."""
+    queue, reqs, events, refused = list(jobs), {}, [], []
+    famines = srv.fault_stats()["fired"]["alloc_famine"]
+
+    def try_submit():
+        left = []
+        for i, prompt, tenant in queue:
+            try:
+                reqs[i] = srv.submit(prompt, max_new_tokens=max_new,
+                                     tenant=tenant)
+                events.append(("submit", i, tenant, len(prompt), True))
+            except Exception as exc:  # noqa: BLE001 — retried, recorded
+                refused.append((i, type(exc).__name__))
+                if type(exc).__name__ == "TenantQueueFullError":
+                    events.append(("submit", i, tenant, len(prompt), False))
+                left.append((i, prompt, tenant))
+        queue[:] = left
+
+    try_submit()
+    admitted: set = set()
+    while queue or srv.num_pending or srv.num_active or srv._jobs:
+        srv.step()
+        slot_of = {id(s.req): sid for sid, s in enumerate(srv._slots)
+                   if s is not None}
+        new = [i for i, r in reqs.items()
+               if r.admit_time is not None and i not in admitted]
+        if new:
+            admitted.update(new)
+            events.append(("admit", sorted(
+                new, key=lambda i: slot_of.get(id(reqs[i]), 1 << 30))))
+        fired = srv.fault_stats()["fired"]["alloc_famine"]
+        if fired > famines:  # the burst's last pick, never charged
+            events.append(("famine",))
+            famines = fired
+        try_submit()
+    return reqs, events, refused
+
+
+def policy_steady(srv, prompts, tenants, max_new) -> list:
+    """8 requests decoding in 8 slots, steady (admissions done)."""
+    reqs = [srv.submit(p, max_new_tokens=max_new, tenant=t)
+            for p, t in zip(prompts, tenants)]
+    while srv._jobs or srv.num_pending:
+        srv.step()
+    for _ in range(2):
+        srv.step()
+    if srv.num_active != 8 or srv._inflight is None:
+        raise RuntimeError(f"{srv.num_active} slots live, not 8 with a "
+                           "dispatch in flight")
+    return reqs
+
+
+def phase_policy(params, cfg, icfg, prompts, plain_tokens,
+                 plain_srv) -> dict:
+    """The serving path with every policy of the host layer configured:
+    QoS over three tenants, SLO tracking, tracing at 100% with a tail
+    ring, brownout, the anomaly watchdog (deadline_spike arming a
+    profiler window and a debug bundle) and a seeded fault plan. The
+    layer adds no device work: its steady decode step is the plain
+    server's program (one graph launch, the same kernels by group, the
+    same host copy and sync calls, busy within 3%). Then deadlines, the routes, POST /debug/trace and a
+    dispatch fault with a dispatch in flight. `plain_srv` (the serve
+    phase's server) decodes the same steady batch beside it: their
+    steady steps are timed, then profiled, in turns
+    (POLICY_PROFILE_TURNS), so both readings cover the same step
+    indices of the same batch."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+    from cloud_server_tpu_torch.inference.faults import FaultPlan
+    from cloud_server_tpu_torch.inference.http_server import HttpFrontend
+    from cloud_server_tpu_torch.ops import paged_attention as pa
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-policy-")
+    front = None
+    try:
+        capture_dir = os.path.join(tmp, "anomaly")
+        plan = FaultPlan({"seed": SEED, "faults": [
+            {"site": "submit_reject", "after": 4, "count": 1},
+            {"site": "alloc_famine", "after": 1, "count": 1}]})
+        srv = make_server(
+            params, cfg,
+            dataclasses.replace(icfg, trace_tail_capacity=16,
+                                bundle_on_anomaly=True),
+            qos=POLICY_QOS, slo=POLICY_SLO, tracing=1.0, faults=plan,
+            brownout=POLICY_BROWNOUT,
+            anomaly={"warmup": 2, "check_every": 1, "hold_s": 60.0,
+                     "capture_iters": 2, "capture_dir": capture_dir,
+                     "disable": POLICY_RULES_OFF,
+                     "rules": {"deadline_spike": {"count": 3,
+                                                  "window_s": 60.0}}})
+        # a profiler window over the first step: the programs captured
+        # there are captured under an active profiler
+        first_dir = os.path.join(tmp, "first")
+        srv.request_trace(1, first_dir)
+        pa.reset_counters()
+        # 1-2. twelve greedy requests, four a tenant (the serve phase's
+        # four shortest prompts, three times): the plain tokens up to
+        # near ties, and the DRR admission order
+        jobs = [(i, prompts[i % 4], POLICY_TENANTS[i % 3])
+                for i in range(12)]
+        t0 = time.perf_counter()
+        reqs, events, refused = policy_run(srv, jobs, MAX_NEW)
+        parts = {"served": time.perf_counter() - t0}
+        programs = len(srv._programs)
+        capture_s = srv._programs.capture_seconds()
+        t0 = time.perf_counter()
+        reqs = [reqs[i] for i in range(12)]
+        check_served(reqs, cfg.vocab_size, MAX_NEW)
+        want = [types.SimpleNamespace(tokens=plain_tokens[i % 4])
+                for i in range(12)]
+        ties = near_tie_divergence("the policy server", reqs, want,
+                                   [j[1] for j in jobs], params, cfg)
+        order = [i for ev in events if ev[0] == "admit" for i in ev[1]]
+        drr = drr_replay(POLICY_QOS, events)
+        if order != drr:
+            raise RuntimeError(f"admission order {order}, the DRR order "
+                               f"{drr}")
+        # an injected rejection and bulk's pending bound refuse submits;
+        # brownout sheds bulk while the queue head is older than 5 s
+        kinds = {k for _, k in refused}
+        if not ({"InjectedFault", "TenantQueueFullError"} <= kinds
+                <= {"InjectedFault", "TenantQueueFullError",
+                    "BrownoutShedError"}):
+            raise RuntimeError(f"refused submits {refused}")
+        first = trace_kernels(first_dir)
+        if first["files"] != 1 or first["kernel_events"] <= 0:
+            raise RuntimeError(f"the first window's trace: {first}")
+        parts["checks"] = time.perf_counter() - t0
+        # 3. a steady batch on both servers (the four prompts twice, 8
+        # slots x 8 rounds a step): host wall per step timed in turns,
+        # then steps under torch.profiler in turns
+        t0 = time.perf_counter()
+        # the plain server's launches are not the policy path's: they
+        # are taken out of the phase's counts
+        c_plain = pa.counters()
+        plain_steady = policy_steady(plain_srv, prompts[:4] * 2, [None] * 8,
+                                     POLICY_NEW)
+        c_plain = {k: v - c_plain[k] for k, v in pa.counters().items()}
+        steady = policy_steady(srv, prompts[:4] * 2, ["chat", "batch"] * 4,
+                               POLICY_NEW)
+        walls = {"plain": [], "policy": []}
+        phases = {"plain": {}, "policy": {}}
+        profs = {"plain": [], "policy": []}
+
+        def turn(who, run):
+            server = plain_srv if who == "plain" else srv
+            c1 = pa.counters()
+            out = run(server)
+            if who == "plain":
+                for k, v in pa.counters().items():
+                    c_plain[k] += v - c1[k]
+            return server, out
+
+        def timed(server):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(PROFILE_STEPS):
+                server.step()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t1) * 1e3 / PROFILE_STEPS
+
+        for who in ("plain", "policy", "policy", "plain"):
+            server, wall = turn(who, timed)
+            walls[who].append(wall)
+            # the flight records' host phases of the timed steps
+            for rec in server.flight_window(PROFILE_STEPS):
+                for ph, ms in rec["phases_ms"].items():
+                    phases[who][ph] = phases[who].get(ph, 0.0) + ms / (
+                        2 * PROFILE_STEPS)
+        # single steps under torch.profiler, four a server in balanced
+        # turns; a window opens after a sync, so it holds one launch
+        # (its copies and its graph) and nothing before it
+        for who in POLICY_PROFILE_TURNS:
+            profs[who].append(
+                turn(who, lambda server: profile_step(server.step))[1])
+        plain_srv.stop()  # its requests end "error: ... stopped"
+        del plain_steady
+        step, plain_step = (mean_profile(profs["policy"]),
+                            mean_profile(profs["plain"]))
+
+        def kernels(prof):
+            return {g: n for g, n in prof["device_kernels_by_group"].items()
+                    if g != "copy"}
+
+        def copies_within_calls(prof):
+            # every HtoD/DtoH record has its host call; the records are
+            # only reported beside them, because the card's trace drops
+            # some: the same 11 cudaMemcpyAsync calls a step read 5 or 6
+            # HtoD records by window. A sync added to a step (.item(),
+            # .cpu(), synchronize) adds host calls, compared exactly.
+            recs = sum(v for k, v in prof["device_copies_by_name"].items()
+                       if "HtoD" in k or "DtoH" in k)
+            return recs <= prof["host_copy_sync_calls_by_api"].get(
+                "cudaMemcpyAsync", 0.0)
+
+        busy_rel = (step["device_busy_ms"] / plain_step["device_busy_ms"]
+                    - 1)
+        if (any(p["host_launch_calls_by_api"] != {"cudaGraphLaunch": 1}
+                or not copies_within_calls(p)
+                for p in profs["policy"] + profs["plain"])
+                or kernels(step) != kernels(plain_step)
+                or (step["host_copy_sync_calls_by_api"]
+                    != plain_step["host_copy_sync_calls_by_api"])
+                or abs(busy_rel) > 0.03):
+            raise RuntimeError(
+                f"the policy server's steady steps {profs['policy']} "
+                f"against the plain ones {profs['plain']}")
+        parts["steady"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        # 4. three best-effort requests with 1 ms deadlines while the
+        # slots are full (two, then one: `bulk` holds 2 pending): the
+        # third expiry activates deadline_spike, which snapshots a
+        # bundle and arms a 2-step profiler window
+        late = [srv.submit(prompts[0], max_new_tokens=4, tenant="bulk",
+                           deadline_s=0.001) for _ in range(2)]
+        while not all(r.done for r in late):
+            srv.step()
+        late.append(srv.submit(prompts[0], max_new_tokens=4,
+                               tenant="bulk", deadline_s=0.001))
+        while not late[-1].done:
+            srv.step()
+        for _ in range(2):  # the armed window: the next 2 steps
+            srv.step()
+        if srv.tracer.active:
+            raise RuntimeError("the anomaly's profiler window is open")
+        if [r.finish_reason for r in late] != ["deadline"] * 3:
+            raise RuntimeError(f"deadline requests ended "
+                               f"{[r.finish_reason for r in late]}")
+        astats = srv.anomaly_stats()
+        bundles = srv.debug_bundles(1)
+        if (astats["fired_total"]["deadline_spike"] != 1
+                or sum(astats["fired_total"].values()) != 1
+                or len(bundles) != 1
+                or set(bundles[0]) != BUNDLE_KEYS
+                or bundles[0]["trigger"] != "anomaly:deadline_spike"):
+            raise RuntimeError(f"watchdog {astats['fired_total']}, "
+                               f"{len(bundles)} bundles")
+        anomaly_trace = trace_kernels(capture_dir)
+        if anomaly_trace["paged_narrow_kernel_events"] < cfg.num_layers * 8:
+            raise RuntimeError(f"the anomaly window's trace: "
+                               f"{anomaly_trace}")
+        parts["deadlines"] = time.perf_counter() - t0
+        # two 100 ms host stalls, late in the run
+        plan.arm("iteration_stall", count=2, stall_ms=100.0)
+        t0 = time.perf_counter()
+        for _ in range(2):
+            srv.step()
+        stalled_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        # 5. the routes, over HttpFrontend
+        front = HttpFrontend(srv, tokenizer=IdTokenizer()).start()
+        host, port = front.address
+        addr = f"{host}:{port}"
+        routes = {}
+        for path in ("/slo", "/traces", f"/debug/requests/"
+                     f"{reqs[0].request_id}", "/debug/cache",
+                     "/debug/bundle", "/debug/bundle?ring=1"):
+            routes[path.split("?")[0] if "requests" not in path
+                   else "/debug/requests/<id>"] = http_call(addr, path)[0]
+        route_dir = os.path.join(tmp, "route")
+        routes["POST /debug/trace"] = http_call(
+            addr, "/debug/trace", {"steps": 2, "logdir": route_dir})[0]
+        for _ in range(2):
+            srv.step()
+        if set(routes.values()) != {200} or srv.tracer.active:
+            raise RuntimeError(f"routes answered {routes}")
+        route_trace = trace_kernels(route_dir)
+        if route_trace["paged_narrow_kernel_events"] < cfg.num_layers * 8:
+            raise RuntimeError(f"the /debug/trace window's trace: "
+                               f"{route_trace}")
+        front.stop()
+        front = None
+        parts["routes"] = time.perf_counter() - t0
+        # 6. a dispatch fault with a dispatch in flight, on the serving
+        # thread: every request fails, nobody hangs, stop() returns
+        if srv._inflight is None:
+            raise RuntimeError("no dispatch in flight")
+        srv.start()
+        plan.arm("dispatch", count=1)
+        t0 = time.perf_counter()
+        for r in steady:
+            if not r._done.wait(10.0):
+                raise RuntimeError("a request outlived the dispatch fault")
+        failed_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        srv.stop()
+        stop_s = time.perf_counter() - t0
+        reasons = {r.finish_reason.split("(")[0] for r in steady}
+        if reasons != {"error: InjectedFault"} \
+                or srv.unserialized_teardowns != 0:
+            raise RuntimeError(f"after the dispatch fault: {reasons}, "
+                               f"{srv.unserialized_teardowns} "
+                               "unserialized teardowns")
+        counts = {k: v - c_plain[k] for k, v in pa.counters().items()}
+        # 7. readings
+        slo = {cls: {m: v["lifetime"] for m, v in rep["metrics"].items()}
+               for cls, rep in srv.slo_report()["classes"].items()}
+        keys = ("wall_ms", "device_kernels", "device_busy_ms",
+                "device_idle_share", "host_launch_calls_by_api",
+                "device_kernels_by_group", "device_ms_by_group")
+        out = {"phase": "policy", "requests": len(reqs),
+               "tenants": POLICY_TENANTS, "admission_order": order,
+               "admission_tenants": [POLICY_TENANTS[i % 3] for i in order],
+               "refused_submits": refused,
+               "tokens_vs_plain": ties, "first_window": first,
+               "steady_step": {k: step[k] for k in keys},
+               "plain_steady_step": {k: plain_step[k] for k in keys},
+               "copies_per_step": {
+                   "policy": step["device_copies_by_name"],
+                   "plain": plain_step["device_copies_by_name"]},
+               "host_copy_sync_calls_per_step": {
+                   "policy": step["host_copy_sync_calls_by_api"],
+                   "plain": plain_step["host_copy_sync_calls_by_api"]},
+               "busy_ms_by_turn": {who: [p["device_busy_ms"] for p in ps]
+                                   for who, ps in profs.items()},
+               "busy_vs_plain": busy_rel,
+               "steady_wall_ms_in_turns": walls,
+               "host_phases_ms": phases,
+               "anomaly_fired": astats["fired_total"],
+               "bundle_trigger": bundles[0]["trigger"],
+               "anomaly_window": anomaly_trace,
+               "stall_steps_s": stalled_s, "routes": routes,
+               "route_window": route_trace,
+               "dispatch_fault_failed_all_s": failed_s, "stop_s": stop_s,
+               "unserialized_teardowns": srv.unserialized_teardowns,
+               "counts": counts, "slo_lifetime": slo,
+               "brownout": srv.brownout_stats(),
+               "faults": srv.fault_stats(),
+               "tail_retention": srv.tail_trace_stats(),
+               "qos": srv.qos.stats(),
+               "programs_captured": programs, "capture_s": capture_s,
+               "seconds_by_part": parts}
+        del srv
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["seconds"] = time.perf_counter() - t_phase
+        emit(out)
+        return out
+    finally:
+        if front is not None:
+            front.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2537,7 +3032,7 @@ def phase_ckpt() -> dict:
     from cloud_server_tpu_torch.data.tokenizer import ByteTokenizer
     from cloud_server_tpu_torch.models.transformer import param_shapes
     from cloud_server_tpu_torch.training.checkpoint import (
-        Checkpointer, abstract_train_state, restore_params)
+        Checkpointer, abstract_train_state)
     from cloud_server_tpu_torch.training.loop import LoopConfig, train_loop
     from cloud_server_tpu_torch.utils.logging import read_jsonl
     from cloud_server_tpu_torch.utils.metrics import param_count
@@ -2605,17 +3100,14 @@ def phase_ckpt() -> dict:
         raise RuntimeError(f"resumed losses {got} differ from the straight "
                            f"run's {want} by {loss_err}")
 
-    # serve the checkpoint: in-memory params, restored params, the CLI
+    # serve the checkpoint: the in-memory params, then the CLI, which
+    # restores the params from the checkpoint and serves them
     mem = {g: {n: t.detach() for n, t in leaves.items()}
            for g, leaves in resumed.params.items()}
     toks_mem = serve_greedy(mem, cfg)
     del resumed, mem
     gc.collect()
     torch.cuda.empty_cache()
-    toks_ck = serve_greedy(restore_params(ckpt_dir, cfg, device=DEVICE), cfg)
-    if toks_ck != toks_mem:
-        raise RuntimeError(f"restored params serve {toks_ck}, in-memory "
-                           f"params {toks_mem}")
     cfg_path = os.path.join(CKPT_DIR, "model.json")
     with open(cfg_path, "w") as f:
         json.dump({"model": dataclasses.asdict(cfg)}, f)
@@ -2644,7 +3136,7 @@ def phase_ckpt() -> dict:
            "restore_bit_exact": True, "bytes_per_save": nbytes,
            "write_s": write_s, "write_gb_per_s": nbytes / write_s / 1e9,
            "read_s": read_s, "read_gb_per_s": nbytes / read_s / 1e9,
-           "served_tokens": toks_mem, "restored_serve_identical": True,
+           "served_tokens": toks_mem,
            "generate_checkpoint_dir_identical": True}
     emit(out)
     return out

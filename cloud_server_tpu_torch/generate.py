@@ -7,10 +7,14 @@ tokenizer; the paged continuous-batching server, optionally with the
 int8 KV cache (`--kv-cache-int8`) and in-server speculation
 (`--spec-drafts` n-gram drafts, or a draft model from `--draft-config`).
 Batch mode serves the `--prompt`s and prints them; `--serve-http PORT`
-runs the server behind the HTTP frontend until interrupted. Runs on the
-card unless `--device cpu` is given. The contiguous server
-(`--contiguous`) and the speculative batch API (`--ngram-draft`) are not
-ported yet.
+runs the server behind the HTTP frontend until interrupted. The host
+policy layer is the reference's flags: `--qos-config`, `--slo-config`,
+`--fault-plan`, `--brownout`, `--anomaly-config`, `--bundle-on-anomaly`
+and `--trace-sample-rate` / `--trace-capacity` /
+`--trace-tail-capacity`. Runs on the card unless `--device cpu` is
+given. The contiguous server (`--contiguous`), the speculative batch API
+(`--ngram-draft`) and the profiler server (`--profiler-port`; trace a
+live server with POST /debug/trace) are not ported.
 """
 
 from __future__ import annotations
@@ -118,6 +122,60 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the speculative batch API with n-gram drafts "
                    "(not ported yet; in-server n-gram speculation is "
                    "--spec-drafts)")
+    p.add_argument("--profiler-port", type=int, default=None,
+                   metavar="PORT",
+                   help="the reference's profiler server for on-demand "
+                   "remote capture (not ported: torch.profiler has no "
+                   "in-process server; use POST /debug/trace)")
+    p.add_argument("--qos-config", metavar="FILE_OR_JSON", default=None,
+                   help="multi-tenant QoS: a JSON file path (or inline "
+                   "JSON object) declaring per-tenant weights, priority "
+                   "classes, token-bucket rate limits, pending bounds "
+                   "and API-key mappings (schema: inference/qos.py); "
+                   "enables weighted fair-share admission, priority "
+                   "preemption and per-tenant 429s")
+    p.add_argument("--slo-config", metavar="FILE_OR_JSON", default=None,
+                   help="per-priority-class SLO targets (ttft/itl/"
+                   "queue_wait/e2e), attainment objectives and rolling "
+                   "windows (schema: inference/slo.py); surfaced via GET "
+                   "/slo and the slo_attainment/slo_burn_rate gauges")
+    p.add_argument("--fault-plan", metavar="FILE_OR_JSON", default=None,
+                   help="deterministic fault injection: named fault sites "
+                   "(submit_reject/dispatch/iteration_stall/wedge/"
+                   "alloc_famine) with seeded after/count/p windows "
+                   "(schema: inference/faults.py)")
+    p.add_argument("--brownout", metavar="FILE_OR_JSON", default=None,
+                   help="overload brownout (needs --qos-config): "
+                   "OverloadDetector thresholds over pending age, budget "
+                   "utilization and host_gap_frac, hysteresis and "
+                   "per-level shed classes (schema: inference/faults.py)")
+    p.add_argument("--trace-sample-rate", type=float, default=0.0,
+                   metavar="RATE",
+                   help="per-request tracing: head-sampling probability "
+                   "in [0, 1] (span trees at GET /debug/requests/<id>, "
+                   "Perfetto export at GET /traces, W3C traceparent in "
+                   "and out); 0 disables it unless --trace-tail-capacity "
+                   "keeps a tail ring")
+    p.add_argument("--trace-capacity", type=int, default=256,
+                   metavar="N",
+                   help="finished-trace ring size (default 256)")
+    p.add_argument("--trace-tail-capacity", type=int, default=0,
+                   metavar="N",
+                   help="tail retention: keep up to N span trees of "
+                   "anomalous head-unsampled requests (failed, deadline-"
+                   "expired, cancelled, SLO-violating, repeatedly "
+                   "preempted, or finished in an open anomaly window); "
+                   "0 disables it")
+    p.add_argument("--anomaly-config", metavar="FILE_OR_JSON",
+                   default=None,
+                   help="anomaly watchdog (inference/anomaly.py): rule "
+                   "thresholds, hysteresis hold and the optional "
+                   "capture_iters/capture_dir arm of the /debug/trace "
+                   "window; {} enables every rule at defaults")
+    p.add_argument("--bundle-on-anomaly", action="store_true",
+                   help="auto-capture a debug bundle (GET /debug/bundle "
+                   "schema) into a bounded ring each time a watchdog "
+                   "rule fires (needs --anomaly-config)")
     p.add_argument("--flight-recorder", type=int, default=0, metavar="N",
                    help="per-iteration flight-recorder ring size for "
                    "/stats post-mortems (0 = config default)")
@@ -191,6 +249,10 @@ def main(argv=None) -> None:
             "the speculative batch API (--ngram-draft) is not ported to "
             "the PyTorch server yet; in-server n-gram speculation is "
             "--spec-drafts")
+    if args.profiler_port is not None:
+        from cloud_server_tpu_torch.utils.tracing import (
+            start_profiler_server)
+        start_profiler_server(args.profiler_port)  # raises
     tok = ByteTokenizer()
     if tok.vocab_size > model_cfg.vocab_size:
         raise SystemExit(
@@ -229,7 +291,10 @@ def main(argv=None) -> None:
     infer_cfg = InferConfig(
         max_decode_len=args.max_new, temperature=args.temperature,
         top_k=args.top_k, top_p=args.top_p,
-        eos_token_id=tok.eos_id, pad_token_id=tok.pad_id or 0)
+        eos_token_id=tok.eos_id, pad_token_id=tok.pad_id or 0,
+        trace_capacity=args.trace_capacity,
+        trace_tail_capacity=args.trace_tail_capacity,
+        bundle_on_anomaly=args.bundle_on_anomaly)
     draft_params = draft_cfg = None
     if args.draft_config:
         with open(args.draft_config) as f:
@@ -257,6 +322,10 @@ def main(argv=None) -> None:
             flight_recorder_size=args.flight_recorder or None,
             iteration_profile=(False if args.no_iteration_profile
                                else None),
+            qos=args.qos_config, slo=args.slo_config,
+            tracing=args.trace_sample_rate or None,
+            faults=args.fault_plan, brownout=args.brownout,
+            anomaly=args.anomaly_config,
             tokenizer=tok)  # regex-constrained requests compile against it
 
     if args.serve_http is not None:

@@ -19,11 +19,14 @@ pinned host buffers its results land in. A launch is:
   4. one non-blocking device-to-host copy per result, then one event.
 
 `wait()` is the iteration's one host sync: it waits on that event and
-returns the results as numpy. Every program of a `ProgramCache` shares
-one graph memory pool (graphs run one at a time, in stream order, and
-every result is copied out right after its replay, so a later replay
-may reuse an earlier graph's freed intermediates). `release()` drops
-the graphs, their buffers and the pool.
+returns the results as numpy. `settle()` waits on it without taking the
+results, off the serving path: a profiler window closing on the
+dispatch in flight, and `_fail_all` before it tears slots down. Every
+program of a `ProgramCache` shares one graph memory pool (graphs run
+one at a time, in stream order, and every result is copied out right
+after its replay, so a later replay may reuse an earlier graph's freed
+intermediates). `release()` drops the graphs, their buffers and the
+pool.
 
 There is no fallback: a capture or replay that fails raises. A cache
 made with `capture=False` runs the same function eagerly on the same
@@ -177,6 +180,22 @@ class Program:
         if self._cuda:
             self._done.synchronize()
         return {k: v.numpy().copy() for k, v in self._host_out.items()}
+
+    def settle(self, timeout: float | None = None) -> bool:
+        """Wait until the last launch has finished on the card, without
+        taking its results (not an iteration's sync): True once it has,
+        False when `timeout` seconds pass first."""
+        if not self._cuda:
+            return True
+        if timeout is None:
+            self._done.synchronize()
+            return True
+        deadline = time.perf_counter() + timeout
+        while not self._done.query():
+            if time.perf_counter() > deadline:
+                return False
+            time.sleep(0.001)
+        return True
 
     def release(self) -> None:
         if self.graph is not None:

@@ -18,27 +18,37 @@ are the reference's:
   POST /v1/chat/completions   OpenAI-compatible chat through a minimal
                     role-tagged template (or the tokenizer's own); stream
                     sends `chat.completion.chunk` deltas.
-  POST /v1/embeddings, POST /debug/trace   as the reference parses them;
-                    the port's server does not have them yet (see 501s).
+  POST /debug/trace {"steps": N, "logdir": optional}: the next N
+                    scheduler iterations in a torch.profiler window
+                    (utils.tracing.capture_trace); answers the logdir.
+  POST /v1/embeddings   as the reference parses it; the port's server
+                    does not have it yet (a 501).
   GET  /v1/models, /healthz ({"ok", "ready", "active", "pending"};
                     "ready" is false while the backend drains or after
                     stop()), /metrics (Prometheus text of the backend's
                     registry), /stats (histogram summaries, counters,
-                    gauges).
+                    gauges, the flight window, the cache and migration
+                    blocks, and the policy blocks a configured server
+                    has).
   GET  /slo, /autoscaler, /traces, /debug/requests/<id>, /debug/cache,
-                    /debug/scheduler_trace, /debug/bundle   the
-                    reference's duck-typed probes: each answers from the
-                    backend method it needs, and as the reference does
-                    for a backend without it ({"enabled": false} or 404)
-                    until the port's server grows that method.
+                    /debug/scheduler_trace, /debug/bundle (?ring=k)   the
+                    reference's duck-typed probes, answered from the
+                    backend method each needs ({"enabled": false} for
+                    /slo without an SLO config, /autoscaler without a
+                    router).
+
+Tenants come from `X-Tenant` or an API key the backend's QoS registry
+maps, `X-Deadline-S` sets a request's deadline, and a W3C `traceparent`
+joins a caller's trace, as in the reference; brownout and per-tenant
+refusals are 429s with `Retry-After`.
 
 Status codes: 400 for malformed requests (the reference's rule: a
 ValueError, TypeError, KeyError or AttributeError raised while parsing or
 submitting), 404 for unknown paths, 429 with a `Retry-After` header when
 the backend's `max_pending` bound refuses a submit, 503 when the
 scheduler has stopped. New in the port: a request for something the
-port does not have yet — embeddings, trace capture — answers **501**
-with a JSON `{"error": ...}` naming the feature. The server raises
+port does not have yet (embeddings) answers **501** with a JSON
+`{"error": ...}` naming the feature. The server raises
 `NotImplementedError` for those, also when `submit` raises inside a
 streaming request before any header is sent; the frontend never turns
 it into a 500, a dropped connection or a stream that hangs. Penalties,
@@ -664,9 +674,9 @@ class HttpFrontend:
 
     def _handle_debug_trace(self, handler, body: dict) -> None:
         """POST /debug/trace: wrap the next N scheduler iterations in a
-        profiler trace. Body: {"steps": N (default 1), "logdir": path
-        (default a fresh tempdir)}; the response echoes the logdir. The
-        port's server raises NotImplementedError (a 501) for it."""
+        torch.profiler trace. Body: {"steps": N (default 1), "logdir":
+        path (default a fresh tempdir)}; the response echoes the logdir
+        to open in TensorBoard or Perfetto."""
         fn = getattr(self.srv, "request_trace", None)
         if fn is None:
             raise ValueError(

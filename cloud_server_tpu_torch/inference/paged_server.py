@@ -71,9 +71,17 @@ flight recorder keeps one record per busy iteration (`flight_window`),
 with the iteration profile's phase split (`iteration_profile_stats`,
 `/debug/scheduler_trace`).
 
+The host policy layer, each part None (and its call sites skipped)
+unless configured: multi-tenant QoS (`qos=`: deficit round-robin
+admission, token buckets, priority preemption, class deadlines), SLO
+tracking (`slo=`), request tracing with tail retention (`tracing=`),
+seeded fault injection (`faults=`) and overload brownout (`brownout=`),
+the anomaly watchdog (`anomaly=`) with debug bundles, and the on-demand
+profiler window (`request_trace`, POST /debug/trace). It reads host
+state the scheduler already owns: no program, launch or sync is added.
+
 Not ported yet, and refused with NotImplementedError where a caller asks
-for them: multi-LoRA, QoS, SLO, tracing and trace capture, faults,
-brownout, the anomaly watchdog, migration and handoff, `embed`, tensor
+for them: multi-LoRA, migration and handoff, `embed`, tensor
 parallelism, MoE models and the full-reservation paging policy
 (`allocation="reserve"`).
 """
@@ -84,7 +92,9 @@ import collections
 import dataclasses
 import functools
 import math
+import os
 import threading
+import sys
 import time
 from typing import Sequence
 
@@ -94,19 +104,27 @@ import torch
 from cloud_server_tpu_torch import resolve_device
 from cloud_server_tpu_torch.config import InferConfig, ModelConfig
 from cloud_server_tpu_torch.inference import graphs, paged_engine
+from cloud_server_tpu_torch.inference.anomaly import RULES, resolve_anomaly
 from cloud_server_tpu_torch.inference.block_allocator import BlockAllocator
 from cloud_server_tpu_torch.inference.cache_telemetry import (
-    register_cache_hists)
+    hit_rate, register_cache_hists)
+from cloud_server_tpu_torch.inference.faults import (
+    SITES, BrownoutShedError, resolve_brownout, resolve_fault_plan)
 from cloud_server_tpu_torch.inference.grammar import DEAD as _GDEAD
 from cloud_server_tpu_torch.inference.iteration_profile import (
     OVERLAP_PHASES, derive_gap_fields, profile_summary,
     register_phase_hists, resolve_profiler)
+from cloud_server_tpu_torch.inference.migration import MigrationLedger
+from cloud_server_tpu_torch.inference.qos import (PRIORITY_CLASSES,
+                                                  resolve_registry)
+from cloud_server_tpu_torch.inference.request_trace import resolve_recorder
 from cloud_server_tpu_torch.inference.sampling import (
     _BIAS_PAD, SamplingParams, SamplingRows, make_rows, sample_from_probs,
     sample_logits, sample_logits_rows, sampling_probs, sampling_probs_rows)
 from cloud_server_tpu_torch.inference.server import (
-    QueueFullError, Request, _bucket, _token_logprobs, emit_token,
-    resolve_seed)
+    QueueFullError, Request, _bucket, _StepTracer, _token_logprobs,
+    emit_token, resolve_seed)
+from cloud_server_tpu_torch.inference.slo import resolve_slo
 from cloud_server_tpu_torch.inference.spec_control import resolve_controller
 from cloud_server_tpu_torch.inference.speculative import (
     _TAG_DRAFT, _accept_drafts, _accept_point_mass, _ngram_drafts,
@@ -705,6 +723,7 @@ class _Plan:
     pf: dict | None                 # prefill-half arrays (mixed only)
     flags: dict                     # the program's static switches
     stats: dict
+    spans: list                     # trace spans staged for the record
 
 
 @dataclasses.dataclass
@@ -723,6 +742,7 @@ class _Inflight:
     g_iter: int
     spec_lens: list | None
     stats: dict
+    spans: list
     t_launch: float
 
 
@@ -758,17 +778,6 @@ class PagedInferenceServer:
             "tensor-parallel serving (mesh)": mesh is not None,
             f"allocation={allocation!r} (only 'ondemand')":
                 allocation != "ondemand",
-            "QoS": qos is not None or bool(infer_cfg.qos_config),
-            "request tracing": (tracing is not None
-                                or infer_cfg.trace_sample_rate > 0
-                                or infer_cfg.trace_tail_capacity > 0),
-            "SLO tracking": slo is not None or bool(infer_cfg.slo_config),
-            "fault injection": (faults is not None
-                                or bool(infer_cfg.fault_plan)),
-            "brownout": (brownout is not None
-                         or bool(infer_cfg.brownout_config)),
-            "the anomaly watchdog": (anomaly is not None
-                                     or bool(infer_cfg.anomaly_config)),
             "MoE models": cfg.num_experts >= 2,
         }
         for what, asked in refused.items():
@@ -928,6 +937,45 @@ class PagedInferenceServer:
         # while last_busy_ts ages; a dead one freezes both
         self.idle_iterations = 0
         self.last_busy_ts = 0.0
+        # the host policy layer (module docstring): each part None
+        # unless configured, and every call site guarded, so an
+        # unconfigured server runs the code it ran without the layer
+        self.tracer = _StepTracer()  # POST /debug/trace
+        self.trace_recorder = resolve_recorder(
+            tracing, infer_cfg.trace_sample_rate,
+            capacity=infer_cfg.trace_capacity,
+            tail_capacity=infer_cfg.trace_tail_capacity)
+        self.slo = resolve_slo(slo, infer_cfg.slo_config)
+        if self.slo is not None:
+            self.metrics.slo = self.slo
+        self._anomaly = resolve_anomaly(anomaly, infer_cfg.anomaly_config)
+        if self._anomaly is not None:
+            self._anomaly.bind_slo(self.slo)
+        # debug bundles auto-captured on an anomaly's activation edge
+        self._bundle_on_anomaly = bool(infer_cfg.bundle_on_anomaly)
+        self._bundles: collections.deque = collections.deque(maxlen=8)
+        self._bundles_captured = 0
+        # lifetime prefix hit/miss pages at the last busy iteration (the
+        # watchdog's per-iteration cache deltas)
+        self._anomaly_cache_base = (0, 0)
+        # iteration spans staged by the dispatch paths, stamped with the
+        # iteration's (t0, now) and flight index by _record_iteration
+        self._iter_spans: list = []
+        self.qos = resolve_registry(qos, infer_cfg.qos_config)
+        self._faults = resolve_fault_plan(faults, infer_cfg.fault_plan)
+        self._brownout = resolve_brownout(brownout,
+                                          infer_cfg.brownout_config)
+        if self._brownout is not None and self.qos is None:
+            raise ValueError(
+                "brownout needs a QoS registry: shed sets are priority "
+                "classes, and without tenants nothing can be shed")
+        # the migration ledger (its stats and metric families, zeros:
+        # export and import are not ported)
+        self._migration = MigrationLedger()
+        # _fail_all's bounded _step_lock acquire: teardowns that went
+        # ahead against a scheduler that never released it
+        self.unserialized_teardowns = 0
+        self._teardown_lock_timeout_s = 5.0
         self._admit_seq = 0
         self._slots: list[_Slot | None] = [None] * max_slots
         self._jobs: list[_AdmitJob] = []
@@ -972,6 +1020,8 @@ class PagedInferenceServer:
                _migration=None) -> Request:
         if self._stop.is_set():
             raise RuntimeError("server is stopped; not accepting requests")
+        if self._faults is not None:
+            self._faults.check("submit_reject")
         if adapter is not None:
             raise _not_ported("multi-LoRA serving (adapter=)")
         if fail_handler is not None or _migration is not None:
@@ -1000,15 +1050,36 @@ class PagedInferenceServer:
                     "(completion is signalled by EOS at an accepting "
                     "state)")
             self._grammar_gid(sampling.regex)  # compile now; 400 here
-        # without a QoS registry the reference drops the tenant too
-        del tenant, trace_ctx
+        if self.qos is not None:
+            tenant = self.qos.resolve(tenant)
+            if self._brownout is not None:
+                # overload brownout: this class's admissions are shed
+                # with a jittered Retry-After while the detector grades
+                # the server overloaded
+                cls = self.qos.priority_class(tenant)
+                if self._brownout.shed(cls):
+                    raise BrownoutShedError(
+                        f"overloaded: shedding {cls!r} admissions "
+                        "(brownout); retry later", tenant=tenant,
+                        priority_class=cls,
+                        retry_after_s=self._brownout.retry_hint())
+        else:
+            # no registry bounds the tenant set: a caller's string must
+            # not mint per-tenant metric series
+            tenant = None
         req = Request(prompt=list(prompt), max_new_tokens=max_new,
-                      stream=stream, sampling=sampling,
+                      stream=stream, sampling=sampling, tenant=tenant,
                       seed_used=resolve_seed(sampling, self._host_rng,
                                              self._lock),
                       submit_time=time.perf_counter())
+        if deadline_s is None and self.qos is not None:
+            # the tenant's class default (None when it declares none)
+            deadline_s = self.qos.default_deadline(tenant)
         if deadline_s is not None:
             req.deadline = req.submit_time + float(deadline_s)
+        if self.slo is not None:
+            req.slo_class = (self.qos.priority_class(tenant)
+                             if self.qos is not None else None)
         req._on_cancel = self._handle_cancel
         with self._lock:
             if self._draining:
@@ -1019,8 +1090,18 @@ class PagedInferenceServer:
                 raise QueueFullError(
                     f"pending queue is full ({self.max_pending} requests);"
                     " retry later")
-            # telemetry before the append: once queued, the scheduler
-            # thread may admit (even finish) the request
+            if self.qos is not None:
+                # per-tenant backpressure after the global bound; on
+                # success the tenant's pending count advances with the
+                # append below
+                self.qos.gate_submit(tenant, len(prompt))
+            # telemetry (and the trace) before the append and after
+            # every refusal: once queued, the scheduler thread may admit
+            # (even finish) the request
+            if self.trace_recorder is not None:
+                tr = self.trace_recorder.begin(req, trace_ctx)
+                if tr is not None and tenant is not None:
+                    tr.annotate(tenant=tenant)
             req.record_event("submit", req.submit_time)
             self.metrics.observe_submit(req)
             self._pending.append(req)
@@ -1033,14 +1114,47 @@ class PagedInferenceServer:
                 self._pending.remove(req)
             except ValueError:
                 return  # admitted: the step sweep owns the teardown
+            if self.qos is not None:
+                self.qos.on_pending_removed(req.tenant)
         req.finish_reason = "cancelled"
         self._complete(req)
 
     def _complete(self, req: Request) -> None:
         """Terminal bookkeeping for every path that ends a request
-        (finish / cancel / fail): lifecycle metrics, then unblock
-        waiters."""
-        self.metrics.observe_finish(req)
+        (finish / cancel / fail): lifecycle metrics, the watchdog's
+        request feed and the trace's finish, then unblock waiters."""
+        now = self.metrics.observe_finish(req)
+        if self._anomaly is not None:
+            ttft = (req.emit_times[0] - req.submit_time
+                    if req.emit_times and req.submit_time is not None
+                    else None)
+            itl = (None if len(req.emit_times) < 2 else
+                   (req.emit_times[-1] - req.emit_times[0])
+                   / (len(req.emit_times) - 1))
+            fired = self._anomaly.observe_request(
+                now=now, ttft_s=ttft, itl_s=itl,
+                finish_reason=req.finish_reason)
+            if fired:
+                self._on_anomaly(fired)
+        if self.trace_recorder is not None and (
+                req.trace is not None or req.tail_trace is not None):
+            slo_violated = False
+            if req.trace is None and self.slo is not None:
+                e2e = (None if req.submit_time is None
+                       else now - req.submit_time)
+                ttft = (req.emit_times[0] - req.submit_time
+                        if req.emit_times and req.submit_time is not None
+                        else None)
+                slo_violated = (
+                    (e2e is not None and self.slo.exceeds_target(
+                        req.slo_class, "e2e", e2e))
+                    or (ttft is not None and self.slo.exceeds_target(
+                        req.slo_class, "ttft", ttft)))
+            in_anomaly = (self._anomaly is not None
+                          and req.trace is None
+                          and self._anomaly.active_count(now) > 0)
+            self.trace_recorder.finish(req, slo_violated=slo_violated,
+                                       in_anomaly=in_anomaly)
         # a finished request's cancel() is a no-op: drop the bound method,
         # so requests a caller keeps do not keep the server and its pools
         req._on_cancel = None
@@ -1055,9 +1169,6 @@ class PagedInferenceServer:
     def embed(self, prompts):
         raise _not_ported("embed")
 
-    def request_trace(self, steps: int, logdir: str) -> None:
-        raise _not_ported("trace capture (POST /debug/trace)")
-
     @property
     def num_active(self) -> int:
         return sum(s is not None for s in self._slots)
@@ -1066,6 +1177,18 @@ class PagedInferenceServer:
     def num_pending(self) -> int:
         with self._lock:
             return len(self._pending)
+
+    @property
+    def pending_prefill_tokens(self) -> int:
+        """Prefill tokens this server still owes: the unprefilled
+        remainder of every admission in flight plus the whole admission
+        prompt of everything queued (a router's load signal). A
+        monitoring read: it may lag the running iteration by one."""
+        jobs = list(self._jobs)
+        n = sum(max(int(job.rem_lens[0]) - job.done, 0) for job in jobs)
+        with self._lock:
+            n += sum(len(r.prompt) + len(r.tokens) for r in self._pending)
+        return n
 
     @property
     def ready(self) -> bool:
@@ -1089,6 +1212,9 @@ class PagedInferenceServer:
         done = emit_token(req, token, logprob, self.infer_cfg)
         if not (done and req.finish_reason == "eos"):
             self.tokens_emitted += 1  # stop-truncated tokens still count
+            if self.qos is not None:
+                # the tenant's generated bucket takes the debt
+                self.qos.charge_generated(req.tenant)
         if len(req.emit_times) > n0:  # a stop match truncates instead
             self.metrics.observe_emit(req)
         return done
@@ -1103,7 +1229,8 @@ class PagedInferenceServer:
 
     def _release_slot(self, slot_id: int, keyed_tokens: list[int]) -> _Slot:
         slot = self._slots[slot_id]
-        self.allocator.release(slot.pages, keyed_tokens)
+        self.allocator.release(slot.pages, keyed_tokens,
+                               tenant=slot.req.tenant)
         self._slots[slot_id] = None
         self.tables[slot_id, :] = self.allocator.num_pages  # sentinel
         self.active[slot_id] = False
@@ -1286,7 +1413,12 @@ class PagedInferenceServer:
         with self._lock:
             free = [i for i, s in enumerate(self._slots) if s is None]
             while self._pending and free:
-                req = self._pending[0]
+                # deficit round-robin over tenants picks the request
+                # that funds the next slot (FIFO within a tenant; FIFO
+                # without QoS)
+                idx = (self.qos.next_admission_index(self._pending)
+                       if self.qos is not None else 0)
+                req = self._pending[idx]
                 sp = req.sampling
                 if (sp is not None and sp.regex is not None
                         and self._pattern_gid[sp.regex]
@@ -1294,25 +1426,44 @@ class PagedInferenceServer:
                     break  # registered after this iteration's upload
                 prompt = list(req.prompt) + list(req.tokens)
                 remaining = req.max_new_tokens - len(req.tokens)
-                shared, shared_len = self.allocator.lookup_prefix(prompt)
+                shared, shared_len = self.allocator.lookup_prefix(
+                    prompt, tenant=req.tenant)
                 # on-demand paging: the prompt and one window now, the
                 # rest grows before each decode dispatch
                 total = len(prompt) + self.window
                 need = -(-total // self.page_size) - len(shared)
-                fresh = self.allocator.alloc(max(0, need))
+                if (self._faults is not None
+                        and self._faults.fire("alloc_famine")
+                        is not None):
+                    # an injected transient famine: release the walk's
+                    # references and retry next iteration
+                    self.allocator.release(shared, prompt[:shared_len],
+                                           tenant=req.tenant)
+                    break
+                fresh = self.allocator.alloc(max(0, need),
+                                             tenant=req.tenant)
                 if fresh is None:
-                    self.allocator.release(shared, prompt[:shared_len])
+                    self.allocator.release(shared, prompt[:shared_len],
+                                           tenant=req.tenant)
                     if self.num_active == 0 and not self._jobs:
-                        self._pending.popleft()
+                        del self._pending[idx]
+                        if self.qos is not None:
+                            self.qos.on_pending_removed(req.tenant)
                         req.finish_reason = (
                             "error: request needs more pages than the "
                             "pool can ever provide")
                         doomed.append(req)
                         continue
                     break
-                self._pending.popleft()
+                del self._pending[idx]
+                if self.qos is not None:
+                    # the tenant's deficit is spent only now that the
+                    # admission holds its pages
+                    self.qos.charge_admission(req.tenant, len(prompt))
+                    self.qos.on_pending_removed(req.tenant)
                 if shared_len:
-                    self.allocator.telemetry.record_saved(None, shared_len)
+                    self.allocator.telemetry.record_saved(req.tenant,
+                                                          shared_len)
                 slot_id = free.pop(0)
                 self._admit_seq += 1
                 slot = _Slot(req=req, prompt=prompt,
@@ -1415,6 +1566,8 @@ class PagedInferenceServer:
     def _run_one_chunk(self, job: _AdmitJob) -> None:
         """The alternating scheduler's admission program: one chunk of a
         bucketed group, padded to a power of two rows, then its sync."""
+        if self._faults is not None:
+            self._faults.check("dispatch")
         c = job.next_chunk
         w = job.chunk_w
         g = len(job.slots)
@@ -1430,6 +1583,9 @@ class PagedInferenceServer:
         st = self._iter_stats  # flight recorder: prefill share per iter
         st.setdefault("scheduler", self.scheduler)
         st["prefill_tokens"] = st.get("prefill_tokens", 0) + w * g
+        if self.trace_recorder is not None:
+            self._stage_spans("prefill_chunk", [
+                (sid, {"tokens": w, "chunk": c}) for sid in job.slots])
         sl = np.asarray(job.slots)
         g_tables = np.full((gp, self.max_pages_per_slot),
                            self.allocator.num_pages, np.int32)
@@ -1506,10 +1662,21 @@ class PagedInferenceServer:
                       and sid != protect]
         if not candidates:
             return False
-        sid = max(candidates, key=lambda s: self._slots[s].admit_seq)
+        if self.qos is not None:
+            # (lowest priority class, most over fair share, youngest)
+            sid = max(candidates,
+                      key=lambda s: (*self.qos.victim_rank(
+                          self._slots[s].req.tenant),
+                          self._slots[s].admit_seq))
+        else:
+            sid = max(candidates, key=lambda s: self._slots[s].admit_seq)
         slot = self._release_slot(sid, self._committed(sid))
         self.preemptions += 1
         self.metrics.observe_requeue(slot.req, time.perf_counter())
+        if self.qos is not None:
+            self.qos.on_requeue(slot.req.tenant)
+            self._iter_stats.setdefault("preempt_tenants", []).append(
+                slot.req.tenant)
         with self._lock:
             self._pending.appendleft(slot.req)
         return True
@@ -1666,6 +1833,8 @@ class PagedInferenceServer:
     def _decode_dispatch(self) -> None:
         """A decode-only iteration: one program of n_rounds rounds over
         the compacted live rows, plain or speculative, then its sync."""
+        if self._faults is not None:
+            self._faults.check("dispatch")
         prof = self._profiler
         n = self._chunk_rounds()
         n_eff = self._extend_chains(n)
@@ -1686,6 +1855,9 @@ class PagedInferenceServer:
             compaction_ratio=len(live_ids) / max(int(rows.live.shape[0]),
                                                  1))
         self._stage_spec_stats(g_iter, len(live_ids))
+        if self.trace_recorder is not None:
+            self._stage_spans("decode_segment",
+                              self._decode_span_tags(live_ids, n))
         flags = self._decode_flags(self.active, g_iter, spec_lens, n)
         staged = self._decode_staged(rows, spec_lens, spec=g_iter > 0,
                                      use_rows=flags["rows"],
@@ -1740,6 +1912,7 @@ class PagedInferenceServer:
         self.decode_rounds += int(counts.shape[0]) * nl
         self.decode_tokens_committed += int(counts.sum())
         sp_drafted = sp_accepted = 0
+        spec_by_tenant: dict = {}
         for r in range(toks.shape[0]):
             for i, sid in enumerate(live_ids):
                 slot = self._slots[sid]
@@ -1754,6 +1927,10 @@ class PagedInferenceServer:
                     sp_accepted += a
                     if self.spec_control is not None:
                         self.spec_control.observe(sid, d, a)
+                    if self.qos is not None and d > 0:
+                        dd, aa = spec_by_tenant.get(slot.req.tenant,
+                                                    (0, 0))
+                        spec_by_tenant[slot.req.tenant] = (dd + d, aa + a)
                 for t in range(c):
                     if self._emit(slot.req, int(toks[r, i, t]),
                                   float(lps[r, i, t])):
@@ -1767,6 +1944,8 @@ class PagedInferenceServer:
                 st.get("spec_tokens_drafted", 0) + sp_drafted)
             st["spec_tokens_accepted"] = (
                 st.get("spec_tokens_accepted", 0) + sp_accepted)
+            for tenant, (dd, aa) in spec_by_tenant.items():
+                self.qos.charge_speculation(tenant, dd, aa)
 
     def _complete_admission_chunks(self, sel, ptoks, plps) -> None:
         """Prefill progress on the synced first-token candidates: capture
@@ -1827,16 +2006,21 @@ class PagedInferenceServer:
 
     def _select_prefill(self, jobs, n_live: int, win: int, n_rounds: int,
                         planned: bool):
-        """Token-budget prefill selection, FIFO, shared by the sequential
-        path (cursor `done`) and the planner (cursor `planned`): decode
-        rows are funded first (`win` tokens a round each), each job takes
-        up to `prefill_chunk` tokens of its remainder, and when decode
-        alone saturates the budget the oldest admission still gets one
-        minimal chunk. Returns [(job, take, cursor)]."""
+        """Token-budget prefill selection in QoS virtual-time order (FIFO
+        without QoS), shared by the sequential path (cursor `done`) and
+        the planner (cursor `planned`): decode rows are funded first
+        (`win` tokens a round each), each job takes up to
+        `prefill_chunk` tokens of its remainder, and when decode alone
+        saturates the budget the first admission in that order still
+        gets one minimal chunk. Returns [(job, take, cursor)]."""
 
         def cur(j):
             return j.planned if planned else j.done
 
+        if self.qos is not None and jobs:
+            order = self.qos.order_jobs(
+                [self._slots[j.slots[0]].req.tenant for j in jobs])
+            jobs = [jobs[i] for i in order]
         sel: list[tuple[_AdmitJob, int, int]] = []
         left = self.mixed_token_budget - n_live * win * n_rounds
         for job in jobs:
@@ -1949,6 +2133,9 @@ class PagedInferenceServer:
         live slot plus as many prefill-chunk tokens as fit under
         `mixed_token_budget`, ONE program, then its sync. Admitting slots
         not selected this iteration are not staged at all."""
+        if self._faults is not None:
+            # an injected dispatch failure, before any device work
+            self._faults.check("dispatch")
         demand = sum(int(j.rem_lens[0]) - j.done for j in self._jobs)
         n_live = int(self.active.sum())
         g0, _ = self._spec_plan(np.flatnonzero(self.active))
@@ -1974,18 +2161,28 @@ class PagedInferenceServer:
             prof.mark("admission")
         if not sel and not n_rounds:
             return
+        if self.qos is not None:
+            for job, take, _ in sel:
+                self.qos.charge_prefill(
+                    self._slots[job.slots[0]].req.tenant, take)
         self._iter_stats.update(
             scheduler="mixed", n_live=n_live, decode_rounds=n_rounds,
             decode_tokens=n_live * win * n_rounds,
             prefill_tokens=sum(t for _, t, _ in sel))
         if n_rounds > 0:
             self._stage_spec_stats(g_iter, n_live)
+        if self.trace_recorder is not None:
+            self._stage_spans("prefill_chunk",
+                              self._prefill_span_tags(sel))
         pf = self._build_prefill_group(sel)
         live_ids, rows = self._gather_decode_rows()
         self._iter_stats.update(
             decode_rows=int(rows.live.shape[0]) if n_rounds else 0,
             compaction_ratio=(n_live / max(int(rows.live.shape[0]), 1)
                               if n_rounds else 1.0))
+        if self.trace_recorder is not None and n_rounds > 0:
+            self._stage_spans("decode_segment",
+                              self._decode_span_tags(live_ids, n_rounds))
         flags = self._mixed_flags(pf, live, g_iter, spec_lens, n_rounds)
         staged = self._mixed_staged(pf, flags, rows, spec_lens)
         if prof is not None:
@@ -2070,6 +2267,7 @@ class PagedInferenceServer:
         if not jobs and not planned_active.any():
             return None
         stats: dict = {}
+        spans: list = []
         if jobs:
             # a token-budget mixed iteration (mirrors _mixed_dispatch);
             # the planner never preempts, so one speculation plan holds
@@ -2096,6 +2294,10 @@ class PagedInferenceServer:
                                        planned=True)
             if not sel and not n_rounds:
                 return None
+            if self.qos is not None:
+                for job, take, _ in sel:
+                    self.qos.charge_prefill(
+                        self._slots[job.slots[0]].req.tenant, take)
             activating: list[int] = []
             for job, take, d0 in sel:
                 job.planned = d0 + take
@@ -2107,6 +2309,9 @@ class PagedInferenceServer:
                 prefill_tokens=sum(t for _, t, _ in sel))
             if n_rounds > 0:
                 self._stage_spec_stats(g_iter, n_live, st=stats)
+            if self.trace_recorder is not None:
+                self._stage_spans("prefill_chunk",
+                                  self._prefill_span_tags(sel), out=spans)
             if prof is not None:
                 prof.mark("admission")
             pf = self._build_prefill_group(sel)
@@ -2115,6 +2320,10 @@ class PagedInferenceServer:
                 decode_rows=int(rows.live.shape[0]) if n_rounds else 0,
                 compaction_ratio=(n_live / max(int(rows.live.shape[0]), 1)
                                   if n_rounds else 1.0))
+            if self.trace_recorder is not None and n_rounds > 0:
+                self._stage_spans(
+                    "decode_segment",
+                    self._decode_span_tags(live_ids, n_rounds), out=spans)
             if n_rounds == 0:
                 rows.live = np.zeros_like(rows.live)
             plan = _Plan(
@@ -2124,7 +2333,7 @@ class PagedInferenceServer:
                 owners=[self._slots[int(s)] for s in live_ids], pf=pf,
                 flags=self._mixed_flags(pf, live, g_iter, spec_lens,
                                         n_rounds),
-                stats=stats)
+                stats=stats, spans=spans)
         else:
             # a pure-decode iteration (mirrors _decode_dispatch)
             n = self._chunk_rounds(active=planned_active)
@@ -2147,13 +2356,17 @@ class PagedInferenceServer:
                 compaction_ratio=(len(live_ids)
                                   / max(int(rows.live.shape[0]), 1)))
             self._stage_spec_stats(g_iter, len(live_ids), st=stats)
+            if self.trace_recorder is not None:
+                self._stage_spans("decode_segment",
+                                  self._decode_span_tags(live_ids, n),
+                                  out=spans)
             flags = self._decode_flags(planned_active, g_iter, spec_lens, n)
             plan = _Plan(
                 kind="decode", sel=[], activating=[], n_rounds=n,
                 win=g_iter + 1, g_iter=g_iter, spec_lens=spec_lens,
                 live_ids=live_ids, rows=rows,
                 owners=[self._slots[int(s)] for s in live_ids], pf=None,
-                flags=flags, stats=stats)
+                flags=flags, stats=stats, spans=spans)
         if prof is not None:
             prof.mark("build")
         return plan
@@ -2206,7 +2419,7 @@ class PagedInferenceServer:
             activating=plan.activating, live_ids=live_ids,
             owners=plan.owners, n_rounds=plan.n_rounds, win=plan.win,
             g_iter=plan.g_iter, spec_lens=plan.spec_lens,
-            stats=plan.stats, t_launch=t)
+            stats=plan.stats, spans=plan.spans, t_launch=t)
 
     def _commit_inflight(self) -> None:
         """Wait on the in-flight dispatch's event and commit it: the
@@ -2229,6 +2442,7 @@ class PagedInferenceServer:
         # installed before the commit: its speculation fields belong to
         # this record
         self._iter_stats = st
+        self._iter_spans = infl.spans
         if infl.n_rounds > 0:
             self._commit_decode_out(infl.live_ids, out, infl.g_iter,
                                     infl.spec_lens, infl.n_rounds,
@@ -2291,53 +2505,78 @@ class PagedInferenceServer:
         N+1 — one launch and one sync per step. With nothing in flight
         (cold start, after a drain or a famine): the sequential
         iteration, then the pipeline is primed by planning and launching
-        the next dispatch before returning."""
+        the next dispatch before returning. A profiler window that
+        closes at this step's end first waits on the dispatch still in
+        flight, so the trace holds its kernels."""
         with self._step_lock:
-            prof = self._profiler
-            if prof is not None:
-                prof.begin()
-            al = self.allocator
-            al.telemetry.iteration = self.flight.iterations + 1
-            c0 = (al.pages_allocated, al.pages_released, al.evictions)
-            if self._inflight is None:
-                self._sweep_cancelled()
+            self.tracer.step_start()
+            try:
+                if self._faults is not None:
+                    self._faults.maybe_stall()
+                    self._faults.maybe_wedge(self._stop)
+                prof = self._profiler
                 if prof is not None:
-                    prof.mark("sweep")
-                self._start_admissions()
-                if prof is not None:
-                    prof.mark("admission")
-                self._iter_stats = {}
-                p0 = self.preemptions
-                t0 = prof.t0 if prof is not None else time.perf_counter()
-                if self._jobs:
-                    self._mixed_dispatch()
-                elif self.active.any():
-                    self._decode_dispatch()
-                if self._jobs or self.active.any():
+                    prof.begin()
+                al = self.allocator
+                al.telemetry.iteration = self.flight.iterations + 1
+                c0 = (al.pages_allocated, al.pages_released, al.evictions)
+                if self._inflight is None:
+                    self._sweep_cancelled()
+                    if prof is not None:
+                        prof.mark("sweep")
+                    self._start_admissions()
+                    if prof is not None:
+                        prof.mark("admission")
+                    self._iter_stats = {}
+                    p0 = self.preemptions
+                    t0 = (prof.t0 if prof is not None
+                          else time.perf_counter())
+                    if self._jobs:
+                        self._mixed_dispatch()
+                    elif self.active.any():
+                        self._decode_dispatch()
+                    if self._jobs or self.active.any():
+                        plan = self._plan_iteration()
+                        if plan is not None:
+                            self._launch_plan(plan)
+                    self._record_iteration(t0, p0, c0)
+                    if self._iter_stats:
+                        self.last_busy_ts = self._iter_stats["ts"]
+                    else:
+                        self.idle_iterations += 1
+                else:
+                    self._overlap_sweep()
+                    if prof is not None:
+                        prof.mark("sweep")
+                    self._start_admissions()
+                    if prof is not None:
+                        prof.mark("admission")
+                    p0 = self.preemptions
+                    t0 = (prof.t0 if prof is not None
+                          else time.perf_counter())
+                    if self._faults is not None:
+                        # one hit a step (the fill path's site is inside
+                        # its sequential dispatch), before the commit
+                        self._faults.check("dispatch")
                     plan = self._plan_iteration()
+                    self._commit_inflight()
                     if plan is not None:
                         self._launch_plan(plan)
-                self._record_iteration(t0, p0, c0)
-                if self._iter_stats:
+                    self._record_iteration(t0, p0, c0)
                     self.last_busy_ts = self._iter_stats["ts"]
-                else:
-                    self.idle_iterations += 1
-            else:
-                self._overlap_sweep()
-                if prof is not None:
-                    prof.mark("sweep")
-                self._start_admissions()
-                if prof is not None:
-                    prof.mark("admission")
-                p0 = self.preemptions
-                t0 = prof.t0 if prof is not None else time.perf_counter()
-                plan = self._plan_iteration()
-                self._commit_inflight()
-                if plan is not None:
-                    self._launch_plan(plan)
-                self._record_iteration(t0, p0, c0)
-                self.last_busy_ts = self._iter_stats["ts"]
+            except BaseException:
+                # a failed step closes the window without waiting on the
+                # card: the step's own error is the one that surfaces
+                self.tracer.step_end()
+                raise
+            self.tracer.step_end(settle=self._settle_inflight)
             return self.num_active
+
+    def _settle_inflight(self) -> None:
+        """Wait until the dispatch in flight has run (a profiler
+        window's close; never on the serving path)."""
+        if self._inflight is not None:
+            self._inflight.program.settle()
 
     # -- the scheduler loop -------------------------------------------------
 
@@ -2380,6 +2619,9 @@ class PagedInferenceServer:
                     else:
                         keep.append(r)
                 self._pending = keep
+            for r in expired:
+                if self.qos is not None:
+                    self.qos.on_pending_removed(r.tenant)
         for r in expired:
             r.finish_reason = "deadline"
             self._complete(r)
@@ -2400,41 +2642,77 @@ class PagedInferenceServer:
         """The sequential iteration (overlap off, or the alternating
         scheduler)."""
         with self._step_lock:
-            prof = self._profiler
-            if prof is not None:
-                prof.begin()
-            al = self.allocator
-            al.telemetry.iteration = self.flight.iterations + 1
-            c0 = (al.pages_allocated, al.pages_released, al.evictions)
-            self._sweep_cancelled()
-            if prof is not None:
-                prof.mark("sweep")
-            self._start_admissions()
-            if prof is not None:
-                prof.mark("admission")
-            self._iter_stats = {}
-            p0 = self.preemptions
-            t0 = prof.t0 if prof is not None else time.perf_counter()
-            if self._mixed_enabled and self._jobs:
-                self._mixed_dispatch()
-            else:
-                for job in list(self._jobs):
-                    self._run_one_chunk(job)
-                if self.active.any():
-                    self._decode_dispatch()
-            self._record_iteration(t0, p0, c0)
-            if self._iter_stats:
-                self.last_busy_ts = self._iter_stats["ts"]
-            else:
-                self.idle_iterations += 1
-            return self.num_active
+            self.tracer.step_start()
+            try:
+                if self._faults is not None:
+                    # an injected host stall, and the wedge: it blocks
+                    # holding _step_lock until stop() (the case of
+                    # _fail_all's bounded acquire)
+                    self._faults.maybe_stall()
+                    self._faults.maybe_wedge(self._stop)
+                prof = self._profiler
+                if prof is not None:
+                    prof.begin()
+                al = self.allocator
+                al.telemetry.iteration = self.flight.iterations + 1
+                c0 = (al.pages_allocated, al.pages_released, al.evictions)
+                self._sweep_cancelled()
+                if prof is not None:
+                    prof.mark("sweep")
+                self._start_admissions()
+                if prof is not None:
+                    prof.mark("admission")
+                self._iter_stats = {}
+                p0 = self.preemptions
+                t0 = prof.t0 if prof is not None else time.perf_counter()
+                if self._mixed_enabled and self._jobs:
+                    self._mixed_dispatch()
+                else:
+                    for job in list(self._jobs):
+                        self._run_one_chunk(job)
+                    if self.active.any():
+                        self._decode_dispatch()
+                self._record_iteration(t0, p0, c0)
+                if self._iter_stats:
+                    self.last_busy_ts = self._iter_stats["ts"]
+                else:
+                    self.idle_iterations += 1
+                return self.num_active
+            finally:
+                self.tracer.step_end()
+
+    def _stage_spans(self, name: str, items,
+                     out: list | None = None) -> None:
+        """One `name` span per (slot id, tags) of `items` whose request
+        is traced, for this iteration's dispatch (stamped by
+        _record_iteration). `out` overrides the destination (a planned
+        iteration's spans)."""
+        if out is None:
+            out = self._iter_spans
+        for sid, tags in items:
+            s = self._slots[sid]
+            if s is not None and s.req.trace is not None:
+                out.append((s.req, name, {"slot": sid, **tags}))
+
+    @staticmethod
+    def _prefill_span_tags(sel) -> list:
+        return [(job.slots[0], {"tokens": take, "offset": d0})
+                for job, take, d0 in sel]
+
+    @staticmethod
+    def _decode_span_tags(live_ids, n_rounds: int) -> list:
+        return [(int(sid), {"rounds": n_rounds}) for sid in live_ids]
 
     def _record_iteration(self, t0: float, p0: int,
                           c0: tuple[int, int, int]) -> None:
         """Flight-recorder epilogue of one busy iteration: the dispatch
         paths filled `_iter_stats` with their token split; this adds the
         budget, occupancy and pool fields and the phase split, and
-        appends one record. Idle iterations record nothing."""
+        appends one record. Idle iterations record nothing. The spans the
+        dispatch paths staged are stamped with the same (t0, now) frame
+        and the record's flight index, and the brownout detector and the
+        anomaly watchdog read this record's fields."""
+        spans, self._iter_spans = self._iter_spans, []
         st = self._iter_stats
         if not st:
             return
@@ -2447,6 +2725,11 @@ class PagedInferenceServer:
         # every preemption requeues its request at the queue front, so
         # this one field is both the preemption and the requeue count
         st["preemptions"] = self.preemptions - p0
+        if self.qos is not None:
+            # generated share over weighted entitlement (1.0 = fair)
+            st["tenant_fair_share"] = {
+                k: round(v, 4)
+                for k, v in self.qos.fair_shares().items()}
         st["n_jobs"] = len(self._jobs)
         st["pending"] = self.num_pending
         al = self.allocator
@@ -2460,6 +2743,10 @@ class PagedInferenceServer:
         frac = (free + cached) / max(al.num_pages, 1)
         st["pool_evictable_frac"] = frac
         self._cache_hists["evictable_frac"].observe(frac)
+        mig_in, mig_out = self._migration.drain_flight_deltas()
+        if mig_in or mig_out:
+            st["migrated_in"] = mig_in
+            st["migrated_out"] = mig_out
         prof = self._profiler
         if prof is not None:
             now = prof.mark("epilogue")
@@ -2483,21 +2770,73 @@ class PagedInferenceServer:
                 for p, v in phases.items():
                     hists[p].observe(v)
         else:
-            st["duration_ms"] = (time.perf_counter() - t0) * 1e3
+            now = time.perf_counter()
+            st["duration_ms"] = (now - t0) * 1e3
         if self._iter_launch_ts is not None:
             # the launch-ahead made THIS step (the Perfetto inflight
             # track pairs it with the next record's device wait)
             st["t_launch"] = self._iter_launch_ts
             self._iter_launch_ts = None
+        if self._brownout is not None:
+            # the pending head's age is the queue-growth signal
+            with self._lock:
+                head = self._pending[0] if self._pending else None
+                age = (0.0 if head is None or head.submit_time is None
+                       else now - head.submit_time)
+            st["brownout_level"] = self._brownout.observe(
+                pending_age_s=age,
+                budget_utilization=st.get("budget_utilization", 0.0),
+                host_gap_frac=st.get("host_gap_frac", 0.0))
+        if self._anomaly is not None:
+            hb = self._anomaly_cache_base
+            cur = (al.prefix_hit_pages, al.prefix_miss_pages)
+            self._anomaly_cache_base = cur
+            hit_d = cur[0] - hb[0]
+            fired = self._anomaly.observe_iteration(
+                now=now, host_gap_frac=st.get("host_gap_frac", 0.0),
+                pending=st["pending"],
+                preempt_delta=st["preemptions"],
+                cache_lookup_delta=hit_d + (cur[1] - hb[1]),
+                cache_hit_delta=hit_d,
+                overload_level=st.get("brownout_level", 0))
+            if fired:
+                self._on_anomaly(fired)
         st["ts"] = time.time()
         self.flight.record(**st)
+        if spans:
+            idx = self.flight.iterations
+            for req, name, tags in spans:
+                req.trace.add_span(name, t0, now, iteration=idx, **tags)
 
     def run_until_idle(self) -> None:
         while self.num_pending or self.num_active or self._jobs:
             self.step()
 
     def _fail_all(self, exc: BaseException) -> None:
-        with self._step_lock:
+        """Fail every pending and admitted request. The step lock is
+        taken with a bound: a scheduler wedged inside a step keeps it,
+        and failing everyone must unblock the waiters all the same, so
+        after the timeout the teardown goes ahead unserialized (and is
+        counted). Holding the lock, it first waits (with the same bound)
+        on the dispatch in flight: the pools and staging buffers are
+        reused in place, so no slot is torn down while the card may
+        still write its pages. A wait that times out, or raises (a
+        sticky device error raises again at every query), also makes
+        the teardown unserialized: it is counted, the wait's error is
+        reported on stderr, and every request fails with `exc`."""
+        timeout = self._teardown_lock_timeout_s
+        got = self._step_lock.acquire(timeout=timeout)
+        settled = got
+        try:
+            if got and self._inflight is not None:
+                try:
+                    settled = self._inflight.program.settle(timeout)
+                except Exception as err:  # noqa: BLE001 — see docstring
+                    print(f"[server] waiting on the dispatch in flight "
+                          f"failed: {err!r}", file=sys.stderr)
+                    settled = False
+            if not settled:
+                self.unserialized_teardowns += 1
             with self._lock:
                 pending, self._pending = (list(self._pending),
                                           collections.deque())
@@ -2510,11 +2849,16 @@ class PagedInferenceServer:
                     self._complete(slot.req)
             self._jobs.clear()
             # drop the launched-but-uncommitted dispatch: its results
-            # belong to requests that just failed, and any work it
-            # still runs precedes every later program on the stream
+            # belong to requests that just failed (its program stays in
+            # the cache, released only by stop() after a synchronize)
             self._inflight = None
             self._reaped.clear()
+        finally:
+            if got:
+                self._step_lock.release()
         for req in pending:
+            if self.qos is not None:
+                self.qos.on_pending_removed(req.tenant)
             req.finish_reason = f"error: {exc!r}"
             self._complete(req)
 
@@ -2591,12 +2935,17 @@ class PagedInferenceServer:
         if self.num_pending or self.num_active or self._jobs:
             self._fail_all(RuntimeError(
                 "server stopped before the request completed"))
-        with self._step_lock:
+        if not self._step_lock.acquire(
+                timeout=self._teardown_lock_timeout_s):
+            return  # a scheduler wedged in a step keeps its programs
+        try:
             self._inflight = None
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self._release_retired()
             self._programs.release()
+        finally:
+            self._step_lock.release()
 
     # -- observability ------------------------------------------------------
 
@@ -2647,6 +2996,52 @@ class PagedInferenceServer:
                   "Rolling speculative accept rate (accepted/drafted "
                   "per committed round; lifetime ratio without the "
                   "adaptive controller)").set(rate)
+        # the policy layer's families register whether or not it is
+        # configured (zeros), so a dashboard sees them before an incident
+        reg.counter("unserialized_teardown_total",
+                    "_fail_all teardowns that proceeded after the "
+                    "bounded _step_lock acquire timed out (slot state "
+                    "torn down against a wedged scheduler)").set_total(
+                        self.unserialized_teardowns)
+        fstats = (self._faults.stats() if self._faults is not None
+                  else None)
+        for site in SITES:
+            reg.counter("faults_injected_total",
+                        "Deliberately injected faults that fired, "
+                        "per site (inference/faults.py; zero without "
+                        "an armed FaultPlan)",
+                        labels={"site": site}).set_total(
+                            0 if fstats is None
+                            else fstats["fired"][site])
+        bstats = (self._brownout.stats() if self._brownout is not None
+                  else None)
+        reg.gauge("brownout_level",
+                  "Current overload brownout level (0 healthy, "
+                  "1 shedding best_effort, 2 shedding batch too)").set(
+                      0 if bstats is None else bstats["level"])
+        for cls in PRIORITY_CLASSES:
+            reg.counter("brownout_shed_total",
+                        "Admissions refused by overload brownout, per "
+                        "priority class (429 with jittered "
+                        "Retry-After)",
+                        labels={"class": cls}).set_total(
+                            0 if bstats is None
+                            else bstats["shed_total"].get(cls, 0))
+        mstats = self._migration.stats()
+        reg.counter("migrations_started_total",
+                    "Live-migration operations started (request "
+                    "exports + imports; inference/migration.py)"
+                    ).set_total(mstats["started"])
+        reg.counter("migrations_completed_total",
+                    "Live-migration operations completed (the "
+                    "request left this replica with its state, or "
+                    "resumed here at the exact next token)"
+                    ).set_total(mstats["completed"])
+        reg.counter("migrations_failed_total",
+                    "Live-migration operations that failed — the "
+                    "request fell back to fail-fast "
+                    "(`retriable: false`) or to the normal drain "
+                    "wait").set_total(mstats["failed"])
         stats = self.allocator.stats()
         reg.gauge("pages_total",
                   "KV page pool size").set(stats.pages_total)
@@ -2677,6 +3072,82 @@ class PagedInferenceServer:
         reg.counter("pages_released_total",
                     "KV pages whose refcount reached zero (cached or "
                     "freed)").set_total(self.allocator.pages_released)
+        reg.gauge("cache_namespaces",
+                  "Distinct KV namespaces (base model + LoRA "
+                  "adapters) that touched the prefix cache").set(
+                      stats.namespaces)
+        if self.qos is not None:
+            # per-tenant cache attribution, labeled only where a
+            # registry bounds the tenant set
+            tstats = self.allocator.telemetry.tenant_stats()
+            for name in set(self.qos.tenants()) | set(tstats):
+                led = tstats.get(name, {})
+                lbl = {"tenant": name}
+                reg.counter(
+                    "tenant_prefix_hit_tokens_total",
+                    "Prompt tokens served from prefix-cache hits at "
+                    "lookup, per tenant", labels=lbl).set_total(
+                        led.get("hit_tokens", 0))
+                reg.counter(
+                    "tenant_prefix_miss_tokens_total",
+                    "Prompt tokens the cache could not serve "
+                    "(freshly prefilled, tail included), per tenant",
+                    labels=lbl).set_total(
+                        led.get("miss_tokens", 0))
+                reg.counter(
+                    "tenant_prefix_evicted_tokens_total",
+                    "Token value of the tenant's cached chains "
+                    "evicted under memory pressure", labels=lbl
+                    ).set_total(
+                        led.get("evicted_pages", 0) * self.page_size)
+                reg.counter(
+                    "tenant_prefix_saved_tokens_total",
+                    "Prefill tokens the tenant actually skipped at "
+                    "admission (realized savings; diverges from hit "
+                    "tokens exactly when page-famine retries wasted "
+                    "lookups)", labels=lbl).set_total(
+                        led.get("saved_tokens", 0))
+                reg.gauge(
+                    "tenant_cache_pages_held",
+                    "KV pages currently referenced by the tenant's "
+                    "slots (shared pages count once per holder)",
+                    labels=lbl).set(led.get("pages_held", 0))
+            self.qos.mirror_metrics(reg)
+        if self.slo is not None:
+            self.slo.mirror_metrics(reg)
+        astats = (self._anomaly.stats(events=0)
+                  if self._anomaly is not None else None)
+        for rule in RULES:
+            reg.gauge("anomaly_active",
+                      "1 while the watchdog rule's anomaly window is "
+                      "open (inference/anomaly.py; zero without an "
+                      "anomaly config)",
+                      labels={"rule": rule}).set(
+                          0.0 if astats is None
+                          else float(rule in astats["active"]))
+            reg.counter("anomalies_total",
+                        "Watchdog rule activations (one per anomaly "
+                        "window opened, per rule)",
+                        labels={"rule": rule}).set_total(
+                            0 if astats is None
+                            else astats["fired_total"][rule])
+        rec = self.trace_recorder
+        tstats = (rec.tail_stats() if rec is not None
+                  and rec.tail_capacity > 0 else None)
+        reg.counter("trace_tail_retained_total",
+                    "Head-unsampled finished requests whose span "
+                    "trees the tail-retention predicate kept"
+                    ).set_total(0 if tstats is None else
+                                sum(tstats["retained_total"].values()))
+        reg.counter("trace_tail_evicted_total",
+                    "Tail-retained trees evicted from the bounded "
+                    "tail ring").set_total(
+                        0 if tstats is None
+                        else tstats["evicted_total"])
+        reg.counter("anomaly_bundles_total",
+                    "Forensic debug bundles auto-captured on anomaly "
+                    "activation (bundle_on_anomaly)").set_total(
+                        self._bundles_captured)
 
     def metrics_snapshot(self) -> dict:
         """Mergeable snapshot of every registered metric (the /metrics
@@ -2710,11 +3181,160 @@ class PagedInferenceServer:
                 for k, v in self.spec_control.draft_lengths().items()}
         return out
 
+    def cache_stats(self) -> dict:
+        """The /stats `cache` block and GET /debug/cache: pool occupancy,
+        lifetime prefix hit/miss/eviction counts with the page hit rate,
+        the per-tenant attribution table, the hot-prefix sketch and the
+        eviction forensics. Scrape path only (lock-free monitoring
+        reads, as `prefix_cache_stats`)."""
+        s = self.allocator.stats()
+        tel = self.allocator.telemetry
+        tstats = tel.tenant_stats()
+        # full-page hit/miss from the ledger (the allocator's walk
+        # counter records one miss per walk), from the SAME snapshot as
+        # the tenants table
+        hit_pages = sum(led["hit_pages"] for led in tstats.values())
+        miss_pages = sum(led["miss_pages"] for led in tstats.values())
+        return {
+            "pool": {
+                "pages_total": s.pages_total,
+                "pages_free": s.pages_free,
+                "pages_cached": s.pages_cached,
+                "pages_active": s.pages_active,
+                "evictable_frac": ((s.pages_free + s.pages_cached)
+                                   / max(s.pages_total, 1)),
+            },
+            "prefix": {
+                "hit_pages": hit_pages,
+                "miss_pages": miss_pages,
+                "hit_tokens": s.hits_tokens,
+                "evictions": s.evictions,
+                "hit_rate": hit_rate(hit_pages, miss_pages),
+            },
+            "namespaces": s.namespaces,
+            "tenants": tstats,
+            "top_prefixes": tel.top_prefixes(),
+            "recent_evictions": tel.recent_evictions(64),
+            "eviction_matrix": tel.eviction_matrix(),
+        }
+
     def overlap_stats(self) -> dict:
         """The /stats `overlap` block: the knob's resolved state and the
         live pipeline depth. Scrape path only."""
         return {"enabled": self.overlap, "active": self._overlap_enabled,
                 "inflight_depth": 0 if self._inflight is None else 1}
+
+    def brownout_stats(self) -> dict | None:
+        """The /stats `brownout` block; None without brownout."""
+        return None if self._brownout is None else self._brownout.stats()
+
+    def fault_stats(self) -> dict | None:
+        """Per-site injected-fault hit/fired counts (the /stats `faults`
+        block); None without a FaultPlan."""
+        return None if self._faults is None else self._faults.stats()
+
+    def migration_stats(self) -> dict:
+        """The migration ledger's counts (the /stats `migration` block;
+        zeros: export and import are not ported)."""
+        return self._migration.stats()
+
+    def lookup_trace(self, request_id: str) -> dict | None:
+        """The span tree of one traced request id (live or retained),
+        else None."""
+        rec = self.trace_recorder
+        return None if rec is None else rec.lookup(request_id)
+
+    def trace_trees(self, n: int | None = None) -> list[dict]:
+        """Span trees of the finished ring and the live requests (the
+        /traces export)."""
+        rec = self.trace_recorder
+        return [] if rec is None else rec.trees(n)
+
+    def tail_trace_trees(self, n: int | None = None) -> list[dict]:
+        """Span trees of the tail-retained ring; empty without one."""
+        rec = self.trace_recorder
+        return ([] if rec is None or rec.tail_capacity <= 0
+                else rec.tail_trees(n))
+
+    def tail_trace_stats(self) -> dict | None:
+        """The /stats `tail_retention` block; None without a tail
+        ring."""
+        rec = self.trace_recorder
+        return (None if rec is None or rec.tail_capacity <= 0
+                else rec.tail_stats())
+
+    def slo_report(self) -> dict | None:
+        """Per-class SLO attainment and burn rates (GET /slo); None
+        without an SLO config."""
+        return None if self.slo is None else self.slo.report()
+
+    def anomaly_stats(self) -> dict | None:
+        """The /stats `anomaly` block; None without a watchdog."""
+        return None if self._anomaly is None else self._anomaly.stats()
+
+    def anomaly_events(self, n: int | None = None) -> list[dict]:
+        """Watchdog events (the /traces marker track); empty without a
+        watchdog."""
+        return [] if self._anomaly is None else self._anomaly.events(n)
+
+    def request_trace(self, n_steps: int,
+                      logdir: str | os.PathLike) -> None:
+        """Arm POST /debug/trace: the next `n_steps` scheduler
+        iterations run inside utils.tracing.capture_trace(logdir)."""
+        self.tracer.request(n_steps, logdir)
+
+    def _on_anomaly(self, fired) -> None:
+        """A rule's activation edge: snapshot a debug bundle into the
+        bounded ring (`bundle_on_anomaly`) and arm the profiler window
+        when the watchdog's config asks for one. Forensics never take
+        the scheduler down: a bundle that fails, or a window already
+        armed, is skipped."""
+        if self._bundle_on_anomaly:
+            try:
+                self._bundles.append(self.debug_bundle(
+                    trigger="anomaly:" + ",".join(fired)))
+                self._bundles_captured += 1
+            except Exception:  # noqa: BLE001 — see docstring
+                pass
+        wd = self._anomaly
+        if wd is not None and wd.capture_iters > 0 and wd.capture_dir:
+            try:
+                self.tracer.request(wd.capture_iters, wd.capture_dir)
+            except ValueError:
+                pass  # a capture is already armed or running
+
+    def debug_bundle(self, n: int = 64, *,
+                     trigger: str = "manual") -> dict:
+        """One forensic artifact (GET /debug/bundle): metrics, the
+        flight window, span trees, cache, brownout, migration, SLO,
+        fault and anomaly state as one JSON-ready dict; `n` bounds the
+        ring exports."""
+        return {
+            "schema": "cloud_server.debug_bundle/v1",
+            "trigger": trigger,
+            "ts": time.time(),
+            "anomaly": self.anomaly_stats(),
+            "metrics": self.metrics_snapshot(),
+            "profile": self.iteration_profile_stats(),
+            "flight": self.flight_window(n),
+            "traces": self.trace_trees(n),
+            "tail_traces": self.tail_trace_trees(n),
+            "tail_retention": self.tail_trace_stats(),
+            "slo": self.slo_report(),
+            "cache": self.cache_stats(),
+            "brownout": self.brownout_stats(),
+            "migration": self.migration_stats(),
+            "faults": self.fault_stats(),
+            "overlap": self.overlap_stats(),
+        }
+
+    def debug_bundles(self, n: int | None = None) -> list[dict]:
+        """The ring of auto-captured bundles (oldest first; `n` bounds
+        from the newest end, n <= 0 means none)."""
+        if n is not None and n <= 0:
+            return []
+        bundles = list(self._bundles)
+        return bundles if n is None else bundles[-n:]
 
     def flight_window(self, n: int | None = None) -> list[dict]:
         """The last `n` (default: all retained) flight-recorder records,

@@ -2,13 +2,15 @@
 
 The parts of the reference's `inference/server.py` that the paged
 server needs: `QueueFullError`, `Request`, `resolve_seed`, `emit_token`,
-`_token_logprobs` and `_bucket`. The contiguous `InferenceServer` is not
-ported yet.
+`_token_logprobs`, `_bucket` and the on-demand profiler window
+`_StepTracer`. The contiguous `InferenceServer` is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import sys
 import threading
 import time
 import uuid
@@ -24,6 +26,74 @@ def _token_logprobs(logits: torch.Tensor, toks: torch.Tensor) -> torch.Tensor:
     """log P(tok) under the model's raw (pre-filter) distribution."""
     lsm = torch.log_softmax(logits.float(), dim=-1)
     return lsm.gather(1, toks.long()[:, None])[:, 0]
+
+
+class _StepTracer:
+    """On-demand profiling of the next N scheduler iterations into a
+    torch.profiler trace (utils.tracing.capture_trace), armed from any
+    thread (POST /debug/trace, or the anomaly watchdog) and driven by
+    the scheduler's own step(): the window opens at an iteration's
+    start and closes at an iteration's end, so a trace shows whole
+    dispatches. Trace failures are swallowed with a stderr note: the
+    profiler is process-global, and telemetry must never take the
+    scheduler (and every request in flight) down with it."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._pending: tuple[int, str] | None = None
+        self._cm = None
+        self._left = 0
+
+    def request(self, n_steps: int, logdir: str | os.PathLike) -> None:
+        if n_steps <= 0:
+            raise ValueError("trace step count must be positive")
+        with self._lock:
+            if self._pending is not None or self._cm is not None:
+                raise ValueError("a trace capture is already in progress")
+            self._pending = (int(n_steps), os.fspath(logdir))
+
+    @property
+    def active(self) -> bool:
+        return self._pending is not None or self._cm is not None
+
+    def step_start(self) -> None:
+        with self._lock:
+            if self._pending is None:
+                return
+            n, logdir = self._pending
+            self._pending = None
+            from cloud_server_tpu_torch.utils import tracing
+            try:
+                cm = tracing.capture_trace(logdir)
+                cm.__enter__()
+            except Exception as exc:  # noqa: BLE001 — see class docstring
+                print(f"[server] trace capture failed to start: {exc!r}",
+                      file=sys.stderr)
+                return
+            self._cm, self._left = cm, n
+
+    def step_end(self, settle=None) -> None:
+        """Count one iteration of an open window; after the last, close
+        it. `settle` (the overlap pipeline's wait on the dispatch still
+        in flight) runs first, so the window holds that dispatch's
+        kernels; it is called only here, when a window closes, and its
+        failure is not swallowed."""
+        with self._lock:
+            if self._cm is None:
+                return
+            self._left -= 1
+            if self._left > 0:
+                return
+            cm, self._cm = self._cm, None
+            try:
+                if settle is not None:
+                    settle()
+            finally:
+                try:
+                    cm.__exit__(None, None, None)
+                except Exception as exc:  # noqa: BLE001
+                    print(f"[server] trace capture failed to stop: "
+                          f"{exc!r}", file=sys.stderr)
 
 
 class QueueFullError(RuntimeError):
@@ -42,6 +112,18 @@ class Request:
     # drawn from the server's host RNG at submit) — stable across
     # preemption and re-admission
     seed_used: int = 0
+    # multi-tenant QoS (inference/qos.py): the resolved tenant name, set
+    # at submit; None when the server has no TenantRegistry
+    tenant: str | None = None
+    # request tracing (inference/request_trace.py): the RequestTrace
+    # when head sampling selected the request, else None
+    trace: object | None = None
+    # tail retention: the provisional trace of a head-unsampled request
+    # when the recorder keeps a tail ring, judged at finish
+    tail_trace: object | None = None
+    # SLO class (inference/slo.py): the tenant's priority class when SLO
+    # tracking is configured (None maps to the tracker's "default")
+    slo_class: str | None = None
     tokens: list[int] = dataclasses.field(default_factory=list)
     # log P(token) under the raw distribution, aligned with `tokens`
     logprobs: list[float] = dataclasses.field(default_factory=list)
@@ -68,6 +150,11 @@ class Request:
     def record_event(self, name: str, t: float | None = None) -> None:
         self.events.append((name, time.perf_counter() if t is None
                             else t))
+
+    def timeline(self) -> list[tuple[str, float]]:
+        """The lifecycle events as (name, perf_counter time) pairs, in
+        the order they happened (the span trees' source)."""
+        return list(self.events)
 
     def cancel(self) -> None:
         """Abort this request (idempotent; a no-op once finished)."""

@@ -291,3 +291,70 @@ def test_draft_config_is_llama_3_2_1b():
                                            4.0, 8192)
     assert cfg.tie_embeddings and cfg.dtype == "bfloat16"
     assert cfg.vocab_size == target.vocab_size
+
+
+POLICY_QOS = ('{"tenants": {"chat": {"priority": "interactive", '
+              '"weight": 3}, "bulk": {"priority": "best_effort"}}}')
+POLICY_SLO = ('{"windows_s": [60], "classes": {"default": '
+              '{"objective": 0.99, "e2e_s": 60.0}}}')
+
+
+def _policy_state(srv) -> dict:
+    """What the policy flags configured on a server."""
+    rec = srv.trace_recorder
+    return {"tenants": None if srv.qos is None else sorted(srv.qos.tenants()),
+            "slo": None if srv.slo is None else sorted(srv.slo.classes),
+            "trace": None if rec is None else (
+                rec.sample_rate, rec.capacity, rec.tail_capacity),
+            "faults": None if srv._faults is None else srv._faults.stats(),
+            "brownout": srv._brownout is not None,
+            "anomaly": None if srv._anomaly is None else (
+                srv._anomaly.warmup, srv._anomaly.hold_s),
+            "bundle": srv._bundle_on_anomaly}
+
+
+@pytest.mark.parametrize("flags", [
+    ["--qos-config", POLICY_QOS, "--brownout", '{"hold_s": 1.0}'],
+    ["--slo-config", POLICY_SLO, "--trace-sample-rate", "1.0",
+     "--trace-capacity", "8", "--trace-tail-capacity", "4"],
+    ["--trace-tail-capacity", "2"],
+    ["--fault-plan", '{"faults": [{"site": "dispatch", "after": 1000}]}',
+     "--anomaly-config", '{"warmup": 4, "hold_s": 2.0}',
+     "--bundle-on-anomaly"]],
+    ids=["qos_brownout", "slo_tracing", "tail_only", "faults_anomaly"])
+def test_policy_flags_wire_like_the_reference(files, capsys, flags,
+                                              monkeypatch):
+    """The policy-layer flags configure the port's server as the
+    reference's CLI configures its own (the same tenants, SLO classes,
+    trace rings, fault sites, brownout, watchdog and bundle switch),
+    and change no token of the printed text."""
+    from cloud_server_tpu.inference import paged_server as ref_ps
+    from cloud_server_tpu_torch.inference import paged_server
+    seen = []
+    for mod in (ref_ps, paged_server):
+        base = mod.PagedInferenceServer
+
+        class Spy(base):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                seen.append(_policy_state(self))
+
+        monkeypatch.setattr(mod, "PagedInferenceServer", Spy)
+    cfg_path, npz = files
+    ref_generate.main(["--config", cfg_path, "--decode-impl", "xla",
+                       *ARGS, *flags])
+    want = capsys.readouterr().out
+    generate.main(["--config", cfg_path, "--params-npz", npz,
+                   "--device", "cpu", *ARGS, *flags])
+    assert capsys.readouterr().out == want
+    assert len(seen) == 2 and seen[1] == seen[0]
+    assert any(v not in (None, False) for v in seen[1].values())
+
+
+def test_profiler_port_is_refused(files):
+    """The reference's profiler server has no PyTorch counterpart: the
+    flag is refused before anything is loaded."""
+    cfg_path, npz = files
+    with pytest.raises(NotImplementedError, match="profiler server"):
+        generate.main(["--config", cfg_path, "--params-npz", npz,
+                       "--device", "cpu", *ARGS, "--profiler-port", "9999"])

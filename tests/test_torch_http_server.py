@@ -5,11 +5,13 @@ and the port's over the port's, greedy, with the same weights (crossed as
 numpy arrays) and the byte tokenizer: the same requests give the same
 answers (/generate NDJSON, /v1/completions with n, logprobs, stop and SSE
 streaming, /v1/chat/completions plain and streamed, /v1/models), the
-same errors (400, 404, 429) and the same serving-metric counts. Requests
-for what the port does not have yet answer 501 naming the feature;
-penalties, logit_bias, min_tokens, regex and response_format answer as
-the reference's, through n-gram speculation. The int8 KV cache serves
-over HTTP, and `generate --serve-http` runs it.
+same errors (400, 404, 429) and the same serving-metric counts; every
+read-only route answers with the reference's status and keys, and POST
+/debug/trace writes a profiler trace. Requests for what the port does
+not have yet answer 501 naming the feature; penalties, logit_bias,
+min_tokens, regex and response_format answer as the reference's, through
+n-gram speculation. The int8 KV cache serves over HTTP, and `generate
+--serve-http` runs it.
 Every fixture stops its servers and frontends in a `finally`, and every
 request has a timeout, so a hang fails a test instead of stalling the
 suite."""
@@ -389,12 +391,13 @@ def test_metrics_counts_match_reference(weights):
                      "cloud_server_queue_wait_seconds"):
             assert stats["latency"][name]["count"] == \
                 ref_stats["latency"][name]["count"]
-        # the flight recorder, the overlap block, the iteration profile
-        # and the speculation summary answer as the reference's do; what
-        # the port lacks (the cache, fault blocks) stays absent
+        # the flight recorder, the overlap block, the iteration profile,
+        # the speculation summary, the cache and the migration ledger
+        # answer as the reference's do; the policy blocks (brownout,
+        # faults, anomaly, tail retention) appear only when configured
         assert {"active", "pending", "latency", "counters", "gauges",
                 "flight_recorder", "overlap", "iteration_profile",
-                "speculation"} == set(stats) - {"cache"}
+                "speculation", "cache", "migration"} == set(stats)
         assert stats["speculation"] == ref_stats["speculation"]
         assert set(stats) <= set(ref_stats)
         assert stats["overlap"] == {"enabled": True, "active": True,
@@ -418,7 +421,6 @@ def test_metrics_counts_match_reference(weights):
 
 UNPORTED = [
     ("/v1/embeddings", {"input": "ab"}, "embed"),
-    ("/debug/trace", {"steps": 1, "logdir": "unused"}, "trace capture"),
 ]
 
 
@@ -437,6 +439,109 @@ def test_unported_options_answer_501(pair, path, body, feature):
     ok = _json(pair.port, "/generate", {"tokens": [1, 2],
                                         "max_new_tokens": 2})
     assert len(ok["tokens"]) == 2
+
+
+# --------------------------------------------------------------------------
+# the read-only routes and the profiler window
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def served_pair(weights):
+    """A fresh pair, both sequential (so the page flows are the same),
+    that has served the same two requests."""
+    p = _Pair(weights, port_kw=dict(overlap=False))
+    try:
+        for front in (p.ref, p.port):
+            _json(front, "/generate", {"tokens": [5, 9, 3],
+                                       "max_new_tokens": 4})
+            _json(front, "/generate", {"tokens": [5, 9, 3, 7],
+                                       "max_new_tokens": 3})
+        yield p
+    finally:
+        p.close()
+
+
+READ_ROUTES = ["/healthz", "/v1/models", "/metrics", "/stats", "/stats?n=2",
+               "/slo", "/autoscaler", "/traces", "/traces?n=2",
+               "/debug/cache", "/debug/bundle", "/debug/bundle?n=2",
+               "/debug/bundle?ring=2", "/debug/scheduler_trace?n=4",
+               "/debug/requests/nonexistent"]
+# values that depend on neither time nor the pipeline's configuration
+SAME_VALUES = {"/debug/cache": None, "/slo": None, "/autoscaler": None,
+               "/debug/bundle?ring=2": None, "/traces": None,
+               "/traces?n=2": None,
+               "/debug/bundle": ("schema", "trigger", "anomaly", "slo",
+                                 "brownout", "faults", "tail_retention",
+                                 "migration", "cache", "traces",
+                                 "tail_traces"),
+               "/stats": ("active", "pending", "cache", "migration",
+                          "speculation")}
+
+
+def _keys(obj, depth=2):
+    """The key structure of a JSON answer, `depth` levels of dicts."""
+    if not isinstance(obj, dict) or depth == 0:
+        return type(obj).__name__
+    return {k: _keys(v, depth - 1) for k, v in obj.items()}
+
+
+@pytest.mark.parametrize("path", READ_ROUTES)
+def test_read_only_routes_answer_like_the_reference(served_pair, path):
+    """Every GET route: the reference's status code, content type and
+    key set (two levels deep); the reference's values where they depend
+    on neither time nor the overlap switch. /debug/cache,
+    /debug/bundle and /traces, and the /stats cache block, were 404s
+    and absent before the port's server had cache_stats, debug_bundle
+    and trace_trees."""
+    want = _request(served_pair.ref, path)
+    got = _request(served_pair.port, path)
+    assert got[0] == want[0], (path, got[0], got[2][:1])
+    assert (got[1]["Content-Type"].split(";")[0]
+            == want[1]["Content-Type"].split(";")[0])
+    if path == "/metrics":
+        fam = {ln.split()[2] for ln in got[2] if ln.startswith("# TYPE")}
+        ref_fam = {ln.split()[2] for ln in want[2]
+                   if ln.startswith("# TYPE")}
+        assert fam <= ref_fam
+        return
+    g, w = json.loads(got[2][0]), json.loads(want[2][0])
+    if path.startswith("/debug/scheduler_trace"):
+        assert set(g) == set(w)
+        return
+    assert _keys(g) == _keys(w) if path != "/v1/models" else g == w
+    same = SAME_VALUES.get(path.split("?")[0] if path.startswith("/stats")
+                           else path, ())
+    if same is None:
+        assert g == w
+    else:
+        for key in same:
+            assert g[key] == w[key], key
+
+
+def test_debug_trace_writes_a_profiler_trace(served_pair, tmp_path):
+    """POST /debug/trace answers as the reference's, and the next two
+    scheduler iterations land in a torch.profiler trace in `logdir`
+    (Chrome-trace JSON that TensorBoard and Perfetto open); a second
+    window while one is armed is a 400, as in the reference."""
+    body = {"steps": 2, "logdir": str(tmp_path)}
+    status, _, lines = _request(served_pair.port, "/debug/trace", body)
+    assert status == 200
+    assert json.loads(lines[0]) == {"ok": True, "steps": 2,
+                                    "logdir": str(tmp_path)}
+    busy = _request(served_pair.port, "/debug/trace", body)
+    assert busy[0] == 400 and "already in progress" in busy[2][0]
+    out = _json(served_pair.port, "/generate", {"tokens": [5, 9, 3],
+                                                "max_new_tokens": 4})
+    assert len(out["tokens"]) == 4
+    deadline = time.time() + 30
+    while served_pair.port_srv.tracer.active and time.time() < deadline:
+        time.sleep(0.01)
+    assert not served_pair.port_srv.tracer.active
+    files = sorted(tmp_path.rglob("*.pt.trace.json"))
+    assert len(files) == 1
+    events = json.loads(files[0].read_text())["traceEvents"]
+    assert any(e.get("ph") == "X" for e in events)
 
 
 # --------------------------------------------------------------------------

@@ -840,3 +840,53 @@ def test_stop_releases_graph_memory():
     (held1, after1), (held2, after2) = levels
     assert held1 > after1 and held2 > after2
     assert after2 == after1
+
+
+@pytest.mark.gpu
+def test_profiler_window_holds_graphed_dispatches(tmp_path):
+    """POST /debug/trace's window on the card: programs captured while
+    it is open replay to the same tokens as graphs off, and a window
+    closing under the overlap pipeline waits on the dispatch in flight,
+    so its trace holds that program's narrow-kernel launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import json
+    eager = _staggered_graph_run(_graph_server(cuda_graphs=False))
+    srv = _graph_server()
+    srv.request_trace(2, tmp_path / "captures")  # the first two steps
+    assert _staggered_graph_run(srv) == eager
+    assert len(list((tmp_path / "captures").glob("*.pt.trace.json"))) == 1
+    srv.submit(GRAPH_PROMPTS[1], max_new_tokens=64)
+    while srv._jobs or srv.num_pending:
+        srv.step()
+    srv.step()
+    srv.request_trace(2, tmp_path / "steady")
+    for _ in range(2):
+        srv.step()
+    assert not srv.tracer.active and srv._inflight is not None
+    (path,) = (tmp_path / "steady").glob("*.pt.trace.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    narrow = sum(1 for e in events if e.get("cat") == "kernel"
+                 and "paged_narrow_kernel" in e.get("name", ""))
+    # 2 layers x decode_chunk rounds a program, two programs at least
+    assert narrow >= 2 * 2 * srv.decode_chunk
+    srv.stop()
+
+
+@pytest.mark.gpu
+def test_fail_all_waits_on_the_dispatch_in_flight():
+    """_fail_all under the overlap pipeline: holding the step lock it
+    waits on the launched program before tearing the slots down, and
+    every request ends with the error."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    srv = _graph_server()
+    reqs = [srv.submit(p, max_new_tokens=32) for p in GRAPH_PROMPTS[:4]]
+    for _ in range(3):
+        srv.step()
+    prog = srv._inflight.program
+    srv._fail_all(RuntimeError("boom"))
+    assert prog.settle(0.0) and srv._inflight is None
+    assert all(r.done and r.finish_reason.startswith("error") for r in reqs)
+    assert srv.unserialized_teardowns == 0
+    srv.stop()

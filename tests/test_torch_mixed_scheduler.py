@@ -371,6 +371,65 @@ def test_adaptive_ngram_raises_lengths_exact(weights):
     assert stats["tokens_accepted"] == srv.spec_tokens_accepted > 0
 
 
+INT8_PROMPTS = [REP, PROMPTS[0], LONG]
+
+
+def _int8_setup(draft: bool):
+    """(reference kwargs, port kwargs) of an int8 speculating server:
+    the target's pools int8 and, with a draft model, the draft's too."""
+    ref_draft, port_draft = _draft_setup()
+    ref_kw, port_kw = {}, {}
+    if draft:
+        dcfg8 = dataclasses.replace(ref_draft[1], kv_cache_dtype="int8")
+        ref_kw = dict(draft_params=ref_draft[0], draft_cfg=dcfg8)
+        port_kw = dict(draft_params=port_draft[0],
+                       draft_cfg=TModelConfig(**dataclasses.asdict(dcfg8)))
+    return ref_kw, port_kw
+
+
+@pytest.fixture(scope="module")
+def int8_reference(weights):
+    """The reference int8 speculating server's requests, per draft
+    source, run once for both schedules (greedy tokens and their
+    logprobs do not depend on the schedule)."""
+    cfg8 = dataclasses.replace(CFG, kv_cache_dtype="int8")
+    done = {}
+
+    def get(draft: bool):
+        if draft not in done:
+            ref_kw, _ = _int8_setup(draft)
+            done[draft] = _run(RefServer(weights[0], cfg8, GREEDY,
+                                         overlap=False, spec_drafts=2,
+                                         **ref_kw, **SRV_KW),
+                               INT8_PROMPTS, 10)
+        return done[draft]
+
+    return get
+
+
+@pytest.mark.parametrize("draft", [True, False], ids=["draft", "ngram"])
+@pytest.mark.parametrize("scheduler", ["mixed", "alternating"])
+def test_int8_cache_speculation_exact(weights, int8_reference, scheduler,
+                                      draft):
+    """The int8 KV cache (target and draft pools int8, their scale
+    pages moving with them) under n-gram and draft-model speculation:
+    the reference speculating int8 server's tokens, logprobs within
+    1e-4."""
+    cfg8 = dataclasses.replace(CFG, kv_cache_dtype="int8")
+    _, port_kw = _int8_setup(draft)
+    srv = PagedInferenceServer(
+        weights[1], TModelConfig(**dataclasses.asdict(cfg8)),
+        TInferConfig(**dataclasses.asdict(GREEDY)), device="cpu",
+        spec_drafts=2, scheduler=scheduler, **port_kw, **SRV_KW)
+    assert srv.k_scale_pool is not None
+    got = _run(srv, INT8_PROMPTS, 10)
+    want = int8_reference(draft)
+    assert [r.result() for r in got] == [r.result() for r in want]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.logprobs, w.logprobs, atol=1e-4)
+    assert srv.spec_tokens_drafted > 0
+
+
 @pytest.mark.parametrize("draft", [True, False], ids=["draft", "ngram"])
 def test_preemption_during_spec_dispatch(weights, draft):
     """The pipeline plans on upper bounds of a speculative dispatch's

@@ -161,9 +161,13 @@ def test_seeded_requests_token_exact_against_reference(weights):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(brownout={}), dict(slo={}), dict(qos={}),
-    dict(tracing=0.5), dict(allocation="reserve")])
+    dict(allocation="reserve"), dict(mesh=object()),
+    dict(cfg=dataclasses.replace(CFG, num_experts=4))],
+    ids=["reserve", "mesh", "moe"])
 def test_unported_features_raise(weights, kw):
+    """What stays unported is refused at construction: the
+    full-reservation paging policy, tensor-parallel serving and MoE
+    models."""
     _, params = weights
     with pytest.raises(NotImplementedError):
         _port_server(params, **SRV_KW, **kw)
