@@ -50,11 +50,11 @@ each:
                 tokens are the same up to a divergence at a near tie
                 (both tokens within the run's 25th-percentile top-2 gap
                 of the dense forward's top logit), and on a 2-layer
-                float32 slice token for token; 8 server-global seeded
-                requests, and 8 requests each with its own seed and
-                top-p, give the same tokens graphed and with graphs
-                off, and steady seeded decode steps of both graphed
-                servers are timed;
+                float32 slice token for token; on the first 8 layers, 8
+                server-global seeded requests, and 8 requests each with
+                its own seed and top-p, give the same tokens graphed and
+                with graphs off, and steady seeded decode steps of both
+                graphed servers are timed;
      profile  — on the served server, pipelined mixed steps (admissions
                 landing) and steady decode steps (8 live slots), several
                 of each under torch.profiler: per step the wall time,
@@ -99,14 +99,24 @@ each:
                 commits); the target drafting for itself (its own
                 pools; steady acceptance >= 0.9 on a 2-layer float32
                 slice; in bf16 at full depth every rejected draft at a
-                near tie and >= 0.8 accepted); 8 seeded requests with
-                penalties, logit_bias and min_tokens through n-gram
-                speculation under the adaptive controller, graphed ==
-                graphs off; a regex request in process, a second
-                pattern registered while its decode dispatch is in
-                flight (that program released only after its commit),
+                near tie and >= 0.8 accepted); on the first 8 layers, 8
+                seeded requests with penalties, logit_bias and min_tokens
+                through n-gram speculation under the adaptive controller,
+                graphed == graphs off, then a regex request in process,
+                a second pattern registered while its decode dispatch is
+                in flight (that program released only after its commit),
                 and response_format json_object over HTTP, each held
                 against its DFA;
+     fleet    — two replicas of the serve phase's server on one copy of
+                the weights behind the replica router: a migrating drain
+                of the 8 requests (pages read back bit-equal, export and
+                import GB/s beside a pinned copy of the same bytes),
+                prefill/decode handoffs (the exposed ms and its split,
+                the share of pages the prefetch copied), a failover
+                with each replica on its own scheduler thread
+                (completed_frac, the breaker's time), an int8 round trip
+                (scale pools bit-equal); the tokens held against the serve
+                phase's by the near-tie rule, B1 and B2 counted;
   4. train    — the training CLI (`cloud_server_tpu_torch.train.main`)
                 at Llama-3.1-8B's widths cut to 8 layers (f32 masters,
                 bf16 compute, flash attention, full remat): 6 steps at
@@ -554,6 +564,20 @@ LONG_NEW = 96
 PROFILE_STEPS = 3
 # The steady seeded decode steps timed.
 SEEDED_STEPS = 4
+# The depth of the seeded-sampling and grammar checks (the serve phase's
+# seeded runs, the spec phase's A12 and grammar runs): the first 8 of the
+# 32 layers at full width, to keep the script within its time (PERF.md,
+# PR 12).
+SEEDED_LAYERS = 8
+
+
+def first_layers(params, cfg, n: int) -> tuple:
+    """The model's first `n` layers at full width (views of `params`):
+    (params, cfg)."""
+    import dataclasses
+    return (dict(params, layers={k: v[:n]
+                                 for k, v in params["layers"].items()}),
+            dataclasses.replace(cfg, num_layers=n))
 # Host API calls that launch work on the card, as torch.profiler lists
 # them among its CPU events (CUPTI's runtime and low-level CUDA APIs).
 LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
@@ -899,13 +923,15 @@ def seeded_run(params, cfg, icfg, rng, prompts, what,
 
 
 def seeded_runs(params, cfg, rng, prompts) -> dict:
-    """`seeded_run` twice: server-global seeded sampling (InferConfig
+    """`seeded_run` twice, on the model's first SEEDED_LAYERS layers:
+    server-global seeded sampling (InferConfig
     temperature 0.8, top-k 50: every row draws from the server's key,
     split once per dispatch), then per request (a greedy server, each
     request with its own seed, temperature 0.8 and top-p 0.9: the
     programs that sample per row)."""
     from cloud_server_tpu_torch.config import InferConfig
     from cloud_server_tpu_torch.inference.sampling import SamplingParams
+    params, cfg = first_layers(params, cfg, SEEDED_LAYERS)
     base = dict(max_decode_len=MAX_NEW, eos_token_id=-1, pad_token_id=0)
     glob, rounds = seeded_run(params, cfg, InferConfig(temperature=0.8, top_k=50,
                                                **base),
@@ -915,7 +941,8 @@ def seeded_runs(params, cfg, rng, prompts) -> dict:
                       [SamplingParams(seed=1000 + i, temperature=0.8,
                                       top_p=0.9)
                        for i in range(len(prompts))])
-    return {"seeded_graphed_equals_graphs_off": True,
+    return {"seeded_layers": SEEDED_LAYERS,
+            "seeded_graphed_equals_graphs_off": True,
             "per_request_seeded_graphed_equals_graphs_off": True,
             "seeded_decode_step_ms": glob,
             "per_request_seeded_decode_step_ms": rows,
@@ -1248,6 +1275,7 @@ def serve_int8(params, cfg, icfg, prompts, bf16_tokens, bf16_bytes,
                http_requests_equal_to_in_process=sum(
                    r.tokens == ids for r, ids in zip(local, got)))
     emit(out)
+    out["tokens"] = toks  # the fleet phase's int8 round trip reads them
     print(f"int8 HTTP: TTFT p50 {out['http_ttft_p50_s']:.4f} s, max "
           f"{out['http_ttft_max_s']:.4f} s; ITL p50 "
           f"{out['http_itl_p50_s']:.4f} s, p99 {out['http_itl_p99_s']:.4f} s",
@@ -1597,8 +1625,10 @@ def serve_spec(params, cfg, prompts, plain_tokens, rng) -> dict:
             f"in bf16 (at least {SELF_DRAFT_BF16_FLOOR})")
 
     # per-request seeded sampling with the A12 options through n-gram
-    # speculation: graphed == graphs off, token for token
+    # speculation, on the first SEEDED_LAYERS layers: graphed == graphs
+    # off, token for token
     t0 = time.perf_counter()
+    p_cut, cfg_cut = first_layers(params, cfg, SEEDED_LAYERS)
     icfg_s = InferConfig(max_decode_len=MAX_NEW, temperature=0.0,
                          eos_token_id=BYTE_EOS, pad_token_id=0)
     sampling = [SamplingParams(
@@ -1607,9 +1637,9 @@ def serve_spec(params, cfg, prompts, plain_tokens, rng) -> dict:
         min_tokens=8) for i in range(len(prompts))]
     runs = {}
     for graphed in (False, True):
-        srv = make_server(params, cfg, icfg_s, spec_drafts=SPEC_DRAFTS,
+        srv = make_server(p_cut, cfg_cut, icfg_s, spec_drafts=SPEC_DRAFTS,
                           cuda_graphs=graphed, tokenizer=ByteTokenizer())
-        reqs, _, _, _ = serve_once(params, cfg, icfg_s, prompts, srv=srv,
+        reqs, _, _, _ = serve_once(p_cut, cfg_cut, icfg_s, prompts, srv=srv,
                                    sampling=sampling)
         runs[graphed] = ([r.tokens for r in reqs],
                          srv.speculation_stats(), srv)
@@ -1627,7 +1657,8 @@ def serve_spec(params, cfg, prompts, plain_tokens, rng) -> dict:
                          "tokens_drafted": runs[True][1]["tokens_drafted"],
                          "tokens_accepted": runs[True][1]["tokens_accepted"]}
 
-    # grammar on the graphed seeded server, in process then over HTTP
+    # grammar on the graphed seeded server (the same depth), in process
+    # then over HTTP
     t0 = time.perf_counter()
     srv = runs[True][2]
     try:
@@ -1635,7 +1666,7 @@ def serve_spec(params, cfg, prompts, plain_tokens, rng) -> dict:
     finally:
         srv.stop()
     seconds["grammar"] = time.perf_counter() - t0
-    del srv, runs
+    del srv, runs, p_cut
     gc.collect()
     torch.cuda.empty_cache()
     seconds["total"] = time.perf_counter() - t_phase
@@ -1731,6 +1762,10 @@ def phase_serve() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     out["spec"] = serve_spec(params, cfg, prompts, tokens, rng)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["fleet"] = phase_fleet(params, cfg, icfg, prompts, tokens,
+                               out["int8"]["tokens"])
     return out
 
 
@@ -2169,6 +2204,444 @@ def phase_policy(params, cfg, icfg, prompts, plain_tokens,
         if front is not None:
             front.stop()
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 3c: the fleet (a router over two replicas on one card)
+# ---------------------------------------------------------------------------
+
+# The fleet runs' decode budget: every request is still decoding when
+# the drain starts, its handoff lands (the router's handoff thread moves
+# about one request a round of the two replicas' steps) or replica 0's
+# dispatch fails. The tokens are held against the serve phase's first
+# MAX_NEW.
+FLEET_NEW = 128
+FLEET_BREAKER = 3
+# Wall seconds a fleet scenario may take to finish its requests.
+FLEET_TIMEOUT_S = 120
+
+
+def drop_prefix_cache(srv) -> None:
+    """Evict every cached page of an idle server, so the next scenario's
+    imports write their pages instead of finding them cached."""
+    with srv._step_lock:
+        while srv.allocator.stats().pages_cached:
+            srv.allocator._evict_one()
+
+
+def record_migrations(srv, exports: list, imports: list,
+                      check: bool = False) -> None:
+    """Record `srv`'s exports (the export's own sync included) and
+    imports, one {ms, request_id, tokens, pages, bytes} a request; the
+    snapshots themselves are not kept (their pinned buffers go back to
+    the host allocator). With `check`, an import is timed until its
+    copies have run (an event after them is waited on, which the serving
+    path never does) and its pages are read back from the pools
+    (`check_imported_pages`). `unrecord` takes the wrappers off."""
+    import torch
+    export, migrate_import = srv._export_request_locked, srv.migrate_import
+
+    def record(snap, t0) -> dict:
+        t1 = time.perf_counter()
+        return {"ms": (t1 - t0) * 1e3, "t0": t0, "t1": t1,
+                "request_id": snap.request_id, "tokens": len(snap.tokens),
+                "pages": snap.n_kv_pages(), "bytes": snap_bytes(snap)}
+
+    def timed_export(req, reason):
+        t0 = time.perf_counter()
+        out = export(req, reason)
+        exports.append(record(out[0], t0))
+        return out
+
+    def timed_import(snap, **kw):
+        t0 = time.perf_counter()
+        req = migrate_import(snap, **kw)
+        if check:
+            done = torch.cuda.Event()
+            done.record()
+            done.synchronize()
+        rec = record(snap, t0)
+        if check:
+            rec["pages_bit_equal"] = check_imported_pages(srv, [snap])
+        imports.append(rec)
+        return req
+
+    srv._export_request_locked = timed_export
+    srv.migrate_import = timed_import
+
+
+def unrecord(*servers) -> None:
+    for srv in servers:
+        for name in ("_export_request_locked", "migrate_import"):
+            srv.__dict__.pop(name, None)
+
+
+def captures(*servers) -> list:
+    """(programs, capture seconds) of each server."""
+    return [(len(s._programs), s._programs.capture_seconds())
+            for s in servers]
+
+
+def captures_since(before: list, *servers) -> dict:
+    now = captures(*servers)
+    return {"programs": [n - b[0] for (n, _), b in zip(now, before)],
+            "seconds": [t - b[1] for (_, t), b in zip(now, before)]}
+
+
+def snap_bytes(snap) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in (snap.kv_pages or {}).values())
+
+
+def check_imported_pages(srv, snaps) -> int:
+    """Each snapshot's pages read back from `srv`'s pools (under its
+    chain keys) are bit-equal to the exported arrays; returns the pages
+    compared."""
+    import torch
+    n = 0
+    with srv._step_lock:
+        for snap in snaps:
+            if not snap.n_kv_pages():
+                continue
+            chain = list(snap.chain_tokens)
+            ids, _ = srv.allocator.lookup_prefix(chain + [0])
+            try:
+                if len(ids) != snap.n_kv_pages():
+                    raise RuntimeError(f"{len(ids)} of {snap.n_kv_pages()} "
+                                       "imported pages found")
+                for name, pool in srv._pool_items():
+                    if not torch.equal(pool[:, ids].cpu(),
+                                       snap.kv_pages[name]):
+                        raise RuntimeError(f"imported pages {name!r} "
+                                           "differ from the exported ones")
+            finally:
+                srv.allocator.release(ids, chain[:len(ids) * PS])
+            n += len(ids)
+    return n
+
+
+def pinned_copy_ms(nbytes: int) -> dict:
+    """The bound of a migration's copies: one pinned device-to-host and
+    one host-to-device copy of `nbytes`, CUDA events, median of 5."""
+    import torch
+    dev = torch.empty(nbytes, dtype=torch.uint8, device=DEVICE)
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    out = {}
+    for name, dst, src in (("d2h", host, dev), ("h2d", dev, host)):
+        times = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            dst.copy_(src, non_blocking=True)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        out[f"{name}_ms"] = sorted(times)[2]
+        out[f"{name}_gb_per_s"] = nbytes / out[f"{name}_ms"] / 1e6
+    return out
+
+
+def wait_for(cond, what: str, timeout: float = FLEET_TIMEOUT_S) -> float:
+    """Poll `cond` every millisecond; the perf_counter time it held."""
+    deadline = time.perf_counter() + timeout
+    while not cond():
+        if time.perf_counter() > deadline:
+            raise RuntimeError(f"fleet: timed out waiting for {what}")
+        time.sleep(0.001)
+    return time.perf_counter()
+
+
+def drive(router, reqs, what: str) -> None:
+    deadline = time.perf_counter() + FLEET_TIMEOUT_S
+    while not all(r.done for r in reqs):
+        if time.perf_counter() > deadline:
+            raise RuntimeError(f"fleet {what}: requests unfinished")
+        router.step()
+        time.sleep(0.001)  # the router's handoff thread takes the locks
+
+
+def disagg_run(r0, r1, prompts, vocab: int) -> tuple:
+    """The prompts through a router with roles prefill (r0) and decode
+    (r1), stepped from this thread (the router's handoff thread exports
+    and imports), both prefix caches emptied first: every request must
+    hand off. Returns (summary, requests, router): the handoff's exposed
+    ms a request (the seam in its stream against its median gap between
+    steps) and the seam split, the export and import ms, the captures
+    made, and the share of exported pages the prefetch copied."""
+    import numpy as np
+    from cloud_server_tpu_torch.inference.router import ReplicatedRouter
+    for srv in (r0, r1):
+        drop_prefix_cache(srv)
+    exports, imports = [], []
+    cap0 = captures(r0, r1)
+    record_migrations(r0, exports, [])
+    record_migrations(r1, [], imports)
+    pre0 = r0.handoff_prefetched_pages
+    moved0 = r0.migration_stats()["pages_moved"]
+    router = ReplicatedRouter([r0, r1], roles=["prefill", "decode"])
+    reqs = [router.submit(p, max_new_tokens=FLEET_NEW) for p in prompts]
+    drive(router, reqs, "disagg")
+    unrecord(r0, r1)
+    check_served(reqs, vocab, FLEET_NEW)
+    snap_m = router.metrics_snapshot()
+    handoffs = snap_m["cloud_server_router_handoff_success_total"]["value"]
+    if handoffs != len(prompts) or len(imports) != len(prompts):
+        raise RuntimeError(f"fleet disagg: {handoffs} handoffs, "
+                           f"{len(imports)} imports of {len(prompts)}")
+    # The seam split, ms: the last token on 0 to the export's start, the
+    # export, its end to the import's start, the import (its wait for
+    # replica 1's step lock included), its end to the first token on 1.
+    exposed, seams = [], []
+    by_id = {i["request_id"]: i for i in imports}
+    ex_id = {e["request_id"]: e for e in exports}
+    for r in reqs:
+        i, e = by_id[r.request_id], ex_id[r.request_id]
+        k = i["tokens"]
+        gaps = np.diff(r.emit_times)
+        steps = np.delete(gaps, k - 1)
+        exposed.append((gaps[k - 1] - float(np.median(
+            steps[steps >= 1e-3]))) * 1e3)
+        seams.append([(b - a) * 1e3 for a, b in (
+            (r.emit_times[k - 1], e["t0"]), (e["t0"], e["t1"]),
+            (e["t1"], i["t0"]), (i["t0"], i["t1"]),
+            (i["t1"], r.emit_times[k]))])
+    moved = r0.migration_stats()["pages_moved"] - moved0
+    prefetched = r0.handoff_prefetched_pages - pre0
+    hist = snap_m["cloud_server_router_handoff_ms"]
+    return ({"handoffs": handoffs, "exposed_ms_per_request": exposed,
+             "exposed_ms_mean": float(np.mean(exposed)),
+             "seam_split_ms": seams,
+             "seam_split_ms_mean": np.mean(seams, axis=0).tolist(),
+             "handoff_ms_mean": hist["sum"] / hist["count"],
+             "export_ms_mean": float(np.mean([e["ms"] for e in exports])),
+             "import_ms_mean": float(np.mean([i["ms"] for i in imports])),
+             "captures": captures_since(cap0, r0, r1),
+             "pages_moved": moved, "prefetch_pages": prefetched,
+             "prefetch_share": prefetched / max(moved, 1)}, reqs, router)
+
+
+def phase_fleet(params, cfg, icfg, prompts, plain_tokens,
+                int8_tokens) -> dict:
+    """Two replicas of the serve phase's server on the card, one copy of
+    the weights: `a` (with a fault plan) and `b`, behind
+    `ReplicatedRouter`s (replica 0 is the first server each is given):
+
+      drain      router [a, b], stepped from this thread: the 8 serve
+                 prompts on a, `drain(0, migrate=True)` mid-decode: every
+                 request moves with its pages (read back bit-equal from b's
+                 pools), export and import ms and GB/s a request beside a
+                 pinned copy of the same bytes (and what fresh pinned
+                 memory costs), the tokens held against the serve phase's
+                 by the near-tie rule;
+      disagg     `disagg_run` with b prefilling and a decoding (router
+                 [b, a]): every request prefills on 0 and decodes on 1;
+                 the near-tie rule;
+      failover   router [a, b], each server on its own scheduler thread:
+                 8 fresh prompts placed on a, a's dispatch failing
+                 mid-decode, every request completes on b (salvaged,
+                 re-prefilled), the time until a's breaker opens. a and b
+                 prefilled whole prompts in the drain and as the prefill
+                 replica, so the programs the threads run were captured
+                 on this thread;
+      int8       the round trip on two int8-cache replicas, the scale pools
+                 bit-equal too.
+
+    B1's and B2's launches are read over the phase (no plain call)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from cloud_server_tpu_torch.inference.faults import FaultPlan
+    from cloud_server_tpu_torch.inference.router import ReplicatedRouter
+    from cloud_server_tpu_torch.ops import paged_attention as pa
+    t_phase = time.perf_counter()
+    seconds = {}
+    want = [types.SimpleNamespace(tokens=t) for t in plain_tokens]
+    fp = FaultPlan()
+    a = make_server(params, cfg, icfg, faults=fp)
+    b = make_server(params, cfg, icfg)
+    exports, imports = [], []
+    record_migrations(a, exports, [])
+    record_migrations(b, [], imports, check=True)
+    pa.reset_counters()
+
+    # 1. a migrating drain of the 8 serve requests, all on a
+    t0 = time.perf_counter()
+    cap0 = captures(a, b)
+    router = ReplicatedRouter([a, b])
+    reqs = [a.submit(p, max_new_tokens=FLEET_NEW) for p in prompts]
+    while min(len(r.tokens) for r in reqs) < 1:
+        router.step()
+    torch.cuda.synchronize()
+    if not router.drain(0, migrate=True):
+        raise RuntimeError("fleet drain: a did not quiesce")
+    if a.num_active or a.num_pending:
+        raise RuntimeError("fleet drain: requests left on a")
+    unrecord(a, b)
+    if len(exports) != len(prompts) or len(imports) != len(prompts):
+        raise RuntimeError(f"fleet drain: {len(exports)} exports, "
+                           f"{len(imports)} imports of {len(prompts)}")
+    if [i["pages_bit_equal"] for i in imports] != [i["pages"]
+                                                   for i in imports]:
+        raise RuntimeError(f"fleet drain: pages read back {imports}")
+    drive(router, reqs, "drain")
+    check_served(reqs, cfg.vocab_size, FLEET_NEW)
+    drain_rows = []
+    for e, i in zip(exports, imports):
+        nb = e["bytes"]
+        drain_rows.append({
+            "tokens": e["tokens"], "pages": e["pages"], "bytes": nb,
+            "export_ms": e["ms"], "import_ms": i["ms"],
+            "export_gb_per_s": nb / e["ms"] / 1e6 if nb else None,
+            "import_gb_per_s": nb / i["ms"] / 1e6 if nb else None})
+    total = sum(r["bytes"] for r in drain_rows)
+    # what an export pays besides its copy: fresh pinned host memory (the
+    # whole drain's bytes in one block, larger than any the host
+    # allocator has cached), and beside it a synchronous copy into fresh
+    # pageable memory
+    t1 = time.perf_counter()
+    fresh = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+    alloc_ms = (time.perf_counter() - t1) * 1e3
+    del fresh
+    bound = pinned_copy_ms(total)
+    bound["pinned_alloc_ms"] = alloc_ms
+    bound["pinned_alloc_gb_per_s"] = total / alloc_ms / 1e6
+    dev = torch.empty(total, dtype=torch.uint8, device=DEVICE)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    dev.to("cpu")
+    bound["pageable_d2h_ms"] = (time.perf_counter() - t1) * 1e3
+    bound["pageable_d2h_gb_per_s"] = total / bound["pageable_d2h_ms"] / 1e6
+    del dev
+    export_ms = sum(e["ms"] for e in exports if e["pages"])
+    import_ms = sum(i["ms"] for i in imports if i["pages"])
+    drain = {"requests": len(reqs), "pages": sum(r["pages"]
+                                                  for r in drain_rows),
+             "bytes": total,
+             "pages_checked_bit_equal": sum(i["pages_bit_equal"]
+                                            for i in imports),
+             "export_ms": export_ms, "import_ms": import_ms,
+             "export_gb_per_s": total / export_ms / 1e6,
+             "import_gb_per_s": total / import_ms / 1e6,
+             "pinned_copy_bound": bound, "per_request": drain_rows,
+             "migration": router.migration_stats(),
+             "captures": captures_since(cap0, a, b)}
+    drain_reqs = reqs
+    a.resume()
+    seconds["drain"] = time.perf_counter() - t0
+
+    # 2. disaggregated: prefill on 0, decode on 1
+    t0 = time.perf_counter()
+    disagg, disagg_reqs, disagg_router = disagg_run(b, a, prompts,
+                                                    cfg.vocab_size)
+    seconds["disagg"] = time.perf_counter() - t0
+
+    # 3. failover, each replica on its own scheduler thread
+    t0 = time.perf_counter()
+    cap0 = captures(a, b)
+    fresh = make_prompts(np.random.default_rng(SEED + 3), cfg.vocab_size)
+    fail_router = ReplicatedRouter([a, b],
+                                   breaker_threshold=FLEET_BREAKER,
+                                   breaker_reset_s=600.0)
+    led = fail_router.migration_stats()
+    it1 = b.flight.iterations
+    # every request on a: b is quiesced, so not ready, while they are
+    # placed
+    if not b.drain(timeout=0):
+        raise RuntimeError("fleet failover: b is not idle")
+    reqs = [fail_router.submit(p, max_new_tokens=FLEET_NEW)
+            for p in fresh]
+    b.resume()
+    if a.num_pending != len(reqs):
+        raise RuntimeError("fleet failover: requests placed on b")
+    fail_router.start()
+    wait_for(lambda: min(len(r.tokens) for r in reqs) >= 1,
+             "every request's first token")
+    t_arm = time.perf_counter()
+    fp.arm("dispatch", count=1)
+    t_open = wait_for(
+        lambda: fail_router.breaker_states()[0]["state"] == "open",
+        "a's breaker")
+    t_done = wait_for(lambda: all(r.done for r in reqs),
+                      "the failover's requests")
+    completed = sum(r.finish_reason == "length"
+                    and len(r.tokens) == FLEET_NEW for r in reqs)
+    if completed != len(reqs):
+        raise RuntimeError(f"fleet failover: {completed} of {len(reqs)} "
+                           f"completed: {[r.finish_reason for r in reqs]}")
+    after = fail_router.migration_stats()
+    recs = b.flight_window(b.flight.iterations - it1)
+    failover = {"requests": len(reqs), "completed_frac": completed / len(reqs),
+                "migrated": after["in_completed"] - led["in_completed"],
+                "tokens_salvaged": (after["tokens_salvaged"]
+                                    - led["tokens_salvaged"]),
+                "tokens_reprefilled": sum(rec.get("prefill_tokens", 0)
+                                          for rec in recs),
+                "breaker_open_ms": (t_open - t_arm) * 1e3,
+                "first_tokens_s": t_arm - t0, "arm_to_done_s": t_done - t_arm,
+                "unserialized_teardowns": a.unserialized_teardowns,
+                "captures": captures_since(cap0, a, b)}
+    programs = {"a": len(a._programs), "b": len(b._programs),
+                "capture_s": [a._programs.capture_seconds(),
+                              b._programs.capture_seconds()]}
+    for router in (fail_router, disagg_router):
+        router.stop()
+    seconds["failover"] = time.perf_counter() - t0
+
+    # 4. the int8 cache's round trip (its scale pools with the pages)
+    t0 = time.perf_counter()
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    a8, b8 = make_server(params, cfg8, icfg), make_server(params, cfg8, icfg)
+    picks = [len(prompts) - 1]  # the longest: 11 full pages
+    src = [a8.submit(prompts[i], max_new_tokens=FLEET_NEW) for i in picks]
+    while min(len(r.tokens) for r in src) < 1:
+        a8.step()
+    snaps = [a8.migrate_export(r) for r in src]
+    conts = [b8.migrate_import(snap) for snap in snaps]
+    pages8 = check_imported_pages(b8, snaps)
+    b8.run_until_idle()
+    check_served(conts, cfg.vocab_size, FLEET_NEW)
+    equal8 = sum(x == y for i, c in zip(picks, conts)
+                 for x, y in zip(c.tokens, int8_tokens[i]))
+    int8 = {"requests": len(conts), "pages_checked_bit_equal": pages8,
+            "pools": sorted(snaps[0].kv_pages),
+            "bytes": sum(snap_bytes(s) for s in snaps),
+            "tokens_equal_to_serve_int8_share": equal8 / (len(conts)
+                                                          * MAX_NEW)}
+    a8.stop()
+    b8.stop()
+    torch.cuda.synchronize()
+    counts = pa.counters()
+    seconds["int8"] = time.perf_counter() - t0
+    for name in ("launches_narrow", "launches_wide", "launches_narrow_int8",
+                 "launches_wide_int8"):
+        if counts[name] <= 0:
+            raise RuntimeError(f"fleet: {name} never launched: {counts}")
+    if counts["plain_calls"]:
+        raise RuntimeError(f"fleet: plain attention ran: {counts}")
+
+    t0 = time.perf_counter()
+    drain["tokens"] = near_tie_divergence("the fleet's migrating drain",
+                                          drain_reqs, want, prompts, params,
+                                          cfg)
+    disagg["tokens"] = near_tie_divergence("the disaggregated fleet",
+                                           disagg_reqs, want, prompts,
+                                           params, cfg)
+
+    seconds["near_tie_checks"] = time.perf_counter() - t0
+    seconds["total"] = time.perf_counter() - t_phase
+    out = {"phase": "fleet", "replicas": 2, "counts": counts,
+           "programs": programs, "drain": drain, "disagg": disagg,
+           "failover": failover, "int8": int8, "seconds": seconds}
+    emit(out)
+    print(f"fleet: drain {drain['bytes']} B, export "
+          f"{drain['export_gb_per_s']:.2f} GB/s, import "
+          f"{drain['import_gb_per_s']:.2f} GB/s (pinned copies "
+          f"{bound['d2h_gb_per_s']:.2f} / {bound['h2d_gb_per_s']:.2f}); "
+          f"handoff exposed {disagg['exposed_ms_mean']:.2f} ms, prefetch "
+          f"share {disagg['prefetch_share']:.3f}; breaker open in "
+          f"{failover['breaker_open_ms']:.1f} ms", flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -35,13 +35,21 @@ launches (the counterpart of `jax.disable_jit`), not a mode to serve
 in.
 
 Kernel counters see replays: while a graph captures, the paged
-attention wrapper counts calls that launch nothing, so the capture takes
-those counts back, keeps them, and adds them again on every replay
+attention wrapper's calls launch nothing, so the capture counts them
+into its own tally (`ops.paged_attention.recording`, this thread's calls
+only), keeps it, and adds it on every replay
 (`ops.paged_attention.add_counts`).
+
+Several servers may share a device (a router's replicas, each with its
+own scheduler thread): the warm-up and capture streams are shared per
+device, so a warm-up and its capture hold the device's capture lock
+from the warm-up through `capture_end`. Replays and eager launches take
+no lock.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Callable
 
@@ -58,19 +66,31 @@ syncs = 0
 
 # One warm-up and one capture stream per device for every program:
 # cuBLAS keeps a workspace for each stream it has run on, so a stream per
-# capture would hold one more workspace per program for good.
+# capture would hold one more workspace per program for good. The
+# streams of a device are used under its capture lock.
 _streams: dict = {}
+_capture_locks: dict = {}
+_streams_lock = threading.Lock()
 
 
-def _sub(a: dict, b: dict) -> dict:
-    return {k: a[k] - b.get(k, 0) for k in a}
+def _card(device) -> int:
+    """The card's index ("cuda" and "cuda:0" name one card)."""
+    return (device.index if device.index is not None
+            else torch.cuda.current_device())
 
 
 def _stream(device, use: str) -> torch.cuda.Stream:
-    stream = _streams.get((device, use))
-    if stream is None:
-        stream = _streams[(device, use)] = torch.cuda.Stream(device)
-    return stream
+    key = (_card(device), use)
+    with _streams_lock:
+        stream = _streams.get(key)
+        if stream is None:
+            stream = _streams[key] = torch.cuda.Stream(device)
+        return stream
+
+
+def _capture_lock(device) -> threading.Lock:
+    with _streams_lock:
+        return _capture_locks.setdefault(_card(device), threading.Lock())
 
 
 class Program:
@@ -109,23 +129,22 @@ class Program:
         a server captures a dozen programs or more, so the capture is
         begun and ended here directly."""
         t0 = time.perf_counter()
-        cur = torch.cuda.current_stream(self.device)
-        side = _stream(self.device, "warm-up")
-        side.wait_stream(cur)
-        state = getattr(self.ctx, "mutable_state", list)()
-        with torch.cuda.stream(side):
-            saved = [t.clone() for t in state]
-            self.fn(self.ctx, self.dev_in)
-            for t, s in zip(state, saved):
-                t.copy_(s)
-            del saved
-        cur.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        cap = _stream(self.device, "capture")
-        cap.wait_stream(cur)
-        before = _pa.counters()
-        try:
-            with torch.cuda.stream(cap):
+        with _capture_lock(self.device):
+            cur = torch.cuda.current_stream(self.device)
+            side = _stream(self.device, "warm-up")
+            side.wait_stream(cur)
+            state = getattr(self.ctx, "mutable_state", list)()
+            with torch.cuda.stream(side):
+                saved = [t.clone() for t in state]
+                self.fn(self.ctx, self.dev_in)
+                for t, s in zip(state, saved):
+                    t.copy_(s)
+                del saved
+            cur.wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            cap = _stream(self.device, "capture")
+            cap.wait_stream(cur)
+            with _pa.recording() as recorded, torch.cuda.stream(cap):
                 graph.capture_begin(self._pool,
                                     capture_error_mode="thread_local")
                 try:
@@ -137,9 +156,6 @@ class Program:
                         pass  # an invalidated capture; `fn`'s error stands
                     raise
                 graph.capture_end()
-        finally:
-            recorded = _sub(_pa.counters(), before)
-            _pa.add_counts({k: -n for k, n in recorded.items()})
         self.graph, self._dev_out = graph, out
         self.replay_counts = recorded
         self.capture_s = time.perf_counter() - t0

@@ -80,10 +80,23 @@ the anomaly watchdog (`anomaly=`) with debug bundles, and the on-demand
 profiler window (`request_trace`, POST /debug/trace). It reads host
 state the scheduler already owns: no program, launch or sync is added.
 
+Live migration (inference/migration.py) and the disaggregated handoff,
+for a router's replicas (inference/router.py): `migrate_export` takes a
+live request's snapshot at the commit point (its committed full pages
+gathered on the card, copied to pinned host memory, one event waited
+on), `migrate_salvage` a host-only one from a failed server's handle,
+and `migrate_import` writes the pages into this server's pools in place
+(pinned staging, non-blocking copies on the programs' stream, no host
+sync) under their radix keys, then re-admits the request as a
+continuation. `drain(migrate=...)` evacuates every live request. A
+request submitted with `handoff=` calls it when its prefill completes,
+the D2H copies of its committed pages already started on a side stream
+under the final chunk (`_handoff_prefetch`, `_handoff_copy_out`). Token
+exactness rests on the host state alone; the pages save re-prefill.
+
 Not ported yet, and refused with NotImplementedError where a caller asks
-for them: multi-LoRA, migration and handoff, `embed`, tensor
-parallelism, MoE models and the full-reservation paging policy
-(`allocation="reserve"`).
+for them: multi-LoRA, `embed`, tensor parallelism, MoE models and the
+full-reservation paging policy (`allocation="reserve"`).
 """
 
 from __future__ import annotations
@@ -114,7 +127,8 @@ from cloud_server_tpu_torch.inference.grammar import DEAD as _GDEAD
 from cloud_server_tpu_torch.inference.iteration_profile import (
     OVERLAP_PHASES, derive_gap_fields, profile_summary,
     register_phase_hists, resolve_profiler)
-from cloud_server_tpu_torch.inference.migration import MigrationLedger
+from cloud_server_tpu_torch.inference.migration import (
+    MIGRATION_VERSION, MigrationLedger, MigrationSnapshot)
 from cloud_server_tpu_torch.inference.qos import (PRIORITY_CLASSES,
                                                   resolve_registry)
 from cloud_server_tpu_torch.inference.request_trace import resolve_recorder
@@ -907,6 +921,9 @@ class PagedInferenceServer:
         self._rng = (0, int(seed) & 0xFFFFFFFF)
 
         self.preemptions = 0
+        # pages exports took from a handoff prefetch (the rest of the
+        # ledger's pages_moved was copied at the export), lifetime
+        self.handoff_prefetched_pages = 0
         self.tokens_emitted = 0  # lifetime emitted tokens (metrics)
         # committed tokens per decode round (mean accepted length + 1)
         self.decode_rounds = 0
@@ -969,8 +986,8 @@ class PagedInferenceServer:
             raise ValueError(
                 "brownout needs a QoS registry: shed sets are priority "
                 "classes, and without tenants nothing can be shed")
-        # the migration ledger (its stats and metric families, zeros:
-        # export and import are not ported)
+        # the migration ledger (its stats, metric families and the
+        # flight records' migrated_in/out)
         self._migration = MigrationLedger()
         # _fail_all's bounded _step_lock acquire: teardowns that went
         # ahead against a scheduler that never released it
@@ -1005,6 +1022,24 @@ class PagedInferenceServer:
         # perf_counter stamp of the launch made THIS iteration (the
         # flight record's t_launch)
         self._iter_launch_ts: float | None = None
+        # disaggregated handoff: requests whose prefill completed with a
+        # `handoff=` callback, fired by the scheduler thread after it
+        # releases _step_lock (the callback's export needs that lock)
+        self._handoff_ready: list[Request] = []
+        # request_id -> (page ids, {pool name: pinned host buffer}, the
+        # event of their D2H copies): pages `_handoff_prefetch` started
+        # copying under the final prefill chunk, taken by the export
+        # while they are still a prefix of the slot's chain; dropped at
+        # the export or the request's completion
+        self._handoff_stash: dict = {}
+        # the prefetch's gathers awaiting their copies (request id, page
+        # ids, buffer pages, gathered tensors, the event after them)
+        self._handoff_gathers: list = []
+        # the prefetch's D2H copies run on their own stream, beside the
+        # programs (made at the first handoff)
+        self._copy_stream = None
+        # (event, pinned staging) of imports whose copies may still run
+        self._import_holds: list = []
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
 
@@ -1024,10 +1059,6 @@ class PagedInferenceServer:
             self._faults.check("submit_reject")
         if adapter is not None:
             raise _not_ported("multi-LoRA serving (adapter=)")
-        if fail_handler is not None or _migration is not None:
-            raise _not_ported("router failover and migration")
-        if handoff is not None:
-            raise _not_ported("disaggregated prefill/decode handoff")
         if deadline_s is not None and not (
                 math.isfinite(deadline_s) and deadline_s > 0):
             raise ValueError("deadline_s must be a finite positive "
@@ -1052,10 +1083,11 @@ class PagedInferenceServer:
             self._grammar_gid(sampling.regex)  # compile now; 400 here
         if self.qos is not None:
             tenant = self.qos.resolve(tenant)
-            if self._brownout is not None:
+            if self._brownout is not None and _migration is None:
                 # overload brownout: this class's admissions are shed
                 # with a jittered Retry-After while the detector grades
-                # the server overloaded
+                # the server overloaded (a migration continuation is
+                # exempt: its delivered tokens are already paid for)
                 cls = self.qos.priority_class(tenant)
                 if self._brownout.shed(cls):
                     raise BrownoutShedError(
@@ -1069,9 +1101,21 @@ class PagedInferenceServer:
             tenant = None
         req = Request(prompt=list(prompt), max_new_tokens=max_new,
                       stream=stream, sampling=sampling, tenant=tenant,
-                      seed_used=resolve_seed(sampling, self._host_rng,
-                                             self._lock),
+                      seed_used=(_migration.seed_used
+                                 if _migration is not None else
+                                 resolve_seed(sampling, self._host_rng,
+                                              self._lock)),
                       submit_time=time.perf_counter())
+        if _migration is not None:
+            # a migration continuation resumes another server's stream:
+            # its generated state is filled in before the request is
+            # visible to the scheduler, which admits it as a
+            # continuation (admission prompt = prompt + tokens) and
+            # decodes from the exact next token. Draws are keyed by
+            # (seed, position), so the source's seed is all that crosses.
+            req.tokens = list(_migration.tokens)
+            req.logprobs = list(_migration.logprobs)
+            req.emit_times = list(_migration.emit_times)
         if deadline_s is None and self.qos is not None:
             # the tenant's class default (None when it declares none)
             deadline_s = self.qos.default_deadline(tenant)
@@ -1080,6 +1124,10 @@ class PagedInferenceServer:
         if self.slo is not None:
             req.slo_class = (self.qos.priority_class(tenant)
                              if self.qos is not None else None)
+        # the router's hooks ride in through submit: once queued, a
+        # scheduler failure may complete the request at any moment
+        req._fail_handler = fail_handler
+        req._handoff = handoff
         req._on_cancel = self._handle_cancel
         with self._lock:
             if self._draining:
@@ -1093,8 +1141,11 @@ class PagedInferenceServer:
             if self.qos is not None:
                 # per-tenant backpressure after the global bound; on
                 # success the tenant's pending count advances with the
-                # append below
-                self.qos.gate_submit(tenant, len(prompt))
+                # append below. A migration continuation bills no prompt
+                # tokens: its source charged them
+                self.qos.gate_submit(
+                    tenant, len(prompt),
+                    charge_tokens=0 if _migration is not None else None)
             # telemetry (and the trace) before the append and after
             # every refusal: once queued, the scheduler thread may admit
             # (even finish) the request
@@ -1155,10 +1206,18 @@ class PagedInferenceServer:
                           and self._anomaly.active_count(now) > 0)
             self.trace_recorder.finish(req, slo_violated=slo_violated,
                                        in_anomaly=in_anomaly)
+        # a prefetched handoff that never ran (the request ended here)
+        self._handoff_stash.pop(req.request_id, None)
         # a finished request's cancel() is a no-op: drop the bound method,
         # so requests a caller keeps do not keep the server and its pools
         req._on_cancel = None
+        h = req._fail_handler
+        if (h is not None and req.finish_reason is not None
+                and req.finish_reason.startswith("error") and h(req)):
+            return  # a retry or migration elsewhere completes it
         req._done.set()
+        if req._on_done is not None:
+            req._on_done(req)
 
     def generate(self, prompts, *, max_new_tokens=None):
         reqs = [self.submit(p, max_new_tokens=max_new_tokens)
@@ -1168,6 +1227,9 @@ class PagedInferenceServer:
 
     def embed(self, prompts):
         raise _not_ported("embed")
+
+    def add_adapter(self, name: str, lora_params, lora_cfg) -> int:
+        raise _not_ported("multi-LoRA serving (add_adapter)")
 
     @property
     def num_active(self) -> int:
@@ -1452,6 +1514,9 @@ class PagedInferenceServer:
                         req.finish_reason = (
                             "error: request needs more pages than the "
                             "pool can ever provide")
+                        # caused by the request: a router must neither
+                        # retry it nor blame the replica
+                        req._request_fault = True
                         doomed.append(req)
                         continue
                     break
@@ -1721,6 +1786,7 @@ class PagedInferenceServer:
                     slot.req.finish_reason = (
                         "error: request needs more pages than the pool "
                         "can ever provide")
+                    slot.req._request_fault = True
                     self._complete(slot.req)
                     break
                 n_eff = min(n_eff, r_ok)
@@ -1976,6 +2042,10 @@ class PagedInferenceServer:
                 if self._emit(slot.req, int(job.toks[0]),
                               float(job.lps[0])):
                     self._finish(sid)
+                elif slot.req._handoff is not None:
+                    # prefill complete with decode budget left: the
+                    # handoff callback fires after _step_lock releases
+                    self._handoff_ready.append(slot.req)
             self._jobs.remove(job)
 
     # -- mixed (stall-free) scheduling --------------------------------------
@@ -2187,7 +2257,12 @@ class PagedInferenceServer:
         staged = self._mixed_staged(pf, flags, rows, spec_lens)
         if prof is not None:
             prof.mark("build")
-        out = self._launch(_mixed_step, flags, staged).wait()
+        # a handoff's committed pages: gathered before the final prefill
+        # chunk launches, copied out while it runs
+        self._handoff_prefetch(sel)
+        prog = self._launch(_mixed_step, flags, staged)
+        self._handoff_copy_out()
+        out = prog.wait()
         if prof is not None:
             prof.mark("device")
         if n_rounds > 0:
@@ -2402,6 +2477,9 @@ class PagedInferenceServer:
                 # launching an inert program
                 return
         if plan.kind == "mixed":
+            # the dispatch before this one has been committed, so the
+            # plan's cursors are the committed ones
+            self._handoff_prefetch(plan.sel)
             prog = self._launch(_mixed_step, plan.flags, self._mixed_staged(
                 plan.pf, plan.flags, rows, plan.spec_lens))
         else:
@@ -2411,6 +2489,7 @@ class PagedInferenceServer:
                                          use_rows=f["rows"],
                                          grammar=f["grammar"])
             prog = self._launch(_decode_rounds, f, staged)
+        self._handoff_copy_out()
         t = (prof.mark("launch") if prof is not None
              else time.perf_counter())
         self._iter_launch_ts = t
@@ -2634,9 +2713,29 @@ class PagedInferenceServer:
         then a decode program. With overlap on (mixed scheduler, the
         default) the iteration is pipelined (`_step_overlap`).
         Thread-safe."""
-        if self._overlap_enabled:
-            return self._step_overlap()
-        return self._step_sequential()
+        ret = (self._step_overlap() if self._overlap_enabled
+               else self._step_sequential())
+        self._drain_handoff_ready()
+        return ret
+
+    def _drain_handoff_ready(self) -> None:
+        """Fire the handoff callbacks of requests whose prefill completed
+        in the last step: on the scheduler thread, after _step_lock is
+        released (the callback's export takes it). Each fires at most
+        once; a request that finished or was cancelled since is skipped.
+        A callback's failure is the router's: the request keeps decoding
+        here (the handoff is an optimization)."""
+        if not self._handoff_ready:
+            return
+        ready, self._handoff_ready = self._handoff_ready, []
+        for req in ready:
+            h, req._handoff = req._handoff, None
+            if h is None or req._done.is_set() or req._cancel.is_set():
+                continue
+            try:
+                h(req)
+            except Exception:  # noqa: BLE001 — see docstring
+                pass
 
     def _step_sequential(self) -> int:
         """The sequential iteration (overlap off, or the alternating
@@ -2812,6 +2911,452 @@ class PagedInferenceServer:
         while self.num_pending or self.num_active or self._jobs:
             self.step()
 
+    # -- live migration -----------------------------------------------------
+
+    def migrate_export(self, req: Request, *, reason: str = "failover",
+                       evacuate: bool = True):
+        """Snapshot one live (slot or pending) request for migration to
+        another server (inference/migration.py), at the commit point:
+        under _step_lock, with the dispatch in flight committed first,
+        so the token stream, the KV watermark and the grammar position
+        are exact. The chain's committed full pages ride along: gathered
+        on the card, copied to pinned host memory, one event waited on
+        (the export's one host sync).
+
+        With `evacuate=True` (default) the request leaves this server
+        with the snapshot: its slot releases content-keyed (the KV stays
+        in the local prefix cache) and nobody completes the handle — the
+        caller re-admits the snapshot elsewhere and mirrors the outcome.
+        A request mid-admission (chunked prefill still running) raises
+        RuntimeError."""
+        led = self._migration
+        led.record_export_start()
+        try:
+            if self._faults is not None:
+                self._faults.check("migrate_export")
+            with self._step_lock:
+                if self._inflight is not None:
+                    # its tokens belong to the stream being exported
+                    self._commit_inflight()
+                snap, sid, committed = self._export_request_locked(
+                    req, reason)
+                if evacuate:
+                    self._evacuate_request_locked(req, sid, committed)
+        except BaseException:
+            led.record_export_failed()
+            raise
+        led.record_export_done(len(snap.tokens), snap.n_kv_pages())
+        return snap
+
+    def migrate_salvage(self, req: Request, *, reason: str = "failover"):
+        """The failure path's export: a host-only snapshot (no pages —
+        `_fail_all` released them unkeyed) built from the handle alone.
+        The destination re-prefills prompt + tokens and resumes at the
+        exact next token; the pages were only ever a prefill saving."""
+        led = self._migration
+        led.record_export_start()
+        try:
+            if self._faults is not None:
+                self._faults.check("migrate_export")
+            snap = self._build_snapshot(req, reason, (), None)
+        except BaseException:
+            led.record_export_failed()
+            raise
+        led.record_export_done(len(snap.tokens), 0)
+        return snap
+
+    def _build_snapshot(self, req: Request, reason: str, chain_tokens,
+                        kv: dict | None):
+        now = time.perf_counter()
+        tr = req.trace
+        return MigrationSnapshot(
+            version=MIGRATION_VERSION, request_id=req.request_id,
+            reason=reason, prompt=tuple(req.prompt),
+            tokens=tuple(req.tokens), logprobs=tuple(req.logprobs),
+            emit_times=tuple(req.emit_times), seed_used=req.seed_used,
+            sampling=req.sampling, adapter=None, tenant=req.tenant,
+            slo_class=req.slo_class, max_new_tokens=req.max_new_tokens,
+            # the remainder: a deadline is a per-host monotonic stamp
+            deadline_remaining_s=(None if req.deadline is None
+                                  else req.deadline - now),
+            trace_ctx=(None if tr is None
+                       else (tr.trace_id, tr.root_span_id, True)),
+            chain_tokens=tuple(chain_tokens), kv_pages=kv)
+
+    def _pool_items(self) -> list:
+        """(snapshot name, pool) of every page pool, the reference's
+        names: k, v (and the int8 cache's k_scale, v_scale), then the
+        draft model's under "draft/"."""
+        m = self._model
+        groups = [("", (m.k, m.v, m.k_scale, m.v_scale))]
+        if m.draft is not None:
+            groups.append(("draft/", m.draft[2]))
+        return [(prefix + name, pool) for prefix, pools in groups
+                for name, pool in zip(("k", "v", "k_scale", "v_scale"),
+                                      pools)
+                if pool is not None]
+
+    def _index_on_device(self, ids) -> torch.Tensor:
+        idx = torch.as_tensor(list(ids), dtype=torch.long)
+        if self.device.type != "cuda":
+            return idx
+        # pinned, so the copy is asynchronous (a pageable one waits)
+        return idx.pin_memory().to(self.device, non_blocking=True)
+
+    def _host_pages(self, n: int) -> dict:
+        """Host buffers of `n` pages of every pool, (L, n, ...) each in
+        the pool's layout (pinned on CUDA)."""
+        pin = self.device.type == "cuda"
+        return {name: torch.empty((pool.shape[0], n) + pool.shape[2:],
+                                  dtype=pool.dtype, pin_memory=pin)
+                for name, pool in self._pool_items()}
+
+    def _gather_pages(self, ids) -> list:
+        """Pool pages `ids` of every pool (`_pool_items` order), gathered
+        on the programs' stream, after every program that wrote them."""
+        idx = self._index_on_device(ids)
+        return [pool.index_select(1, idx) for _, pool in self._pool_items()]
+
+    def _pages_out(self, gathered: list, bufs: dict, start: int,
+                   stream=None, after=None):
+        """Copy `_gather_pages`'s tensors into host buffers `bufs` at
+        page `start`: on the current stream, or on a side `stream` that
+        first waits on the event `after` (recorded after the gathers).
+        Returns the event after the copies (None on the CPU, where they
+        are done on return)."""
+        names = [name for name, _ in self._pool_items()]
+        if self.device.type != "cuda":
+            for name, g in zip(names, gathered):
+                bufs[name][:, start:start + g.shape[1]] = g
+            return None
+        cur = torch.cuda.current_stream(self.device)
+        stream = cur if stream is None else stream
+        if after is not None:
+            stream.wait_event(after)
+        with torch.cuda.stream(stream):
+            for name, g in zip(names, gathered):
+                buf, n = bufs[name], g.shape[1]
+                if start == 0 and buf.shape[1] == n:
+                    buf.copy_(g, non_blocking=True)
+                else:  # a page range of each layer is contiguous
+                    for layer in range(buf.shape[0]):
+                        buf[layer, start:start + n].copy_(
+                            g[layer], non_blocking=True)
+                if stream is not cur:
+                    g.record_stream(stream)
+            event = torch.cuda.Event()
+            event.record(stream)
+        return event
+
+    def _handoff_prefetch(self, sel) -> None:
+        """Overlapped export for the disaggregated handoff, before the
+        dispatch `sel` belongs to launches: for every selected admission
+        that completes its prefill in it and carries a `handoff=`
+        callback, gather the full pages earlier chunks wrote (every
+        program that wrote them has been waited on). `_handoff_copy_out`
+        starts their D2H copies once the dispatch is launched. Allocates
+        and releases no page."""
+        ps = self.page_size
+        for job, take, d0 in sel:
+            if d0 + take < int(job.rem_lens[0]):
+                continue  # not the final chunk
+            slot = self._slots[job.slots[0]]
+            if slot is None or slot.req._handoff is None:
+                continue
+            n_full = (int(job.base_lens[0]) + d0) // ps
+            if n_full <= 0 or slot.req.request_id in self._handoff_stash:
+                continue
+            ids = tuple(slot.pages[:n_full])
+            gathered = self._gather_pages(ids)
+            event = None
+            if self.device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record()
+            # room for every page the chain can reach: the export copies
+            # the rest in beside these
+            cap = -(-(slot.stop_len + self.window) // ps)
+            self._handoff_gathers.append(
+                (slot.req.request_id, ids, cap, gathered, event))
+
+    def _handoff_copy_out(self) -> None:
+        """After the final chunk's launch: the prefetch's pinned host
+        buffers (their allocation now runs beside the program) and the
+        D2H copies on a side stream, under the program. The stash stays
+        valid while its page ids are a prefix of the slot's chain."""
+        pending, self._handoff_gathers = self._handoff_gathers, []
+        for rid, ids, cap, gathered, event in pending:
+            if self._copy_stream is None and self.device.type == "cuda":
+                self._copy_stream = torch.cuda.Stream(self.device)
+            bufs = self._host_pages(cap)
+            done = self._pages_out(gathered, bufs, 0,
+                                   stream=self._copy_stream, after=event)
+            self._handoff_stash[rid] = (ids, bufs, done)
+
+    def _export_request_locked(self, req: Request, reason: str):
+        """Find `req` (slot or pending) and snapshot it. The caller holds
+        _step_lock with no dispatch in flight. Returns (snapshot,
+        slot id or None, committed tokens). The snapshot's `kv_pages`
+        are host tensors in the reference's layout, (L, n, KH, Dh, ps)
+        ((L, n, KH, ps) for scales), without the scratch page."""
+        sid = next((i for i, s in enumerate(self._slots)
+                    if s is not None and s.req is req), None)
+        if sid is None:
+            with self._lock:
+                if req not in self._pending:
+                    raise RuntimeError(
+                        "request is not live on this server (already "
+                        "finished, failed, or cancelled)")
+            return self._build_snapshot(req, reason, (), None), None, []
+        if any(sid in job.slots for job in self._jobs):
+            raise RuntimeError(
+                "request is mid-admission (chunked prefill in flight); "
+                "not exportable until prefill completes")
+        committed = self._committed(sid)
+        ps = self.page_size
+        n_full = len(committed) // ps
+        kv = None
+        stash = self._handoff_stash.pop(req.request_id, None)
+        if n_full:
+            page_ids = list(self._slots[sid].pages[:n_full])
+            bufs, n_pre = None, 0
+            if stash is not None:
+                # the handoff prefetch: valid while its pages are still
+                # a prefix of the chain (a preemption in between re-keys
+                # them; then the whole chain is copied here)
+                pre_ids, pre_bufs, pre_event = stash
+                cap = next(iter(pre_bufs.values())).shape[1]
+                if (list(pre_ids) == page_ids[:len(pre_ids)]
+                        and n_full <= cap):
+                    bufs, n_pre = pre_bufs, len(pre_ids)
+                    if pre_event is not None:
+                        pre_event.synchronize()
+            if bufs is None:
+                bufs = self._host_pages(n_full)
+            self.handoff_prefetched_pages += n_pre
+            if n_pre < n_full:
+                event = self._pages_out(self._gather_pages(page_ids[n_pre:]),
+                                        bufs, n_pre)
+                if event is not None:
+                    # the export's one host sync, at the commit point
+                    event.synchronize()
+            kv = {name: buf[:, :n_full] for name, buf in bufs.items()}
+        return (self._build_snapshot(req, reason, committed[:n_full * ps],
+                                     kv), sid, committed)
+
+    def _evacuate_request_locked(self, req: Request, sid: int | None,
+                                 committed: list) -> None:
+        """Remove the exported request from this server without
+        completing it: the caller owns the handle now. A slot releases
+        content-keyed (its KV stays reusable here). The source half of
+        the trace closes with a `finish:migrated` event; the destination
+        joins the same trace through the snapshot's context."""
+        if sid is not None:
+            if (self._slots[sid] is None
+                    or self._slots[sid].req is not req):
+                raise RuntimeError("slot changed under export")
+            self._release_slot(sid, committed)
+        else:
+            with self._lock:
+                try:
+                    self._pending.remove(req)
+                except ValueError:
+                    raise RuntimeError(
+                        "request left the pending queue during "
+                        "export") from None
+                if self.qos is not None:
+                    self.qos.on_pending_removed(req.tenant)
+        req.record_event("finish:migrated", time.perf_counter())
+        if self.trace_recorder is not None and (
+                req.trace is not None or req.tail_trace is not None):
+            if req.trace is None:
+                # the source half of a migrated tree always retains, so
+                # a merged tree is never half missing
+                req.tail_trace.annotate(migrated_out=True)
+            self.trace_recorder.finish(req)
+
+    def migrate_import(self, snap, *, stream=None, fail_handler=None,
+                       trace_ctx: tuple | None = None,
+                       deadline_s: float | None = None) -> Request:
+        """Re-admit a migrated request on this server. The snapshot's
+        pages are keyed into the pool under their radix chain keys
+        (shared prefixes dedupe on arrival) and written into the pools
+        in place (`_import_pages`, no host sync); the request then
+        enters as a continuation (admission prompt = prompt + tokens),
+        whose prefix walk re-hits those pages, and decodes from the
+        exact next token. A failed or partial page import degrades to
+        re-prefill: a cache miss, never a different token.
+
+        Returns the new handle. Only new tokens are emitted on
+        `stream`; the delivered ones are filled in beforehand."""
+        led = self._migration
+        led.record_import_start()
+        try:
+            if self._faults is not None:
+                self._faults.check("migrate_import")
+            if snap.version != MIGRATION_VERSION:
+                raise ValueError(
+                    f"migration snapshot version {snap.version} != "
+                    f"{MIGRATION_VERSION}")
+            if snap.remaining_new_tokens() <= 0:
+                raise ValueError(
+                    "snapshot has no decode budget left to resume")
+            if snap.kv_pages:
+                try:
+                    self._import_pages(snap)
+                except Exception:  # noqa: BLE001 — re-prefill instead
+                    pass
+            if deadline_s is None:
+                deadline_s = snap.deadline_remaining_s
+            req = self.submit(
+                list(snap.prompt), max_new_tokens=snap.max_new_tokens,
+                stream=stream, sampling=snap.sampling, adapter=snap.adapter,
+                tenant=snap.tenant,
+                trace_ctx=(snap.trace_ctx if trace_ctx is None
+                           else trace_ctx),
+                deadline_s=deadline_s, fail_handler=fail_handler,
+                _migration=snap)
+        except BaseException:
+            led.record_import_failed()
+            raise
+        led.record_import_done()
+        return req
+
+    def _import_pages(self, snap) -> int:
+        """Key the snapshot's pages into the pool and write them in
+        place: pinned staging, non-blocking copies and an index_copy_ on
+        the programs' stream, so the next program reads them and no host
+        sync is made (the pinned staging is kept until an event after
+        the copies has passed). Holds _step_lock across keying and
+        writing (admissions, the only readers, run inside a step), with
+        a bounded acquire: two servers draining into each other would
+        otherwise deadlock, and a timeout only skips the transfer.
+        Returns the pages written (0 = all deduped or skipped)."""
+        n = snap.n_kv_pages()
+        items = []
+        for name, pool in self._pool_items():
+            src = snap.kv_pages.get(name)
+            if src is None:
+                continue
+            if not isinstance(src, torch.Tensor):  # e.g. numpy
+                src = torch.tensor(np.asarray(src))
+            # checked before any page is keyed: a page keyed but never
+            # written would serve stale KV to a later prefix hit
+            if (src.dtype != pool.dtype or src.shape[1] != n
+                    or src.shape[:1] + src.shape[2:]
+                    != pool.shape[:1] + pool.shape[2:]):
+                raise ValueError(
+                    f"snapshot pages {name!r} {src.dtype} "
+                    f"{tuple(src.shape)} do not fit pool "
+                    f"{pool.dtype} {tuple(pool.shape)}")
+            items.append((pool, src))
+        tenant = (self.qos.resolve(snap.tenant)
+                  if self.qos is not None else None)
+        if not self._step_lock.acquire(timeout=5.0):
+            return 0
+        try:
+            fill = self.allocator.import_chain(list(snap.chain_tokens),
+                                               tenant=tenant)
+            if not fill:
+                return 0
+            idxs = [i for i, _ in fill]
+            dst = self._index_on_device(p for _, p in fill)
+            staged: list = []
+            for pool, src in items:
+                pool.index_copy_(1, dst,
+                                 self._pages_to_device(src, idxs, staged))
+            if self.device.type == "cuda":
+                self._import_holds = [
+                    (e, t) for e, t in self._import_holds if not e.query()]
+                event = torch.cuda.Event()
+                event.record()
+                self._import_holds.append((event, staged))
+            return len(fill)
+        finally:
+            self._step_lock.release()
+
+    def _pages_to_device(self, src: torch.Tensor, idxs: list,
+                         staged: list) -> torch.Tensor:
+        """Pages `idxs` of the host tensor `src` on the device, copied
+        without a host sync: layer by layer straight from a pinned
+        source when they are one run of pages (an export of this port),
+        else gathered into pinned staging first. The pinned sources are
+        appended to `staged`."""
+        if self.device.type != "cuda":
+            return src.index_select(1, torch.as_tensor(idxs))
+        a, n = idxs[0], len(idxs)
+        if src.is_pinned() and idxs == list(range(a, a + n)):
+            out = torch.empty((src.shape[0], n) + tuple(src.shape[2:]),
+                              dtype=src.dtype, device=self.device)
+            for layer in range(src.shape[0]):
+                out[layer].copy_(src[layer, a:a + n], non_blocking=True)
+            staged.append(src)
+            return out
+        pinned = torch.empty((src.shape[0], n) + tuple(src.shape[2:]),
+                             dtype=src.dtype, pin_memory=True)
+        torch.index_select(src, 1, torch.as_tensor(idxs), out=pinned)
+        staged.append(pinned)
+        return pinned.to(self.device, non_blocking=True)
+
+    def _evacuate(self, migrate) -> None:
+        """drain(migrate=...)'s evacuation, under one _step_lock hold (no
+        decode interleaves between a snapshot and its release, so no
+        token is generated on two servers): snapshot every live slot and
+        pending request and offer each to `migrate(snapshot, request)
+        -> bool` (a router's import on a healthy replica). True: moved
+        (released here, resumed there); False or an export failure:
+        left in place for the normal drain. Requests mid-admission
+        finish their prefill here."""
+        led = self._migration
+        with self._step_lock:
+            if self._inflight is not None:
+                self._commit_inflight()
+            job_slots = {s for job in self._jobs for s in job.slots}
+            for sid, slot in enumerate(self._slots):
+                if slot is None or sid in job_slots:
+                    continue
+                req = slot.req
+                if req._cancel.is_set() or req._done.is_set():
+                    continue
+                led.record_export_start()
+                try:
+                    if self._faults is not None:
+                        self._faults.check("migrate_export")
+                    snap, sid2, committed = self._export_request_locked(
+                        req, "drain")
+                except Exception:  # noqa: BLE001 — stays for the drain
+                    led.record_export_failed()
+                    continue
+                if not migrate(snap, req):
+                    led.record_export_failed()
+                    continue
+                self._evacuate_request_locked(req, sid2, committed)
+                led.record_export_done(len(snap.tokens),
+                                       snap.n_kv_pages())
+            with self._lock:
+                pend = list(self._pending)
+            for req in pend:
+                if req._cancel.is_set():
+                    continue
+                led.record_export_start()
+                try:
+                    if self._faults is not None:
+                        self._faults.check("migrate_export")
+                    snap = self._build_snapshot(req, "drain", (), None)
+                except Exception:  # noqa: BLE001 — stays for the drain
+                    led.record_export_failed()
+                    continue
+                if not migrate(snap, req):
+                    led.record_export_failed()
+                    continue
+                try:
+                    self._evacuate_request_locked(req, None, [])
+                except RuntimeError:
+                    # cancelled out of the queue mid-offer; the copy
+                    # elsewhere completes or cancels on its own
+                    led.record_export_failed()
+                    continue
+                led.record_export_done(len(snap.tokens), 0)
+
     def _fail_all(self, exc: BaseException) -> None:
         """Fail every pending and admitted request. The step lock is
         taken with a bound: a scheduler wedged inside a step keeps it,
@@ -2848,6 +3393,7 @@ class PagedInferenceServer:
                     slot.req.finish_reason = f"error: {exc!r}"
                     self._complete(slot.req)
             self._jobs.clear()
+            self._handoff_gathers.clear()
             # drop the launched-but-uncommitted dispatch: its results
             # belong to requests that just failed (its program stays in
             # the cache, released only by stop() after a synchronize)
@@ -2891,16 +3437,22 @@ class PagedInferenceServer:
         self._thread.start()
         return self
 
-    def drain(self, timeout: float | None = None, *,
+    def drain(self, timeout: float | None = None, *, migrate=None,
               _resume_on_timeout: bool = True) -> bool:
         """Graceful drain: refuse new submissions and let everything
         already accepted run to completion. Returns True once idle and
         stays draining (resume() accepts again, stop() shuts down). On
         timeout returns False and accepts again, unless
         `_resume_on_timeout` is False (stop(drain=True), which must not
-        accept a request only to fail it)."""
+        accept a request only to fail it). `migrate`, a
+        `migrate(snapshot, request) -> bool` callback (a router's drain
+        makes one), turns the drain into an evacuation: every live
+        request is offered to it first (`_evacuate`), and what it
+        declines drains here."""
         with self._lock:
             self._draining = True
+        if migrate is not None:
+            self._evacuate(migrate)
         deadline = (None if timeout is None
                     else time.perf_counter() + timeout)
         while self.num_pending or self.num_active or self._jobs:

@@ -146,6 +146,19 @@ class Request:
     _cancel: threading.Event = dataclasses.field(
         default_factory=threading.Event)
     _on_cancel: Callable[["Request"], None] | None = None
+    # router failover: a request that completes with an "error:" reason
+    # is offered to this hook before its waiters unblock; True means the
+    # hook took it over (a retry or migration elsewhere completes it)
+    _fail_handler: Callable[["Request"], bool] | None = None
+    # disaggregated prefill/decode: called once, outside the server's
+    # step lock, when the request's chunked prefill completes with
+    # decode budget left (the router moves it to a decode replica)
+    _handoff: Callable[["Request"], None] | None = None
+    # called after `_done` is set (the router mirroring a retry's outcome)
+    _on_done: Callable[["Request"], None] | None = None
+    # an "error:" caused by the request itself (it can never fit the
+    # pool): a router neither retries it nor counts it against a replica
+    _request_fault: bool = False
 
     def record_event(self, name: str, t: float | None = None) -> None:
         self.events.append((name, time.perf_counter() if t is None

@@ -41,14 +41,19 @@ same kernels on the int8 cache. Three counters break the bf16 launches
 down further: `launches_narrow_verify` (narrow launches of speculation's
 verify windows, the calls made with `verify=True`), `launches_narrow_d64`
 and `launches_wide_d64` (head dim 64, a Llama-3.2-1B draft model's).
-`plain_calls` counts calls of the plain version. A call made while a CUDA graph captures launches nothing: the
-capture takes its counts back and each replay adds them
-(`add_counts`, inference/graphs.py).
+`plain_calls` counts calls of the plain version. The counters are
+updated under a lock (two servers' scheduler threads launch at once). A
+call made while a CUDA graph captures launches nothing: inside
+`recording()` the calling thread's calls count into the capture's own
+tally instead, and each replay adds that tally (`add_counts`,
+inference/graphs.py).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 
 import torch
 
@@ -74,21 +79,55 @@ _COUNTERS = ("launches_narrow", "launches_wide", "launches_narrow_int8",
              "launches_narrow_d64", "launches_wide_d64", "plain_calls")
 
 
+_counts_lock = threading.Lock()
+# per thread: the tally of an open `recording()`, else unset
+_recording = threading.local()
+
+
 def reset_counters() -> None:
-    for name in _COUNTERS:
-        globals()[name] = 0
+    with _counts_lock:
+        for name in _COUNTERS:
+            globals()[name] = 0
 
 
 def counters() -> dict:
-    return {name: globals()[name] for name in _COUNTERS}
+    with _counts_lock:
+        return {name: globals()[name] for name in _COUNTERS}
 
 
 def add_counts(delta: dict) -> None:
     """Add `delta` (a dict shaped like `counters()`) to the counters: a
     CUDA graph's replay launches what its capture recorded (see
     inference/graphs.py), though no Python call runs."""
-    for name, n in delta.items():
-        globals()[name] += n
+    with _counts_lock:
+        for name, n in delta.items():
+            globals()[name] += n
+
+
+def _count(*names: str) -> None:
+    """One call of each counter in `names`: into this thread's open
+    recording, else into the counters."""
+    tally = getattr(_recording, "tally", None)
+    if tally is not None:
+        for name in names:
+            tally[name] += 1
+        return
+    with _counts_lock:
+        for name in names:
+            globals()[name] += 1
+
+
+@contextlib.contextmanager
+def recording():
+    """Count this thread's calls into the yielded dict instead of the
+    counters (a CUDA graph's capture, whose calls launch nothing; other
+    threads keep counting theirs)."""
+    tally = dict.fromkeys(_COUNTERS, 0)
+    _recording.tally = tally
+    try:
+        yield tally
+    finally:
+        _recording.tally = None
 
 
 def is_narrow(b: int, w: int) -> bool:
@@ -127,11 +166,10 @@ def paged_attention_ref(q, k_pool, v_pool, lengths, tables, layer=0, *,
     """Plain PyTorch paged attention (gather + masked dense attention).
     Same arguments and result as `paged_attention`; `pages_per_block`
     is accepted and unused."""
-    global plain_calls
     if (k_scale_pool is None) != (v_scale_pool is None):
         raise ValueError("k_scale_pool and v_scale_pool must be given "
                          "together")
-    plain_calls += 1
+    _count("plain_calls")
     b, w = q.shape[:2]
     dev = q.device
     lengths = lengths.to(dev)
@@ -244,9 +282,6 @@ def paged_attention(q, k_pool, v_pool, lengths, tables, layer=0, *,
     version; on a CUDA tensor one kernel launches (the narrow one for the
     narrow class, else the wide one) or this raises.
     """
-    global launches_narrow, launches_wide
-    global launches_narrow_int8, launches_wide_int8
-    global launches_narrow_verify, launches_narrow_d64, launches_wide_d64
     if q.device.type == "cpu":
         return paged_attention_ref(
             q, k_pool, v_pool, lengths, tables, layer, scale=scale,
@@ -325,15 +360,14 @@ def paged_attention(q, k_pool, v_pool, lengths, tables, layer=0, *,
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")
-    if int8 and narrow:
-        launches_narrow_int8 += 1
-    elif int8:
-        launches_wide_int8 += 1
-    elif narrow:
-        launches_narrow += 1
-        launches_narrow_verify += bool(verify)
-        launches_narrow_d64 += d == 64
+    if int8:
+        names = ["launches_narrow_int8" if narrow else "launches_wide_int8"]
     else:
-        launches_wide += 1
-        launches_wide_d64 += d == 64
+        kind = "narrow" if narrow else "wide"
+        names = [f"launches_{kind}"]
+        if narrow and verify:
+            names.append("launches_narrow_verify")
+        if d == 64:
+            names.append(f"launches_{kind}_d64")
+    _count(*names)
     return out

@@ -54,15 +54,16 @@ def test_every_training_module_is_checked():
 
 def test_every_serving_module_is_checked():
     """The serving slices' modules, the HTTP frontend, the host policy
-    layer and the profiler window among them, are among those both
-    checks cover."""
+    layer, the profiler window and the replica router among them, are
+    among those both checks cover."""
     mods = set(_modules())
     for m in ("ops.paged_attention", "ops.attention", "inference.engine",
               "inference.paged_engine", "inference.paged_server",
               "inference.server", "inference.http_server",
               "inference.iteration_profile", "inference.request_trace",
               "inference.qos", "inference.slo", "inference.faults",
-              "inference.anomaly", "inference.migration", "utils.tracing",
+              "inference.anomaly", "inference.migration",
+              "inference.router", "utils.tracing",
               "utils.serving_metrics", "utils.logging", "generate"):
         assert f"cloud_server_tpu_torch.{m}" in mods, m
 

@@ -890,3 +890,91 @@ def test_fail_all_waits_on_the_dispatch_in_flight():
     assert all(r.done and r.finish_reason.startswith("error") for r in reqs)
     assert srv.unserialized_teardowns == 0
     srv.stop()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["model", "int8"])
+def test_graphs_captured_before_an_import_replay_its_pages(kv):
+    """A request exported mid-decode from one server and imported into
+    another whose programs were captured before the import: the pages
+    land bit-equal in the destination's pools (in place, where the
+    graphs read them), and the continuation's tokens equal the same
+    migration run with every program launched eagerly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    runs = {}
+    for graphed in (False, True):
+        src = _graph_server(graphed, kv)
+        dst = _graph_server(graphed, kv)
+        # the destination captures its programs first
+        dst.generate(GRAPH_PROMPTS[:3], max_new_tokens=12)
+        n_programs = len(dst._programs)
+        req = src.submit(GRAPH_PROMPTS[4], max_new_tokens=40)
+        while len(req.tokens) < 6:
+            src.step()
+        snap = src.migrate_export(req)
+        assert snap.n_kv_pages() >= 2
+        cont = dst.migrate_import(snap)
+        torch.cuda.synchronize()
+        shared, _ = dst.allocator.lookup_prefix(
+            list(snap.chain_tokens) + [0])
+        assert len(shared) == snap.n_kv_pages()
+        for name, pool in dst._pool_items():
+            assert torch.equal(pool[:, shared].cpu(),
+                               snap.kv_pages[name]), name
+        dst.allocator.release(shared, list(snap.chain_tokens))
+        dst.run_until_idle()
+        torch.cuda.synchronize()
+        assert cont.finish_reason == "length"
+        runs[graphed] = list(cont.tokens)
+        if graphed:
+            assert n_programs >= 2
+            assert any(p.graph is not None
+                       for p in dst._programs._programs.values())
+        src.stop()
+        dst.stop()
+    assert runs[True] == runs[False]
+
+
+@pytest.mark.gpu
+def test_two_servers_capture_on_two_threads():
+    """Two servers on one card, each on its own scheduler thread,
+    capturing their programs at the same time: both serve the tokens
+    they serve alone, and the kernel counts of the two together are the
+    sum of each alone (a capture counts only its own thread's calls)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import time
+
+    def serve(srvs, threaded):
+        reqs = [[s.submit(p, max_new_tokens=12) for p in GRAPH_PROMPTS]
+                for s in srvs]
+        if threaded:
+            for s in srvs:
+                s.start()
+            deadline = time.time() + 300
+            while (not all(r.done for rs in reqs for r in rs)
+                   and time.time() < deadline):
+                time.sleep(0.01)
+        else:
+            for s in srvs:
+                s.run_until_idle()
+        torch.cuda.synchronize()
+        return [[r.result(timeout=0) for r in rs] for rs in reqs]
+
+    alone, counts = [], []
+    for seed in (5, 6):
+        srv = _graph_server(seed=seed, temperature=0.9)
+        pa.reset_counters()
+        alone += serve([srv], threaded=False)
+        counts.append(pa.counters())
+        srv.stop()
+    pair = [_graph_server(seed=s, temperature=0.9) for s in (5, 6)]
+    pa.reset_counters()
+    together = serve(pair, threaded=True)
+    both = pa.counters()
+    for s in pair:
+        s.stop()
+    assert together == alone
+    assert both == {k: counts[0][k] + counts[1][k] for k in both}
+    assert both["launches_narrow"] > 0 and both["plain_calls"] == 0

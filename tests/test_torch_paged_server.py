@@ -173,9 +173,7 @@ def test_unported_features_raise(weights, kw):
         _port_server(params, **SRV_KW, **kw)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(adapter="a"), dict(handoff=lambda req: None),
-    dict(fail_handler=lambda req: False)])
+@pytest.mark.parametrize("kw", [dict(adapter="a")])
 def test_unported_request_options_raise(weights, kw):
     _, params = weights
     srv = _port_server(params, **SRV_KW)
