@@ -85,7 +85,8 @@ each:
                 over that server (its programs captured) with 8 fresh
                 requests streamed concurrently through /v1/completions
                 (32 tokens and [DONE] each, /metrics counting them,
-                /v1/embeddings a 501) and the client's TTFT and ITL,
+                /v1/embeddings answering the in-process vectors) and the
+                client's TTFT and ITL,
                 then the same prompts in process on a fresh server with
                 graphs off (the share of tokens equal reported);
      spec     — in-server speculation (4 drafts a round, fixed length)
@@ -117,6 +118,23 @@ each:
                 (completed_frac, the breaker's time), an int8 round trip
                 (scale pools bit-equal); the tokens held against the serve
                 phase's by the near-tie rule, B1 and B2 counted;
+     elastic  — at the same width and weights: allocation="reserve"
+                (pages reserved at admission, no preemption, the near-tie
+                rule); `embed` on both attention routes (B3 launched 32
+                times a (bucket, rows) group on the flash one, cosine >=
+                0.999, unit norms, /v1/embeddings), B3 timed at the
+                embed's shapes; two random adapters (rank 16 on all seven
+                targets, rank 8 on the attention ones) in one batch with
+                base rows (base tokens exact, adapted ones against merged
+                weights by the near-tie rule), a steady all-adapted step
+                profiled in turns with a plain one, an adapter outgrowing
+                the stacks while a dispatch is in flight (released after
+                its commit, recaptured); the reference bench's autoscaled
+                arm — one replica and a spare behind the router, the
+                SLOBurnAutoscaler, a 30 s diurnal burst replayed by
+                ReplayDriver: nothing lost, a scale-up and a migrating
+                scale-down — then FleetSim calibrated from the replicas'
+                flight records against the live attainment;
   4. train    — the training CLI (`cloud_server_tpu_torch.train.main`)
                 at Llama-3.1-8B's widths cut to 8 layers (f32 masters,
                 bf16 compute, flash attention, full remat): 6 steps at
@@ -136,8 +154,9 @@ each:
   6. kernels  — each ported kernel with the TPU kernel it replaces, its
                 launches on phases 3 and 4 (the int8 rows: the HTTP run;
                 the verify_w5, decode_d64 and prefill_d64 rows: the
-                speculating servers of the spec phase) and its numbers
-                from phase 2.
+                speculating servers of the spec phase; the embed row:
+                the elastic phase's flash-route embed, timed there) and
+                its numbers from phase 2.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises and
 the exit code is non-zero. Without a CUDA device, or without the rest of
@@ -148,6 +167,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import math
@@ -1146,8 +1166,8 @@ def metric_values(addr: str) -> dict:
 
 def http_run(srv, prompts) -> dict:
     """HttpFrontend on 127.0.0.1:0 over a started server: 8 concurrent
-    streaming /v1/completions, the /metrics counts they added, and a 501
-    for /v1/embeddings."""
+    streaming /v1/completions, the /metrics counts they added, and
+    /v1/embeddings answering the in-process vectors."""
     from cloud_server_tpu_torch.inference.http_server import HttpFrontend
     front = HttpFrontend(srv, tokenizer=IdTokenizer()).start()
     try:
@@ -1181,9 +1201,15 @@ def http_run(srv, prompts) -> dict:
         seen = {k: float(prom[k]) - float(before.get(k, 0)) for k in want}
         if seen != {k: float(v) for k, v in want.items()}:
             raise RuntimeError(f"/metrics counts {seen}, expected {want}")
-        emb = http_call(addr, "/v1/embeddings", {"input": [1, 2, 3]})[0]
-        if emb != 501:
-            raise RuntimeError(f"/v1/embeddings answered {emb}, not 501")
+        emb_in = [prompts[0][:64], prompts[1][:16]]
+        emb, body = http_call(addr, "/v1/embeddings", {"input": emb_in})
+        if emb != 200:
+            raise RuntimeError(f"/v1/embeddings answered {emb}, not 200")
+        wire = [d["embedding"] for d in json.loads(body)["data"]]
+        emb_err = float(abs(srv.embed(emb_in) - wire).max())
+        if emb_err > 1e-6:
+            raise RuntimeError(f"/v1/embeddings vectors off by {emb_err} "
+                               "from the in-process ones")
     finally:
         front.stop()
     ttft = sorted(r["times"][0] - r["t0"] for r in results)
@@ -1195,6 +1221,7 @@ def http_run(srv, prompts) -> dict:
             "http_itl_p50_s": itl[len(itl) // 2],
             "http_itl_p99_s": itl[min(len(itl) - 1, int(0.99 * len(itl)))],
             "http_metrics": seen, "embeddings_status": emb,
+            "embeddings_max_abs_err": emb_err,
             "http_ids": [r["ids"] for r in results]}
 
 
@@ -1766,6 +1793,9 @@ def phase_serve() -> dict:
     torch.cuda.empty_cache()
     out["fleet"] = phase_fleet(params, cfg, icfg, prompts, tokens,
                                out["int8"]["tokens"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["elastic"] = phase_elastic(params, cfg, icfg, prompts, tokens)
     return out
 
 
@@ -1897,10 +1927,13 @@ def policy_run(srv, jobs, max_new) -> tuple:
     return reqs, events, refused
 
 
-def policy_steady(srv, prompts, tenants, max_new) -> list:
-    """8 requests decoding in 8 slots, steady (admissions done)."""
-    reqs = [srv.submit(p, max_new_tokens=max_new, tenant=t)
-            for p, t in zip(prompts, tenants)]
+def policy_steady(srv, prompts, max_new=POLICY_NEW, **per_request) -> list:
+    """8 requests decoding in 8 slots with a dispatch in flight,
+    admissions done; `per_request` maps a submit argument to a list of
+    its values, one a prompt."""
+    reqs = [srv.submit(p, max_new_tokens=max_new,
+                       **{k: v[i] for k, v in per_request.items()})
+            for i, p in enumerate(prompts)]
     while srv._jobs or srv.num_pending:
         srv.step()
     for _ in range(2):
@@ -1997,11 +2030,10 @@ def phase_policy(params, cfg, icfg, prompts, plain_tokens,
         # the plain server's launches are not the policy path's: they
         # are taken out of the phase's counts
         c_plain = pa.counters()
-        plain_steady = policy_steady(plain_srv, prompts[:4] * 2, [None] * 8,
-                                     POLICY_NEW)
+        plain_steady = policy_steady(plain_srv, prompts[:4] * 2)
         c_plain = {k: v - c_plain[k] for k, v in pa.counters().items()}
-        steady = policy_steady(srv, prompts[:4] * 2, ["chat", "batch"] * 4,
-                               POLICY_NEW)
+        steady = policy_steady(srv, prompts[:4] * 2,
+                               tenant=["chat", "batch"] * 4)
         walls = {"plain": [], "policy": []}
         phases = {"plain": {}, "policy": {}}
         profs = {"plain": [], "policy": []}
@@ -2641,6 +2673,617 @@ def phase_fleet(params, cfg, icfg, prompts, plain_tokens,
           f"handoff exposed {disagg['exposed_ms_mean']:.2f} ms, prefetch "
           f"share {disagg['prefetch_share']:.3f}; breaker open in "
           f"{failover['breaker_open_ms']:.1f} ms", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 3c: the elastic slice — full reservation, embeddings, per-request
+# adapters, and a fleet the SLO-burn autoscaler grows and shrinks under a
+# replayed scenario
+# ---------------------------------------------------------------------------
+
+# Two random adapters with a non-zero B, for the serve requests of
+# ELASTIC_ROWS (the rest stay on the base model). B's scale makes each
+# delta about ADAPTER_DELTA of its base projection: with A's std
+# 1/sqrt(fan_in), a rank-r delta at scale alpha / r has a std of about
+# alpha * std(B) / sqrt(r) against the base's 1.
+ELASTIC_ADAPTERS = {
+    "r16": (dict(rank=16, alpha=32.0,
+                 targets=("w_down", "w_gate", "w_up", "wk", "wo", "wq",
+                          "wv")), SEED + 11),
+    "r8": (dict(rank=8, alpha=16.0, targets=("wk", "wo", "wq", "wv")),
+           SEED + 12)}
+ADAPTER_DELTA = 0.5
+ELASTIC_ROWS = {1: "r16", 5: "r16", 3: "r8", 7: "r8"}
+# the adapter registered under a dispatch in flight: its rank outgrows
+# the stacks' (16), so they are restacked into new tensors
+GROW_ADAPTER = ("r32", dict(rank=32, alpha=32.0, targets=("wq", "wv")),
+                SEED + 13)
+# embed: the two attention routes agree to this cosine per prompt, and
+# every vector has unit norm within this
+EMBED_COS_MIN = 0.999
+EMBED_NORM_TOL = 1e-3
+EMBED_REPS = 5
+# the adapted and plain servers' steady steps, profiled one a window in
+# balanced turns
+ADAPTER_PROFILE_TURNS = ("plain", "adapted", "adapted", "plain",
+                         "adapted", "plain", "plain", "adapted")
+# The reference bench's SLO-autoscale arm (bench.py:736-800): its QoS and
+# SLO configs and autoscaler knobs, one replica and one spare; the
+# scenario at this phase's rates (quiet, burst, quiet: 10 s each).
+ELASTIC_QOS = {"quantum": 64, "tenants": {
+    "inter": {"weight": 4.0, "priority": "interactive"},
+    "bulk": {"weight": 1.0, "priority": "batch"}}}
+ELASTIC_SLO = {"windows_s": [5, 15], "classes": {
+    "interactive": {"objective": 0.9, "ttft_s": 6.0, "queue_wait_s": 5.0,
+                    "itl_s": 3.0, "e2e_s": 60.0},
+    "batch": {"objective": 0.5, "ttft_s": 20.0, "e2e_s": 120.0}}}
+ELASTIC_AUTOSCALER = dict(
+    min_replicas=1, max_replicas=2,
+    classes=("interactive", "batch", "default"), up_fast_burn=1.5,
+    up_slow_burn=1.0, down_fast_burn=0.5, down_slow_burn=0.5,
+    pending_high=4.0, pending_low=1.0, hold_s=4.0, poll_s=0.5,
+    drain_timeout_s=60.0)
+ELASTIC_SCENARIO = dict(seed=SEED, duration_s=30.0, phase_s=10.0,
+                        low_rps=0.3, high_rps=6.0)
+ELASTIC_TENANTS = {"inter": 3.0, "bulk": 1.0}
+# after the replay: pumping until the quiet tail's scale-down lands (the
+# burn windows need wall time to age the burst out), as the bench does
+ELASTIC_SETTLE_S = 45.0
+ELASTIC_TIMEOUT_S = 300.0
+
+
+def random_adapter(cfg, lcfg, seed: int) -> dict:
+    """`init_lora_params` from `seed`, then B drawn non-zero (see
+    ELASTIC_ADAPTERS)."""
+    import torch
+    from cloud_server_tpu_torch.models.lora import init_lora_params
+    lp = init_lora_params(cfg, lcfg, seed, device=DEVICE)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 100)
+    std = ADAPTER_DELTA * math.sqrt(lcfg.rank) / lcfg.alpha
+    for name in sorted(lp["layers"]):
+        b = lp["layers"][name]["b"]
+        lp["layers"][name]["b"] = (torch.randn(
+            b.shape, generator=gen, device=DEVICE) * std).to(b.dtype)
+    return lp
+
+
+def cancel_all(srv, reqs) -> None:
+    for r in reqs:
+        r.cancel()
+    srv.run_until_idle()
+
+
+def embed_groups(srv, prompts) -> list:
+    """The (bucket, padded rows) groups `srv.embed(prompts)` runs."""
+    from cloud_server_tpu_torch.inference.server import _bucket
+    by = {}
+    for p in prompts:
+        b = _bucket(len(p), srv.prompt_buckets)
+        by[b] = by.get(b, 0) + 1
+    return sorted((b, 1 << (n - 1).bit_length()) for b, n in by.items())
+
+
+def time_embed(srv, prompts) -> float:
+    """Median ms of `srv.embed(prompts)` over EMBED_REPS calls."""
+    import statistics
+    import torch
+    ms = []
+    for _ in range(EMBED_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv.embed(prompts)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms)
+
+
+def b3_embed_layer(groups) -> dict:
+    """B3 at the embed's shapes: one layer's forward over every (bucket,
+    rows) group, random bf16 q, k, v at the head shapes, timed in turns
+    with the plain version and SDPA (causal, GQA); summed over the
+    groups, with the bound of the work (every padded row's causal
+    pairs)."""
+    import torch
+    import torch.nn.functional as F
+    from cloud_server_tpu_torch.ops import flash_attention as fl
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 5)
+    out = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+           "max_abs_err": 0.0, "groups": []}
+    t_bytes = t_ops = 0.0
+    with torch.no_grad():
+        for s, b in groups:
+            def rnd(heads):
+                return torch.randn((b, s, heads, DH), generator=gen,
+                                   device=DEVICE, dtype=torch.bfloat16)
+            q, k, v = rnd(H), rnd(KH), rnd(KH)
+            got = fl.flash_attention(q, k, v)
+            want = fl.flash_attention_ref(q, k, v)[0]
+            err = compare("out", got, want)
+            if not err["within"]:
+                raise RuntimeError(f"B3 at the embed shape {b} x {s}: {err}")
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            t = time_turns({
+                "kernel": lambda: fl.flash_attention(q, k, v),
+                "plain": lambda: fl.flash_attention_ref(q, k, v),
+                "library": lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)},
+                rounds=3, iters=5)
+            pairs = visible_pairs(None, b, s)
+            nbytes = 2 * (2 * b * s * H * DH + 2 * b * s * KH * DH) \
+                + 4 * b * H * s
+            bound, by = flash_bound(pairs, nbytes, 4, DH)
+            t_bytes += nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops += 4 * DH * pairs * H / BF16_FLOP_PER_S * 1e3
+            out["groups"].append({"S": s, "B": b, "ms": t["kernel"][0],
+                                  "plain_ms": t["plain"][0],
+                                  "library_ms": t["library"][0],
+                                  "bound_ms": bound, "bound_by": by,
+                                  "max_abs_err": err["max_abs_err"]})
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                out[key] += out["groups"][-1][key]
+            out["max_abs_err"] = max(out["max_abs_err"], err["max_abs_err"])
+            del q, k, v, got, want
+    out["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return out
+
+
+def elastic_embed(params, cfg, icfg, prompts) -> dict:
+    """`embed` of the 8 prompts on the serve phase's config (plain causal
+    attention) and with attention_impl "flash" (B3) on the same weights;
+    /v1/embeddings over HttpFrontend."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from cloud_server_tpu_torch.inference.http_server import HttpFrontend
+    from cloud_server_tpu_torch.ops import flash_attention as fl
+    srv = make_server(params, cfg, icfg)
+    fl.reset_counters()
+    plain = srv.embed(prompts)
+    if fl.counters()["launches_fwd"] or fl.counters()["plain_calls"]:
+        raise RuntimeError(f"embed with attention_impl {cfg.attention_impl}"
+                           f" ran flash: {fl.counters()}")
+    fsrv = make_server(params, dataclasses.replace(cfg,
+                                                   attention_impl="flash"),
+                       icfg)
+    groups = embed_groups(fsrv, prompts)
+    fl.reset_counters()
+    flash = fsrv.embed(prompts)
+    torch.cuda.synchronize()
+    b3 = fl.counters()
+    if (b3["launches_fwd"] != cfg.num_layers * len(groups)
+            or b3["plain_calls"]):
+        raise RuntimeError(f"embed on the flash route: {b3}, groups "
+                           f"{groups}")
+    for what, vecs in (("plain", plain), ("flash", flash)):
+        if vecs.shape != (len(prompts), cfg.embed_dim) or not np.isfinite(
+                vecs).all():
+            raise RuntimeError(f"embed ({what}): {vecs.shape}")
+        norm_err = float(np.abs(np.linalg.norm(vecs, axis=-1) - 1).max())
+        if norm_err > EMBED_NORM_TOL:
+            raise RuntimeError(f"embed ({what}): norms off by {norm_err}")
+    cos = (plain * flash).sum(-1) / (np.linalg.norm(plain, axis=-1)
+                                     * np.linalg.norm(flash, axis=-1))
+    if float(cos.min()) < EMBED_COS_MIN:
+        raise RuntimeError(f"embed routes disagree: cosines {cos}")
+    ms = {"plain": time_embed(srv, prompts),
+          "flash": time_embed(fsrv, prompts)}
+    srv.start()
+    front = HttpFrontend(srv).start()
+    try:
+        host, port = front.address
+        status, body = http_call(f"{host}:{port}", "/v1/embeddings",
+                                 {"input": prompts})
+    finally:
+        front.stop()
+        srv.stop()
+        fsrv.stop()
+    if status != 200:
+        raise RuntimeError(f"/v1/embeddings answered {status}")
+    wire = np.asarray([d["embedding"] for d in json.loads(body)["data"]],
+                      np.float32)
+    http_err = float(np.abs(wire - plain).max())
+    if http_err > 1e-6:
+        raise RuntimeError(f"/v1/embeddings vectors off by {http_err}")
+    return {"groups": groups, "b3_counts": b3,
+            "cosine_min": float(cos.min()), "cosines": cos.tolist(),
+            "norm_max_err": float(max(
+                np.abs(np.linalg.norm(v, axis=-1) - 1).max()
+                for v in (plain, flash))),
+            "ms_per_call_8": ms, "http_status": status,
+            "http_max_abs_err": http_err,
+            "b3_layer": b3_embed_layer(groups)}
+
+
+def elastic_adapters(params, cfg, icfg, prompts, plain_tokens,
+                     plain_srv) -> dict:
+    """Two adapters on a fresh server; the 8 serve requests in one batch,
+    ELASTIC_ROWS adapted: base rows the serve phase's tokens exactly,
+    adapted rows held against merged weights by the near-tie rule; a
+    steady step with all 8 rows adapted profiled in turns with the plain
+    server's; an adapter that outgrows the stacks registered while a
+    dispatch is in flight."""
+    import gc
+    import numpy as np
+    import torch
+    from cloud_server_tpu_torch.models.lora import LoRAConfig, merge_lora
+    from cloud_server_tpu_torch.ops import paged_attention as pa
+    srv = make_server(params, cfg, icfg)
+    lora = {}
+    for name, (kw, seed) in ELASTIC_ADAPTERS.items():
+        lcfg = LoRAConfig(**kw)
+        lora[name] = (random_adapter(cfg, lcfg, seed), lcfg)
+        srv.add_adapter(name, *lora[name])
+    rows = [ELASTIC_ROWS.get(i) for i in range(len(prompts))]
+    pa.reset_counters()
+    reqs = [srv.submit(p, max_new_tokens=MAX_NEW, adapter=a)
+            for p, a in zip(prompts, rows)]
+    srv.run_until_idle()
+    counts = pa.counters()
+    check_served(reqs, cfg.vocab_size)
+    base = [i for i, a in enumerate(rows) if a is None]
+    same_tokens("base rows beside adapted ones", [reqs[i] for i in base],
+                [plain_tokens[i] for i in base])
+    moved = sum(reqs[i].tokens != plain_tokens[i] for i in ELASTIC_ROWS)
+    if 2 * moved <= len(ELASTIC_ROWS):
+        raise RuntimeError(f"only {moved} adapted requests left the base "
+                           "tokens")
+    merged_checks = {}
+    for name, (lp, lcfg) in lora.items():
+        idx = [i for i, a in enumerate(rows) if a == name]
+        merged = merge_lora(params, lp, lcfg)
+        msrv = make_server(merged, cfg, icfg, cuda_graphs=False)
+        mreqs, _, _, _ = serve_once(merged, cfg, icfg,
+                                    [prompts[i] for i in idx], srv=msrv)
+        check_served(mreqs, cfg.vocab_size)
+        merged_checks[name] = near_tie_divergence(
+            f"adapter {name} against merged weights",
+            [reqs[i] for i in idx], mreqs, [prompts[i] for i in idx],
+            merged, cfg)
+        msrv.stop()
+        del merged, msrv, mreqs
+        gc.collect()
+        torch.cuda.empty_cache()
+    first = [r.tokens for r in reqs]
+
+    # a steady step with all 8 rows adapted, in turns with the plain one
+    all_rows = [("r16", "r8")[i % 2] for i in range(len(prompts))]
+    servers = {"plain": plain_srv, "adapted": srv}
+    batches = {"plain": policy_steady(plain_srv, prompts),
+               "adapted": policy_steady(srv, prompts, adapter=all_rows)}
+    profs = {"plain": [], "adapted": []}
+    for who in ADAPTER_PROFILE_TURNS:
+        profs[who].append(profile_step(servers[who].step))
+    for who, b in batches.items():
+        cancel_all(servers[who], b)
+    step, plain_step = (mean_profile(profs["adapted"]),
+                        mean_profile(profs["plain"]))
+    if any(p["host_launch_calls_by_api"] != {"cudaGraphLaunch": 1}
+           for p in profs["adapted"] + profs["plain"]):
+        raise RuntimeError(f"steady steps not one graph launch: {profs}")
+    stack_bytes = srv.adapters.nbytes()
+
+    # an adapter that outgrows the stacks, under a dispatch in flight
+    drop_prefix_cache(srv)
+    pa.reset_counters()
+    reqs2 = [srv.submit(p, max_new_tokens=MAX_NEW, adapter=a)
+             for p, a in zip(prompts, rows)]
+    for _ in range(2):
+        srv.step()
+    if srv._inflight is None:
+        raise RuntimeError("grow: no dispatch in flight")
+    pc = srv._programs
+    n0, dropped0, kept0 = len(pc), pc.dropped, pc.dropped_in_flight
+    keys0 = set(pc.keys())
+    rebuilds0 = srv.adapters.rebuilds
+    name, kw, seed = GROW_ADAPTER
+    t0 = time.perf_counter()
+    lcfg = LoRAConfig(**kw)
+    srv.add_adapter(name, random_adapter(cfg, lcfg, seed), lcfg)
+    add_ms = (time.perf_counter() - t0) * 1e3
+    released = pc.dropped - dropped0
+    kept = pc.dropped_in_flight - kept0
+    if (srv.adapters.rebuilds != rebuilds0 + 1 or kept != 1
+            or not srv._retired):
+        raise RuntimeError(f"grow: rebuilds {srv.adapters.rebuilds}, "
+                           f"kept in flight {kept}")
+    srv.step()  # commits the dispatch in flight, then releases it
+    if srv._retired:
+        raise RuntimeError("grow: retired program not released at commit")
+    srv.run_until_idle()
+    counts2 = pa.counters()
+    check_served(reqs2, cfg.vocab_size)
+    same_tokens("base rows across the restack", [reqs2[i] for i in base],
+                [plain_tokens[i] for i in base])
+    adapted_equal = sum(reqs2[i].tokens == first[i] for i in ELASTIC_ROWS)
+    grow_ties = near_tie_divergence(
+        "adapted rows across the restack",
+        [reqs2[i] for i in ELASTIC_ROWS],
+        [types.SimpleNamespace(tokens=first[i]) for i in ELASTIC_ROWS],
+        [prompts[i] for i in ELASTIC_ROWS], params, cfg)
+    fresh = [p for k, p in pc._programs.items() if k not in keys0]
+    recaptured = (len(fresh), sum(p.capture_s for p in fresh))
+    srv.stop()
+    for c in (counts, counts2):
+        if (c["launches_narrow"] <= 0 or c["launches_wide"] <= 0
+                or c["plain_calls"]):
+            raise RuntimeError(f"adapters: kernel counts {c}")
+    return {"adapters": {n: dict(ELASTIC_ADAPTERS[n][0]) for n in lora},
+            "rows": {str(i): a for i, a in ELASTIC_ROWS.items()},
+            "counts": counts, "base_rows_equal": True,
+            "adapted_rows_moved_from_base": moved,
+            "against_merged": merged_checks,
+            "steady_step": {
+                "adapted": step, "plain": plain_step,
+                "device_ms_added": (step["device_busy_ms"]
+                                    - plain_step["device_busy_ms"]),
+                "device_share_added": (step["device_busy_ms"]
+                                       / plain_step["device_busy_ms"] - 1),
+                "kernels_added": (step["device_kernels"]
+                                  - plain_step["device_kernels"]),
+                "stack_bytes": stack_bytes},
+            "grow": {"adapter": dict(kw), "add_ms": add_ms,
+                     "programs_before": n0,
+                     "programs_released": released,
+                     "released_after_commit": kept,
+                     "recaptured": recaptured[0],
+                     "recapture_s": recaptured[1],
+                     "rebuilds": srv.adapters.rebuilds,
+                     "stack_bytes": srv.adapters.nbytes(),
+                     "counts": counts2,
+                     "adapted_rows_equal_exactly": adapted_equal,
+                     "adapted_rows": grow_ties}}
+
+
+def elastic_fleet(params, cfg, icfg) -> dict:
+    """The reference bench's autoscaled arm on the port: a router starting
+    with one replica, one spare handed out by `spawn`, the
+    SLOBurnAutoscaler polled from the pump, the diurnal burst replayed by
+    ReplayDriver; then the cost model fitted from the replicas' flight
+    records and FleetSim run on the same events."""
+    import numpy as np
+    import torch
+    from cloud_server_tpu_torch.inference.router import ReplicatedRouter
+    from cloud_server_tpu_torch.inference.slo import merge_reports
+    from cloud_server_tpu_torch.ops import paged_attention as pa
+    from cloud_server_tpu_torch.scenarios import (
+        AutoscalerConfig, CostModel, FleetSim, ReplayDriver, SimReplica,
+        SLOBurnAutoscaler, TenantMix, diurnal_burst)
+    from cloud_server_tpu_torch.utils.serving_metrics import (
+        histogram_percentile)
+
+    def mk():
+        return make_server(params, cfg, icfg, qos=ELASTIC_QOS,
+                           slo=ELASTIC_SLO, flight_recorder_size=1 << 14)
+
+    scenario = diurnal_burst(tenants=TenantMix(ELASTIC_TENANTS),
+                             **ELASTIC_SCENARIO)
+    events = scenario.generate()
+    primary, spare = mk(), mk()
+    servers = {"primary": primary, "spare": spare}
+    per_counts = {k: {} for k in servers}
+    for key, s in servers.items():
+        def counted(step=s.step, key=key):
+            c0 = pa.counters()
+            try:
+                return step()
+            finally:
+                for k, v in pa.counters().items():
+                    per_counts[key][k] = per_counts[key].get(k, 0) + v - c0[k]
+        s.step = counted
+    joined = {}
+    on_spare = []
+
+    def spawn(role):
+        if "t" in joined:
+            return None
+        joined["t"] = time.perf_counter()
+        submit = spare.submit
+
+        @functools.wraps(submit)
+        def tracked(*a, **kw):
+            req = submit(*a, **kw)
+            on_spare.append(req)
+            return req
+        spare.submit = tracked
+        return spare
+
+    released = []
+    router = ReplicatedRouter([primary])
+    asc = SLOBurnAutoscaler(router, spawn=spawn, release=released.append,
+                            config=AutoscalerConfig(**ELASTIC_AUTOSCALER))
+    drv = ReplayDriver(router, events)
+    pa.reset_counters()
+    state = {"poll": 0.0, "chips": 0.0, "t": time.monotonic()}
+
+    def pump():
+        router.step()
+        now = time.monotonic()
+        state["chips"] += len(router.attached_indices()) * (now - state["t"])
+        state["t"] = now
+        if now - state["poll"] >= asc.cfg.poll_s:
+            state["poll"] = now
+            asc.step(now)
+
+    t0 = time.perf_counter()
+    res = drv.run(step=pump, timeout_s=ELASTIC_TIMEOUT_S)
+    router.run_until_idle()
+    replay_s = time.perf_counter() - t0
+    t_settle = time.monotonic()
+    while (len(router.attached_indices()) > 1
+           and time.monotonic() - t_settle < ELASTIC_SETTLE_S):
+        pump()
+        time.sleep(0.05)
+    torch.cuda.synchronize()
+    counts = pa.counters()
+    ups = [e.to_json() for e in asc.events if e.action == "up"]
+    downs = [e.to_json() for e in asc.events if e.action == "down"]
+    if res["fired"] != len(events) or res["failed"] or res["rejected"] \
+            or res["outstanding"]:
+        raise RuntimeError(f"elastic fleet replay: {res}")
+    if not ups or not downs:
+        raise RuntimeError(f"the autoscaler did not cycle: "
+                           f"{[e.to_json() for e in asc.events]}")
+    migration = {k: primary.migration_stats()[k] + spare.migration_stats()[k]
+                 for k in ("out_started", "out_completed", "out_failed",
+                           "in_completed", "in_failed", "pages_moved")}
+    if migration["out_failed"] or migration["in_failed"]:
+        raise RuntimeError(f"the scale-down lost a migration: {migration}")
+    for key, c in per_counts.items():
+        if c.get("launches_narrow", 0) <= 0 or c.get("launches_wide", 0) <= 0:
+            raise RuntimeError(f"{key} replica's kernels: {c}")
+    if counts["plain_calls"]:
+        raise RuntimeError(f"elastic fleet: plain attention ran: {counts}")
+    live = merge_reports([s.slo_report() for s in servers.values()])
+    lag = drv.metrics_snapshot()["cloud_server_scenario_replay_lag_ms"]
+    spare_first = min((r.emit_times[0] for r in on_spare if r.emit_times),
+                      default=None)
+    records = primary.flight_window() + spare.flight_window()
+    cost = CostModel.fit(records)
+    sims = {}
+    for n in (1, 2):
+        sim = FleetSim(
+            [SimReplica(max_slots=primary.max_slots,
+                        budget=primary.mixed_token_budget,
+                        chunk=primary.prefill_chunk,
+                        page_size=primary.page_size,
+                        pages=primary.allocator.num_pages,
+                        class_weights={"interactive": 4.0, "batch": 1.0})
+             for _ in range(n)],
+            cost=cost, slo=ELASTIC_SLO,
+            tenant_class={"inter": "interactive", "bulk": "batch"})
+        sims[n] = sim.run(events)
+
+    def attainment(rep):
+        return {f"{c}/{m}": v["lifetime"]["attainment"]
+                for c, ce in (rep or {}).get("classes", {}).items()
+                for m, v in ce["metrics"].items()
+                if v["lifetime"]["total"]}
+
+    live_att = attainment(live)
+    sim_att = {n: attainment(r["slo"]) for n, r in sims.items()}
+    programs = {k: {"programs": len(s._programs),
+                    "capture_s": s._programs.capture_seconds()}
+                for k, s in servers.items()}
+    asc.stop()
+    for s in servers.values():
+        s.stop()
+    router.stop()
+    return {"events": len(events), "replay": res, "replay_s": replay_s,
+            "replay_lag_ms_p99": histogram_percentile(lag, 0.99),
+            "scale_ups": ups, "scale_downs": downs,
+            "autoscaler": asc.stats(), "chip_s": state["chips"],
+            "migration": migration, "counts": counts,
+            "counts_by_replica": per_counts,
+            "attainment": live_att,
+            "spare": {**programs["spare"],
+                      "first_token_after_join_s": (
+                          None if spare_first is None
+                          else spare_first - joined["t"]),
+                      "requests": len(on_spare)},
+            "primary": programs["primary"],
+            "cost_model": {"fixed_ms": cost.fixed_ms,
+                           "per_token_ms": cost.per_token_ms,
+                           "records": len(records)},
+            "sim": {str(n): {"attainment": sim_att[n],
+                             "gap": {k: sim_att[n].get(k, 1.0) - v
+                                     for k, v in live_att.items()},
+                             "finished": r["finished"],
+                             "sim_duration_s": r["sim_duration_s"]}
+                    for n, r in sims.items()}}
+
+
+def phase_elastic(params, cfg, icfg, prompts, plain_tokens) -> dict:
+    """This slice's paths at the full width (all 32 layers, the serve
+    phase's weights and requests):
+
+      reserve    allocation="reserve": each request's chain reserved at
+                 admission (prompt + 32 + the window's slack), no
+                 preemption, the tokens held against the serve phase's by
+                 the near-tie rule;
+      embed      `embed` on both attention routes (B3 on the flash one),
+                 /v1/embeddings over HttpFrontend, B3 timed at the
+                 embed's shapes;
+      adapters   `elastic_adapters`;
+      fleet      `elastic_fleet`.
+
+    B1 and B2 are counted in each part, B3 in the embed; no plain call."""
+    import gc
+    import torch
+    from cloud_server_tpu_torch.ops import paged_attention as pa
+    t_phase = time.perf_counter()
+    seconds = {}
+    want = [types.SimpleNamespace(tokens=t) for t in plain_tokens]
+
+    def part(name, reading):
+        # each part's line as soon as it has run
+        emit({"phase": "elastic", "part": name, **reading,
+              "seconds": seconds[name]})
+
+    t0 = time.perf_counter()
+    rsrv = make_server(params, cfg, icfg, allocation="reserve")
+    pa.reset_counters()
+    reqs = [rsrv.submit(p, max_new_tokens=MAX_NEW) for p in prompts]
+    rsrv.step()  # admits all 8: 8 slots
+    got = {id(s.req): len(s.pages) for s in rsrv._slots if s is not None}
+    reserved = [got[id(r)] for r in reqs]
+    expect = [-(-(len(p) + MAX_NEW + rsrv.window) // PS) for p in prompts]
+    rsrv.run_until_idle()
+    rcounts = pa.counters()
+    check_served(reqs, cfg.vocab_size)
+    if reserved != expect or rsrv.preemptions:
+        raise RuntimeError(f"reserve: pages {reserved} against {expect}, "
+                           f"{rsrv.preemptions} preemptions")
+    if (rcounts["launches_narrow"] <= 0 or rcounts["launches_wide"] <= 0
+            or rcounts["plain_calls"]):
+        raise RuntimeError(f"reserve: kernel counts {rcounts}")
+    reserve = {"pages_reserved": reserved, "pages_expected": expect,
+               "preemptions": rsrv.preemptions, "counts": rcounts,
+               "programs": len(rsrv._programs),
+               "tokens": near_tie_divergence(
+                   "allocation='reserve'", reqs, want, prompts, params,
+                   cfg)}
+    seconds["reserve"] = time.perf_counter() - t0
+    part("reserve", reserve)
+
+    t0 = time.perf_counter()
+    embed = elastic_embed(params, cfg, icfg, prompts)
+    seconds["embed"] = time.perf_counter() - t0
+    part("embed", embed)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    # the reserve server is the plain server of the profile's turns: no
+    # chain grows in a steady step under either policy, so its steady
+    # step is the default server's program
+    adapters = elastic_adapters(params, cfg, icfg, prompts, plain_tokens,
+                                rsrv)
+    rsrv.stop()
+    del rsrv
+    seconds["adapters"] = time.perf_counter() - t0
+    part("adapters", adapters)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    fleet = elastic_fleet(params, cfg, icfg)
+    seconds["fleet"] = time.perf_counter() - t0
+    part("fleet", fleet)
+    seconds["total"] = time.perf_counter() - t_phase
+    out = {"phase": "elastic", "layers": cfg.num_layers, "reserve": reserve,
+           "embed": embed, "adapters": adapters, "fleet": fleet,
+           "seconds": seconds}
+    emit({"phase": "elastic", "seconds": seconds})
+    steady = adapters["steady_step"]
+    print(f"elastic: reserve {reserve['tokens']['diverged_requests']} "
+          f"diverged; embed cos min {embed['cosine_min']:.5f}, "
+          f"{embed['ms_per_call_8']}; adapters +"
+          f"{steady['device_ms_added']:.2f} ms device a steady step, grow "
+          f"released {adapters['grow']['programs_released']}; fleet "
+          f"{len(fleet['scale_ups'])} up / {len(fleet['scale_downs'])} "
+          f"down, attainment {fleet['attainment']}", flush=True)
     return out
 
 
@@ -3737,6 +4380,21 @@ def main() -> int:
             "bound_by": case["bound_by"][key],
             "library_ms": case["library_fwd_ms" if key == "fwd"
                                else "library_bwd_ms"]})
+    # B3 on this slice's path: embed on the flash route, one layer over
+    # the (bucket, rows) groups of the 8 serve prompts
+    emb = serve["elastic"]["embed"]
+    b3e = emb["b3_layer"]
+    rows.append({
+        "name": "flash_attention forward (embed: "
+                + ", ".join(f"B {b} x S {s_}" for s_, b in emb["groups"])
+                + ", one layer)",
+        "route": "cuda",
+        "source": "cloud_server_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "cloud_server_tpu/ops/flash_attention.py:70",
+        "launches": emb["b3_counts"]["launches_fwd"],
+        "max_abs_err": b3e["max_abs_err"], "ms": b3e["ms"],
+        "plain_ms": b3e["plain_ms"], "bound_ms": b3e["bound_ms"],
+        "bound_by": b3e["bound_by"], "library_ms": b3e["library_ms"]})
     n, d, v = CE_SHAPE
     for name, line, key, launches, err in (
             ("fused_ce forward (TMA + wgmma)", 81, "b7",

@@ -93,6 +93,13 @@ def build_parser() -> argparse.ArgumentParser:
                    "rows first, prefill fills the rest; 0 = auto: "
                    "max_slots * (decode window * decode_chunk + "
                    "prefill_chunk), i.e. work-conserving)")
+    p.add_argument("--allocation", choices=["ondemand", "reserve"],
+                   default="ondemand",
+                   help="page policy: 'ondemand' grows chains per "
+                   "dispatch and preempts the youngest slot on pool "
+                   "exhaustion (higher concurrency per GB); 'reserve' "
+                   "reserves prompt + max_new at admission (no "
+                   "preemption)")
     p.add_argument("--spec-drafts", type=int, default=0,
                    help="in-server speculative decoding with N n-gram "
                    "draft tokens per round (exact accept rule: the "
@@ -315,6 +322,7 @@ def main(argv=None) -> None:
             num_pages=args.num_pages or None,
             decode_chunk=args.decode_chunk, prefill_chunk=prefill_chunk,
             seed=args.seed, device=device, scheduler=args.scheduler,
+            allocation=args.allocation,
             overlap=False if args.no_overlap else None,
             mixed_token_budget=args.mixed_token_budget,
             spec_drafts=spec, spec_control=args.spec_control,

@@ -26,7 +26,7 @@ program of a `ProgramCache` shares one graph memory pool (graphs run
 one at a time, in stream order, and every result is copied out right
 after its replay, so a later replay may reuse an earlier graph's freed
 intermediates). `release()` drops the graphs, their buffers and the
-pool.
+pool; so does a `drop` that leaves no captured graph behind.
 
 There is no fallback: a capture or replay that fails raises. A cache
 made with `capture=False` runs the same function eagerly on the same
@@ -274,6 +274,12 @@ class ProgramCache:
                 prog.release()
         self.dropped += len(gone)
         self.dropped_in_flight += len(kept)
+        if not any(p.graph is not None for p in self._programs.values()):
+            # no captured graph of this cache is left in the pool (a kept
+            # program's goes with its release): the next capture takes a
+            # fresh pool, as the allocator refuses to hand out one whose
+            # graphs have all been reset
+            self._pool = None
         return kept
 
     def release(self) -> None:

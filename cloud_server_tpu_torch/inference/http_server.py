@@ -21,8 +21,9 @@ are the reference's:
   POST /debug/trace {"steps": N, "logdir": optional}: the next N
                     scheduler iterations in a torch.profiler window
                     (utils.tracing.capture_trace); answers the logdir.
-  POST /v1/embeddings   as the reference parses it; the port's server
-                    does not have it yet (a 501).
+  POST /v1/embeddings   input a string, a token list, or a list of
+                    either: the backend's mean-pooled, L2-normalised
+                    embeddings.
   GET  /v1/models, /healthz ({"ok", "ready", "active", "pending"};
                     "ready" is false while the backend drains or after
                     stop()), /metrics (Prometheus text of the backend's
@@ -47,9 +48,10 @@ ValueError, TypeError, KeyError or AttributeError raised while parsing or
 submitting), 404 for unknown paths, 429 with a `Retry-After` header when
 the backend's `max_pending` bound refuses a submit, 503 when the
 scheduler has stopped. New in the port: a request for something the
-port does not have yet (embeddings) answers **501** with a JSON
-`{"error": ...}` naming the feature. The server raises
-`NotImplementedError` for those, also when `submit` raises inside a
+backend does not have yet answers **501** with a JSON `{"error": ...}`
+naming the feature. The server raises `NotImplementedError` for those
+(tensor parallelism and MoE models are still refused at construction),
+also when `submit` raises inside a
 streaming request before any header is sent; the frontend never turns
 it into a 500, a dropped connection or a stream that hangs. Penalties,
 `logit_bias`, `min_tokens`, `regex` and `response_format` (json_object,

@@ -44,6 +44,7 @@ import torch
 
 from cloud_server_tpu_torch import resolve_device
 from cloud_server_tpu_torch.config import ModelConfig
+from cloud_server_tpu_torch.inference import multi_lora
 from cloud_server_tpu_torch.inference.engine import _kv_quant, _mlp_apply
 from cloud_server_tpu_torch.models import transformer
 from cloud_server_tpu_torch.ops import rms_norm, rope_table
@@ -182,7 +183,8 @@ def _write_window(cache: PagedKVCache, layer: int, k, v, plan) -> None:
 @torch.no_grad()
 def window_forward(params, tokens: torch.Tensor, cfg: ModelConfig,
                    cache: PagedKVCache, *, logits_at=None,
-                   all_logits: bool = False, widths=None, rope=None):
+                   all_logits: bool = False, widths=None, rope=None,
+                   lora=None, aid=None):
     """Forward W new positions per slot against the paged cache.
 
     Args:
@@ -196,6 +198,10 @@ def window_forward(params, tokens: torch.Tensor, cfg: ModelConfig,
         index >= widths[b] neither write kv nor anchor attention.
       rope: optional precomputed (cos, sin) for cache.max_context
         positions on the device (a server computes it once).
+      lora, aid: multi-adapter serving — (stacks, scales) from
+        inference.multi_lora.AdapterSet.device_args and per-row adapter
+        ids (B,); each layer gathers its per-row (a, b, scale) and the
+        transformer blocks add the low-rank deltas (id 0 adds exactly 0).
 
     Returns (logits, cache); the pools hold the window's kv, lengths are
     unchanged.
@@ -224,13 +230,16 @@ def window_forward(params, tokens: torch.Tensor, cfg: ModelConfig,
 
     for layer in range(cfg.num_layers):
         lp = transformer.layer_params(params, layer)
-        q, k, v = transformer.attention_qkv(x, lp, cfg, cos, sin, rope_pos)
+        ll = (None if lora is None
+              else multi_lora.layer_lora(lora, aid, layer))
+        q, k, v = transformer.attention_qkv(x, lp, cfg, cos, sin, rope_pos,
+                                            lora=ll)
         _write_window(cache, layer, k, v, plan)
         o = attend(q, cache.k, cache.v, lens_dev, tables_dev, layer,
                    widths=widths_dev, k_scale_pool=cache.k_scale,
                    v_scale_pool=cache.v_scale)
-        x = transformer.attention_out(x, o, lp, cfg)
-        x = _mlp_apply(x, lp, cfg)
+        x = transformer.attention_out(x, o, lp, cfg, lora=ll)
+        x = _mlp_apply(x, lp, cfg, lora=ll)
 
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     if all_logits:

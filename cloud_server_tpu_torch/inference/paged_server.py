@@ -31,9 +31,12 @@ A port of the reference's `PagedInferenceServer`:
     steady step then commits N and launches N+1 — one launch and one
     sync per step. Slots reaped while a dispatch is in flight are
     released right after its commit.
-  * On-demand paging: chains grow before each decode dispatch; on pool
-    exhaustion the youngest slot is preempted (its pages go to the radix
-    cache, its request requeues as a continuation).
+  * Page allocation: on demand (the default), chains grow before each
+    decode dispatch; on pool exhaustion the youngest slot is preempted
+    (its pages go to the radix cache, its request requeues as a
+    continuation). `allocation="reserve"` reserves the whole chain
+    (prompt + max_new + window slack) at admission instead: no chain
+    grows and nothing is preempted.
   * Seeded server-global sampling splits one threefry key as the
     reference splits its own (once per dispatch, then per half and per
     round), so with the reference's staged shapes the draws are its
@@ -94,9 +97,20 @@ the D2H copies of its committed pages already started on a side stream
 under the final chunk (`_handoff_prefetch`, `_handoff_copy_out`). Token
 exactness rests on the host state alone; the pages save re-prefill.
 
+Multi-LoRA serving (inference/multi_lora.py): `add_adapter` registers an
+adapter into stacked device tensors, `submit(adapter=name)` selects it
+per request, and every program whose slots carry an adapter gathers
+each row's (A, B, scale) per layer (row 0, the null adapter, adds
+exactly 0). Such programs are keyed by the stacks' generation: an add
+that fits their capacity writes its rows in place and the captured
+graphs serve it; one that grows them releases the programs of the old
+generation after the dispatch in flight has committed. Radix prefix
+chains are namespaced per adapter. `embed` returns mean-pooled,
+L2-normalised sequence embeddings of the base model
+(`engine.encode`).
+
 Not ported yet, and refused with NotImplementedError where a caller asks
-for them: multi-LoRA, `embed`, tensor parallelism, MoE models and the
-full-reservation paging policy (`allocation="reserve"`).
+for them: tensor parallelism and MoE models.
 """
 
 from __future__ import annotations
@@ -129,6 +143,7 @@ from cloud_server_tpu_torch.inference.iteration_profile import (
     register_phase_hists, resolve_profiler)
 from cloud_server_tpu_torch.inference.migration import (
     MIGRATION_VERSION, MigrationLedger, MigrationSnapshot)
+from cloud_server_tpu_torch.inference.multi_lora import AdapterSet
 from cloud_server_tpu_torch.inference.qos import (PRIORITY_CLASSES,
                                                   resolve_registry)
 from cloud_server_tpu_torch.inference.request_trace import resolve_recorder
@@ -218,6 +233,8 @@ class _Model:
                counts for penalties; None until a request needs them
       grammar  ((Gn, S_max, V) int32 tables, (Gn, S_max) bool accepts)
                of the registered patterns; None until one registers
+      lora     (stacks, scales) of the registered adapters
+               (`AdapterSet.device_args`); None until one registers
     """
 
     def __init__(self, params, cfg, infer_cfg, pools, rope, *, draft=None,
@@ -230,6 +247,7 @@ class _Model:
         self.hist, self.gstate = hist, gstate
         self.pm = self.oc = None
         self.grammar = None
+        self.lora = None
 
     def mutable_state(self) -> list:
         """The per-slot tensors a program updates besides the pools (a
@@ -279,7 +297,7 @@ def _grammar_step(grammar, gid, st, tok):
 
 def _prefill_core(m: _Model, bufs: dict, key, *, ragged: bool, rows: bool,
                   bias: bool, grammar: bool, has_pen: bool,
-                  scatter_prompt: bool):
+                  scatter_prompt: bool, lora: bool):
     """One admission window for a (padded) G-row group: `chunk` (G, Wc)
     at positions [g_lens, g_lens + Wc) per row; each row's first-token
     candidate sampled at `sample_at` (per-request rows at position
@@ -295,13 +313,15 @@ def _prefill_core(m: _Model, bufs: dict, key, *, ragged: bool, rows: bool,
     in `hist`; rows whose sample is captured in this chunk
     (`count_mask`) count their first token and set their DFA state
     (`grammar`: the first token is sampled under the grammar's mask from
-    the resume state `gst0_g`). The draft model prefills the same chunk
-    into its pools. Returns (toks (G,), lps (G,))."""
+    the resume state `gst0_g`). With `lora` each row applies its slot's
+    adapter (`aid_g`). The draft model prefills the same chunk into its
+    pools. Returns (toks (G,), lps (G,))."""
     logits, _ = paged_engine.window_forward(
         m.params, bufs["chunk"], m.cfg,
         _cache(m, bufs["g_lens"], bufs["g_tables"]),
         logits_at=bufs["sample_at"],
-        widths=bufs["widths"] if ragged else None, rope=m.rope)
+        widths=bufs["widths"] if ragged else None, rope=m.rope,
+        lora=m.lora if lora else None, aid=bufs.get("aid_g"))
     slot_ids = bufs["slot_ids"].long()
     count = bufs["count_mask"]
     prompt_lens = bufs["prompt_lens"].long()
@@ -385,13 +405,14 @@ def _decode_state(m: _Model, bufs: dict, rows: bool, grammar: bool,
 
 def _decode_plain_core(m: _Model, bufs: dict, key, *, n_rounds: int,
                        rows: bool, bias: bool, grammar: bool,
-                       has_pen: bool) -> dict:
+                       has_pen: bool, lora: bool) -> dict:
     """n_rounds plain decode steps (W = 1) of the staged rows: `live`
     rows advance one token a round, the rest (padding rows, on sentinel
     tables) are frozen. The server-global draw of round r uses
     split(key, n_rounds)[r]; per-request rows sample at position
     lengths + 1 with their penalty counts and grammar masks, advanced
-    every round. Returns toks (R, B), lps (R, B), counts (R, B) (1 a live
+    every round; with `lora` each row applies its slot's adapter
+    (`d_aid`). Returns toks (R, B), lps (R, B), counts (R, B) (1 a live
     row), lens (B,), last (B,)."""
     lengths = bufs["d_lens"].long()
     tables = bufs["d_tables"]
@@ -400,6 +421,8 @@ def _decode_plain_core(m: _Model, bufs: dict, key, *, n_rounds: int,
     sids, pm, oc, gstate = _decode_state(m, bufs, rows, grammar, has_pen)
     samp = _rows_in(bufs, "samp_d.") if rows else None
     gid = bufs["d_gid"] if grammar else None
+    adapters = m.lora if lora else None
+    aid = bufs.get("d_aid")
     keys = prng.split(key, n_rounds)
     at = torch.zeros_like(lengths)
     bi = torch.arange(lengths.shape[0], device=lengths.device)
@@ -414,7 +437,7 @@ def _decode_plain_core(m: _Model, bufs: dict, key, *, n_rounds: int,
             m.hist[sids, cols] = last.to(m.hist.dtype)
         logits, _ = paged_engine.window_forward(
             m.params, last[:, None], m.cfg, _cache(m, lengths, tables),
-            logits_at=at, rope=m.rope)
+            logits_at=at, rope=m.rope, lora=adapters, aid=aid)
         amask = None
         if grammar:
             nrow, amask = _grammar_mask(m.grammar, gid, gstate, eos)
@@ -448,7 +471,7 @@ def _decode_plain_core(m: _Model, bufs: dict, key, *, n_rounds: int,
 
 def _spec_core(m: _Model, bufs: dict, key, *, n_rounds: int, n_drafts: int,
                limited: bool, rows: bool, bias: bool, grammar: bool,
-               has_pen: bool) -> dict:
+               has_pen: bool, lora: bool) -> dict:
     """n_rounds speculative rounds of the staged rows, as the
     reference's `_spec_core`. Each round drafts `n_drafts` tokens per row
     — from the draft model, decoding against its own pools (G+1 steps:
@@ -462,7 +485,9 @@ def _spec_core(m: _Model, bufs: dict, key, *, n_rounds: int, n_drafts: int,
     target distribution uses the counts and the DFA state after
     drafts[:i], and the draft model's step j uses the same
     construction. Per-request rows draw on position-keyed streams
-    (`speculative`), server-global rows on split(key, n_rounds)[r].
+    (`speculative`), server-global rows on split(key, n_rounds)[r]. With
+    `lora` the target's verify pass applies each row's adapter (the
+    draft model serves unadapted, as the reference's does).
 
     Returns toks (R, B, G+1), lps (R, B, G+1), counts (R, B), lens (B,),
     last (B,)."""
@@ -537,7 +562,8 @@ def _spec_core(m: _Model, bufs: dict, key, *, n_rounds: int, n_drafts: int,
         window = torch.cat([last[:, None], drafts], dim=1)
         vlogits, _ = paged_engine.window_forward(
             m.params, window, m.cfg, _cache(m, lengths, tables),
-            all_logits=True, rope=m.rope)
+            all_logits=True, rope=m.rope, lora=m.lora if lora else None,
+            aid=bufs.get("d_aid"))
         amask_w = None
         if grammar:
             # position i's mask comes from the state after drafts[:i]
@@ -613,19 +639,21 @@ def _spec_core(m: _Model, bufs: dict, key, *, n_rounds: int, n_drafts: int,
 
 def _decode_core(m: _Model, bufs: dict, key, *, n_rounds: int,
                  n_drafts: int, limited: bool, rows: bool, bias: bool,
-                 grammar: bool, has_pen: bool) -> dict:
+                 grammar: bool, has_pen: bool, lora: bool) -> dict:
     if n_drafts > 0:
         return _spec_core(m, bufs, key, n_rounds=n_rounds,
                           n_drafts=n_drafts, limited=limited, rows=rows,
-                          bias=bias, grammar=grammar, has_pen=has_pen)
+                          bias=bias, grammar=grammar, has_pen=has_pen,
+                          lora=lora)
     return _decode_plain_core(m, bufs, key, n_rounds=n_rounds, rows=rows,
-                              bias=bias, grammar=grammar, has_pen=has_pen)
+                              bias=bias, grammar=grammar, has_pen=has_pen,
+                              lora=lora)
 
 
 def _mixed_step(m: _Model, bufs: dict, *, n_rounds: int, n_drafts: int,
                 limited: bool, scatter_prompt: bool, rows_p: bool,
                 bias_p: bool, rows_d: bool, bias_d: bool, grammar: bool,
-                has_pen: bool) -> dict:
+                has_pen: bool, lora: bool) -> dict:
     """ONE token-budget mixed iteration: the ragged prefill group, then
     (n_rounds > 0) the multi-round decode of the live rows, plain or
     speculative (n_drafts > 0; the draft model's chunk prefill rides in
@@ -635,13 +663,13 @@ def _mixed_step(m: _Model, bufs: dict, *, n_rounds: int, n_drafts: int,
     ptoks, plps = _prefill_core(m, bufs, key_p, ragged=True, rows=rows_p,
                                 bias=bias_p, grammar=grammar,
                                 has_pen=has_pen,
-                                scatter_prompt=scatter_prompt)
+                                scatter_prompt=scatter_prompt, lora=lora)
     out = {"ptoks": ptoks, "plps": plps}
     if n_rounds > 0:
         out.update(_decode_core(m, bufs, key_d, n_rounds=n_rounds,
                                 n_drafts=n_drafts, limited=limited,
                                 rows=rows_d, bias=bias_d, grammar=grammar,
-                                has_pen=has_pen))
+                                has_pen=has_pen, lora=lora))
     return out
 
 
@@ -714,6 +742,7 @@ class _DecodeRows:
     stop: np.ndarray
     samp: SamplingRows
     gid: np.ndarray
+    aid: np.ndarray
 
 
 @dataclasses.dataclass
@@ -790,13 +819,19 @@ class PagedInferenceServer:
                  cuda_graphs: bool = True):
         refused = {
             "tensor-parallel serving (mesh)": mesh is not None,
-            f"allocation={allocation!r} (only 'ondemand')":
-                allocation != "ondemand",
             "MoE models": cfg.num_experts >= 2,
         }
         for what, asked in refused.items():
             if asked:
                 raise _not_ported(what)
+        # Page-allocation policy: "ondemand" (default) reserves the
+        # prompt and one decode window at admission and grows chains
+        # per dispatch, preempting the youngest slot on pool exhaustion;
+        # "reserve" reserves prompt + max_new + window slack at
+        # admission, so no chain grows and nothing is preempted
+        if allocation not in ("ondemand", "reserve"):
+            raise ValueError(f"unknown allocation policy: {allocation!r}")
+        self.allocation = allocation
         sched = scheduler if scheduler is not None else infer_cfg.scheduler
         if sched not in ("mixed", "alternating"):
             raise ValueError(f"unknown scheduler: {sched!r}")
@@ -914,6 +949,10 @@ class PagedInferenceServer:
         self._grammar_built = 0    # patterns the device stack holds
         self._gid = np.zeros((max_slots,), np.int32)
         self._gstate0 = np.zeros((max_slots,), np.int32)
+        # multi-LoRA serving: the stacked adapter set and per-slot
+        # adapter ids (0 = the null adapter, the base model)
+        self.adapters = AdapterSet(cfg, device=self.device)
+        self._aid = np.zeros((max_slots,), np.int32)
         self.orig_len = np.zeros((max_slots,), np.int32)
         self._host_rng = np.random.default_rng(seed)
         # the server-global key, jax.random.key(seed)'s words, split once
@@ -1057,8 +1096,11 @@ class PagedInferenceServer:
             raise RuntimeError("server is stopped; not accepting requests")
         if self._faults is not None:
             self._faults.check("submit_reject")
-        if adapter is not None:
-            raise _not_ported("multi-LoRA serving (adapter=)")
+        if (adapter is not None
+                and self.adapters.adapter_id(adapter) is None):
+            raise ValueError(
+                f"unknown adapter {adapter!r}; registered: "
+                f"{self.adapters.names}")
         if deadline_s is not None and not (
                 math.isfinite(deadline_s) and deadline_s > 0):
             raise ValueError("deadline_s must be a finite positive "
@@ -1100,7 +1142,8 @@ class PagedInferenceServer:
             # not mint per-tenant metric series
             tenant = None
         req = Request(prompt=list(prompt), max_new_tokens=max_new,
-                      stream=stream, sampling=sampling, tenant=tenant,
+                      stream=stream, sampling=sampling, adapter=adapter,
+                      tenant=tenant,
                       seed_used=(_migration.seed_used
                                  if _migration is not None else
                                  resolve_seed(sampling, self._host_rng,
@@ -1225,11 +1268,59 @@ class PagedInferenceServer:
         self.run_until_idle()
         return [r.tokens for r in reqs]
 
-    def embed(self, prompts):
-        raise _not_ported("embed")
+    def embed(self, prompts: Sequence[Sequence[int]]) -> np.ndarray:
+        """Mean-pooled, L2-normalised sequence embeddings of the base
+        model (`engine.encode`): prompts grouped per prompt bucket, each
+        group padded to a power of two rows, so repeat calls run the
+        same shapes. Runs under the step lock, after the dispatch in
+        flight has run: it shares the card with the programs. Returns
+        (N, embed_dim) f32."""
+        from cloud_server_tpu_torch.inference import engine as _engine
+        if not prompts:
+            return np.zeros((0, self.cfg.embed_dim), np.float32)
+        out = np.zeros((len(prompts), self.cfg.embed_dim), np.float32)
+        by_bucket: dict[int, list[int]] = {}
+        for i, p in enumerate(prompts):
+            if len(p) == 0:
+                raise ValueError("empty prompt")
+            by_bucket.setdefault(_bucket(len(p), self.prompt_buckets),
+                                 []).append(i)
+        with self._step_lock:
+            self._settle_inflight()
+            for pb, idxs in by_bucket.items():
+                g = _pad_pow2(len(idxs))
+                rows = np.full((g, pb), self.infer_cfg.pad_token_id,
+                               np.int32)
+                lens = np.ones((g,), np.int32)  # padding rows: 1 token
+                for r, i in enumerate(idxs):
+                    rows[r, :len(prompts[i])] = prompts[i]
+                    lens[r] = len(prompts[i])
+                vecs = _engine.encode(
+                    self.params, torch.from_numpy(rows).to(self.device),
+                    torch.from_numpy(lens).to(self.device), cfg=self.cfg)
+                out[idxs] = vecs[:len(idxs)].cpu().numpy()
+        return out
 
-    def add_adapter(self, name: str, lora_params, lora_cfg) -> int:
-        raise _not_ported("multi-LoRA serving (add_adapter)")
+    def add_adapter(self, name: str, lora_params: dict, lora_cfg) -> int:
+        """Register a LoRA adapter for per-request serving; returns its
+        id. Requests select it via submit(..., adapter=name). Runs under
+        the step lock (no capture is under way). An add that fits the
+        stacks writes its rows in place; one that replaces a stack
+        tensor releases the programs keyed to the old generation — the
+        dispatch in flight, and the tensors it reads, only after its
+        commit has waited on it (`_release_retired`)."""
+        with self._step_lock:
+            ad = self.adapters
+            gen, held = ad.generation, ad.device_args()
+            with self._lock:
+                aid = ad.add(name, lora_params, lora_cfg)
+            if ad.generation != gen:
+                busy = self._inflight.program if self._inflight else None
+                kept = self._programs.drop(lambda key: key[4] == gen, busy)
+                if kept:  # it reads the old stacks until its commit
+                    self._retired += kept + [held]
+            self._model.lora = ad.device_args()
+            return aid
 
     @property
     def num_active(self) -> int:
@@ -1292,6 +1383,7 @@ class PagedInferenceServer:
     def _release_slot(self, slot_id: int, keyed_tokens: list[int]) -> _Slot:
         slot = self._slots[slot_id]
         self.allocator.release(slot.pages, keyed_tokens,
+                               namespace=slot.req.adapter or "",
                                tenant=slot.req.tenant)
         self._slots[slot_id] = None
         self.tables[slot_id, :] = self.allocator.num_pages  # sentinel
@@ -1301,6 +1393,7 @@ class PagedInferenceServer:
         self._has_bias[slot_id] = False
         self._gid[slot_id] = 0
         self._gstate0[slot_id] = 0
+        self._aid[slot_id] = 0
         if self.spec_control is not None:
             self.spec_control.on_release(slot_id)
         return slot
@@ -1396,20 +1489,22 @@ class PagedInferenceServer:
     def _launch(self, body, flags: dict, staged: dict) -> graphs.Program:
         """Launch `body` with its static switches `flags` on `staged`
         inputs (with a fresh server key); the caller waits on it. A
-        program is keyed by its body, switches and input shapes, and by
-        the grammar stack's generation when it reads the stack."""
+        program is keyed by its body, switches and input shapes, by the
+        grammar stack's generation when it reads the stack, and by the
+        adapter stacks' generation when it reads them."""
         staged["rng"] = self._next_rng()
         key = (body.__name__,
                self._grammar_gen if flags.get("grammar") else -1,
                tuple(sorted(flags.items())),
-               tuple((k, np.shape(a)) for k, a in sorted(staged.items())))
+               tuple((k, np.shape(a)) for k, a in sorted(staged.items())),
+               self.adapters.generation if flags.get("lora") else -1)
         prog = self._programs.get(key, functools.partial(body, **flags),
                                   self._model, staged)
         prog.launch(staged)
         return prog
 
     def _decode_staged(self, rows: _DecodeRows, spec_lens, *, spec: bool,
-                       use_rows: bool, grammar: bool) -> dict:
+                       use_rows: bool, grammar: bool, lora: bool) -> dict:
         """A decode half's inputs: the rows, with their stop lengths when
         speculating and their draft caps when `spec_lens` (per live row)
         bounds them."""
@@ -1431,10 +1526,12 @@ class PagedInferenceServer:
             staged.update(_samp_staged("samp_d.", rows.samp))
         if grammar:
             staged["d_gid"] = np.asarray(rows.gid, np.int32)
+        if lora:
+            staged["d_aid"] = np.asarray(rows.aid, np.int32)
         return staged
 
     def _prefill_staged(self, pf: dict, *, ragged: bool, use_rows: bool,
-                        grammar: bool, scatter: bool) -> dict:
+                        grammar: bool, scatter: bool, lora: bool) -> dict:
         names = ["chunk", "g_lens", "g_tables", "sample_at", "prompt_lens",
                  "slot_ids", "count_mask"]
         if ragged:
@@ -1445,6 +1542,8 @@ class PagedInferenceServer:
                 names.append("scatter_mask")
         if grammar:
             names += ["gid_g", "gst0_g"]
+        if lora:
+            names.append("aid_g")
         staged = {k: pf[k] for k in names}
         if use_rows:
             staged.update(_samp_staged("samp_g.", pf["samp_g"]))
@@ -1489,10 +1588,13 @@ class PagedInferenceServer:
                 prompt = list(req.prompt) + list(req.tokens)
                 remaining = req.max_new_tokens - len(req.tokens)
                 shared, shared_len = self.allocator.lookup_prefix(
-                    prompt, tenant=req.tenant)
-                # on-demand paging: the prompt and one window now, the
-                # rest grows before each decode dispatch
-                total = len(prompt) + self.window
+                    prompt, namespace=req.adapter or "", tenant=req.tenant)
+                if self.allocation == "ondemand":
+                    # the prompt and one window now, the rest grows
+                    # before each decode dispatch (_extend_chains)
+                    total = len(prompt) + self.window
+                else:
+                    total = len(prompt) + remaining + self.window
                 need = -(-total // self.page_size) - len(shared)
                 if (self._faults is not None
                         and self._faults.fire("alloc_famine")
@@ -1500,12 +1602,14 @@ class PagedInferenceServer:
                     # an injected transient famine: release the walk's
                     # references and retry next iteration
                     self.allocator.release(shared, prompt[:shared_len],
+                                           namespace=req.adapter or "",
                                            tenant=req.tenant)
                     break
                 fresh = self.allocator.alloc(max(0, need),
                                              tenant=req.tenant)
                 if fresh is None:
                     self.allocator.release(shared, prompt[:shared_len],
+                                           namespace=req.adapter or "",
                                            tenant=req.tenant)
                     if self.num_active == 0 and not self._jobs:
                         del self._pending[idx]
@@ -1558,6 +1662,9 @@ class PagedInferenceServer:
                 else:
                     self._gid[slot_id] = 0
                     self._gstate0[slot_id] = 0
+                self._aid[slot_id] = (
+                    0 if req.adapter is None
+                    else self.adapters.adapter_id(req.adapter))
                 if sp is not None and sp.needs_penalty_state():
                     self._ensure_penalty_state()
                 self.orig_len[slot_id] = len(req.prompt)
@@ -1674,15 +1781,18 @@ class PagedInferenceServer:
             "orig_lens": pad_rows(self.orig_len[sl], 0),
             "gid_g": pad_rows(self._gid[sl], 0),
             "gst0_g": pad_rows(self._gstate0[sl], 0),
+            "aid_g": pad_rows(self._aid[sl], 0),
             "samp_g": _gather_samp_rows(self.samp_rows, sl_pad, g)}
         flags = dict(rows=bool(self._needs_rows[sl].any()),
                      bias=bool(self._has_bias[sl].any()),
                      grammar=bool((self._gid[sl] > 0).any()),
                      has_pen=self._model.pm is not None,
-                     scatter_prompt=c == 0 and self._scatters_prompts())
+                     scatter_prompt=c == 0 and self._scatters_prompts(),
+                     lora=bool((self._aid[sl] > 0).any()))
         staged = self._prefill_staged(
             pf, ragged=False, use_rows=flags["rows"],
-            grammar=flags["grammar"], scatter=flags["scatter_prompt"])
+            grammar=flags["grammar"], scatter=flags["scatter_prompt"],
+            lora=flags["lora"])
         prof = self._profiler
         if prof is not None:
             # per-chunk marks accumulate into the iteration's phases
@@ -1832,7 +1942,8 @@ class PagedInferenceServer:
             return live_ids, _DecodeRows(
                 sl=None, live=active.copy(), lens=self.lengths,
                 tables=self.tables, last=self.last_token,
-                stop=self.stop_len, samp=self.samp_rows, gid=self._gid)
+                stop=self.stop_len, samp=self.samp_rows, gid=self._gid,
+                aid=self._aid)
         bg = _pad_pow2(max(len(live_ids), 1))
         nl = len(live_ids)
         sl = np.full((bg,), self.max_slots, np.int32)
@@ -1844,11 +1955,14 @@ class PagedInferenceServer:
         tables[nl:] = self.allocator.num_pages
         gid = self._gid[slr].copy()
         gid[nl:] = 0
+        aid = self._aid[slr].copy()
+        aid[nl:] = 0
         return live_ids, _DecodeRows(
             sl=sl, live=live_g, lens=self.lengths[slr].copy(),
             tables=tables, last=self.last_token[slr].copy(),
             stop=self.stop_len[slr].copy(),
-            samp=_gather_samp_rows(self.samp_rows, slr, nl), gid=gid)
+            samp=_gather_samp_rows(self.samp_rows, slr, nl), gid=gid,
+            aid=aid)
 
     def _spec_plan(self, live_ids):
         """This dispatch's speculation: (draft count, per-live-row draft
@@ -1894,7 +2008,8 @@ class PagedInferenceServer:
                 "rows": bool((self._needs_rows & live).any()),
                 "bias": bool((self._has_bias & live).any()),
                 "grammar": bool(((self._gid > 0) & live).any()),
-                "has_pen": self._model.pm is not None}
+                "has_pen": self._model.pm is not None,
+                "lora": bool(((self._aid > 0) & live).any())}
 
     def _decode_dispatch(self) -> None:
         """A decode-only iteration: one program of n_rounds rounds over
@@ -1903,12 +2018,13 @@ class PagedInferenceServer:
             self._faults.check("dispatch")
         prof = self._profiler
         n = self._chunk_rounds()
-        n_eff = self._extend_chains(n)
-        if n_eff <= 0 or not self.active.any():
-            return  # transient page famine
-        while n > n_eff:  # round counts stay powers of two
-            n //= 2
-        n = max(1, n)
+        if self.allocation == "ondemand":
+            n_eff = self._extend_chains(n)
+            if n_eff <= 0 or not self.active.any():
+                return  # transient page famine
+            while n > n_eff:  # round counts stay powers of two
+                n //= 2
+            n = max(1, n)
         if prof is not None:
             prof.mark("admission")
         live_ids, rows = self._gather_decode_rows()
@@ -1927,7 +2043,8 @@ class PagedInferenceServer:
         flags = self._decode_flags(self.active, g_iter, spec_lens, n)
         staged = self._decode_staged(rows, spec_lens, spec=g_iter > 0,
                                      use_rows=flags["rows"],
-                                     grammar=flags["grammar"])
+                                     grammar=flags["grammar"],
+                                     lora=flags["lora"])
         if prof is not None:
             prof.mark("build")
         out = self._launch(_decode_rounds, flags, staged).wait()
@@ -2157,6 +2274,8 @@ class PagedInferenceServer:
         gid_g[g:] = 0
         gst0_g = self._gstate0[sl_real].copy()
         gst0_g[g:] = 0
+        aid_g = self._aid[sl_real].copy()
+        aid_g[g:] = 0
         sel_mask = np.zeros((self.max_slots,), bool)
         sel_mask[[job.slots[0] for job, _, _ in sel]] = True
         return {"chunk": chunk, "widths": widths, "g_lens": g_lens,
@@ -2164,7 +2283,7 @@ class PagedInferenceServer:
                 "prompt_lens": prompt_lens, "slot_ids": slot_ids,
                 "count_mask": countm, "scatter_mask": scatm,
                 "prompt_rows": prompt_rows, "orig_lens": orig_lens,
-                "gid_g": gid_g, "gst0_g": gst0_g,
+                "gid_g": gid_g, "gst0_g": gst0_g, "aid_g": aid_g,
                 "samp_g": _gather_samp_rows(self.samp_rows, sl_real, g),
                 "sel_mask": sel_mask}
 
@@ -2184,18 +2303,20 @@ class PagedInferenceServer:
                 "grammar": bool(((self._gid > 0) & (live | sel)).any()),
                 "has_pen": self._model.pm is not None,
                 "scatter_prompt": (bool(pf["scatter_mask"].any())
-                                   and self._scatters_prompts())}
+                                   and self._scatters_prompts()),
+                "lora": bool(((self._aid > 0) & (live | sel)).any())}
 
     def _mixed_staged(self, pf: dict, flags: dict, rows: _DecodeRows,
                       spec_lens) -> dict:
         staged = self._prefill_staged(
             pf, ragged=True, use_rows=flags["rows_p"],
-            grammar=flags["grammar"], scatter=flags["scatter_prompt"])
+            grammar=flags["grammar"], scatter=flags["scatter_prompt"],
+            lora=flags["lora"])
         if flags["n_rounds"] > 0:
             staged.update(self._decode_staged(
                 rows, spec_lens if flags["limited"] else None,
                 spec=flags["n_drafts"] > 0, use_rows=flags["rows_d"],
-                grammar=flags["grammar"]))
+                grammar=flags["grammar"], lora=flags["lora"]))
         return staged
 
     def _mixed_dispatch(self) -> None:
@@ -2210,7 +2331,7 @@ class PagedInferenceServer:
         n_live = int(self.active.sum())
         g0, _ = self._spec_plan(np.flatnonzero(self.active))
         n_rounds = self._mixed_rounds(n_live, demand, g0 + 1)
-        if n_rounds > 0:
+        if self.allocation == "ondemand" and n_rounds > 0:
             n_eff = self._extend_chains(n_rounds)
             if n_eff <= 0 or not self.active.any():
                 n_rounds = 0  # transient page famine: prefill-only
@@ -2353,7 +2474,7 @@ class PagedInferenceServer:
             win = g_iter + 1
             n_rounds = self._mixed_rounds(n_live, demand, win,
                                           active=planned_active)
-            if n_rounds > 0:
+            if self.allocation == "ondemand" and n_rounds > 0:
                 n_eff = self._extend_chains_planned(
                     n_rounds, planned_len, planned_active)
                 if n_eff <= 0:
@@ -2412,13 +2533,14 @@ class PagedInferenceServer:
         else:
             # a pure-decode iteration (mirrors _decode_dispatch)
             n = self._chunk_rounds(active=planned_active)
-            n_eff = self._extend_chains_planned(n, planned_len,
-                                                planned_active)
-            if n_eff <= 0:
-                return None
-            while n > n_eff:
-                n //= 2
-            n = max(1, n)
+            if self.allocation == "ondemand":
+                n_eff = self._extend_chains_planned(n, planned_len,
+                                                    planned_active)
+                if n_eff <= 0:
+                    return None
+                while n > n_eff:
+                    n //= 2
+                n = max(1, n)
             if prof is not None:
                 prof.mark("admission")
             live_ids, rows = self._gather_decode_rows(planned_active)
@@ -2464,6 +2586,7 @@ class PagedInferenceServer:
                 rows.lens = self.lengths
                 rows.tables = self.tables
                 rows.last = self.last_token
+                rows.aid = self._aid
             else:
                 for i in range(nl):
                     sid = int(live_ids[i])
@@ -2487,7 +2610,8 @@ class PagedInferenceServer:
             staged = self._decode_staged(rows, plan.spec_lens,
                                          spec=plan.g_iter > 0,
                                          use_rows=f["rows"],
-                                         grammar=f["grammar"])
+                                         grammar=f["grammar"],
+                                         lora=f["lora"])
             prog = self._launch(_decode_rounds, f, staged)
         self._handoff_copy_out()
         t = (prof.mark("launch") if prof is not None
@@ -2974,7 +3098,7 @@ class PagedInferenceServer:
             reason=reason, prompt=tuple(req.prompt),
             tokens=tuple(req.tokens), logprobs=tuple(req.logprobs),
             emit_times=tuple(req.emit_times), seed_used=req.seed_used,
-            sampling=req.sampling, adapter=None, tenant=req.tenant,
+            sampling=req.sampling, adapter=req.adapter, tenant=req.tenant,
             slo_class=req.slo_class, max_new_tokens=req.max_new_tokens,
             # the remainder: a deadline is a per-host monotonic stamp
             deadline_remaining_s=(None if req.deadline is None
@@ -3255,6 +3379,7 @@ class PagedInferenceServer:
             return 0
         try:
             fill = self.allocator.import_chain(list(snap.chain_tokens),
+                                               namespace=snap.adapter or "",
                                                tenant=tenant)
             if not fill:
                 return 0

@@ -112,6 +112,9 @@ class Request:
     # drawn from the server's host RNG at submit) — stable across
     # preemption and re-admission
     seed_used: int = 0
+    # multi-LoRA serving: the registered adapter's name (paged server);
+    # None serves the base model
+    adapter: str | None = None
     # multi-tenant QoS (inference/qos.py): the resolved tenant name, set
     # at submit; None when the server has no TenantRegistry
     tenant: str | None = None

@@ -194,33 +194,70 @@ def _proj(x: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
     return y.reshape(*x.shape[:-1], *w.shape[1:])
 
 
-def attention_qkv(x, lp, cfg: ModelConfig, cos, sin, positions=None):
-    """Pre-norm + q/k/v projection + rope."""
+def lora_row_delta(h, ab) -> torch.Tensor:
+    """Per-ROW low-rank delta for multi-adapter serving: each batch row
+    carries its own (A, B) pair (gathered from a stacked adapter set by
+    the row's adapter id). h: (B, S, Din); ab = (a (B, Din, r),
+    b (B, r, Dout), scale (B,)) -> (B, S, Dout), in h's dtype."""
+    a, b, scale = ab
+    z = torch.bmm(h, a.to(h.dtype))
+    d = torch.bmm(z, b.to(h.dtype))
+    return d * scale[:, None, None].to(h.dtype)
+
+
+def attention_qkv(x, lp, cfg: ModelConfig, cos, sin, positions=None,
+                  lora=None):
+    """Pre-norm + q/k/v projection + rope.
+
+    `lora` (serving only): {target: (a, b, scale)} per-row adapters —
+    deltas land BEFORE rope, exactly where a merged weight would."""
     dtype = torch_dtype(cfg.dtype)
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
     q = _proj(h, lp["wq"], dtype)
     k = _proj(h, lp["wk"], dtype)
     v = _proj(h, lp["wv"], dtype)
+    if lora:
+        if "wq" in lora:
+            q = q + lora_row_delta(h, lora["wq"]).reshape(q.shape)
+        if "wk" in lora:
+            k = k + lora_row_delta(h, lora["wk"]).reshape(k.shape)
+        if "wv" in lora:
+            v = v + lora_row_delta(h, lora["wv"]).reshape(v.shape)
     q = apply_rope(q, cos, sin, positions)
     k = apply_rope(k, cos, sin, positions)
     return q, k, v
 
 
-def attention_out(x, o, lp, cfg: ModelConfig):
-    """Output projection + residual add."""
+def attention_out(x, o, lp, cfg: ModelConfig, lora=None):
+    """Output projection + residual add; a `wo` adapter's delta lands on
+    the flattened head output."""
     dtype = torch_dtype(cfg.dtype)
     b, s = o.shape[:2]
     wo = lp["wo"].to(dtype)
-    y = o.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
+    flat = o.reshape(b, s, -1)
+    y = flat @ wo.reshape(-1, wo.shape[-1])
+    if lora and "wo" in lora:
+        y = y + lora_row_delta(flat, lora["wo"])
     return x + y
 
 
-def mlp_block(x, lp, cfg: ModelConfig):
+def mlp_block(x, lp, cfg: ModelConfig, lora=None):
+    """SwiGLU MLP residual block; adapters land on gate and up before
+    the activation and on down after it."""
     dtype = torch_dtype(cfg.dtype)
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
     gate = h @ lp["w_gate"].to(dtype)
     up = h @ lp["w_up"].to(dtype)
-    return x + swiglu(gate, up) @ lp["w_down"].to(dtype)
+    if lora:
+        if "w_gate" in lora:
+            gate = gate + lora_row_delta(h, lora["w_gate"])
+        if "w_up" in lora:
+            up = up + lora_row_delta(h, lora["w_up"])
+    act = swiglu(gate, up)
+    down = act @ lp["w_down"].to(dtype)
+    if lora and "w_down" in lora:
+        down = down + lora_row_delta(act, lora["w_down"])
+    return x + down
 
 
 def _unembed_head(params: Params, cfg: ModelConfig) -> torch.Tensor:

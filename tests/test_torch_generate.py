@@ -60,13 +60,14 @@ def test_cli_prints_the_reference_text(files, capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--scheduler", "alternating"], ["--no-overlap"],
-    ["--flight-recorder", "4", "--no-iteration-profile"]],
-    ids=["alternating", "no_overlap", "recorder_no_profile"])
+    ["--flight-recorder", "4", "--no-iteration-profile"],
+    ["--allocation", "reserve"]],
+    ids=["alternating", "no_overlap", "recorder_no_profile", "reserve"])
 def test_scheduler_flags_print_the_reference_text(files, capsys, flags,
                                                   monkeypatch):
-    """The scheduler, overlap, flight-recorder and profiler flags reach
-    the server and change no token: the same text as the reference's CLI
-    given the same flags."""
+    """The scheduler, overlap, flight-recorder, profiler and allocation
+    flags reach the server and change no token: the same text as the
+    reference's CLI given the same flags."""
     cfg_path, npz = files
     ref_generate.main(["--config", cfg_path, "--decode-impl", "xla",
                        *ARGS, *flags])
@@ -79,6 +80,7 @@ def test_scheduler_flags_print_the_reference_text(files, capsys, flags,
             super().__init__(*a, **kw)
             seen.update(scheduler=self.scheduler, overlap=self.overlap,
                         flight=self.flight.capacity,
+                        allocation=self.allocation,
                         profiled=self._profiler is not None)
 
     monkeypatch.setattr(paged_server, "PagedInferenceServer", Spy)
@@ -88,6 +90,8 @@ def test_scheduler_flags_print_the_reference_text(files, capsys, flags,
     assert seen["scheduler"] == (
         "alternating" if "alternating" in flags else "mixed")
     assert seen["overlap"] == ("--no-overlap" not in flags)
+    assert seen["allocation"] == (
+        "reserve" if "reserve" in flags else "ondemand")
     assert seen["flight"] == (4 if "--flight-recorder" in flags else 256)
     assert seen["profiled"] == ("--no-iteration-profile" not in flags)
 

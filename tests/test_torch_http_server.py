@@ -7,8 +7,10 @@ answers (/generate NDJSON, /v1/completions with n, logprobs, stop and SSE
 streaming, /v1/chat/completions plain and streamed, /v1/models), the
 same errors (400, 404, 429) and the same serving-metric counts; every
 read-only route answers with the reference's status and keys, and POST
-/debug/trace writes a profiler trace. Requests for what the port does
-not have yet answer 501 naming the feature; penalties, logit_bias,
+/debug/trace writes a profiler trace; /v1/embeddings answers the
+reference's vectors. A backend that raises NotImplementedError (as a
+port server still does for tensor parallelism and MoE) answers 501
+naming the feature; penalties, logit_bias,
 min_tokens, regex and response_format answer as the reference's, through
 n-gram speculation. The int8 KV cache serves over HTTP, and `generate
 --serve-http` runs it.
@@ -416,7 +418,7 @@ def test_metrics_counts_match_reference(weights):
 
 
 # --------------------------------------------------------------------------
-# 501 for what the port does not have yet
+# 501 for what a backend does not have
 # --------------------------------------------------------------------------
 
 UNPORTED = [
@@ -424,21 +426,64 @@ UNPORTED = [
 ]
 
 
+class _Unserved:
+    """A port server whose `embed` is refused as an unported feature is
+    (a NotImplementedError naming it); everything else is the server's."""
+
+    def __init__(self, srv):
+        self._srv = srv
+
+    def __getattr__(self, name):
+        return getattr(self._srv, name)
+
+    def embed(self, prompts):
+        raise NotImplementedError("embed is not ported to this backend")
+
+
 @pytest.mark.parametrize("path,body,feature", UNPORTED,
                          ids=[f"{p}-{f}" for p, _, f in UNPORTED])
 def test_unported_options_answer_501(pair, path, body, feature):
-    """The port's server raises NotImplementedError for each; the
-    frontend answers 501 with a JSON error naming the feature, before
+    """A backend that raises NotImplementedError for a route's feature:
+    the frontend answers 501 with a JSON error naming the feature, before
     any header of a streaming response; the server keeps serving."""
-    status, headers, lines = _request(pair.port, path, body)
-    assert status == 501
-    assert headers["Content-Type"] == "application/json"
-    err = json.loads(lines[0])["error"]
-    assert feature in err and "not ported" in err
-    assert pair.port_srv.num_pending == 0
-    ok = _json(pair.port, "/generate", {"tokens": [1, 2],
+    front = HttpFrontend(_Unserved(pair.port_srv),
+                         tokenizer=ByteTokenizer()).start()
+    try:
+        status, headers, lines = _request(front, path, body)
+        assert status == 501
+        assert headers["Content-Type"] == "application/json"
+        err = json.loads(lines[0])["error"]
+        assert feature in err and "not ported" in err
+        assert pair.port_srv.num_pending == 0
+        ok = _json(front, "/generate", {"tokens": [1, 2],
                                         "max_new_tokens": 2})
-    assert len(ok["tokens"]) == 2
+        assert len(ok["tokens"]) == 2
+    finally:
+        front.stop()
+
+
+def test_embeddings_match_reference(pair):
+    """/v1/embeddings over a string, a token list and a list of both:
+    200 with the reference frontend's body — the same keys, model and
+    usage, and vectors within 1e-5 — and the in-process vectors."""
+    for body in ({"input": "hello"}, {"input": [5, 9, 3]},
+                 {"input": ["ab", [7] * 20, "a longer input text"],
+                  "model": "m"}):
+        got = _json(pair.port, "/v1/embeddings", body)
+        want = _json(pair.ref, "/v1/embeddings", body)
+        assert {k: v for k, v in got.items() if k != "data"} == \
+            {k: v for k, v in want.items() if k != "data"}
+        assert [sorted(d) for d in got["data"]] == \
+            [sorted(d) for d in want["data"]]
+        vecs = np.asarray([d["embedding"] for d in got["data"]])
+        np.testing.assert_allclose(
+            vecs, [d["embedding"] for d in want["data"]], rtol=0,
+            atol=1e-5)
+    np.testing.assert_allclose(
+        vecs, pair.port_srv.embed([ByteTokenizer().encode("ab"), [7] * 20,
+                                   ByteTokenizer().encode(
+                                       "a longer input text")]),
+        rtol=0, atol=1e-6)
 
 
 # --------------------------------------------------------------------------

@@ -54,8 +54,9 @@ def test_every_training_module_is_checked():
 
 def test_every_serving_module_is_checked():
     """The serving slices' modules, the HTTP frontend, the host policy
-    layer, the profiler window and the replica router among them, are
-    among those both checks cover."""
+    layer, the profiler window, the replica router, multi-LoRA serving
+    and the scenario harness among them, are among those both checks
+    cover."""
     mods = set(_modules())
     for m in ("ops.paged_attention", "ops.attention", "inference.engine",
               "inference.paged_engine", "inference.paged_server",
@@ -63,8 +64,11 @@ def test_every_serving_module_is_checked():
               "inference.iteration_profile", "inference.request_trace",
               "inference.qos", "inference.slo", "inference.faults",
               "inference.anomaly", "inference.migration",
-              "inference.router", "utils.tracing",
-              "utils.serving_metrics", "utils.logging", "generate"):
+              "inference.router", "inference.multi_lora", "models.lora",
+              "scenarios", "scenarios.workload", "scenarios.replay",
+              "scenarios.simulator", "scenarios.autoscaler",
+              "utils.tracing", "utils.serving_metrics", "utils.logging",
+              "generate"):
         assert f"cloud_server_tpu_torch.{m}" in mods, m
 
 

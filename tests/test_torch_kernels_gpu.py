@@ -978,3 +978,51 @@ def test_two_servers_capture_on_two_threads():
     assert together == alone
     assert both == {k: counts[0][k] + counts[1][k] for k in both}
     assert both["launches_narrow"] > 0 and both["plain_calls"] == 0
+
+
+@pytest.mark.gpu
+def test_restack_under_a_dispatch_in_flight_recaptures():
+    """Adapted requests mid-decode under the overlap pipeline (every
+    captured program reads the adapter stacks): an adapter whose rank
+    outgrows the stacks restacks them, releases every program, the one
+    in flight after its commit, and the next captures take a fresh graph
+    pool; the graphed tokens equal the graphs-off run's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cloud_server_tpu_torch.models.lora import (LoRAConfig,
+                                                    init_lora_params)
+    runs = []
+    for graphed in (False, True):
+        srv = _graph_server(graphed, overlap=True)
+        cfg = srv.cfg
+        for name, rank, seed in (("a", 4, 1), ("grow", 16, 2)):
+            lcfg = LoRAConfig(rank=rank, alpha=8.0, targets=("wq", "wv"))
+            lp = init_lora_params(cfg, lcfg, seed, device="cuda")
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(seed + 100)
+            for ab in lp["layers"].values():
+                ab["b"] = (torch.randn(ab["b"].shape, generator=gen,
+                                       device="cuda") * 0.1).to(
+                                           ab["b"].dtype)
+            if name == "a":
+                srv.add_adapter(name, lp, lcfg)
+                reqs = [srv.submit(p, max_new_tokens=12, adapter="a")
+                        for p in GRAPH_PROMPTS]
+                for _ in range(3):
+                    srv.step()
+                assert srv._inflight is not None
+                pool = srv._programs._pool
+            else:
+                srv.add_adapter(name, lp, lcfg)
+        if graphed:
+            assert srv._programs.dropped_in_flight == 1
+            assert len(srv._programs) == 0
+            assert srv._programs._pool is None
+        srv.run_until_idle()
+        if graphed:
+            assert len(srv._programs) > 0
+            assert srv._programs._pool not in (None, pool)
+        runs.append([r.result() for r in reqs])
+        srv.stop()
+    assert runs[0] == runs[1]
+    assert all(len(t) == 12 for t in runs[1])

@@ -2,7 +2,9 @@
 identical on the staggered mixed-scheduler workload, under a pool small
 enough to force preemption, and with a repeated prefix served from the
 radix cache; seeded requests at temperature > 0 identical token for
-token (both draw from threefry's fold_in(key(seed), position))."""
+token (both draw from threefry's fold_in(key(seed), position)); both
+page-allocation policies (tokens, occupancy and free pages, under every
+scheduler); sequence embeddings through both attention routes."""
 
 import dataclasses
 import gc
@@ -161,13 +163,11 @@ def test_seeded_requests_token_exact_against_reference(weights):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(allocation="reserve"), dict(mesh=object()),
-    dict(cfg=dataclasses.replace(CFG, num_experts=4))],
-    ids=["reserve", "mesh", "moe"])
+    dict(mesh=object()), dict(cfg=dataclasses.replace(CFG, num_experts=4))],
+    ids=["mesh", "moe"])
 def test_unported_features_raise(weights, kw):
-    """What stays unported is refused at construction: the
-    full-reservation paging policy, tensor-parallel serving and MoE
-    models."""
+    """What stays unported is refused at construction: tensor-parallel
+    serving and MoE models."""
     _, params = weights
     with pytest.raises(NotImplementedError):
         _port_server(params, **SRV_KW, **kw)
@@ -175,10 +175,119 @@ def test_unported_features_raise(weights, kw):
 
 @pytest.mark.parametrize("kw", [dict(adapter="a")])
 def test_unported_request_options_raise(weights, kw):
-    _, params = weights
-    srv = _port_server(params, **SRV_KW)
-    with pytest.raises(NotImplementedError):
-        srv.submit([1, 2, 3], **kw)
+    """Adapters are served now: an adapter that was never registered is
+    the client's ValueError at submit, as in the reference, and nothing
+    is queued."""
+    ref_params, params = weights
+    for srv in (RefServer(ref_params, CFG, GREEDY, **SRV_KW),
+                _port_server(params, **SRV_KW)):
+        with pytest.raises(ValueError, match="unknown adapter"):
+            srv.submit([1, 2, 3], **kw)
+        assert srv.num_pending == 0
+
+
+SCHEDULERS = {"overlap": dict(scheduler="mixed", overlap=True),
+              "sequential": dict(scheduler="mixed", overlap=False),
+              "alternating": dict(scheduler="alternating")}
+
+
+def _pool_trace(srv, prompts, max_new):
+    """Tokens, then (active slots, free pages) after each step."""
+    reqs = [srv.submit(p, max_new_tokens=max_new) for p in prompts]
+    trace = []
+    while srv.num_pending or srv.num_active or srv._jobs:
+        srv.step()
+        trace.append((srv.num_active, srv.allocator.available))
+    return [r.result() for r in reqs], trace
+
+
+@pytest.mark.parametrize(
+    "allocation,sched",
+    [("reserve", s) for s in SCHEDULERS] + [("ondemand", "overlap")])
+def test_allocation_policies_match_reference(weights, allocation, sched):
+    """Full reservation under every scheduler, and on-demand paging
+    beside it (its other schedulers are test_torch_overlap.py's): the
+    tokens, the occupancy and the free pages after every step equal the
+    reference server's; "reserve" never preempts."""
+    ref_params, params = weights
+    kw = dict(SRV_KW, allocation=allocation, **SCHEDULERS[sched])
+    want = _pool_trace(RefServer(ref_params, CFG, GREEDY, **kw), PROMPTS,
+                       12)
+    srv = _port_server(params, **kw)
+    got = _pool_trace(srv, PROMPTS, 12)
+    assert got == want
+    assert srv.allocation == allocation
+    if allocation == "reserve":
+        assert srv.preemptions == 0
+        # the first admission reserved each chain whole
+        total = sum(-(-(len(p) + 12 + srv.window) // srv.page_size)
+                    for p in PROMPTS)
+        assert got[1][0][1] <= srv.allocator.num_pages - total
+
+
+def test_reserve_serializes_where_ondemand_preempts(weights):
+    """The reference's case: full reservation admits one request at a
+    time on a pool on-demand paging shares by all six (preempting as
+    chains outgrow it); tokens, occupancy and free pages equal the
+    reference's under both policies."""
+    ref_params, params = weights
+    prompts = [[(i * 9 + k) % 60 + 1 for k in range(8)] for i in range(6)]
+    kw = dict(max_slots=6, max_context=64, page_size=8, prefill_chunk=16,
+              prompt_buckets=[16], num_pages=12, decode_chunk=2)
+    for allocation, active in (("reserve", 1), ("ondemand", 6)):
+        ref = RefServer(ref_params, CFG, GREEDY, allocation=allocation,
+                        **kw)
+        want = _pool_trace(ref, prompts, 40)
+        srv = _port_server(params, allocation=allocation, **kw)
+        got = _pool_trace(srv, prompts, 40)
+        assert got == want
+        assert got[1][0][0] == active
+        assert srv.preemptions == ref.preemptions
+        assert (srv.preemptions > 0) == (allocation == "ondemand")
+
+
+def test_unknown_allocation_raises(weights):
+    with pytest.raises(ValueError, match="allocation"):
+        _port_server(weights[1], allocation="lazy", **SRV_KW)
+
+
+EMBED_PROMPTS = [[5, 9, 3], LONG, [60], list(range(1, 14)), LONG[3:23]]
+
+
+@pytest.mark.parametrize("impl", ["xla", "flash"])
+def test_embed_matches_reference(weights, impl):
+    """Mean-pooled, L2-normalised embeddings across two prompt buckets
+    (groups padded to power-of-two rows) equal the reference's within
+    1e-5 in f32, with plain causal attention and with the flash route
+    (its plain version here; the reference's kernel in interpret mode);
+    an embed under the overlap pipeline, a dispatch in flight, changes
+    no token of the request decoding beside it."""
+    from cloud_server_tpu_torch.ops import flash_attention as fa
+    ref_params, params = weights
+    cfg = dataclasses.replace(CFG, attention_impl=impl)
+    want = RefServer(ref_params, cfg, GREEDY, **SRV_KW).embed(
+        EMBED_PROMPTS)
+    srv = _port_server(params, cfg=cfg, overlap=True, **SRV_KW)
+    req = srv.submit(PROMPTS[1], max_new_tokens=20)
+    srv.step()
+    assert srv._inflight is not None
+    plain0 = fa.plain_calls
+    got = srv.embed(EMBED_PROMPTS)
+    assert got.shape == (len(EMBED_PROMPTS), CFG.embed_dim)
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(np.linalg.norm(got, axis=-1), 1.0,
+                               atol=1e-5)
+    # one forward per (bucket, padded rows) group, every layer
+    assert fa.plain_calls - plain0 == (2 * CFG.num_layers
+                                       if impl == "flash" else 0)
+    assert srv.embed([]).shape == (0, CFG.embed_dim)
+    with pytest.raises(ValueError, match="empty"):
+        srv.embed([[]])
+    srv.run_until_idle()
+    alone = _port_server(params, cfg=cfg, **SRV_KW)
+    assert req.result() == alone.generate([PROMPTS[1]],
+                                          max_new_tokens=20)[0]
 
 
 def test_default_device_is_cuda():

@@ -1,7 +1,8 @@
 """The port's replica router (mirroring tests/test_router.py case for
 case): a fleet of port servers equals the reference server's outputs,
-least-loaded placement, HTTP behind `HttpFrontend`, the refusals of what
-the port does not serve (embeddings, adapters), draining replicas, the
+least-loaded placement, HTTP behind `HttpFrontend`, embeddings and
+adapters across the fleet, a replica's NotImplementedError kept a
+client refusal (C10), draining replicas, the
 breaker cycle and the racing submits, each stub case run through the
 reference's router and the port's alike, and live fleet mutation."""
 
@@ -140,22 +141,69 @@ def test_router_over_http(router):
 
 
 def test_router_embeddings_and_adapters(weights):
-    """Embeddings and adapters are not ported: the fleet refuses them
-    with NotImplementedError, without counting a replica failure, and
-    keeps serving."""
+    """The reference's case: the fleet serves embeddings (any replica's
+    answer, equal to the reference server's) and adapters registered on
+    every replica; adapter-routed requests give the reference server's
+    adapted tokens wherever they land."""
+    from cloud_server_tpu.models.lora import LoRAConfig as RefLoRAConfig
+    from cloud_server_tpu.models.lora import init_lora_params
+    from cloud_server_tpu_torch.models.lora import LoRAConfig
     r = _fleet(weights)
-    with pytest.raises(NotImplementedError, match="embed"):
-        r.embed([[5, 9, 3], [60]])
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        r.add_adapter("ad", {}, None)
-    assert r.adapters is None
-    with pytest.raises(NotImplementedError, match="adapter"):
+    ref = RefServer(weights[0], CFG, GREEDY, **SRV_KW)
+    vecs = r.embed([[5, 9, 3], [60]])
+    assert vecs.shape == (2, CFG.embed_dim)
+    np.testing.assert_allclose(np.linalg.norm(vecs, axis=-1), 1.0,
+                               rtol=1e-5)
+    np.testing.assert_allclose(vecs, ref.embed([[5, 9, 3], [60]]),
+                               rtol=0, atol=1e-5)
+    lcfg = RefLoRAConfig(rank=2, alpha=4.0, targets=("wq",))
+    lp = init_lora_params(CFG, lcfg, jax.random.key(1))
+    lp["layers"]["wq"]["b"] = 0.3 * jax.random.normal(
+        jax.random.key(2), lp["layers"]["wq"]["b"].shape)
+    np_lp = jax.tree.map(np.asarray, lp)
+    assert r.add_adapter("ad", np_lp,
+                         LoRAConfig(**dataclasses.asdict(lcfg))) == 1
+    assert r.adapters.adapter_id("ad") == 1
+    assert all(rep.adapters.names == ["ad"] for rep in r.replicas)
+    ref.add_adapter("ad", lp, lcfg)
+    want = ref.generate([PROMPT], max_new_tokens=4)[0]
+    want_ad = ref.submit(PROMPT, max_new_tokens=4, adapter="ad")
+    ref.run_until_idle()
+    reqs = [r.submit(PROMPT, max_new_tokens=4, adapter="ad")
+            for _ in range(4)]
+    r.run_until_idle()
+    assert all(q.tokens == want_ad.result() for q in reqs)
+    assert want_ad.result() != want
+    assert all(rep.tokens_emitted > 0 for rep in r.replicas)
+    with pytest.raises(ValueError, match="unknown adapter"):
+        r.submit(PROMPT, max_new_tokens=4, adapter="nope")
+
+
+def test_unserved_option_is_a_client_refusal():
+    """C10 stays repaired: a replica that refuses an option with
+    NotImplementedError (as a port server still refuses tensor
+    parallelism and MoE) refuses the client, with no breaker event and
+    no failover, and the fleet keeps serving."""
+    class _Stub:
+        def __init__(self):
+            self.num_active = self.num_pending = 0
+            self.calls = 0
+
+        def submit(self, prompt, **kw):
+            self.calls += 1
+            if kw.get("adapter") is not None:
+                raise NotImplementedError(
+                    "multi-LoRA serving is not ported to this backend")
+            return prompt
+
+    stubs = [_Stub(), _Stub()]
+    r = ReplicatedRouter(stubs)
+    with pytest.raises(NotImplementedError, match="not ported"):
         r.submit(PROMPT, max_new_tokens=4, adapter="ad")
+    assert sum(s.calls for s in stubs) == 1  # no failover
     assert all(b["state"] == "closed" and b["consecutive_failures"] == 0
                for b in r.breaker_states())
-    reqs = [r.submit(PROMPT, max_new_tokens=4) for _ in range(4)]
-    r.run_until_idle()
-    assert all(len(q.tokens) == 4 for q in reqs)
+    assert r.submit(PROMPT, max_new_tokens=4) == PROMPT
 
 
 def test_router_skips_draining_replica(weights):
