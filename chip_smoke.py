@@ -1796,6 +1796,422 @@ def phase_serve() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     out["elastic"] = phase_elastic(params, cfg, icfg, prompts, tokens)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["contiguous"] = phase_contiguous(params, cfg, icfg, prompts, tokens,
+                                         pool_bytes)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 3h: the contiguous engine and server, beam search, the speculative
+# batch API and int8 weight-only params
+# ---------------------------------------------------------------------------
+
+CONTIG_PREFIX = 512   # the shared prefix of the --prefix check, in tokens
+BEAM_K, BEAM_NEW, BEAM_PROMPTS = 4, 16, 2
+CONTIG_DRAFTS = 4
+# the order of the quantized/bf16 steady steps profiled in turns
+QUANT_PROFILE_TURNS = ("bf16", "int8w", "int8w", "bf16")
+
+
+def contiguous_cfg(cfg):
+    """The contiguous path's config: prefill on the flash route (B3),
+    decode on the plain cached attention (the reference's contiguous
+    server refuses the paged kernel)."""
+    import dataclasses
+    return dataclasses.replace(cfg, attention_impl="flash",
+                               decode_attention_impl="xla")
+
+
+def make_contiguous(params, cfg, icfg, **kw):
+    """The contiguous server a user gets: 8 slots of MAX_CTX positions,
+    the overlap pipeline and captured programs."""
+    from cloud_server_tpu_torch.inference.server import InferenceServer
+    return InferenceServer(params, cfg, icfg, max_slots=8, max_len=MAX_CTX,
+                           seed=SEED, device=DEVICE, **kw)
+
+
+def count_admissions(srv) -> list:
+    """Count `srv`'s admission launches (one per group) into the
+    returned one-element list."""
+    n = [0]
+    real = srv._admit_group
+
+    def counted(*a, **kw):
+        n[0] += 1
+        return real(*a, **kw)
+    srv._admit_group = counted
+    return n
+
+
+def release(srv) -> None:
+    """Stop `srv` and hand its memory back to the card (its graph pool
+    and the warm-ups' blocks), so the next server's captures find it."""
+    import torch
+    srv.stop()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_contiguous(srv, prompts, max_new=MAX_NEW) -> tuple:
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [srv.submit(p, max_new_tokens=max_new) for p in prompts]
+    srv.run_until_idle()
+    torch.cuda.synchronize()
+    return reqs, t0, time.perf_counter()
+
+
+def steady_profiles(servers: dict, prompts, turns) -> dict:
+    """Fill every server of `servers` ({name: server}) with the prompts
+    (LONG_NEW new tokens each), step each until every request has two
+    tokens, then profile one steady step of each in the order `turns`;
+    {name: mean profile}. The requests are cancelled after."""
+    runs = {}
+    for name, srv in servers.items():
+        reqs = [srv.submit(p, max_new_tokens=LONG_NEW) for p in prompts]
+        while not all(len(r.tokens) >= 2 for r in reqs):
+            srv.step()
+        srv.step()
+        runs[name] = reqs
+    profs = {name: [] for name in servers}
+    for name in turns:
+        profs[name].append(profile_step(servers[name].step))
+    for name, srv in servers.items():
+        cancel_all(srv, runs[name])
+    return {name: mean_profile(p) for name, p in profs.items()}
+
+
+def padded(prompts, device):
+    """Right-padded (B, P) prompts and their lengths on the card."""
+    import torch
+    p = max(len(x) for x in prompts)
+    rows = torch.zeros((len(prompts), p), dtype=torch.int64)
+    for i, x in enumerate(prompts):
+        rows[i, :len(x)] = torch.tensor(x)
+    return (rows.to(device),
+            torch.tensor([len(x) for x in prompts], device=device))
+
+
+def rows_as_requests(rows) -> list:
+    return [types.SimpleNamespace(tokens=list(r)) for r in rows]
+
+
+def dequantized_bf16(qparams):
+    """`dequantize_params` of a quantized tree, cast to bf16 a layer at a
+    time (the f32 tree of 32 layers would not fit beside the others)."""
+    import torch
+    from cloud_server_tpu_torch.models.quantization import QTensor
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if not isinstance(x, QTensor):
+            return x
+        if x.q.dim() == 2:  # lm_head
+            return x.to(torch.bfloat16)
+        out = torch.empty(x.shape, dtype=torch.bfloat16, device=x.q.device)
+        for i in range(x.shape[0]):
+            out[i] = x[i].to(torch.bfloat16)
+        return out
+    return conv(qparams)
+
+
+def contiguous_server_part(params, cfg, icfg, prompts, plain_tokens,
+                           pool_bytes) -> dict:
+    """The contiguous server at all 32 layers, greedy, graphed: B3 on
+    every admission, the tokens against the paged server's by the
+    near-tie rule, graphs off the same, a steady step profiled."""
+    import torch
+    from cloud_server_tpu_torch.ops import flash_attention as fl
+    from cloud_server_tpu_torch.ops import paged_attention as pa
+    ccfg = contiguous_cfg(cfg)
+    want = rows_as_requests(plain_tokens)
+    torch.cuda.reset_peak_memory_stats()
+    srv = make_contiguous(params, ccfg, icfg)
+    admitted = count_admissions(srv)
+    fl.reset_counters()
+    pa.reset_counters()
+    reqs, t0, t1 = run_contiguous(srv, prompts)
+    n_admit = admitted[0]
+    b3 = fl.counters()
+    paged = pa.counters()
+    peak = torch.cuda.max_memory_allocated()
+    check_served(reqs, cfg.vocab_size)
+    # a captured program's first launch also runs it once, eagerly, as
+    # its warm-up: B3 launches there too
+    admits = [k for k in srv._programs.keys() if k[0].startswith("_admit")]
+    captured = sum(srv._programs._programs[k].graph is not None
+                   for k in admits)
+    expect = cfg.num_layers * (n_admit + captured)
+    if (b3["launches_fwd"] != expect or b3["plain_calls"]
+            or sum(paged.values())):
+        raise RuntimeError(f"contiguous B3 {b3} (expected {expect} "
+                           f"launches: {n_admit} admissions, "
+                           f"{captured} captured), paged {paged}")
+    tokens = [r.tokens for r in reqs]
+    rates = serving_rates(reqs, t0, t1)
+    vs_paged = near_tie_divergence("the contiguous server vs the paged one",
+                                   reqs, want, prompts, params, cfg)
+    off = make_contiguous(params, ccfg, icfg, cuda_graphs=False)
+    fl.reset_counters()
+    off_reqs, _, _ = run_contiguous(off, prompts)
+    same_tokens("contiguous graphed vs graphs off", off_reqs, tokens)
+    if fl.counters()["launches_fwd"] != cfg.num_layers or fl.counters()[
+            "plain_calls"]:
+        raise RuntimeError(f"graphs off B3 {fl.counters()}")
+    release(off)
+    prof = steady_profiles({"contiguous": srv}, prompts,
+                           ("contiguous",) * PROFILE_STEPS)["contiguous"]
+    out = {"layers": cfg.num_layers, "b3_counts": b3,
+           "admissions": n_admit, "admission_programs": len(admits),
+           "admission_captures": captured,
+           "programs": len(srv._programs),
+           "capture_s": srv._programs.capture_seconds(),
+           **rates, "peak_mem_gb": peak / 1e9,
+           "cache_bytes": srv.kv_cache_bytes(),
+           "paged_pool_bytes": pool_bytes,
+           "vs_paged": vs_paged, "graphed_equals_graphs_off": True,
+           "steady_step": prof}
+    release(srv)
+    return out
+
+
+def contiguous_prefix_part(params, cfg, icfg, prompts, rng) -> dict:
+    """--prefix on the first SEEDED_LAYERS layers: the prompts behind a
+    shared CONTIG_PREFIX-token prefix against the same prompts without
+    it (near ties); on the 2-layer float32 slice the two give equal
+    tokens. The server's default remainder cap (1024) sends the two
+    longest prompts through the plain prefill, as the reference's rule
+    does (a verify-step remainder attends densely: its scores grow with
+    remainder x context)."""
+    p8, c8 = first_layers(params, cfg, SEEDED_LAYERS)
+    prefix = rng.integers(0, cfg.vocab_size, CONTIG_PREFIX).tolist()
+    long_prompts = [prefix + p for p in prompts]
+    hits = sum(len(p) <= 1024 for p in prompts)
+    runs = {}
+    for what, pc, cf in (("bf16", p8, contiguous_cfg(c8)),
+                         ("f32", *f32_slice(params, cfg))):
+        got = {}
+        for use in (True, False):
+            srv = make_contiguous(pc, cf, icfg,
+                                  prefix_tokens=prefix if use else None)
+            reqs, t0, t1 = run_contiguous(srv, long_prompts)
+            check_served(reqs, cfg.vocab_size)
+            if use and (srv.prefix_hits, srv.prefix_misses) != (
+                    hits, len(prompts) - hits):
+                raise RuntimeError(f"prefix hits {srv.prefix_hits}, "
+                                   f"misses {srv.prefix_misses}")
+            got[use] = (reqs, t1 - t0)
+            release(srv)
+        runs[what] = got
+    same_tokens("--prefix vs none, float32 2 layers", runs["f32"][True][0],
+                [r.tokens for r in runs["f32"][False][0]])
+    return {"prefix_tokens": CONTIG_PREFIX, "layers": SEEDED_LAYERS,
+            "prefix_hits": hits, "prefix_misses": len(prompts) - hits,
+            "vs_no_prefix": near_tie_divergence(
+                "--prefix vs no prefix", runs["bf16"][True][0],
+                runs["bf16"][False][0], long_prompts, p8, c8),
+            "f32_slice_exact": True,
+            "wall_s": {"prefix": runs["bf16"][True][1],
+                       "no_prefix": runs["bf16"][False][1]}}
+
+
+def contiguous_beam_part(params, cfg, icfg, prompts) -> dict:
+    """beam_search (k 4, 2 prompts, 16 new) on the first SEEDED_LAYERS
+    layers, timed; k 1 against the engine's greedy tokens."""
+    import dataclasses
+    import torch
+    from cloud_server_tpu_torch.inference import beam_search, engine
+    from cloud_server_tpu_torch.utils import prng
+    p8, c8 = first_layers(params, contiguous_cfg(cfg), SEEDED_LAYERS)
+    rows, lens = padded(prompts[:BEAM_PROMPTS], DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, scores = beam_search(p8, rows, cfg=c8, k=BEAM_K, max_new=BEAM_NEW,
+                               prompt_lengths=lens)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if (tuple(toks.shape) != (BEAM_PROMPTS, BEAM_K, BEAM_NEW)
+            or not bool(torch.isfinite(scores).all())
+            or not bool((scores[:, :-1] >= scores[:, 1:]).all())):
+        raise RuntimeError(f"beam: {tuple(toks.shape)}, scores {scores}")
+    one, _ = beam_search(p8, rows, cfg=c8, k=1, max_new=BEAM_NEW,
+                         prompt_lengths=lens)
+    greedy = engine.generate(
+        p8, rows, prng.key(SEED), cfg=c8,
+        infer_cfg=dataclasses.replace(icfg, max_decode_len=BEAM_NEW),
+        prompt_lengths=lens)
+    k1 = near_tie_divergence(
+        "beam k 1 vs greedy", rows_as_requests(one[:, 0].tolist()),
+        rows_as_requests(greedy.tolist()), prompts[:BEAM_PROMPTS],
+        *first_layers(params, cfg, SEEDED_LAYERS))
+    return {"k": BEAM_K, "prompts": BEAM_PROMPTS, "max_new": BEAM_NEW,
+            "layers": SEEDED_LAYERS, "ms": ms,
+            "scores": scores.tolist(), "k1_vs_greedy": k1}
+
+
+def contiguous_spec_part(params, cfg, icfg, prompts) -> dict:
+    """speculative_generate with CONTIG_DRAFTS drafts on the first
+    SEEDED_LAYERS layers, n-gram and the Llama-3.2-1B-width draft (its
+    first SEEDED_LAYERS layers; B3 at Dh 64 in its prefill), against
+    engine.generate by the near-tie rule; its rounds (verify passes)
+    and time."""
+    import torch
+    from cloud_server_tpu_torch.config import ModelConfig, from_json
+    from cloud_server_tpu_torch.inference import engine
+    from cloud_server_tpu_torch.inference.speculative import (
+        speculative_generate)
+    from cloud_server_tpu_torch.models import transformer
+    from cloud_server_tpu_torch.ops import flash_attention as fl
+    from cloud_server_tpu_torch.utils import prng
+    p8, c8 = first_layers(params, contiguous_cfg(cfg), SEEDED_LAYERS)
+    oracle = first_layers(params, cfg, SEEDED_LAYERS)
+    rows, lens = padded(prompts, DEVICE)
+    greedy = engine.generate(p8, rows, prng.key(SEED), cfg=c8,
+                             infer_cfg=icfg, prompt_lengths=lens)
+    with open(DRAFT_CONFIG) as f:
+        dcfg = contiguous_cfg(from_json(ModelConfig, json.load(f)["model"]))
+    dparams, dcfg = first_layers(
+        transformer.init_params(dcfg, SEED + 1, device=DEVICE), dcfg,
+        SEEDED_LAYERS)
+    rounds = [0]
+    real = engine.verify_step
+
+    def counted(*a, **kw):
+        rounds[0] += 1
+        return real(*a, **kw)
+    out = {"drafts": CONTIG_DRAFTS, "layers": SEEDED_LAYERS}
+    engine.verify_step = counted
+    try:
+        for what, dp, dc in (("ngram", None, None),
+                             ("draft_model", dparams, dcfg)):
+            rounds[0] = 0
+            fl.reset_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = speculative_generate(
+                p8, dp, rows, prng.key(SEED), cfg=c8, draft_cfg=dc,
+                infer_cfg=icfg, num_draft=CONTIG_DRAFTS, prompt_lengths=lens)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            b3 = fl.counters()
+            want_b3 = c8.num_layers + (0 if dc is None else dc.num_layers)
+            if b3["launches_fwd"] != want_b3 or b3["plain_calls"]:
+                raise RuntimeError(f"spec {what} B3 {b3}")
+            out[what] = {
+                "ms": ms, "rounds": rounds[0],
+                "tokens_a_round": MAX_NEW / max(rounds[0], 1),
+                "b3_launches": b3["launches_fwd"],
+                "vs_generate": near_tie_divergence(
+                    f"speculative_generate ({what}) vs generate",
+                    rows_as_requests(toks.tolist()),
+                    rows_as_requests(greedy.tolist()), prompts, *oracle)}
+    finally:
+        engine.verify_step = real
+    return out
+
+
+def contiguous_quant_part(params, cfg, icfg, prompts) -> dict:
+    """Int8 weight-only params at 32 layers: the stored bytes; the
+    default paged server's tokens against a server on the dequantized
+    weights cast to bf16 (the same products: identical), B1 and B2
+    counted, the graph pool's peak; a steady decode step profiled in
+    turns with that bf16 server's (its programs already captured); then
+    one batch on the contiguous server the same way."""
+    import torch
+    from cloud_server_tpu_torch.models.quantization import (
+        quantize_params, quantized_bytes)
+    from cloud_server_tpu_torch.ops import paged_attention as pa
+    qparams = quantize_params(params)
+    stored, bf16_bytes = quantized_bytes(qparams)
+    deq = dequantized_bf16(qparams)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    qsrv = make_server(qparams, cfg, icfg)
+    pa.reset_counters()
+    qreqs, t0, t1, _ = serve_once(qparams, cfg, icfg, prompts, srv=qsrv)
+    counts = pa.counters()
+    pool_peak = torch.cuda.max_memory_allocated() - base
+    check_served(qreqs, cfg.vocab_size)
+    if (counts["launches_narrow"] <= 0 or counts["launches_wide"] <= 0
+            or counts["plain_calls"]):
+        raise RuntimeError(f"quantized paged server: {counts}")
+    dsrv = make_server(deq, cfg, icfg)
+    dreqs, _, _, _ = serve_once(deq, cfg, icfg, prompts, srv=dsrv)
+    same_tokens("quantized vs dequantized bf16 (paged)", dreqs,
+                [r.tokens for r in qreqs])
+    profs = steady_profiles({"bf16": dsrv, "int8w": qsrv}, prompts,
+                            QUANT_PROFILE_TURNS)
+    release(dsrv)
+    release(qsrv)
+    ccfg = contiguous_cfg(cfg)
+    ctoks = {}
+    for what, tree in (("int8w", qparams), ("dequantized", deq)):
+        srv = make_contiguous(tree, ccfg, icfg)
+        reqs, c0, c1 = run_contiguous(srv, prompts)
+        check_served(reqs, cfg.vocab_size)
+        ctoks[what] = (reqs, c1 - c0)
+        release(srv)
+    same_tokens("quantized vs dequantized bf16 (contiguous)",
+                ctoks["int8w"][0], [r.tokens for r in ctoks["dequantized"][0]])
+    busy = {k: v["device_busy_ms"] for k, v in profs.items()}
+    return {"stored_bytes": stored, "bf16_bytes": bf16_bytes,
+            "stored_share": stored / bf16_bytes, "paged_counts": counts,
+            "paged_wall_s": t1 - t0,
+            "paged_equals_dequantized": True,
+            "contiguous_equals_dequantized": True,
+            "contiguous_wall_s": {k: v[1] for k, v in ctoks.items()},
+            "graph_pool_peak_gb": pool_peak / 1e9,
+            "steady_step": profs,
+            "busy_ratio_int8w_over_bf16": busy["int8w"] / busy["bf16"]}
+
+
+def phase_contiguous(params, cfg, icfg, prompts, plain_tokens,
+                     pool_bytes) -> dict:
+    """This slice's paths at Llama-3.1-8B widths, the serve phase's
+    weights and prompts: the contiguous server (all 32 layers), --prefix,
+    beam search and speculative_generate (the first SEEDED_LAYERS
+    layers), int8 weight-only params (32 layers). Each part's line is
+    printed as soon as it has run."""
+    import gc
+    import numpy as np
+    import torch
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 14)
+    seconds, out = {}, {"phase": "contiguous"}
+    for name, fn in (
+            ("server", lambda: contiguous_server_part(
+                params, cfg, icfg, prompts, plain_tokens, pool_bytes)),
+            ("prefix", lambda: contiguous_prefix_part(params, cfg, icfg,
+                                                      prompts, rng)),
+            ("beam", lambda: contiguous_beam_part(params, cfg, icfg,
+                                                  prompts)),
+            ("spec", lambda: contiguous_spec_part(params, cfg, icfg,
+                                                  prompts)),
+            ("quant", lambda: contiguous_quant_part(params, cfg, icfg,
+                                                    prompts))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        seconds[name] = time.perf_counter() - t0
+        emit({"phase": "contiguous", "part": name, **out[name],
+              "seconds": seconds[name]})
+        gc.collect()
+        torch.cuda.empty_cache()
+    seconds["total"] = time.perf_counter() - t_phase
+    out["seconds"] = seconds
+    out["b3_layer"] = b3_embed_layer([(MAX_CTX, 8)])
+    emit({"phase": "contiguous", "seconds": seconds,
+          "b3_layer": out["b3_layer"]})
+    srv_, q = out["server"], out["quant"]
+    print(f"contiguous: {srv_['vs_paged']['diverged_requests']} diverged "
+          f"from paged; step busy {srv_['steady_step']['device_busy_ms']} "
+          f"ms; TTFT p50 {srv_['ttft_p50_s']:.3f} s; int8 weights "
+          f"{q['stored_share']:.3f} of bf16, step busy x"
+          f"{q['busy_ratio_int8w_over_bf16']:.2f}", flush=True)
     return out
 
 
@@ -4296,6 +4712,7 @@ def main() -> int:
     serve = timed(phase_serve)
     train = timed(phase_train)
     timed(phase_ckpt)
+    seconds["serve.contiguous"] = serve["contiguous"]["seconds"]["total"]
     emit({"phase_seconds": seconds})
     counts = serve["counts"]
     rows = []
@@ -4395,6 +4812,20 @@ def main() -> int:
         "max_abs_err": b3e["max_abs_err"], "ms": b3e["ms"],
         "plain_ms": b3e["plain_ms"], "bound_ms": b3e["bound_ms"],
         "bound_by": b3e["bound_by"], "library_ms": b3e["library_ms"]})
+    # B3 on the contiguous path: every admission's prefill (the 8 serve
+    # prompts in one 8 x 2048 group), timed a layer at that shape
+    con = serve["contiguous"]
+    b3c = con["b3_layer"]
+    rows.append({
+        "name": f"flash_attention forward (contiguous admission: B 8 x S "
+                f"{MAX_CTX}, one layer)",
+        "route": "cuda",
+        "source": "cloud_server_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "cloud_server_tpu/ops/flash_attention.py:70",
+        "launches": con["server"]["b3_counts"]["launches_fwd"],
+        "max_abs_err": b3c["max_abs_err"], "ms": b3c["ms"],
+        "plain_ms": b3c["plain_ms"], "bound_ms": b3c["bound_ms"],
+        "bound_by": b3c["bound_by"], "library_ms": b3c["library_ms"]})
     n, d, v = CE_SHAPE
     for name, line, key, launches, err in (
             ("fused_ce forward (TMA + wgmma)", 81, "b7",

@@ -3,18 +3,21 @@
 The reference's CLI on the port: weights from a training checkpoint
 (`--checkpoint-dir`, `--step`; `--ema` for the EMA-averaged weights),
 from a numpy `--params-npz`, or random-init from `--seed`; byte
-tokenizer; the paged continuous-batching server, optionally with the
-int8 KV cache (`--kv-cache-int8`) and in-server speculation
-(`--spec-drafts` n-gram drafts, or a draft model from `--draft-config`).
-Batch mode serves the `--prompt`s and prints them; `--serve-http PORT`
+tokenizer; int8 weight-only params (`--quantize`); the paged
+continuous-batching server, optionally with the int8 KV cache
+(`--kv-cache-int8`) and in-server speculation (`--spec-drafts` n-gram
+drafts, or a draft model from `--draft-config` with `--serve-http`), or
+the contiguous server (`--contiguous`, with `--prefix` caching). Batch
+mode serves the `--prompt`s and prints them; with `--draft-config` or
+`--ngram-draft` it runs the speculative batch API
+(`speculative_generate`) on the contiguous engine. `--serve-http PORT`
 runs the server behind the HTTP frontend until interrupted. The host
 policy layer is the reference's flags: `--qos-config`, `--slo-config`,
 `--fault-plan`, `--brownout`, `--anomaly-config`, `--bundle-on-anomaly`
 and `--trace-sample-rate` / `--trace-capacity` /
 `--trace-tail-capacity`. Runs on the card unless `--device cpu` is
-given. The contiguous server (`--contiguous`), the speculative batch API
-(`--ngram-draft`) and the profiler server (`--profiler-port`; trace a
-live server with POST /debug/trace) are not ported.
+given. The profiler server (`--profiler-port`; trace a live server with
+POST /debug/trace) is not ported.
 """
 
 from __future__ import annotations
@@ -44,6 +47,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prompt", action="append", default=[],
                    help="prompt text (repeatable); '-' reads lines from stdin")
     p.add_argument("--max-new", type=int, default=128)
+    p.add_argument("--quantize", action="store_true",
+                   help="serve with int8 weight-only quantization (the "
+                   "weights are stored int8 with per-channel scales and "
+                   "dequantized at each use)")
+    p.add_argument("--prefix", metavar="TEXT",
+                   help="shared prompt prefix (e.g. a system prompt): with "
+                   "--contiguous its KV is prefilled once and cached, and "
+                   "prompts extending it only run their remainder; the "
+                   "paged server reuses prefixes on its own")
     p.add_argument("--kv-cache-int8", action="store_true",
                    help="store the KV cache int8-quantized (about half the "
                    "cache memory; the scales fold into the attention "
@@ -111,24 +123,25 @@ def build_parser() -> argparse.ArgumentParser:
                    "Omitted: the default adaptive controller whenever "
                    "speculation is on; 'off' pins the fixed length")
     p.add_argument("--draft-config", metavar="JSON",
-                   help="in-server speculation with a small draft model "
-                   "sharing the tokenizer (JSON config, model section): "
-                   "the draft keeps its own paged cache and proposes "
-                   "--num-draft tokens per round, in batch mode and with "
-                   "--serve-http")
+                   help="speculation with a small draft model sharing the "
+                   "tokenizer (JSON config, model section), proposing "
+                   "--num-draft tokens per round: the speculative batch "
+                   "API in batch mode, in-server speculation on the paged "
+                   "server with --serve-http")
     p.add_argument("--draft-checkpoint-dir",
                    help="draft model checkpoint (omit: random init from "
                    "--seed + 1, only useful for smoke tests)")
     p.add_argument("--num-draft", type=int, default=4,
-                   help="draft tokens proposed per speculative round "
-                   "(with --draft-config and no --spec-drafts)")
+                   help="draft tokens proposed per speculative round")
     p.add_argument("--contiguous", action="store_true",
-                   help="the fixed-slot contiguous server (not ported "
-                   "yet)")
+                   help="serve through the fixed-slot contiguous server "
+                   "instead of the paged server (no paging, no radix "
+                   "prefix reuse, no chunked prefill, no in-server "
+                   "speculation; supports --prefix caching)")
     p.add_argument("--ngram-draft", action="store_true",
-                   help="the speculative batch API with n-gram drafts "
-                   "(not ported yet; in-server n-gram speculation is "
-                   "--spec-drafts)")
+                   help="batch mode: the speculative batch API with "
+                   "prompt-lookup (n-gram) drafts (in-server n-gram "
+                   "speculation is --spec-drafts)")
     p.add_argument("--profiler-port", type=int, default=None,
                    metavar="PORT",
                    help="the reference's profiler server for on-demand "
@@ -225,6 +238,7 @@ def main(argv=None) -> None:
     from cloud_server_tpu_torch.data.tokenizer import ByteTokenizer
     from cloud_server_tpu_torch.inference.paged_server import (
         PagedInferenceServer)
+    from cloud_server_tpu_torch.inference.server import InferenceServer
     from cloud_server_tpu_torch.models import transformer
 
     device = resolve_device(args.device)
@@ -236,6 +250,10 @@ def main(argv=None) -> None:
     if args.kv_cache_int8:
         model_cfg = dataclasses.replace(model_cfg, kv_cache_dtype="int8")
     if args.decode_impl is not None:
+        if args.contiguous and args.decode_impl != "xla":
+            raise SystemExit(
+                "--decode-impl pallas needs the paged server; drop "
+                "--contiguous")
         model_cfg = dataclasses.replace(
             model_cfg, decode_attention_impl=args.decode_impl)
     if args.spec_drafts and args.contiguous:
@@ -247,15 +265,6 @@ def main(argv=None) -> None:
         raise SystemExit(
             "--spec-drafts (in-server n-gram) and --ngram-draft (batch "
             "API) are mutually exclusive speculation paths")
-    if args.contiguous:
-        raise NotImplementedError(
-            "the contiguous server (--contiguous) is not ported to the "
-            "PyTorch server yet")
-    if args.ngram_draft:
-        raise NotImplementedError(
-            "the speculative batch API (--ngram-draft) is not ported to "
-            "the PyTorch server yet; in-server n-gram speculation is "
-            "--spec-drafts")
     if args.profiler_port is not None:
         from cloud_server_tpu_torch.utils.tracing import (
             start_profiler_server)
@@ -295,6 +304,10 @@ def main(argv=None) -> None:
     else:
         params = load_params(model_cfg, args.checkpoint_dir, args.step,
                              args.seed, device)
+    if args.quantize:
+        from cloud_server_tpu_torch.models.quantization import (
+            quantize_params)
+        params = quantize_params(params)
     infer_cfg = InferConfig(
         max_decode_len=args.max_new, temperature=args.temperature,
         top_k=args.top_k, top_p=args.top_p,
@@ -302,41 +315,72 @@ def main(argv=None) -> None:
         trace_capacity=args.trace_capacity,
         trace_tail_capacity=args.trace_tail_capacity,
         bundle_on_anomaly=args.bundle_on_anomaly)
-    draft_params = draft_cfg = None
-    if args.draft_config:
+
+    def load_draft():
+        """The draft model (--draft-config) for in-server speculation on
+        the paged server: the reference's init from --seed + 1 unless a
+        checkpoint is given. Returns (params, cfg) or (None, None)."""
+        if not args.draft_config or args.contiguous:
+            return None, None
         with open(args.draft_config) as f:
             draft_cfg = from_json(ModelConfig, json.load(f).get("model", {}))
-        draft_params = load_params(draft_cfg, args.draft_checkpoint_dir,
-                                   None, args.seed + 1, device)
-    spec = args.spec_drafts
-    if draft_cfg is not None and spec == 0:
-        spec = args.num_draft  # --draft-config implies speculation
+        return load_params(draft_cfg, args.draft_checkpoint_dir, None,
+                           args.seed + 1, device), draft_cfg
 
-    def make_server(max_len: int, max_slots: int) -> PagedInferenceServer:
+    def make_server(max_len: int, max_slots: int):
+        """The serving backend: paged by default, contiguous on
+        --contiguous. Same client API either way."""
+        policy = dict(
+            qos=args.qos_config, slo=args.slo_config,
+            tracing=args.trace_sample_rate or None,
+            faults=args.fault_plan, anomaly=args.anomaly_config,
+            overlap=False if args.no_overlap else None,
+            iteration_profile=(False if args.no_iteration_profile
+                               else None), device=device)
+        if args.contiguous:
+            prefix_toks = (tok.encode(args.prefix,
+                                      add_bos=args.add_bos
+                                      and tok.bos_id is not None)
+                           if args.prefix else None)
+            return InferenceServer(
+                params, model_cfg, infer_cfg, max_slots=max_slots,
+                max_len=max_len, seed=args.seed,
+                decode_chunk=args.decode_chunk,
+                prefix_tokens=prefix_toks, **policy)
+        if args.prefix:
+            print("[generate] note: the paged server reuses shared "
+                  "prefixes automatically (radix page cache); --prefix "
+                  "needs no pre-registration — prompts that start with "
+                  "the prefix text hit the cache after the first request",
+                  file=sys.stderr)
         ps = args.page_size
         max_context = -(-max_len // ps) * ps  # round up to a page multiple
         prefill_chunk = -(-max(ps, args.prefill_chunk) // ps) * ps
+        draft_params, draft_cfg = load_draft()
+        spec = args.spec_drafts
+        if draft_cfg is not None and spec == 0:
+            spec = args.num_draft  # --draft-config implies speculation
         return PagedInferenceServer(
             params, model_cfg, infer_cfg, max_slots=max_slots,
             max_context=max_context, page_size=ps,
             num_pages=args.num_pages or None,
             decode_chunk=args.decode_chunk, prefill_chunk=prefill_chunk,
-            seed=args.seed, device=device, scheduler=args.scheduler,
+            seed=args.seed, scheduler=args.scheduler,
             allocation=args.allocation,
-            overlap=False if args.no_overlap else None,
             mixed_token_budget=args.mixed_token_budget,
             spec_drafts=spec, spec_control=args.spec_control,
             draft_params=draft_params, draft_cfg=draft_cfg,
             flight_recorder_size=args.flight_recorder or None,
-            iteration_profile=(False if args.no_iteration_profile
-                               else None),
-            qos=args.qos_config, slo=args.slo_config,
-            tracing=args.trace_sample_rate or None,
-            faults=args.fault_plan, brownout=args.brownout,
-            anomaly=args.anomaly_config,
-            tokenizer=tok)  # regex-constrained requests compile against it
+            brownout=args.brownout,
+            tokenizer=tok,  # regex-constrained requests compile against it
+            **policy)
 
     if args.serve_http is not None:
+        if args.ngram_draft or (args.draft_config and args.contiguous):
+            raise SystemExit(
+                "--ngram-draft is batch-mode only (the serving "
+                "equivalent is --spec-drafts), and --draft-config "
+                "serving needs the paged server (drop --contiguous)")
         serve_http(make_server(args.max_len or model_cfg.max_seq_len,
                                args.max_slots),
                    tok, args.serve_http, args.access_log)
@@ -345,13 +389,87 @@ def main(argv=None) -> None:
                           and tok.bos_id is not None) or [0]
                for p in prompts]
     longest = max(len(e) for e in encoded)
+    if args.draft_config or args.ngram_draft:
+        rows = speculative_batch(args, params, model_cfg, infer_cfg,
+                                 encoded, device)
+        for prompt, row in zip(prompts, rows):
+            print(f"=== {prompt!r}")
+            print(tok.decode(row))
+        return
     max_len = args.max_len or min(model_cfg.max_seq_len,
-                                  longest + args.max_new + spec + 1)
+                                  longest + args.max_new +
+                                  (0 if args.contiguous
+                                   else args.spec_drafts + 1))
     srv = make_server(max_len, min(args.max_slots, len(encoded)))
     outs = srv.generate(encoded, max_new_tokens=args.max_new)
     for prompt, out in zip(prompts, outs):
         print(f"=== {prompt!r}")
         print(tok.decode(out))
+
+
+def speculative_batch(args, params, model_cfg, infer_cfg, encoded,
+                      device) -> list[list[int]]:
+    """Batch mode with --draft-config or --ngram-draft: the speculative
+    batch API on the contiguous engine, with the reference's refusals,
+    its --max-new clamp to the cache (prompt + new tokens + the window's
+    overhang) and its output rule (cut at EOS, strip trailing pads
+    only). Returns one token list per prompt."""
+    import numpy as np
+    import torch
+
+    from cloud_server_tpu_torch.config import ModelConfig, from_json
+    from cloud_server_tpu_torch.inference.speculative import (
+        speculative_generate)
+    from cloud_server_tpu_torch.utils import prng
+    if args.quantize:
+        raise SystemExit("--quantize + speculative decoding not "
+                         "supported yet")
+    if args.draft_config and args.ngram_draft:
+        raise SystemExit("--draft-config and --ngram-draft are "
+                         "mutually exclusive draft sources")
+    if args.prefix:
+        raise SystemExit(
+            "--prefix is a serving-path feature; the speculative "
+            "batch path would silently ignore it")
+    draft_cfg = draft_params = None
+    if args.draft_config:
+        with open(args.draft_config) as f:
+            draft_cfg = from_json(ModelConfig, json.load(f).get("model", {}))
+        draft_params = load_params(draft_cfg, args.draft_checkpoint_dir,
+                                   None, args.seed + 1, device)
+    longest = max(len(e) for e in encoded)
+    cap = args.max_len or model_cfg.max_seq_len
+    budget = cap - longest - args.num_draft - 1
+    if budget < 1:
+        raise SystemExit(
+            f"prompt ({longest}) + speculative window "
+            f"({args.num_draft + 1}) leaves no room to decode within "
+            f"max_len={cap}; raise --max-len or shorten the prompt")
+    max_new = min(args.max_new, budget)
+    if max_new < args.max_new:
+        print(f"[generate] clamping --max-new {args.max_new} -> "
+              f"{max_new} to fit max_len={cap}", file=sys.stderr)
+        infer_cfg = dataclasses.replace(infer_cfg, max_decode_len=max_new)
+    padded = np.zeros((len(encoded), longest), np.int64)
+    for i, e in enumerate(encoded):
+        padded[i, :len(e)] = e
+    toks = speculative_generate(
+        params, draft_params, torch.from_numpy(padded).to(device),
+        prng.key(args.seed), cfg=model_cfg, draft_cfg=draft_cfg,
+        infer_cfg=infer_cfg, num_draft=args.num_draft,
+        max_len=longest + max_new + args.num_draft + 1,
+        prompt_lengths=torch.tensor([len(e) for e in encoded],
+                                    device=device))
+    rows = []
+    for row in toks.tolist():
+        if infer_cfg.eos_token_id >= 0 and infer_cfg.eos_token_id in row:
+            row = row[:row.index(infer_cfg.eos_token_id)]
+        # only TRAILING pads are padding; a mid-stream token equal to
+        # pad_token_id is real output
+        while row and row[-1] == infer_cfg.pad_token_id:
+            row.pop()
+        rows.append(row)
+    return rows
 
 
 def serve_http(srv, tok, port: int, access_log: str | None) -> None:

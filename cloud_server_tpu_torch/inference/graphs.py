@@ -34,11 +34,11 @@ buffers on the card: a switch for checking graphs against eager
 launches (the counterpart of `jax.disable_jit`), not a mode to serve
 in.
 
-Kernel counters see replays: while a graph captures, the paged
-attention wrapper's calls launch nothing, so the capture counts them
-into its own tally (`ops.paged_attention.recording`, this thread's calls
-only), keeps it, and adds it on every replay
-(`ops.paged_attention.add_counts`).
+Kernel counters see replays: while a graph captures, the paged and
+flash attention wrappers' calls launch nothing, so the capture counts
+them into its own tallies (`ops.paged_attention.recording` and
+`ops.flash_attention.recording`, this thread's calls only), keeps them,
+and adds them on every replay (`add_counts`).
 
 Several servers may share a device (a router's replicas, each with its
 own scheduler thread): the warm-up and capture streams are shared per
@@ -56,6 +56,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from cloud_server_tpu_torch.ops import flash_attention as _fa
 from cloud_server_tpu_torch.ops import paged_attention as _pa
 
 # Program launches and waits, lifetime (tests read them: a steady
@@ -113,7 +114,8 @@ class Program:
         self.graph: torch.cuda.CUDAGraph | None = None
         self._dev_out: dict | None = None
         self._host_out: dict | None = None
-        self.replay_counts: dict = {}
+        self.replay_counts: dict = {}  # paged attention's, per replay
+        self.replay_flash: dict = {}   # flash attention's, per replay
         self.capture_s = 0.0  # host seconds of the warm-up and capture
         self._in_done = torch.cuda.Event() if cuda else None
         self._done = torch.cuda.Event() if cuda else None
@@ -144,7 +146,8 @@ class Program:
             graph = torch.cuda.CUDAGraph()
             cap = _stream(self.device, "capture")
             cap.wait_stream(cur)
-            with _pa.recording() as recorded, torch.cuda.stream(cap):
+            with _pa.recording() as recorded, _fa.recording() as flash, \
+                    torch.cuda.stream(cap):
                 graph.capture_begin(self._pool,
                                     capture_error_mode="thread_local")
                 try:
@@ -157,7 +160,7 @@ class Program:
                     raise
                 graph.capture_end()
         self.graph, self._dev_out = graph, out
-        self.replay_counts = recorded
+        self.replay_counts, self.replay_flash = recorded, flash
         self.capture_s = time.perf_counter() - t0
 
     def launch(self, staged: dict) -> None:
@@ -179,6 +182,7 @@ class Program:
                 self._capture_graph()
             self.graph.replay()
             _pa.add_counts(self.replay_counts)
+            _fa.add_counts(self.replay_flash)
         else:
             self._dev_out = self.fn(self.ctx, self.dev_in)
         if self._host_out is None:

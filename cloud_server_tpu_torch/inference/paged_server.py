@@ -148,8 +148,9 @@ from cloud_server_tpu_torch.inference.qos import (PRIORITY_CLASSES,
                                                   resolve_registry)
 from cloud_server_tpu_torch.inference.request_trace import resolve_recorder
 from cloud_server_tpu_torch.inference.sampling import (
-    _BIAS_PAD, SamplingParams, SamplingRows, make_rows, sample_from_probs,
-    sample_logits, sample_logits_rows, sampling_probs, sampling_probs_rows)
+    _BIAS_PAD, SamplingParams, SamplingRows, make_rows, rows_in,
+    rows_staged, sample_from_probs, sample_logits, sample_logits_rows,
+    sampling_probs, sampling_probs_rows)
 from cloud_server_tpu_torch.inference.server import (
     QueueFullError, Request, _bucket, _StepTracer, _token_logprobs,
     emit_token, resolve_seed)
@@ -196,13 +197,6 @@ def _gather_samp_rows(samp_rows, idx, n_real) -> SamplingRows:
         rows[n_real:] = _SAMP_PAD_FILLS.get(name, 0)
         out.append(rows)
     return SamplingRows(*out)
-
-
-def _samp_staged(prefix: str, rows: SamplingRows) -> dict:
-    """A SamplingRows as program inputs (seeds widened to int64)."""
-    return {prefix + name: (np.asarray(a, np.int64) if name == "seed"
-                            else np.asarray(a))
-            for name, a in zip(SamplingRows._fields, rows)}
 
 
 def _not_ported(what: str):
@@ -264,11 +258,6 @@ def _cache(m: _Model, lengths, tables) -> paged_engine.PagedKVCache:
 def _draft_cache(m: _Model, lengths, tables) -> paged_engine.PagedKVCache:
     _, _, (k, v, ks, vs), _ = m.draft
     return paged_engine.make_cache(k, v, lengths, tables, ks, vs)
-
-
-def _rows_in(bufs: dict, prefix: str) -> SamplingRows:
-    return SamplingRows(*(bufs[prefix + name]
-                          for name in SamplingRows._fields))
 
 
 def _grammar_mask(grammar, gid, st, eos_id: int):
@@ -364,7 +353,7 @@ def _prefill_core(m: _Model, bufs: dict, key, *, ragged: bool, rows: bool,
                                     m.infer_cfg.eos_token_id)
     if rows:
         toks = sample_logits_rows(
-            logits, _rows_in(bufs, "samp_g."), prompt_lens, prompt_mask=pm,
+            logits, rows_in(bufs, "samp_g."), prompt_lens, prompt_mask=pm,
             out_counts=oc, eos_id=m.infer_cfg.eos_token_id, use_bias=bias,
             allowed_mask=amask)
     else:
@@ -419,7 +408,7 @@ def _decode_plain_core(m: _Model, bufs: dict, key, *, n_rounds: int,
     last = bufs["d_last"].long()
     live = bufs["live"]
     sids, pm, oc, gstate = _decode_state(m, bufs, rows, grammar, has_pen)
-    samp = _rows_in(bufs, "samp_d.") if rows else None
+    samp = rows_in(bufs, "samp_d.") if rows else None
     gid = bufs["d_gid"] if grammar else None
     adapters = m.lora if lora else None
     aid = bufs.get("d_aid")
@@ -499,7 +488,7 @@ def _spec_core(m: _Model, bufs: dict, key, *, n_rounds: int, n_drafts: int,
     stop_len = bufs["d_stop"].long()
     limit = bufs["d_limit"].long() if limited else None
     sids, pm, oc, gstate = _decode_state(m, bufs, rows, grammar, has_pen)
-    samp = _rows_in(bufs, "samp_d.") if rows else None
+    samp = rows_in(bufs, "samp_d.") if rows else None
     seeds = samp.seed if rows else None
     gid = bufs["d_gid"] if grammar else None
     dev = lengths.device
@@ -1523,7 +1512,7 @@ class PagedInferenceServer:
             lim[:len(spec_lens)] = spec_lens
             staged["d_limit"] = lim
         if use_rows:
-            staged.update(_samp_staged("samp_d.", rows.samp))
+            staged.update(rows_staged("samp_d.", rows.samp))
         if grammar:
             staged["d_gid"] = np.asarray(rows.gid, np.int32)
         if lora:
@@ -1546,7 +1535,7 @@ class PagedInferenceServer:
             names.append("aid_g")
         staged = {k: pf[k] for k in names}
         if use_rows:
-            staged.update(_samp_staged("samp_g.", pf["samp_g"]))
+            staged.update(rows_staged("samp_g.", pf["samp_g"]))
         return staged
 
     def _scatters_prompts(self) -> bool:
@@ -4020,6 +4009,7 @@ class PagedInferenceServer:
 
 
 def _params_on(params, device):
-    if isinstance(params, dict):
-        return {k: _params_on(v, device) for k, v in params.items()}
-    return torch.as_tensor(params).to(device)
+    """The parameter tree on `device` (QTensor leaves move payload and
+    scales together)."""
+    from cloud_server_tpu_torch.models.quantization import params_to
+    return params_to(params, device)

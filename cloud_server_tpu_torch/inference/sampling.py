@@ -243,6 +243,20 @@ def rows_to(rows: SamplingRows, device) -> SamplingRows:
     return SamplingRows(*out)
 
 
+def rows_staged(prefix: str, rows: SamplingRows) -> dict:
+    """A host SamplingRows as a captured program's inputs, named
+    `prefix + field` (seeds widened to int64)."""
+    return {prefix + name: (np.asarray(a, np.int64) if name == "seed"
+                            else np.asarray(a))
+            for name, a in zip(SamplingRows._fields, rows)}
+
+
+def rows_in(bufs: dict, prefix: str) -> SamplingRows:
+    """The SamplingRows a program reads from its `rows_staged` inputs."""
+    return SamplingRows(*(bufs[prefix + name]
+                          for name in SamplingRows._fields))
+
+
 def _expand(row: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     return row.reshape(row.shape[0], *([1] * (ref.dim() - 1)))
 

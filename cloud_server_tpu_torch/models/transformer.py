@@ -165,12 +165,17 @@ def params_from_npz(path, cfg: ModelConfig, device=None) -> Params:
 
 
 def cast_params(params: Params, cfg: ModelConfig) -> Params:
-    """Float32 leaves cast to cfg.dtype (others unchanged)."""
+    """Float32 leaves cast to cfg.dtype (others unchanged). Int8
+    weight-only leaves (`models.quantization.QTensor`) stay quantized:
+    their `.to(dtype)` dequantizes at each use."""
+    from cloud_server_tpu_torch.models.quantization import QTensor
     target = torch_dtype(cfg.dtype)
 
     def conv(x):
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, QTensor):
+            return x
         if x.dtype == torch.float32 and x.dim() >= 1:
             return x.to(target)
         return x
@@ -188,7 +193,8 @@ def layer_params(params: Params, i: int) -> dict:
 # ---------------------------------------------------------------------------
 
 def _proj(x: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
-    """x (..., Din) @ w (Din, *out) -> (..., *out)."""
+    """x (..., Din) @ w (Din, *out) -> (..., *out); a QTensor `w`
+    dequantizes in `.to(dtype)`."""
     din = w.shape[0]
     y = x @ w.to(dtype).reshape(din, -1)
     return y.reshape(*x.shape[:-1], *w.shape[1:])

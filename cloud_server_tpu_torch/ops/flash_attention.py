@@ -24,12 +24,17 @@ Two versions of one function:
 Launch counters, one per TPU kernel: `launches_fwd`, `launches_bwd_dkdv`,
 `launches_bwd_dq`, `launches_bwd_fused`; `plain_calls` counts the plain
 version's calls. Under `remat="full"` the forward runs twice per layer
-and step (the backward recomputes it).
+and step (the backward recomputes it). While a CUDA graph captures
+(`inference/graphs.py`), this thread's calls launch nothing and count
+into the capture's tally (`recording`); each replay adds the tally
+(`add_counts`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 
 import torch
 
@@ -61,6 +66,42 @@ def counters() -> dict:
             "plain_calls": plain_calls}
 
 
+_counts_lock = threading.Lock()
+# per thread: the tally of an open `recording()`, else unset
+_recording = threading.local()
+
+
+def _count(name: str) -> None:
+    """One call of counter `name`: into this thread's open recording,
+    else into the counters."""
+    tally = getattr(_recording, "tally", None)
+    if tally is not None:
+        tally[name] += 1
+        return
+    with _counts_lock:
+        globals()[name] += 1
+
+
+def add_counts(delta: dict) -> None:
+    """Add `delta` (shaped like `counters()`): a graph replay launches
+    what its capture recorded."""
+    with _counts_lock:
+        for name, n in delta.items():
+            globals()[name] += n
+
+
+@contextlib.contextmanager
+def recording():
+    """Count this thread's calls into the yielded dict instead of the
+    counters (a CUDA graph's capture, whose calls launch nothing)."""
+    tally = dict.fromkeys(counters(), 0)
+    _recording.tally = tally
+    try:
+        yield tally
+    finally:
+        _recording.tally = None
+
+
 def default_block(seq: int, want: int) -> int:
     """The reference's `_default_block`: the largest halving of
     min(seq, want) that divides seq."""
@@ -90,8 +131,7 @@ def flash_attention_ref(q, k, v, segment_ids=None, scale=None):
     Scores, mask and softmax in float32; probabilities rounded to q's
     dtype before the product with v. Returns (out (B, S, H, Dh) in
     q.dtype, lse (B, H, S) float32)."""
-    global plain_calls
-    plain_calls += 1
+    _count("plain_calls")
     b, s, h, d = q.shape
     kh = k.shape[2]
     g = h // kh
@@ -237,7 +277,6 @@ def forward_bhsd(q, k, v, seg, scale):
     """One launch of the forward kernel on (B, H, S, Dh) bf16 CUDA tensors
     in the kernel layout (S a multiple of KERNEL_ROWS): (out (B, H, S, Dh)
     bf16, lse (B, H, S) float32)."""
-    global launches_fwd
     b, h, kh, s, d = _dims(q, k)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -245,7 +284,7 @@ def forward_bhsd(q, k, v, seg, scale):
     _check(_kernel("flash_attention_fwd_bf16")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(seg), out.data_ptr(),
         lse.data_ptr(), b, h, kh, s, d, float(scale), stream), "forward")
-    launches_fwd += 1
+    _count("launches_fwd")
     return out, lse
 
 
@@ -268,7 +307,6 @@ class _Flash(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        global launches_bwd_dkdv, launches_bwd_dq, launches_bwd_fused
         q, k, v, out, lse, seg = ctx.saved_tensors
         b, h, kh, s, d = _dims(q, k)
         dout_t = to_kernel_layout(dout, s)
@@ -288,19 +326,19 @@ class _Flash(torch.autograd.Function):
                 delta.data_ptr(), dq32.data_ptr(), dq.data_ptr(),
                 dk.data_ptr(), dv.data_ptr(), b, h, kh, s, d, scale, stream),
                 "fused backward")
-            launches_bwd_fused += 1
+            _count("launches_bwd_fused")
         else:
             _check(_kernel("flash_attention_bwd_dkdv_bf16")(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 dout_t.data_ptr(), lse.data_ptr(), _ptr(seg),
                 delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, kh, s,
                 d, scale, stream), "dK/dV")
-            launches_bwd_dkdv += 1
+            _count("launches_bwd_dkdv")
             _check(_kernel("flash_attention_bwd_dq_bf16")(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), dout_t.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), _ptr(seg), dq.data_ptr(),
                 b, h, kh, s, d, scale, stream), "dQ")
-            launches_bwd_dq += 1
+            _count("launches_bwd_dq")
         s0 = dout.shape[1]
         return (from_kernel_layout(dq, s0), from_kernel_layout(dk, s0),
                 from_kernel_layout(dv, s0), None, None, None)

@@ -189,6 +189,19 @@ def draft_config(tmp_path_factory):
     return str(path)
 
 
+def _reference_draft_params(monkeypatch):
+    """The port's draft weights: the reference's random init from the
+    seed the CLI asks for, crossed as numpy arrays."""
+    def load(cfg, ckpt, step, seed, device):
+        from cloud_server_tpu_torch.models.transformer import (
+            params_from_numpy)
+        ref = ref_tf.init_params(ModelConfig(**{
+            k: getattr(cfg, k) for k in MODEL}), jax.random.key(seed))
+        return params_from_numpy(jax.tree.map(np.asarray, ref), cfg,
+                                 device=device)
+    monkeypatch.setattr(generate, "load_params", load)
+
+
 @pytest.mark.parametrize("flags", [
     ["--spec-drafts", "2"],
     ["--spec-drafts", "3", "--spec-control", "off", "--scheduler",
@@ -201,11 +214,10 @@ def draft_config(tmp_path_factory):
 def test_new_flags_print_the_reference_text(files, draft_config, capsys,
                                             flags, monkeypatch):
     """The speculation, sampling, budget and BOS flags reach the server:
-    the same text as the reference's CLI given the same flags (with a
-    draft model the reference's batch mode runs its speculative batch
-    API and the port its in-server speculation: greedy, the same
-    tokens). Both draft models are the reference's init from --seed + 1,
-    the port's crossed as numpy arrays."""
+    the same text as the reference's CLI given the same flags. With a
+    draft model, batch mode runs the speculative batch API in both CLIs
+    (no server is built); both draft models are the reference's init
+    from --seed + 1, the port's crossed as numpy arrays."""
     cfg_path, npz = files
     flags = [draft_config if a == "DRAFT" else a for a in flags]
     ref_generate.main(["--config", cfg_path, "--decode-impl", "xla",
@@ -223,28 +235,98 @@ def test_new_flags_print_the_reference_text(files, draft_config, capsys,
                         top=(self.infer_cfg.top_k, self.infer_cfg.top_p))
 
     if "--draft-config" in flags:
-        # the draft's random init: the reference's, as the port's weights
-        def load(cfg, ckpt, step, seed, device):
-            from cloud_server_tpu_torch.models.transformer import (
-                params_from_numpy)
-            ref = ref_tf.init_params(ModelConfig(**{
-                k: getattr(cfg, k) for k in MODEL}), jax.random.key(seed))
-            return params_from_numpy(jax.tree.map(np.asarray, ref), cfg,
-                                     device=device)
-        monkeypatch.setattr(generate, "load_params", load)
+        _reference_draft_params(monkeypatch)
     monkeypatch.setattr(paged_server, "PagedInferenceServer", Spy)
     generate.main(["--config", cfg_path, "--params-npz", npz,
                    "--device", "cpu", *ARGS, *flags])
     assert capsys.readouterr().out == want
-    assert seen["spec"] == (2 if "--num-draft" in flags else
-                            int(flags[1]) if flags[0] == "--spec-drafts"
+    if "--draft-config" in flags:
+        assert seen == {}
+        return
+    assert seen["spec"] == (int(flags[1]) if flags[0] == "--spec-drafts"
                             else 0)
-    assert seen["draft"] == ("--draft-config" in flags)
+    assert not seen["draft"]
     assert seen["adaptive"] == (seen["spec"] > 0 and "off" not in flags)
     if "--mixed-token-budget" in flags:
         assert seen["budget"] == 24
     if "--top-k" in flags:
         assert seen["top"] == (5, 0.9)
+
+
+SEEDED = ["--temperature", "0.7", "--top-k", "20", "--seed", "3"]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--contiguous"],
+    ["--contiguous", "--no-overlap", "--decode-chunk", "4"],
+    ["--contiguous", "--prefix", "hello", "--prompt", "hello there"],
+    ["--contiguous", *SEEDED],
+    ["--contiguous", "--kv-cache-int8", "--add-bos"],
+    ["--ngram-draft", "--num-draft", "3"],
+    ["--ngram-draft", *SEEDED],
+    ["--draft-config", "DRAFT", "--num-draft", "3", *SEEDED],
+    ["--draft-config", "DRAFT", "--max-len", "24"],
+    ["--quantize"],
+    ["--quantize", "--contiguous", *SEEDED],
+    ["--quantize", "--prefix", "hello"]],
+    ids=["contiguous", "contiguous_chunk_no_overlap", "contiguous_prefix",
+         "contiguous_seeded", "contiguous_int8_bos", "ngram_draft",
+         "ngram_draft_seeded", "draft_config_seeded", "draft_clamped",
+         "quantize", "quantize_contiguous_seeded", "quantize_paged_prefix"])
+def test_batch_paths_print_the_reference_text(files, draft_config, capsys,
+                                              flags, monkeypatch):
+    """The contiguous server (with --prefix caching), the speculative
+    batch API (n-gram and draft model, greedy and seeded) and int8
+    weight-only params print the reference CLI's text, and its stderr
+    notes (the --max-new clamp, the paged server's --prefix note) word
+    for word. The seeded --draft-config case draws from the reference's
+    key stream through speculative_generate, which the paged server's
+    in-server speculation does not (C13, ROADMAP's Queue C)."""
+    cfg_path, npz = files
+    flags = [draft_config if a == "DRAFT" else a for a in flags]
+    if "--draft-config" in flags:
+        _reference_draft_params(monkeypatch)
+    ref_generate.main(["--config", cfg_path, "--decode-impl", "xla",
+                       *ARGS, *flags])
+    want = capsys.readouterr()
+    generate.main(["--config", cfg_path, "--params-npz", npz,
+                   "--device", "cpu", "--decode-impl", "xla", *ARGS,
+                   *flags])
+    got = capsys.readouterr()
+    assert want.out.count("===") >= 2
+    assert got.out == want.out
+    notes = [ln for ln in want.err.splitlines()
+             if "clamping" in ln or "note:" in ln]
+    assert notes == [ln for ln in got.err.splitlines()
+                     if "clamping" in ln or "note:" in ln]
+    if "--max-len" in flags or "--prefix" in flags and "--quantize" in flags:
+        assert notes
+
+
+@pytest.mark.parametrize("extra", [
+    ["--ngram-draft", "--quantize"],
+    ["--ngram-draft", "--draft-config", "DRAFT"],
+    ["--ngram-draft", "--prefix", "hi"],
+    ["--draft-config", "DRAFT", "--max-len", "12"],
+    ["--contiguous", "--decode-impl", "pallas"],
+    ["--contiguous", "--draft-config", "DRAFT", "--serve-http", "0"],
+    ["--ngram-draft", "--serve-http", "0"]],
+    ids=["quantize", "two_sources", "prefix", "no_room", "pallas",
+         "draft_serve", "ngram_serve"])
+def test_batch_path_refusals_match_the_reference(files, draft_config,
+                                                 extra):
+    """The reference's SystemExits for the speculative batch API and the
+    contiguous server, word for word."""
+    cfg_path, npz = files
+    extra = [draft_config if a == "DRAFT" else a for a in extra]
+    with pytest.raises(SystemExit) as want:
+        ref_generate.main(["--config", cfg_path, "--decode-impl", "xla",
+                           *ARGS, *extra])
+    with pytest.raises(SystemExit) as got:
+        generate.main(["--config", cfg_path, "--params-npz", npz,
+                       "--device", "cpu", "--decode-impl", "xla", *ARGS,
+                       *extra])
+    assert str(got.value) == str(want.value) and str(want.value)
 
 
 @pytest.mark.parametrize("extra,message", [
@@ -261,14 +343,6 @@ def test_spec_flag_refusals_match_the_reference(files, extra, message):
         generate.main(["--config", cfg_path, "--params-npz", npz,
                        "--device", "cpu", *ARGS, *extra])
     assert str(got.value) == str(want.value)
-
-
-@pytest.mark.parametrize("flag", ["--contiguous", "--ngram-draft"])
-def test_unported_paths_raise(files, flag):
-    cfg_path, npz = files
-    with pytest.raises(NotImplementedError, match="not ported"):
-        generate.main(["--config", cfg_path, "--params-npz", npz,
-                       "--device", "cpu", *ARGS, flag])
 
 
 def test_draft_config_is_llama_3_2_1b():

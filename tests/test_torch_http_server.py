@@ -59,6 +59,7 @@ GREEDY = InferConfig(max_decode_len=8, temperature=0.0, eos_token_id=-1,
                      pad_token_id=0)
 SRV_KW = dict(max_slots=2, max_context=64, page_size=8, prefill_chunk=16,
               prompt_buckets=[16, 48])
+CONTIGUOUS_KW = dict(max_slots=2, max_len=64, prompt_buckets=[16, 48])
 TIMEOUT = 120
 
 
@@ -78,14 +79,22 @@ class _Pair:
     stops everything that was started."""
 
     def __init__(self, weights, cfg=CFG, icfg=GREEDY, start=True,
-                 front_kw=None, ref_kw=None, port_kw=None, **kw):
+                 front_kw=None, ref_kw=None, port_kw=None,
+                 contiguous=False, **kw):
         self.started = []
+        ref_cls, port_cls, base = RefServer, PagedInferenceServer, SRV_KW
+        if contiguous:
+            from cloud_server_tpu.inference.server import (
+                InferenceServer as ref_cls)
+            from cloud_server_tpu_torch.inference.server import (
+                InferenceServer as port_cls)
+            base = CONTIGUOUS_KW
         try:
-            kw = {**SRV_KW, **kw}
-            self.ref_srv = RefServer(weights[0], cfg, icfg, overlap=False,
-                                     **kw, **(ref_kw or {}))
+            kw = {**base, **kw}
+            self.ref_srv = ref_cls(weights[0], cfg, icfg, overlap=False,
+                                   **kw, **(ref_kw or {}))
             self.started.append(self.ref_srv)
-            self.port_srv = PagedInferenceServer(
+            self.port_srv = port_cls(
                 weights[1], _tcfg(cfg),
                 TInferConfig(**dataclasses.asdict(icfg)), device="cpu", **kw,
                 **(port_kw or {}))
@@ -491,17 +500,36 @@ def test_embeddings_match_reference(pair):
 # --------------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module")
-def served_pair(weights):
-    """A fresh pair, both sequential (so the page flows are the same),
-    that has served the same two requests."""
-    p = _Pair(weights, port_kw=dict(overlap=False))
+def _served(weights, contiguous):
+    p = _Pair(weights, port_kw=dict(overlap=False), contiguous=contiguous)
     try:
         for front in (p.ref, p.port):
             _json(front, "/generate", {"tokens": [5, 9, 3],
                                        "max_new_tokens": 4})
             _json(front, "/generate", {"tokens": [5, 9, 3, 7],
                                        "max_new_tokens": 3})
+        return p
+    except BaseException:
+        p.close()
+        raise
+
+
+@pytest.fixture(scope="module")
+def served_pair(weights):
+    """A fresh pair, both sequential (so the page flows are the same),
+    that has served the same two requests."""
+    p = _served(weights, False)
+    try:
+        yield p
+    finally:
+        p.close()
+
+
+@pytest.fixture(scope="module")
+def served_contiguous(weights):
+    """The same, over the two contiguous servers."""
+    p = _served(weights, True)
+    try:
         yield p
     finally:
         p.close()
@@ -539,6 +567,19 @@ def test_read_only_routes_answer_like_the_reference(served_pair, path):
     /debug/bundle and /traces, and the /stats cache block, were 404s
     and absent before the port's server had cache_stats, debug_bundle
     and trace_trees."""
+    _check_read_route(served_pair, path)
+
+
+@pytest.mark.parametrize("path", READ_ROUTES)
+def test_read_only_routes_answer_like_the_reference_contiguous(
+        served_contiguous, path):
+    """The same routes over the contiguous servers: the reference's
+    statuses, keys and values (its 404s for the paged server's routes
+    included)."""
+    _check_read_route(served_contiguous, path)
+
+
+def _check_read_route(served_pair, path):
     want = _request(served_pair.ref, path)
     got = _request(served_pair.port, path)
     assert got[0] == want[0], (path, got[0], got[2][:1])
@@ -561,7 +602,8 @@ def test_read_only_routes_answer_like_the_reference(served_pair, path):
         assert g == w
     else:
         for key in same:
-            assert g[key] == w[key], key
+            if key in w:
+                assert g[key] == w[key], key
 
 
 def test_debug_trace_writes_a_profiler_trace(served_pair, tmp_path):

@@ -54,9 +54,9 @@ def test_every_training_module_is_checked():
 
 def test_every_serving_module_is_checked():
     """The serving slices' modules, the HTTP frontend, the host policy
-    layer, the profiler window, the replica router, multi-LoRA serving
-    and the scenario harness among them, are among those both checks
-    cover."""
+    layer, the profiler window, the replica router, multi-LoRA serving,
+    the scenario harness, beam search, speculative decoding and int8
+    weight-only params among them, are among those both checks cover."""
     mods = set(_modules())
     for m in ("ops.paged_attention", "ops.attention", "inference.engine",
               "inference.paged_engine", "inference.paged_server",
@@ -65,6 +65,8 @@ def test_every_serving_module_is_checked():
               "inference.qos", "inference.slo", "inference.faults",
               "inference.anomaly", "inference.migration",
               "inference.router", "inference.multi_lora", "models.lora",
+              "inference.beam", "inference.speculative",
+              "models.quantization",
               "scenarios", "scenarios.workload", "scenarios.replay",
               "scenarios.simulator", "scenarios.autoscaler",
               "utils.tracing", "utils.serving_metrics", "utils.logging",

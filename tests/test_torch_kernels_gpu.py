@@ -1026,3 +1026,46 @@ def test_restack_under_a_dispatch_in_flight_recaptures():
         srv.stop()
     assert runs[0] == runs[1]
     assert all(len(t) == 12 for t in runs[1])
+
+
+@pytest.mark.gpu
+def test_contiguous_server_prefills_on_b3():
+    """The contiguous server on a 2-layer bf16 slice: every admission
+    prefills through the flash forward kernel (B3) under captured
+    programs (counted per replay and warm-up, no plain call), graphed
+    equals graphs off, and the plain attention route launches no B3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cloud_server_tpu_torch.config import InferConfig, ModelConfig
+    from cloud_server_tpu_torch.inference.server import InferenceServer
+    from cloud_server_tpu_torch.models import transformer
+    from cloud_server_tpu_torch.ops import flash_attention as fl
+    base = dict(vocab_size=512, embed_dim=256, num_layers=2, num_heads=4,
+                num_kv_heads=2, head_dim=64, mlp_dim=512, max_seq_len=512,
+                dtype="bfloat16", param_dtype="bfloat16", remat="none")
+    icfg = InferConfig(max_decode_len=8, temperature=0.0, eos_token_id=-1,
+                       pad_token_id=0)
+    params = transformer.init_params(ModelConfig(**base), 0, device="cuda")
+
+    def run(impl, graphed):
+        srv = InferenceServer(params, ModelConfig(**base,
+                                                  attention_impl=impl),
+                              icfg, max_slots=4, max_len=256, seed=5,
+                              device="cuda", cuda_graphs=graphed)
+        fl.reset_counters()
+        reqs = _staggered_graph_run(srv, max_new=8)
+        torch.cuda.synchronize()
+        counts = fl.counters()
+        admits = sum(1 for k in srv._programs.keys()
+                     if k[0].startswith("_admit"))
+        srv.stop()
+        return reqs, counts, admits
+
+    (flash, c_flash, admits), (eager, c_eager, _), (plain, c_plain, _) = (
+        run("flash", True), run("flash", False), run("xla", True))
+    assert flash == eager
+    assert c_flash["plain_calls"] == c_eager["plain_calls"] == 0
+    assert c_flash["launches_fwd"] >= 2 * (admits + 1)
+    assert c_flash["launches_fwd"] % 2 == 0
+    assert c_plain["launches_fwd"] == 0
+    assert all(len(t) == 8 for t in flash)

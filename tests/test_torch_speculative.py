@@ -1,7 +1,11 @@
 """The port's speculative rules (`inference/speculative.py`) and the
 draws they consume against the reference's on the same numpy-seeded
 inputs: n-gram proposals and accept counts exact, uniforms bit-exact,
-tokens exact, probabilities within 1e-6."""
+tokens exact, probabilities within 1e-6; and `speculative_generate`
+(draft model, self-draft and n-gram; greedy, EOS, ragged and seeded)
+against the reference's on the same float32 weights, token for token."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -9,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from cloud_server_tpu.config import InferConfig
+from cloud_server_tpu.config import InferConfig, ModelConfig
 from cloud_server_tpu.inference import sampling as ref_sampling
 from cloud_server_tpu.inference import speculative as ref_spec
 from cloud_server_tpu_torch.config import InferConfig as TInferConfig
@@ -161,3 +165,157 @@ def test_sampling_probs_and_draw_match(temperature, top_k, top_p):
     tok_got = sampling.sample_from_probs(torch.tensor(want[:, 0]),
                                          _key_words(key)).numpy()
     assert np.array_equal(tok_want, tok_got)
+
+
+# ---------------------------------------------------------------------------
+# speculative_generate, the batch API, against the reference's
+# ---------------------------------------------------------------------------
+
+SPEC_TARGET = ModelConfig(
+    vocab_size=64, embed_dim=32, num_layers=2, num_heads=4, num_kv_heads=2,
+    head_dim=8, mlp_dim=64, max_seq_len=512, dtype="float32",
+    param_dtype="float32", remat="none")
+SPEC_DRAFT = ModelConfig(
+    vocab_size=64, embed_dim=16, num_layers=1, num_heads=2, num_kv_heads=2,
+    head_dim=8, mlp_dim=32, max_seq_len=512, dtype="float32",
+    param_dtype="float32", remat="none")
+
+
+def _tcfg(cfg):
+    from cloud_server_tpu_torch.config import ModelConfig as TModelConfig
+    return TModelConfig(**dataclasses.asdict(cfg))
+
+
+@pytest.fixture(scope="module")
+def spec_models():
+    """(reference params, port params) of the target and the draft."""
+    from cloud_server_tpu.models import transformer as ref_tf
+    from cloud_server_tpu_torch.models.transformer import params_from_numpy
+    out = []
+    for cfg, seed in ((SPEC_TARGET, 0), (SPEC_DRAFT, 1)):
+        ref = ref_tf.init_params(cfg, jax.random.key(seed))
+        out.append((ref, params_from_numpy(jax.tree.map(np.asarray, ref),
+                                           _tcfg(cfg), device="cpu")))
+    return out
+
+
+def _greedy(n, eos=-1):
+    return InferConfig(max_decode_len=n, temperature=0.0, eos_token_id=eos,
+                       pad_token_id=0)
+
+
+def _spec_both(spec_models, prompt, icfg, *, draft, g, seed=3, lens=None):
+    """The reference's and the port's speculative_generate on the same
+    weights, prompt and key; draft "model", "self" or None (n-gram)."""
+    from cloud_server_tpu.inference.speculative import (
+        speculative_generate as ref_spec)
+    from cloud_server_tpu_torch.inference.speculative import (
+        speculative_generate)
+    (rt, pt), (rd, pd) = spec_models
+    dcfg = {"model": SPEC_DRAFT, "self": SPEC_TARGET, None: None}[draft]
+    rdp = {"model": rd, "self": rt, None: None}[draft]
+    pdp = {"model": pd, "self": pt, None: None}[draft]
+    want = ref_spec(rt, rdp, jnp.asarray(prompt, jnp.int32),
+                    jax.random.key(seed), cfg=SPEC_TARGET, draft_cfg=dcfg,
+                    infer_cfg=icfg, num_draft=g,
+                    prompt_lengths=None if lens is None
+                    else jnp.asarray(lens, jnp.int32))
+    got = speculative_generate(
+        pt, pdp, torch.tensor(np.asarray(prompt)), prng.key(seed),
+        cfg=_tcfg(SPEC_TARGET),
+        draft_cfg=None if dcfg is None else _tcfg(dcfg),
+        infer_cfg=TInferConfig(**dataclasses.asdict(icfg)), num_draft=g,
+        prompt_lengths=None if lens is None else torch.tensor(lens))
+    return np.asarray(want), got.numpy()
+
+
+def _generate(spec_models, prompt, icfg, lens=None):
+    from cloud_server_tpu_torch.inference import engine
+    pt = spec_models[0][1]
+    return engine.generate(
+        pt, torch.tensor(np.asarray(prompt)), prng.key(2),
+        cfg=_tcfg(SPEC_TARGET),
+        infer_cfg=TInferConfig(**dataclasses.asdict(icfg)),
+        prompt_lengths=None if lens is None else torch.tensor(lens)).numpy()
+
+
+@pytest.mark.parametrize("draft", ["model", None],
+                         ids=["draft_model", "ngram"])
+def test_greedy_exact_vs_generate(spec_models, draft):
+    """Greedy speculative output equals plain greedy generate and the
+    reference's speculative output, whatever the drafts propose."""
+    icfg = _greedy(24)
+    prompt = np.random.RandomState(0).randint(1, 64, (2, 8))
+    want, got = _spec_both(spec_models, prompt, icfg, draft=draft, g=4)
+    assert got.tolist() == want.tolist()
+    assert got.tolist() == _generate(spec_models, prompt, icfg).tolist()
+
+
+def test_greedy_exact_self_draft(spec_models):
+    icfg = _greedy(16)
+    want, got = _spec_both(spec_models, [[3, 7, 11, 2]], icfg, draft="self",
+                           g=3)
+    assert got.tolist() == want.tolist()
+    assert got.tolist() == _generate(spec_models, [[3, 7, 11, 2]],
+                                     icfg).tolist()
+
+
+def test_ragged_prompts_greedy(spec_models):
+    icfg = _greedy(12)
+    ragged = [[5, 9, 3, 17, 6, 2], [8, 4, 1, 0, 0, 0]]
+    want, got = _spec_both(spec_models, ragged, icfg, draft="model", g=4,
+                           lens=[6, 3])
+    assert got.tolist() == want.tolist()
+    assert got[1].tolist() == _generate(spec_models, [[8, 4, 1]],
+                                        icfg)[0].tolist()
+
+
+@pytest.mark.parametrize("at", [0, 2], ids=["first_token", "third_token"])
+def test_eos_stops_and_pads(spec_models, at):
+    """Whichever token greedy emits at position `at` becomes the eos id:
+    it is emitted (the very first token too) and the rest pads, as in
+    generate and the reference."""
+    prompt = [[3, 1, 4]]
+    eos = int(_generate(spec_models, prompt, _greedy(16))[0, at])
+    icfg = _greedy(16, eos=eos)
+    want, got = _spec_both(spec_models, prompt, icfg, draft="model", g=4)
+    assert got.tolist() == want.tolist()
+    assert got.tolist() == _generate(spec_models, prompt, icfg).tolist()
+    pos = list(got[0]).index(eos)
+    assert (got[0, pos + 1:] == 0).all()
+
+
+@pytest.mark.parametrize("draft", ["model", None],
+                         ids=["draft_model", "ngram"])
+def test_temperature_matches_reference(spec_models, draft):
+    """At temperature 0.8 / top-k 20 the draws follow the reference's
+    key stream: the same tokens."""
+    icfg = InferConfig(max_decode_len=20, temperature=0.8, top_k=20,
+                       eos_token_id=-1, pad_token_id=0)
+    want, got = _spec_both(spec_models, [[3, 7], [9, 2]], icfg, draft=draft,
+                           g=4, seed=5)
+    assert got.shape == (2, 20)
+    assert got.tolist() == want.tolist()
+
+
+def test_ngram_greedy_exact_repetitive_prompt(spec_models):
+    icfg = _greedy(20)
+    ragged = [[5, 9, 3] * 5, [7, 2, 7, 2, 7, 2, 7, 2] + [0] * 7]
+    want, got = _spec_both(spec_models, ragged, icfg, draft=None, g=3,
+                           seed=1, lens=[15, 8])
+    assert got.tolist() == want.tolist()
+    for i, doc in enumerate(([5, 9, 3] * 5, [7, 2] * 4)):
+        assert got[i].tolist() == _generate(spec_models, [doc],
+                                            icfg)[0].tolist()
+
+
+def test_ngram_mismatched_args_raise(spec_models):
+    from cloud_server_tpu_torch.inference.speculative import (
+        speculative_generate)
+    (_, pt), (_, pd) = spec_models
+    icfg = TInferConfig(**dataclasses.asdict(_greedy(4)))
+    for dp, dc in ((None, _tcfg(SPEC_DRAFT)), (pd, None)):
+        with pytest.raises(ValueError, match="together"):
+            speculative_generate(pt, dp, torch.tensor([[1, 2]]),
+                                 prng.key(0), cfg=_tcfg(SPEC_TARGET),
+                                 draft_cfg=dc, infer_cfg=icfg)
