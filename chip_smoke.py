@@ -151,11 +151,29 @@ each:
                 the checkpoint served (restored params and
                 `generate --checkpoint-dir`) with the in-memory params'
                 tokens; bytes and write/read rates;
-  6. kernels  — each ported kernel with the TPU kernel it replaces, its
+  6. moe      — Mixtral-8x7B's public config, random weights: its first
+                16 layers in bf16 (46.96 GB) on the default paged server
+                (B1/B2 counted, graphed == graphs off, the tokens
+                teacher-forced against the plain MoE forward, nothing
+                dropped, the expert load, a steady decode round against
+                the weights' read bound), the contiguous server (B3) and
+                n-gram speculation on the same weights; the three exact
+                on a 2-layer float32 slice; int8 weights (8 layers equal
+                to the dequantized bf16 weights; all 32 layers, drawn and
+                quantized a layer at a time, served and profiled);
+                training at 2 layers (dense CE at S 2048, fused CE at S
+                1024: B3-B8, the loss falling, MFU over the active and the
+                computed expert FLOPs, a narrow float32 slice against the
+                CPU); then LoRA rank 16 on the ckpt phase's checkpoint
+                (`train --lora-rank --init-from`: the base bit for bit,
+                adapter moments only; `generate --checkpoint-dir` serving
+                the merged weights);
+  7. kernels  — each ported kernel with the TPU kernel it replaces, its
                 launches on phases 3 and 4 (the int8 rows: the HTTP run;
                 the verify_w5, decode_d64 and prefill_d64 rows: the
                 speculating servers of the spec phase; the embed row:
-                the elastic phase's flash-route embed, timed there) and
+                the elastic phase's flash-route embed, timed there), its
+                launches on the moe phase's paths (`launches_moe`) and
                 its numbers from phase 2.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises and
@@ -661,13 +679,15 @@ def same_tokens(what, reqs, want) -> None:
 
 
 def dense_logits(params, cfg, prompt, tokens):
-    """The plain dense forward's f32 logits at every position that
+    """The plain dense forward's f32 logits (of the model's family: an
+    MoE model routes the whole sequence at once) at every position that
     predicts one of `tokens` after `prompt`: (len(tokens), V)."""
     import torch
-    from cloud_server_tpu_torch.models import transformer
+    from cloud_server_tpu_torch.models import moe, transformer
     seq = torch.tensor([prompt + tokens[:-1]], device=DEVICE)
     with torch.no_grad():
-        h = transformer.forward_hidden(params, seq, cfg)
+        h = moe.module_for(cfg).forward_hidden(params, seq, cfg)
+        h = h[0] if isinstance(h, tuple) else h
         return transformer.unembed(h[:, len(prompt) - 1:], params,
                                    cfg)[0].float()
 
@@ -4240,7 +4260,7 @@ CE_EVAL_EVERY, CE_EVAL_BATCHES = 3, 2   # the fused config's loop section
 LOG_DIR = "cloud_server_tpu_torch/_build/smoke_train"
 
 
-def train_run(tag, extra, config=TRAIN_CONFIG) -> tuple:
+def train_run(tag, extra, config=TRAIN_CONFIG, synthetic: int = 64) -> tuple:
     """One run of the training CLI; returns (final state, JSONL records,
     launch counts of the flash and the fused-CE kernels, peak memory,
     wall seconds)."""
@@ -4258,7 +4278,7 @@ def train_run(tag, extra, config=TRAIN_CONFIG) -> tuple:
     fl.reset_counters()
     fc.reset_counters()
     t0 = time.perf_counter()
-    state = train.main(["--config", config, "--synthetic", "64",
+    state = train.main(["--config", config, "--synthetic", str(synthetic),
                         "--logdir", logdir, *extra])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -4296,7 +4316,8 @@ def _leaf_grads(params, cfg, toks, loss_fn=None):
     from cloud_server_tpu_torch.training.optim import flatten
     p = {g: {n: t.detach().clone().requires_grad_(True)
              for n, t in leaves.items()} for g, leaves in params.items()}
-    loss, _ = transformer.next_token_loss(p, {"tokens": toks}, cfg)
+    loss, _ = (loss_fn or transformer.next_token_loss)(p, {"tokens": toks},
+                                                       cfg)
     loss.backward()
     return float(loss.detach()), {k: t.grad for k, t in flatten(p)}
 
@@ -4654,7 +4675,7 @@ def phase_ckpt() -> dict:
     if buf.getvalue() != want_out:
         raise RuntimeError(f"generate --checkpoint-dir printed "
                            f"{buf.getvalue()!r}, expected {want_out!r}")
-    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    # the checkpoint stays for the moe phase's LoRA run, which removes it
     gc.collect()
     torch.cuda.empty_cache()
     out = {"phase": "ckpt", "model": "Llama-3.1-8B widths, cut to 1 of 32 "
@@ -4670,6 +4691,705 @@ def phase_ckpt() -> dict:
            "read_s": read_s, "read_gb_per_s": nbytes / read_s / 1e9,
            "served_tokens": toks_mem,
            "generate_checkpoint_dir_identical": True}
+    emit(out)
+    return {**out, "ckpt_dir": ckpt_dir, "cfg_path": cfg_path,
+            "cfg": cfg, "tcfg": tcfg}
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: Mixtral-style MoE through both servers, speculation, int8
+# weights and training; LoRA training on the ckpt phase's checkpoint
+# ---------------------------------------------------------------------------
+
+MOE_CONFIG = "cloud_server_tpu_torch/configs/mixtral_8x7b.json"
+MOE_TRAIN_CONFIG = "cloud_server_tpu_torch/configs/mixtral_8x7b_train.json"
+MOE_LAYERS = 16        # bf16 at full width: 46.96 GB of weights
+MOE_INT8_CHECK_LAYERS = 8
+MOE_TRAIN_STEPS = 4    # each run repeats one batch: the loss must fall
+# The narrow MoE slice in float32 on the card (plain attention, TF32 off)
+# against the same step on the CPU: the same products in another order,
+# so the loss and every gradient leaf within float32 rounding of a few
+# thousand terms (limits about 100x float32's resolution).
+MOE_SLICE_LOSS_ATOL = 1e-4
+MOE_SLICE_GRAD_REL = 1e-4
+MOE_FUSED_SEQ = 1024  # the fused-CE run's S: flash's fused backward (B6)
+# rank 16 on the default attention targets; the learning rate high
+# enough that 3 steps move the served tokens off the base's
+LORA_RANK, LORA_STEPS, LORA_LR = 16, 3, "1e-2"
+LORA_DIR = "cloud_server_tpu_torch/_build/smoke_lora"
+
+
+def moe_cfg(layers: int):
+    import dataclasses
+    from cloud_server_tpu_torch.config import ModelConfig, from_json
+    with open(MOE_CONFIG) as f:
+        cfg = from_json(ModelConfig, json.load(f)["model"])
+    return dataclasses.replace(cfg, num_layers=layers)
+
+
+def weight_read_bound(params) -> tuple:
+    """(bytes, ms): every weight a decode round reads once (the
+    embedding table only by its rows, so it is left out), over the
+    card's memory rate."""
+    from cloud_server_tpu_torch.models.quantization import QTensor
+    n = 0
+    for group, leaves in params.items():
+        for name, t in leaves.items():
+            if group == "embed":
+                continue
+            if isinstance(t, QTensor):
+                n += t.q.numel() + 4 * t.scale.numel()
+            else:
+                n += t.numel() * t.element_size()
+    return n, n / HBM_BYTES_PER_S * 1e3
+
+
+# The bf16 MoE paths against the plain forward: a routing decision at a
+# near tie between two experts flips under bf16 rounding, and the flip
+# moves that token's MLP output by a whole expert's contribution, so
+# unlike a dense model's (C8) the served tokens leave the plain forward's
+# argmax past its near-tie limit (PERF.md, PR 15). Exactness is held on
+# the float32 slice; in bf16 a path must keep this share of its tokens
+# on the plain forward's argmax (a broken dispatch keeps about 1/V).
+MOE_BF16_ARGMAX_FLOOR = 0.5
+
+
+def plain_forward_check(what, reqs, prompts, params, cfg,
+                        floor: float | None = None) -> dict:
+    """The served greedy tokens against the plain forward of the model's
+    family (`moe.forward_hidden` routes each whole sequence at once),
+    teacher-forced over each request's own tokens. `floor` None: every
+    served token must be that forward's argmax (the float32 slice's
+    rule); else at least `floor` of them, and the rest are reported
+    beside C8's near-tie limit (the run's 25th percentile of top-2
+    gaps). The forward's routing is counted as it runs: each expert's
+    share of the filled slots over all layers and requests, and the
+    largest dropped_frac (the dropless config must drop nothing)."""
+    import numpy as np
+    from cloud_server_tpu_torch.models import moe
+    load = np.zeros(cfg.num_experts)
+    dropped = []
+    real = moe.route
+
+    def counted(logits, k, capacity):
+        r = real(logits, k, capacity)
+        load[:] += (r.token < logits.shape[0]).sum(-1).cpu().numpy()
+        dropped.append(float(r.aux["dropped_frac"]))
+        return r
+
+    moe.route = counted
+    try:
+        top2, gaps, first = [], [], []
+        argmax = total = 0
+        for r, prompt in zip(reqs, prompts):
+            logits = dense_logits(params, cfg, prompt, r.tokens)
+            best = logits.topk(2, dim=-1).values
+            top2 += (best[:, 0] - best[:, 1]).tolist()
+            served = logits.gather(1, logits.new_tensor(
+                r.tokens).long()[:, None])[:, 0]
+            gap = (best[:, 0] - served).tolist()
+            total += len(gap)
+            argmax += sum(g == 0 for g in gap)
+            gaps += [g for g in gap if g > 0]
+            first.append(next((i for i, g in enumerate(gap) if g > 0),
+                              None))
+    finally:
+        moe.route = real
+    limit = float(np.percentile(top2, 25))
+    share = argmax / total
+    if share < (1.0 if floor is None else floor):
+        raise RuntimeError(f"{what}: {share} of the served tokens are the "
+                           f"plain forward's argmax (gaps {gaps})")
+    if max(dropped) != 0.0:
+        raise RuntimeError(f"{what}: the dropless config dropped "
+                           f"{max(dropped)} of the tokens")
+    return {"argmax_share": share,
+            "first_non_argmax_position": first,
+            "non_argmax_gaps_below_top_logit": gaps,
+            "gaps_past_near_tie_limit": sum(g > limit for g in gaps),
+            "near_tie_limit_p25_top2": limit,
+            "top2_gap_p5_p50": [float(np.percentile(top2, 5)),
+                                float(np.percentile(top2, 50))],
+            "dropped_frac_max": max(dropped),
+            "expert_load_share": (load / load.sum()).tolist()}
+
+
+def moe_f32_slice(p32, cfg32, icfg, prompts) -> dict:
+    """The first 2 layers at full width in float32 (`f32_slice`: TF32
+    off; the plain attention, the kernels taking bf16 and int8 pools
+    only), where rounding cannot flip a routing decision: the paged
+    server, the contiguous server and n-gram speculation each serve the
+    plain forward's greedy tokens, token for token. Launched eagerly
+    (graphed == graphs off is held in bf16): a float32 contiguous
+    admission of 8 x 2048 rows holds about 30 GB of expert activations,
+    which a capture would hold twice."""
+    import dataclasses
+    out = {}
+    for what, make in (
+            ("paged", lambda: make_server(p32, cfg32, icfg,
+                                          cuda_graphs=False)),
+            ("contiguous", lambda: make_contiguous(
+                p32, dataclasses.replace(cfg32, attention_impl="xla"),
+                icfg, cuda_graphs=False)),
+            ("ngram", lambda: make_server(p32, cfg32, icfg,
+                                          spec_drafts=SPEC_DRAFTS,
+                                          spec_control=False,
+                                          cuda_graphs=False))):
+        srv = make()
+        reqs, _, _, _ = serve_once(p32, cfg32, icfg, prompts, srv=srv)
+        release(srv)
+        check_served(reqs, cfg32.vocab_size)
+        res = plain_forward_check(f"MoE f32 slice, {what}", reqs, prompts,
+                                  p32, cfg32)
+        out[what] = {"argmax_share": res["argmax_share"],
+                     "dropped_frac_max": res["dropped_frac_max"]}
+    return out
+
+
+def steady_decode(srv, prompts, steps: int = PROFILE_STEPS) -> dict:
+    """`steps` steady decode steps (8 live slots, every program already
+    captured) under torch.profiler; the requests are cancelled after."""
+    reqs = [srv.submit(p, max_new_tokens=LONG_NEW) for p in prompts]
+    while srv._jobs or srv.num_pending:
+        srv.step()
+    for _ in range(2):
+        srv.step()
+    captured = len(srv._programs)
+    live = srv.num_active
+    prof = profile_step(srv.step, steps)
+    cancel_all(srv, reqs)
+    if len(srv._programs) != captured or live != len(prompts):
+        raise RuntimeError(f"steady decode: {live} live slots, "
+                           f"{len(srv._programs) - captured} new programs")
+    return {**prof, "rounds_per_step": srv.decode_chunk,
+            "device_busy_ms_per_round": prof["device_busy_ms"]
+            / srv.decode_chunk}
+
+
+def quantize_layerwise(params):
+    """`quantize_params` one layer of a stacked leaf at a time (the same
+    values: the scales never reduce over the layer axis), so no float32
+    copy of a whole expert stack is made."""
+    import torch
+    from cloud_server_tpu_torch.models.quantization import (
+        _REDUCE_AXES, QTensor, quantize, quantize_params)
+    out = {}
+    for group, leaves in params.items():
+        if group != "layers":
+            out[group] = quantize_params({group: leaves})[group]
+            continue
+        out[group] = {}
+        for name, w in leaves.items():
+            axes = _REDUCE_AXES.get((name, w.dim()))
+            if axes is None:
+                out[group][name] = w
+                continue
+            parts = [quantize(w[i], tuple(a - 1 for a in axes))
+                     for i in range(w.shape[0])]
+            out[group][name] = QTensor(torch.stack([p.q for p in parts]),
+                                       torch.stack([p.scale for p in parts]))
+            del parts
+    return out
+
+
+def init_int8_moe(cfg, seed: int):
+    """The MoE model's random initialisation drawn and quantized one layer
+    of a stacked leaf at a time (`transformer.init_params`' distribution),
+    so the bf16 tree of all 32 layers (93.4 GB) never exists: the weight
+    leaves int8 with per-channel scales, the norms, router and embedding
+    table as cfg.param_dtype."""
+    import math
+    import torch
+    from cloud_server_tpu_torch.models import moe, transformer
+    from cloud_server_tpu_torch.models.quantization import (
+        _REDUCE_AXES, QTensor, quantize)
+    dtype = transformer.torch_dtype(cfg.param_dtype)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    out: dict = {}
+    for group, leaves in moe.param_shapes(cfg).items():
+        out[group] = {}
+        for name, shape in leaves.items():
+            if "norm" in group or "norm" in name:
+                out[group][name] = torch.ones(shape, dtype=dtype,
+                                              device=DEVICE)
+                continue
+            std = 1.0 / math.sqrt(transformer._fan_in(name, cfg))
+            axes = _REDUCE_AXES.get((name, len(shape)))
+            if name == "kernel" and group != "lm_head":
+                axes = None
+            stacked = group == "layers"
+            slices = shape[0] if stacked else 1
+            q = scale = full = None
+            for i in range(slices):
+                part = shape[1:] if stacked else shape
+                w = transformer._trunc_normal_(torch.empty(
+                    part, dtype=torch.float32, device=DEVICE), gen).mul_(std)
+                w = w.to(dtype)
+                if axes is None:
+                    if full is None:
+                        full = torch.empty(shape, dtype=dtype, device=DEVICE)
+                    (full[i] if stacked else full).copy_(w)
+                    continue
+                qt = quantize(w, tuple(a - 1 for a in axes) if stacked
+                              else axes)
+                if q is None:
+                    q = torch.empty(shape, dtype=torch.int8, device=DEVICE)
+                    scale = torch.empty(
+                        (shape[0], *qt.scale.shape) if stacked
+                        else qt.scale.shape, dtype=torch.float32,
+                        device=DEVICE)
+                (q[i] if stacked else q).copy_(qt.q)
+                (scale[i] if stacked else scale).copy_(qt.scale)
+                del w, qt
+            out[group][name] = full if axes is None else QTensor(q, scale)
+    return out
+
+
+def moe_serve_part(params, cfg, icfg, prompts) -> dict:
+    """(a): the default paged server (mixed scheduler, overlap, captured
+    graphs) at MOE_LAYERS layers: B1/B2 counted over the main run; the
+    same tokens with graphs off; the tokens against the plain forward
+    (and every server exact on the float32 slice); a steady decode step
+    profiled against the weights' read bound."""
+    import numpy as np
+    import torch
+    from cloud_server_tpu_torch.ops import paged_attention as pa
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    srv = make_server(params, cfg, icfg)
+    pa.reset_counters()
+    reqs, t_start, t_end, pool_bytes = serve_once(params, cfg, icfg,
+                                                  prompts, srv=srv)
+    counts = pa.counters()
+    peak = torch.cuda.max_memory_allocated() - base
+    check_served(reqs, cfg.vocab_size)
+    if (counts["launches_narrow"] <= 0 or counts["launches_wide"] <= 0
+            or counts["plain_calls"]):
+        raise RuntimeError(f"MoE paged server: launches {counts}")
+    tokens = [r.tokens for r in reqs]
+    out = {"counts": counts, "programs_captured": len(srv._programs),
+           "capture_s": srv._programs.capture_seconds(),
+           "kv_pool_bytes": pool_bytes, "peak_over_weights_gb": peak / 1e9,
+           **serving_rates(reqs, t_start, t_end)}
+    out["steady_decode"] = steady_decode(srv, make_prompts(
+        np.random.default_rng(SEED + 7), cfg.vocab_size))
+    release(srv)
+    eager, _, _, _ = serve_once(params, cfg, icfg, prompts,
+                                cuda_graphs=False)
+    same_tokens("MoE graphed vs graphs off", eager, tokens)
+    out["graphed_equals_graphs_off"] = True
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["plain_forward"] = plain_forward_check(
+        "MoE paged server", reqs, prompts, params, cfg,
+        floor=MOE_BF16_ARGMAX_FLOOR)
+    nbytes, bound = weight_read_bound(params)
+    out["weight_read_bytes"] = nbytes
+    out["round_bound_ms"] = bound
+    out["busy_per_round_over_bound"] = (
+        out["steady_decode"]["device_busy_ms_per_round"] / bound)
+    out["seconds"] = time.perf_counter() - t0
+    return out, reqs
+
+
+def same_share(reqs, want) -> float:
+    """The share of `want`'s tokens that `reqs` repeat before each
+    request's first divergence."""
+    equal = total = 0
+    for r, w in zip(reqs, want):
+        total += len(w.tokens)
+        equal += next((j for j, (a, b) in enumerate(zip(r.tokens, w.tokens))
+                       if a != b), len(w.tokens))
+    return equal / total
+
+
+def moe_other_servers_part(params, cfg, icfg, prompts, plain) -> dict:
+    """(b): the contiguous server (B3 on every admission) and n-gram
+    speculation on the same weights: the share of (a)'s tokens each
+    repeats, and each against the plain forward as (a) is."""
+    import torch
+    from cloud_server_tpu_torch.ops import flash_attention as fl
+    from cloud_server_tpu_torch.ops import paged_attention as pa
+    t0 = time.perf_counter()
+    csrv = make_contiguous(params, contiguous_cfg(cfg), icfg)
+    fl.reset_counters()
+    creqs, c0, c1 = run_contiguous(csrv, prompts)
+    torch.cuda.synchronize()
+    ccounts = fl.counters()
+    release(csrv)
+    check_served(creqs, cfg.vocab_size)
+    if ccounts["launches_fwd"] <= 0 or ccounts["plain_calls"]:
+        raise RuntimeError(f"MoE contiguous server: launches {ccounts}")
+    out = {"contiguous": {
+        "b3_counts": ccounts, "wall_s": c1 - c0,
+        "equal_to_paged": same_share(creqs, plain),
+        "plain_forward": plain_forward_check(
+            "MoE contiguous", creqs, prompts, params, cfg,
+            floor=MOE_BF16_ARGMAX_FLOOR)}}
+    del creqs
+    ssrv = make_server(params, cfg, icfg, spec_drafts=SPEC_DRAFTS,
+                       spec_control=False)
+    pa.reset_counters()
+    sreqs, s0, s1, _ = serve_once(params, cfg, icfg, prompts, srv=ssrv)
+    scounts = pa.counters()
+    stats = ssrv.speculation_stats()
+    release(ssrv)
+    check_served(sreqs, cfg.vocab_size)
+    if scounts["launches_narrow_verify"] <= 0 or scounts["plain_calls"]:
+        raise RuntimeError(f"MoE n-gram speculation: launches {scounts}")
+    out["ngram"] = {
+        "counts": scounts, "wall_s": s1 - s0, "spec_stats": stats,
+        "equal_to_paged": same_share(sreqs, plain),
+        "plain_forward": plain_forward_check(
+            "MoE n-gram speculation", sreqs, prompts, params, cfg,
+            floor=MOE_BF16_ARGMAX_FLOOR)}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def moe_int8_part(q8, cfg, icfg, prompts) -> dict:
+    """(c), first half: on the first MOE_INT8_CHECK_LAYERS layers, the
+    int8 server against a server on the dequantized weights cast to bf16
+    (the same products: identical tokens)."""
+    import dataclasses
+    import torch
+    t0 = time.perf_counter()
+    cfg8 = dataclasses.replace(cfg, num_layers=MOE_INT8_CHECK_LAYERS)
+    deq = dequantized_bf16(q8)
+    qsrv = make_server(q8, cfg8, icfg)
+    qreqs, _, _, _ = serve_once(q8, cfg8, icfg, prompts, srv=qsrv)
+    release(qsrv)
+    dsrv = make_server(deq, cfg8, icfg)
+    dreqs, _, _, _ = serve_once(deq, cfg8, icfg, prompts, srv=dsrv)
+    release(dsrv)
+    check_served(qreqs, cfg.vocab_size)
+    same_tokens("MoE int8 vs dequantized bf16 (8 layers)", dreqs,
+                [r.tokens for r in qreqs])
+    del deq, dreqs, qreqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"check_layers": MOE_INT8_CHECK_LAYERS,
+           "int8_equals_dequantized": True,
+           "check_s": time.perf_counter() - t0}
+    return out
+
+
+def moe_int8_full(cfg32, icfg, prompts) -> dict:
+    """(c), second half: the whole model on int8 weights, drawn and
+    quantized a layer at a time: stored bytes, peak memory, 8 requests
+    served, a steady decode step profiled."""
+    import numpy as np
+    import torch
+    from cloud_server_tpu_torch.models.quantization import quantized_bytes
+    from cloud_server_tpu_torch.ops import paged_attention as pa
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    q32 = init_int8_moe(cfg32, SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    stored, bf16_bytes = quantized_bytes(q32)
+    weights_alloc = torch.cuda.memory_allocated()
+    srv = make_server(q32, cfg32, icfg)
+    pa.reset_counters()
+    reqs, r0, r1, pool_bytes = serve_once(q32, cfg32, icfg, prompts,
+                                          srv=srv)
+    counts = pa.counters()
+    check_served(reqs, cfg32.vocab_size)
+    if (counts["launches_narrow"] <= 0 or counts["launches_wide"] <= 0
+            or counts["plain_calls"]):
+        raise RuntimeError(f"32-layer int8 MoE server: launches {counts}")
+    prof = steady_decode(srv, make_prompts(np.random.default_rng(SEED + 8),
+                                           cfg32.vocab_size), steps=1)
+    peak = torch.cuda.max_memory_allocated()
+    nbytes, bound = weight_read_bound(q32)
+    release(srv)
+    del q32, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layers": cfg32.num_layers, "init_quantize_s": init_s,
+            "stored_bytes": stored, "bf16_bytes": bf16_bytes,
+            "stored_share": stored / bf16_bytes,
+            "weights_allocated_gb": weights_alloc / 1e9,
+            "peak_mem_gb": peak / 1e9, "kv_pool_bytes": pool_bytes,
+            "counts": counts, "served_requests": len(reqs),
+            "wall_s": r1 - r0, "steady_decode": prof,
+            "weight_read_bytes": nbytes, "round_bound_ms": bound,
+            "seconds": time.perf_counter() - t0}
+
+
+def moe_flops_per_token(cfg, seq_len: int) -> tuple:
+    """(active, computed) training FLOPs per token (6 per weight per
+    token, plus causal attention, as utils.metrics counts them): the
+    active experts are k of E per token; the dense dispatch computes
+    every expert's C = factor * T * k / E slots, factor * k expert
+    MLPs a token."""
+    D, F, L = cfg.embed_dim, cfg.mlp_dim, cfg.num_layers
+    attn_w = (D * cfg.num_heads * cfg.head_dim * 2
+              + D * cfg.num_kv_heads * cfg.head_dim * 2)
+    expert = 3 * D * F
+    head = D * cfg.vocab_size
+    attn = 2.0 * 3 * 2 * seq_len * cfg.num_heads * cfg.head_dim * L * 0.5
+
+    def per_token(experts_per_token):
+        n = L * (attn_w + D * cfg.num_experts
+                 + experts_per_token * expert) + head
+        return 6.0 * n + attn
+    return (per_token(cfg.num_experts_per_token),
+            per_token(cfg.expert_capacity_factor
+                      * cfg.num_experts_per_token))
+
+
+def moe_slice_agreement(cfg) -> dict:
+    """A narrow 2-layer MoE slice (Mixtral's structure: 8 experts, top-2,
+    GQA, head dim 128) in float32, one loss and backward on the card
+    (plain attention, TF32 off) against the same on the CPU."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from cloud_server_tpu_torch.models import moe
+    narrow = dataclasses.replace(
+        cfg, num_layers=2, embed_dim=512, mlp_dim=1024, num_heads=4,
+        num_kv_heads=1, head_dim=128, vocab_size=2048, dtype="float32",
+        param_dtype="float32", attention_impl="xla", ce_impl="dense",
+        remat="none")
+    params = moe.init_params(narrow, SEED, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, narrow.vocab_size, (2, 512)))
+    lc, gc_ = _leaf_grads(params, narrow, toks, moe.next_token_loss)
+    lg, gg = _leaf_grads({g: {n: t.to(DEVICE) for n, t in leaves.items()}
+                          for g, leaves in params.items()}, narrow,
+                         toks.to(DEVICE), moe.next_token_loss)
+    worst = _worst_rel({k: v.cpu() for k, v in gg.items()}, gc_)
+    res = {"moe_slice": "2 layers, D 512, F 1024, 8 experts, f32",
+           "loss_card": lg, "loss_cpu": lc, "loss_abs_err": abs(lg - lc),
+           "loss_limit": MOE_SLICE_LOSS_ATOL,
+           "grad_worst_rel_err": worst,
+           "grad_rel_limit": MOE_SLICE_GRAD_REL}
+    if abs(lg - lc) > MOE_SLICE_LOSS_ATOL or worst > MOE_SLICE_GRAD_REL:
+        raise RuntimeError(f"MoE slice: the card differs from the CPU: "
+                           f"{res}")
+    return res
+
+
+def moe_train_part() -> dict:
+    """(d): the training CLI on mixtral_8x7b_train.json (2 layers at full
+    width, f32 masters, flash attention, full remat), MOE_TRAIN_STEPS
+    steps on one repeated batch with the dense CE at S 2048 (B3, B4, B5),
+    then with the fused CE at S 1024 (B3, B6, B7, B8); the loss falling,
+    the launches against layers x steps, tokens/s and MFU over the
+    active and the computed FLOPs; a narrow slice against the CPU."""
+    import dataclasses
+    import shutil
+    import torch
+    from cloud_server_tpu_torch.config import (ModelConfig, TrainConfig,
+                                               from_json)
+    t0 = time.perf_counter()
+    with open(MOE_TRAIN_CONFIG) as f:
+        raw = json.load(f)
+    cfg = from_json(ModelConfig, raw["model"])
+    tcfg = from_json(TrainConfig, raw["train"])
+    fused_raw = json.loads(json.dumps(raw))
+    fused_raw["model"]["ce_impl"] = "pallas"
+    fused_raw["train"]["seq_len"] = MOE_FUSED_SEQ
+    os.makedirs(LOG_DIR, exist_ok=True)
+    fused_path = os.path.join(LOG_DIR, "mixtral_train_fused_ce.json")
+    with open(fused_path, "w") as f:
+        json.dump(fused_raw, f)
+    runs = {}
+    for tag, path, seq, fused in (
+            ("moe_dense", MOE_TRAIN_CONFIG, tcfg.seq_len, False),
+            ("moe_fused_ce", fused_path, MOE_FUSED_SEQ, True)):
+        state, recs, (counts, ce_counts), peak, wall = train_run(
+            tag, ["--steps", str(MOE_TRAIN_STEPS)], config=path,
+            synthetic=tcfg.batch_size)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        rcfg = dataclasses.replace(cfg, ce_impl="pallas" if fused
+                                   else "dense")
+        check_run(tag, rcfg, recs, counts, MOE_TRAIN_STEPS, fused,
+                  cfg.vocab_size)
+        if fused and (ce_counts["launches_fwd"] != MOE_TRAIN_STEPS
+                      or ce_counts["launches_dx"] != MOE_TRAIN_STEPS):
+            raise RuntimeError(f"{tag}: fused CE launches {ce_counts}")
+        losses = [r["loss"] for r in recs if "loss" in r]
+        if not losses[-1] < losses[0]:
+            raise RuntimeError(f"{tag}: the loss did not fall: {losses}")
+        stats = {k: [r[k] for r in recs if k in r]
+                 for k in ("load_balance", "router_z", "dropped_frac")}
+        if any(x != 0.0 for x in stats["dropped_frac"]):
+            raise RuntimeError(f"{tag}: dropped {stats['dropped_frac']}")
+        active, computed = moe_flops_per_token(cfg, seq)
+        rtcfg = dataclasses.replace(tcfg, seq_len=seq)
+        summary = run_summary(recs, rtcfg, active, peak, wall,
+                              {"flash": counts, "fused_ce": ce_counts})
+        summary["mfu_computed"] = (summary["tokens_per_s"] * computed
+                                   / BF16_FLOP_PER_S)
+        summary["flops_per_token_active"] = active
+        summary["flops_per_token_computed"] = computed
+        runs[tag] = {**summary, **stats}
+    shutil.rmtree(LOG_DIR, ignore_errors=True)
+    return {"config": MOE_TRAIN_CONFIG, "layers": cfg.num_layers,
+            "runs": runs, "slice": moe_slice_agreement(cfg),
+            "seconds": time.perf_counter() - t0}
+
+
+def moe_lora_part(ckpt) -> dict:
+    """(e): `train --lora-rank 16 --init-from` the ckpt phase's
+    checkpoint (Llama-3.1-8B widths, 1 layer, fused CE): the base
+    restored and left bit for bit, the adapters moved, AdamW moments for
+    the adapters only, B3-B5 and B7/B8 launched; then `generate
+    --checkpoint-dir` on the LoRA run serves the merged weights' tokens,
+    which differ from the base's."""
+    import contextlib
+    import dataclasses
+    import io
+    import shutil
+    import torch
+    from cloud_server_tpu_torch import generate, train
+    from cloud_server_tpu_torch.data.tokenizer import ByteTokenizer
+    from cloud_server_tpu_torch.models.lora import (LoRAConfig,
+                                                    export_merged,
+                                                    load_lora_config)
+    from cloud_server_tpu_torch.ops import flash_attention as fl
+    from cloud_server_tpu_torch.ops import fused_ce as fc
+    from cloud_server_tpu_torch.training.checkpoint import restore_params
+    from cloud_server_tpu_torch.training.optim import flatten
+    t0 = time.perf_counter()
+    cfg, tcfg = ckpt["cfg"], ckpt["tcfg"]
+    shutil.rmtree(LORA_DIR, ignore_errors=True)
+    os.makedirs(LORA_DIR)
+    path = os.path.join(LORA_DIR, "lora_train.json")
+    with open(path, "w") as f:
+        json.dump({"model": dataclasses.asdict(cfg),
+                   "train": dataclasses.asdict(dataclasses.replace(
+                       tcfg, total_steps=LORA_STEPS)),
+                   "loop": {"log_interval": 1}}, f)
+    run_dir = os.path.join(LORA_DIR, "run")
+    fl.reset_counters()
+    fc.reset_counters()
+    t1 = time.perf_counter()
+    state = train.main(["--config", path, "--synthetic", "64",
+                        "--lora-rank", str(LORA_RANK), "--init-from",
+                        ckpt["ckpt_dir"], "--checkpoint-dir", run_dir,
+                        "--learning-rate", LORA_LR,
+                        "--logdir", os.path.join(LORA_DIR, "log")])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t1
+    counts, ce_counts = fl.counters(), fc.counters()
+    per = cfg.num_layers * LORA_STEPS
+    want = {"launches_fwd": 2 * per, "launches_bwd_dkdv": per,
+            "launches_bwd_dq": per, "launches_bwd_fused": 0,
+            "plain_calls": 0}
+    if counts != want or ce_counts["launches_fwd"] != LORA_STEPS \
+            or ce_counts["launches_dx"] != LORA_STEPS:
+        raise RuntimeError(f"LoRA run: launches {counts} {ce_counts}, "
+                           f"expected {want} and {LORA_STEPS} of B7/B8")
+    base = restore_params(ckpt["ckpt_dir"], cfg, device=DEVICE)
+    for k, t in flatten(state.params["base"]):
+        if not torch.equal(t, dict(flatten(base))[k]):
+            raise RuntimeError(f"LoRA run: base leaf {k} changed")
+    del base
+    if not all(float(ab["b"].detach().abs().max()) > 0
+               for ab in state.params["lora"]["layers"].values()):
+        raise RuntimeError("LoRA run: an adapter's B stayed at zero")
+    moments = [k for k, _ in flatten(state.opt_state.mu)]
+    if not moments or not all(k.startswith("lora/") for k in moments):
+        raise RuntimeError(f"LoRA run: moments for {moments}")
+    lcfg = load_lora_config(run_dir)
+    if lcfg != LoRAConfig(rank=LORA_RANK, alpha=16.0):
+        raise RuntimeError(f"LoRA sidecar: {lcfg}")
+    adapter_bytes = sum(t.numel() * t.element_size()
+                        for _, t in flatten(state.params["lora"]))
+    moment_bytes = 2 * sum(t.numel() * t.element_size()
+                           for _, t in flatten(state.opt_state.mu))
+    merged = {g: {n: t.detach() for n, t in leaves.items()} for g, leaves
+              in export_merged(state.params, lcfg).items()}
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    toks = serve_greedy(merged, cfg)
+    if toks == ckpt["served_tokens"]:
+        raise RuntimeError("LoRA run: the merged weights serve the base's "
+                           "tokens (the adapters do not bite)")
+    del merged
+    gc.collect()
+    torch.cuda.empty_cache()
+    tok = ByteTokenizer()
+    want_out = "".join(f"=== {p!r}\n{tok.decode(o)}\n"
+                       for p, o in zip(CKPT_PROMPTS, toks))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        generate.main(["--config", ckpt["cfg_path"], "--checkpoint-dir",
+                       run_dir, *[a for p in CKPT_PROMPTS
+                                  for a in ("--prompt", p)], *CKPT_GEN])
+    if buf.getvalue() != want_out:
+        raise RuntimeError(f"generate --checkpoint-dir on the LoRA run "
+                           f"printed {buf.getvalue()!r}, expected "
+                           f"{want_out!r}")
+    shutil.rmtree(LORA_DIR, ignore_errors=True)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return {"rank": LORA_RANK, "targets": list(lcfg.targets),
+            "steps": LORA_STEPS, "train_s": train_s,
+            "flash_counts": counts, "ce_counts": ce_counts,
+            "base_bit_unchanged": True, "adapters_moved": True,
+            "moment_leaves": len(moments), "adapter_bytes": adapter_bytes,
+            "adam_moment_bytes": moment_bytes,
+            "generate_serves_merged": True, "served_tokens": toks,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_moe(ckpt) -> dict:
+    import numpy as np
+    import torch
+    from cloud_server_tpu_torch.config import InferConfig
+    from cloud_server_tpu_torch.models import moe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    seconds = {}
+    cfg = moe_cfg(MOE_LAYERS)
+    t0 = time.perf_counter()
+    params = moe.init_params(cfg, SEED, device=DEVICE)
+    torch.cuda.synchronize()
+    seconds["init"] = time.perf_counter() - t0
+    icfg = InferConfig(max_decode_len=MAX_NEW, temperature=0.0,
+                       eos_token_id=-1, pad_token_id=0)
+    prompts = make_prompts(np.random.default_rng(SEED), cfg.vocab_size)
+    serve, reqs = moe_serve_part(params, cfg, icfg, prompts)
+    seconds["serve"] = serve["seconds"]
+    others = moe_other_servers_part(params, cfg, icfg, prompts, reqs)
+    seconds["other_servers"] = others["seconds"]
+    t1 = time.perf_counter()
+    p32, cfg32 = f32_slice(params, cfg)
+    q8 = quantize_layerwise(first_layers(params, cfg,
+                                         MOE_INT8_CHECK_LAYERS)[0])
+    del params, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve["f32_slice"] = moe_f32_slice(p32, cfg32, icfg, prompts)
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds["f32_slice"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    int8 = moe_int8_part(q8, cfg, icfg, prompts)
+    del q8
+    gc.collect()
+    torch.cuda.empty_cache()
+    int8["full"] = moe_int8_full(moe_cfg(32), icfg, prompts)
+    seconds["int8"] = time.perf_counter() - t1
+    train = moe_train_part()
+    seconds["train"] = train["seconds"]
+    lora = moe_lora_part(ckpt)
+    seconds["lora"] = lora["seconds"]
+    out = {"phase": "moe", "model": "Mixtral-8x7B (random weights)",
+           "serve": {"layers": MOE_LAYERS, **serve}, **others,
+           "int8": int8, "train": train, "lora": lora,
+           "seconds": seconds}
     emit(out)
     return out
 
@@ -4694,9 +5414,9 @@ def main() -> int:
     sys.path.insert(0, here)
     seconds: dict = {}
 
-    def timed(fn):
+    def timed(fn, *args):
         t0 = time.perf_counter()
-        out = fn()
+        out = fn(*args)
         seconds[fn.__name__[len("phase_"):]] = time.perf_counter() - t0
         gc.collect()
         torch.cuda.empty_cache()  # each phase frees its model and buffers
@@ -4711,7 +5431,8 @@ def main() -> int:
         return 0  # a quick check of a kernel change; prints no result
     serve = timed(phase_serve)
     train = timed(phase_train)
-    timed(phase_ckpt)
+    ckpt = timed(phase_ckpt)
+    moe = timed(phase_moe, ckpt)
     seconds["serve.contiguous"] = serve["contiguous"]["seconds"]["total"]
     emit({"phase_seconds": seconds})
     counts = serve["counts"]
@@ -4844,6 +5565,25 @@ def main() -> int:
             "ms": ce[f"{key}_ms"], "plain_ms": ce[f"plain_{key}_ms"],
             "bound_ms": ce["bound_ms"][key], "bound_by": ce["bound_by"][key],
             "library_ms": ce[f"library_{key}_ms"]})
+    # the MoE path's launches (the moe phase's runs) beside each row's
+    mc = moe["serve"]["counts"]
+    md, mf = (moe["train"]["runs"][k]["counts"]
+              for k in ("moe_dense", "moe_fused_ce"))
+    moe_launches = {
+        "(decode case)": mc["launches_narrow"],
+        "(prefill case)": mc["launches_wide"],
+        "flash_attention forward (contiguous":
+            moe["contiguous"]["b3_counts"]["launches_fwd"],
+        "flash_attention forward (B": md["flash"]["launches_fwd"]
+            + mf["flash"]["launches_fwd"],
+        "flash_attention dK/dV": md["flash"]["launches_bwd_dkdv"],
+        "flash_attention dQ": md["flash"]["launches_bwd_dq"],
+        "flash_attention fused backward": mf["flash"]["launches_bwd_fused"],
+        "fused_ce forward": mf["fused_ce"]["launches_fwd"],
+        "fused_ce dx": mf["fused_ce"]["launches_dx"]}
+    for row in rows:
+        row["launches_moe"] = next(
+            (n for key, n in moe_launches.items() if key in row["name"]), 0)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})

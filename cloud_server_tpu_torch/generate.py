@@ -1,7 +1,10 @@
 """Text generation CLI: `python -m cloud_server_tpu_torch.generate`.
 
 The reference's CLI on the port: weights from a training checkpoint
-(`--checkpoint-dir`, `--step`; `--ema` for the EMA-averaged weights),
+(`--checkpoint-dir`, `--step`; `--ema` for the EMA-averaged weights; a
+LoRA run's checkpoint serves its merged weights, the adapter config
+read from the checkpoint's sidecar or the `--lora-*` flags), dense or
+MoE as the config says,
 from a numpy `--params-npz`, or random-init from `--seed`; byte
 tokenizer; int8 weight-only params (`--quantize`); the paged
 continuous-batching server, optionally with the int8 KV cache
@@ -212,21 +215,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' to run on the "
                    "CPU)")
+    from cloud_server_tpu_torch.models.lora import add_lora_args
+    add_lora_args(p)
     return p
 
 
 def load_params(model_cfg, checkpoint_dir: str | None, step: int | None,
-                seed: int, device):
+                seed: int, device, loss_fn_module=None):
     """Params-only restore of a training checkpoint (no optimizer-moment
-    reads) on `device`; random init from `seed` without one."""
-    from cloud_server_tpu_torch.models import transformer
+    reads) on `device`; random init from `seed` without one.
+    `loss_fn_module` is the family (of model_cfg by default)."""
+    from cloud_server_tpu_torch.models import moe
     from cloud_server_tpu_torch.training.checkpoint import restore_params
+    module = loss_fn_module or moe.module_for(model_cfg)
     if checkpoint_dir is None:
         print("[generate] no --checkpoint-dir; using random init",
               file=sys.stderr)
-        return transformer.init_params(model_cfg, seed, device=device)
+        return module.init_params(model_cfg, seed, device=device)
     return restore_params(checkpoint_dir, model_cfg, step=step,
-                          device=device)
+                          device=device, loss_fn_module=module)
 
 
 def main(argv=None) -> None:
@@ -286,9 +293,26 @@ def main(argv=None) -> None:
     if args.params_npz and args.checkpoint_dir:
         raise SystemExit("--params-npz and --checkpoint-dir are mutually "
                          "exclusive")
+    from cloud_server_tpu_torch.models import moe
+    from cloud_server_tpu_torch.models.lora import (
+        export_merged, load_lora_config, lora_config_from_args,
+        make_lora_module)
+    lcfg = lora_config_from_args(args)
+    if args.checkpoint_dir:
+        saved = load_lora_config(args.checkpoint_dir)
+        if saved is not None:
+            # the sidecar written at training time is authoritative: a
+            # mismatched alpha would silently rescale the adapters
+            if lcfg is not None and lcfg != saved:
+                raise SystemExit(
+                    f"--lora-* flags {lcfg} contradict the checkpoint's "
+                    f"recorded LoRA config {saved}; drop the flags (the "
+                    "sidecar is used automatically)")
+            lcfg = saved
     if args.ema:
-        if args.params_npz:
-            raise SystemExit("--ema applies to framework checkpoints")
+        if args.params_npz or lcfg is not None:
+            raise SystemExit("--ema applies to framework checkpoints "
+                             "without LoRA flags")
         if not args.checkpoint_dir:
             raise SystemExit("--ema needs --checkpoint-dir")
         from cloud_server_tpu_torch.training.checkpoint import (
@@ -301,6 +325,13 @@ def main(argv=None) -> None:
     elif args.params_npz:
         params = transformer.params_from_npz(args.params_npz, model_cfg,
                                              device)
+    elif lcfg is not None:
+        lora_module = make_lora_module(
+            lcfg, base_module=moe.module_for(model_cfg))
+        params = export_merged(
+            load_params(model_cfg, args.checkpoint_dir, args.step,
+                        args.seed, device, loss_fn_module=lora_module),
+            lcfg)
     else:
         params = load_params(model_cfg, args.checkpoint_dir, args.step,
                              args.seed, device)

@@ -67,10 +67,20 @@ def _kv_dequant(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def _mlp_apply(x, lp, cfg: ModelConfig, lora=None):
-    """Dense MLP residual block; `lora`: per-row multi-adapter deltas.
-    Mixture-of-experts models are not ported yet and raise."""
+    """Dense or MoE MLP residual block, chosen by cfg.num_experts.
+
+    MoE routing at inference is per call: prefill routes over the prompt
+    batch, each decode step over its B tokens, so capacity is contended
+    over the call's rows (padding rows included) and matches training's
+    full-batch routing only when nothing drops (a dropless
+    expert_capacity_factor >= E/k).
+
+    `lora`: per-row multi-adapter deltas (dense MLP only; the servers
+    refuse MLP-targeting adapters on MoE bases)."""
     if cfg.num_experts >= 2:
-        raise NotImplementedError("MoE models are not ported yet")
+        from cloud_server_tpu_torch.models import moe
+        x, _ = moe.moe_mlp_block(x, lp, cfg)
+        return x
     return transformer.mlp_block(x, lp, cfg, lora=lora)
 
 
@@ -89,8 +99,6 @@ def encode(params, tokens: torch.Tensor, lengths: torch.Tensor, *,
     `transformer._get_attention_fn(cfg)`'s: with attention_impl "flash"
     the flash-attention forward kernel on the card (its log-sum-exp
     unused), with "xla" the plain causal attention."""
-    if cfg.num_experts >= 2:
-        raise NotImplementedError("MoE models are not ported yet")
     b, p = tokens.shape
     x = transformer.embed(params, tokens, cfg)
     cos, sin = rope_table(cfg, p, device=x.device)

@@ -50,7 +50,7 @@ the backend's `max_pending` bound refuses a submit, 503 when the
 scheduler has stopped. New in the port: a request for something the
 backend does not have yet answers **501** with a JSON `{"error": ...}`
 naming the feature. The server raises `NotImplementedError` for those
-(tensor parallelism and MoE models are still refused at construction),
+(tensor parallelism is still refused at construction),
 also when `submit` raises inside a
 streaming request before any header is sent; the frontend never turns
 it into a 500, a dropped connection or a stream that hangs. Penalties,

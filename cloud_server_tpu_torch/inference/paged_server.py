@@ -109,8 +109,11 @@ chains are namespaced per adapter. `embed` returns mean-pooled,
 L2-normalised sequence embeddings of the base model
 (`engine.encode`).
 
-Not ported yet, and refused with NotImplementedError where a caller asks
-for them: tensor parallelism and MoE models.
+MoE models (models/moe.py) serve on the same programs: each
+window_forward routes its (B, W) rows per layer, so capacity is
+contended over a call's rows as in the reference; adapters on an MoE
+base may target attention only. Not ported yet, and refused with
+NotImplementedError where a caller asks for it: tensor parallelism.
 """
 
 from __future__ import annotations
@@ -806,13 +809,8 @@ class PagedInferenceServer:
                  iteration_profile=None, faults=None, brownout=None,
                  anomaly=None, overlap: bool | None = None, device=None,
                  cuda_graphs: bool = True):
-        refused = {
-            "tensor-parallel serving (mesh)": mesh is not None,
-            "MoE models": cfg.num_experts >= 2,
-        }
-        for what, asked in refused.items():
-            if asked:
-                raise _not_ported(what)
+        if mesh is not None:
+            raise _not_ported("tensor-parallel serving (mesh)")
         # Page-allocation policy: "ondemand" (default) reserves the
         # prompt and one decode window at admission and grows chains
         # per dispatch, preempting the youngest slot on pool exhaustion;
@@ -1297,7 +1295,15 @@ class PagedInferenceServer:
         stacks writes its rows in place; one that replaces a stack
         tensor releases the programs keyed to the old generation — the
         dispatch in flight, and the tensors it reads, only after its
-        commit has waited on it (`_release_retired`)."""
+        commit has waited on it (`_release_retired`). MLP targets on an
+        MoE base (expert-stacked MLP) are a ValueError, as in the
+        reference."""
+        if (self.cfg.num_experts >= 2 and
+                {"w_gate", "w_up", "w_down"} & set(lora_cfg.targets)):
+            raise ValueError(
+                "MLP-targeting adapters cannot be served per-request on "
+                "an MoE base (expert-stacked MLP); use attention targets "
+                "or merged serving")
         with self._step_lock:
             ad = self.adapters
             gen, held = ad.generation, ad.device_args()

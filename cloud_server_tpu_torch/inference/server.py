@@ -478,9 +478,6 @@ class InferenceServer:
         from cloud_server_tpu_torch.inference.faults import (
             resolve_fault_plan)
         from cloud_server_tpu_torch.inference.qos import resolve_registry
-        if cfg.num_experts >= 2:
-            raise NotImplementedError("MoE models are not ported to the "
-                                      "PyTorch server yet")
         if cfg.decode_attention_impl != "xla":
             # fail at construction, not inside the first decode
             raise ValueError(

@@ -1,17 +1,24 @@
-"""LoRA adapters over the dense LM: the serving half of the reference's
+"""LoRA adapters over the dense or MoE LM: the reference's
 `models/lora.py`.
 
 Adapter params are the reference's plain nested dict,
-{"layers": {target: {"a": (L, fan_in, r), "b": (L, r, fan_out)}}}, held
-as torch tensors (numpy arrays are accepted wherever a consumer reads
-them). `merge_lora` folds scale·A@B into a copy of the base weights, so
-the paged server serves a merged model unchanged; per-request adapters
-on one base are `inference/multi_lora.py`'s.
+{"layers": {target: {"a": (L, *stack, fan_in, r), "b": (L, *stack, r,
+fan_out)}}}, held as torch tensors (numpy arrays are accepted wherever
+a consumer reads them); MoE expert weights (L, E, D, F) get per-expert
+adapter stacks, A (L, E, D, r) and B (L, E, r, F). `merge_lora` folds
+scale·A@B into a copy of the base weights, so the servers serve a
+merged model unchanged; per-request adapters on one base are
+`inference/multi_lora.py`'s.
 
-The training half (`make_lora_module`, `lora_logical_axes`,
-`export_merged`, `param_labels` and the `--lora-*` CLI) is not ported
-yet. MoE targets (per-expert adapters) wait for the MoE model: their
-target table raises NotImplementedError.
+Training (`make_lora_module`): adapter params live beside the frozen
+base in one tree, {"base": ..., "lora": ...}: one TrainState, one
+checkpoint. The loss merges the adapters into the detached base and
+calls the base module's loss. The base's tensors do not require
+gradients (`param_labels` marks them "frozen"; the optimizer gives them
+no moments, no update and no weight decay), so no base gradient is ever
+formed. `export_merged` folds the trained adapters back into plain base
+params for serving. The port shards nothing, so it has no counterpart
+of the reference's `lora_logical_axes`.
 """
 
 from __future__ import annotations
@@ -36,8 +43,8 @@ _DENSE_TARGETS: dict[str, tuple[tuple[str, ...], int]] = {
     "w_gate": ((), 1), "w_up": ((), 1),            # (L, D, F)
     "w_down": ((), 1),                             # (L, F, D)
 }
-# the reference's MoE table: names LoRAConfig accepts; adapters for them
-# need the MoE model
+# the MoE family: the expert weights (L, E, ...) get one adapter pair per
+# expert
 _MOE_TARGETS: dict[str, tuple[tuple[str, ...], int]] = {
     "wq": ((), 2), "wk": ((), 2), "wv": ((), 2),
     "wo": ((), 1),
@@ -55,9 +62,11 @@ def _target_table(base_module=transformer
                   ) -> dict[str, tuple[tuple[str, ...], int]]:
     if base_module is transformer:
         return _DENSE_TARGETS
+    from cloud_server_tpu_torch.models import moe
+    if base_module is moe:
+        return _MOE_TARGETS
     raise NotImplementedError(
-        f"LoRA target table not defined for module {base_module!r} (MoE "
-        "adapters are not ported yet)")
+        f"LoRA target table not defined for module {base_module!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,6 +111,23 @@ def load_lora_config(checkpoint_dir: str | os.PathLike) -> LoRAConfig | None:
     return LoRAConfig(**data)
 
 
+def add_lora_args(parser) -> None:
+    """The one definition of the --lora-* CLI surface (train +
+    generate)."""
+    parser.add_argument("--lora-rank", type=int, default=0, metavar="R",
+                        help="rank-R LoRA adapters (0 = no LoRA)")
+    parser.add_argument("--lora-alpha", type=float, default=16.0)
+    parser.add_argument("--lora-targets", default=",".join(DEFAULT_TARGETS),
+                        help="comma-separated projection names to adapt")
+
+
+def lora_config_from_args(args) -> LoRAConfig | None:
+    if args.lora_rank <= 0:
+        return None
+    return LoRAConfig(rank=args.lora_rank, alpha=args.lora_alpha,
+                      targets=tuple(args.lora_targets.split(",")))
+
+
 def _split_dims(name: str, shape: tuple[int, ...], table=None
                 ) -> tuple[tuple[int, ...], int, int]:
     """(stack dims, fan_in, fan_out) of a stacked (L, *stack, ...) base
@@ -120,7 +146,9 @@ def init_lora_params(model_cfg: ModelConfig, lora_cfg: LoRAConfig,
     """A ~ truncated N(0, 1/fan_in), B = 0 — the adapted delta starts at
     exactly 0. The draws come from a torch.Generator seeded with `seed`
     (the reference's distribution, not its values), one target at a
-    time in sorted order, on `device` (CUDA unless named)."""
+    time in sorted order, on `device` (CUDA unless named). Stacked
+    targets (MoE expert weights) get one pair per stack entry: A (L, E,
+    fan_in, r), B (L, E, r, fan_out)."""
     table = _target_table(base_module)
     bad = set(lora_cfg.targets) - set(table)
     if bad:
@@ -131,7 +159,7 @@ def init_lora_params(model_cfg: ModelConfig, lora_cfg: LoRAConfig,
     dtype = transformer.torch_dtype(model_cfg.param_dtype)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
-    shapes = transformer.param_shapes(model_cfg)["layers"]
+    shapes = base_module.param_shapes(model_cfg)["layers"]
     out: dict = {"layers": {}}
     for name in sorted(lora_cfg.targets):
         n_layers = shapes[name][0]
@@ -167,3 +195,79 @@ def merge_lora(base: dict, lora: dict, lora_cfg: LoRAConfig,
     out = dict(base)
     out["layers"] = merged_layers
     return out
+
+
+def lora_shapes(model_cfg: ModelConfig, lora_cfg: LoRAConfig,
+                base_module=transformer) -> dict:
+    """The adapter tree's shapes: {"layers": {target: {"a", "b"}}}."""
+    table = _target_table(base_module)
+    shapes = base_module.param_shapes(model_cfg)["layers"]
+    out = {}
+    for name in sorted(lora_cfg.targets):
+        stack, fan_in, fan_out = _split_dims(name, shapes[name], table)
+        n_layers = shapes[name][0]
+        out[name] = {"a": (n_layers, *stack, fan_in, lora_cfg.rank),
+                     "b": (n_layers, *stack, lora_cfg.rank, fan_out)}
+    return {"layers": out}
+
+
+def export_merged(params: dict, lora_cfg: LoRAConfig) -> dict:
+    """{"base", "lora"} TrainState params -> plain servable base params."""
+    return merge_lora(params["base"], params["lora"], lora_cfg)
+
+
+def make_lora_module(lora_cfg: LoRAConfig, base_module=transformer,
+                     base_params: dict | None = None):
+    """A loss-function module (the protocol of `models.transformer` and
+    `models.moe`: `param_shapes`, `init_params`, `next_token_loss`) that
+    trains only adapters, plus `param_labels` (the optimizer's freeze
+    mask).
+
+    base_params: pretrained weights to adapt (the fine-tuning case); None
+    random-inits the base from the seed."""
+    _target_table(base_module)  # raises for unknown module families
+
+    def _labels(tree, label):
+        return {k: _labels(v, label) if isinstance(v, dict) else label
+                for k, v in tree.items()}
+
+    class module:
+        lora_config = lora_cfg
+
+        @staticmethod
+        def param_shapes(cfg: ModelConfig) -> dict:
+            return {"base": base_module.param_shapes(cfg),
+                    "lora": lora_shapes(cfg, lora_cfg, base_module)}
+
+        @staticmethod
+        def init_params(cfg: ModelConfig, seed: int = 0, *,
+                        device=None) -> dict:
+            """The base (`base_params`, or drawn from `seed`) and fresh
+            adapters (drawn from seed + 1)."""
+            base = (base_params if base_params is not None
+                    else base_module.init_params(cfg, seed, device=device))
+            return {"base": base,
+                    "lora": init_lora_params(cfg, lora_cfg, seed + 1,
+                                             device=device,
+                                             base_module=base_module)}
+
+        @staticmethod
+        def param_labels(cfg: ModelConfig) -> dict:
+            """Optimizer labels: base frozen, adapters trained."""
+            shapes = module.param_shapes(cfg)
+            return {"base": _labels(shapes["base"], "frozen"),
+                    "lora": _labels(shapes["lora"], "trainable")}
+
+        @staticmethod
+        def next_token_loss(params: dict, batch: dict, cfg: ModelConfig,
+                            **kwargs):
+            frozen = _detached(params["base"])
+            merged = merge_lora(frozen, params["lora"], lora_cfg)
+            return base_module.next_token_loss(merged, batch, cfg, **kwargs)
+
+    return module
+
+
+def _detached(tree):
+    return {k: _detached(v) if isinstance(v, dict) else v.detach()
+            for k, v in tree.items()}

@@ -15,8 +15,9 @@ an untied `lm_head` kernel is quantized over its D axis.
 
 The dequantized copy is materialised in `cfg.dtype` at each use (about
 a bfloat16 weight's bytes written and read again per product): the
-product itself is the plain `torch.matmul` on that copy. Inference only.
-Mixture-of-experts weights (4-D MLP leaves) are not ported and raise.
+product itself is the plain `torch.matmul` on that copy (for MoE expert
+stacks, one (E, D, F) copy per layer and product). Router weights stay
+in full precision, as in the reference. Inference only.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import torch
 
 # (leaf name, ndim) -> axes of the *stacked* weight that its consuming
 # product contracts. Scales reduce over exactly these axes, so they stay
-# per-output-channel (and per-layer) everywhere else.
+# per-output-channel (and per-layer, per-expert) everywhere else.
 _REDUCE_AXES: dict[tuple[str, int], tuple[int, ...]] = {
     # dense attention (L, D, H|KH, Dh): contract D
     ("wq", 4): (1,), ("wk", 4): (1,), ("wv", 4): (1,),
@@ -35,10 +36,11 @@ _REDUCE_AXES: dict[tuple[str, int], tuple[int, ...]] = {
     ("wo", 4): (1, 2),
     # dense MLP (L, D, F) / (L, F, D): contract axis 1
     ("w_gate", 3): (1,), ("w_up", 3): (1,), ("w_down", 3): (1,),
+    # MoE experts (L, E, D, F) / (L, E, F, D): contract axis 2
+    ("w_gate", 4): (2,), ("w_up", 4): (2,), ("w_down", 4): (2,),
     # untied lm_head (D, V): contract D
     ("kernel", 2): (0,),
 }
-_MOE_LEAVES = {("w_gate", 4), ("w_up", 4), ("w_down", 4)}
 
 
 class QTensor:
@@ -109,8 +111,6 @@ def quantize_params(params: Any) -> Any:
                 out[name] = walk(leaf, name)
                 continue
             key = (name, leaf.dim())
-            if key in _MOE_LEAVES:
-                raise NotImplementedError("MoE models are not ported yet")
             if name == "kernel" and parent != "lm_head":
                 out[name] = leaf
                 continue

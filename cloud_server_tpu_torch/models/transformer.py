@@ -83,7 +83,8 @@ def param_shapes(cfg: ModelConfig) -> dict[str, Any]:
 def _fan_in(name: str, cfg: ModelConfig) -> int:
     D, H, Dh, F = cfg.embed_dim, cfg.num_heads, cfg.head_dim, cfg.mlp_dim
     table = {"tokens": D, "kernel": D, "wq": D, "wk": D, "wv": D,
-             "wo": H * Dh, "w_gate": D, "w_up": D, "w_down": F}
+             "wo": H * Dh, "w_gate": D, "w_up": D, "w_down": F,
+             "router": D}
     return table[name]
 
 
@@ -99,20 +100,24 @@ def _trunc_normal_(t: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
-                dtype: torch.dtype | None = None) -> Params:
+                dtype: torch.dtype | None = None,
+                shapes: dict | None = None) -> Params:
     """The reference's initialisation drawn on `device`: truncated normal
     (+-2 sd) with std 1/sqrt(fan_in), norm scales 1. The draws come from
     a torch.Generator seeded with `seed`, so the values differ from the
     reference's; the distribution is the same. `device` defaults to
     CUDA, as for every entry point. `dtype` defaults to
     cfg.param_dtype. Stacked leaves are drawn one layer at a time, so the
-    float32 scratch is one layer's slice, not the whole stack."""
+    float32 scratch is one layer's slice, not the whole stack. `shapes`
+    (default `param_shapes(cfg)`) lets another family (models.moe) draw
+    its own tree the same way."""
     device = resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype) if dtype is None else dtype
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     out: dict = {}
-    for group, leaves in param_shapes(cfg).items():
+    shapes = param_shapes(cfg) if shapes is None else shapes
+    for group, leaves in shapes.items():
         out[group] = {}
         for name, shape in leaves.items():
             if "norm" in group or "norm" in name:
@@ -343,8 +348,6 @@ def forward_hidden(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     float32 masters receive float32 gradients. The stacked layer leaves
     are split with `unbind`, whose backward stacks the layer gradients
     once (a per-layer index would zero-fill a full stack per layer)."""
-    if cfg.num_experts >= 2:
-        raise NotImplementedError("MoE models are not ported yet")
     if segment_ids is not None:
         raise NotImplementedError(
             "packed rows (segment_ids: per-document RoPE positions and "

@@ -6,11 +6,13 @@ overridable from the command line. Data is a flat binary token file
 (`--data`, the `MemmapTokenDataset` format; several as a weighted
 mixture) or `--synthetic N` random examples; `--eval-data` adds periodic
 evaluation and `--checkpoint-dir` checkpoints with automatic resume.
-Runs on the GPU unless `--device cpu` is given.
+The model family follows the config: MoE when model.num_experts >= 2.
+`--lora-rank` trains rank-R adapters over a frozen base (random, or
+`--init-from` a training checkpoint), writing the adapter config beside
+the checkpoints. Runs on the GPU unless `--device cpu` is given.
 
 Not ported yet, and refused with NotImplementedError: multi-process runs
-(`--distributed`), LoRA (`--lora-rank`, `--init-from`), a mesh with any
-axis > 1 and a "dcn_mesh" section.
+(`--distributed`), a mesh with any axis > 1 and a "dcn_mesh" section.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import json
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m cloud_server_tpu_torch.train",
-        description="Train a dense decoder LM on one GPU.")
+        description="Train a dense or MoE decoder LM on one GPU.")
     p.add_argument("--config", help="JSON config file with optional "
                    "model/train/mesh/loop sections")
     p.add_argument("--data", action="append", default=None,
@@ -48,11 +50,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="multi-process training (not ported yet)")
     p.add_argument("--no-nan-guard", action="store_true",
                    help="disable the NaN/inf loss guard")
-    p.add_argument("--lora-rank", type=int, default=0,
-                   help="LoRA fine-tuning (not ported yet)")
+    from cloud_server_tpu_torch.models.lora import add_lora_args
+    add_lora_args(p)
     p.add_argument("--init-from", metavar="CKPT_DIR",
-                   help="load base params from a checkpoint (not ported "
-                   "yet)")
+                   help="load pretrained base params from this training "
+                   "checkpoint (requires --lora-rank)")
     p.add_argument("--watchdog", type=float, default=0.0, metavar="SECONDS",
                    help="abort (with stack dump) if a step makes no "
                    "progress for this long; 0 disables")
@@ -102,11 +104,8 @@ def configs_from_args(args) -> tuple:
 
 
 def _refuse_unported(args, mesh_cfg) -> None:
-    for flag, value in (("--distributed", args.distributed),
-                        ("--lora-rank", args.lora_rank),
-                        ("--init-from", args.init_from)):
-        if value:
-            raise NotImplementedError(f"{flag} is not ported yet")
+    if args.distributed:
+        raise NotImplementedError("--distributed is not ported yet")
     if mesh_cfg.num_devices > 1:
         raise NotImplementedError(
             f"mesh {mesh_cfg.axis_sizes()}: training on more than one "
@@ -140,6 +139,31 @@ def build_dataset(args, train_cfg, model_cfg):
                           [w for _, w in specs], seed=train_cfg.seed)
 
 
+def lora_module(args, model_cfg, train_cfg, loop_cfg, device):
+    """The LoRA module of --lora-rank (over the config's family, its base
+    restored from --init-from when given), with its sidecar written into
+    the checkpoint directory; None without --lora-rank."""
+    from cloud_server_tpu_torch.models import moe
+    if args.init_from and not args.lora_rank:
+        raise SystemExit("--init-from currently requires --lora-rank "
+                         "(full-model warm start is not wired up yet)")
+    if args.lora_rank <= 0:
+        return None
+    from cloud_server_tpu_torch.generate import load_params
+    from cloud_server_tpu_torch.models.lora import (
+        lora_config_from_args, make_lora_module, save_lora_config)
+    lcfg = lora_config_from_args(args)
+    base_params = None
+    if args.init_from:
+        base_params = load_params(model_cfg, args.init_from, None,
+                                  train_cfg.seed, device)
+    module = make_lora_module(lcfg, base_module=moe.module_for(model_cfg),
+                              base_params=base_params)
+    if loop_cfg.checkpoint_dir:
+        save_lora_config(loop_cfg.checkpoint_dir, lcfg)
+    return module
+
+
 def main(argv=None):
     """Run the CLI; returns the final TrainState."""
     args = build_parser().parse_args(argv)
@@ -156,6 +180,8 @@ def main(argv=None):
     dataset = build_dataset(args, train_cfg, model_cfg)
     eval_dataset = (MemmapTokenDataset(args.eval_data, train_cfg.seq_len)
                     if args.eval_data else None)
+    loss_fn_module = lora_module(args, model_cfg, train_cfg, loop_cfg,
+                                 device)
     hooks = []
     with contextlib.ExitStack() as stack:
         preempt = stack.enter_context(PreemptionHandler())
@@ -166,7 +192,8 @@ def main(argv=None):
             hooks.append(stack.enter_context(Watchdog(args.watchdog)))
         return train_loop(model_cfg, train_cfg, dataset, mesh_cfg=mesh_cfg,
                           loop_cfg=loop_cfg, eval_dataset=eval_dataset,
-                          hooks=hooks, device=device)
+                          loss_fn_module=loss_fn_module, hooks=hooks,
+                          device=device)
 
 
 if __name__ == "__main__":

@@ -5,7 +5,8 @@ the step. Each holds one file per item, so a reader loads only what it
 needs:
 
     <dir>/<step>/params.pt   the parameters ('/'-joined leaf paths)
-    <dir>/<step>/opt.pt      AdamW's moments (mu/..., nu/...)
+    <dir>/<step>/opt.pt      AdamW's moments (mu/..., nu/...) of the
+                             trained leaves (a LoRA run's: the adapters)
     <dir>/<step>/ema.pt      the EMA tree, when TrainConfig.ema_decay > 0
     <dir>/<step>/meta.json   step, AdamW's update count, the item names,
                              the metrics passed to `save`, and write_s:
@@ -36,9 +37,10 @@ import torch
 
 from cloud_server_tpu_torch import resolve_device
 from cloud_server_tpu_torch.config import ModelConfig, TrainConfig
-from cloud_server_tpu_torch.models import transformer
+from cloud_server_tpu_torch.models import moe, transformer
 from cloud_server_tpu_torch.training.optim import (
-    EmaState, FusedAdamWState, ema_params, flatten, make_optimizer, map_tree)
+    EmaState, FusedAdamWState, ema_params, flatten, map_tree,
+    optimizer_for_module)
 from cloud_server_tpu_torch.training.train_step import (TrainState,
                                                         init_train_state)
 
@@ -100,17 +102,19 @@ def _load(path: str, device) -> dict:
     return torch.load(path, map_location=device, weights_only=True)
 
 
-def abstract_train_state(model_cfg: ModelConfig,
-                         train_cfg: TrainConfig) -> TrainState:
+def abstract_train_state(model_cfg: ModelConfig, train_cfg: TrainConfig,
+                         loss_fn_module=None) -> TrainState:
     """A TrainState of meta tensors with the names, shapes and dtypes a
-    training run of these configs holds: the target a restore checks a
+    training run of these configs (and `loss_fn_module`, the family of
+    model_cfg by default) holds: the target a restore checks a
     checkpoint against, without allocating anything."""
+    module = loss_fn_module or moe.module_for(model_cfg)
     dtype = transformer.torch_dtype(model_cfg.param_dtype)
     params = map_tree(lambda shape: torch.empty(shape, dtype=dtype,
                                                 device="meta"),
-                      transformer.param_shapes(model_cfg))
-    return TrainState(step=0, params=params,
-                      opt_state=make_optimizer(train_cfg).init(params))
+                      module.param_shapes(model_cfg))
+    opt = optimizer_for_module(train_cfg, model_cfg, module)
+    return TrainState(step=0, params=params, opt_state=opt.init(params))
 
 
 class Checkpointer:
@@ -193,8 +197,9 @@ class Checkpointer:
         """The saved state of `step` (default: the latest), checked against
         `target`'s tree (names, shapes, dtypes; meta tensors from
         `abstract_train_state` will do) and loaded onto `device` (default:
-        target's device, or CUDA for a meta target). Parameters come back
-        as autograd leaves, ready to train."""
+        target's device, or CUDA for a meta target). The parameters the
+        optimizer keeps moments for come back as autograd leaves, ready
+        to train; frozen ones (LoRA's base) do not."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -219,8 +224,9 @@ class Checkpointer:
                     or t.dtype != got[name][k].dtype
                     for k, t in leaves.items()):
                 raise ValueError(_MISMATCH.format(step=step))
-        params = map_tree(lambda p: p.requires_grad_(True),
-                          _unflatten(got["params"]))
+        trained = {k[len("mu/"):] for k in got["opt"] if k.startswith("mu/")}
+        params = _unflatten({k: p.requires_grad_(k in trained)
+                             for k, p in got["params"].items()})
         opt = _unflatten(got["opt"])
         adam = FusedAdamWState(count=meta["count"], mu=opt["mu"],
                                nu=opt["nu"])
@@ -276,20 +282,23 @@ def _latest_step(directory: str) -> int:
 
 
 def restore_params(checkpoint_dir: str | os.PathLike, model_cfg: ModelConfig,
-                   *, step: int | None = None, device=None) -> dict:
+                   *, step: int | None = None, device=None,
+                   loss_fn_module=None) -> dict:
     """The parameters of a saved TrainState (the latest step unless
     `step`), read from their own file: the optimizer's moments are never
-    read. On `device` (CUDA unless named), at the saved dtype."""
+    read. On `device` (CUDA unless named), at the saved dtype, checked
+    against `loss_fn_module`'s shapes (the family of model_cfg by
+    default; a LoRA module's {"base", "lora"} tree)."""
     directory = os.path.abspath(os.fspath(checkpoint_dir))
     if step is None:
         step = _latest_step(directory)
     return _restore_tree(os.path.join(directory, str(step), "params.pt"),
-                         model_cfg, device, step)
+                         model_cfg, device, step, loss_fn_module)
 
 
 def restore_ema_params(checkpoint_dir: str | os.PathLike,
                        model_cfg: ModelConfig, *, step: int | None = None,
-                       device=None) -> dict:
+                       device=None, loss_fn_module=None) -> dict:
     """The EMA parameter tree (float32) written when TrainConfig.ema_decay
     > 0: one params-sized read, drop-in wherever params go."""
     directory = os.path.abspath(os.fspath(checkpoint_dir))
@@ -301,12 +310,14 @@ def restore_ema_params(checkpoint_dir: str | os.PathLike,
             f"checkpoint step {step} has no 'ema' item — was the run "
             "trained with TrainConfig.ema_decay > 0 (and saved by this "
             "version)?")
-    return _restore_tree(path, model_cfg, device, step)
+    return _restore_tree(path, model_cfg, device, step, loss_fn_module)
 
 
-def _restore_tree(path: str, model_cfg: ModelConfig, device, step) -> dict:
+def _restore_tree(path: str, model_cfg: ModelConfig, device, step,
+                  loss_fn_module=None) -> dict:
     flat = _load(path, resolve_device(device))
-    want = dict(flatten(transformer.param_shapes(model_cfg)))
+    module = loss_fn_module or moe.module_for(model_cfg)
+    want = dict(flatten(module.param_shapes(model_cfg)))
     if sorted(want) != sorted(flat) or any(
             tuple(flat[k].shape) != tuple(s) for k, s in want.items()):
         raise ValueError(f"checkpoint step {step} does not hold the "
@@ -315,11 +326,12 @@ def _restore_tree(path: str, model_cfg: ModelConfig, device, step) -> dict:
 
 
 def restore_or_init(ckpt: Checkpointer, model_cfg: ModelConfig,
-                    train_cfg: TrainConfig, seed: int = 0,
-                    device=None) -> tuple[TrainState, bool]:
+                    train_cfg: TrainConfig, seed: int = 0, device=None,
+                    loss_fn_module=None) -> tuple[TrainState, bool]:
     """The resume entry point: the latest checkpoint of `ckpt` if there
     is one, else a fresh state from `seed`. Returns (state, resumed)."""
     if ckpt.latest_step() is not None:
-        target = abstract_train_state(model_cfg, train_cfg)
+        target = abstract_train_state(model_cfg, train_cfg, loss_fn_module)
         return ckpt.restore(target, device=device), True
-    return init_train_state(model_cfg, train_cfg, seed, device), False
+    return init_train_state(model_cfg, train_cfg, seed, device,
+                            loss_fn_module), False

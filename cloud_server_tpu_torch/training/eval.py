@@ -17,18 +17,22 @@ from typing import Callable, Iterable
 import torch
 
 from cloud_server_tpu_torch.config import ModelConfig
-from cloud_server_tpu_torch.models import transformer
+from cloud_server_tpu_torch.models import moe
 
 
-def make_eval_step(model_cfg: ModelConfig, loss_fn: Callable | None = None):
+def make_eval_step(model_cfg: ModelConfig, loss_fn: Callable | None = None,
+                   loss_fn_module=None):
     """eval_step(params, batch) -> {"nll_sum", "n_tokens", "n_correct"}:
     sums (0-d float32 tensors on the batch's device, not read on the
     host), so the caller aggregates exactly across batches of different
     masked sizes. Runs under torch.no_grad.
 
     `loss_fn` ((params, batch, cfg) -> (loss, metrics with "loss" and
-    "accuracy")) keeps eval on the objective of a custom training loss."""
-    loss_fn = loss_fn or transformer.next_token_loss
+    "accuracy")) keeps eval on the objective of a custom training loss;
+    without it, `loss_fn_module`'s (the family of model_cfg by default;
+    its "loss" metric is the CE alone for every family)."""
+    loss_fn = loss_fn or (loss_fn_module
+                          or moe.module_for(model_cfg)).next_token_loss
 
     @torch.no_grad()
     def step(params, batch):

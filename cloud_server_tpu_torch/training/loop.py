@@ -76,21 +76,23 @@ def _beat_hooks(hooks: Sequence[Hook]) -> None:
 def train_loop(model_cfg: ModelConfig, train_cfg: TrainConfig,
                dataset, *, mesh_cfg: MeshConfig | None = None,
                loop_cfg: LoopConfig | None = None, eval_dataset=None,
-               loss_fn=None, hooks: Sequence[Hook] = (),
-               max_steps: int | None = None, device=None):
+               loss_fn_module=None, loss_fn=None,
+               hooks: Sequence[Hook] = (), max_steps: int | None = None,
+               device=None):
     """Run training to `train_cfg.total_steps` on `device` (CUDA unless
     named); returns the final TrainState.
 
     Resumes from `loop_cfg.checkpoint_dir` when a checkpoint exists
     there. `max_steps` stops this run early (e.g. to simulate
     preemption) without touching `total_steps`, which the schedule
-    reads."""
+    reads. `loss_fn_module` is the model family (`models.transformer`,
+    `models.moe`, a LoRA module; the family of model_cfg by default)."""
     loop_cfg = loop_cfg or LoopConfig()
     check_single_device(mesh_cfg)
     device = resolve_device(device)
 
     step_fn = make_train_step(model_cfg, train_cfg, mesh_cfg,
-                              loss_fn=loss_fn)
+                              loss_fn=loss_fn, loss_fn_module=loss_fn_module)
     ckpt = None
     resumed = False
     if loop_cfg.checkpoint_dir is not None:
@@ -99,9 +101,11 @@ def train_loop(model_cfg: ModelConfig, train_cfg: TrainConfig,
             save_interval_steps=max(1, loop_cfg.checkpoint_interval),
             async_save=loop_cfg.async_checkpoint)
         state, resumed = restore_or_init(ckpt, model_cfg, train_cfg,
-                                         train_cfg.seed, device)
+                                         train_cfg.seed, device,
+                                         loss_fn_module)
     else:
-        state = init_train_state(model_cfg, train_cfg, train_cfg.seed, device)
+        state = init_train_state(model_cfg, train_cfg, train_cfg.seed, device,
+                                 loss_fn_module)
     start_step = int(state.step)
 
     loader = DataLoader(dataset, train_cfg.batch_size, device,
@@ -115,7 +119,8 @@ def train_loop(model_cfg: ModelConfig, train_cfg: TrainConfig,
 
     eval_step = None
     if eval_dataset is not None and loop_cfg.eval_interval > 0:
-        eval_step = make_eval_step(model_cfg, loss_fn=loss_fn)
+        eval_step = make_eval_step(model_cfg, loss_fn=loss_fn,
+                                   loss_fn_module=loss_fn_module)
         # prefetch=0: evaluate() stops mid-stream after eval_batches, and
         # an abandoned prefetch thread would block on its full queue
         eval_loader = DataLoader(eval_dataset, train_cfg.batch_size, device,

@@ -234,26 +234,54 @@ def ema_of_params(decay: float) -> EmaOfParams:
     return EmaOfParams(decay)
 
 
+def select(tree: dict, labels: dict, label: str = "trainable") -> dict:
+    """The leaves of `tree` whose label is `label`, in `tree`'s nesting
+    (subtrees left empty are dropped)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            sub = select(v, labels[k], label)
+            if sub:
+                out[k] = sub
+        elif labels[k] == label:
+            out[k] = v
+    return out
+
+
 class Optimizer:
     """AdamW, then the EMA when cfg.ema_decay > 0. State: the AdamW
-    state, or (AdamW state, EmaState)."""
+    state, or (AdamW state, EmaState).
 
-    def __init__(self, cfg: TrainConfig):
+    `param_labels` (a tree matching the params of "trainable"/"frozen"
+    strings, the LoRA path): AdamW sees the trainable leaves only, so a
+    frozen leaf gets no moments, no update and no weight decay, and
+    `step_` takes the trainable leaves' gradients alone (the reference's
+    `multi_transform` with `set_to_zero`). The EMA averages the whole
+    tree, as the reference's does."""
+
+    def __init__(self, cfg: TrainConfig, param_labels: dict | None = None):
         self.adamw = fused_adamw(cfg)
         self.ema = ema_of_params(cfg.ema_decay) if cfg.ema_decay > 0 else None
+        self.labels = param_labels
+
+    def trainable(self, params: dict) -> dict:
+        """The subtree of `params` that the optimizer updates."""
+        return params if self.labels is None else select(params, self.labels)
 
     def init(self, params: dict):
-        state = self.adamw.init(params)
+        state = self.adamw.init(self.trainable(params))
         if self.ema is None:
             return state
         return (state, self.ema.init(params))
 
     def step_(self, grads: dict, state, params: dict):
-        """In-place update; returns (new state, grad global norm)."""
+        """In-place update from the trainable leaves' `grads`; returns
+        (new state, grad global norm)."""
+        trainable = self.trainable(params)
         if self.ema is None:
-            return self.adamw.step_(grads, state, params)
+            return self.adamw.step_(grads, state, trainable)
         adam, ema = state
-        adam, gnorm = self.adamw.step_(grads, adam, params)
+        adam, gnorm = self.adamw.step_(grads, adam, trainable)
         return (adam, self.ema.step_(ema, params)), gnorm
 
 
@@ -268,8 +296,18 @@ def ema_params(opt_state):
 
 
 def make_optimizer(cfg: TrainConfig, param_labels=None) -> Optimizer:
-    """param_labels (LoRA's trainable/frozen split) is not ported yet."""
-    if param_labels is not None:
-        raise NotImplementedError("param_labels (LoRA fine-tuning) is not "
-                                  "ported yet")
-    return Optimizer(cfg)
+    """param_labels: optional tree (matching params) of "trainable" /
+    "frozen" strings; frozen leaves get no moments and no update (the
+    LoRA fine-tuning path, models/lora.py)."""
+    return Optimizer(cfg, param_labels)
+
+
+def optimizer_for_module(train_cfg: TrainConfig, model_cfg,
+                         loss_fn_module) -> Optimizer:
+    """The one place that decides a module's optimizer: modules with
+    `param_labels(model_cfg)` (the LoRA wrapper) get the label-masked
+    one. Everything that must agree on the optimizer state's structure
+    (train step, init, checkpoint targets) goes through here."""
+    labels_fn = getattr(loss_fn_module, "param_labels", None)
+    labels = labels_fn(model_cfg) if labels_fn is not None else None
+    return make_optimizer(train_cfg, param_labels=labels)

@@ -6,11 +6,15 @@ loss and its backward (with gradient accumulation over
 0-d device tensors; nothing here reads the device on the host, so steps
 queue on the card back to back.
 
-Only a single device is ported: a MeshConfig with any axis > 1 raises.
+The model family comes from `loss_fn_module` (`models.transformer`,
+`models.moe`, or a LoRA module from `models.lora.make_lora_module`),
+as in the reference. Only a single device is ported: a MeshConfig with
+any axis > 1 raises.
 """
 
 from __future__ import annotations
 
+import inspect
 from functools import partial
 from typing import Any, Callable, NamedTuple
 
@@ -18,9 +22,9 @@ import torch
 
 from cloud_server_tpu_torch import resolve_device
 from cloud_server_tpu_torch.config import MeshConfig, ModelConfig, TrainConfig
-from cloud_server_tpu_torch.models import transformer
-from cloud_server_tpu_torch.training.optim import (flatten, make_optimizer,
-                                                   map_tree)
+from cloud_server_tpu_torch.models import moe
+from cloud_server_tpu_torch.training.optim import (flatten, map_tree,
+                                                   optimizer_for_module)
 
 
 class TrainState(NamedTuple):
@@ -37,39 +41,58 @@ def check_single_device(mesh_cfg: MeshConfig | None) -> None:
 
 
 def init_train_state(model_cfg: ModelConfig, train_cfg: TrainConfig,
-                     seed: int = 0, device=None) -> TrainState:
-    """Parameters drawn on `device` (CUDA unless named) at
-    cfg.param_dtype, marked as autograd leaves, and the optimizer state."""
-    params = transformer.init_params(model_cfg, seed,
-                                     device=resolve_device(device))
-    return train_state_from_params(params, train_cfg)
+                     seed: int = 0, device=None,
+                     loss_fn_module=None) -> TrainState:
+    """Parameters of `loss_fn_module` (the family of model_cfg by
+    default: `models.moe.module_for`) drawn on `device` (CUDA unless
+    named) at cfg.param_dtype, the trainable ones marked as autograd
+    leaves, and the optimizer state."""
+    module = loss_fn_module or moe.module_for(model_cfg)
+    params = module.init_params(model_cfg, seed,
+                                device=resolve_device(device))
+    return train_state_from_params(params, train_cfg, model_cfg, module)
 
 
-def train_state_from_params(params: dict,
-                            train_cfg: TrainConfig) -> TrainState:
-    params = map_tree(lambda p: p.requires_grad_(True), params)
-    return TrainState(step=0, params=params,
-                      opt_state=make_optimizer(train_cfg).init(params))
+def train_state_from_params(params: dict, train_cfg: TrainConfig,
+                            model_cfg: ModelConfig | None = None,
+                            loss_fn_module=None) -> TrainState:
+    """A fresh TrainState over `params`. With a module that labels its
+    params (LoRA), only the trainable leaves become autograd leaves and
+    get optimizer moments; the frozen ones never form a gradient."""
+    opt = optimizer_for_module(train_cfg, model_cfg, loss_fn_module)
+    trainable = {id(p) for _, p in flatten(opt.trainable(params))}
+    params = map_tree(lambda p: p.requires_grad_(id(p) in trainable),
+                      params)
+    return TrainState(step=0, params=params, opt_state=opt.init(params))
 
 
 def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
                     mesh_cfg: MeshConfig | None = None,
-                    loss_fn: Callable | None = None):
+                    loss_fn: Callable | None = None, loss_fn_module=None):
     """(state, batch) -> (state, metrics). batch: {"tokens": (B, S) int
-    tensor on the parameters' device}. The state's parameters and
-    optimizer moments are updated in place."""
+    tensor on the parameters' device}. The state's trainable parameters
+    and optimizer moments are updated in place.
+
+    `loss_fn_module` (the family of model_cfg by default) gives the loss
+    when `loss_fn` is None: its `next_token_loss` with the z-loss
+    coefficient, and the MoE aux coefficients where it takes them."""
     check_single_device(mesh_cfg)
-    if model_cfg.num_experts >= 2:
-        raise NotImplementedError("MoE training is not ported yet")
+    module = loss_fn_module or moe.module_for(model_cfg)
     if loss_fn is None:
-        loss_fn = partial(transformer.next_token_loss,
-                          z_loss_coef=train_cfg.z_loss_coef)
-    opt = make_optimizer(train_cfg)
+        kwargs = {"z_loss_coef": train_cfg.z_loss_coef}
+        sig = inspect.signature(module.next_token_loss).parameters
+        if "aux_loss_coef" in sig:
+            kwargs["aux_loss_coef"] = train_cfg.moe_aux_loss_coef
+        if "router_z_coef" in sig:
+            kwargs["router_z_coef"] = train_cfg.moe_router_z_coef
+        loss_fn = partial(module.next_token_loss, **kwargs)
+    opt = optimizer_for_module(train_cfg, model_cfg, module)
     nsteps = train_cfg.microbatch_steps
 
     def step(state: TrainState, batch: dict):
         params = state.params
-        leaves = [p for _, p in flatten(params)]
+        trainable = opt.trainable(params)
+        leaves = [p for _, p in flatten(trainable)]
         for p in leaves:
             p.grad = None
         if nsteps == 1:
@@ -84,7 +107,7 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
             for k, v in metrics.items():
                 msum[k] = msum[k] + v if k in msum else v
         grads = map_tree(lambda p: p.grad if p.grad is not None
-                         else torch.zeros_like(p), params)
+                         else torch.zeros_like(p), trainable)
         if nsteps > 1:
             torch._foreach_div_([g for _, g in flatten(grads)], nsteps)
             msum = {k: v / nsteps for k, v in msum.items()}

@@ -692,6 +692,46 @@ def test_graphed_server_matches_graphs_off(kv, temperature, top_p,
 
 
 @pytest.mark.gpu
+def test_graphed_moe_server_matches_graphs_off():
+    """A small MoE model (4 experts, top-2, dropless) on the paged server:
+    its routing (gathers, scatter-adds, batched expert products) records
+    inside the captured programs, and the staggered requests give the
+    same tokens graphed and with graphs off, both kernel classes
+    launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cloud_server_tpu_torch.config import InferConfig, ModelConfig
+    from cloud_server_tpu_torch.inference.paged_server import (
+        PagedInferenceServer)
+    from cloud_server_tpu_torch.models import moe
+    cfg = ModelConfig(vocab_size=512, embed_dim=256, num_layers=2,
+                      num_heads=4, num_kv_heads=2, head_dim=64, mlp_dim=512,
+                      max_seq_len=512, dtype="bfloat16",
+                      param_dtype="bfloat16", remat="none",
+                      decode_attention_impl="pallas", num_experts=4,
+                      num_experts_per_token=2, expert_capacity_factor=2.0)
+    icfg = InferConfig(max_decode_len=16, temperature=0.0, eos_token_id=-1,
+                       pad_token_id=0)
+    params = moe.init_params(cfg, 0, device="cuda")
+    runs = {}
+    for graphed in (False, True):
+        srv = PagedInferenceServer(params, cfg, icfg, max_slots=4,
+                                   max_context=512, page_size=64,
+                                   prefill_chunk=128, seed=5, device="cuda",
+                                   cuda_graphs=graphed)
+        pa.reset_counters()
+        runs[graphed] = (_staggered_graph_run(srv), pa.counters(),
+                         len(srv._programs))
+        srv.stop()
+    (eager, c_eager, _), (graphed, _, n_prog) = runs[False], runs[True]
+    assert all(len(t) == 12 for t in graphed)
+    assert graphed == eager
+    assert n_prog >= 2
+    assert c_eager["launches_narrow"] > 0 and c_eager["launches_wide"] > 0
+    assert c_eager["plain_calls"] == 0
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("draft,per_request,scheduler,overlap", [
     (False, False, "mixed", True), (True, False, "mixed", True),
     (False, True, "mixed", True), (True, True, "alternating", False)],

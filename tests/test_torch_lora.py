@@ -86,12 +86,25 @@ def test_config_validation():
 
 
 def test_moe_target_table_refused():
+    """The MoE family has the reference's MoE table (the router, and
+    per-expert stacks for the expert weights); an unknown family is
+    refused, and a router adapter on a dense base does not exist."""
+    from cloud_server_tpu_torch.models import moe
     assert lora._target_table() is lora._DENSE_TARGETS
-    with pytest.raises(NotImplementedError, match="MoE"):
+    assert lora._target_table(moe) == ref_lora._MOE_TARGETS
+    with pytest.raises(NotImplementedError, match="not defined"):
         lora._target_table(object())
     with pytest.raises(ValueError, match="do not exist"):
         lora.init_lora_params(TCFG, lora.LoRAConfig(targets=("router",)),
                               device="cpu")
+    mcfg = dataclasses.replace(TCFG, num_experts=4)
+    got = lora.init_lora_params(
+        mcfg, lora.LoRAConfig(rank=2, targets=("router", "w_up")),
+        device="cpu", base_module=moe)
+    assert got["layers"]["router"]["a"].shape == (2, 32, 2)
+    assert got["layers"]["router"]["b"].shape == (2, 2, 4)
+    assert got["layers"]["w_up"]["a"].shape == (2, 4, 32, 2)
+    assert got["layers"]["w_up"]["b"].shape == (2, 4, 2, 64)
 
 
 @pytest.mark.parametrize("name", ALL)

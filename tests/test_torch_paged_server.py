@@ -167,10 +167,29 @@ def test_seeded_requests_token_exact_against_reference(weights):
     ids=["mesh", "moe"])
 def test_unported_features_raise(weights, kw):
     """What stays unported is refused at construction: tensor-parallel
-    serving and MoE models."""
+    serving. MoE models are served: an MoE model built from the
+    reference's init serves the engine's greedy tokens
+    (tests/test_torch_moe.py holds them against the reference's
+    servers)."""
     _, params = weights
-    with pytest.raises(NotImplementedError):
-        _port_server(params, **SRV_KW, **kw)
+    if "cfg" not in kw:
+        with pytest.raises(NotImplementedError):
+            _port_server(params, **SRV_KW, **kw)
+        return
+    from cloud_server_tpu.models import moe as ref_moe
+    from cloud_server_tpu_torch.inference import engine
+    from cloud_server_tpu_torch.utils import prng
+    cfg = dataclasses.replace(kw["cfg"], expert_capacity_factor=2.0)
+    moe_params = params_from_numpy(
+        jax.tree.map(np.asarray, ref_moe.init_params(cfg, jax.random.key(2))),
+        _port_cfgs(cfg)[0], device="cpu")
+    got = _port_server(moe_params, cfg=cfg, **SRV_KW).generate(
+        [PROMPTS[1]], max_new_tokens=6)[0]
+    want = engine.generate(moe_params, torch.tensor([PROMPTS[1]]),
+                           prng.key(0), cfg=_port_cfgs(cfg)[0],
+                           infer_cfg=_port_cfgs(cfg, dataclasses.replace(
+                               GREEDY, max_decode_len=6))[1])
+    assert got == want[0].tolist()
 
 
 @pytest.mark.parametrize("kw", [dict(adapter="a")])

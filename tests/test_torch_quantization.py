@@ -156,11 +156,24 @@ def test_dequantize_params_roundtrip(weights):
 
 
 def test_moe_params_are_refused():
-    """MoE expert weights (4-D MLP leaves) are not ported: quantizing
-    them raises, as every MoE path of the port does."""
-    tree = {"layers": {"w_gate": torch.zeros(2, 4, 8, 16)}}
-    with pytest.raises(NotImplementedError, match="MoE"):
-        quantize_params(tree)
+    """MoE expert weights (4-D MLP leaves) quantize over their D axis per
+    (layer, expert, output channel), bit for bit as the reference's, and
+    the router stays float (tests/test_torch_moe.py serves them)."""
+    rng = np.random.default_rng(3)
+    tree = {"layers": {
+        "w_gate": rng.normal(size=(2, 4, 8, 16)).astype(np.float32),
+        "w_down": rng.normal(size=(2, 4, 16, 8)).astype(np.float32),
+        "router": rng.normal(size=(2, 8, 4)).astype(np.float32)}}
+    want = ref_q.quantize_params(jax.tree.map(jnp.asarray, tree))
+    got = quantize_params({"layers": {k: torch.from_numpy(v) for k, v in
+                                      tree["layers"].items()}})
+    assert not isinstance(got["layers"]["router"], QTensor)
+    for name in ("w_gate", "w_down"):
+        assert got["layers"][name].scale.shape == (2, 4, 1,
+                                                   tree["layers"][name]
+                                                   .shape[3])
+        np.testing.assert_array_equal(got["layers"][name].q.numpy(),
+                                      np.asarray(want["layers"][name].q))
 
 
 def _run(srv):

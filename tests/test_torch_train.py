@@ -240,7 +240,7 @@ def test_train_loop_tracks_reference(tmp_path):
     np_params = _np_tree(ref_init_state(TINY, tcfg, mesh,
                                         jax.random.key(tcfg.seed)).params)
 
-    def same_init(model_cfg, train_cfg, seed, device):
+    def same_init(model_cfg, train_cfg, seed, device, loss_fn_module=None):
         return train_step.train_state_from_params(
             _port_params(np_params, TINY), train_cfg)
 
@@ -265,7 +265,7 @@ def _same_init(np_params, monkeypatch):
     from cloud_server_tpu_torch.training import checkpoint as tckpt
     from cloud_server_tpu_torch.training import loop as tloop
 
-    def same_init(model_cfg, train_cfg, seed, device):
+    def same_init(model_cfg, train_cfg, seed, device, loss_fn_module=None):
         return train_step.train_state_from_params(
             _port_params(np_params, TINY), train_cfg)
 

@@ -2,7 +2,7 @@
 for 3 steps and writes one JSONL record per step; with `--eval-data` and
 `--checkpoint-dir` it evaluates, checkpoints and resumes; without
 `--device cpu` (and without a GPU) it refuses; every option that is not
-ported yet raises NotImplementedError."""
+ported yet raises NotImplementedError, and --lora-rank trains adapters."""
 
 import json
 
@@ -96,6 +96,22 @@ def test_cli_eval_data_checkpoint_dir_and_resume(tmp_path, capsys):
     ([], {"dcn_mesh": {"dp": 2}}),
 ])
 def test_unported_options_raise(tmp_path, argv, sections):
-    with pytest.raises(NotImplementedError):
-        train.main(["--config", _config(tmp_path, **sections),
-                    "--synthetic", "16", "--device", "cpu", *argv])
+    """What stays unported raises NotImplementedError. --lora-rank trains
+    rank-R adapters over a frozen base, and --init-from without it exits
+    with the reference's message."""
+    def run():
+        return train.main(["--config", _config(tmp_path, **sections),
+                           "--synthetic", "16", "--device", "cpu", *argv])
+    if argv[:1] == ["--lora-rank"]:
+        state = run()
+        assert state.step == 3 and set(state.params) == {"base", "lora"}
+        assert not any(t.requires_grad
+                       for t in state.params["base"]["layers"].values())
+        assert all(ab["a"].requires_grad
+                   for ab in state.params["lora"]["layers"].values())
+    elif argv[:1] == ["--init-from"]:
+        with pytest.raises(SystemExit, match="requires --lora-rank"):
+            run()
+    else:
+        with pytest.raises(NotImplementedError):
+            run()
