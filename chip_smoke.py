@@ -145,6 +145,17 @@ each:
                 (+ evaluations); one step of each S 2048 run under
                 torch.profiler; 2-layer slices whose loss and gradients
                 match the plain attention and the dense CE;
+     pack     — the same widths on packed rows (documents of 64-2048
+                seeded tokens, `data.packing.pack_documents`): dense and
+                fused-CE steps in turns with unpacked steps of the same
+                state (packing efficiency, B3-B5 and B7/B8 launches a
+                step, step time, busy share, peak memory); a 2-layer f32
+                packed row whose loss and gradients equal its documents
+                run alone (1e-5); remat "full", "dots" and "attn" (step
+                time, peak memory, B3 a step, equal losses);
+                `evaluate.perplexity` over a `prepare_corpus` file and
+                `loglikelihoods`; the native reader (it must build)
+                bit-equal to the numpy path, rows/s of each;
   5. ckpt     — 1 layer at full width with the fused CE: 4 steps
                 straight; 2 steps with an async checkpoint, restored bit
                 for bit; a resumed run to 4 against the straight run;
@@ -174,7 +185,8 @@ each:
                 speculating servers of the spec phase; the embed row:
                 the elastic phase's flash-route embed, timed there), its
                 launches on the moe phase's paths (`launches_moe`) and
-                its numbers from phase 2.
+                on the pack phase's (`launches_pack`), and its numbers
+                from phase 2.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises and
 the exit code is non-zero. Without a CUDA device, or without the rest of
@@ -4408,17 +4420,23 @@ def write_eval_tokens(tcfg, vocab) -> str:
     return path
 
 
-def profile_train_step(cfg, tcfg, state) -> dict:
-    """One more step of a run's final state under the profiler."""
+def plain_batch(cfg, tcfg) -> dict:
+    """The train phase's batch: B rows of SyntheticLMDataset on the
+    card."""
     import torch
     from cloud_server_tpu_torch.data.dataset import SyntheticLMDataset
     from cloud_server_tpu_torch.data.loader import _collate, to_device
-    from cloud_server_tpu_torch.training.train_step import make_train_step
-    step_fn = make_train_step(cfg, tcfg)
     ds = SyntheticLMDataset(tcfg.batch_size, tcfg.seq_len, cfg.vocab_size,
                             seed=SEED)
-    batch = to_device(_collate(ds, range(tcfg.batch_size)),
-                      torch.device(DEVICE))
+    return to_device(_collate(ds, range(tcfg.batch_size)),
+                     torch.device(DEVICE))
+
+
+def profile_train_step(cfg, tcfg, state) -> dict:
+    """One more step of a run's final state under the profiler."""
+    from cloud_server_tpu_torch.training.train_step import make_train_step
+    step_fn = make_train_step(cfg, tcfg)
+    batch = plain_batch(cfg, tcfg)
     box = [state]
 
     def one_step():
@@ -4521,6 +4539,463 @@ def phase_train() -> dict:
            "flops_per_token": flops, "run_s2048": run1, "run_s1024": run2,
            "run_fused_ce": run3, "counts": total, "ce_counts": ce3,
            **agree, **ce_agree}
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 4b: packed rows, the remat policies, evaluation and the native
+# reader, at Llama-3.1-8B's widths (8 layers)
+# ---------------------------------------------------------------------------
+
+PACK_DIR = "cloud_server_tpu_torch/_build/smoke_pack"
+PACK_DOC_LENS = (64, 2048)    # seeded document lengths, tokens (inclusive)
+PACK_ROUNDS = 2               # rounds of packed/unpacked steps, in turns
+# The f32 slice: documents of one 2048-token row, the packed loss and
+# every gradient leaf against the same documents run one by one. Each
+# document's math is the same; only the sums' order differs (other GEMM
+# shapes), so the f32 rounding bounds the difference.
+PACK_SLICE_DOCS = (300, 700, 1048)
+PACK_SLICE_REL = 1e-5
+REMAT_POLICIES = ("full", "dots", "attn")
+REMAT_STEPS = 3               # from one seed and batch, each policy
+REMAT_ROUNDS = 2              # then timed in turns: ABC CBA, twice
+# Losses of the same steps across the policies, bf16 compute: the forward
+# is one program under every policy, and the backward recomputes or reads
+# the same values, so only the f32 atomics of the embedding's gradient
+# can move the second and third steps' losses.
+REMAT_LOSS_ATOL = 1e-3
+EVAL_BATCHES = 2              # perplexity windows: 2 batches of 4 x 2048
+EVAL_CONTEXTS = (100, 300, 1000, 2000)   # loglikelihood pairs, bytes
+EVAL_CONT = 24
+# loglikelihoods against each pair's own forward (bf16: other GEMM shapes
+# round other bits): the mean absolute difference a token, in nats
+EVAL_LL_ATOL = 0.05
+EVAL_PPL_REL = 1e-4
+NATIVE_WINDOWS = 4096         # the reader's file: 4096 windows of 2048
+NATIVE_BATCH = 32
+
+
+def counted(fn):
+    """fn()'s result and the flash and fused-CE launches it made."""
+    from cloud_server_tpu_torch.ops import flash_attention as fl
+    from cloud_server_tpu_torch.ops import fused_ce as fc
+    f0, c0 = fl.counters(), fc.counters()
+    out = fn()
+    f1, c1 = fl.counters(), fc.counters()
+    return out, ({k: f1[k] - f0[k] for k in f0},
+                 {k: c1[k] - c0[k] for k in c0})
+
+
+def _add_counts(total: dict, delta: dict) -> None:
+    for k, v in delta.items():
+        total[k] = total.get(k, 0) + v
+
+
+def packed_batch(cfg, tcfg, seed: int) -> tuple:
+    """B rows of S packed from seeded documents of PACK_DOC_LENS tokens
+    (random ids); (batch on the card, packing efficiency, documents)."""
+    import numpy as np
+    import torch
+    from cloud_server_tpu_torch.data.packing import (pack_documents,
+                                                     packing_efficiency)
+    rng = np.random.default_rng(seed)
+    lo, hi = PACK_DOC_LENS
+    docs = []
+    while sum(map(len, docs)) < 2 * tcfg.batch_size * tcfg.seq_len:
+        docs.append(rng.integers(1, cfg.vocab_size,
+                                 int(rng.integers(lo, hi + 1))).tolist())
+    toks, segs = pack_documents(docs, tcfg.seq_len)
+    toks, segs = toks[:tcfg.batch_size], segs[:tcfg.batch_size]
+    n_docs = int(sum(len(set(r[r > 0].tolist())) for r in segs))
+    batch = {"tokens": torch.from_numpy(toks).long().to(DEVICE),
+             "segment_ids": torch.from_numpy(segs).long().to(DEVICE)}
+    return batch, packing_efficiency(segs), n_docs
+
+
+def pack_train_part(config: str, tag: str, total: dict,
+                    ce_total: dict) -> tuple:
+    """A few training steps on packed rows against unpacked steps of the
+    same state, in turns: launches a packed step, step times, peak
+    memory, one profiled step of each. Returns (summary, the final
+    state, its model and train configs)."""
+    import torch
+    from cloud_server_tpu_torch.config import (ModelConfig, TrainConfig,
+                                               from_json)
+    from cloud_server_tpu_torch.training.train_step import (
+        init_train_state, make_train_step)
+    with open(config) as f:
+        raw = json.load(f)
+    cfg = from_json(ModelConfig, raw["model"])
+    tcfg = from_json(TrainConfig, raw["train"])
+    state = init_train_state(cfg, tcfg, SEED, device=DEVICE)
+    step_fn = make_train_step(cfg, tcfg)
+    packed, eff, n_docs = packed_batch(cfg, tcfg, SEED + 11)
+    batches = {"packed": packed, "plain": plain_batch(cfg, tcfg)}
+    box = [state]
+    times: dict = {"packed": [], "plain": []}
+    peaks: dict = {"packed": 0, "plain": 0}
+    losses: dict = {"packed": [], "plain": []}
+    per_step = None
+
+    def one(kind):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (box[0], m), (fd, cd) = counted(
+            lambda: step_fn(box[0], batches[kind]))
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, loss, fd, cd
+
+    order = ["packed", "plain"] + ["packed", "plain", "plain",
+                                   "packed"] * PACK_ROUNDS
+    for i, kind in enumerate(order):
+        dt, loss, fd, cd = one(kind)
+        losses[kind].append(loss)
+        peaks[kind] = max(peaks[kind], torch.cuda.max_memory_allocated())
+        if kind == "packed":
+            _add_counts(total, fd)
+            _add_counts(ce_total, cd)
+            per_step = per_step or (fd, cd)
+        if i >= 2:  # the first of each kind warms up
+            times[kind].append(dt)
+    first = losses["packed"][0]
+    if not all(math.isfinite(x) for v in losses.values() for x in v) \
+            or abs(first - math.log(cfg.vocab_size)) > LOSS_TOL:
+        raise RuntimeError(f"pack {tag}: losses {losses}")
+    L = cfg.num_layers
+    fused_ce = cfg.ce_impl == "pallas"
+    want = ({"launches_fwd": 2 * L, "launches_bwd_dkdv": L,
+             "launches_bwd_dq": L, "launches_bwd_fused": 0,
+             "plain_calls": 0},
+            {"launches_fwd": int(fused_ce), "launches_dx": int(fused_ce),
+             "plain_calls": 0})
+    if per_step != want:
+        raise RuntimeError(f"pack {tag}: a packed step launched "
+                           f"{per_step}, expected {want}")
+    profs = {}
+    for kind in ("packed", "plain"):
+        def step(kind=kind):
+            box[0], _ = step_fn(box[0], batches[kind])
+        (profs[kind], (fd, cd)) = counted(lambda: profile_step(step))
+        if kind == "packed":
+            _add_counts(total, fd)
+            _add_counts(ce_total, cd)
+    tokens = tcfg.batch_size * tcfg.seq_len
+    out = {"config": config, "batch": tcfg.batch_size,
+           "seq_len": tcfg.seq_len, "documents": n_docs,
+           "packing_efficiency": eff,
+           "launches_per_packed_step": {"flash": per_step[0],
+                                        "fused_ce": per_step[1]},
+           "losses": losses}
+    for kind in ("packed", "plain"):
+        mean_s = sum(times[kind]) / len(times[kind])
+        p = profs[kind]
+        out[kind] = {"step_s": mean_s, "step_s_each": times[kind],
+                     "tokens_per_s": tokens / mean_s,
+                     "real_tokens_per_s": (tokens * eff if kind == "packed"
+                                           else tokens) / mean_s,
+                     "peak_mem_gb": peaks[kind] / 1e9,
+                     "profile_wall_ms": p["wall_ms"],
+                     "device_busy_ms": p["device_busy_ms"],
+                     "device_busy_share": 1 - p["device_idle_share"],
+                     "device_ms_by_group": p["device_ms_by_group"]}
+    out["packed_over_plain"] = out["packed"]["step_s"] / out["plain"][
+        "step_s"]
+    return out, box[0], cfg, tcfg
+
+
+def pack_slice(cfg) -> dict:
+    """(c): a 2-layer float32 slice at full width, plain attention: the
+    loss and gradients of one packed row against the token-weighted
+    losses of its documents run one by one."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from cloud_server_tpu_torch.data.packing import pack_documents
+    from cloud_server_tpu_torch.models import transformer
+    from cloud_server_tpu_torch.training.optim import flatten
+    cfg32 = dataclasses.replace(cfg, num_layers=2, dtype="float32",
+                                attention_impl="xla", remat="none")
+    params = transformer.init_params(cfg32, SEED, device=DEVICE)
+    rng = np.random.default_rng(SEED + 12)
+    docs = [rng.integers(1, cfg.vocab_size, n).tolist()
+            for n in PACK_SLICE_DOCS]
+    toks, segs = pack_documents(docs, sum(PACK_SLICE_DOCS))
+
+    def leaves():
+        return {g: {n: t.detach().clone().requires_grad_(True)
+                    for n, t in lv.items()} for g, lv in params.items()}
+
+    packed = leaves()
+    loss_p, _ = transformer.next_token_loss(
+        packed, {"tokens": torch.from_numpy(toks).to(DEVICE),
+                 "segment_ids": torch.from_numpy(segs).to(DEVICE)}, cfg32)
+    loss_p.backward()
+    alone = leaves()
+    n_targets = sum(n - 1 for n in PACK_SLICE_DOCS)
+    loss_a = 0.0
+    for doc in docs:
+        lo, _ = transformer.next_token_loss(
+            alone, {"tokens": torch.tensor([doc], device=DEVICE)}, cfg32)
+        (lo * ((len(doc) - 1) / n_targets)).backward()
+        loss_a += float(lo.detach()) * (len(doc) - 1) / n_targets
+    gp = dict(flatten({g: {n: t.grad for n, t in lv.items()}
+                       for g, lv in packed.items()}))
+    ga = dict(flatten({g: {n: t.grad for n, t in lv.items()}
+                       for g, lv in alone.items()}))
+    worst = _worst_rel(gp, ga)
+    worst_leaf = max(ga, key=lambda k: _worst_rel({k: gp[k]}, {k: ga[k]}))
+    lp = float(loss_p.detach())
+    res = {"layers": 2, "dtype": "float32", "documents": list(
+        PACK_SLICE_DOCS), "loss_packed": lp, "loss_standalone": loss_a,
+        "loss_rel_err": abs(lp - loss_a) / abs(loss_a),
+        "grad_worst_rel_err": worst, "grad_worst_leaf": worst_leaf,
+        "limit": PACK_SLICE_REL}
+    if res["loss_rel_err"] > PACK_SLICE_REL or worst > PACK_SLICE_REL:
+        raise RuntimeError(f"pack slice: the packed row differs from its "
+                           f"documents run alone: {res}")
+    return res
+
+
+def pack_remat(cfg, tcfg, total: dict) -> dict:
+    """(d): each remat policy from one seed on one unpacked batch: its
+    peak memory, B3 launches a step and the losses of REMAT_STEPS steps;
+    then the three policies' step times in turns on the last state (a
+    policy decides what the backward recomputes, not the state)."""
+    import dataclasses
+    import statistics
+    import torch
+    from cloud_server_tpu_torch.training.train_step import (
+        init_train_state, make_train_step)
+    out: dict = {}
+    step_fns = {}
+    batch = plain_batch(cfg, tcfg)
+    for policy in REMAT_POLICIES:
+        pcfg = dataclasses.replace(cfg, remat=policy)
+        state = init_train_state(pcfg, tcfg, SEED, device=DEVICE)
+        step_fns[policy] = make_train_step(pcfg, tcfg)
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        losses, counts = [], {}
+        for _ in range(REMAT_STEPS):
+            (state, m), (fd, _) = counted(
+                lambda: step_fns[policy](state, batch))
+            losses.append(float(m["loss"]))
+            _add_counts(counts, fd)
+        _add_counts(total, counts)
+        out[policy] = {
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "peak_over_state_gb": (torch.cuda.max_memory_allocated()
+                                   - base) / 1e9,
+            "b3_per_step": counts["launches_fwd"] / REMAT_STEPS,
+            "b4_per_step": counts["launches_bwd_dkdv"] / REMAT_STEPS,
+            "losses": losses}
+        if policy != REMAT_POLICIES[-1]:
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+    times: dict = {p: [] for p in REMAT_POLICIES}
+    for policy in (list(REMAT_POLICIES)
+                   + list(reversed(REMAT_POLICIES))) * REMAT_ROUNDS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (state, m), (fd, _) = counted(
+            lambda: step_fns[policy](state, batch))
+        float(m["loss"])
+        torch.cuda.synchronize()
+        times[policy].append(time.perf_counter() - t0)
+        _add_counts(total, fd)
+    del state
+    for policy in REMAT_POLICIES:
+        out[policy].update(step_s=statistics.median(times[policy]),
+                           step_s_each=times[policy])
+    L = cfg.num_layers
+    want_b3 = {"full": 2 * L, "dots": L, "attn": L}
+    ref = out["full"]["losses"]
+    worst = max(abs(a - b) for p in REMAT_POLICIES
+                for a, b in zip(out[p]["losses"], ref))
+    out["loss_max_abs_diff"] = worst
+    out["loss_limit"] = REMAT_LOSS_ATOL
+    bad = [p for p in REMAT_POLICIES if out[p]["b3_per_step"] != want_b3[p]]
+    if bad or worst > REMAT_LOSS_ATOL:
+        raise RuntimeError(f"remat policies: B3 a step {want_b3} expected; "
+                           f"losses within {REMAT_LOSS_ATOL}: {out}")
+    return out
+
+
+def pack_eval(params, cfg, total: dict) -> dict:
+    """(e): `evaluate.perplexity` over a token file that
+    `prepare_corpus` made from the port's own sources (byte tokenizer),
+    against the mean NLL of the same windows from the plain forward;
+    `loglikelihoods` on a few (context, continuation) pairs of that text
+    against each pair's own forward."""
+    import glob
+    import numpy as np
+    import torch
+    from cloud_server_tpu_torch import evaluate
+    from cloud_server_tpu_torch.data.dataset import MemmapTokenDataset
+    from cloud_server_tpu_torch.data.tokenizer import (ByteTokenizer,
+                                                       prepare_corpus)
+    from cloud_server_tpu_torch.models import transformer
+    os.makedirs(PACK_DIR, exist_ok=True)
+    text_path = os.path.join(PACK_DIR, "corpus.txt")
+    with open(text_path, "w", encoding="utf-8") as out_f:
+        for path in sorted(glob.glob("cloud_server_tpu_torch/**/*.py",
+                                     recursive=True)):
+            with open(path, encoding="utf-8") as f:
+                out_f.write(f.read())
+    tok = ByteTokenizer()
+    bin_path = os.path.join(PACK_DIR, "corpus.bin")
+    n_tokens = prepare_corpus(text_path, bin_path, tok)
+    bs, s = 4, 2048
+    t0 = time.perf_counter()
+    ppl, (fd, _) = counted(lambda: evaluate.perplexity(
+        params, cfg, bin_path, batch_size=bs, seq_len=s,
+        max_batches=EVAL_BATCHES))
+    torch.cuda.synchronize()
+    ppl_s = time.perf_counter() - t0
+    _add_counts(total, fd)
+    ds = MemmapTokenDataset(bin_path, s)
+    nll = 0.0
+    with torch.no_grad():
+        for bi in range(EVAL_BATCHES):
+            rows = torch.from_numpy(np.stack(
+                [ds[bi * bs + i]["tokens"] for i in range(bs)]).astype(
+                np.int64)).to(DEVICE)
+            (logits, (fd, _)) = counted(
+                lambda: transformer.forward(params, rows, cfg))
+            _add_counts(total, fd)
+            lp = torch.log_softmax(logits[:, :-1], -1)
+            nll -= float(torch.gather(lp, -1, rows[:, 1:, None]).sum())
+            del logits, lp
+    direct = nll / ppl["tokens"]
+    text = open(text_path, encoding="utf-8").read()
+    ids = tok.encode(text)
+    pairs = [(ids[:n], ids[n:n + EVAL_CONT]) for n in EVAL_CONTEXTS]
+    t0 = time.perf_counter()
+    scores, (fd, _) = counted(lambda: evaluate.loglikelihoods(
+        params, cfg, pairs, batch_size=4))
+    ll_s = time.perf_counter() - t0
+    _add_counts(total, fd)
+    diffs = []
+    with torch.no_grad():
+        for (ctx, cont), sc in zip(pairs, scores):
+            toks = torch.tensor([ctx + cont], device=DEVICE)
+            (logits, (fd, _)) = counted(
+                lambda: transformer.forward(params, toks, cfg))
+            _add_counts(total, fd)
+            lp = torch.log_softmax(logits[0, :-1], -1)
+            tgt = toks[0, 1:]
+            tok_lp = lp[torch.arange(len(tgt), device=DEVICE), tgt]
+            want = float(tok_lp[len(ctx) - 1:].sum())
+            diffs.append(abs(sc["sum_logprob"] - want) / len(cont))
+    res = {"corpus_tokens": n_tokens, "perplexity": ppl,
+           "perplexity_s": ppl_s, "direct_loss": direct,
+           "loss_rel_err": abs(ppl["loss"] - direct) / direct,
+           "loss_rel_limit": EVAL_PPL_REL,
+           "loglikelihoods": scores, "loglikelihood_s": ll_s,
+           "loglikelihood_mean_abs_diff_per_token": diffs,
+           "loglikelihood_limit": EVAL_LL_ATOL}
+    if (not math.isfinite(ppl["loss"])
+            or ppl["tokens"] != EVAL_BATCHES * bs * (s - 1)
+            or res["loss_rel_err"] > EVAL_PPL_REL
+            or max(diffs) > EVAL_LL_ATOL
+            or abs(ppl["ppl"] - math.exp(ppl["loss"])) > 1e-6 * ppl["ppl"]):
+        raise RuntimeError(f"evaluation: {res}")
+    return res
+
+
+def pack_native_reader() -> dict:
+    """(f): the native gathered reader's batches against the numpy
+    path's, bit for bit, and rows/s of each over the same shuffled
+    index stream (in turns; the file is in the page cache: warm reads)."""
+    import numpy as np
+    from cloud_server_tpu_torch.data.dataset import (MemmapTokenDataset,
+                                                     write_token_file)
+    from cloud_server_tpu_torch.data.loader import ShardedSampler, _collate
+    from cloud_server_tpu_torch.runtime import native
+    if native.load_library() is None:
+        raise RuntimeError("the native reader did not build (g++)")
+    s = 2048
+    path = os.path.join(PACK_DIR, "native.bin")
+    write_token_file(path, np.random.default_rng(SEED + 13).integers(
+        0, 65535, NATIVE_WINDOWS * s, dtype=np.uint16), dtype=np.uint16)
+    nat = native.NativeTokenDataset(path, s)
+    ref = MemmapTokenDataset(path, s)
+    sampler = ShardedSampler(len(ref), NATIVE_BATCH, seed=SEED)
+    it = iter(sampler)
+    stream = [next(it) for _ in range(len(ref) // NATIVE_BATCH)]
+    for idx in stream:
+        a, b = _collate(nat, idx), _collate(ref, idx)
+        if not np.array_equal(a["tokens"], b["tokens"]):
+            raise RuntimeError(f"native reader: batch {idx[:4]}... differs "
+                               "from the numpy path's")
+    secs: dict = {"native": [], "numpy": []}
+    for kind in ("numpy", "native", "native", "numpy"):
+        ds = nat if kind == "native" else ref
+        t0 = time.perf_counter()
+        for idx in stream:
+            _collate(ds, idx)
+        secs[kind].append(time.perf_counter() - t0)
+    rows = len(stream) * NATIVE_BATCH
+    nat.close()
+    return {"windows": len(ref), "seq_len": s, "batch": NATIVE_BATCH,
+            "batches_bit_equal": len(stream), "reads": "warm (page cache)",
+            **{f"{k}_rows_per_s": rows / (sum(v) / len(v))
+               for k, v in secs.items()},
+            "seconds": secs}
+
+
+def phase_pack(train: dict) -> dict:
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    total: dict = {}
+    ce_total: dict = {}
+    seconds: dict = {}
+    t0 = time.perf_counter()
+    dense, state, cfg, tcfg = pack_train_part(TRAIN_CONFIG, "dense", total,
+                                              ce_total)
+    seconds["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ev = pack_eval(state.params, cfg, total)
+    seconds["e"] = time.perf_counter() - t0
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fused, state, _, _ = pack_train_part(FUSED_CE_CONFIG, "fused_ce", total,
+                                         ce_total)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sl = pack_slice(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    remat = pack_remat(cfg, tcfg, total)
+    seconds["d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reader = pack_native_reader()
+    seconds["f"] = time.perf_counter() - t0
+    unpacked = train["run_s2048"]
+    out = {"phase": "pack", "model": "Llama-3.1-8B widths, 8 layers "
+           "(random f32 master weights, bf16 compute, flash)",
+           "packed_dense": dense, "packed_fused_ce": fused,
+           "train_phase_unpacked": {
+               "step_s": unpacked["step_time_s_steady"],
+               "peak_mem_gb": unpacked["peak_mem_gb"],
+               "device_busy_share": 1 - unpacked["profile_step"][
+                   "device_idle_share"]},
+           "slice": sl, "remat": remat, "eval": ev, "native_reader": reader,
+           "counts": total, "ce_counts": ce_total, "seconds": seconds}
     emit(out)
     return out
 
@@ -5431,6 +5906,7 @@ def main() -> int:
         return 0  # a quick check of a kernel change; prints no result
     serve = timed(phase_serve)
     train = timed(phase_train)
+    pack = timed(phase_pack, train)
     ckpt = timed(phase_ckpt)
     moe = timed(phase_moe, ckpt)
     seconds["serve.contiguous"] = serve["contiguous"]["seconds"]["total"]
@@ -5584,6 +6060,18 @@ def main() -> int:
     for row in rows:
         row["launches_moe"] = next(
             (n for key, n in moe_launches.items() if key in row["name"]), 0)
+    # the pack phase's launches: packed steps, remat policies, evaluation
+    pc, pce = pack["counts"], pack["ce_counts"]
+    pack_launches = {
+        "flash_attention forward (B": pc["launches_fwd"],
+        "flash_attention dK/dV": pc["launches_bwd_dkdv"],
+        "flash_attention dQ": pc["launches_bwd_dq"],
+        "flash_attention fused backward": pc["launches_bwd_fused"],
+        "fused_ce forward": pce["launches_fwd"],
+        "fused_ce dx": pce["launches_dx"]}
+    for row in rows:
+        row["launches_pack"] = next(
+            (n for key, n in pack_launches.items() if key in row["name"]), 0)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})

@@ -134,7 +134,10 @@ struct Args {
   const int* widths;  // null: every slot's width is w
   long long q_sb, q_sw, q_sh;  // q strides (elements): slot, window, head
   long long o_sb, o_sw, o_sh;  // out strides
-  int w, group, kv_heads, num_pages, page_size, max_pages, layer, loader;
+  // num_pages: the pool's pages (the layer stride of pool_row);
+  // last_page: the largest id a table entry reads (page_at clamps to it)
+  int w, group, kv_heads, num_pages, last_page, page_size, max_pages, layer,
+      loader;
   float scale_log2;
 };
 
@@ -168,7 +171,7 @@ __device__ __forceinline__ long long o_offset(const Args& a, int b, int h,
 __device__ __forceinline__ int page_at(const Args& a, const int* table,
                                        int pos) {
   return min(max(table[min(pos / a.page_size, a.max_pages - 1)], 0),
-             a.num_pages - 1);
+             a.last_page);
 }
 
 // The pool row of (layer, page, head), before the Dh axis: element
@@ -1293,9 +1296,9 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
            const void* tables, const void* widths, void* out, long long q_sb,
            long long q_sw, long long q_sh, long long o_sb, long long o_sw,
            long long o_sh, int batch, int w, int kv_heads, int group,
-           int head_dim, int num_pages, int page_size, int max_pages,
-           int layers, int layer, float scale, int loader, int narrow,
-           void* stream) {
+           int head_dim, int num_pages, int last_page, int page_size,
+           int max_pages, int layers, int layer, float scale, int loader,
+           int narrow, void* stream) {
   constexpr bool kInt8 = std::is_same<T, int8_t>::value;
   (void)cudaGetLastError();
   if (batch <= 0 || w <= 0) return 0;
@@ -1303,6 +1306,7 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
                          kv_heads * head_dim;
   if ((head_dim != 64 && head_dim != 128) || group <= 0 || kv_heads <= 0 ||
       page_size <= 0 || max_pages <= 0 || layer < 0 || layer >= layers ||
+      last_page < 0 || last_page >= num_pages ||
       loader < kLoadTma || loader > kLoadScalar ||
       (narrow && w * group > 128) ||
       (loader == kLoadTma && (page_size % kTile != 0 || rows >= (1ll << 31))) ||
@@ -1329,6 +1333,7 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
   a.group = group;
   a.kv_heads = kv_heads;
   a.num_pages = num_pages;
+  a.last_page = last_page;
   a.page_size = page_size;
   a.max_pages = max_pages;
   a.layer = layer;
@@ -1354,7 +1359,9 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
 // C entries, bound with ctypes. q, out: (B, W, H, Dh) bf16 with the given
 // strides (elements; Dh contiguous); pools (L, P, KH, Dh, ps) and scale
 // pools (L, P, KH, ps) contiguous; widths may be null (every slot's width
-// is W). `loader`: 0 TMA, 1 cp.async, 2 by element. `narrow`: 1 launches
+// is W). A table entry reads page min(max(entry, 0), last_page): a pool
+// with a scratch page after its real pages passes its last real page, so
+// a sentinel entry never reads the scratch page. `loader`: 0 TMA, 1 cp.async, 2 by element. `narrow`: 1 launches
 // the narrow kernel (W * G <= 128), 0 the wide one. `stream` is the
 // caller's cudaStream_t. They allocate nothing and do not synchronise, and
 // return cudaGetLastError() after the launch (cudaErrorInvalidValue for
@@ -1364,14 +1371,14 @@ extern "C" int paged_attention_bf16(
     const void* lengths, const void* tables, const void* widths, void* out,
     long long q_sb, long long q_sw, long long q_sh, long long o_sb,
     long long o_sw, long long o_sh, int batch, int w, int kv_heads,
-    int group, int head_dim, int num_pages, int page_size, int max_pages,
-    int layers, int layer, float scale, int loader, int narrow,
-    void* stream) {
+    int group, int head_dim, int num_pages, int last_page, int page_size,
+    int max_pages, int layers, int layer, float scale, int loader,
+    int narrow, void* stream) {
   return launch<bf16>(q, k_pool, v_pool, nullptr, nullptr, lengths, tables,
                       widths, out, q_sb, q_sw, q_sh, o_sb, o_sw, o_sh, batch,
-                      w, kv_heads, group, head_dim, num_pages, page_size,
-                      max_pages, layers, layer, scale, loader, narrow,
-                      stream);
+                      w, kv_heads, group, head_dim, num_pages, last_page,
+                      page_size, max_pages, layers, layer, scale, loader,
+                      narrow, stream);
 }
 
 // The int8 KV cache: int8 pools with their (L, P, KH, ps) f32 scale pools.
@@ -1381,13 +1388,13 @@ extern "C" int paged_attention_int8(
     const void* tables, const void* widths, void* out, long long q_sb,
     long long q_sw, long long q_sh, long long o_sb, long long o_sw,
     long long o_sh, int batch, int w, int kv_heads, int group, int head_dim,
-    int num_pages, int page_size, int max_pages, int layers, int layer,
-    float scale, int loader, int narrow, void* stream) {
+    int num_pages, int last_page, int page_size, int max_pages, int layers,
+    int layer, float scale, int loader, int narrow, void* stream) {
   return launch<int8_t>(q, k_pool, v_pool, k_scales, v_scales, lengths,
                         tables, widths, out, q_sb, q_sw, q_sh, o_sb, o_sw,
                         o_sh, batch, w, kv_heads, group, head_dim, num_pages,
-                        page_size, max_pages, layers, layer, scale, loader,
-                        narrow, stream);
+                        last_page, page_size, max_pages, layers, layer, scale,
+                        loader, narrow, stream);
 }
 
 // The narrow kernel's blocks for each (slot, kv head) at these shapes on

@@ -83,9 +83,8 @@ class ShardedSampler:
 
 
 def _collate(dataset, indices: np.ndarray) -> dict[str, np.ndarray]:
-    if hasattr(dataset, "read_batch"):
-        raise NotImplementedError(
-            "the native gathered reader (runtime/) is not ported yet")
+    if hasattr(dataset, "read_batch"):  # native gathered read (runtime/)
+        return dataset.read_batch(indices)
     examples = [dataset[int(i)] for i in indices]
     return {k: np.stack([e[k] for e in examples]) for k in examples[0]}
 

@@ -34,9 +34,10 @@ partially-imported (or evicted-on-arrival) chain is just a cache miss.
 
 This module is host policy: stdlib-only, the ledger's lock is
 leaf-level, and its record hooks ride the scheduler hot path. A copy of
-the reference's `inference/migration.py`: the port's server keeps the
-ledger (its stats and the bundle's `migration` block); export, import
-and handoff are not ported yet.
+the reference's `inference/migration.py`: the port's paged server
+records its exports, salvages and imports in the ledger
+(`migrate_export`, `migrate_salvage`, `migrate_import`), which backs
+its stats and the bundle's `migration` block.
 """
 
 from __future__ import annotations

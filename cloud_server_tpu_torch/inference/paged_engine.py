@@ -22,9 +22,12 @@ covers all B x W window positions, and a position that must not write
 (at window index >= widths[b], past the table's reach, or on a sentinel
 or otherwise out-of-pool page) writes to the scratch page instead. The
 pools hold one page more than the tables may name: page `num_pages`,
-the tables' sentinel id, which no kernel reads for a live position
-(past each slot's length, attention masks it). Only the scratch page
-takes duplicate targets, so the scatter is exact for every real page.
+the tables' sentinel id. Attention never reads it: a table entry is
+clamped to the last real page (`last_page=num_pages - 1`), so a row
+with sentinel tables (a padding row, an inert row) reads page
+num_pages - 1, as the reference's gather does, and never what masked
+writes left in the scratch page. Only the scratch page takes duplicate
+targets, so the scatter is exact for every real page.
 Shared pages are never written: the allocator guarantees writes happen
 at positions >= every sharing slot's private start.
 
@@ -237,7 +240,8 @@ def window_forward(params, tokens: torch.Tensor, cfg: ModelConfig,
         _write_window(cache, layer, k, v, plan)
         o = attend(q, cache.k, cache.v, lens_dev, tables_dev, layer,
                    widths=widths_dev, k_scale_pool=cache.k_scale,
-                   v_scale_pool=cache.v_scale)
+                   v_scale_pool=cache.v_scale,
+                   last_page=cache.num_pages - 1)
         x = transformer.attention_out(x, o, lp, cfg, lora=ll)
         x = _mlp_apply(x, lp, cfg, lora=ll)
 

@@ -3906,8 +3906,8 @@ class PagedInferenceServer:
         return None if self._faults is None else self._faults.stats()
 
     def migration_stats(self) -> dict:
-        """The migration ledger's counts (the /stats `migration` block;
-        zeros: export and import are not ported)."""
+        """The migration ledger's counts of this server's exports,
+        salvages and imports (the /stats `migration` block)."""
         return self._migration.stats()
 
     def lookup_trace(self, request_id: str) -> dict | None:

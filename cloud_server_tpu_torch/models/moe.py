@@ -187,8 +187,8 @@ def moe_mlp_block(x, lp, cfg: ModelConfig):
     return x + out, aux
 
 
-def _moe_block(x, lp, cfg: ModelConfig, cos, sin, attn_fn):
-    q, k, v = transformer.attention_qkv(x, lp, cfg, cos, sin)
+def _moe_block(x, lp, cfg: ModelConfig, cos, sin, attn_fn, positions=None):
+    q, k, v = transformer.attention_qkv(x, lp, cfg, cos, sin, positions)
     x = transformer.attention_out(x, attn_fn(q, k, v), lp, cfg)
     x, aux = moe_mlp_block(x, lp, cfg)
     return x, aux["load_balance"], aux["router_z"], aux["dropped_frac"]
@@ -198,16 +198,15 @@ def forward_hidden(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
                    segment_ids: torch.Tensor | None = None):
     """(B, S) -> (final-normed hidden (B, S, D), aux dict of router stats
     averaged over layers). Differentiable, with the remat policy applied
-    per layer, as `transformer.forward_hidden`."""
-    if segment_ids is not None:
-        raise NotImplementedError(
-            "packed rows (segment_ids: per-document RoPE positions and "
-            "loss masks) are not ported yet")
+    per layer, and packed rows (`segment_ids`) handled, as
+    `transformer.forward_hidden`."""
     x = transformer.embed(params, tokens, cfg)
     cos, sin = rope_table(cfg, tokens.shape[1], device=x.device)
+    attn_fn, positions = transformer.packed_inputs(cfg, segment_ids,
+                                                   x.device)
     block = transformer.apply_remat(
-        partial(_moe_block, cfg=cfg, cos=cos, sin=sin,
-                attn_fn=transformer._get_attention_fn(cfg)), cfg)
+        partial(_moe_block, cfg=cfg, cos=cos, sin=sin, attn_fn=attn_fn,
+                positions=positions), cfg)
     names = sorted(params["layers"])
     per_layer = [params["layers"][n].unbind(0) for n in names]
     lb = rz = dropped = torch.zeros((), dtype=torch.float32,
@@ -234,16 +233,16 @@ def next_token_loss(params: Params, batch: dict, cfg: ModelConfig,
     """The dense model's next-token CE (the hidden-state route when
     ce_impl is "pallas" or vocab_chunk > 0) plus aux_loss_coef ·
     load_balance and, when set, router_z_coef · router_z; the metrics
-    carry the three router stats."""
-    if batch.get("segment_ids") is not None:
-        raise NotImplementedError("packed batches (segment_ids) are not "
-                                  "ported yet")
+    carry the three router stats. Packed batches ("segment_ids") mask the
+    CE as the dense model's do."""
+    seg = batch.get("segment_ids")
+    batch = transformer.apply_segment_loss_mask(batch)
     if cfg.ce_impl == "pallas" or cfg.vocab_chunk > 0:
-        x, aux = forward_hidden(params, batch["tokens"], cfg)
+        x, aux = forward_hidden(params, batch["tokens"], cfg, seg)
         loss, metrics = transformer.hidden_state_loss(x, params, batch, cfg,
                                                       z_loss_coef)
     else:
-        logits, aux = forward(params, batch["tokens"], cfg)
+        logits, aux = forward(params, batch["tokens"], cfg, seg)
         loss, metrics = transformer.masked_cross_entropy(logits, batch,
                                                          z_loss_coef)
     metrics.update(load_balance=aux["load_balance"].detach(),

@@ -15,9 +15,12 @@ Training: `forward_hidden`/`forward` are differentiable (weights cast to
 `cfg.dtype` inside the graph, so float32 masters get float32 gradients),
 with the remat policy applied per layer and attention from
 `_get_attention_fn` ("xla": plain; "flash": the flash-attention
-kernels). The losses (`next_token_loss`, `hidden_state_loss`,
-`masked_cross_entropy`, the vocab-chunked CE, and the fused CE of
-ce_impl="pallas" through the B7/B8 kernels) mirror the reference's.
+kernels). Packed rows (`segment_ids`, data/packing.py) restart RoPE
+positions per document, mask attention to same-document pairs and mask
+the loss's cross-document and padding targets. The losses
+(`next_token_loss`, `hidden_state_loss`, `masked_cross_entropy`, the
+vocab-chunked CE, and the fused CE of ce_impl="pallas" through the
+B7/B8 kernels) mirror the reference's.
 """
 
 from __future__ import annotations
@@ -28,14 +31,19 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from cloud_server_tpu_torch import resolve_device
 from cloud_server_tpu_torch.config import ModelConfig
 from cloud_server_tpu_torch.ops import (apply_rope, causal_attention,
                                         matmul_f32, rms_norm, rope_table,
                                         swiglu)
-from cloud_server_tpu_torch.ops.flash_attention import flash_attention
+from cloud_server_tpu_torch.ops.flash_attention import (flash_attention,
+                                                        flash_fwd_op)
 from cloud_server_tpu_torch.ops.fused_ce import fused_ce_stats
+from cloud_server_tpu_torch.ops.segments import (positions_from_segments,
+                                                 segment_target_mask)
 
 Params = dict
 
@@ -294,34 +302,65 @@ def embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig):
     return table[tokens.to(table.device).long()].to(torch_dtype(cfg.dtype))
 
 
-def _block(x, lp, cfg: ModelConfig, cos, sin, attn_fn):
-    q, k, v = attention_qkv(x, lp, cfg, cos, sin)
+def _block(x, lp, cfg: ModelConfig, cos, sin, attn_fn, positions=None):
+    q, k, v = attention_qkv(x, lp, cfg, cos, sin, positions)
     x = attention_out(x, attn_fn(q, k, v), lp, cfg)
     return mlp_block(x, lp, cfg)
 
 
+# What the selective policies save: the flash forward's (out, lse)
+# (`flash_fwd_op`), and for "dots" every matmul without batch dims too
+# (the q/k/v/o, MLP and router projections; the MoE experts' batched
+# GEMMs are `bmm`, which have one, so they are recomputed, as in the
+# reference's `dots_with_no_batch_dims_saveable`).
+_REMAT_SAVES = {
+    "attn": frozenset({flash_fwd_op}),
+    "dots": frozenset({flash_fwd_op, torch.ops.aten.mm.default,
+                       torch.ops.aten.addmm.default}),
+}
+
+
+def _save_only(ops):
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in ops
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return policy
+
+
 def apply_remat(block, cfg: ModelConfig):
-    """Wrap a layer-block fn with the configured remat policy.
+    """Wrap a layer-block fn with the configured remat policy (the
+    single selection point for the dense and MoE stacks):
 
       * "none": save everything.
       * "full": recompute the whole block in the backward
         (`torch.utils.checkpoint`, non-reentrant); only the block's
         input is kept.
-    The reference's "dots" and "attn" (save named residuals) are not
-    ported yet. Without autograd (inference) nothing is checkpointed."""
+      * "dots": save the matmul outputs without batch dims AND the flash
+        forward's (out, lse), so the backward runs no flash forward;
+        recompute the rest (selective activation checkpointing).
+      * "attn": save ONLY the flash forward's (out, lse); recompute
+        everything else (the big (B, S, mlp_dim) gate/up tensors too).
+        Only meaningful with attention_impl="flash": other impls emit no
+        flash residuals, so this is "full".
+    Without autograd (inference) nothing is checkpointed."""
     if cfg.remat == "none":
         return block
     if cfg.remat == "full":
-        def checkpointed(*args):
-            if not torch.is_grad_enabled():
-                return block(*args)
-            return torch.utils.checkpoint.checkpoint(
-                block, *args, use_reentrant=False)
-        return checkpointed
-    if cfg.remat in ("dots", "attn"):
-        raise NotImplementedError(
-            f"remat={cfg.remat!r} is not ported yet (use 'full' or 'none')")
-    raise ValueError(f"unknown remat policy: {cfg.remat!r}")
+        context_fn = None
+    elif cfg.remat in _REMAT_SAVES:
+        context_fn = partial(create_selective_checkpoint_contexts,
+                             _save_only(_REMAT_SAVES[cfg.remat]))
+    else:
+        raise ValueError(f"unknown remat policy: {cfg.remat!r}")
+
+    def checkpointed(*args):
+        if not torch.is_grad_enabled():
+            return block(*args)
+        if context_fn is None:
+            return checkpoint(block, *args, use_reentrant=False)
+        return checkpoint(block, *args, use_reentrant=False,
+                          context_fn=context_fn)
+    return checkpointed
 
 
 def _get_attention_fn(cfg: ModelConfig, segment_ids=None):
@@ -340,23 +379,47 @@ def _get_attention_fn(cfg: ModelConfig, segment_ids=None):
     raise ValueError(f"unknown attention_impl: {cfg.attention_impl!r}")
 
 
+def apply_segment_loss_mask(batch: dict) -> dict:
+    """If the batch is packed, fold the segment boundary/padding mask into
+    batch['mask'] (shared by the dense and MoE losses). No-op otherwise."""
+    seg = batch.get("segment_ids")
+    if seg is None:
+        return batch
+    tmask = segment_target_mask(seg)
+    if batch.get("mask") is not None:
+        tmask = tmask * batch["mask"].to(tmask.device).float()
+    return {**batch, "mask": tmask}
+
+
+def packed_inputs(cfg: ModelConfig, segment_ids, device):
+    """(attention fn, RoPE positions) of a forward: with (B, S) packed
+    segment ids, positions restart per document and attention is masked
+    to same-document pairs; without, the plain causal forward."""
+    if segment_ids is None:
+        return _get_attention_fn(cfg), None
+    seg = segment_ids.to(device)
+    return _get_attention_fn(cfg, seg), positions_from_segments(seg)
+
+
 def forward_hidden(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
                    segment_ids: torch.Tensor | None = None) -> torch.Tensor:
     """(B, S) int -> final-normed hidden states (B, S, D) in cfg.dtype.
+
+    segment_ids: optional (B, S) packed-sequence ids (data/packing.py):
+    attention becomes block-diagonal causal and RoPE positions restart
+    per document, so each packed document sees the math it would see
+    alone.
 
     Differentiable: weights are cast to cfg.dtype inside the graph, so
     float32 masters receive float32 gradients. The stacked layer leaves
     are split with `unbind`, whose backward stacks the layer gradients
     once (a per-layer index would zero-fill a full stack per layer)."""
-    if segment_ids is not None:
-        raise NotImplementedError(
-            "packed rows (segment_ids: per-document RoPE positions and "
-            "loss masks) are not ported yet")
     x = embed(params, tokens, cfg)
     cos, sin = rope_table(cfg, tokens.shape[1], device=x.device)
+    attn_fn, positions = packed_inputs(cfg, segment_ids, x.device)
     block = apply_remat(
-        partial(_block, cfg=cfg, cos=cos, sin=sin,
-                attn_fn=_get_attention_fn(cfg)), cfg)
+        partial(_block, cfg=cfg, cos=cos, sin=sin, attn_fn=attn_fn,
+                positions=positions), cfg)
     names = sorted(params["layers"])
     per_layer = [params["layers"][n].unbind(0) for n in names]
     for i in range(cfg.num_layers):
@@ -519,14 +582,16 @@ def hidden_state_loss(x, params: Params, batch: dict, cfg: ModelConfig,
 def next_token_loss(params: Params, batch: dict, cfg: ModelConfig,
                     z_loss_coef: float = 0.0):
     """Causal LM loss. batch: {"tokens": (B, S) int, optional "mask":
-    (B, S)}. Predicts tokens[:, 1:] from tokens[:, :-1]; the forward runs
-    on the full S and the last position is dropped inside the loss.
-    Packed batches ("segment_ids") are not ported yet."""
-    if batch.get("segment_ids") is not None:
-        raise NotImplementedError("packed batches (segment_ids) are not "
-                                  "ported yet")
+    (B, S), optional "segment_ids": (B, S) for packed rows}. Predicts
+    tokens[:, 1:] from tokens[:, :-1]; the forward runs on the full S and
+    the last position is dropped inside the loss. With segment_ids,
+    attention and positions follow the packing (`forward_hidden`) and
+    targets crossing a document boundary (or in padding) are masked out
+    of the loss, on every CE route."""
+    seg = batch.get("segment_ids")
+    batch = apply_segment_loss_mask(batch)
     if cfg.ce_impl == "pallas" or cfg.vocab_chunk > 0:
-        x = forward_hidden(params, batch["tokens"], cfg)
+        x = forward_hidden(params, batch["tokens"], cfg, seg)
         return hidden_state_loss(x, params, batch, cfg, z_loss_coef)
-    logits = forward(params, batch["tokens"], cfg)
+    logits = forward(params, batch["tokens"], cfg, seg)
     return masked_cross_entropy(logits, batch, z_loss_coef)

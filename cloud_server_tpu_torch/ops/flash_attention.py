@@ -9,25 +9,31 @@ Two versions of one function:
   * `flash_attention_ref` — the plain PyTorch version: a dense masked
     softmax in float32 that also returns the per-row log-sum-exp
     (B, H, S). It differentiates through autograd.
-  * `flash_attention` — the kernel wrapper, a `torch.autograd.Function`.
-    On a CUDA tensor its forward launches the hand-written Hopper kernel
-    of `csrc/flash_attention.cu` (the reference's `_fwd_kernel`) and its
-    backward launches the fused whole-sequence kernel when
-    S <= block (the reference's `_bwd_fused_kernel`) or the dK/dV kernel
-    then the dQ kernel (`_bwd_dkdv_kernel`, `_bwd_dq_kernel`), by the
-    reference's rule and block sizes. The kernels take S in multiples of
-    64: the wrapper pads S in the layout copy it makes anyway and slices
-    the results back, which is exact (`to_kernel_layout`). Head dims other
-    than 64 and 128 and dtypes other than bfloat16 raise
-    NotImplementedError. On a CPU tensor it runs the plain version.
+  * `flash_attention` — the kernel wrapper. Its forward is the
+    dispatcher op `cloud_server_tpu_torch::flash_fwd` (`flash_fwd_op`),
+    which returns (out, lse) and carries its own backward
+    (`torch.library.register_autograd`), so a selective-checkpointing
+    policy can save its outputs by name (`models.transformer.
+    apply_remat`'s "attn" and "dots"). On a CUDA tensor the op launches
+    the hand-written Hopper kernel of `csrc/flash_attention.cu` (the
+    reference's `_fwd_kernel`) and its backward the fused whole-sequence
+    kernel when S <= block (the reference's `_bwd_fused_kernel`) or the
+    dK/dV kernel then the dQ kernel (`_bwd_dkdv_kernel`,
+    `_bwd_dq_kernel`), by the reference's rule and block sizes. The
+    kernels take S in multiples of 64: the op pads S in the layout copy
+    it makes anyway, and the wrapper slices the result back, which is
+    exact (`to_kernel_layout`). Head dims other than 64 and 128 and
+    dtypes other than bfloat16 raise NotImplementedError. On a CPU
+    tensor the op runs the plain version, and its backward the plain
+    backward from the saved (out, lse) (`flash_backward_ref`).
 
 Launch counters, one per TPU kernel: `launches_fwd`, `launches_bwd_dkdv`,
 `launches_bwd_dq`, `launches_bwd_fused`; `plain_calls` counts the plain
 version's calls. Under `remat="full"` the forward runs twice per layer
-and step (the backward recomputes it). While a CUDA graph captures
-(`inference/graphs.py`), this thread's calls launch nothing and count
-into the capture's tally (`recording`); each replay adds the tally
-(`add_counts`).
+and step (the backward recomputes it); under "attn" and "dots" once.
+While a CUDA graph captures (`inference/graphs.py`), this thread's calls
+launch nothing and count into the capture's tally (`recording`); each
+replay adds the tally (`add_counts`).
 """
 
 from __future__ import annotations
@@ -288,60 +294,118 @@ def forward_bhsd(q, k, v, seg, scale):
     return out, lse
 
 
-class _Flash(torch.autograd.Function):
-    """Causal flash attention on (B, S, H, Dh) bf16 CUDA tensors; the
-    kernels run on padded (B, H, S_pad, Dh) copies."""
+def flash_backward_ref(q, k, v, seg, out, lse, dout, scale):
+    """The plain backward of `flash_attention_ref` from its residuals:
+    q (B, S, H, Dh), k/v (B, S, KH, Dh), seg (B, S) or None, out and dout
+    (B, H, S, Dh), lse (B, H, S). Recomputes the probabilities from lse
+    (no forward), in float32. Returns (dq, dk, dv) in the inputs'
+    layouts and dtypes."""
+    b, s, h, d = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    qf = q.float().reshape(b, s, kh, g, d)
+    kf, vf = k.float(), v.float()
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * scale
+    pos = torch.arange(s, device=q.device)
+    mask = (pos[:, None] >= pos[None, :])[None]
+    if seg is not None:
+        mask = mask & (seg[:, :, None] == seg[:, None, :])
+    mask = mask[:, None, None]
+    probs = torch.where(
+        mask, torch.exp(scores - lse.reshape(b, kh, g, s)[..., None]), 0.0)
+    do = dout.float().reshape(b, kh, g, s, d)
+    delta = (do * out.float().reshape(b, kh, g, s, d)).sum(-1)
+    dv = torch.einsum("bkgqs,bkgqd->bskd", probs, do)
+    dp = torch.einsum("bkgqd,bskd->bkgqs", do, vf)
+    ds = probs * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf).reshape(b, s, h, d)
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
-    @staticmethod
-    def forward(ctx, q, k, v, seg, scale, fused):
-        s_pad = padded_len(q.shape[1])
-        qt, kt, vt = (to_kernel_layout(x, s_pad) for x in (q, k, v))
-        segt = None if seg is None else pad_segments(seg, s_pad)
-        out, lse = forward_bhsd(qt, kt, vt, segt, scale)
-        # the layout copies and out, lse are this call's own, so a
-        # checkpoint recompute saves a fresh, consistent set
-        ctx.save_for_backward(qt, kt, vt, out, lse, segt)
-        ctx.scale = float(scale)
-        ctx.fused = fused
-        return from_kernel_layout(out, q.shape[1])
 
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, out, lse, seg = ctx.saved_tensors
-        b, h, kh, s, d = _dims(q, k)
-        dout_t = to_kernel_layout(dout, s)
-        scale = ctx.scale
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-        dq = torch.empty_like(q)
-        dk = torch.empty_like(k)
-        dv = torch.empty_like(v)
-        if ctx.fused:
-            # the entry zeroes this f32 scratch, adds dQ into it and
-            # converts it into dq
-            dq32 = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-            _check(_kernel("flash_attention_bwd_fused_bf16")(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                dout_t.data_ptr(), lse.data_ptr(), _ptr(seg),
-                delta.data_ptr(), dq32.data_ptr(), dq.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), b, h, kh, s, d, scale, stream),
-                "fused backward")
-            _count("launches_bwd_fused")
-        else:
-            _check(_kernel("flash_attention_bwd_dkdv_bf16")(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                dout_t.data_ptr(), lse.data_ptr(), _ptr(seg),
-                delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, kh, s,
-                d, scale, stream), "dK/dV")
-            _count("launches_bwd_dkdv")
-            _check(_kernel("flash_attention_bwd_dq_bf16")(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), dout_t.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), _ptr(seg), dq.data_ptr(),
-                b, h, kh, s, d, scale, stream), "dQ")
-            _count("launches_bwd_dq")
-        s0 = dout.shape[1]
-        return (from_kernel_layout(dq, s0), from_kernel_layout(dk, s0),
-                from_kernel_layout(dv, s0), None, None, None)
+def _backward_kernels(q, k, v, seg, out, lse, dout, scale, fused):
+    """B6, or B4 then B5, on the residuals of `_flash_fwd`'s CUDA path:
+    q/k/v (B, S, H|KH, Dh) as given to it, out and dout (B, H, S_pad,
+    Dh), lse (B, H, S_pad). Returns (dq, dk, dv) in q/k/v's layout."""
+    s0, s_pad = q.shape[1], out.shape[2]
+    qt, kt, vt = (to_kernel_layout(x, s_pad) for x in (q, k, v))
+    seg = None if seg is None else pad_segments(seg, s_pad)
+    # dout's rows past s0 are zero (the slice's gradient), so delta and
+    # dS are 0 there (`to_kernel_layout`)
+    dout_t = _aligned(dout.contiguous())
+    b, h, kh, s, d = _dims(qt, kt)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    dq = torch.empty_like(qt)
+    dk = torch.empty_like(kt)
+    dv = torch.empty_like(vt)
+    if fused:
+        # the entry zeroes this f32 scratch, adds dQ into it and converts
+        # it into dq
+        dq32 = torch.empty(qt.shape, dtype=torch.float32, device=q.device)
+        _check(_kernel("flash_attention_bwd_fused_bf16")(
+            qt.data_ptr(), kt.data_ptr(), vt.data_ptr(), out.data_ptr(),
+            dout_t.data_ptr(), lse.data_ptr(), _ptr(seg), delta.data_ptr(),
+            dq32.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
+            h, kh, s, d, scale, stream), "fused backward")
+        _count("launches_bwd_fused")
+    else:
+        _check(_kernel("flash_attention_bwd_dkdv_bf16")(
+            qt.data_ptr(), kt.data_ptr(), vt.data_ptr(), out.data_ptr(),
+            dout_t.data_ptr(), lse.data_ptr(), _ptr(seg), delta.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, h, kh, s, d, scale, stream),
+            "dK/dV")
+        _count("launches_bwd_dkdv")
+        _check(_kernel("flash_attention_bwd_dq_bf16")(
+            qt.data_ptr(), kt.data_ptr(), vt.data_ptr(), dout_t.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), _ptr(seg), dq.data_ptr(), b, h,
+            kh, s, d, scale, stream), "dQ")
+        _count("launches_bwd_dq")
+    return (from_kernel_layout(dq, s0), from_kernel_layout(dk, s0),
+            from_kernel_layout(dv, s0))
+
+
+# The forward as a dispatcher op, so that a selective-checkpointing
+# policy can name its outputs (models.transformer.apply_remat's "attn"
+# and "dots" save them) and the backward reads them instead of running
+# the forward again.
+@torch.library.custom_op(
+    "cloud_server_tpu_torch::flash_fwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor? seg, float scale, "
+           "bool fused) -> (Tensor, Tensor)")
+def _flash_fwd(q, k, v, seg, scale, fused):
+    """Causal attention's (out (B, H, S', Dh), lse (B, H, S') f32) from
+    q (B, S, H, Dh), k/v (B, S, KH, Dh): on a CUDA tensor one launch of
+    B3 on padded layout copies (S' = S_pad), on a CPU tensor the plain
+    version (S' = S). `fused` picks the backward (B6, else B4 + B5)."""
+    if q.device.type == "cpu":
+        out, lse = flash_attention_ref(q, k, v, seg, scale)
+        return out.transpose(1, 2).contiguous(), lse
+    s_pad = padded_len(q.shape[1])
+    qt, kt, vt = (to_kernel_layout(x, s_pad) for x in (q, k, v))
+    segt = None if seg is None else pad_segments(seg, s_pad)
+    return forward_bhsd(qt, kt, vt, segt, scale)
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, seg, scale, fused = inputs
+    ctx.save_for_backward(q, k, v, seg, *output)
+    ctx.scale = float(scale)
+    ctx.fused = fused
+
+
+def _flash_backward(ctx, dout, dlse):
+    q, k, v, seg, out, lse = ctx.saved_tensors
+    if q.device.type == "cpu":
+        grads = flash_backward_ref(q, k, v, seg, out, lse, dout, ctx.scale)
+    else:
+        grads = _backward_kernels(q, k, v, seg, out, lse, dout, ctx.scale,
+                                  ctx.fused)
+    return (*grads, None, None, None)
+
+
+_flash_fwd.register_autograd(_flash_backward, setup_context=_flash_setup)
+flash_fwd_op = torch.ops.cloud_server_tpu_torch.flash_fwd.default
 
 
 def flash_attention(q, k, v, *, scale=None, block_q: int = 1024,
@@ -360,11 +424,11 @@ def flash_attention(q, k, v, *, scale=None, block_q: int = 1024,
     d = q.shape[-1]
     if scale is None:
         scale = d ** -0.5
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, segment_ids, scale)[0]
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     seg = None if segment_ids is None else segment_ids.to(q.device)
-    _validate(q, k, v, seg)
+    if q.device.type == "cuda":
+        _validate(q, k, v, seg)
     fused = uses_fused_backward(q.shape[1], k.shape[1], block_q, block_kv)
-    return _Flash.apply(q, k, v, seg, scale, fused)
+    out, _ = _flash_fwd(q, k, v, seg, float(scale), fused)
+    return from_kernel_layout(out, q.shape[1])

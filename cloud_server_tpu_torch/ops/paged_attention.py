@@ -6,7 +6,8 @@ W = 1, chunked prefill W = chunk, mixed batches with ragged per-row
 
   q        (B, W, H, Dh)
   pools    (L, P, KH, Dh, ps)   transposed pages, positions minor
-  tables   (B, max_pages) int32, sentinel = P ("no page")
+  tables   (B, max_pages) int32; an entry past `last_page` (the
+           sentinel, "no page") reads page `last_page`
   lengths  (B,) int32           kv entries INCLUDING the window
   widths   (B,) int32           valid window rows per slot (<= W)
 
@@ -139,30 +140,50 @@ def is_narrow(b: int, w: int) -> bool:
 # ---------------------------------------------------------------------------
 
 
+def page_limit(num_pages: int, last_page: int | None) -> int:
+    """The largest page id a table entry reads: `last_page`, or the
+    pool's last page (P - 1) when it is None. A pool that carries a
+    scratch page after its real pages (inference/paged_engine.py) passes
+    its last real page, so a sentinel entry reads that page, as the
+    reference's gather does (its pool has no scratch page), and never
+    what masked writes left in the scratch page."""
+    limit = num_pages - 1 if last_page is None else int(last_page)
+    if not 0 <= limit < num_pages:
+        raise ValueError(f"last_page {last_page} out of range "
+                         f"[0, {num_pages})")
+    return limit
+
+
 def gather_pages(pool: torch.Tensor, tables: torch.Tensor,
-                 layer: int = 0) -> torch.Tensor:
+                 layer: int = 0, last_page: int | None = None
+                 ) -> torch.Tensor:
     """(L, P, KH, Dh, ps), (B, MP) -> contiguous (B, MP*ps, KH, Dh) for
-    `layer`. Table entries are clamped into [0, P-1]."""
+    `layer`. Table entries are clamped into [0, last_page] (`page_limit`)."""
     b, mp = tables.shape
     _, num_pages, kh, d, ps = pool.shape
-    idx = tables.to(pool.device).long().clamp(0, num_pages - 1)
+    idx = tables.to(pool.device).long().clamp(
+        0, page_limit(num_pages, last_page))
     pages = pool[int(layer)][idx]                # (B, MP, KH, Dh, ps)
     return pages.permute(0, 1, 4, 2, 3).reshape(b, mp * ps, kh, d)
 
 
 def gather_scale_pages(scale_pool: torch.Tensor, tables: torch.Tensor,
-                       layer: int = 0) -> torch.Tensor:
-    """(L, P, KH, ps), (B, MP) -> (B, MP*ps, KH, 1) f32 for `layer`."""
+                       layer: int = 0, last_page: int | None = None
+                       ) -> torch.Tensor:
+    """(L, P, KH, ps), (B, MP) -> (B, MP*ps, KH, 1) f32 for `layer`,
+    clamped as `gather_pages`."""
     b, mp = tables.shape
     _, num_pages, kh, ps = scale_pool.shape
-    idx = tables.to(scale_pool.device).long().clamp(0, num_pages - 1)
+    idx = tables.to(scale_pool.device).long().clamp(
+        0, page_limit(num_pages, last_page))
     pages = scale_pool[int(layer)][idx]          # (B, MP, KH, ps)
     return pages.permute(0, 1, 3, 2).reshape(b, mp * ps, kh, 1)
 
 
 def paged_attention_ref(q, k_pool, v_pool, lengths, tables, layer=0, *,
                         scale=None, widths=None, pages_per_block=None,
-                        k_scale_pool=None, v_scale_pool=None):
+                        k_scale_pool=None, v_scale_pool=None,
+                        last_page=None):
     """Plain PyTorch paged attention (gather + masked dense attention).
     Same arguments and result as `paged_attention`; `pages_per_block`
     is accepted and unused."""
@@ -173,12 +194,15 @@ def paged_attention_ref(q, k_pool, v_pool, lengths, tables, layer=0, *,
     b, w = q.shape[:2]
     dev = q.device
     lengths = lengths.to(dev)
-    k = gather_pages(k_pool, tables, layer)
-    v = gather_pages(v_pool, tables, layer)
+    k = gather_pages(k_pool, tables, layer, last_page)
+    v = gather_pages(v_pool, tables, layer, last_page)
     scales = {}
     if k_scale_pool is not None:
-        scales = dict(k_scale=gather_scale_pages(k_scale_pool, tables, layer),
-                      v_scale=gather_scale_pages(v_scale_pool, tables, layer))
+        scales = dict(
+            k_scale=gather_scale_pages(k_scale_pool, tables, layer,
+                                       last_page),
+            v_scale=gather_scale_pages(v_scale_pool, tables, layer,
+                                       last_page))
     anchor = lengths - (w if widths is None else widths.to(dev))
     pos = anchor[:, None] + torch.arange(w, device=dev)[None, :]
     return causal_attention(q, k, v, scale=scale, q_positions=pos,
@@ -242,7 +266,7 @@ def _kernel(int8: bool = False):
     fn = lib.paged_attention_int8 if int8 else lib.paged_attention_bf16
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * (9 if int8 else 7)
-                       + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 10
+                       + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 11
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -255,7 +279,8 @@ def _int32_on(x: torch.Tensor, device) -> torch.Tensor:
 
 def paged_attention(q, k_pool, v_pool, lengths, tables, layer=0, *,
                     scale=None, pages_per_block=None, widths=None,
-                    k_scale_pool=None, v_scale_pool=None, verify=False):
+                    k_scale_pool=None, v_scale_pool=None, verify=False,
+                    last_page=None):
     """Uniform- or ragged-window attention against a paged KV cache.
 
     Args:
@@ -269,6 +294,10 @@ def paged_attention(q, k_pool, v_pool, lengths, tables, layer=0, *,
       lengths: (B,) int32 kv entries per slot including the window.
       tables: (B, max_pages) int32 page table; entries past a slot's
         length may be anything (they are clamped and masked).
+      last_page: the largest page id an entry reads (`page_limit`):
+        entries past it, the sentinel among them, read it. None = the
+        pool's last page; a pool with a scratch page passes its last
+        real page.
       widths: optional (B,) int32 ragged widths; None = W for every row
         (the kernels take a null pointer, so nothing is filled).
       pages_per_block: accepted for the reference's signature; the CUDA
@@ -286,7 +315,7 @@ def paged_attention(q, k_pool, v_pool, lengths, tables, layer=0, *,
         return paged_attention_ref(
             q, k_pool, v_pool, lengths, tables, layer, scale=scale,
             widths=widths, k_scale_pool=k_scale_pool,
-            v_scale_pool=v_scale_pool)
+            v_scale_pool=v_scale_pool, last_page=last_page)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     b, w, h, d = q.shape
@@ -334,6 +363,7 @@ def paged_attention(q, k_pool, v_pool, lengths, tables, layer=0, *,
         raise ValueError(f"layer {layer} out of range [0, {n_layers})")
     if scale is None:
         scale = d ** -0.5
+    limit = page_limit(num_pages, last_page)
     dev = q.device
     out = torch.empty((b, w, h, d), dtype=q.dtype, device=dev)
     if b == 0 or w == 0:
@@ -354,8 +384,8 @@ def paged_attention(q, k_pool, v_pool, lengths, tables, layer=0, *,
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *scale_ptrs,
         lens.data_ptr(), tabs.data_ptr(),
         None if wid is None else wid.data_ptr(), out.data_ptr(),
-        *q.stride()[:3], *out.stride()[:3], b, w, kh, g, d, num_pages, ps,
-        tabs.shape[1], n_layers, layer, float(scale), loader, int(narrow),
+        *q.stride()[:3], *out.stride()[:3], b, w, kh, g, d, num_pages, limit,
+        ps, tabs.shape[1], n_layers, layer, float(scale), loader, int(narrow),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "

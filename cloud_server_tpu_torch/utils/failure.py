@@ -14,6 +14,9 @@ Host-side train-loop hooks, copied from the reference package:
   is not called within `timeout_s`, it dumps every thread's stack to
   stderr and invokes `on_hang` (default: `os._exit(code)`). It only arms
   at the *first* beat, so a long first step cannot trigger it.
+
+* `FaultInjector` — fires "preempt", "nan_loss" or "crash" at exact
+  steps, to drill the hooks above and the loop's checkpointing.
 """
 
 from __future__ import annotations
@@ -157,3 +160,52 @@ class Watchdog:
         self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout=5)
+
+
+class FaultInjector:
+    """Deterministic fault injection for resilience drills and tests.
+
+    A train-loop hook (`training.loop.train_loop(hooks=...)`) that fires
+    configured faults at exact steps, so the recovery machinery (NaNGuard,
+    the loop's emergency checkpoint, checkpoint resume) can be exercised
+    on demand instead of waiting for real hardware flakiness. Faults:
+
+      * "preempt"  — simulate a preemption at the step boundary (raises
+                     KeyboardInterrupt, the control flow a SIGTERM
+                     produces through PreemptionHandler), which the loop
+                     turns into an emergency checkpoint.
+      * "nan_loss" — overwrite metrics[metric] with NaN so the NaNGuard
+                     path (patience, divergence abort) is driven end to
+                     end. Mutates the metrics dict only — model state is
+                     untouched, mirroring a transient bad batch.
+      * "crash"    — raise RuntimeError, the generic unrecoverable error
+                     (the loop saves nothing).
+
+    Faults are (step, kind) pairs; each fires once. The injector is a
+    plain hook — put it BEFORE the guards it is meant to trigger in the
+    loop's hook list.
+    """
+
+    KINDS = ("preempt", "nan_loss", "crash")
+
+    def __init__(self, faults: dict[int, str], metric: str = "loss"):
+        for step, kind in faults.items():
+            if kind not in self.KINDS:
+                raise ValueError(f"unknown fault kind {kind!r} at step "
+                                 f"{step}; expected one of {self.KINDS}")
+        self._faults = dict(faults)
+        self.metric = metric
+        self.fired: list[tuple[int, str]] = []
+
+    def __call__(self, step: int, state, metrics: dict):
+        kind = self._faults.pop(step, None)
+        if kind is None:
+            return None
+        self.fired.append((step, kind))
+        if kind == "preempt":
+            raise KeyboardInterrupt(f"injected preemption (step {step})")
+        if kind == "nan_loss":
+            import torch
+            metrics[self.metric] = torch.tensor(float("nan"))
+            return None
+        raise RuntimeError(f"injected crash (step {step})")

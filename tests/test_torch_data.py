@@ -71,13 +71,24 @@ def test_loader_yields_int64_batches_of_the_sampled_examples(prefetch):
 
 
 def test_native_reader_is_not_ported():
+    """The gathered reader's route, refused before, now collates: a
+    dataset with `read_batch` gets one call per batch with the sampler's
+    indices, as the reference's collate makes it, and its arrays become
+    the batch."""
+    calls = []
+
     class Native:
         def __len__(self):
             return 4
 
         def read_batch(self, indices):
-            return {}
+            calls.append(np.asarray(indices).tolist())
+            return {"tokens": np.stack([np.full(3, i) for i in indices])}
 
-    dl = loader.DataLoader(Native(), 2, "cpu", prefetch=0)
-    with pytest.raises(NotImplementedError):
-        next(iter(dl))
+    dl = loader.DataLoader(Native(), 2, "cpu", prefetch=0, seed=1)
+    batch = next(iter(dl))
+    want = next(iter(ref_loader.ShardedSampler(4, 2, seed=1)))
+    assert calls == [want.tolist()]
+    assert batch["tokens"].dtype == torch.int64
+    np.testing.assert_array_equal(batch["tokens"].numpy(),
+                                  np.repeat(want[:, None], 3, axis=1))

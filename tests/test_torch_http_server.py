@@ -786,7 +786,16 @@ def test_disconnect_cancels_streaming_request(weights):
         s.recv(1024)  # generation is running
         s.close()
         deadline = time.time() + 60
-        while time.time() < deadline and (srv.num_active or srv._jobs):
+
+        def cancelled():
+            return srv.metrics_snapshot()[
+                "cloud_server_requests_cancelled_total"]["value"]
+
+        # the response's first bytes can arrive before the request is
+        # admitted, when it is in neither num_active nor _jobs: wait for
+        # the cancellation to be counted, then for the server to drain
+        while time.time() < deadline and (
+                cancelled() == 0 or srv.num_active or srv._jobs):
             time.sleep(0.05)
         assert srv.num_active == 0 and srv.tokens_emitted < 150
         snap = srv.metrics_snapshot()

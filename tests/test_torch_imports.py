@@ -48,7 +48,9 @@ def test_every_training_module_is_checked():
               "training.loop", "train", "data.dataset", "data.loader",
               "utils.metrics", "utils.logging", "utils.failure",
               "ops.fused_ce", "training.eval", "training.checkpoint",
-              "utils.prng", "ops.matmul", "generate"):
+              "utils.prng", "ops.matmul", "generate", "evaluate",
+              "data.packing", "data.tokenizer", "ops.segments",
+              "runtime", "runtime.native"):
         assert f"cloud_server_tpu_torch.{m}" in mods, m
 
 

@@ -151,6 +151,62 @@ def test_cuda_kernel_int8_matches_plain(b, w, lengths, widths, d, ps, mp):
     _check_paged(got, want, w, lens, wid)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("b,w,lengths,widths", [
+    pytest.param(4, 1, [700, 300, 129, 900], None, id="narrow"),
+    pytest.param(3, 128, [800, 256, 400], [128, 128, 90], id="wide"),
+])
+def test_sentinel_tables_read_the_last_real_page(b, w, lengths, widths,
+                                                 int8):
+    """A pool with a scratch page after its real pages (the paged
+    engine's), its scratch page full of large values, and tables that
+    name the sentinel (the scratch page's id) inside each slot's length:
+    B1 (narrow) and B2 (wide), on bf16 and int8 pools, given the last
+    real page, agree with the plain version and with the same tables
+    where every sentinel is replaced by that page, so no row reads the
+    scratch page."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cloud_server_tpu_torch.inference.paged_engine import quantize_pool
+    ps, mp, kh, h, d = 128, 8, 8, 32, 128
+    r = np.random.default_rng(29)
+    num_pages = b * mp                  # real pages; id num_pages: scratch
+    shape = (2, num_pages + 1, kh, d, ps)
+    pools = [r.standard_normal(shape).astype(np.float32) for _ in "kv"]
+    for pool in pools:
+        pool[:, num_pages] = 50.0
+    tabs_np = r.permutation(num_pages).reshape(b, mp).astype(np.int32)
+    tabs_np[0, 2] = num_pages           # a sentinel inside slot 0's length
+    tabs_np[1, :] = num_pages           # a row with sentinel tables
+    tabs_np[:, -1] = num_pages          # past every length
+    q = torch.from_numpy(r.standard_normal((b, w, h, d)).astype(
+        np.float32)).cuda().to(torch.bfloat16)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    wid = torch.tensor([w] * b if widths is None else widths,
+                       dtype=torch.int32, device="cuda")
+    tabs = torch.from_numpy(tabs_np).cuda()
+    real = torch.where(tabs == num_pages, num_pages - 1, tabs)
+    if int8:
+        (kp, ks), (vp, vs) = (quantize_pool(torch.from_numpy(x).cuda())
+                              for x in pools)
+        scales = dict(k_scale_pool=ks, v_scale_pool=vs)
+    else:
+        kp, vp = (torch.from_numpy(x).cuda().to(torch.bfloat16)
+                  for x in pools)
+        scales = {}
+    wid_arg = None if widths is None else wid
+    got = pa.paged_attention(q, kp, vp, lens, tabs, 1, widths=wid_arg,
+                             last_page=num_pages - 1, **scales)
+    named = pa.paged_attention(q, kp, vp, lens, real, 1, widths=wid_arg,
+                               last_page=num_pages - 1, **scales)
+    torch.cuda.synchronize()
+    assert torch.equal(got, named)
+    want = pa.paged_attention_ref(q, kp, vp, lens, tabs, 1, widths=wid,
+                                  last_page=num_pages - 1, **scales)
+    _check_paged(got, want, w, lens, wid)
+
+
 def _reference_kernel_arithmetic(q, kq, ks, vq, vs, lens, tabs, wids,
                                  layer):
     """The reference kernels' int8 arithmetic, which the CUDA kernels keep:

@@ -309,11 +309,26 @@ def test_moe_loss_honors_pallas_ce():
 
 
 def test_segment_ids_still_refused(weights):
-    _, port = weights
-    tokens = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="segment"):
-        moe.next_token_loss(port, {"tokens": tokens,
-                                   "segment_ids": tokens}, _tc(CFG))
+    """Packed rows, refused before, now run on the MoE model: the
+    prompts packed into rows of 32 give the reference's packed loss and
+    router stats (1e-5 relative) at both capacity factors (routing
+    contended over the packed rows, padding included)."""
+    from cloud_server_tpu_torch.data.packing import pack_documents
+    ref, port = weights
+    toks, segs = pack_documents(PROMPTS, 32)
+    for factor in FACTORS.values():
+        cfg = _cfg(factor)
+        with torch.no_grad():
+            got, gm = moe.next_token_loss(
+                port, {"tokens": torch.from_numpy(toks),
+                       "segment_ids": torch.from_numpy(segs)}, _tc(cfg))
+        want, wm = ref_moe.next_token_loss(
+            ref, {"tokens": jnp.asarray(toks),
+                  "segment_ids": jnp.asarray(segs)}, cfg)
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+        for key in ("load_balance", "router_z", "dropped_frac"):
+            np.testing.assert_allclose(float(gm[key]), float(wm[key]),
+                                       rtol=1e-5, atol=1e-7, err_msg=key)
 
 
 # ---------------------------------------------------------------------------
@@ -400,6 +415,23 @@ def test_paged_speculation_matches_plain(weights, paged_reference,
     srv = PagedInferenceServer(port, _tc(CFG), _ti(), device="cpu",
                                spec_drafts=2, **kw, **SRV_KW)
     assert _staggered(srv) == paged_reference["dropless"]
+
+
+def test_paged_ngram_speculation_under_drops_matches_reference(weights):
+    """Under capacity drops (factor 1.25) speculation changes which rows
+    contend for expert slots, so the reference's speculative tokens
+    differ from its plain ones: the port's n-gram speculative server
+    (spec_drafts=2, mixed scheduler, greedy) gives the reference's
+    speculative server's tokens. Rows with sentinel tables (padding and
+    inert rows) read the last real page, as the reference's gather does,
+    not the scratch page."""
+    ref, port = weights
+    cfg = _cfg(FACTORS["drops"])
+    want = _staggered(RefPaged(ref, cfg, GREEDY, overlap=False,
+                               spec_drafts=2, **SRV_KW))
+    srv = PagedInferenceServer(port, _tc(cfg), _ti(), device="cpu",
+                               spec_drafts=2, **SRV_KW)
+    assert _staggered(srv) == want
 
 
 def test_speculative_generate_with_moe_draft(weights, moe_draft):

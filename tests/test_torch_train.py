@@ -19,7 +19,12 @@ from the same numpy weights and batches:
     = exp(eval_loss));
   * resume: 4 steps, then a resumed run to 8, equals 8 straight steps bit
     for bit; a KeyboardInterrupt from a hook saves, a NaN-guard abort
-    does not.
+    does not;
+  * remat "dots" and "attn" (selective checkpointing): loss and
+    gradients equal "full"'s and the reference's under the same policy;
+    per layer the backward reruns the flash forward once under "full"
+    and never under "attn"/"dots", and "dots" reruns no projection;
+  * the FaultInjector drills of tests/test_failure.py on one device.
 """
 
 import dataclasses
@@ -379,16 +384,173 @@ def test_only_a_keyboard_interrupt_saves(tmp_path, abort):
 
 @pytest.mark.parametrize("what", ["remat_dots", "segments", "mesh"])
 def test_unported_options_raise(what, tmp_path):
+    """Of the options the port once refused, a device mesh (parallel
+    training) still raises NotImplementedError. remat "dots" and packed
+    rows ("segments") now run: "dots" gives remat "none"'s loss and
+    gradients; one document a row gives the unpacked loss, and two
+    documents a row mask the target that crosses their boundary."""
     cfg = _t(TINY)
-    params = transformer.init_params(cfg, 0, device="cpu")
-    batch = {"tokens": torch.zeros((2, 8), dtype=torch.long)}
-    with pytest.raises(NotImplementedError):
-        if what == "remat_dots":
-            transformer.next_token_loss(
-                params, batch, dataclasses.replace(cfg, remat="dots"))
-        elif what == "segments":
-            transformer.next_token_loss(
-                params, {**batch, "segment_ids": torch.zeros((2, 8))}, cfg)
-        else:
+    tokens = torch.from_numpy(_tokens(2, 8, TINY.vocab_size).astype(
+        np.int64))
+    batch = {"tokens": tokens}
+    if what == "mesh":
+        with pytest.raises(NotImplementedError):
             train_step.make_train_step(cfg, _t(TrainConfig()),
                                        tconfig.MeshConfig(fsdp=2))
+        return
+    params = transformer.init_params(cfg, 0, device="cpu")
+    if what == "remat_dots":
+        got = []
+        for remat in ("none", "dots"):
+            tree = optim.map_tree(
+                lambda p: p.detach().clone().requires_grad_(True), params)
+            loss, _ = transformer.next_token_loss(
+                tree, batch, dataclasses.replace(cfg, remat=remat))
+            loss.backward()
+            got.append((loss.detach(), tree))
+        (l0, t0), (l1, t1) = got
+        assert torch.equal(l0, l1)
+        for (k, a), (_, b) in zip(optim.flatten(t0), optim.flatten(t1)):
+            torch.testing.assert_close(a.grad, b.grad, rtol=0, atol=1e-6,
+                                       msg=k)
+        return
+    with torch.no_grad():
+        plain, _ = transformer.next_token_loss(params, batch, cfg)
+        one, _ = transformer.next_token_loss(
+            params, {**batch, "segment_ids": torch.ones((2, 8))}, cfg)
+        seg = torch.tensor([[1] * 4 + [2] * 4] * 2)
+        two, _ = transformer.next_token_loss(
+            params, {**batch, "segment_ids": seg}, cfg)
+        halves = [transformer.next_token_loss(
+            params, {"tokens": tokens[:, i:i + 4]}, cfg)[0]
+            for i in (0, 4)]
+    torch.testing.assert_close(one, plain, rtol=1e-6, atol=0)
+    torch.testing.assert_close(two, sum(halves) / 2, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("impl", ["flash", "xla"])
+@pytest.mark.parametrize("remat", ["dots", "attn"])
+def test_selective_remat_grads_match_full_and_reference(remat, impl):
+    """remat "dots" and "attn" (selective checkpointing; with "xla"
+    attention "attn" saves nothing, as "full") give the loss and the
+    gradients of remat "full" (1e-6 of each leaf's largest entry) and of
+    the reference under the same policy (its flash in interpret mode;
+    loss 1e-5 relative, gradients 1e-4)."""
+    cfg = dataclasses.replace(TINY, attention_impl=impl, remat=remat)
+    ref_params = ref_tf.init_params(cfg, jax.random.key(3))
+    tokens = _tokens(2, 16, cfg.vocab_size, seed=9)
+    (want_loss, _), want_g = jax.value_and_grad(
+        ref_tf.next_token_loss, has_aux=True)(
+        ref_params, {"tokens": jnp.asarray(tokens)}, cfg)
+    out = {}
+    for policy in (remat, "full"):
+        params = _port_params(_np_tree(ref_params), cfg)
+        loss, _ = transformer.next_token_loss(
+            params, {"tokens": torch.from_numpy(tokens)},
+            _t(dataclasses.replace(cfg, remat=policy)))
+        loss.backward()
+        out[policy] = (float(loss.detach()), params)
+    np.testing.assert_allclose(out[remat][0], float(want_loss), rtol=1e-5)
+    assert out[remat][0] == out["full"][0]
+    _assert_tree_close(optim.map_tree(lambda p: p.grad, out[remat][1]),
+                       want_g, 1e-4, "grad ")
+    _assert_tree_close(optim.map_tree(lambda p: p.grad, out[remat][1]),
+                       optim.map_tree(lambda p: p.grad.numpy(),
+                                      out["full"][1]), 1e-6, "vs full ")
+
+
+class _CountMM(torch.utils._python_dispatch.TorchDispatchMode):
+    """Counts the matmuls without batch dims that run under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+            self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("remat,fwd_in_backward,mm_in_backward", [
+    ("none", 0, 2 * 7), ("full", 1, 2 * 7 + 6), ("attn", 0, 2 * 7 + 6),
+    ("dots", 0, 2 * 7)])
+def test_remat_policy_reruns_what_it_does_not_save(remat, fwd_in_backward,
+                                                   mm_in_backward):
+    """Per layer, the backward runs the flash forward (the plain version
+    here, counted by `plain_calls`) once under "full" and never under
+    "attn", "dots" or "none"; "dots" saves the block's 7 projections
+    (wq, wk, wv, wo, gate, up, down), so its backward runs only their
+    2 x 7 gradient matmuls, where "full" and "attn" first recompute 6 of
+    them (the recompute stops once it has rebuilt what the backward
+    reads, and no gradient reads w_down's output)."""
+    from cloud_server_tpu_torch.ops import flash_attention as fl
+    cfg = dataclasses.replace(TINY, attention_impl="flash", remat=remat)
+    params = _port_params(_np_tree(ref_tf.init_params(cfg,
+                                                      jax.random.key(3))),
+                          cfg)
+    fl.reset_counters()
+    loss, _ = transformer.next_token_loss(
+        params, {"tokens": torch.from_numpy(_tokens(2, 16, 64))}, _t(cfg))
+    assert fl.plain_calls == cfg.num_layers
+    with _CountMM() as mm:
+        loss.backward()
+    assert fl.plain_calls - cfg.num_layers == \
+        fwd_in_backward * cfg.num_layers
+    # the unembed's product runs outside the blocks: its gradient's two
+    # matmuls come on top
+    assert mm.n == mm_in_backward * cfg.num_layers + 2
+
+
+# -- FaultInjector (tests/test_failure.py's drills, on one device) ----------
+
+def _drill(tmp_path, hooks, **loop_kw):
+    from cloud_server_tpu_torch.data.dataset import SyntheticLMDataset
+    return train_loop(_t(TINY), _t(TrainConfig(total_steps=6, batch_size=4,
+                                               seq_len=16)),
+                      SyntheticLMDataset(16, 16, TINY.vocab_size, seed=0),
+                      hooks=hooks, device="cpu",
+                      loop_cfg=LoopConfig(log_interval=100, **loop_kw))
+
+
+def test_fault_injector_preempt_saves_and_resumes(tmp_path):
+    """An injected preemption takes the emergency-save path (the state of
+    that step is saved) without any signal, and a second run resumes
+    from it to the end."""
+    from cloud_server_tpu_torch.training.checkpoint import all_steps
+    from cloud_server_tpu_torch.utils.failure import FaultInjector
+    ck = dict(checkpoint_dir=str(tmp_path / "ck"), checkpoint_interval=100)
+    inj = FaultInjector({3: "preempt"})
+    with pytest.raises(KeyboardInterrupt, match="injected"):
+        _drill(tmp_path, [inj], **ck)
+    assert inj.fired == [(3, "preempt")]
+    assert all_steps(tmp_path / "ck") == [3]
+    assert _drill(tmp_path, [], **ck).step == 6
+
+
+def test_fault_injector_nan_drives_guard(tmp_path):
+    """An injected NaN loss trips a downstream NaNGuard exactly as a real
+    divergence would (hook order: injector before guard)."""
+    from cloud_server_tpu_torch.utils.failure import (FaultInjector,
+                                                      NaNGuard,
+                                                      TrainingDiverged)
+    inj = FaultInjector({4: "nan_loss"})
+    with pytest.raises(TrainingDiverged):
+        _drill(tmp_path, [inj, NaNGuard(check_interval=1, patience=0)])
+    assert inj.fired == [(4, "nan_loss")]
+
+
+def test_fault_injector_crash_does_not_save(tmp_path):
+    """A generic crash does NOT checkpoint (corrupt-state protection)."""
+    from cloud_server_tpu_torch.training.checkpoint import all_steps
+    from cloud_server_tpu_torch.utils.failure import FaultInjector
+    with pytest.raises(RuntimeError, match="injected crash"):
+        _drill(tmp_path, [FaultInjector({2: "crash"})],
+               checkpoint_dir=str(tmp_path / "ck"), checkpoint_interval=100)
+    assert all_steps(tmp_path / "ck") == []
+
+
+def test_fault_injector_validates_kinds():
+    from cloud_server_tpu_torch.utils.failure import FaultInjector
+    with pytest.raises(ValueError, match="unknown fault kind"):
+        FaultInjector({1: "meteor"})
