@@ -162,6 +162,17 @@ each:
                 the checkpoint served (restored params and
                 `generate --checkpoint-dir`) with the in-memory params'
                 tokens; bytes and write/read rates;
+     hf       — that checkpoint exported by `convert` to a HuggingFace
+                directory (config.json + float32 model.safetensors;
+                bytes, write and fsync GB/s), read back by
+                `load_hf_checkpoint` bit-equal to `restore_params` with
+                its structural config fields equal (read GB/s, warm),
+                served by `generate --hf-checkpoint` with the ckpt
+                phase's `--checkpoint-dir` text, then with
+                `--decode-impl pallas` (B1 and B2 counted, the text of
+                `--checkpoint-dir --decode-impl pallas`); `graft_entry.
+                entry()` on the card (its forward's time, the logits'
+                shape);
   6. moe      — Mixtral-8x7B's public config, random weights: its first
                 16 layers in bf16 (46.96 GB) on the default paged server
                 (B1/B2 counted, graphed == graphs off, the tokens
@@ -185,14 +196,18 @@ each:
                 speculating servers of the spec phase; the embed row:
                 the elastic phase's flash-route embed, timed there), its
                 launches on the moe phase's paths (`launches_moe`) and
-                on the pack phase's (`launches_pack`), and its numbers
-                from phase 2.
+                on the pack phase's (`launches_pack`) and the hf phase's
+                kernel serve (`launches_hf`), and its numbers from phase
+                2.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises and
 the exit code is non-zero. Without a CUDA device, or without the rest of
 the repository beside it, it exits non-zero and prints no result.
 `--kernel-only` stops after phase 2 (a quick check of a kernel change)
-and prints no result.
+and prints no result. `--http-rounds N` builds the kernels and then runs
+only the int8 serve's 8-stream HTTP part N times over one started server
+at Llama-3.1-8B width, counting the rounds that fail (a probe of a rare
+fault; it prints no result).
 """
 
 from __future__ import annotations
@@ -203,6 +218,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1196,12 +1212,35 @@ def metric_values(addr: str) -> dict:
                 if ln and not ln.startswith("#"))
 
 
+def access_log_errors(path: str) -> list:
+    """The records of an HttpFrontend access log that tell of a fault:
+    the stdlib handler's own messages (`log_message`) other than its
+    line for a request answered 200 (bad requests, timeouts, errors
+    while handling), and requests that did not end in 200."""
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        recs = [json.loads(ln) for ln in f if ln.strip()]
+    ok_line = re.compile(r'^".*" 200 ')
+    return [r for r in recs
+            if (r.get("event") == "http_log"
+                and not ok_line.match(r.get("message", "")))
+            or r.get("status") not in (None, 200)]
+
+
 def http_run(srv, prompts) -> dict:
     """HttpFrontend on 127.0.0.1:0 over a started server: 8 concurrent
     streaming /v1/completions, the /metrics counts they added, and
-    /v1/embeddings answering the in-process vectors."""
+    /v1/embeddings answering the in-process vectors. The frontend keeps
+    an access log in a temporary file; its fault records are printed on
+    a line of their own (`{"http_log_errors": [...]}`) before the
+    phase's line, and a failed run raises with them."""
+    import tempfile
     from cloud_server_tpu_torch.inference.http_server import HttpFrontend
-    front = HttpFrontend(srv, tokenizer=IdTokenizer()).start()
+    log_dir = tempfile.mkdtemp(prefix="smoke_http_")
+    log_path = os.path.join(log_dir, "access.jsonl")
+    front = HttpFrontend(srv, tokenizer=IdTokenizer(),
+                         access_log=log_path).start()
     try:
         host, port = front.address
         addr = f"{host}:{port}"
@@ -1216,7 +1255,8 @@ def http_run(srv, prompts) -> dict:
             text=True, timeout=HTTP_TIMEOUT + 60)
         wall = time.perf_counter() - t0
         if proc.returncode != 0:
-            raise RuntimeError(f"HTTP clients failed:\n{proc.stderr[-4000:]}")
+            raise RuntimeError(f"HTTP clients failed:\n{proc.stderr[-4000:]}"
+                               f"\naccess log: {access_log_errors(log_path)}")
         results = json.loads(proc.stdout.strip().splitlines()[-1])
         for i, r in enumerate(results):
             if not (r["done"] and len(r["ids"]) == MAX_NEW
@@ -1244,6 +1284,9 @@ def http_run(srv, prompts) -> dict:
                                "from the in-process ones")
     finally:
         front.stop()
+        errors = access_log_errors(log_path)
+        emit({"http_log_errors": errors})
+        shutil.rmtree(log_dir, ignore_errors=True)
     ttft = sorted(r["times"][0] - r["t0"] for r in results)
     itl = sorted(b - a for r in results
                  for a, b in zip(r["times"], r["times"][1:]))
@@ -1254,7 +1297,51 @@ def http_run(srv, prompts) -> dict:
             "http_itl_p99_s": itl[min(len(itl) - 1, int(0.99 * len(itl)))],
             "http_metrics": seen, "embeddings_status": emb,
             "embeddings_max_abs_err": emb_err,
+            "http_log_errors": len(errors),
             "http_ids": [r["ids"] for r in results]}
+
+
+def http_probe(rounds: int, card: str) -> dict:
+    """`--http-rounds N`: the int8 serve's HTTP part alone, N times over
+    one started server at Llama-3.1-8B width (8 fresh prompts a round,
+    streamed concurrently). A failed round is counted and its error kept,
+    not raised, so one call reads how often the part fails; the access
+    log's fault records are printed each round (`http_run`)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from cloud_server_tpu_torch.config import (InferConfig, ModelConfig,
+                                               from_json)
+    from cloud_server_tpu_torch.models import transformer
+    with open(CONFIG) as f:
+        cfg = from_json(ModelConfig, json.load(f)["model"])
+    params = transformer.init_params(cfg, SEED, device=DEVICE)
+    icfg = InferConfig(max_decode_len=MAX_NEW, temperature=0.0,
+                       eos_token_id=-1, pad_token_id=0)
+    rng = np.random.default_rng(SEED)
+    srv = make_server(params, dataclasses.replace(cfg, kv_cache_dtype="int8"),
+                      icfg)
+    srv.start()
+    failures, walls = [], []
+    try:
+        for i in range(rounds):
+            try:
+                walls.append(http_run(srv, make_prompts(rng, cfg.vocab_size))
+                             ["http_wall_s"])
+            except RuntimeError as exc:
+                failures.append({"round": i, "error": str(exc)[-2000:]})
+    finally:
+        srv.stop()
+    del srv, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"phase": "http_probe", "card": card, "rounds": rounds,
+           "streams_per_round": len(PROMPT_LENS),
+           "failed_rounds": len(failures), "failures": failures,
+           "wall_s_min": min(walls, default=None),
+           "wall_s_max": max(walls, default=None)}
+    emit(out)
+    return out
 
 
 def serve_int8(params, cfg, icfg, prompts, bf16_tokens, bf16_bytes,
@@ -5150,7 +5237,8 @@ def phase_ckpt() -> dict:
     if buf.getvalue() != want_out:
         raise RuntimeError(f"generate --checkpoint-dir printed "
                            f"{buf.getvalue()!r}, expected {want_out!r}")
-    # the checkpoint stays for the moe phase's LoRA run, which removes it
+    # the checkpoint stays for the hf phase and the moe phase's LoRA run,
+    # which removes it
     gc.collect()
     torch.cuda.empty_cache()
     out = {"phase": "ckpt", "model": "Llama-3.1-8B widths, cut to 1 of 32 "
@@ -5168,7 +5256,168 @@ def phase_ckpt() -> dict:
            "generate_checkpoint_dir_identical": True}
     emit(out)
     return {**out, "ckpt_dir": ckpt_dir, "cfg_path": cfg_path,
-            "cfg": cfg, "tcfg": tcfg}
+            "cfg": cfg, "tcfg": tcfg, "generate_text": want_out}
+
+
+# ---------------------------------------------------------------------------
+# Phase 5b: the ckpt phase's checkpoint through HuggingFace's layout
+# ---------------------------------------------------------------------------
+
+HF_BUILD = "cloud_server_tpu_torch/_build"
+# the kernel serve's prompts: the ckpt prompts are narrow-class windows
+# (W <= 32), so a longer one makes its prefill take the wide kernel (B2)
+HF_KERNEL_PROMPTS = CKPT_PROMPTS + [
+    "a HuggingFace directory, written and read back by the port, served "
+    "on the paged kernels"]
+# the entry's forward is timed warm over this many calls
+ENTRY_ITERS = 5
+
+
+def _generate_text(argv) -> str:
+    import contextlib
+    import io
+    from cloud_server_tpu_torch import generate
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        generate.main(argv)
+    return buf.getvalue()
+
+
+def phase_hf(ckpt) -> dict:
+    """convert -> load_hf_checkpoint -> generate --hf-checkpoint on the
+    ckpt phase's checkpoint (Llama-3.1-8B widths, 1 layer, float32), then
+    the graft entry's forward on the card."""
+    import tempfile
+    import torch
+    from cloud_server_tpu_torch import convert
+    from cloud_server_tpu_torch.graft_entry import entry
+    from cloud_server_tpu_torch.models.hf_convert import (
+        _STRUCTURAL_FIELDS, load_hf_checkpoint)
+    from cloud_server_tpu_torch.ops import paged_attention as pa
+    from cloud_server_tpu_torch.training.checkpoint import restore_params
+    ckpt_dir, cfg_path, cfg = ckpt["ckpt_dir"], ckpt["cfg_path"], ckpt["cfg"]
+    os.makedirs(HF_BUILD, exist_ok=True)
+    # float32 weights beside the checkpoint, with a margin
+    need = 4 * ckpt["params"] * 1.25
+    free = shutil.disk_usage(HF_BUILD).free
+    if free < need:
+        raise RuntimeError(f"{free / 1e9:.1f} GB free on disk; the hf phase "
+                           f"needs {need / 1e9:.1f} GB")
+    out_dir = tempfile.mkdtemp(prefix="smoke_hf_", dir=HF_BUILD)
+    try:
+        # 1. export: restore on the card, write config.json + safetensors
+        t0 = time.perf_counter()
+        stats = convert.main(["--config", cfg_path, "--checkpoint-dir",
+                              ckpt_dir, "--out", out_dir])
+        convert_s = time.perf_counter() - t0
+        files = sorted(os.listdir(out_dir))
+        if files != ["config.json", "model.safetensors"]:
+            raise RuntimeError(f"convert wrote {files}")
+        nbytes = sum(os.path.getsize(os.path.join(out_dir, f))
+                     for f in files)
+        t0 = time.perf_counter()
+        for f in files:  # the write above may still sit in the page cache
+            fd = os.open(os.path.join(out_dir, f), os.O_RDONLY)
+            try:
+                os.fsync(fd)
+            finally:
+                os.close(fd)
+        fsync_s = time.perf_counter() - t0
+        # 2. read back (warm: the file was just written) onto the card
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hf_cfg, params = load_hf_checkpoint(out_dir, device=DEVICE)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        bad = [k for k in sorted(_STRUCTURAL_FIELDS)
+               if getattr(hf_cfg, k) != getattr(cfg, k)]
+        if bad:
+            raise RuntimeError(f"loaded config differs on {bad}")
+        want = restore_params(ckpt_dir, cfg, device=DEVICE)
+        leaves = 0
+        for g, group in want.items():
+            for n, w in group.items():
+                got = params[g][n]
+                if not (got.dtype == w.dtype == torch.float32
+                        and torch.equal(got, w)):
+                    raise RuntimeError(f"{g}/{n}: the HF round trip is not "
+                                       "bit-equal")
+                leaves += 1
+        if set(params) != set(want) or sum(map(len, params.values())) \
+                != leaves:
+            raise RuntimeError("the HF round trip's tree differs")
+        del params, want
+        gc.collect()
+        torch.cuda.empty_cache()
+        # 3. serve it: the ckpt phase's text, character for character
+        prompts = [a for p in CKPT_PROMPTS for a in ("--prompt", p)]
+        t0 = time.perf_counter()
+        text = _generate_text(["--config", cfg_path, "--hf-checkpoint",
+                               out_dir, *prompts, *CKPT_GEN])
+        serve_s = time.perf_counter() - t0
+        if text != ckpt["generate_text"]:
+            raise RuntimeError(f"generate --hf-checkpoint printed {text!r}, "
+                               f"--checkpoint-dir {ckpt['generate_text']!r}")
+        # 4. the same on the paged kernels: B1 and B2 launch, and the text
+        # is --checkpoint-dir's on the same kernels
+        kernel = ["--decode-impl", "pallas",
+                  *[a for p in HF_KERNEL_PROMPTS for a in ("--prompt", p)]]
+        pa.reset_counters()
+        text_k = _generate_text(["--config", cfg_path, "--hf-checkpoint",
+                                 out_dir, *CKPT_GEN, *kernel])
+        counts = pa.counters()
+        if (counts["launches_narrow"] <= 0 or counts["launches_wide"] <= 0
+                or counts["plain_calls"]):
+            raise RuntimeError(f"hf serve on the kernels: launches {counts}")
+        want_k = _generate_text(["--config", cfg_path, "--checkpoint-dir",
+                                 ckpt_dir, *CKPT_GEN, *kernel])
+        if text_k != want_k:
+            raise RuntimeError(f"generate --hf-checkpoint --decode-impl "
+                               f"pallas printed {text_k!r}, "
+                               f"--checkpoint-dir {want_k!r}")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 5. the graft entry on the card
+    fn, args = entry()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = fn(*args)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(ENTRY_ITERS):
+            logits = fn(*args)
+        end.record()
+        end.synchronize()
+    if not bool(torch.isfinite(logits).all()):
+        raise RuntimeError("the graft entry's logits are not finite")
+    shape = list(logits.shape)
+    del fn, args, logits
+    out = {"phase": "hf", "model": "the ckpt phase's checkpoint: "
+           "Llama-3.1-8B widths, 1 of 32 layers, float32",
+           "hf_files": files, "hf_bytes": nbytes,
+           "convert_s": convert_s, "write_s": stats["write_s"],
+           "write_gb_per_s": stats["bytes"] / stats["write_s"] / 1e9,
+           "fsync_s": fsync_s,
+           "write_fsync_gb_per_s": stats["bytes"]
+           / (stats["write_s"] + fsync_s) / 1e9,
+           "read_s": read_s, "read_gb_per_s": nbytes / read_s / 1e9,
+           "read_warm": True, "leaves_bit_equal": leaves,
+           "structural_fields_equal": len(_STRUCTURAL_FIELDS),
+           "serve_s": serve_s, "text_equals_checkpoint_dir": True,
+           "kernel_text_equals_checkpoint_dir": True,
+           "counts": counts, "entry_logits_shape": shape,
+           "entry_first_ms": first_ms,
+           "entry_forward_ms": start.elapsed_time(end) / ENTRY_ITERS}
+    emit(out)
+    print(f"graft entry: logits {shape}, forward "
+          f"{out['entry_forward_ms']:.3f} ms warm", flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5898,6 +6147,9 @@ def main() -> int:
         return out
 
     dev = timed(phase_device)
+    if sys.argv[1:2] == ["--http-rounds"]:
+        probe = http_probe(int(sys.argv[2]), dev["nvidia_smi"])
+        return 0 if not probe["failed_rounds"] else 1
     kern = timed(phase_kernel)
     fkern = timed(phase_train_kernel)
     timed(phase_unembed)
@@ -5908,6 +6160,7 @@ def main() -> int:
     train = timed(phase_train)
     pack = timed(phase_pack, train)
     ckpt = timed(phase_ckpt)
+    hf = timed(phase_hf, ckpt)
     moe = timed(phase_moe, ckpt)
     seconds["serve.contiguous"] = serve["contiguous"]["seconds"]["total"]
     emit({"phase_seconds": seconds})
@@ -6072,6 +6325,12 @@ def main() -> int:
     for row in rows:
         row["launches_pack"] = next(
             (n for key, n in pack_launches.items() if key in row["name"]), 0)
+    # the hf phase's serve on the kernels
+    hf_launches = {"(decode case)": hf["counts"]["launches_narrow"],
+                   "(prefill case)": hf["counts"]["launches_wide"]}
+    for row in rows:
+        row["launches_hf"] = next(
+            (n for key, n in hf_launches.items() if key in row["name"]), 0)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})

@@ -1,12 +1,13 @@
 """Tokenizers + corpus preparation.
 
-A copy of the reference's `data/tokenizer.py` without its HuggingFace
-wrapper: the byte-level tokenizer (ids 0..255 are raw bytes, then
-BOS/EOS/PAD; lossless on arbitrary UTF-8), `get_tokenizer` ("byte"
-only: any other spec, a local HuggingFace tokenizer in the reference,
-raises NotImplementedError), `token_dtype`, and `prepare_corpus`, which
-streams a text file into the flat binary token format that
-`data.dataset.MemmapTokenDataset` reads.
+A copy of the reference's `data/tokenizer.py`: the byte-level tokenizer
+(ids 0..255 are raw bytes, then BOS/EOS/PAD; lossless on arbitrary
+UTF-8), `HFTokenizer` (a local HuggingFace `tokenizer.json`, through the
+`tokenizers` package, imported when one is built: where the package is
+missing it raises the reference's RuntimeError), `get_tokenizer`
+("byte" or a local tokenizer path), `token_dtype`, and
+`prepare_corpus`, which streams a text file into the flat binary token
+format that `data.dataset.MemmapTokenDataset` reads.
 
 CLI: `python -m cloud_server_tpu_torch.data.tokenizer in.txt out.bin`.
 """
@@ -43,14 +44,67 @@ class ByteTokenizer:
         return data.decode("utf-8", errors="replace")
 
 
+class HFTokenizer:
+    """A local HuggingFace fast tokenizer behind the framework interface.
+
+    `path` is a local `tokenizer.json` file or a directory containing one
+    (a saved `PreTrainedTokenizerFast`); nothing is fetched remotely.
+    """
+
+    def __init__(self, path: str | os.PathLike):
+        try:
+            from tokenizers import Tokenizer
+        except ImportError as e:
+            raise RuntimeError(
+                "HFTokenizer needs the `tokenizers` package; use "
+                "ByteTokenizer where it is unavailable") from e
+        path = os.fspath(path)
+        if os.path.isdir(path):
+            path = os.path.join(path, "tokenizer.json")
+        if not os.path.exists(path):
+            raise FileNotFoundError(
+                f"{path}: no local tokenizer.json (remote hub loading is "
+                "deliberately unsupported — this environment has no egress)")
+        self._tok = Tokenizer.from_file(path)
+        self.vocab_size = self._tok.get_vocab_size()
+
+        def _tid(*names):
+            for n in names:
+                t = self._tok.token_to_id(n)
+                if t is not None:
+                    return t
+            return None
+
+        self.bos_id = _tid("<s>", "<bos>", "<|begin_of_text|>", "[CLS]")
+        self.eos_id = _tid("</s>", "<eos>", "<|end_of_text|>",
+                           "<|endoftext|>", "[SEP]")
+        self.pad_id = _tid("<pad>", "[PAD]")
+        # provenance matters downstream: grammar.token_bytes bans
+        # DECLARED specials only — a fallback pad (eos, else 0) must not
+        # make a real vocab id unspellable under a constraint
+        self.pad_is_declared = self.pad_id is not None
+        if self.pad_id is None:  # fall back to EOS, the common convention
+            self.pad_id = self.eos_id if self.eos_id is not None else 0
+
+    def encode(self, text: str, *, add_bos: bool = False,
+               add_eos: bool = False) -> list[int]:
+        ids = self._tok.encode(text, add_special_tokens=False).ids
+        if add_bos and self.bos_id is not None:
+            ids.insert(0, self.bos_id)
+        if add_eos and self.eos_id is not None:
+            ids.append(self.eos_id)
+        return ids
+
+    def decode(self, ids: Sequence[int]) -> str:
+        return self._tok.decode(list(ids), skip_special_tokens=True)
+
+
 def get_tokenizer(spec: str | os.PathLike = "byte"):
-    """"byte" -> ByteTokenizer. Any other spec (the reference's local
-    HuggingFace tokenizer path) raises NotImplementedError."""
+    """"byte" -> ByteTokenizer; anything else is a local HF tokenizer
+    path (a tokenizer.json or a directory holding one)."""
     if os.fspath(spec) == "byte":
         return ByteTokenizer()
-    raise NotImplementedError(
-        f"tokenizer {os.fspath(spec)!r}: HuggingFace tokenizer interop is "
-        "not ported yet (use 'byte')")
+    return HFTokenizer(spec)
 
 
 def token_dtype(vocab_size: int) -> np.dtype:
@@ -118,8 +172,7 @@ def main(argv: Iterable[str] | None = None) -> None:
     p.add_argument("text", help="input UTF-8 text file")
     p.add_argument("out", help="output .bin token file")
     p.add_argument("--tokenizer", default="byte",
-                   help='"byte" (HuggingFace tokenizers are not ported '
-                        "yet)")
+                   help='"byte" or a local tokenizer.json path')
     args = p.parse_args(argv)
     tok = get_tokenizer(args.tokenizer)
     n = prepare_corpus(args.text, args.out, tok)

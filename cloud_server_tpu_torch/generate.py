@@ -4,9 +4,11 @@ The reference's CLI on the port: weights from a training checkpoint
 (`--checkpoint-dir`, `--step`; `--ema` for the EMA-averaged weights; a
 LoRA run's checkpoint serves its merged weights, the adapter config
 read from the checkpoint's sidecar or the `--lora-*` flags), dense or
-MoE as the config says,
-from a numpy `--params-npz`, or random-init from `--seed`; byte
-tokenizer; int8 weight-only params (`--quantize`); the paged
+MoE as the config says, from a local HuggingFace LLaMA-family directory
+(`--hf-checkpoint`, read by the port itself), from a numpy
+`--params-npz`, or random-init from `--seed`; the byte tokenizer or a
+local HuggingFace `tokenizer.json` (`--tokenizer`); int8 weight-only
+params (`--quantize`); the paged
 continuous-batching server, optionally with the int8 KV cache
 (`--kv-cache-int8`) and in-server speculation (`--spec-drafts` n-gram
 drafts, or a draft model from `--draft-config` with `--serve-http`), or
@@ -38,7 +40,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--config", help="JSON config with a 'model' section")
     p.add_argument("--checkpoint-dir",
                    help="training checkpoint directory (omit: random init)")
+    p.add_argument("--hf-checkpoint", metavar="DIR",
+                   help="local HuggingFace LLaMA-family checkpoint "
+                   "directory to serve (mutually exclusive with "
+                   "--checkpoint-dir; a --config model section may still "
+                   "override behavioral fields like dtype/attention_impl — "
+                   "structural fields that contradict the checkpoint are "
+                   "rejected)")
     p.add_argument("--step", type=int, help="checkpoint step (default latest)")
+    p.add_argument("--tokenizer", default="byte",
+                   help='"byte" or a local tokenizer.json path')
     p.add_argument("--ema", action="store_true",
                    help="serve the EMA-averaged weights from a checkpoint "
                    "trained with ema_decay > 0 (reads the checkpoint's "
@@ -242,7 +253,7 @@ def main(argv=None) -> None:
     from cloud_server_tpu_torch import resolve_device
     from cloud_server_tpu_torch.config import (InferConfig, ModelConfig,
                                                from_json)
-    from cloud_server_tpu_torch.data.tokenizer import ByteTokenizer
+    from cloud_server_tpu_torch.data.tokenizer import get_tokenizer
     from cloud_server_tpu_torch.inference.paged_server import (
         PagedInferenceServer)
     from cloud_server_tpu_torch.inference.server import InferenceServer
@@ -253,7 +264,29 @@ def main(argv=None) -> None:
     if args.config:
         with open(args.config) as f:
             raw = json.load(f)
-    model_cfg = from_json(ModelConfig, raw.get("model", {}))
+    hf_params = None
+    if args.hf_checkpoint:
+        if args.checkpoint_dir:
+            raise SystemExit(
+                "--hf-checkpoint and --checkpoint-dir are mutually "
+                "exclusive")
+        if args.step is not None:
+            raise SystemExit("--step does not apply to --hf-checkpoint")
+        if args.params_npz:
+            raise SystemExit("--hf-checkpoint and --params-npz are "
+                             "mutually exclusive")
+        from cloud_server_tpu_torch.models.lora import lora_config_from_args
+        if lora_config_from_args(args) is not None:
+            raise SystemExit(
+                "--lora-* flags do not apply to --hf-checkpoint (merge "
+                "adapters into an HF checkpoint first, or train from a "
+                "framework checkpoint)")
+        from cloud_server_tpu_torch.models.hf_convert import (
+            load_hf_checkpoint)
+        model_cfg, hf_params = load_hf_checkpoint(
+            args.hf_checkpoint, device=device, **raw.get("model", {}))
+    else:
+        model_cfg = from_json(ModelConfig, raw.get("model", {}))
     if args.kv_cache_int8:
         model_cfg = dataclasses.replace(model_cfg, kv_cache_dtype="int8")
     if args.decode_impl is not None:
@@ -276,7 +309,7 @@ def main(argv=None) -> None:
         from cloud_server_tpu_torch.utils.tracing import (
             start_profiler_server)
         start_profiler_server(args.profiler_port)  # raises
-    tok = ByteTokenizer()
+    tok = get_tokenizer(args.tokenizer)
     if tok.vocab_size > model_cfg.vocab_size:
         raise SystemExit(
             f"tokenizer vocab ({tok.vocab_size}) exceeds model vocab "
@@ -310,7 +343,7 @@ def main(argv=None) -> None:
                     "sidecar is used automatically)")
             lcfg = saved
     if args.ema:
-        if args.params_npz or lcfg is not None:
+        if args.params_npz or hf_params is not None or lcfg is not None:
             raise SystemExit("--ema applies to framework checkpoints "
                              "without LoRA flags")
         if not args.checkpoint_dir:
@@ -322,6 +355,8 @@ def main(argv=None) -> None:
                                         step=args.step, device=device)
         except FileNotFoundError as e:
             raise SystemExit(str(e))
+    elif hf_params is not None:
+        params = hf_params
     elif args.params_npz:
         params = transformer.params_from_npz(args.params_npz, model_cfg,
                                              device)

@@ -225,7 +225,7 @@ class AnomalyWatchdog:
         `_record_iteration` already computed for the flight record —
         no measurement of its own, no clock read."""
         burn = None
-        # scheduler-thread-only
+        # analysis: allow[lock-discipline] scheduler-thread-only
         # counter read: burn_rates takes the SLO tracker's own leaf
         # lock, so it must be sampled BEFORE this watchdog's lock
         # (no nested acquisition); observe_iteration has exactly one

@@ -1237,6 +1237,9 @@ class PagedInferenceServer:
             self.trace_recorder.finish(req, slo_violated=slo_violated,
                                        in_anomaly=in_anomaly)
         # a prefetched handoff that never ran (the request ended here)
+        # analysis: allow[lock-discipline] GIL-atomic dict pop, as in the
+        # reference: safe from any completing thread, no compound
+        # read-modify-write
         self._handoff_stash.pop(req.request_id, None)
         # a finished request's cancel() is a no-op: drop the bound method,
         # so requests a caller keeps do not keep the server and its pools
@@ -1285,6 +1288,9 @@ class PagedInferenceServer:
                 vecs = _engine.encode(
                     self.params, torch.from_numpy(rows).to(self.device),
                     torch.from_numpy(lens).to(self.device), cfg=self.cfg)
+                # analysis: allow[lock-discipline] deliberate sync under
+                # _step_lock, as in the reference: embeddings share the
+                # card with decode launches, serializing is the point
                 out[idxs] = vecs[:len(idxs)].cpu().numpy()
         return out
 
@@ -1319,6 +1325,9 @@ class PagedInferenceServer:
 
     @property
     def num_active(self) -> int:
+        # analysis: allow[lock-discipline] racy-by-design monitoring
+        # read, as in the reference: len-stable list, GIL-atomic element
+        # loads; stale by at most one iteration, steers placement only
         return sum(s is not None for s in self._slots)
 
     @property
@@ -1332,6 +1341,9 @@ class PagedInferenceServer:
         remainder of every admission in flight plus the whole admission
         prompt of everything queued (a router's load signal). A
         monitoring read: it may lag the running iteration by one."""
+        # analysis: allow[lock-discipline] racy-by-design monitoring read
+        # of scheduler-thread state, as in the reference: list()
+        # snapshots the container; steers placement only
         jobs = list(self._jobs)
         n = sum(max(int(job.rem_lens[0]) - job.done, 0) for job in jobs)
         with self._lock:
@@ -1343,6 +1355,9 @@ class PagedInferenceServer:
         """Readiness (vs liveness): False while draining or stopped, so
         load balancers stop routing new work here while in-flight
         requests finish."""
+        # analysis: allow[lock-discipline] benign racy read, as in the
+        # reference: a stale verdict delays placement by one pick; _lock
+        # here would put a contended acquire on every router pick
         return not self._draining and not self._stop.is_set()
 
     def prefix_cache_stats(self):
@@ -1404,6 +1419,9 @@ class PagedInferenceServer:
         regex is the client's ValueError); returns its grammar id. The
         device stack is rebuilt on the scheduler thread before the next
         admission (`_sync_grammar_stack`)."""
+        # analysis: allow[lock-discipline] double-checked fast path, as in
+        # the reference: a GIL-atomic dict probe; the locked re-check
+        # below is authoritative
         gid = self._pattern_gid.get(pattern)
         if gid is not None:
             return gid
@@ -1445,13 +1463,16 @@ class PagedInferenceServer:
         for i, d in enumerate(dfas, start=1):
             tables[i, :d.num_states] = d.next_state
             accept[i, :d.num_states] = d.accept
+        # the upload first: one that fails (out of device memory) leaves
+        # the old stack, its programs and its generation as they were
+        grammar = (torch.as_tensor(tables).to(self.device),
+                   torch.as_tensor(accept).to(self.device))
         stale = self._grammar_gen
         busy = self._inflight.program if self._inflight else None
         kept = self._programs.drop(lambda key: key[1] == stale, busy)
         if kept:  # it reads the old stack until `_commit_inflight`
             self._retired += kept + [self._model.grammar]
-        self._model.grammar = (torch.as_tensor(tables).to(self.device),
-                               torch.as_tensor(accept).to(self.device))
+        self._model.grammar = grammar
         self._grammar_gen += 1
         self._grammar_built = len(patterns)
 
@@ -1792,6 +1813,8 @@ class PagedInferenceServer:
         if prof is not None:
             # per-chunk marks accumulate into the iteration's phases
             prof.mark("build")
+        # analysis: allow[lock-discipline] THE sanctioned per-iteration
+        # host sync; _step_lock serializes the scheduler by design
         out = self._launch(_prefill_chunk, flags, staged).wait()
         if prof is not None:
             prof.mark("device")
@@ -2042,6 +2065,8 @@ class PagedInferenceServer:
                                      lora=flags["lora"])
         if prof is not None:
             prof.mark("build")
+        # analysis: allow[lock-discipline] THE sanctioned per-iteration
+        # host sync; _step_lock serializes the scheduler by design
         out = self._launch(_decode_rounds, flags, staged).wait()
         if prof is not None:
             prof.mark("device")
@@ -2378,6 +2403,9 @@ class PagedInferenceServer:
         self._handoff_prefetch(sel)
         prog = self._launch(_mixed_step, flags, staged)
         self._handoff_copy_out()
+        # analysis: allow[lock-discipline] THE sanctioned per-iteration
+        # host sync: one launch, one wait, under the step lock that
+        # serializes the scheduler by design
         out = prog.wait()
         if prof is not None:
             prof.mark("device")
@@ -2627,6 +2655,9 @@ class PagedInferenceServer:
         time."""
         infl, self._inflight = self._inflight, None
         t_wait = time.perf_counter()
+        # analysis: allow[lock-discipline] THE sanctioned per-iteration
+        # host sync: one launched program, one wait, under the step lock
+        # that serializes the scheduler by design
         out = infl.program.wait()
         self._release_retired()
         prof = self._profiler
@@ -2774,6 +2805,10 @@ class PagedInferenceServer:
         """Wait until the dispatch in flight has run (a profiler
         window's close; never on the serving path)."""
         if self._inflight is not None:
+            # analysis: allow[lock-discipline] the port's own wait: a
+            # profiler window closing under the pipeline must hold the
+            # dispatch's kernels; off the serving path, and under the step
+            # lock so no launch slips in
             self._inflight.program.settle()
 
     # -- the scheduler loop -------------------------------------------------
@@ -2844,8 +2879,13 @@ class PagedInferenceServer:
         once; a request that finished or was cancelled since is skipped.
         A callback's failure is the router's: the request keeps decoding
         here (the handoff is an optimization)."""
+        # analysis: allow[lock-discipline] scheduler-thread-only list, as
+        # in the reference: appended inside the step (under _step_lock)
+        # and drained here on the SAME thread after the lock drops
         if not self._handoff_ready:
             return
+        # analysis: allow[lock-discipline] the same scheduler-thread-only
+        # swap as above
         ready, self._handoff_ready = self._handoff_ready, []
         for req in ready:
             h, req._handoff = req._handoff, None
@@ -3027,6 +3067,9 @@ class PagedInferenceServer:
                 req.trace.add_span(name, t0, now, iteration=idx, **tags)
 
     def run_until_idle(self) -> None:
+        # analysis: allow[lock-discipline] idle-polling bool() of a
+        # GIL-atomic list, as in the reference; step() below observes
+        # the exact state
         while self.num_pending or self.num_active or self._jobs:
             self.step()
 
@@ -3248,6 +3291,10 @@ class PagedInferenceServer:
                         and n_full <= cap):
                     bufs, n_pre = pre_bufs, len(pre_ids)
                     if pre_event is not None:
+                        # analysis: allow[lock-discipline] the export's
+                        # wait on its own prefetch copy (the sanctioned
+                        # sync's other half): at the commit point, off
+                        # the plan path, under the step lock by design
                         pre_event.synchronize()
             if bufs is None:
                 bufs = self._host_pages(n_full)
@@ -3256,7 +3303,10 @@ class PagedInferenceServer:
                 event = self._pages_out(self._gather_pages(page_ids[n_pre:]),
                                         bufs, n_pre)
                 if event is not None:
-                    # the export's one host sync, at the commit point
+                    # analysis: allow[lock-discipline] the migration
+                    # export's one sanctioned host sync, as in the
+                    # reference: at the commit point, off the plan path
+                    # (DD5), under the step lock by design
                     event.synchronize()
             kv = {name: buf[:, :n_full] for name, buf in bufs.items()}
         return (self._build_snapshot(req, reason, committed[:n_full * ps],
@@ -3495,8 +3545,14 @@ class PagedInferenceServer:
         try:
             if got and self._inflight is not None:
                 try:
+                    # analysis: allow[lock-discipline] the port's pools
+                    # are written in place (the reference's are
+                    # functional), so teardown must wait, bounded, on
+                    # the dispatch in flight before freeing its pages
                     settled = self._inflight.program.settle(timeout)
                 except Exception as err:  # noqa: BLE001 — see docstring
+                    # analysis: allow[lock-discipline] one report on
+                    # stderr of a failed wait, on the teardown path only
                     print(f"[server] waiting on the dispatch in flight "
                           f"failed: {err!r}", file=sys.stderr)
                     settled = False
@@ -3542,6 +3598,9 @@ class PagedInferenceServer:
                 # a pipelined step's sync may return at once: yield so
                 # stream writers and result() waiters run
                 time.sleep(0)
+            # analysis: allow[lock-discipline] idle-polling read on the
+            # scheduler's own thread, the only _jobs writer (as in the
+            # reference)
             if busy == 0 and self.num_pending == 0 and not self._jobs:
                 with self._work:
                     if not self._pending and not self._stop.is_set():
@@ -3575,6 +3634,9 @@ class PagedInferenceServer:
             self._evacuate(migrate)
         deadline = (None if timeout is None
                     else time.perf_counter() + timeout)
+        # analysis: allow[lock-discipline] idle-polling bool() of a
+        # GIL-atomic list, as in the reference; drain only needs
+        # eventual quiescence
         while self.num_pending or self.num_active or self._jobs:
             if deadline is not None and time.perf_counter() > deadline:
                 if _resume_on_timeout:
@@ -3604,15 +3666,20 @@ class PagedInferenceServer:
         if self._thread is not None:
             self._thread.join(timeout=30)
             self._thread = None
+        # analysis: allow[lock-discipline] post-join read, as in the
+        # reference: the scheduler thread is dead (or never ran) here
         if self.num_pending or self.num_active or self._jobs:
             self._fail_all(RuntimeError(
                 "server stopped before the request completed"))
-        if not self._step_lock.acquire(
-                timeout=self._teardown_lock_timeout_s):
+        got = self._step_lock.acquire(timeout=self._teardown_lock_timeout_s)
+        if not got:
             return  # a scheduler wedged in a step keeps its programs
         try:
             self._inflight = None
             if self.device.type == "cuda":
+                # analysis: allow[lock-discipline] the captured graphs'
+                # memory is released below: the card must be done with
+                # every replay first, and no launch may slip in between
                 torch.cuda.synchronize(self.device)
             self._release_retired()
             self._programs.release()
@@ -3633,6 +3700,9 @@ class PagedInferenceServer:
                       self.num_pending)
         reg.gauge("admission_jobs",
                   "Chunked-prefill admission jobs in flight").set(
+                      # analysis: allow[lock-discipline] scrape-path len()
+                      # of a GIL-atomic list, as in the reference; a gauge
+                      # may lag the iteration that is mutating it
                       len(self._jobs))
         reg.counter("tokens_emitted_total",
                     "Lifetime generated tokens").set_total(
@@ -3894,6 +3964,9 @@ class PagedInferenceServer:
         """The /stats `overlap` block: the knob's resolved state and the
         live pipeline depth. Scrape path only."""
         return {"enabled": self.overlap, "active": self._overlap_enabled,
+                # analysis: allow[lock-discipline] racy-by-design
+                # monitoring read, as in the reference; stale by at most
+                # one iteration
                 "inflight_depth": 0 if self._inflight is None else 1}
 
     def brownout_stats(self) -> dict | None:

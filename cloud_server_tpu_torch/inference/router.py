@@ -397,7 +397,7 @@ class ReplicatedRouter:
         decode replica afterward — batch/best_effort decode where
         they prefilled, soaking prefill-replica slack instead of
         polluting the low-latency decode pool."""
-        # GIL-atomic bool: topology
+        # analysis: allow[lock-discipline] GIL-atomic bool: topology
         # flips only inside add/remove_replica under _lock; a stale
         # read routes one request with the old topology, which the
         # failover/handoff paths tolerate by design
@@ -530,7 +530,7 @@ class ReplicatedRouter:
                 i = self._pick(tenant=kw.get("tenant"),
                                count_inflight=True, exclude=excluded,
                                role=role)
-            # GIL-atomic list index:
+            # analysis: allow[lock-discipline] GIL-atomic list index:
             # capability slots are written once at attach under _lock
             # and i came from _pick — a read racing an attach at worst
             # skips the hook for that one request
@@ -539,7 +539,9 @@ class ReplicatedRouter:
                         None)}
                    if self._accepts_hook[i] else {})
             if (arm_handoff and self.roles[i] == ROLE_PREFILL
-                    and self._accepts_handoff[i]  # GIL-atomic, as hkw
+                    # analysis: allow[lock-discipline] GIL-atomic
+                    # capability slot, see hkw above
+                    and self._accepts_handoff[i]
                     and hasattr(self.replicas[i], "migrate_export")):
                 # prefill landed on a prefill replica: ride the
                 # handoff hook IN through submit (same no-install-
@@ -697,7 +699,7 @@ class ReplicatedRouter:
                                strict=True)
             if i is None:
                 break  # nothing healthy left: the failure stands
-            # GIL-atomic capability
+            # analysis: allow[lock-discipline] GIL-atomic capability
             # slot (written once at attach under _lock), as in submit
             hkw = ({"fail_handler": self._make_fail_hook(
                         i, prompt, dict(kw), frozenset(excluded),
@@ -800,7 +802,7 @@ class ReplicatedRouter:
                 if len(excluded) >= len(self.replicas):
                     break
                 continue
-            # GIL-atomic capability
+            # analysis: allow[lock-discipline] GIL-atomic capability
             # slot (written once at attach under _lock), as in submit
             hook = (self._make_fail_hook(
                         i, list(snap.prompt), dict(kw),
@@ -865,7 +867,7 @@ class ReplicatedRouter:
         ENQUEUES — the scheduler thread must never block on another
         replica's admission path."""
         def hook(req) -> None:
-            # GIL-atomic reference
+            # analysis: allow[lock-discipline] GIL-atomic reference
             # snapshot: the queue is created once on the disagg
             # transition under _lock and never replaced
             q = self._handoff_q
@@ -878,7 +880,7 @@ class ReplicatedRouter:
         time. A handoff is an OPTIMIZATION: any exception leaves the
         request decoding where it prefilled (or, after a successful
         export, the loop inside _handoff_one owns re-admission)."""
-        # GIL-atomic reference
+        # analysis: allow[lock-discipline] GIL-atomic reference
         # snapshot: the worker thread starts under _lock strictly
         # after the queue exists, and the queue is never replaced
         q = self._handoff_q
@@ -954,7 +956,7 @@ class ReplicatedRouter:
                 self._release_probe(i)
                 excluded.add(i)
                 continue
-            # GIL-atomic capability
+            # analysis: allow[lock-discipline] GIL-atomic capability
             # slot (written once at attach under _lock), as in submit
             hook = (self._make_fail_hook(
                         i, list(snap.prompt), dict(kw),
@@ -1316,7 +1318,7 @@ class ReplicatedRouter:
             if tree is not None:
                 tree["root"]["tags"].setdefault("replica", i)
                 break
-        # racy-by-design monitoring
+        # analysis: allow[lock-discipline] racy-by-design monitoring
         # read of a GIL-atomic bool (flips under _lock)
         if tree is None or not self._disagg:
             return tree
@@ -1344,7 +1346,7 @@ class ReplicatedRouter:
             for tree in fn(n):
                 tree["root"]["tags"].setdefault("replica", i)
                 out.append(tree)
-        # racy-by-design monitoring
+        # analysis: allow[lock-discipline] racy-by-design monitoring
         # read of a GIL-atomic bool (flips under _lock)
         if self._disagg:
             from cloud_server_tpu_torch.inference.request_trace import (
@@ -1424,7 +1426,7 @@ class ReplicatedRouter:
             for tree in fn(n):
                 tree["root"]["tags"].setdefault("replica", i)
                 out.append(tree)
-        # racy-by-design monitoring
+        # analysis: allow[lock-discipline] racy-by-design monitoring
         # read of a GIL-atomic bool (flips under _lock)
         if self._disagg:
             from cloud_server_tpu_torch.inference.request_trace import (
@@ -1740,7 +1742,7 @@ class ReplicatedRouter:
                         return False
                     continue
                 self._m_migrations.inc()
-                # GIL-atomic capability
+                # analysis: allow[lock-discipline] GIL-atomic capability
                 # slot (written once at attach under _lock), as in submit
                 hook = (self._make_fail_hook(
                             i, list(snap.prompt), dict(kw),
@@ -1830,10 +1832,12 @@ class ReplicatedRouter:
 
     def stop(self, drain: bool = False,
              timeout: float | None = None) -> None:
-        # teardown read of a
+        # analysis: allow[lock-discipline] teardown read of a
         # GIL-atomic write-once reference (never cleared)
         if self._handoff_q is not None:
-            self._handoff_q.put(None)  # unblocks the handoff worker
+            # analysis: allow[lock-discipline] teardown, write-once
+            # reference; unblocks the handoff worker
+            self._handoff_q.put(None)
         for i, r in enumerate(self.replicas):
             try:
                 r.stop(drain=drain, timeout=timeout)

@@ -1124,6 +1124,10 @@ class InferenceServer:
             return 0
         self._iter_busy = True
         if self._faults is not None:
+            # analysis: allow[lifecycle-discipline] deliberate raise point,
+            # as in the reference: a dispatch fault fails the whole step
+            # and _fail_all tears every slot down, so the _iter_busy /
+            # _inflight pair is never read torn
             self._faults.check("dispatch")
         if prof is not None:
             prof.mark("admission")

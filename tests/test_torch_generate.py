@@ -436,3 +436,29 @@ def test_profiler_port_is_refused(files):
     with pytest.raises(NotImplementedError, match="profiler server"):
         generate.main(["--config", cfg_path, "--params-npz", npz,
                        "--device", "cpu", *ARGS, "--profiler-port", "9999"])
+
+
+def test_tokenizer_flag_prints_the_reference_text(files, tmp_path, capsys):
+    """--tokenizer <local tokenizer.json>: a BPE trained here (its 200
+    ids inside the model's 300) encodes the prompts and decodes the
+    output; the port prints the reference's text for the same weights."""
+    tokenizers = pytest.importorskip("tokenizers")
+    bpe = tokenizers.Tokenizer(tokenizers.models.BPE(unk_token="<unk>"))
+    bpe.pre_tokenizer = tokenizers.pre_tokenizers.Whitespace()
+    bpe.train_from_iterator(
+        ["the quick brown fox jumps over the lazy dog"] * 50,
+        tokenizers.trainers.BpeTrainer(
+            vocab_size=200,
+            special_tokens=["<unk>", "<s>", "</s>", "<pad>"]))
+    tok_path = str(tmp_path / "tokenizer.json")
+    bpe.save(tok_path)
+    cfg_path, npz = files
+    argv = ["--tokenizer", tok_path, "--prompt", "the quick fox",
+            "--prompt", "lazy dog", "--max-new", "10", "--temperature", "0",
+            "--page-size", "8", "--prefill-chunk", "16", "--seed", str(SEED)]
+    ref_generate.main(["--config", cfg_path, "--decode-impl", "xla", *argv])
+    want = capsys.readouterr().out
+    generate.main(["--config", cfg_path, "--params-npz", npz, "--device",
+                   "cpu", *argv])
+    got = capsys.readouterr().out
+    assert want.count("===") == 2 and got == want

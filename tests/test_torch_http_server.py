@@ -19,6 +19,7 @@ request has a timeout, so a hang fails a test instead of stalling the
 suite."""
 
 import dataclasses
+import gc
 import json
 import os
 import signal
@@ -65,6 +66,18 @@ TIMEOUT = 120
 
 def _tcfg(cfg):
     return TModelConfig(**dataclasses.asdict(cfg))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_compiled_programs():
+    """Drop the reference's compiled XLA programs when the module ends:
+    each holds a few memory maps, and this module's leave about 18
+    thousand; a test worker that runs it and other reference-heavy
+    modules would otherwise reach the kernel's map limit
+    (vm.max_map_count), where the next compile fails."""
+    yield
+    jax.clear_caches()
+    gc.collect()
 
 
 @pytest.fixture(scope="module")

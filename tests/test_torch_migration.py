@@ -10,6 +10,7 @@ imports into a port server and continues token-exact. The int8 cache, a
 draft model's pools and a grammar request each migrate too."""
 
 import dataclasses
+import gc
 import functools
 import threading
 import time
@@ -64,6 +65,18 @@ KV_ATOL = 1e-5
 
 def _tcfg(cfg):
     return TModelConfig(**dataclasses.asdict(cfg))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_compiled_programs():
+    """Drop the reference's compiled XLA programs when the module ends:
+    each holds a few memory maps, and this module's leave about 14
+    thousand; a test worker that runs it and other reference-heavy
+    modules would otherwise reach the kernel's map limit
+    (vm.max_map_count), where the next compile fails."""
+    yield
+    jax.clear_caches()
+    gc.collect()
 
 
 @pytest.fixture(scope="module")

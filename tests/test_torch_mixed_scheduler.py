@@ -10,6 +10,7 @@ speculative dispatch is in flight, and the programs a new grammar
 pattern releases."""
 
 import dataclasses
+import gc
 
 import jax
 import numpy as np
@@ -38,6 +39,18 @@ SRV_KW = dict(max_slots=4, max_context=64, page_size=8, prefill_chunk=16,
               prompt_buckets=[16, 32])
 LONG = [(i * 7) % 60 + 1 for i in range(30)]
 PROMPTS = [[5, 9, 3], [17, 2, 40, 8, 21], LONG, list(range(1, 14))]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_compiled_programs():
+    """Drop the reference's compiled XLA programs when the module ends:
+    each holds a few memory maps, and this module's leave about 49
+    thousand; a test worker that runs it and other reference-heavy
+    modules would otherwise reach the kernel's map limit
+    (vm.max_map_count), where the next compile fails."""
+    yield
+    jax.clear_caches()
+    gc.collect()
 
 
 @pytest.fixture(scope="module")

@@ -10,6 +10,7 @@ address, so an add that grows them while a dispatch is in flight
 releases that dispatch's program only after its commit."""
 
 import dataclasses
+import gc
 import json
 from urllib import request as urq
 
@@ -70,6 +71,18 @@ def _np(tree):
 
 def _port_lcfg(lcfg):
     return LoRAConfig(**dataclasses.asdict(lcfg))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_compiled_programs():
+    """Drop the reference's compiled XLA programs when the module ends:
+    each holds a few memory maps, and this module's leave about 12
+    thousand; a test worker that runs it and other reference-heavy
+    modules would otherwise reach the kernel's map limit
+    (vm.max_map_count), where the next compile fails."""
+    yield
+    jax.clear_caches()
+    gc.collect()
 
 
 @pytest.fixture(scope="module")

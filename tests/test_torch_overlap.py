@@ -13,6 +13,7 @@ and deadline expiries deferred past the in-flight dispatch, the overlap
 fields of the flight records."""
 
 import dataclasses
+import gc
 import time
 
 import jax
@@ -58,6 +59,18 @@ CLOCK_FIELDS = {"t_start", "phases_ms", "duration_ms", "host_ms",
 def _port_cfgs(cfg=CFG, icfg=GREEDY):
     return (TModelConfig(**dataclasses.asdict(cfg)),
             TInferConfig(**dataclasses.asdict(icfg)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_compiled_programs():
+    """Drop the reference's compiled XLA programs when the module ends:
+    each holds a few memory maps, and this module's leave about 27
+    thousand; a test worker that runs it and other reference-heavy
+    modules would otherwise reach the kernel's map limit
+    (vm.max_map_count), where the next compile fails."""
+    yield
+    jax.clear_caches()
+    gc.collect()
 
 
 @pytest.fixture(scope="module")
