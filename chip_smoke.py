@@ -14,7 +14,9 @@ each:
                 (the narrow kernel: decode and verify windows of 32 and
                 5; the wide kernel: prefill and a ragged mixed batch with
                 a length-0 slot) and at Llama-3.2-1B's head dim 64
-                (decode, prefill), the kernel timed warm from a CUDA
+                (decode, prefill), and at one tensor-parallel rank's
+                share of the heads (KH 4 and KH 2: decode, prefill),
+                the kernel timed warm from a CUDA
                 graph in turns with one PyTorch library call (SDPA), and
                 cold (decode, prefill: a rotation over layers whose K/V
                 bytes exceed 4x the L2), beside the plain version's time
@@ -135,6 +137,23 @@ each:
                 ReplayDriver: nothing lost, a scale-up and a migrating
                 scale-down — then FleetSim calibrated from the replicas'
                 flight records against the live attainment;
+     tp       — after the serve phase (and its contiguous part):
+                tensor-parallel serving at tp 2 (one process a rank,
+                `parallel.spawn_ranks`; NCCL with one rank a card and
+                graphs on where there are two cards, else both ranks on
+                card 0 over gloo with graphs off, printed as backend,
+                cards and graphs) on the serve phase's weights, shared
+                with the ranks as CUDA memory: the 8 greedy requests
+                (all 32 layers on NCCL, the first 16 on one card)
+                against the one-card tokens by the near-tie rule (and
+                graphed == graphs off on NCCL), a
+                2-layer float32 slice token for token, the int8 cache
+                against serve_int8's tokens, an n-gram run (committed
+                tokens a round); each rank's B1/B2 launches (> 0 on every
+                rank), weight and pool bytes and peak memory; a steady
+                decode step's wall time (rank 0) and device span per
+                rank; the median host time of rank 0's per-dispatch
+                broadcast;
   4. train    — the training CLI (`cloud_server_tpu_torch.train.main`)
                 at Llama-3.1-8B's widths cut to 8 layers (f32 masters,
                 bf16 compute, flash attention, full remat): 6 steps at
@@ -193,7 +212,10 @@ each:
   7. kernels  — each ported kernel with the TPU kernel it replaces, its
                 launches on phases 3 and 4 (the int8 rows: the HTTP run;
                 the verify_w5, decode_d64 and prefill_d64 rows: the
-                speculating servers of the spec phase; the embed row:
+                speculating servers of the spec phase; the _kh4 rows,
+                bf16 and int8: one tp rank's share of the heads, their
+                launches summed over the tp phase's ranks and listed per
+                rank, the KH 2 case's numbers beside; the embed row:
                 the elastic phase's flash-route embed, timed there), its
                 launches on the moe phase's paths (`launches_moe`) and
                 on the pack phase's (`launches_pack`) and the hf phase's
@@ -207,7 +229,9 @@ the repository beside it, it exits non-zero and prints no result.
 and prints no result. `--http-rounds N` builds the kernels and then runs
 only the int8 serve's 8-stream HTTP part N times over one started server
 at Llama-3.1-8B width, counting the rounds that fail (a probe of a rare
-fault; it prints no result).
+fault; it prints no result). `--tp-only` builds the kernels and runs the
+tp phase alone, serving its own one-card tokens; on a machine with two
+cards or more that is the NCCL form with graphs (it prints no result).
 """
 
 from __future__ import annotations
@@ -328,19 +352,23 @@ def ptxas_summary(log: str) -> dict:
 H, KH, DH, PS, MAX_CTX = 32, 8, 128, 128, 2048
 
 
-def make_case(gen, lengths, widths, w, layers: int = 2, dh: int = DH):
+def make_case(gen, lengths, widths, w, layers: int = 2, dh: int = DH,
+              tp: int = 1):
     """Random bf16 pools and a distinct random paging of every slot's
-    context at Llama-3.1-8B's head shapes (Llama-3.2-1B's at dh 64)."""
+    context at Llama-3.1-8B's head shapes (Llama-3.2-1B's at dh 64; one
+    tensor-parallel rank's share of the heads, H / tp on KH / tp, at tp
+    > 1)."""
     import torch
     b = len(lengths)
     mp = MAX_CTX // PS
     num_pages = b * mp + 3
     dev = DEVICE
-    k_pool = torch.randn((layers, num_pages, KH, dh, PS), generator=gen,
+    kh, h = KH // tp, H // tp
+    k_pool = torch.randn((layers, num_pages, kh, dh, PS), generator=gen,
                          device=dev).to(torch.bfloat16)
-    v_pool = torch.randn((layers, num_pages, KH, dh, PS), generator=gen,
+    v_pool = torch.randn((layers, num_pages, kh, dh, PS), generator=gen,
                          device=dev).to(torch.bfloat16)
-    q = torch.randn((b, w, H, dh), generator=gen, device=dev).to(
+    q = torch.randn((b, w, h, dh), generator=gen, device=dev).to(
         torch.bfloat16)
     perm = torch.randperm(num_pages, generator=gen, device=dev)
     tables = perm[:b * mp].reshape(b, mp).to(torch.int32)
@@ -358,12 +386,13 @@ def bound_ms(q, lengths, widths, kv_elem: int = 2,
     visible operations (4 * Dh per query-row-key pair: the two products)
     over the bf16 tensor rate."""
     b, w, h, d = q.shape
+    kh = h // (H // KH)  # the case's kv heads (a group is H / KH heads)
     lens = [int(x) for x in lengths.tolist()]
     wids = [int(x) for x in widths.tolist()]
     nbytes = 2 * q.numel() * 2 + 16 * b
     ops = 0
     for n, wd in zip(lens, wids):
-        nbytes += 2 * n * KH * (d * kv_elem + scale_bytes)
+        nbytes += 2 * n * kh * (d * kv_elem + scale_bytes)
         # row j of the window sees keys [0, n - wd + j]
         ops += 4 * d * h * sum(n - wd + j + 1 for j in range(wd))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -381,8 +410,8 @@ def library_call(q, k_pool, v_pool, lengths, tables, widths, layer):
     b, w = q.shape[:2]
     k = gather_pages(k_pool, tables, layer).permute(0, 2, 1, 3)
     v = gather_pages(v_pool, tables, layer).permute(0, 2, 1, 3)
-    k = k.repeat_interleave(H // KH, dim=1).contiguous()
-    v = v.repeat_interleave(H // KH, dim=1).contiguous()
+    k = k.repeat_interleave(q.shape[2] // k.shape[1], dim=1).contiguous()
+    v = v.repeat_interleave(q.shape[2] // v.shape[1], dim=1).contiguous()
     qt = q.permute(0, 2, 1, 3).contiguous()
     pos = (lengths - widths)[:, None] + torch.arange(w, device=q.device)
     col = torch.arange(k.shape[2], device=q.device)
@@ -444,11 +473,13 @@ def graph_ms(calls, reps: int = 5) -> float:
     return ms
 
 
-# Kernel-phase cases: (lengths, widths, W[, head dim]). decode and verify
-# run the narrow kernel (B 8; W 1 and the narrow class's widest window,
-# 32), prefill and ragged the wide one; verify_w5 is speculation's
-# verify window (4 drafts), decode_d64 and prefill_d64 a Llama-3.2-1B
-# draft model's head shape (H 32, KH 8, Dh 64). Cases draw their data in
+# Kernel-phase cases: (lengths, widths, W[, head dim[, tp]]). decode and
+# verify run the narrow kernel (B 8; W 1 and the narrow class's widest
+# window, 32), prefill and ragged the wide one; verify_w5 is
+# speculation's verify window (4 drafts), decode_d64 and prefill_d64 a
+# Llama-3.2-1B draft model's head shape (H 32, KH 8, Dh 64); the _kh4 and
+# _kh2 cases one tensor-parallel rank's share of Llama-3.1-8B's heads at
+# tp 2 (H 16 on KH 4) and tp 4 (H 8 on KH 2). Cases draw their data in
 # this order from one generator, so a case added at the end leaves the
 # others' data as it was.
 SPEC_LENGTHS = [1537, 2048, 977, 1800, 64, 1200, 1501, 333]
@@ -460,6 +491,10 @@ PAGED_CASES = {
     "verify_w5": (SPEC_LENGTHS, [5] * 8, 5),
     "decode_d64": (SPEC_LENGTHS, [1] * 8, 1, 64),
     "prefill_d64": ([2048, 1400], [256, 256], 256, 64),
+    "decode_kh4": (SPEC_LENGTHS, [1] * 8, 1, DH, 2),
+    "prefill_kh4": ([2048, 1400], [256, 256], 256, DH, 2),
+    "decode_kh2": (SPEC_LENGTHS, [1] * 8, 1, DH, 4),
+    "prefill_kh2": ([2048, 1400], [256, 256], 256, DH, 4),
 }
 # Cases also timed cold: each call reads another layer of a pool whose
 # K/V bytes for the case exceed COLD_L2_MULT x the 50 MB L2, as the
@@ -471,9 +506,9 @@ KERNEL_ITERS = 20  # calls in each timing graph (warm)
 
 
 def kv_bytes(lengths, kv_elem: int, scale_bytes: int = 0,
-             dh: int = DH) -> int:
+             dh: int = DH, kh: int = KH) -> int:
     """K and V bytes of every slot's visible keys, one layer."""
-    return 2 * sum(int(n) for n in lengths) * KH * (dh * kv_elem
+    return 2 * sum(int(n) for n in lengths) * kh * (dh * kv_elem
                                                     + scale_bytes)
 
 
@@ -506,7 +541,8 @@ def phase_kernel() -> dict:
     def cold_ms(lens, wids, w, int8):
         """The kernel reading a different layer at every call of a pool
         of enough layers that a rotation's K/V bytes exceed
-        COLD_L2_MULT x L2."""
+        COLD_L2_MULT x L2 (the cold cases are at the whole model's
+        heads)."""
         ws = kv_bytes(lens, 1 if int8 else 2, 4 if int8 else 0)
         n_layers = math.ceil(COLD_L2_MULT * L2_BYTES / ws) + 1
         q, kp, vp, lengths, tables, widths = make_case(
@@ -524,10 +560,11 @@ def phase_kernel() -> dict:
         torch.cuda.empty_cache()
         return ms, n_layers
 
-    for name, (lens, wids, w, *dh) in PAGED_CASES.items():
-        dh = dh[0] if dh else DH
+    for name, (lens, wids, w, *rest) in PAGED_CASES.items():
+        dh = rest[0] if rest else DH
+        tp = rest[1] if len(rest) > 1 else 1
         q, kp, vp, lengths, tables, widths = make_case(gen, lens, wids, w,
-                                                       dh=dh)
+                                                       dh=dh, tp=tp)
         b = q.shape[0]
         valid = torch.arange(w, device=DEVICE)[None, :] < widths[:, None]
         valid &= (lengths > 0)[:, None]
@@ -555,9 +592,10 @@ def phase_kernel() -> dict:
         splits = {}
         if cls == "narrow":
             splits = {"splits": [pa.narrow_splits(
-                b, w, KH, H // KH, dh, int8, tables.shape[1], PS)
+                b, w, KH // tp, H // KH, dh, int8, tables.shape[1], PS)
                 for int8 in (False, True)]}
         res = {"phase": "kernel", "case": name, "B": b, "W": w, "Dh": dh,
+               "H": H // tp, "KH": KH // tp,
                "class": cls, **splits, "lengths": lens, "widths": wids,
                **errs,
                "ms": ms, "ms_range": [ms_lo, ms_hi], "plain_ms": plain_ms,
@@ -600,7 +638,7 @@ def phase_kernel() -> dict:
         bf16_again = graph_ms(calls)
         bms8, by8 = bound_ms(q, lengths, widths, kv_elem=1, scale_bytes=4)
         res8 = {"phase": "kernel_int8", "case": name, "B": b, "W": w,
-                "Dh": dh,
+                "Dh": dh, "H": H // tp, "KH": KH // tp,
                 "class": cls, **errs, "ms": ms8, "ms_range": [lo8, hi8],
                 "bf16_ms": [ms, bf16_again], "plain_ms": plain8,
                 "library_ms": library8,
@@ -1896,6 +1934,7 @@ def phase_serve() -> dict:
     seconds["profile"] = time.perf_counter() - t0
     out["seconds"] = seconds
     emit(out)
+    out["tokens"] = tokens  # the tp phase holds its tokens against them
     # the plain server stays up: its steady steps are timed and
     # profiled in turns with the policy server's
     out["policy"] = phase_policy(params, cfg, icfg, prompts, tokens, srv)
@@ -4331,6 +4370,291 @@ def phase_ce_kernel() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3i: tensor-parallel serving (tp 2 at Llama-3.1-8B width)
+# ---------------------------------------------------------------------------
+
+TP = 2
+TP_BUDGET_S = 150.0
+# The tp phase's depth with both ranks on one card, where each of a
+# step's all-reduces goes through host copies over gloo between two
+# processes time-sliced on the card: at all 32 layers a steady step took
+# 1.4-5.8 s over runs on H100 machines (700 W), and the phase up to
+# 167 s, past TP_BUDGET_S. With one rank a card (NCCL) it runs every
+# layer.
+TP_LAYERS_ONE_CARD = 16
+# Ranks are joined within this long, and a collective no rank joins
+# raises after TP_TIMEOUT_S (parallel.spawn_ranks).
+TP_DEADLINE_S = 600.0
+TP_TIMEOUT_S = 300.0
+TP_STEADY_STEPS = 3
+TP_NGRAM_DRAFTS = 4
+
+
+def tp_backend() -> tuple:
+    """The tp phase's collectives, chosen here in the open (the server
+    takes the mesh's): NCCL with one rank a card and graphs on where
+    there are two cards or more; on one card both ranks share card 0
+    over gloo (NCCL refuses two ranks on one device) with graphs off,
+    since gloo collectives cannot be captured. (backend, cards,
+    graphs)."""
+    import torch
+    cards = torch.cuda.device_count()
+    return ("nccl", cards, True) if cards >= TP else ("gloo", cards, False)
+
+
+def tp_launch_spans(srv) -> list:
+    """Wrap the server's launcher so every program launch on this rank
+    is bracketed by two CUDA events (the device span from its input
+    copies to its result copies); returns the list they land in."""
+    import torch
+    spans: list = []
+    run = srv._run
+
+    def timed(body, flags, staged):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        prog = run(body, flags, staged)
+        end.record()
+        spans.append((body.__name__, start, end))
+        return prog
+
+    srv._run = timed
+    return spans
+
+
+def tp_rank(rank: int, world: int, params, cfg, p32, cfg32, icfg, prompts,
+            graphs: bool) -> dict:
+    """One rank of the tp phase: every rank builds each server with the
+    same arguments on its card (card 0 for both on one card); rank 0
+    serves the requests, the other ranks follow. Per run: rank 0's
+    tokens and stats, each rank's B1/B2 counts, weight and pool bytes,
+    peak memory and per-launch device spans."""
+    import dataclasses
+    import torch
+    from cloud_server_tpu_torch.config import MeshConfig
+    from cloud_server_tpu_torch.inference.paged_server import (
+        PagedInferenceServer)
+    from cloud_server_tpu_torch.ops import paged_attention as pa
+    from cloud_server_tpu_torch.parallel.mesh import make_mesh
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    torch.zeros(1, device=dev)  # the card is this process's before the mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(MeshConfig(tp=world), device_type="cuda")
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    runs = [("bf16", params, cfg, {}), ("f32", p32, cfg32, {}),
+            ("int8", params, cfg8, {}),
+            ("ngram", params, cfg, {"spec_drafts": TP_NGRAM_DRAFTS})]
+    if graphs:
+        runs.insert(1, ("bf16_graphs_off", params, cfg,
+                        {"cuda_graphs": False}))
+    out = {}
+    for name, p, c, kw in runs:
+        kw.setdefault("cuda_graphs", graphs)
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        srv = PagedInferenceServer(
+            p, c, icfg, max_slots=8, max_context=MAX_CTX, page_size=PS,
+            prefill_chunk=256, seed=SEED, mesh=mesh, device=dev, **kw)
+        res = {"weight_bytes": sum(
+            t.numel() * t.element_size() for g in srv.params.values()
+            for t in g.values()), "pool_bytes": srv.kv_cache_bytes()}
+        spans = tp_launch_spans(srv)
+        pa.reset_counters()
+        if rank > 0:
+            srv.follow()
+        else:
+            reqs = [srv.submit(q, max_new_tokens=MAX_NEW) for q in prompts]
+            srv.run_until_idle()
+            res["tokens"] = [r.tokens for r in reqs]
+            res["finish"] = [r.finish_reason for r in reqs]
+            res["decode_rounds"] = srv.decode_rounds
+            res["tokens_committed"] = srv.decode_tokens_committed
+            if name == "bf16":
+                # steady decode steps: 8 live slots, every program made
+                live = [srv.submit(q, max_new_tokens=LONG_NEW)
+                        for q in prompts]
+                while srv._jobs or srv.num_pending:
+                    srv.step()
+                for _ in range(2):
+                    srv.step()
+                i0, t_s = len(spans), time.perf_counter()
+                for _ in range(TP_STEADY_STEPS):
+                    srv.step()
+                res["steady_wall_ms"] = ((time.perf_counter() - t_s) * 1e3
+                                         / TP_STEADY_STEPS)
+                res["steady_launches"] = [i0, len(spans)]
+                res["steady_live"] = srv.num_active
+                cancel_all(srv, live)
+            res["tp"] = srv.tp_stats()
+            srv.stop()
+        torch.cuda.synchronize(dev)
+        res["counts"] = pa.counters()
+        res["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        res["launch_ms"] = [(n, a.elapsed_time(b)) for n, a, b in spans]
+        res["seconds"] = time.perf_counter() - t0
+        out[name] = res
+        del srv, spans
+        gc.collect()
+        torch.cuda.empty_cache()
+    # drop this rank's views of the parent's shared CUDA memory before it
+    # exits (a spawned process ends without running their deleters, and
+    # the parent could not free that memory until it exits itself)
+    params.clear()
+    p32.clear()
+    gc.collect()
+    return out
+
+
+def one_card_tokens(params, cfg, icfg, prompts) -> dict:
+    """The prompts' greedy tokens on the default one-card server, on the
+    bf16 and on the int8 cache, in the serve phase's shape: {"tokens":
+    [...], "int8": {"tokens": [...]}}."""
+    import dataclasses
+    import torch
+    tokens = {}
+    for name, c in (("bf16", cfg),
+                    ("int8", dataclasses.replace(cfg,
+                                                 kv_cache_dtype="int8"))):
+        srv = make_server(params, c, icfg)
+        reqs, _, _, _ = serve_once(params, c, icfg, prompts, srv=srv)
+        srv.stop()
+        check_served(reqs, cfg.vocab_size)
+        tokens[name] = [r.tokens for r in reqs]
+        del srv, reqs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"tokens": tokens["bf16"], "int8": {"tokens": tokens["int8"]}}
+
+
+def phase_tp(serve=None) -> dict:
+    """Tensor-parallel serving at tp 2 (`PagedInferenceServer(mesh=...)`,
+    one process per rank, `parallel.spawn_ranks`) on the serve phase's
+    seeded weights (on one card their first TP_LAYERS_ONE_CARD layers),
+    shared with the ranks as CUDA memory: the 8 greedy requests against
+    the one-card server's tokens at the same depth (the serve phase's,
+    when given and of the same depth) by the near-tie rule, graphed ==
+    graphs off where the backend captures, a 2-layer float32 slice token
+    for token, the int8 cache against the one-card int8 tokens, a short
+    n-gram run; each rank's B1/B2 launches, weight and
+    pool bytes, peak memory, a steady decode step's device span, and
+    rank 0's wall time per step and per-dispatch broadcast."""
+    import numpy as np
+    import torch
+    from cloud_server_tpu_torch.config import (InferConfig, ModelConfig,
+                                               from_json)
+    from cloud_server_tpu_torch.models import transformer
+    from cloud_server_tpu_torch.parallel import spawn_ranks
+    t_phase = time.perf_counter()
+    backend, cards, graphs = tp_backend()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(CONFIG) as f:
+        cfg = from_json(ModelConfig, json.load(f)["model"])
+    params = transformer.init_params(cfg, SEED, device=DEVICE)
+    p32, cfg32 = f32_slice(params, cfg)
+    icfg = InferConfig(max_decode_len=MAX_NEW, temperature=0.0,
+                       eos_token_id=-1, pad_token_id=0)
+    prompts = make_prompts(np.random.default_rng(SEED), cfg.vocab_size)
+    if backend == "gloo":
+        params, cfg = first_layers(params, cfg, TP_LAYERS_ONE_CARD)
+        serve = None  # the serve phase's tokens are the whole model's
+    if serve is None:
+        serve = one_card_tokens(params, cfg, icfg, prompts)
+    # the float32 slice on one card (the tp run must equal it exactly)
+    srv = make_server(p32, cfg32, icfg)
+    want32, _, _, _ = serve_once(p32, cfg32, icfg, prompts, srv=srv)
+    srv.stop()
+    del srv
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(tp_rank, TP, backend, params, cfg, p32, cfg32, icfg,
+                        prompts, graphs, deadline_s=TP_DEADLINE_S,
+                        timeout_s=TP_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    torch.cuda.ipc_collect()
+    r0 = ranks[0]
+    vocab = cfg.vocab_size
+
+    def as_reqs(tokens, finish=None):
+        return [types.SimpleNamespace(tokens=t, finish_reason=f)
+                for t, f in zip(tokens, finish or [None] * len(tokens))]
+
+    for name in r0:
+        check_served(as_reqs(r0[name]["tokens"], r0[name]["finish"]), vocab)
+        for r, res in enumerate(ranks):
+            c = res[name]["counts"]
+            if name == "f32":
+                continue  # the plain attention path (f32_slice)
+            narrow, wide = (("launches_narrow_int8", "launches_wide_int8")
+                            if name == "int8" else
+                            ("launches_narrow", "launches_wide"))
+            if c[narrow] <= 0 or c[wide] <= 0 or c["plain_calls"]:
+                raise RuntimeError(f"tp {name}, rank {r}: launches {c}")
+    same_tokens("tp float32 slice vs one card",
+                as_reqs(r0["f32"]["tokens"]), [r.tokens for r in want32])
+    if graphs:
+        same_tokens("tp graphed vs graphs off",
+                    as_reqs(r0["bf16_graphs_off"]["tokens"]),
+                    r0["bf16"]["tokens"])
+    want = as_reqs(serve["tokens"])
+    bf16 = near_tie_divergence("tp bf16 vs one card",
+                               as_reqs(r0["bf16"]["tokens"]), want, prompts,
+                               params, cfg)
+    int8 = near_tie_divergence("tp int8 vs one card's int8",
+                               as_reqs(r0["int8"]["tokens"]),
+                               as_reqs(serve["int8"]["tokens"]), prompts,
+                               params, cfg)
+    ngram = near_tie_divergence("tp n-gram vs one card",
+                                as_reqs(r0["ngram"]["tokens"]), want,
+                                prompts, params, cfg)
+    del params, p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    i0, i1 = r0["bf16"]["steady_launches"]
+    per_rank = []
+    for r, res in enumerate(ranks):
+        b = res["bf16"]
+        steady = [ms for _, ms in b["launch_ms"][i0:i1]]
+        per_rank.append({
+            "rank": r, "counts": b["counts"],
+            "counts_int8": res["int8"]["counts"],
+            "counts_ngram": res["ngram"]["counts"],
+            "weight_bytes": b["weight_bytes"], "pool_bytes": b["pool_bytes"],
+            "int8_pool_bytes": res["int8"]["pool_bytes"],
+            "peak_gb": {n: v["peak_bytes"] / 1e9 for n, v in res.items()},
+            "steady_device_span_ms_per_step": sum(steady) / TP_STEADY_STEPS,
+            "steady_launches": len(steady)})
+    ng = r0["ngram"]
+    out = {"phase": "tp", "tp": TP, "backend": backend, "cards": cards,
+           "graphs": graphs, "layers": cfg.num_layers,
+           "model": "Llama-3.1-8B (random bf16 weights)",
+           "requests": len(prompts), "max_new_tokens": MAX_NEW,
+           "bf16_vs_one_card": bf16, "int8_vs_one_card_int8": int8,
+           "ngram_vs_one_card": ngram,
+           "f32_slice_token_for_token": True,
+           "graphed_equals_graphs_off": True if graphs else None,
+           "ngram_committed_per_round": (ng["tokens_committed"]
+                                         / max(1, ng["decode_rounds"])),
+           "steady_wall_ms_per_step": r0["bf16"]["steady_wall_ms"],
+           "steady_live_slots": r0["bf16"]["steady_live"],
+           "broadcast": r0["bf16"]["tp"],
+           "broadcast_int8": r0["int8"]["tp"],
+           "ranks": per_rank,
+           "run_seconds": {n: v["seconds"] for n, v in r0.items()},
+           "ranks_s": ranks_s, "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    if out["seconds"] > TP_BUDGET_S:
+        print(f"tp phase: {out['seconds']:.1f} s, over its "
+              f"{TP_BUDGET_S} s budget at {cfg.num_layers} layers",
+              flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: training at Llama-3.1-8B's widths (8 layers)
 # ---------------------------------------------------------------------------
 
@@ -6150,6 +6474,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--http-rounds"]:
         probe = http_probe(int(sys.argv[2]), dev["nvidia_smi"])
         return 0 if not probe["failed_rounds"] else 1
+    if "--tp-only" in sys.argv[1:]:
+        timed(phase_tp)
+        return 0  # the tp phase alone (on several cards: NCCL); no result
     kern = timed(phase_kernel)
     fkern = timed(phase_train_kernel)
     timed(phase_unembed)
@@ -6157,6 +6484,7 @@ def main() -> int:
     if "--kernel-only" in sys.argv[1:]:
         return 0  # a quick check of a kernel change; prints no result
     serve = timed(phase_serve)
+    tp = timed(phase_tp, serve)
     train = timed(phase_train)
     pack = timed(phase_pack, train)
     ckpt = timed(phase_ckpt)
@@ -6215,6 +6543,35 @@ def main() -> int:
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"]})
+    # one tensor-parallel rank's share of the heads (tp 2: 16 q heads on
+    # KH 4), with the tp phase's launches summed over its ranks; the tp 4
+    # share (KH 2) timed beside it
+    for kernel, case, line, key, branch in (
+            ("paged_narrow_kernel", "decode_kh4", 96, "launches_narrow", ""),
+            ("paged_wide_kernel", "prefill_kh4", 434, "launches_wide", ""),
+            ("paged_narrow_kernel", "decode_kh4_int8", 96,
+             "launches_narrow_int8", " (int8 branch)"),
+            ("paged_wide_kernel", "prefill_kh4_int8", 434,
+             "launches_wide_int8", " (int8 branch)")):
+        k = kern[case]
+        k2 = kern[case.replace("kh4", "kh2")]
+        per_rank = [r["counts_int8" if "int8" in case else "counts"][key]
+                    for r in tp["ranks"]]
+        rows.append({
+            "name": f"paged_attention: {kernel}, {k['class']} class "
+                    f"({case} case: one tp {TP} rank, B {k['B']}, W "
+                    f"{k['W']}, H {k['H']}, KH {k['KH']})",
+            "route": "cuda",
+            "source": "cloud_server_tpu_torch/csrc/paged_attention.cu",
+            "replaces": f"cloud_server_tpu/ops/paged_attention.py:{line}"
+                        f"{branch}",
+            "launches": sum(per_rank), "launches_per_rank": per_rank,
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+            "kh2_case": {f: k2[f] for f in (
+                "H", "KH", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")}})
     tc = train["counts"]
     blocked, fused = fkern["blocked"], fkern["fused"]
     blocked_cases = [c for c, r in fkern.items() if r["backward"] == "blocked"]

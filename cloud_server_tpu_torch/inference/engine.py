@@ -66,7 +66,7 @@ def _kv_dequant(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
     return (q.float() * scale).to(dtype)
 
 
-def _mlp_apply(x, lp, cfg: ModelConfig, lora=None):
+def _mlp_apply(x, lp, cfg: ModelConfig, lora=None, tp=None):
     """Dense or MoE MLP residual block, chosen by cfg.num_experts.
 
     MoE routing at inference is per call: prefill routes over the prompt
@@ -76,12 +76,18 @@ def _mlp_apply(x, lp, cfg: ModelConfig, lora=None):
     expert_capacity_factor >= E/k).
 
     `lora`: per-row multi-adapter deltas (dense MLP only; the servers
-    refuse MLP-targeting adapters on MoE bases)."""
+    refuse MLP-targeting adapters on MoE bases). `tp`: the tensor-parallel
+    group of a dense MLP sharded over it (`transformer.mlp_block`); the
+    paged server refuses MoE models under tensor parallelism."""
     if cfg.num_experts >= 2:
+        if tp is not None:
+            raise NotImplementedError(
+                "MoE MLPs under tensor parallelism (expert parallelism) are "
+                "not ported to the PyTorch server yet")
         from cloud_server_tpu_torch.models import moe
         x, _ = moe.moe_mlp_block(x, lp, cfg)
         return x
-    return transformer.mlp_block(x, lp, cfg, lora=lora)
+    return transformer.mlp_block(x, lp, cfg, lora=lora, tp=tp)
 
 
 @torch.no_grad()

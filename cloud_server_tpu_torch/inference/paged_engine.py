@@ -31,6 +31,12 @@ targets, so the scatter is exact for every real page.
 Shared pages are never written: the allocator guarantees writes happen
 at positions >= every sharing slot's private start.
 
+Tensor parallelism (`tp`, the tp process group of a sharded server):
+the params and pools are one rank's shard, attention runs on the rank's
+own kv heads (as `paged_attention_tp`), and the forward sums and gathers
+over the group (`models.transformer`), so every rank returns the same
+logits.
+
 The int8 KV cache (`cfg.kv_cache_dtype == "int8"`): int8 pools plus
 (L, P, KH, ps) f32 scale pools, one absmax scale per position and kv
 head. A write quantizes the window's k and v (`engine._kv_quant`) and
@@ -187,7 +193,7 @@ def _write_window(cache: PagedKVCache, layer: int, k, v, plan) -> None:
 def window_forward(params, tokens: torch.Tensor, cfg: ModelConfig,
                    cache: PagedKVCache, *, logits_at=None,
                    all_logits: bool = False, widths=None, rope=None,
-                   lora=None, aid=None):
+                   lora=None, aid=None, tp=None):
     """Forward W new positions per slot against the paged cache.
 
     Args:
@@ -205,6 +211,13 @@ def window_forward(params, tokens: torch.Tensor, cfg: ModelConfig,
         inference.multi_lora.AdapterSet.device_args and per-row adapter
         ids (B,); each layer gathers its per-row (a, b, scale) and the
         transformer blocks add the low-rank deltas (id 0 adds exactly 0).
+      tp: tensor-parallel serving — the tp process group; `params` and
+        the pools hold this rank's shard (heads, kv heads, MLP columns,
+        vocab rows). Attention runs on the rank's kv heads with no
+        collective (as `paged_attention_tp`, on either path), the
+        row-parallel wo and w_down sum over the group, the vocab-sharded
+        embed sums its masked lookups, and the logits are gathered, so
+        every rank returns the same full rows.
 
     Returns (logits, cache); the pools hold the window's kv, lengths are
     unchanged.
@@ -218,11 +231,15 @@ def window_forward(params, tokens: torch.Tensor, cfg: ModelConfig,
     rope_pos = pos.clamp(0, cache.max_context - 1)
     cos, sin = rope if rope is not None else rope_table(
         cfg, cache.max_context, device=dev)
-    x = transformer.embed(params, tokens, cfg)
+    x = transformer.embed(params, tokens, cfg, tp=tp)
 
-    use_kernel = cfg.decode_attention_impl == "pallas" and w <= PALLAS_MAX_W
-    attend = (functools.partial(paged_attention, verify=all_logits)
-              if use_kernel else paged_attention_ref)
+    # under tp, q and the pools are already this rank's heads: the
+    # kernels attend over them as they are (what `paged_attention_tp`
+    # does, its head check made once by the server)
+    if cfg.decode_attention_impl == "pallas" and w <= PALLAS_MAX_W:
+        attend = functools.partial(paged_attention, verify=all_logits)
+    else:
+        attend = paged_attention_ref
     widths_dev = (None if widths is None
                   else torch.as_tensor(widths).to(device=dev,
                                                   dtype=torch.int32))
@@ -242,14 +259,14 @@ def window_forward(params, tokens: torch.Tensor, cfg: ModelConfig,
                    widths=widths_dev, k_scale_pool=cache.k_scale,
                    v_scale_pool=cache.v_scale,
                    last_page=cache.num_pages - 1)
-        x = transformer.attention_out(x, o, lp, cfg, lora=ll)
-        x = _mlp_apply(x, lp, cfg, lora=ll)
+        x = transformer.attention_out(x, o, lp, cfg, lora=ll, tp=tp)
+        x = _mlp_apply(x, lp, cfg, lora=ll, tp=tp)
 
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     if all_logits:
-        return transformer.unembed(x, params, cfg), cache
+        return transformer.unembed(x, params, cfg, tp=tp), cache
     if logits_at is not None:
         at = torch.as_tensor(logits_at).to(dev).long().clamp(0, w - 1)
         x_sel = x[torch.arange(b, device=dev), at]
-        return transformer.unembed(x_sel, params, cfg), cache
+        return transformer.unembed(x_sel, params, cfg, tp=tp), cache
     return None, cache

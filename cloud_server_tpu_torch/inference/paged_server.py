@@ -112,8 +112,19 @@ L2-normalised sequence embeddings of the base model
 MoE models (models/moe.py) serve on the same programs: each
 window_forward routes its (B, W) rows per layer, so capacity is
 contended over a call's rows as in the reference; adapters on an MoE
-base may target attention only. Not ported yet, and refused with
-NotImplementedError where a caller asks for it: tensor parallelism.
+base may target attention only.
+
+Tensor-parallel serving (`mesh=`, one process per rank; see the class
+docstring): each rank holds its shard of the weights and of the pools'
+kv heads, rank 0 schedules and broadcasts every dispatch to the other
+ranks (`follow()`), and the programs' forwards sum and gather over the
+tp group. Both schedulers, the overlap pipeline, captured graphs,
+every sampling mode, the int8 KV cache, n-gram speculation, both
+allocation policies, penalties, logit_bias, min_tokens and grammars
+serve under it. Not ported yet under it, and refused with
+NotImplementedError where a caller asks for it: draft-model
+speculation, adapters, int8 weights, MoE models, `embed`, migration
+and the handoff, and mesh axes other than tp.
 """
 
 from __future__ import annotations
@@ -130,6 +141,7 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cloud_server_tpu_torch import resolve_device
 from cloud_server_tpu_torch.config import InferConfig, ModelConfig
@@ -164,6 +176,12 @@ from cloud_server_tpu_torch.inference.speculative import (
     _row_pos_keys, sample_from_probs_keyed)
 from cloud_server_tpu_torch.models import transformer
 from cloud_server_tpu_torch.ops import rope_table
+from cloud_server_tpu_torch.ops.paged_attention import check_tp_heads
+from cloud_server_tpu_torch.parallel.distributed import (BroadcastChannel,
+                                                         group_timeout_s,
+                                                         new_gloo_group)
+from cloud_server_tpu_torch.parallel.mesh import axis_size
+from cloud_server_tpu_torch.parallel.sharding import shard_params
 from cloud_server_tpu_torch.utils import prng
 from cloud_server_tpu_torch.utils.serving_metrics import (FlightRecorder,
                                                           ServingMetrics)
@@ -232,13 +250,19 @@ class _Model:
                of the registered patterns; None until one registers
       lora     (stacks, scales) of the registered adapters
                (`AdapterSet.device_args`); None until one registers
+
+    Under tensor parallelism `params` and the pools are this rank's
+    shard and `tp` is the tp process group (else None): the target
+    model's forwards sum and gather over it (`paged_engine`), so every
+    rank samples the same tokens and keeps the same per-slot state.
     """
 
     def __init__(self, params, cfg, infer_cfg, pools, rope, *, draft=None,
-                 hist=None, gstate=None):
+                 hist=None, gstate=None, tp=None):
         self.params, self.cfg, self.infer_cfg = params, cfg, infer_cfg
         self.k, self.v, self.k_scale, self.v_scale = pools
         self.rope = rope
+        self.tp = tp
         # (params, cfg, pools, rope) of the draft model, or None
         self.draft = draft
         self.hist, self.gstate = hist, gstate
@@ -313,7 +337,7 @@ def _prefill_core(m: _Model, bufs: dict, key, *, ragged: bool, rows: bool,
         _cache(m, bufs["g_lens"], bufs["g_tables"]),
         logits_at=bufs["sample_at"],
         widths=bufs["widths"] if ragged else None, rope=m.rope,
-        lora=m.lora if lora else None, aid=bufs.get("aid_g"))
+        lora=m.lora if lora else None, aid=bufs.get("aid_g"), tp=m.tp)
     slot_ids = bufs["slot_ids"].long()
     count = bufs["count_mask"]
     prompt_lens = bufs["prompt_lens"].long()
@@ -429,7 +453,7 @@ def _decode_plain_core(m: _Model, bufs: dict, key, *, n_rounds: int,
             m.hist[sids, cols] = last.to(m.hist.dtype)
         logits, _ = paged_engine.window_forward(
             m.params, last[:, None], m.cfg, _cache(m, lengths, tables),
-            logits_at=at, rope=m.rope, lora=adapters, aid=aid)
+            logits_at=at, rope=m.rope, lora=adapters, aid=aid, tp=m.tp)
         amask = None
         if grammar:
             nrow, amask = _grammar_mask(m.grammar, gid, gstate, eos)
@@ -555,7 +579,7 @@ def _spec_core(m: _Model, bufs: dict, key, *, n_rounds: int, n_drafts: int,
         vlogits, _ = paged_engine.window_forward(
             m.params, window, m.cfg, _cache(m, lengths, tables),
             all_logits=True, rope=m.rope, lora=m.lora if lora else None,
-            aid=bufs.get("d_aid"))
+            aid=bufs.get("d_aid"), tp=m.tp)
         amask_w = None
         if grammar:
             # position i's mask comes from the state after drafts[:i]
@@ -677,6 +701,69 @@ def _prefill_chunk(m: _Model, bufs: dict, **statics) -> dict:
     return {"ptoks": toks, "plps": lps}
 
 
+# The program bodies by name: a follower rank of a tensor-parallel
+# server launches the body its rank 0 names.
+_BODIES = {f.__name__: f for f in (_mixed_step, _decode_rounds,
+                                   _prefill_chunk)}
+
+# A tensor-parallel server's rank 0 sends its followers a keepalive (from
+# a thread of its own) when it has sent nothing for this long (seconds),
+# or for a quarter of the group's timeout if that is shorter, so the
+# followers of a server that is not stepping stay inside that timeout.
+_TP_KEEPALIVE_S = 5.0
+
+
+def _followers_left(what: str, why: str) -> RuntimeError:
+    return RuntimeError(
+        f"{what}: the followers of this tensor-parallel server have left "
+        f"({why}); every rank must build a new server")
+
+
+def _has_qtensor(tree) -> bool:
+    from cloud_server_tpu_torch.models.quantization import QTensor
+    if isinstance(tree, dict):
+        return any(_has_qtensor(v) for v in tree.values())
+    return isinstance(tree, QTensor)
+
+
+def _tp_group(mesh, cfg, params, draft_cfg, device, cuda_graphs):
+    """The tp process group of a tensor-parallel server, or None (no
+    mesh, or a tp axis of 1). Refuses what is not served under tensor
+    parallelism yet (NotImplementedError) and meshes the server cannot
+    shard over (ValueError). The mesh's backend is the caller's: the
+    server never picks one."""
+    if mesh is None:
+        return None
+    others = {a: axis_size(mesh, a) for a in (mesh.mesh_dim_names or ())
+              if a != "tp" and axis_size(mesh, a) > 1}
+    if others:
+        raise _not_ported(f"paged serving over mesh axes {others} (only "
+                          "tp shards the server)")
+    ntp = axis_size(mesh, "tp")
+    if ntp == 1:
+        return None
+    check_tp_heads(cfg.num_heads, cfg.num_kv_heads, ntp)
+    if draft_cfg is not None:
+        raise _not_ported("draft-model speculation under tensor "
+                          "parallelism")
+    if cfg.num_experts >= 2:
+        raise _not_ported("MoE models under tensor parallelism (expert "
+                          "parallelism)")
+    if _has_qtensor(params):
+        raise _not_ported("int8 weight-only params under tensor "
+                          "parallelism (quantized_shardings)")
+    if mesh.device_type != device.type:
+        raise ValueError(f"the mesh is over {mesh.device_type} devices but "
+                         f"the server runs on {device}")
+    group = mesh.get_group("tp")
+    backend = dist.get_backend(group)
+    if device.type == "cuda" and cuda_graphs and backend != "nccl":
+        raise ValueError(
+            f"{backend} collectives cannot be captured in a CUDA graph: "
+            "pass cuda_graphs=False, or a mesh over NCCL")
+    return group
+
+
 # ---------------------------------------------------------------------------
 # Host-side scheduler
 # ---------------------------------------------------------------------------
@@ -790,6 +877,29 @@ class PagedInferenceServer:
     buffers instead of replaying a captured graph: a check of the graphs
     against eager launches (the counterpart of `jax.disable_jit`), not a
     serving mode.
+
+    Tensor-parallel serving (`mesh`, a `parallel.make_mesh` DeviceMesh
+    whose tp axis is > 1; one process per rank, each with its own
+    device): every rank constructs the server with the same arguments
+    and keeps its shard of the weights (heads, kv heads, MLP columns and
+    vocab rows over tp, `parallel.sharding`) and of the page pools (their
+    kv-head axis). Rank 0 of the tp group serves: it alone schedules and
+    takes requests, and before each program launch it broadcasts the
+    dispatch (the body, its switches and the staged inputs, the key
+    among them) to the other ranks over a gloo group, together with the
+    state changes made outside programs since (the grammar stack, the
+    penalty state). The other ranks call `follow()`, which launches the
+    same programs on their shard until rank 0 stops; while rank 0 sends
+    nothing (idle, or not stepping at all) a thread of its own sends
+    them a keepalive, so they stay inside the group's timeout. Once
+    rank 0 has released them (`stop()`, or a failure in
+    `serve_forever`) it refuses `start()` and `step()` with
+    RuntimeError: a tensor-parallel server does not serve again, every
+    rank builds a new one. Sampling is replicated: the logits are gathered over the group, so every rank
+    draws the same tokens and keeps the same per-slot state. The mesh's
+    backend decides the collectives (NCCL on cards, whose collectives
+    the CUDA graphs capture; gloo on the CPU, or on cards with
+    `cuda_graphs=False`).
     """
 
     def __init__(self, params, cfg: ModelConfig, infer_cfg: InferConfig, *,
@@ -809,8 +919,6 @@ class PagedInferenceServer:
                  iteration_profile=None, faults=None, brownout=None,
                  anomaly=None, overlap: bool | None = None, device=None,
                  cuda_graphs: bool = True):
-        if mesh is not None:
-            raise _not_ported("tensor-parallel serving (mesh)")
         # Page-allocation policy: "ondemand" (default) reserves the
         # prompt and one decode window at admission and grows chains
         # per dispatch, preempting the youngest slot on pool exhaustion;
@@ -834,6 +942,14 @@ class PagedInferenceServer:
                 f"vocab_size={cfg.vocab_size}; speculative verification "
                 "compares their token distributions elementwise")
         self.device = resolve_device(device)
+        # tensor-parallel serving: this rank's tp group (None without
+        # one), its shard of the weights, and of the pools' kv heads
+        tp = _tp_group(mesh, cfg, params, draft_cfg, self.device,
+                       cuda_graphs)
+        ntp = 1 if tp is None else tp.size()
+        if tp is not None:
+            params = shard_params(params, transformer.param_logical_axes(cfg),
+                                  mesh)
         self.params = transformer.cast_params(
             _params_on(params, self.device), cfg)
         self.cfg = cfg
@@ -880,7 +996,8 @@ class PagedInferenceServer:
             | {_pad_pow2(self.window)})
 
         cache = paged_engine.init_paged_cache(
-            cfg, num_pages=num_pages, page_size=page_size, batch=max_slots,
+            dataclasses.replace(cfg, num_kv_heads=cfg.num_kv_heads // ntp),
+            num_pages=num_pages, page_size=page_size, batch=max_slots,
             max_pages_per_slot=self.max_pages_per_slot, device=self.device)
         self.k_pool, self.v_pool = cache.k, cache.v
         # the int8 cache's (L, P, KH, ps) f32 scale pools, else None
@@ -911,9 +1028,28 @@ class PagedInferenceServer:
                               dtype=torch.int32, device=self.device)
                   if ngram else None),
             gstate=torch.zeros((max_slots + 1,), dtype=torch.int32,
-                               device=self.device))
+                               device=self.device), tp=tp)
         self._programs = graphs.ProgramCache(self.device,
                                              capture=cuda_graphs)
+        # tensor parallelism: the tp group, this rank's place in it, and
+        # rank 0's channel of dispatches to the other ranks (its own
+        # gloo group: control messages never queue behind the data
+        # collectives). State changes outside programs wait in the
+        # outbox and ride with the next message; rank 0 times each send.
+        self._tp = tp
+        self._tp_rank = 0 if tp is None else tp.rank()
+        self._channel = (None if tp is None else BroadcastChannel(
+            new_gloo_group(dist.get_process_group_ranks(tp))))
+        self._tp_outbox: list = []
+        self._tp_send_s: collections.deque = collections.deque(maxlen=4096)
+        self._tp_last_send = time.perf_counter()
+        # why the followers left (stop(), a failure, a failed send): set
+        # once, under the send lock; then rank 0 refuses to serve again
+        self._tp_closed: str | None = None
+        self._tp_left = threading.Event()
+        self._tp_keepalive_s = min(_TP_KEEPALIVE_S, group_timeout_s() / 4)
+        self._tp_release_error: str | None = None
+        self._tp_send_lock = threading.Lock()
         # host-authoritative scheduling state
         self.tables = np.full((max_slots, self.max_pages_per_slot),
                               num_pages, np.int32)
@@ -1068,6 +1204,9 @@ class PagedInferenceServer:
         self._import_holds: list = []
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
+        if self._channel is not None and self._tp_rank == 0:
+            threading.Thread(target=self._tp_keepalive_loop, daemon=True,
+                             name="tp-keepalive").start()
 
     # -- client API ---------------------------------------------------------
 
@@ -1079,6 +1218,9 @@ class PagedInferenceServer:
                deadline_s: float | None = None,
                fail_handler=None, handoff=None,
                _migration=None) -> Request:
+        self._refuse_on_follower("submit")
+        if handoff is not None:
+            self._refuse_tp("the disaggregated handoff")
         if self._stop.is_set():
             raise RuntimeError("server is stopped; not accepting requests")
         if self._faults is not None:
@@ -1266,6 +1408,7 @@ class PagedInferenceServer:
         flight has run: it shares the card with the programs. Returns
         (N, embed_dim) f32."""
         from cloud_server_tpu_torch.inference import engine as _engine
+        self._refuse_tp("embed()")
         if not prompts:
             return np.zeros((0, self.cfg.embed_dim), np.float32)
         out = np.zeros((len(prompts), self.cfg.embed_dim), np.float32)
@@ -1304,6 +1447,7 @@ class PagedInferenceServer:
         commit has waited on it (`_release_retired`). MLP targets on an
         MoE base (expert-stacked MLP) are a ValueError, as in the
         reference."""
+        self._refuse_tp("multi-LoRA adapters (add_adapter)")
         if (self.cfg.num_experts >= 2 and
                 {"w_gate", "w_up", "w_down"} & set(lora_cfg.targets)):
             raise ValueError(
@@ -1463,6 +1607,15 @@ class PagedInferenceServer:
         for i, d in enumerate(dfas, start=1):
             tables[i, :d.num_states] = d.next_state
             accept[i, :d.num_states] = d.accept
+        self._install_grammar(tables, accept)
+        self._grammar_built = len(patterns)
+        self._tp_queue(("grammar", tables, accept))
+
+    def _install_grammar(self, tables: np.ndarray,
+                         accept: np.ndarray) -> None:
+        """Upload a grammar stack and release the programs keyed to the
+        old one (a follower rank of a tensor-parallel server mirrors rank
+        0's with rank 0's arrays)."""
         # the upload first: one that fails (out of device memory) leaves
         # the old stack, its programs and its generation as they were
         grammar = (torch.as_tensor(tables).to(self.device),
@@ -1474,7 +1627,6 @@ class PagedInferenceServer:
             self._retired += kept + [self._model.grammar]
         self._model.grammar = grammar
         self._grammar_gen += 1
-        self._grammar_built = len(patterns)
 
     def grammar_stack_bytes(self) -> int:
         """Device bytes of the grammar stack (0 before any pattern)."""
@@ -1492,6 +1644,7 @@ class PagedInferenceServer:
         shape = (self.max_slots + 1, self.cfg.vocab_size)
         m.pm = torch.zeros(shape, dtype=torch.bool, device=self.device)
         m.oc = torch.zeros(shape, dtype=torch.int32, device=self.device)
+        self._tp_queue(("penalty",))
 
     # -- programs -----------------------------------------------------------
 
@@ -1504,11 +1657,20 @@ class PagedInferenceServer:
 
     def _launch(self, body, flags: dict, staged: dict) -> graphs.Program:
         """Launch `body` with its static switches `flags` on `staged`
-        inputs (with a fresh server key); the caller waits on it. A
-        program is keyed by its body, switches and input shapes, by the
-        grammar stack's generation when it reads the stack, and by the
-        adapter stacks' generation when it reads them."""
+        inputs (with a fresh server key); the caller waits on it. Under
+        tensor parallelism the dispatch goes to the follower ranks
+        first (`_mirror`), so every rank launches it."""
         staged["rng"] = self._next_rng()
+        if self._channel is not None:
+            self._mirror(("launch", body.__name__, flags, self._grammar_gen,
+                          staged))
+        return self._run(body, flags, staged)
+
+    def _run(self, body, flags: dict, staged: dict) -> graphs.Program:
+        """Launch `body` on this rank. A program is keyed by its body,
+        switches and input shapes, by the grammar stack's generation
+        when it reads the stack, and by the adapter stacks' generation
+        when it reads them."""
         key = (body.__name__,
                self._grammar_gen if flags.get("grammar") else -1,
                tuple(sorted(flags.items())),
@@ -2867,6 +3029,8 @@ class PagedInferenceServer:
         then a decode program. With overlap on (mixed scheduler, the
         default) the iteration is pipelined (`_step_overlap`).
         Thread-safe."""
+        self._refuse_on_follower("step")
+        self._refuse_after_release("step")
         ret = (self._step_overlap() if self._overlap_enabled
                else self._step_sequential())
         self._drain_handoff_ready()
@@ -3091,6 +3255,7 @@ class PagedInferenceServer:
         caller re-admits the snapshot elsewhere and mirrors the outcome.
         A request mid-admission (chunked prefill still running) raises
         RuntimeError."""
+        self._refuse_tp("live migration (migrate_export)")
         led = self._migration
         led.record_export_start()
         try:
@@ -3115,6 +3280,7 @@ class PagedInferenceServer:
         `_fail_all` released them unkeyed) built from the handle alone.
         The destination re-prefills prompt + tokens and resumes at the
         exact next token; the pages were only ever a prefill saving."""
+        self._refuse_tp("live migration (migrate_salvage)")
         led = self._migration
         led.record_export_start()
         try:
@@ -3357,6 +3523,7 @@ class PagedInferenceServer:
 
         Returns the new handle. Only new tokens are emitted on
         `stream`; the delivered ones are filled in beforehand."""
+        self._refuse_tp("live migration (migrate_import)")
         led = self._migration
         led.record_import_start()
         try:
@@ -3583,6 +3750,11 @@ class PagedInferenceServer:
                 self.qos.on_pending_removed(req.tenant)
             req.finish_reason = f"error: {exc!r}"
             self._complete(req)
+        if not self._stop.is_set():
+            # a failure, not stop(): the followers of a tensor-parallel
+            # server raise out of follow() instead of waiting for a
+            # dispatch that will not come (stop() releases them itself)
+            self._tp_release("fail", repr(exc))
 
     def serve_forever(self, idle_sleep_s: float = 0.05) -> None:
         while not self._stop.is_set():
@@ -3607,6 +3779,8 @@ class PagedInferenceServer:
                         self._work.wait(idle_sleep_s)
 
     def start(self) -> "PagedInferenceServer":
+        self._refuse_on_follower("start")
+        self._refuse_after_release("start")
         self._stop.clear()
         with self._lock:
             self._draining = False
@@ -3628,6 +3802,8 @@ class PagedInferenceServer:
         makes one), turns the drain into an evacuation: every live
         request is offered to it first (`_evacuate`), and what it
         declines drains here."""
+        if migrate is not None:
+            self._refuse_tp("drain(migrate=...)")
         with self._lock:
             self._draining = True
         if migrate is not None:
@@ -3657,7 +3833,8 @@ class PagedInferenceServer:
              timeout: float | None = None) -> None:
         """Stop the scheduler thread, fail whatever is still live, and
         release the captured programs and their memory pool (they are
-        captured again if the server serves again)."""
+        captured again if the server serves again; a tensor-parallel
+        server releases its followers and does not serve again)."""
         if drain and not self._stop.is_set():
             self.drain(timeout, _resume_on_timeout=False)
         self._stop.set()
@@ -3671,6 +3848,8 @@ class PagedInferenceServer:
         if self.num_pending or self.num_active or self._jobs:
             self._fail_all(RuntimeError(
                 "server stopped before the request completed"))
+        # the followers of a tensor-parallel server return from follow()
+        self._tp_release("stop")
         got = self._step_lock.acquire(timeout=self._teardown_lock_timeout_s)
         if not got:
             return  # a scheduler wedged in a step keeps its programs
@@ -3685,6 +3864,161 @@ class PagedInferenceServer:
             self._programs.release()
         finally:
             self._step_lock.release()
+
+    # -- tensor parallelism -------------------------------------------------
+
+    def _refuse_tp(self, what: str) -> None:
+        if self._tp is not None:
+            raise _not_ported(f"{what} under tensor parallelism")
+
+    def _refuse_on_follower(self, what: str) -> None:
+        if self._tp_rank != 0:
+            raise RuntimeError(
+                f"{what}: rank {self._tp_rank} of a tensor-parallel server "
+                "follows rank 0 (follow()); only rank 0 serves")
+
+    def _refuse_after_release(self, what: str) -> None:
+        """Rank 0: once the followers have left, nothing would mirror
+        this rank's dispatches, so it refuses to serve (at once, instead
+        of waiting on the group)."""
+        with self._tp_send_lock:
+            closed = self._tp_closed
+        if closed is not None:
+            raise _followers_left(what, closed)
+
+    def _tp_queue(self, op: tuple) -> None:
+        """Rank 0: queue a state change made outside a program for the
+        followers; it rides with the next message."""
+        if self._channel is not None and self._tp_rank == 0:
+            with self._tp_send_lock:
+                self._tp_outbox.append(op)
+
+    def _mirror(self, msg: tuple, closing: str | None = None) -> None:
+        """Rank 0: send the followers the state changes queued since the
+        last message, then `msg`, as one message (timed). `closing` is
+        the release's reason: after it, or after a send that failed, the
+        followers are gone and a further message raises RuntimeError."""
+        t0 = time.perf_counter()
+        failed = None
+        with self._tp_send_lock:
+            if self._tp_closed is not None:
+                raise _followers_left("a dispatch", self._tp_closed)
+            ops, self._tp_outbox = self._tp_outbox + [msg], []
+            try:
+                # analysis: allow[lock-discipline] the dispatch broadcast
+                # is a host round trip by design: the followers must have
+                # the dispatch before rank 0 launches it (its collectives
+                # wait for theirs), and the send lock orders the messages
+                self._channel.send(ops)
+            except RuntimeError as err:
+                failed = err
+            self._tp_last_send = time.perf_counter()
+            self._tp_send_s.append(self._tp_last_send - t0)
+            if failed is not None or closing is not None:
+                self._tp_closed = (closing if failed is None else
+                                   f"a send to them failed: {failed!r}")
+                self._tp_left.set()
+        if failed is not None:
+            raise failed
+
+    def _tp_keepalive_loop(self) -> None:
+        """Rank 0's keepalive thread: a message whenever nothing went to
+        the followers for the keepalive period, whether or not rank 0 steps
+        (a server before start(), a caller between its own generate
+        calls), so waiting followers stay inside the group's timeout.
+        Ends when the followers leave."""
+        while not self._tp_left.wait(self._tp_keepalive_s / 2):
+            with self._tp_send_lock:
+                due = (time.perf_counter() - self._tp_last_send
+                       > self._tp_keepalive_s)
+            if due:
+                try:
+                    self._mirror(("idle",))
+                except RuntimeError:
+                    return  # the followers left: rank 0 now refuses
+
+    def _tp_release(self, kind: str, reason: str | None = None) -> None:
+        """Rank 0: release the followers once — "stop" returns them from
+        follow(), "fail" makes it raise; rank 0 then refuses to serve
+        again (`_refuse_after_release`). The release is best effort: a
+        send that fails (a follower already gone) is kept for
+        `tp_stats`, and a follower left waiting times out on its
+        group."""
+        if self._channel is None or self._tp_rank != 0:
+            return
+        with self._tp_send_lock:
+            if self._tp_closed is not None:
+                return
+        try:
+            self._mirror((kind, reason), closing=(
+                "stop()" if kind == "stop" else f"rank 0 failed: {reason}"))
+        except RuntimeError as err:
+            self._tp_release_error = repr(err)
+
+    def follow(self) -> None:
+        """A follower rank of a tensor-parallel server (tp group rank >
+        0): launch every program rank 0 launches, on this rank's shard,
+        until rank 0 stops (returns) or fails (raises RuntimeError). A
+        message that does not come within the group's timeout (rank 0
+        gone) raises too. Each launch is waited on before the next
+        message is read, so a follower never runs ahead of rank 0."""
+        if self._channel is None or self._tp_rank == 0:
+            raise RuntimeError("follow() runs on the ranks other than rank "
+                               "0 of a tensor-parallel server's tp group")
+        try:
+            while True:
+                for op in self._channel.recv():
+                    if op[0] == "stop":
+                        return
+                    # as on rank 0, programs and the state they read
+                    # change under the step lock
+                    with self._step_lock:
+                        prog = self._follow_op(op)
+                    if prog is not None:
+                        prog.settle()
+        finally:
+            self._stop.set()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            with self._step_lock:
+                self._programs.release()
+
+    def _follow_op(self, op: tuple) -> graphs.Program | None:
+        """A follower: apply one of rank 0's messages; a dispatch returns
+        its launched program."""
+        kind = op[0]
+        if kind == "launch":
+            _, name, flags, gen, staged = op
+            if gen != self._grammar_gen:
+                raise RuntimeError(f"grammar stack generation {gen} on rank "
+                                   f"0, {self._grammar_gen} here")
+            return self._run(_BODIES[name], flags, staged)
+        if kind == "penalty":
+            self._ensure_penalty_state()
+        elif kind == "grammar":
+            self._install_grammar(op[1], op[2])
+        elif kind == "fail":
+            raise RuntimeError(f"rank 0 of the tensor-parallel group "
+                               f"failed: {op[1]}")
+        return None  # "idle": rank 0's keepalive
+
+    def tp_stats(self) -> dict | None:
+        """Tensor parallelism: the group's size, this rank, the data
+        collectives' backend, and on rank 0 the dispatch messages sent
+        and their host time (median and p99, ms). None without tp."""
+        if self._tp is None:
+            return None
+        out = {"tp": self._tp.size(), "rank": self._tp_rank,
+               "backend": dist.get_backend(self._tp)}
+        if self._tp_rank == 0:
+            with self._tp_send_lock:
+                ms = sorted(t * 1e3 for t in self._tp_send_s)
+            out.update(release_error=self._tp_release_error,
+                       messages=len(ms),
+                       send_ms_p50=ms[len(ms) // 2] if ms else None,
+                       send_ms_p99=(ms[min(len(ms) - 1, int(len(ms) * .99))]
+                                    if ms else None))
+        return out
 
     # -- observability ------------------------------------------------------
 

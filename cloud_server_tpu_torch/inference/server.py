@@ -472,7 +472,14 @@ class InferenceServer:
                  metrics=None, qos=None, tracing=None, slo=None,
                  iteration_profile=None, faults=None, anomaly=None,
                  overlap: bool | None = None, device=None,
-                 cuda_graphs: bool = True):
+                 cuda_graphs: bool = True, mesh=None):
+        if mesh is not None and mesh.size() > 1:
+            # the reference serves tp-sharded params here (jit propagates
+            # their shardings); the port shards the paged server only
+            raise NotImplementedError(
+                "the contiguous InferenceServer on a mesh (sharded "
+                "weights) is not ported to the PyTorch server yet; serve "
+                "tensor-parallel with PagedInferenceServer(mesh=...)")
         # these modules import this one's request types
         from cloud_server_tpu_torch.inference.anomaly import resolve_anomaly
         from cloud_server_tpu_torch.inference.faults import (

@@ -21,6 +21,11 @@ the loss's cross-document and padding targets. The losses
 (`next_token_loss`, `hidden_state_loss`, `masked_cross_entropy`, the
 vocab-chunked CE, and the fused CE of ce_impl="pallas" through the
 B7/B8 kernels) mirror the reference's.
+
+Tensor-parallel serving (`parallel/`): `param_logical_axes` names each
+leaf's logical axes, and `embed`, `attention_out`, `mlp_block` and
+`unembed` take the tp process group of a rank's shard (`tp=`); without
+one they are the single-device functions, unchanged.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from cloud_server_tpu_torch.ops.flash_attention import (flash_attention,
 from cloud_server_tpu_torch.ops.fused_ce import fused_ce_stats
 from cloud_server_tpu_torch.ops.segments import (positions_from_segments,
                                                  segment_target_mask)
+from cloud_server_tpu_torch.parallel.collectives import all_gather, psum
 
 Params = dict
 
@@ -86,6 +92,29 @@ def param_shapes(cfg: ModelConfig) -> dict[str, Any]:
     if not cfg.tie_embeddings:
         shapes["lm_head"] = {"kernel": (D, V)}
     return shapes
+
+
+def param_logical_axes(cfg: ModelConfig) -> dict[str, Any]:
+    """Same structure as params; leaves are tuples of logical axis names
+    (`parallel.sharding` maps them to mesh axes)."""
+    axes = {
+        "embed": {"tokens": ("vocab", "embed")},
+        "layers": {
+            "attn_norm": ("layers", "norm"),
+            "mlp_norm": ("layers", "norm"),
+            "wq": ("layers", "embed", "heads", "head_dim"),
+            "wk": ("layers", "embed", "kv_heads", "head_dim"),
+            "wv": ("layers", "embed", "kv_heads", "head_dim"),
+            "wo": ("layers", "heads", "head_dim", "embed"),
+            "w_gate": ("layers", "embed", "mlp"),
+            "w_up": ("layers", "embed", "mlp"),
+            "w_down": ("layers", "mlp", "embed"),
+        },
+        "final_norm": {"scale": ("norm",)},
+    }
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = {"kernel": ("embed", "vocab")}
+    return axes
 
 
 def _fan_in(name: str, cfg: ModelConfig) -> int:
@@ -247,9 +276,13 @@ def attention_qkv(x, lp, cfg: ModelConfig, cos, sin, positions=None,
     return q, k, v
 
 
-def attention_out(x, o, lp, cfg: ModelConfig, lora=None):
+def attention_out(x, o, lp, cfg: ModelConfig, lora=None, tp=None):
     """Output projection + residual add; a `wo` adapter's delta lands on
-    the flattened head output."""
+    the flattened head output.
+
+    `tp` (serving under tensor parallelism): the tp process group. `o`
+    and `wo` hold this rank's heads, so the product is a partial sum
+    (row-parallel), summed over the group before the residual add."""
     dtype = torch_dtype(cfg.dtype)
     b, s = o.shape[:2]
     wo = lp["wo"].to(dtype)
@@ -257,12 +290,15 @@ def attention_out(x, o, lp, cfg: ModelConfig, lora=None):
     y = flat @ wo.reshape(-1, wo.shape[-1])
     if lora and "wo" in lora:
         y = y + lora_row_delta(flat, lora["wo"])
-    return x + y
+    return x + psum(y, tp)
 
 
-def mlp_block(x, lp, cfg: ModelConfig, lora=None):
+def mlp_block(x, lp, cfg: ModelConfig, lora=None, tp=None):
     """SwiGLU MLP residual block; adapters land on gate and up before
-    the activation and on down after it."""
+    the activation and on down after it. With `tp` (the tp process
+    group) gate and up hold this rank's columns and down its rows, so
+    the down product is summed over the group before the residual
+    add."""
     dtype = torch_dtype(cfg.dtype)
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
     gate = h @ lp["w_gate"].to(dtype)
@@ -276,7 +312,7 @@ def mlp_block(x, lp, cfg: ModelConfig, lora=None):
     down = act @ lp["w_down"].to(dtype)
     if lora and "w_down" in lora:
         down = down + lora_row_delta(act, lora["w_down"])
-    return x + down
+    return x + psum(down, tp)
 
 
 def _unembed_head(params: Params, cfg: ModelConfig) -> torch.Tensor:
@@ -291,15 +327,32 @@ def apply_logits_softcap(logits: torch.Tensor,
     return logits
 
 
-def unembed(x, params: Params, cfg: ModelConfig) -> torch.Tensor:
-    """Final-norm'd hidden states (..., D) -> softcapped f32 logits."""
+def unembed(x, params: Params, cfg: ModelConfig, tp=None) -> torch.Tensor:
+    """Final-norm'd hidden states (..., D) -> softcapped f32 logits.
+    With `tp` (the tp process group) the head holds this rank's vocab
+    rows: its f32 logits are gathered over the group, so every rank
+    holds the same full row."""
     head = _unembed_head(params, cfg).to(torch_dtype(cfg.dtype))
-    return apply_logits_softcap(matmul_f32(x, head), cfg)
+    logits = apply_logits_softcap(matmul_f32(x, head), cfg)
+    return all_gather(logits, tp, tiled_axis=-1)
 
 
-def embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig):
+def embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+          tp=None):
+    """Token embeddings in cfg.dtype. With `tp` (the tp process group)
+    the table holds this rank's contiguous block of vocab rows: tokens
+    outside it embed to zero, and the sum over the group (one nonzero
+    term, so exact) is the full lookup."""
     table = params["embed"]["tokens"]
-    return table[tokens.to(table.device).long()].to(torch_dtype(cfg.dtype))
+    ids = tokens.to(table.device).long()
+    dtype = torch_dtype(cfg.dtype)
+    if tp is None or tp.size() == 1:
+        return table[ids].to(dtype)
+    n = table.shape[0]
+    local = ids - tp.rank() * n
+    inside = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)].to(dtype)
+    return psum(torch.where(inside[..., None], rows, 0), tp)
 
 
 def _block(x, lp, cfg: ModelConfig, cos, sin, attn_fn, positions=None):

@@ -401,3 +401,43 @@ def paged_attention(q, k_pool, v_pool, lengths, tables, layer=0, *,
             names.append(f"launches_{kind}_d64")
     _count(*names)
     return out
+
+
+def check_tp_heads(num_heads: int, num_kv_heads: int, tp: int) -> None:
+    """Tensor parallelism shards attention by whole kv heads: tp must
+    divide both head counts (q heads are ordered kv-head-major, so a
+    contiguous split of the q heads lines up with the kv-head split)."""
+    if num_kv_heads % tp or num_heads % tp:
+        raise ValueError(
+            f"tp={tp} must divide num_kv_heads={num_kv_heads} (and "
+            f"heads={num_heads}) to shard the paged-attention kernel")
+
+
+def paged_attention_tp(q, k_pool, v_pool, lengths, tables, layer=0, *,
+                       heads: tuple[int, int], tp: int, **kwargs):
+    """`paged_attention` under tensor parallelism: one rank's share.
+
+    The kernels are embarrassingly parallel over kv heads (per-head
+    softmax state, per-head page slices), so each rank attends with its
+    own q heads against its own kv-head shard of the pools, and no
+    collective is needed: the head-sharded output feeds the row-parallel
+    attention-out projection, whose sum over the group is the only one
+    (`transformer.attention_out`).
+
+    Args:
+      q: (B, W, H / tp, Dh), this rank's contiguous block of q heads.
+      k_pool, v_pool: (L, P, KH / tp, Dh, ps), this rank's kv heads (the
+        scale pools of an int8 cache, in **kwargs, likewise).
+      heads: the model's (num_heads, num_kv_heads).
+      tp: the tensor-parallel size.
+      The rest as `paged_attention` (the kernels on the card, the plain
+      version on the CPU).
+    """
+    h, kh = heads
+    check_tp_heads(h, kh, tp)
+    if q.shape[2] != h // tp or k_pool.shape[2] != kh // tp:
+        raise ValueError(
+            f"q {tuple(q.shape)} and pools {tuple(k_pool.shape)} are not "
+            f"one rank's share of {h} heads and {kh} kv heads over tp={tp}")
+    return paged_attention(q, k_pool, v_pool, lengths, tables, layer,
+                           **kwargs)

@@ -970,10 +970,16 @@ def test_roster_entries_exist_in_the_port(name, rel, quals):
 def test_grammar_stack_upload_precedes_the_program_drop():
     """C19: `_sync_grammar_stack` uploads the new stack before it drops
     the old generation's programs, so a failed upload tears nothing
-    (the LC4 finding the gate raised there)."""
+    (the LC4 finding the gate raised there). Both happen in
+    `_install_grammar`, which it calls (and a tensor-parallel follower
+    calls with rank 0's arrays)."""
     src = (_ROOT / _INF / "paged_server.py").read_text()
     funcs, _ = collect_functions(ast.parse(src))
-    fn = funcs["PagedInferenceServer._sync_grammar_stack"]
+    sync = funcs["PagedInferenceServer._sync_grammar_stack"]
+    assert any(isinstance(n, ast.Call)
+               and ast.unparse(n.func) == "self._install_grammar"
+               for n in ast.walk(sync))
+    fn = funcs["PagedInferenceServer._install_grammar"]
     lines = {}
     for n in ast.walk(fn):
         if isinstance(n, ast.Call):

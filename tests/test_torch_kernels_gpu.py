@@ -324,6 +324,55 @@ def test_cuda_kernel_group_sizes(h, kh, w):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("b,w,lengths", [
+    (8, 1, [1537, 2048, 977, 1800, 64, 1200, 1501, 333]),
+    (2, 256, [2048, 1400])], ids=["decode", "prefill"])
+@pytest.mark.parametrize("tp", [2, 4], ids=["kh4", "kh2"])
+def test_cuda_kernel_tp_shard_heads(tp, b, w, lengths, int8):
+    """One tensor-parallel rank's share of Llama-3.1-8B's heads (H 32, KH
+    8 over tp 2 and 4: 16 q heads on 4 kv heads, 8 on 2) through
+    `paged_attention_tp`, decode (narrow kernel) and prefill (wide), bf16
+    and int8, against the plain version; the ranks' outputs concatenate
+    to the whole model's over the head axis."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cloud_server_tpu_torch.inference.paged_engine import quantize_pool
+    case = _case(31, b=b, w=w, lengths=lengths, widths=None)
+    q, kp, vp = (torch.from_numpy(x).cuda().to(torch.bfloat16)
+                 for x in case[:3])
+    lens, tabs, wid = (torch.from_numpy(x).cuda().to(torch.int32)
+                       for x in case[3:])
+    scales = {}
+    if int8:
+        kp, ks = quantize_pool(torch.from_numpy(case[1]).cuda())
+        vp, vs = quantize_pool(torch.from_numpy(case[2]).cuda())
+        scales = dict(k_scale_pool=ks, v_scale_pool=vs)
+    narrow = pa.uses_narrow_kernel(b, w, 4)
+    key = ("launches_narrow" if narrow else "launches_wide") + (
+        "_int8" if int8 else "")
+    hq, hk = 32 // tp, 8 // tp
+    outs = []
+    for r in range(tp):
+        kv = {name: t[:, :, r * hk:(r + 1) * hk].contiguous()
+              for name, t in scales.items()}
+        pr, vr = (t[:, :, r * hk:(r + 1) * hk].contiguous() for t in (kp, vp))
+        qr = q[:, :, r * hq:(r + 1) * hq].contiguous()
+        pa.reset_counters()
+        got = pa.paged_attention_tp(qr, pr, vr, lens, tabs, 1,
+                                    heads=(32, 8), tp=tp, **kv)
+        torch.cuda.synchronize()
+        assert pa.counters()[key] == 1
+        want = pa.paged_attention_ref(qr, pr, vr, lens, tabs, 1, widths=wid,
+                                      **kv)
+        _check_paged(got, want, w, lens, wid)
+        outs.append(got)
+    whole = pa.paged_attention_ref(q, kp, vp, lens, tabs, 1, widths=wid,
+                                   **scales)
+    _check_paged(torch.cat(outs, dim=2), whole, w, lens, wid)
+
+
+@pytest.mark.gpu
 def test_narrow_split_count():
     """The narrow kernel's blocks per (slot, kv head): 1 to 8, at most one
     for every two tiles of a full table, 0 for shapes it does not take."""

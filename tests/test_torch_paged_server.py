@@ -162,15 +162,24 @@ def test_seeded_requests_token_exact_against_reference(weights):
     assert got == want
 
 
+class _FsdpMesh:
+    """The reads the server makes of a mesh, for a (fsdp 2) mesh."""
+
+    mesh_dim_names = ("dp", "pp", "fsdp", "ep", "sp", "tp")
+    shape = (1, 1, 2, 1, 1, 1)
+
+
 @pytest.mark.parametrize("kw", [
-    dict(mesh=object()), dict(cfg=dataclasses.replace(CFG, num_experts=4))],
+    dict(mesh=_FsdpMesh()),
+    dict(cfg=dataclasses.replace(CFG, num_experts=4))],
     ids=["mesh", "moe"])
 def test_unported_features_raise(weights, kw):
-    """What stays unported is refused at construction: tensor-parallel
-    serving. MoE models are served: an MoE model built from the
-    reference's init serves the engine's greedy tokens
-    (tests/test_torch_moe.py holds them against the reference's
-    servers)."""
+    """What stays unported is refused at construction: a mesh that
+    shards over an axis other than tp (tensor-parallel serving itself is
+    held by tests/test_torch_sharded_serving.py). MoE models are served:
+    an MoE model built from the reference's init serves the engine's
+    greedy tokens (tests/test_torch_moe.py holds them against the
+    reference's servers)."""
     _, params = weights
     if "cfg" not in kw:
         with pytest.raises(NotImplementedError):
