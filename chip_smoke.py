@@ -38,6 +38,12 @@ each:
                 their plain version at N 8192 x D 4096 x V 128256, timed
                 in turns with the cuBLAS products alone (the library
                 yardstick) and beside their bound;
+     ptrain_kernel — the flash kernels on one tp 2 rank's heads (H 16,
+                KH 4, S 2048) and on Ulysses' H/sp heads over the whole
+                sequence (S 1024), the fused-CE kernels on one tp 2
+                rank's 64128 vocabulary rows and a tp 4 rank's 32064
+                (padded to 32128, the pad masked), each against its
+                plain version and timed as above;
   3. serve    — PagedInferenceServer at the full Llama-3.1-8B width (all
                 32 layers, random bf16 weights from a seed) on the path a
                 user gets: the mixed scheduler, the overlap pipeline and
@@ -144,7 +150,7 @@ each:
                 card 0 over gloo with graphs off, printed as backend,
                 cards and graphs) on the serve phase's weights, shared
                 with the ranks as CUDA memory: the 8 greedy requests
-                (all 32 layers on NCCL, the first 16 on one card)
+                (all 32 layers on NCCL, the first 8 on one card)
                 against the one-card tokens by the near-tie rule (and
                 graphed == graphs off on NCCL), a
                 2-layer float32 slice token for token, the int8 cache
@@ -175,6 +181,19 @@ each:
                 `evaluate.perplexity` over a `prepare_corpus` file and
                 `loglikelihoods`; the native reader (it must build)
                 bit-equal to the numpy path, rows/s of each;
+     ptrain   — data-, tensor- and sequence-parallel training at the
+                fused-CE config's widths cut to 2 layers: two ranks on
+                card 0 over gloo, one spawn running 3 steps each at
+                fsdp 2, tp 2, and sp 2 with Ulysses and with the ring,
+                each from the seeded weights against the one-rank step
+                on the same state and batch (losses, gradient norms,
+                first moments, every parameter against its update's
+                norm, and a control: the one-rank run with one tp-split
+                leaf's gradient doubled must fail those checks; a first
+                float32 step at a cut width: loss, first moments,
+                parameters), B3-B8 launched
+                on every rank, each rank's weight and state bytes, peak
+                and step times;
   5. ckpt     — 1 layer at full width with the fused CE: 4 steps
                 straight; 2 steps with an async checkpoint, restored bit
                 for bit; a resumed run to 4 against the straight run;
@@ -193,14 +212,14 @@ each:
                 entry()` on the card (its forward's time, the logits'
                 shape);
   6. moe      — Mixtral-8x7B's public config, random weights: its first
-                16 layers in bf16 (46.96 GB) on the default paged server
+                8 layers in bf16 on the default paged server
                 (B1/B2 counted, graphed == graphs off, the tokens
                 teacher-forced against the plain MoE forward, nothing
                 dropped, the expert load, a steady decode round against
                 the weights' read bound), the contiguous server (B3) and
                 n-gram speculation on the same weights; the three exact
-                on a 2-layer float32 slice; int8 weights (8 layers equal
-                to the dequantized bf16 weights; all 32 layers, drawn and
+                on a 2-layer float32 slice; int8 weights (4 layers equal
+                to the dequantized bf16 weights; 16 layers, drawn and
                 quantized a layer at a time, served and profiled);
                 training at 2 layers (dense CE at S 2048, fused CE at S
                 1024: B3-B8, the loss falling, MFU over the active and the
@@ -232,6 +251,11 @@ at Llama-3.1-8B width, counting the rounds that fail (a probe of a rare
 fault; it prints no result). `--tp-only` builds the kernels and runs the
 tp phase alone, serving its own one-card tokens; on a machine with two
 cards or more that is the NCCL form with graphs (it prints no result).
+`--ptrain-only` builds the kernels, checks them at the ptrain phase's
+per-rank shapes and runs that phase alone; on a machine with four cards
+or more it runs fsdp 2 x tp 2 over NCCL at 8 layers, one rank a card,
+against the one-card step at that depth, with a step of rank 0 under
+torch.profiler for the collectives' share (it prints no result).
 """
 
 from __future__ import annotations
@@ -1971,6 +1995,9 @@ BEAM_K, BEAM_NEW, BEAM_PROMPTS = 4, 16, 2
 CONTIG_DRAFTS = 4
 # the order of the quantized/bf16 steady steps profiled in turns
 QUANT_PROFILE_TURNS = ("bf16", "int8w", "int8w", "bf16")
+# the int8 weight-only part's depth (its checks are against its own
+# dequantized weights, at any depth)
+QUANT_LAYERS = 16
 
 
 def contiguous_cfg(cfg):
@@ -2273,9 +2300,10 @@ def contiguous_spec_part(params, cfg, icfg, prompts) -> dict:
 
 
 def contiguous_quant_part(params, cfg, icfg, prompts) -> dict:
-    """Int8 weight-only params at 32 layers: the stored bytes; the
-    default paged server's tokens against a server on the dequantized
-    weights cast to bf16 (the same products: identical), B1 and B2
+    """Int8 weight-only params at QUANT_LAYERS layers: the stored bytes;
+    the default paged server's tokens against a server on the
+    dequantized weights cast to bf16 (the same products: identical), B1
+    and B2
     counted, the graph pool's peak; a steady decode step profiled in
     turns with that bf16 server's (its programs already captured); then
     one batch on the contiguous server the same way."""
@@ -2333,8 +2361,8 @@ def phase_contiguous(params, cfg, icfg, prompts, plain_tokens,
     """This slice's paths at Llama-3.1-8B widths, the serve phase's
     weights and prompts: the contiguous server (all 32 layers), --prefix,
     beam search and speculative_generate (the first SEEDED_LAYERS
-    layers), int8 weight-only params (32 layers). Each part's line is
-    printed as soon as it has run."""
+    layers), int8 weight-only params (the first QUANT_LAYERS). Each
+    part's line is printed as soon as it has run."""
     import gc
     import numpy as np
     import torch
@@ -2350,8 +2378,9 @@ def phase_contiguous(params, cfg, icfg, prompts, plain_tokens,
                                                   prompts)),
             ("spec", lambda: contiguous_spec_part(params, cfg, icfg,
                                                   prompts)),
-            ("quant", lambda: contiguous_quant_part(params, cfg, icfg,
-                                                    prompts))):
+            ("quant", lambda: contiguous_quant_part(
+                *first_layers(params, cfg, QUANT_LAYERS), icfg,
+                prompts))):
         t0 = time.perf_counter()
         out[name] = fn()
         seconds[name] = time.perf_counter() - t0
@@ -3940,8 +3969,8 @@ def visible_pairs(seg, b, s) -> int:
     return n
 
 
-def flash_bound(pairs_h, nbytes, ops_per_pair_per_dh, dh) -> tuple:
-    ops = ops_per_pair_per_dh * dh * pairs_h * H
+def flash_bound(pairs_h, nbytes, ops_per_pair_per_dh, dh, h=H) -> tuple:
+    ops = ops_per_pair_per_dh * dh * pairs_h * h
     t_ops = ops / BF16_FLOP_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -3963,7 +3992,10 @@ def compare(name, got, want) -> dict:
             and rel_rms <= rel_lim}
 
 
-def phase_train_kernel() -> dict:
+def phase_train_kernel(cases=None) -> dict:
+    """The flash kernels against the plain version and timed, per case
+    of `cases` (FLASH_CASES by default; an entry's optional fifth and
+    sixth values are H and KH, Llama-3.1-8B's 32 and 8 otherwise)."""
     import torch
     import torch.nn.functional as F
     from cloud_server_tpu_torch.ops import flash_attention as fl
@@ -3973,12 +4005,13 @@ def phase_train_kernel() -> dict:
     gen.manual_seed(SEED + 1)
     results = {}
     failures = []
-    for name, (b, s, docs, dh) in FLASH_CASES.items():
+    for name, (b, s, docs, dh, *hk) in (cases or FLASH_CASES).items():
+        h, kh = hk or (H, KH)
         def rnd(*shape):
             return torch.randn(shape, generator=gen, device=DEVICE).to(
                 torch.bfloat16)
-        q, k, v = rnd(b, s, H, dh), rnd(b, s, KH, dh), rnd(b, s, KH, dh)
-        dout = rnd(b, s, H, dh)
+        q, k, v = rnd(b, s, h, dh), rnd(b, s, kh, dh), rnd(b, s, kh, dh)
+        dout = rnd(b, s, h, dh)
         seg = segment_ids(gen, b, s, docs) if docs else None
         scale = dh ** -0.5
         fused = fl.uses_fused_backward(s, s, 1024, 1024)
@@ -4009,7 +4042,7 @@ def phase_train_kernel() -> dict:
                            for x in (q, k, v, dout))
         segt = None if seg is None else fl.pad_segments(seg, s_pad)
         out_t = torch.empty_like(qt)
-        lse_t = torch.empty((b, H, s_pad), dtype=torch.float32,
+        lse_t = torch.empty((b, h, s_pad), dtype=torch.float32,
                             device=DEVICE)
         delta = torch.empty_like(lse_t)
         dq_t, dk_t, dv_t = (torch.empty_like(x) for x in (qt, kt, vt))
@@ -4020,7 +4053,7 @@ def phase_train_kernel() -> dict:
         f_dkdv = fl._kernel("flash_attention_bwd_dkdv_bf16")
         f_dq = fl._kernel("flash_attention_bwd_dq_bf16")
         f_fused = fl._kernel("flash_attention_bwd_fused_bf16")
-        dims = (b, H, KH, s_pad, dh)
+        dims = (b, h, kh, s_pad, dh)
 
         def check(err):
             if err:
@@ -4066,22 +4099,22 @@ def phase_train_kernel() -> dict:
 
         pairs = visible_pairs(seg, b, s)
         e2 = 2  # bf16 bytes
-        qb = b * s * H * dh * e2
-        kvb = b * s * KH * dh * e2
-        lb = b * H * s * 4
-        bounds = {"fwd": flash_bound(pairs, 2 * qb + 2 * kvb + lb, 4, dh)}
+        qb = b * s * h * dh * e2
+        kvb = b * s * kh * dh * e2
+        lb = b * h * s * 4
+        bounds = {"fwd": flash_bound(pairs, 2 * qb + 2 * kvb + lb, 4, dh, h)}
         if fused:
             bounds["bwd_fused"] = flash_bound(
-                pairs, 4 * qb + 4 * kvb + lb, 10, dh)
+                pairs, 4 * qb + 4 * kvb + lb, 10, dh, h)
         else:
             bounds["bwd_dkdv"] = flash_bound(
-                pairs, 3 * qb + 4 * kvb + lb, 8, dh)
+                pairs, 3 * qb + 4 * kvb + lb, 8, dh, h)
             bounds["bwd_dq"] = flash_bound(
-                pairs, 3 * qb + 2 * kvb + 2 * lb, 6, dh)
+                pairs, 3 * qb + 2 * kvb + 2 * lb, 6, dh, h)
             # the pair as one function: q, k, v, o, dO and the LSE read
             # once, dQ, dK, dV written once; 10 * Dh per visible pair
             bounds["bwd_pair"] = flash_bound(
-                pairs, 4 * qb + 4 * kvb + lb, 10, dh)
+                pairs, 4 * qb + 4 * kvb + lb, 10, dh, h)
 
         # the plain version: forward, and backward alone
         times = {"plain_fwd_ms": time_ms(
@@ -4100,8 +4133,8 @@ def phase_train_kernel() -> dict:
         ql, kl, vl, dol = (x.transpose(1, 2).contiguous()
                            for x in (q, k, v, dout))
         ql.requires_grad_(True)
-        kl = kl.repeat_interleave(H // KH, dim=1).requires_grad_(True)
-        vl = vl.repeat_interleave(H // KH, dim=1).requires_grad_(True)
+        kl = kl.repeat_interleave(h // kh, dim=1).requires_grad_(True)
+        vl = vl.repeat_interleave(h // kh, dim=1).requires_grad_(True)
         if seg is None:
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 ql, kl, vl, is_causal=True)
@@ -4125,7 +4158,7 @@ def phase_train_kernel() -> dict:
         del ol, ql, kl, vl, dol
 
         res = {"phase": "train_kernel", "case": name, "B": b, "S": s,
-               "H": H, "KH": KH, "Dh": dh, "segments_per_row": docs,
+               "H": h, "KH": kh, "Dh": dh, "segments_per_row": docs,
                "backward": "fused" if fused else "blocked",
                "visible_pairs_per_head": pairs, "errors": errs, **times,
                "bound_ms": {k: v[0] for k, v in bounds.items()},
@@ -4257,12 +4290,18 @@ def ce_bound(n, d, v, dlogits: bool) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_ce_kernel() -> dict:
+def phase_ce_kernel(shape=CE_SHAPE, case: str = "full") -> dict:
+    """B7 and B8 against the plain version and timed at `shape` (N, D,
+    V). A vocabulary shard of a tp rank (case "tp2_shard", "tp4_shard")
+    runs through `fused_ce_shard_stats`: a V that is not a multiple of
+    128 is padded with zero columns masked out of the statistics and d."""
     import torch
+    import torch.nn.functional as F
     from cloud_server_tpu_torch.ops import fused_ce as fc
     from cloud_server_tpu_torch.ops import matmul_f32
     torch.backends.cuda.matmul.allow_tf32 = False
-    n, d, v = CE_SHAPE
+    n, d, v = shape
+    shard = case != "full"
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED + 3)
     x = torch.randn((n, d), generator=gen, device=DEVICE).to(torch.bfloat16)
@@ -4271,22 +4310,25 @@ def phase_ce_kernel() -> dict:
     t = torch.randint(0, v, (n,), generator=gen, device=DEVICE)
     gz = torch.full((n,), 1.0 / n, device=DEVICE)
     gt = -gz
+    head_k = F.pad(head, (0, -v % fc.TILE))  # the kernels' padded head
+    wrapper, plain = ((fc.fused_ce_shard_stats, fc.fused_ce_shard_stats_ref)
+                      if shard else (fc.fused_ce_stats, fc.fused_ce_stats_ref))
 
     def run(fn):
         xx = x.clone().requires_grad_(True)
         hh = head.clone().requires_grad_(True)
-        logz, tl, am = fn(xx, hh, t)
+        logz, tl, am = fn(xx, hh, t)[:3]
         ((logz * gz).sum() + (tl * gt).sum()).backward()
         return logz.detach(), tl.detach(), am, xx.grad, hh.grad
 
     # the wrapper, forward and backward, with its launch counts
     fc.reset_counters()
-    got = run(fc.fused_ce_stats)
+    got = run(wrapper)
     torch.cuda.synchronize()
     if fc.counters() != {"launches_fwd": 1, "launches_dx": 1,
                          "plain_calls": 0}:
         raise RuntimeError(f"fused CE launches {fc.counters()}")
-    want = run(fc.fused_ce_stats_ref)
+    want = run(plain)
     errs = {}
     for key, g, w in zip(("logz", "tl"), got[:2], want[:2]):
         if not bool(torch.isfinite(g).all()):
@@ -4325,33 +4367,35 @@ def phase_ce_kernel() -> dict:
     # (library_*_bf16: 2.1 GB, as B8's d launch writes); and B8's two
     # launches alone
     t32 = t.to(torch.int32)
-    dbuf, dx = fc.backward_dx(x, head, t32, logz, gz, gt)
+    dbuf, dx = fc.backward_dx(x, head_k, t32, logz, gz, gt, v)
     turns = time_turns({
-        "b7": lambda: fc.forward_stats(x, head, t32),
+        "b7": lambda: fc.forward_stats(x, head_k, t32, v, with_max=shard),
         "library_b7": lambda: torch.mm(x, head, out_dtype=torch.float32),
         "library_b7_bf16": lambda: torch.mm(x, head),
-        "b8": lambda: fc.backward_dx(x, head, t32, logz, gz, gt),
+        "b8": lambda: fc.backward_dx(x, head_k, t32, logz, gz, gt, v),
         "library_b8": lambda: (
             torch.mm(x, head, out_dtype=torch.float32),
-            torch.mm(dbuf, head.t(), out_dtype=torch.float32)),
+            torch.mm(dbuf[:, :v], head.t(), out_dtype=torch.float32)),
         "library_b8_bf16": lambda: (torch.mm(x, head),
-                                    torch.mm(dbuf, head.t())),
-        "b8_d": lambda: fc._launch_dlogits(x, head, t32, logz, gz, gt,
-                                           dbuf),
-        "b8_dx": lambda: fc._launch_dx(dbuf, head, dx),
-        "library_b8_dx": lambda: torch.mm(dbuf, head.t(),
+                                    torch.mm(dbuf[:, :v], head.t())),
+        "b8_d": lambda: fc._launch_dlogits(x, head_k, t32, logz, gz, gt,
+                                           dbuf, v),
+        "b8_dx": lambda: fc._launch_dx(dbuf, head_k, dx),
+        "library_b8_dx": lambda: torch.mm(dbuf[:, :v], head.t(),
                                           out_dtype=torch.float32)},
         iters=3)
     times = {f"{k}_ms": m for k, (m, _, _) in turns.items()}
     times["range_ms"] = {k: [lo, hi] for k, (_, lo, hi) in turns.items()}
     with torch.no_grad():
         times["plain_b7_ms"] = time_ms(
-            lambda: fc.fused_ce_stats_ref(x, head, t), iters=3, warmup=1)
+            lambda: plain(x, head, t), iters=3, warmup=1)
         times["plain_b8_ms"] = time_ms(
-            lambda: matmul_f32(fc._dlogits_ref(x, head, t, logz, gz, gt),
-                               head.t()).to(x.dtype), iters=3, warmup=1)
+            lambda: matmul_f32(fc._dlogits_ref(x, head_k, t, logz, gz, gt,
+                                               v), head_k.t()).to(x.dtype),
+            iters=3, warmup=1)
     b7b, b8b = ce_bound(n, d, v, False), ce_bound(n, d, v, True)
-    out = {"phase": "ce_kernel", "N": n, "D": d, "V": v,
+    out = {"phase": "ce_kernel", "case": case, "N": n, "D": d, "V": v,
+           "V_padded": head_k.shape[1],
            "vocab_splits": fc.device_splits(n, v, x.device),
            "errors": errs, **times,
            "bound_ms": {"b7": b7b[0], "b8": b8b[0]},
@@ -4359,7 +4403,7 @@ def phase_ce_kernel() -> dict:
            "share_of_bound": {"b7": b7b[0] / times["b7_ms"],
                               "b8": b8b[0] / times["b8_ms"]}}
     emit(out)
-    del x, head, dbuf, dx
+    del x, head, head_k, dbuf, dx
     gc.collect()
     torch.cuda.empty_cache()
     bad = [k for k, e in errs.items() if not e["within"]]
@@ -4381,7 +4425,7 @@ TP_BUDGET_S = 150.0
 # 1.4-5.8 s over runs on H100 machines (700 W), and the phase up to
 # 167 s, past TP_BUDGET_S. With one rank a card (NCCL) it runs every
 # layer.
-TP_LAYERS_ONE_CARD = 16
+TP_LAYERS_ONE_CARD = 8
 # Ranks are joined within this long, and a collective no rank joins
 # raises after TP_TIMEOUT_S (parallel.spawn_ranks).
 TP_DEADLINE_S = 600.0
@@ -4951,6 +4995,492 @@ def phase_train() -> dict:
            "run_fused_ce": run3, "counts": total, "ce_counts": ce3,
            **agree, **ce_agree}
     emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 4a: data-, tensor- and sequence-parallel training
+# ---------------------------------------------------------------------------
+
+PTRAIN_STEPS = 3
+# One card: two ranks share card 0 over gloo (NCCL refuses two ranks on
+# one device), each collective through host copies, at
+# PTRAIN_LAYERS_ONE_CARD layers. The cases: (name, mesh axes,
+# attention_impl, sequence length). fsdp and tp run the flash kernels'
+# blocked backward at S 2048 (B3, B4, B5), Ulysses over the whole
+# sequence of 1024 their fused one (B3, B6); every case runs B7 and B8
+# (on each tp rank's 64128 vocabulary rows at tp 2).
+PTRAIN_LAYERS_ONE_CARD = 2
+PTRAIN_CASES = (("fsdp2", {"fsdp": 2}, "flash", 2048),
+                ("tp2", {"tp": 2}, "flash", 2048),
+                ("sp2_ulysses", {"sp": 2}, "ulysses", 1024),
+                ("sp2_ring", {"sp": 2}, "ring", 1024))
+# Four cards (`--ptrain-only`, NCCL, one rank a card): fsdp 2 x tp 2 at
+# PTRAIN_LAYERS_NCCL layers against the one-card step of the same depth.
+PTRAIN_LAYERS_NCCL = 8
+PTRAIN_NCCL_CASE = ("fsdp2_tp2", {"fsdp": 2, "tp": 2}, "flash", 2048)
+# bf16 compute, the mesh step against the one-rank step on the same
+# state and batch: each loss within PTRAIN_LOSS_RTOL; each step's global
+# gradient norm within PTRAIN_GNORM_RTOL; each leaf's first moment after
+# the steps (0.1, 0.09, 0.081 x the three steps' clipped gradients), in
+# norm, within PTRAIN_MU_REL of the one-rank run's; each leaf's
+# difference after the steps, in norm, within PTRAIN_PARAM_REL of the
+# norm of the one-rank run's update to that leaf (the sums over ranks
+# reorder bf16-rounded reductions, and AdamW's first steps move each
+# element by about the learning rate whatever its gradient's size, so
+# this one alone would not see a gradient off by a factor). A control
+# holds the checks to a fault they must see: the one-rank run again with
+# one tp-split leaf's gradient doubled (PTRAIN_CONTROL_LEAF, a missing
+# identity/sum pair's fault), read by the same checks, must fail them.
+# On H100s the sound cases read at most 2.2e-5 (loss), 2.6e-4 (grad
+# norm), 0.018 (moments) and 0.081 (parameters); the control 1.1e-5 to
+# 2.9e-5, 0.21 to 0.35, 0.56 to 0.68 and 0.030 to 0.047: the loss and
+# the parameters do not tell it from a sound run, the gradient norm and
+# the moments do.
+PTRAIN_LOSS_RTOL = 2e-4
+PTRAIN_GNORM_RTOL = 2e-3
+PTRAIN_MU_REL = 0.05
+PTRAIN_PARAM_REL = 0.1
+PTRAIN_CONTROL_LEAF = "layers/wo"
+# float32 at a cut width, a first step with the learning rate at its
+# peak (no warmup): the loss within rtol 1e-5, each leaf's first moment
+# (0.1 x the synced, clipped gradient) within PTRAIN_F32_REL of its norm,
+# and each parameter within PTRAIN_F32_PARAM_REL of its update's norm
+# (AdamW's first update is lr * sign(g) per element, so an element whose
+# gradient sums to float32 noise may flip; the norm bounds their share).
+PTRAIN_F32 = dict(vocab_size=1000, embed_dim=256, num_heads=4,
+                  num_kv_heads=2, head_dim=64, mlp_dim=512,
+                  dtype="float32", param_dtype="float32", ce_impl="dense",
+                  remat="full")
+PTRAIN_F32_RTOL = 1e-5
+PTRAIN_F32_REL = 1e-5
+PTRAIN_F32_PARAM_REL = 1e-2
+# The kernels at the shapes a rank gives them on this path: one tp 2
+# rank's heads of Llama-3.1-8B (the blocked backward at S 2048) and
+# Ulysses' H/sp heads over the whole sequence of 1024 at sp 2 (fused);
+# the fused CE on one tp 2 rank's 64128 vocabulary rows, and on a tp 4
+# rank's 32064 (not a multiple of 128: padded and masked).
+PTRAIN_FLASH_CASES = {"tp2_heads": (4, 2048, 0, 128, 16, 4),
+                      "ulysses_sp2": (4, 1024, 0, 128, 16, 4)}
+PTRAIN_CE_SHARDS = {"tp2_shard": (8192, 4096, 64128),
+                    "tp4_shard": (8192, 4096, 32064)}
+PTRAIN_DEADLINE_S = 900.0
+# a collective that a rank never joins raises after this long (a step's
+# collectives take seconds, over gloo on one card up to about 20 s)
+PTRAIN_TIMEOUT_S = 120.0
+PTRAIN_BUDGET_S = 90.0
+
+
+def ptrain_configs(layers: int) -> tuple:
+    """(ModelConfig, TrainConfig) of the fused-CE train config at
+    `layers` layers (flash attention, the fused CE kernels)."""
+    import dataclasses
+    from cloud_server_tpu_torch.config import (ModelConfig, TrainConfig,
+                                               from_json)
+    with open(FUSED_CE_CONFIG) as f:
+        raw = json.load(f)
+    cfg = dataclasses.replace(from_json(ModelConfig, raw["model"]),
+                              num_layers=layers)
+    return cfg, from_json(TrainConfig, raw["train"])
+
+
+def ptrain_batch(cfg, tcfg, seq_len: int):
+    """The train phase's seeded batch (SyntheticLMDataset rows) at
+    `seq_len`, on the card."""
+    import dataclasses
+    return plain_batch(cfg, dataclasses.replace(tcfg, seq_len=seq_len))
+
+
+def ptrain_case_cfg(cfg, impl: str):
+    """`cfg` with the case's attention; in float32 the "flash" cases run
+    the plain attention ("xla": the kernels take bfloat16)."""
+    import dataclasses
+    if impl == "flash" and cfg.dtype == "float32":
+        impl = "xla"
+    return dataclasses.replace(cfg, attention_impl=impl)
+
+
+def ptrain_reference(cfg, tcfg, batch, steps: int,
+                     double_leaf: str | None = None) -> dict:
+    """The one-rank train step on the seeded state: its losses and
+    global gradient norms, the final parameters and first moments (in
+    cfg.dtype, on the card), each leaf's update norm, and the step times
+    (each step ends with a host read of its loss). `double_leaf`: that
+    leaf's gradient doubled (the control of the checks)."""
+    import torch
+    from cloud_server_tpu_torch.models import transformer
+    from cloud_server_tpu_torch.training import train_step as ts
+    from cloud_server_tpu_torch.training.optim import flatten
+    params = transformer.init_params(cfg, SEED, device=DEVICE)
+    init = {k: v.detach().to(torch_dtype(cfg), copy=True)
+            for k, v in flatten(params)}
+    state = ts.train_state_from_params(params, tcfg, cfg)
+    if double_leaf is not None:
+        dict(flatten(state.params))[double_leaf].register_hook(
+            lambda g: g * 2)
+    step = ts.make_train_step(cfg, tcfg)
+    losses, gnorms, step_s = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        step_s.append(time.perf_counter() - t0)
+        gnorms.append(float(m["grad_norm"]))
+    final = {k: v.detach().to(torch_dtype(cfg)) for k, v in
+             flatten(state.params)}
+    mu = {k: v.detach().to(torch_dtype(cfg), copy=True)
+          for k, v in flatten(state.opt_state.mu)}
+    update = {k: float((final[k].float() - init[k].float()).norm())
+              for k in final}
+    del state, params, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "grad_norms": gnorms, "params": final,
+            "mu": mu, "update_norm": update, "step_s": step_s}
+
+
+def ptrain_readings(ref: dict, got: list[dict]) -> dict:
+    """The bf16 checks' readings of runs against the one-rank run
+    `ref`: each of `got` (one dict a rank, or the control's one) holds
+    its losses and gradient norms, and per leaf its squared differences
+    to `ref`'s parameters and first moments with the number of ranks
+    that hold each (`ptrain_compare`)."""
+    def rel(key, norm):
+        return max(math.sqrt(sum(r[key][k][0] / r[key][k][1] for r in got))
+                   / max(norm(k), 1e-30) for k in ref["params"])
+    return {
+        "loss_rel_err": max(abs(a - b) / abs(b) for r in got
+                            for a, b in zip(r["losses"], ref["losses"])),
+        "grad_norm_rel_err": max(
+            abs(a - b) / abs(b) for r in got
+            for a, b in zip(r["grad_norms"], ref["grad_norms"])),
+        "mu_worst_rel": rel("mu_diff",
+                            lambda k: float(ref["mu"][k].float().norm())),
+        "param_worst_rel_of_update": rel(
+            "diff", lambda k: ref["update_norm"][k])}
+
+
+def ptrain_failed(readings: dict) -> list[str]:
+    """The bf16 checks that `readings` (`ptrain_readings`) fail."""
+    limits = {"loss_rel_err": PTRAIN_LOSS_RTOL,
+              "grad_norm_rel_err": PTRAIN_GNORM_RTOL,
+              "mu_worst_rel": PTRAIN_MU_REL,
+              "param_worst_rel_of_update": PTRAIN_PARAM_REL}
+    return [f"{k} {readings[k]} > {v}" for k, v in limits.items()
+            if readings[k] > v]
+
+
+def ptrain_control(cfg, tcfg, batch, ref: dict) -> dict:
+    """The control: the one-rank run with PTRAIN_CONTROL_LEAF's
+    gradient doubled, read by the bf16 checks against `ref`."""
+    ctl = ptrain_reference(cfg, tcfg, batch, PTRAIN_STEPS,
+                           double_leaf=PTRAIN_CONTROL_LEAF)
+
+    def sq(tree, want):
+        return {k: (float((tree[k].float() - w.float()).square().sum()), 1)
+                for k, w in want.items()}
+
+    got = {"losses": ctl["losses"], "grad_norms": ctl["grad_norms"],
+           "diff": sq(ctl["params"], ref["params"]),
+           "mu_diff": sq(ctl["mu"], ref["mu"])}
+    del ctl
+    return ptrain_readings(ref, [got])
+
+
+def torch_dtype(cfg):
+    from cloud_server_tpu_torch.models import transformer
+    return transformer.torch_dtype(cfg.dtype)
+
+
+def ptrain_compare(tree, cfg, mesh, ref: dict) -> dict:
+    """Per leaf of a params-shaped tree (the parameters, or a moment):
+    this rank's squared difference to the one-rank run's over its shard,
+    and the number of ranks that hold that shard (so the sums over ranks
+    count each element once)."""
+    from cloud_server_tpu_torch.parallel.mesh import axis_size
+    from cloud_server_tpu_torch.parallel.sharding import shard_tensor
+    from cloud_server_tpu_torch.training import train_step as ts
+    from cloud_server_tpu_torch.training.optim import flatten
+    splits = dict(flatten(ts.state_shardings(cfg, mesh)))
+    world = mesh.size()
+    out = {}
+    for k, v in flatten(tree):
+        want = shard_tensor(ref[k], splits[k], mesh).to(v.device)
+        held = 1
+        for _, axis in splits[k]:
+            held *= axis_size(mesh, axis)
+        diff = v.detach().to(want.dtype).float() - want.float()
+        out[k] = (float(diff.square().sum()), world // held)
+    return out
+
+
+def ptrain_rank(rank: int, world: int, cases, cfg, tcfg, batches, refs,
+                f32_cfg, f32_refs, cards: int) -> dict:
+    """One rank of the ptrain phase: per case the mesh, the sharded state
+    from the seeded weights, PTRAIN_STEPS steps on its block of the batch,
+    and its numbers (losses, launch counts, bytes, peak, step times); a
+    first float32 step at a cut width beside each."""
+    import dataclasses
+    import torch
+    from cloud_server_tpu_torch.config import MeshConfig
+    from cloud_server_tpu_torch.data.loader import batch_layout
+    from cloud_server_tpu_torch.ops import flash_attention as fl
+    from cloud_server_tpu_torch.ops import fused_ce as fc
+    from cloud_server_tpu_torch.parallel import make_mesh
+    from cloud_server_tpu_torch.training import train_step as ts
+    from cloud_server_tpu_torch.training.optim import flatten
+    torch.cuda.set_device(rank % cards)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+
+    def block(t, layout):
+        i, n = layout["process_index"], layout["process_count"]
+        j, m = layout["seq_shard"]
+        b, s = t.shape[0] // n, t.shape[1] // m
+        return t[i * b:(i + 1) * b, j * s:(j + 1) * s].to(
+            torch.device("cuda", rank % cards)).contiguous()
+
+    for name, axes, impl, seq in cases:
+        mesh = make_mesh(MeshConfig(**axes), "cuda")
+        layout = batch_layout(mesh)
+        res = {}
+        # the float32 cut width, one step at the peak learning rate
+        c32 = ptrain_case_cfg(f32_cfg, impl)
+        t32 = dataclasses.replace(tcfg, warmup_steps=0)
+        st = ts.init_train_state(c32, t32, SEED, "cuda", mesh=mesh)
+        _, m32 = ts.make_train_step(c32, t32, mesh=mesh)(
+            st, {"tokens": block(batches[seq], layout) % c32.vocab_size})
+        res["f32_loss"] = float(m32["loss"])
+        res["f32_diff"] = ptrain_compare(st.params, c32, mesh,
+                                         f32_refs[name]["params"])
+        res["f32_mu_diff"] = ptrain_compare(st.opt_state.mu, c32, mesh,
+                                            f32_refs[name]["mu"])
+        del st
+        # full width
+        c = ptrain_case_cfg(cfg, impl)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        # the seeded weights, each rank drawing a leaf at a time and
+        # keeping its slice
+        state = ts.init_train_state(c, tcfg, SEED, "cuda", mesh=mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["weight_bytes"] = sum(v.numel() * v.element_size()
+                                  for _, v in flatten(state.params))
+        adam = state.opt_state
+        res["state_bytes"] = res["weight_bytes"] + sum(
+            v.numel() * v.element_size()
+            for t in (adam.mu, adam.nu) for _, v in flatten(t))
+        step = ts.make_train_step(c, tcfg, mesh=mesh)
+        batch = {"tokens": block(batches[seq], layout)}
+        fl.reset_counters()
+        fc.reset_counters()
+        losses, gnorms, step_s = [], [], []
+        for _ in range(PTRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))  # a host read: the step's end
+            step_s.append(time.perf_counter() - t0)
+            gnorms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        res.update(losses=losses, grad_norms=gnorms, step_s=step_s,
+                   counts=fl.counters(), ce_counts=fc.counters(),
+                   peak_bytes=torch.cuda.max_memory_allocated(),
+                   diff=ptrain_compare(state.params, c, mesh,
+                                       refs[seq]["params"]),
+                   mu_diff=ptrain_compare(state.opt_state.mu, c, mesh,
+                                          refs[seq]["mu"]))
+        if world >= 4:
+            # one more step on every rank (their collectives pair up),
+            # rank 0's under the profiler
+            if rank == 0:
+                res["profile"] = ptrain_profile(step, state, batch)
+            else:
+                step(state, batch)
+                torch.cuda.synchronize()
+        del state, step, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[name] = res
+    return out
+
+
+def ptrain_profile(step, state, batch) -> dict:
+    """One more step under torch.profiler: the device time of the
+    collectives (NCCL kernels) against the step's whole device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA,
+                             ProfilerActivity.CPU]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    total = comm = 0.0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        total += us
+        if "nccl" in e.key.lower():
+            comm += us
+    return {"device_ms": total / 1e3, "collective_ms": comm / 1e3,
+            "collective_share": comm / total if total else None}
+
+
+def phase_ptrain_kernel() -> dict:
+    """The flash and fused-CE kernels against their plain versions and
+    timed at this path's per-rank shapes (PTRAIN_FLASH_CASES,
+    PTRAIN_CE_SHARDS)."""
+    out = {"flash": phase_train_kernel(PTRAIN_FLASH_CASES)}
+    for case, shape in PTRAIN_CE_SHARDS.items():
+        out[case] = phase_ce_kernel(shape, case)
+    return out
+
+
+def phase_ptrain(nccl: bool = False) -> dict:
+    """Data-, tensor- and sequence-parallel training (`make_train_step(
+    mesh=)`, one process a rank, `parallel.spawn_ranks`) at Llama-3.1-8B's
+    widths from the seeded weights and batch, against the one-rank step
+    on the same state: on one card (the default) two ranks over gloo at
+    PTRAIN_LAYERS_ONE_CARD layers, PTRAIN_STEPS steps each at fsdp 2,
+    tp 2 and sp 2 with Ulysses and with the ring, one spawn running the
+    four in turn; with `nccl` (four cards) fsdp 2 x tp 2 at
+    PTRAIN_LAYERS_NCCL layers over NCCL. Per case a first float32 step at
+    a cut width against its one-rank step, the bf16 losses, gradient
+    norms, first moments and parameters (with the control that these
+    checks must catch), each rank's B3-B8 launches, weight and state
+    bytes and peak, and the step times."""
+    import dataclasses
+    import torch
+    from cloud_server_tpu_torch.parallel import spawn_ranks
+    from cloud_server_tpu_torch.utils.metrics import (
+        transformer_flops_per_token)
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cards = torch.cuda.device_count()
+    if nccl:
+        cases, layers, world, backend = ((PTRAIN_NCCL_CASE,),
+                                         PTRAIN_LAYERS_NCCL, 4, "nccl")
+        if cards < world:
+            raise RuntimeError(f"--ptrain-only over NCCL needs {world} "
+                               f"cards, found {cards}")
+    else:
+        cases, layers, world, backend = (PTRAIN_CASES,
+                                         PTRAIN_LAYERS_ONE_CARD, 2, "gloo")
+    cfg, tcfg = ptrain_configs(layers)
+    f32_cfg = dataclasses.replace(cfg, **PTRAIN_F32)
+    seqs = sorted({c[3] for c in cases})
+    batches = {s: ptrain_batch(cfg, tcfg, s)["tokens"] for s in seqs}
+    t0 = time.perf_counter()
+    refs = {s: ptrain_reference(cfg, dataclasses.replace(tcfg, seq_len=s),
+                                {"tokens": batches[s]}, PTRAIN_STEPS)
+            for s in seqs}
+    s_ctl = max(seqs)
+    control = ptrain_control(cfg, dataclasses.replace(tcfg, seq_len=s_ctl),
+                             {"tokens": batches[s_ctl]}, refs[s_ctl])
+    if not ptrain_failed(control):
+        raise RuntimeError(f"ptrain: the control ({PTRAIN_CONTROL_LEAF}'s "
+                           f"gradient doubled) passes every check: "
+                           f"{control}")
+    f32_refs = {}
+    for name, _, impl, s in cases:
+        c32 = ptrain_case_cfg(f32_cfg, impl)
+        f32_refs[name] = ptrain_reference(
+            c32, dataclasses.replace(tcfg, warmup_steps=0),
+            {"tokens": batches[s] % c32.vocab_size}, 1)
+    ref_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(ptrain_rank, world, backend, cases, cfg, tcfg,
+                        batches, refs, f32_cfg, f32_refs, cards,
+                        deadline_s=PTRAIN_DEADLINE_S,
+                        timeout_s=PTRAIN_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    torch.cuda.ipc_collect()
+    failures = []
+    out_cases = {}
+    total = {"flash": {}, "fused_ce": {}}
+    for name, axes, impl, s in cases:
+        ref, r32 = refs[s], f32_refs[name]
+        per_rank = [r[name] for r in ranks]
+        f32_loss_err = max(abs(r["f32_loss"] - r32["losses"][0])
+                           / abs(r32["losses"][0]) for r in per_rank)
+        f32_rel = max(
+            math.sqrt(sum(r["f32_mu_diff"][k][0] / r["f32_mu_diff"][k][1]
+                          for r in per_rank))
+            / max(float(r32["mu"][k].norm()), 1e-30) for k in r32["mu"])
+        f32_param_rel = max(
+            math.sqrt(sum(r["f32_diff"][k][0] / r["f32_diff"][k][1]
+                          for r in per_rank))
+            / max(r32["update_norm"][k], 1e-30) for k in r32["params"])
+        readings = ptrain_readings(ref, per_rank)
+        for r, res in enumerate(per_rank):
+            c, ce = res["counts"], res["ce_counts"]
+            for key, n in c.items():
+                total["flash"][key] = total["flash"].get(key, 0) + n
+            for key, n in ce.items():
+                total["fused_ce"][key] = total["fused_ce"].get(key, 0) + n
+            flash_ok = (impl == "ring" or (
+                c["launches_fwd"] > 0 and c["plain_calls"] == 0 and (
+                    c["launches_bwd_fused"] > 0 if s <= 1024 else
+                    c["launches_bwd_dkdv"] > 0 and c["launches_bwd_dq"] > 0)))
+            if not flash_ok or ce["launches_fwd"] <= 0 or (
+                    ce["launches_dx"] <= 0 or ce["plain_calls"]):
+                failures.append(f"{name} rank {r}: launches {c}, {ce}")
+        if (f32_loss_err > PTRAIN_F32_RTOL or f32_rel > PTRAIN_F32_REL
+                or f32_param_rel > PTRAIN_F32_PARAM_REL):
+            failures.append(f"{name}: float32 first step loss rel err "
+                            f"{f32_loss_err}, worst moment {f32_rel}, "
+                            f"worst leaf {f32_param_rel} of its update")
+        if ptrain_failed(readings):
+            failures.append(f"{name}: bf16 " + ", ".join(
+                ptrain_failed(readings)))
+        tokens = tcfg.batch_size * s
+        steady = [min(r["step_s"][1:]) for r in per_rank]
+        flops = transformer_flops_per_token(cfg, s)
+        step_s = max(steady)
+        out_cases[name] = {
+            "mesh": axes, "attention_impl": impl, "seq_len": s,
+            "losses": per_rank[0]["losses"], "ref_losses": ref["losses"],
+            "grad_norms": per_rank[0]["grad_norms"],
+            "ref_grad_norms": ref["grad_norms"], **readings,
+            "f32_loss_rel_err": f32_loss_err,
+            "f32_worst_moment_rel": f32_rel,
+            "f32_param_worst_rel_of_update": f32_param_rel,
+            "steady_step_s": step_s,
+            "one_rank_step_s": min(ref["step_s"][1:]),
+            "tokens_per_s": tokens / step_s,
+            "mfu": tokens / step_s * flops / (BF16_FLOP_PER_S
+                                              * (world if nccl else 1)),
+            "ranks": [{"rank": r, "counts": x["counts"],
+                       "ce_counts": x["ce_counts"],
+                       "weight_bytes": x["weight_bytes"],
+                       "state_bytes": x["state_bytes"],
+                       "peak_gb": x["peak_bytes"] / 1e9,
+                       "step_s": x["step_s"]}
+                      for r, x in enumerate(per_rank)]}
+        if "profile" in per_rank[0]:
+            out_cases[name]["profile_rank0"] = per_rank[0]["profile"]
+    out = {"phase": "ptrain", "backend": backend, "world": world,
+           "cards": cards, "layers": layers,
+           "model": "Llama-3.1-8B widths (random f32 master weights, bf16 "
+                    "compute, fused CE)",
+           "batch": tcfg.batch_size, "steps": PTRAIN_STEPS,
+           "cases": out_cases, "control": control,
+           "control_leaf": PTRAIN_CONTROL_LEAF,
+           "counts": total, "reference_s": ref_s,
+           "ranks_s": ranks_s, "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    del refs, f32_refs, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failures:
+        raise RuntimeError("ptrain: " + "; ".join(failures))
+    if not nccl and out["seconds"] > PTRAIN_BUDGET_S:
+        print(f"ptrain phase: {out['seconds']:.1f} s, over its "
+              f"{PTRAIN_BUDGET_S} s budget", flush=True)
     return out
 
 
@@ -5751,8 +6281,11 @@ def phase_hf(ckpt) -> dict:
 
 MOE_CONFIG = "cloud_server_tpu_torch/configs/mixtral_8x7b.json"
 MOE_TRAIN_CONFIG = "cloud_server_tpu_torch/configs/mixtral_8x7b_train.json"
-MOE_LAYERS = 16        # bf16 at full width: 46.96 GB of weights
-MOE_INT8_CHECK_LAYERS = 8
+MOE_LAYERS = 8         # bf16 at full width (16 layers: 46.96 GB)
+MOE_INT8_CHECK_LAYERS = 4
+# int8 weights drawn and quantized a layer at a time and served at this
+# depth (all 32 fit one card in 46.87 GB: PERF.md)
+MOE_INT8_FULL_LAYERS = 16
 MOE_TRAIN_STEPS = 4    # each run repeats one batch: the loss must fall
 # The narrow MoE slice in float32 on the card (plain attention, TF32 off)
 # against the same step on the CPU: the same products in another order,
@@ -6127,9 +6660,9 @@ def moe_int8_part(q8, cfg, icfg, prompts) -> dict:
 
 
 def moe_int8_full(cfg32, icfg, prompts) -> dict:
-    """(c), second half: the whole model on int8 weights, drawn and
-    quantized a layer at a time: stored bytes, peak memory, 8 requests
-    served, a steady decode step profiled."""
+    """(c), second half: MOE_INT8_FULL_LAYERS layers on int8 weights,
+    drawn and quantized a layer at a time: stored bytes, peak memory, 8
+    requests served, a steady decode step profiled."""
     import numpy as np
     import torch
     from cloud_server_tpu_torch.models.quantization import quantized_bytes
@@ -6149,7 +6682,8 @@ def moe_int8_full(cfg32, icfg, prompts) -> dict:
     check_served(reqs, cfg32.vocab_size)
     if (counts["launches_narrow"] <= 0 or counts["launches_wide"] <= 0
             or counts["plain_calls"]):
-        raise RuntimeError(f"32-layer int8 MoE server: launches {counts}")
+        raise RuntimeError(f"int8 MoE server ({cfg32.num_layers} layers): "
+                           f"launches {counts}")
     prof = steady_decode(srv, make_prompts(np.random.default_rng(SEED + 8),
                                            cfg32.vocab_size), steps=1)
     peak = torch.cuda.max_memory_allocated()
@@ -6428,7 +6962,8 @@ def phase_moe(ckpt) -> dict:
     del q8
     gc.collect()
     torch.cuda.empty_cache()
-    int8["full"] = moe_int8_full(moe_cfg(32), icfg, prompts)
+    int8["full"] = moe_int8_full(moe_cfg(MOE_INT8_FULL_LAYERS), icfg,
+                                 prompts)
     seconds["int8"] = time.perf_counter() - t1
     train = moe_train_part()
     seconds["train"] = train["seconds"]
@@ -6477,15 +7012,24 @@ def main() -> int:
     if "--tp-only" in sys.argv[1:]:
         timed(phase_tp)
         return 0  # the tp phase alone (on several cards: NCCL); no result
+    if "--ptrain-only" in sys.argv[1:]:
+        # four cards or more: fsdp 2 x tp 2 over NCCL; else the one-card
+        # form (gloo); prints no result
+        timed(phase_ptrain_kernel)
+        timed(phase_ptrain, torch.cuda.device_count() >= 4)
+        emit({"phase_seconds": seconds})
+        return 0
     kern = timed(phase_kernel)
     fkern = timed(phase_train_kernel)
     timed(phase_unembed)
     ce = timed(phase_ce_kernel)
+    pkern = timed(phase_ptrain_kernel)
     if "--kernel-only" in sys.argv[1:]:
         return 0  # a quick check of a kernel change; prints no result
     serve = timed(phase_serve)
     tp = timed(phase_tp, serve)
     train = timed(phase_train)
+    ptrain = timed(phase_ptrain)
     pack = timed(phase_pack, train)
     ckpt = timed(phase_ckpt)
     hf = timed(phase_hf, ckpt)
@@ -6688,6 +7232,64 @@ def main() -> int:
     for row in rows:
         row["launches_hf"] = next(
             (n for key, n in hf_launches.items() if key in row["name"]), 0)
+    # this slice's per-rank shapes, with the ptrain phase's launches
+    # summed over its ranks (tp 2: one rank's heads and vocabulary rows;
+    # Ulysses at sp 2: H/sp heads over the whole sequence)
+    pcases = ptrain["cases"]
+
+    def rank_sum(case, group, key):
+        return sum(r[group][key] for r in pcases[case]["ranks"])
+
+    for name, line, case, key, launches, errs in (
+            ("flash_attention forward", 70, "tp2_heads", "fwd",
+             rank_sum("tp2", "counts", "launches_fwd"), ("out",)),
+            ("flash_attention dK/dV backward", 205, "tp2_heads", "bwd_dkdv",
+             rank_sum("tp2", "counts", "launches_bwd_dkdv"), ("dk", "dv")),
+            ("flash_attention dQ backward", 295, "tp2_heads", "bwd_dq",
+             rank_sum("tp2", "counts", "launches_bwd_dq"), ("dq",)),
+            ("flash_attention forward", 70, "ulysses_sp2", "fwd",
+             rank_sum("sp2_ulysses", "counts", "launches_fwd"), ("out",)),
+            ("flash_attention fused backward", 261, "ulysses_sp2",
+             "bwd_fused",
+             rank_sum("sp2_ulysses", "counts", "launches_bwd_fused"),
+             ("dq", "dk", "dv"))):
+        k = pkern["flash"][case]
+        where = ("one tp 2 rank's heads" if case == "tp2_heads"
+                 else "Ulysses at sp 2, whole sequence")
+        rows.append({
+            "name": f"{name} ({where}: B {k['B']}, S {k['S']}, H {k['H']},"
+                    f" KH {k['KH']})",
+            "route": "cuda",
+            "source": "cloud_server_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"cloud_server_tpu/ops/flash_attention.py:{line}",
+            "launches": launches,
+            "max_abs_err": max(k["errors"][e]["max_abs_err"] for e in errs),
+            "ms": k[f"{key}_ms"],
+            "plain_ms": k["plain_fwd_ms" if key == "fwd"
+                          else "plain_bwd_ms"],
+            "bound_ms": k["bound_ms"][key], "bound_by": k["bound_by"][key],
+            "library_ms": k["library_fwd_ms" if key == "fwd"
+                            else "library_bwd_ms"]})
+    shard = pkern["tp2_shard"]
+    for name, line, key, launches, err in (
+            ("fused_ce forward", 81, "b7",
+             rank_sum("tp2", "ce_counts", "launches_fwd"),
+             max(shard["errors"]["logz"]["max_abs_err"],
+                 shard["errors"]["tl"]["max_abs_err"])),
+            ("fused_ce dx backward", 131, "b8",
+             rank_sum("tp2", "ce_counts", "launches_dx"),
+             shard["errors"]["dx"]["max_abs_err"])):
+        rows.append({
+            "name": f"{name} (one tp 2 rank's vocabulary rows: N "
+                    f"{shard['N']}, D {shard['D']}, V {shard['V']})",
+            "route": "cuda",
+            "source": "cloud_server_tpu_torch/csrc/fused_ce.cu",
+            "replaces": f"cloud_server_tpu/ops/fused_ce.py:{line}",
+            "launches": launches, "max_abs_err": err,
+            "ms": shard[f"{key}_ms"], "plain_ms": shard[f"plain_{key}_ms"],
+            "bound_ms": shard["bound_ms"][key],
+            "bound_by": shard["bound_by"][key],
+            "library_ms": shard[f"library_{key}_ms"]})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})

@@ -151,7 +151,9 @@ struct Args {
   float* part_tl;
   int* part_am;
   int n;               // rows
-  int cols;            // output columns: V (B7, d) or D (dx)
+  int cols;            // output columns: V's valid columns (B7, d) or D (dx)
+  int store_cols;      // d: columns of the d buffer (V, >= cols; the
+                       // columns from cols on are written as 0)
   int k_steps;         // K / 64
   int row_tiles;       // N / 128
   int col_tiles;       // ceil(cols / 256)
@@ -457,7 +459,8 @@ __global__ void __launch_bounds__(kThreads, 1) ce_gemm_kernel(
           float v2 = acc[4 * c + 2], v3 = acc[4 * c + 3];
           if constexpr (E == kDlogits) {
             // the plain version's arithmetic: expf, the product rounded
-            // before the target's h is added
+            // before the target's h is added; a padded column (>= cols)
+            // gets 0
             const int col = c0 + cl;
             v0 = __fadd_rn(__fmul_rn(g_lo, expf(v0 - lz_lo)),
                            col == t_lo ? h_lo : 0.f);
@@ -467,6 +470,8 @@ __global__ void __launch_bounds__(kThreads, 1) ce_gemm_kernel(
                            col == t_hi ? h_hi : 0.f);
             v3 = __fadd_rn(__fmul_rn(g_hi, expf(v3 - lz_hi)),
                            col + 1 == t_hi ? h_hi : 0.f);
+            if (col >= args.cols) v0 = v2 = 0.f;
+            if (col + 1 >= args.cols) v1 = v3 = 0.f;
           }
           *reinterpret_cast<uint32_t*>(out + out_offset(rl, cl)) =
               pack_floats(v0, v1);
@@ -478,7 +483,7 @@ __global__ void __launch_bounds__(kThreads, 1) ce_gemm_kernel(
         if (tid == 0) {
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
-            if (c0 + 64 * i < args.cols) {
+            if (c0 + 64 * i < args.store_cols) {
               tma_store_2d(&tout, out_s + i * kBox, c0 + 64 * i,
                            m0 + wg * 64);
             }
@@ -514,7 +519,7 @@ __global__ void ce_fwd_combine_kernel(
     const float* __restrict__ part_m, const float* __restrict__ part_l,
     const float* __restrict__ part_tl, const int* __restrict__ part_am,
     float* __restrict__ logz, float* __restrict__ tl, int* __restrict__ am,
-    int n, int splits) {
+    float* __restrict__ mx, int n, int splits) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n) return;
   float m = part_m[r], l = part_l[r], t = part_tl[r];
@@ -531,6 +536,7 @@ __global__ void ce_fwd_combine_kernel(
   logz[r] = m + logf(l);
   tl[r] = t;
   am[r] = a;
+  if (mx != nullptr) mx[r] = m;
 }
 
 // Blocks in clusters of two on neighbouring row tiles, which share every
@@ -567,12 +573,17 @@ bool shape_ok(int n, int d, int v) {
          d % 128 == 0;
 }
 
+// The valid columns of a V-column head: its first `valid`, all but a
+// tail of fewer than 128 (a padded vocab shard).
+bool valid_ok(int v, int valid) { return valid > v - 128 && valid <= v; }
+
 int col_tiles(int cols) { return (cols + kBN - 1) / kBN; }
 
 Args make_args(int n, int cols, int k, int splits) {
   Args a = {};
   a.n = n;
   a.cols = cols;
+  a.store_cols = cols;
   a.k_steps = k / kBK;
   a.row_tiles = n / kBM;
   a.col_tiles = col_tiles(cols);
@@ -587,22 +598,25 @@ Args make_args(int n, int cols, int k, int splits) {
 // nothing, do not synchronise, and return cudaGetLastError() after the
 // last launch (cudaErrorInvalidValue for a shape they do not take).
 
-// B7: (logz, tl, am) per row. part_* are (splits, N) scratch buffers;
-// 1 <= splits <= ceil(V / 256).
+// B7: (logz, tl, am) per row, and the row max into `mx` unless it is
+// null, over the first `valid` columns of the V-column head (the rest a
+// zero pad). part_* are (splits, N) scratch buffers;
+// 1 <= splits <= ceil(valid / 256).
 extern "C" int ce_fwd_bf16(const void* x, const void* head,
                            const void* targets, void* part_m, void* part_l,
                            void* part_tl, void* part_am, void* logz, void* tl,
-                           void* am, int n, int d, int v, int splits,
-                           void* stream) {
+                           void* am, void* mx_out, int n, int d, int v,
+                           int valid, int splits, void* stream) {
   (void)cudaGetLastError();
-  if (!shape_ok(n, d, v) || splits < 1 || splits > col_tiles(v)) {
+  if (!shape_ok(n, d, v) || !valid_ok(v, valid) || splits < 1 ||
+      splits > col_tiles(valid)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   CUtensorMap mx, mh;
   if (!map_2d(&mx, x, d, n, 64) || !map_2d(&mh, head, v, d, 64)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Args a = make_args(n, v, d, splits);
+  Args a = make_args(n, valid, d, splits);
   a.targets = static_cast<const int*>(targets);
   a.part_m = static_cast<float*>(part_m);
   a.part_l = static_cast<float*>(part_l);
@@ -615,19 +629,20 @@ extern "C" int ce_fwd_bf16(const void* x, const void* head,
       static_cast<const float*>(part_m), static_cast<const float*>(part_l),
       static_cast<const float*>(part_tl), static_cast<const int*>(part_am),
       static_cast<float*>(logz), static_cast<float*>(tl),
-      static_cast<int*>(am), n, splits);
+      static_cast<int*>(am), static_cast<float*>(mx_out), n, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
 // B8, first launch: d (N, V) bf16 from the recomputed logits, over the
-// same units as B7.
+// same units as B7; the columns from `valid` on are written as 0.
 extern "C" int ce_dlogits_bf16(const void* x, const void* head,
                                const void* targets, const void* logz,
                                const void* gz, const void* gt, void* dbuf,
-                               int n, int d, int v, int splits,
+                               int n, int d, int v, int valid, int splits,
                                void* stream) {
   (void)cudaGetLastError();
-  if (!shape_ok(n, d, v) || splits < 1 || splits > col_tiles(v)) {
+  if (!shape_ok(n, d, v) || !valid_ok(v, valid) || splits < 1 ||
+      splits > col_tiles(valid)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   CUtensorMap mx, mh, md;
@@ -635,7 +650,8 @@ extern "C" int ce_dlogits_bf16(const void* x, const void* head,
       !map_2d(&md, dbuf, v, n, 64)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Args a = make_args(n, v, d, splits);
+  Args a = make_args(n, valid, d, splits);
+  a.store_cols = v;
   a.targets = static_cast<const int*>(targets);
   a.logz = static_cast<const float*>(logz);
   a.gz = static_cast<const float*>(gz);

@@ -4,8 +4,12 @@ prefetch onto the device.
 Every process runs an identical `ShardedSampler` (same seed => same
 per-epoch permutation) and takes its own contiguous slice of each global
 batch, as the reference does; the process index and count are arguments
-(default 0 and 1: one process). Batches are collated on the host, pinned
-and copied to the device without blocking, in a prefetch thread.
+(default 0 and 1: one process). On a mesh (`DataLoader.for_mesh`) they
+come from the rank's place in the reference's batch sharding: the rows
+split over (dp, fsdp), dp outer, and the sequence over sp (`seq_shard`),
+so ranks that differ only in sp or tp read the same rows. Batches are
+collated on the host, pinned and copied to the device without blocking,
+in a prefetch thread.
 
 Resume: the sampler's state is (epoch, batch_in_epoch) and
 `load_state_dict` fast-forwards without touching the data.
@@ -89,6 +93,22 @@ def _collate(dataset, indices: np.ndarray) -> dict[str, np.ndarray]:
     return {k: np.stack([e[k] for e in examples]) for k in examples[0]}
 
 
+def batch_layout(mesh) -> dict:
+    """This rank's place in the reference's `batch_sharding` (batch over
+    (dp, fsdp), sequence over sp): {"process_index", "process_count",
+    "seq_shard": (index, count)}; one process without a mesh."""
+    if mesh is None:
+        return {"process_index": 0, "process_count": 1, "seq_shard": (0, 1)}
+    from cloud_server_tpu_torch.parallel.mesh import axis_size
+
+    def coord(axis):
+        return mesh.get_local_rank(axis) if axis_size(mesh, axis) > 1 else 0
+    fsdp = axis_size(mesh, "fsdp")
+    return {"process_index": coord("dp") * fsdp + coord("fsdp"),
+            "process_count": axis_size(mesh, "dp") * fsdp,
+            "seq_shard": (coord("sp"), axis_size(mesh, "sp"))}
+
+
 def to_device(local: dict[str, np.ndarray],
               device: torch.device) -> dict[str, torch.Tensor]:
     """Host arrays -> int64 tensors on `device`: pinned and copied without
@@ -107,24 +127,42 @@ def to_device(local: dict[str, np.ndarray],
 def prefetch(it: Iterator[Any], size: int = 2) -> Iterator[Any]:
     """Overlap host-side batch production with device compute: a daemon
     thread runs the upstream iterator (reads, collation, the copy to the
-    device); the consumer pops ready batches from a bounded queue."""
+    device); the consumer pops ready batches from a bounded queue.
+    Closing the returned generator stops the thread and waits for it: a
+    producer left running when the interpreter exits can be caught
+    inside a torch call, which aborts the process."""
     q: queue_mod.Queue = queue_mod.Queue(maxsize=size)
+    stop = threading.Event()
     _END = object()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.05)
+                return True
+            except queue_mod.Full:
+                pass
+        return False
 
     def producer():
         try:
             for item in it:
-                q.put(item)
+                if not put(item):
+                    return
         finally:
-            q.put(_END)
+            put(_END)
 
     t = threading.Thread(target=producer, daemon=True)
     t.start()
-    while True:
-        item = q.get()
-        if item is _END:
-            return
-        yield item
+    try:
+        while True:
+            item = q.get()
+            if item is _END:
+                return
+            yield item
+    finally:
+        stop.set()
+        t.join()
 
 
 class DataLoader:
@@ -137,17 +175,41 @@ class DataLoader:
 
     def __init__(self, dataset, global_batch_size: int, device=None, *,
                  seed: int = 0, shuffle: bool = True, prefetch: int = 2,
-                 process_index: int = 0, process_count: int = 1):
+                 process_index: int = 0, process_count: int = 1,
+                 seq_shard: tuple[int, int] = (0, 1)):
         self.dataset = dataset
         self.device = resolve_device(device)
         self.prefetch = prefetch
+        self.seq_shard = seq_shard
         self.sampler = ShardedSampler(
             len(dataset), global_batch_size, seed=seed, shuffle=shuffle,
             process_index=process_index, process_count=process_count)
 
+    @classmethod
+    def for_mesh(cls, dataset, global_batch_size: int, device, mesh,
+                 **kwargs) -> "DataLoader":
+        """A loader yielding this rank's block of each global batch on
+        `mesh` (`batch_layout`); the plain loader without one."""
+        return cls(dataset, global_batch_size, device, **kwargs,
+                   **batch_layout(mesh))
+
+    def _slice(self, local: dict[str, np.ndarray]) -> dict:
+        i, n = self.seq_shard
+        if n == 1:
+            return local
+        out = {}
+        for k, v in local.items():
+            s = v.shape[1]
+            if s % n:
+                raise ValueError(f"sequence length {s} does not split over "
+                                 f"sp={n}")
+            out[k] = v[:, i * (s // n):(i + 1) * (s // n)]
+        return out
+
     def _produce(self) -> Iterator[dict[str, torch.Tensor]]:
         for indices in self.sampler:
-            yield to_device(_collate(self.dataset, indices), self.device)
+            yield to_device(self._slice(_collate(self.dataset, indices)),
+                            self.device)
 
     def __iter__(self) -> Iterator[dict[str, torch.Tensor]]:
         if self.prefetch > 0:

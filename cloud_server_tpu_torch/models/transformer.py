@@ -23,9 +23,21 @@ vocab-chunked CE, and the fused CE of ce_impl="pallas" through the
 B7/B8 kernels) mirror the reference's.
 
 Tensor-parallel serving (`parallel/`): `param_logical_axes` names each
-leaf's logical axes, and `embed`, `attention_out`, `mlp_block` and
-`unembed` take the tp process group of a rank's shard (`tp=`); without
-one they are the single-device functions, unchanged.
+leaf's logical axes, and `embed`, `attention_qkv`, `attention_out`,
+`mlp_block` and `unembed` take the tp process group of a rank's shard
+(`tp=`); without one they are the single-device functions, unchanged.
+
+Training on a mesh (`MeshPlan`, which the train and eval steps build
+and pass to `next_token_loss(plan=)`): each rank holds its shards of the leaves (`parallel.sharding`),
+its rows of the batch over (dp, fsdp) and its slice of the sequence over
+sp. Each layer's fsdp-split leaves are gathered for its forward (and
+again for its rematerialised forward), the gather's backward
+reduce-scattering the gradient; tp regions enter through
+`collectives.identity_ad` and leave through `psum_ad`; attention under
+sp is "ring" or "ulysses"; the loss combines each rank's vocabulary
+shard's statistics over tp and divides by the global token count, so
+the sum of the ranks' losses over the data axes is the reference's
+loss.
 """
 
 from __future__ import annotations
@@ -46,9 +58,12 @@ from cloud_server_tpu_torch.ops import (apply_rope, causal_attention,
                                         swiglu)
 from cloud_server_tpu_torch.ops.flash_attention import (flash_attention,
                                                         flash_fwd_op)
-from cloud_server_tpu_torch.ops.fused_ce import fused_ce_stats
+from cloud_server_tpu_torch.ops.fused_ce import (combine_shard_stats,
+                                                 fused_ce_shard_stats,
+                                                 fused_ce_stats)
 from cloud_server_tpu_torch.ops.segments import (positions_from_segments,
                                                  segment_target_mask)
+from cloud_server_tpu_torch.parallel import collectives
 from cloud_server_tpu_torch.parallel.collectives import all_gather, psum
 
 Params = dict
@@ -138,7 +153,7 @@ def _trunc_normal_(t: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
                 dtype: torch.dtype | None = None,
-                shapes: dict | None = None) -> Params:
+                shapes: dict | None = None, leaf_fn=None) -> Params:
     """The reference's initialisation drawn on `device`: truncated normal
     (+-2 sd) with std 1/sqrt(fan_in), norm scales 1. The draws come from
     a torch.Generator seeded with `seed`, so the values differ from the
@@ -147,7 +162,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
     cfg.param_dtype. Stacked leaves are drawn one layer at a time, so the
     float32 scratch is one layer's slice, not the whole stack. `shapes`
     (default `param_shapes(cfg)`) lets another family (models.moe) draw
-    its own tree the same way."""
+    its own tree the same way. `leaf_fn(group, name, tensor)`, when
+    given, replaces each leaf as soon as it is drawn (a rank of a mesh
+    keeps its slice, so one full leaf at a time is ever held)."""
     device = resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype) if dtype is None else dtype
     gen = torch.Generator(device=device)
@@ -160,6 +177,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
             if "norm" in group or "norm" in name:
                 out[group][name] = torch.ones(shape, dtype=dtype,
                                               device=device)
+                if leaf_fn is not None:
+                    out[group][name] = leaf_fn(group, name,
+                                               out[group][name])
                 continue
             std = 1.0 / math.sqrt(_fan_in(name, cfg))
             t = torch.empty(shape, dtype=dtype, device=device)
@@ -168,7 +188,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
                 scratch = torch.empty(part.shape, dtype=torch.float32,
                                       device=device)
                 part.copy_(_trunc_normal_(scratch, gen).mul_(std))
-            out[group][name] = t
+            out[group][name] = t if leaf_fn is None else leaf_fn(group, name,
+                                                                  t)
     return out
 
 
@@ -253,14 +274,37 @@ def lora_row_delta(h, ab) -> torch.Tensor:
     return d * scale[:, None, None].to(h.dtype)
 
 
+def _tp_sum(y: torch.Tensor, tp) -> torch.Tensor:
+    """The partial sums of a row-parallel product summed over the tp
+    group: in place when nothing differentiates through it (serving),
+    else `psum_ad` (its backward the identity)."""
+    if tp is None or tp.size() == 1:
+        return y
+    if torch.is_grad_enabled() and y.requires_grad:
+        return collectives.psum_ad(y, tp)
+    return psum(y, tp)
+
+
+def _tp_enter(h: torch.Tensor, tp) -> torch.Tensor:
+    """A replicated activation entering a tp region: `identity_ad` when
+    something differentiates through it, else `h` itself."""
+    if tp is None or tp.size() == 1 or not (torch.is_grad_enabled()
+                                            and h.requires_grad):
+        return h
+    return collectives.identity_ad(h, tp)
+
+
 def attention_qkv(x, lp, cfg: ModelConfig, cos, sin, positions=None,
-                  lora=None):
+                  lora=None, tp=None):
     """Pre-norm + q/k/v projection + rope.
 
     `lora` (serving only): {target: (a, b, scale)} per-row adapters —
-    deltas land BEFORE rope, exactly where a merged weight would."""
+    deltas land BEFORE rope, exactly where a merged weight would.
+    `tp`: the tp group, whose ranks hold their heads' columns: the
+    normed input enters the tp region (`identity_ad`, whose backward
+    sums each rank's share of the input's gradient)."""
     dtype = torch_dtype(cfg.dtype)
-    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    h = _tp_enter(rms_norm(x, lp["attn_norm"], cfg.norm_eps), tp)
     q = _proj(h, lp["wq"], dtype)
     k = _proj(h, lp["wk"], dtype)
     v = _proj(h, lp["wv"], dtype)
@@ -290,7 +334,7 @@ def attention_out(x, o, lp, cfg: ModelConfig, lora=None, tp=None):
     y = flat @ wo.reshape(-1, wo.shape[-1])
     if lora and "wo" in lora:
         y = y + lora_row_delta(flat, lora["wo"])
-    return x + psum(y, tp)
+    return x + _tp_sum(y, tp)
 
 
 def mlp_block(x, lp, cfg: ModelConfig, lora=None, tp=None):
@@ -300,7 +344,7 @@ def mlp_block(x, lp, cfg: ModelConfig, lora=None, tp=None):
     the down product is summed over the group before the residual
     add."""
     dtype = torch_dtype(cfg.dtype)
-    h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    h = _tp_enter(rms_norm(x, lp["mlp_norm"], cfg.norm_eps), tp)
     gate = h @ lp["w_gate"].to(dtype)
     up = h @ lp["w_up"].to(dtype)
     if lora:
@@ -312,7 +356,7 @@ def mlp_block(x, lp, cfg: ModelConfig, lora=None, tp=None):
     down = act @ lp["w_down"].to(dtype)
     if lora and "w_down" in lora:
         down = down + lora_row_delta(act, lora["w_down"])
-    return x + psum(down, tp)
+    return x + _tp_sum(down, tp)
 
 
 def _unembed_head(params: Params, cfg: ModelConfig) -> torch.Tensor:
@@ -352,13 +396,20 @@ def embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     local = ids - tp.rank() * n
     inside = (local >= 0) & (local < n)
     rows = table[local.clamp(0, n - 1)].to(dtype)
-    return psum(torch.where(inside[..., None], rows, 0), tp)
+    return _tp_sum(torch.where(inside[..., None], rows, 0), tp)
 
 
-def _block(x, lp, cfg: ModelConfig, cos, sin, attn_fn, positions=None):
-    q, k, v = attention_qkv(x, lp, cfg, cos, sin, positions)
-    x = attention_out(x, attn_fn(q, k, v), lp, cfg)
-    return mlp_block(x, lp, cfg)
+def _block(x, lp, cfg: ModelConfig, cos, sin, attn_fn, positions=None,
+           plan=None):
+    """One layer; on a mesh (`plan`) its fsdp-split leaves are gathered
+    first and its tp regions run on the rank's heads and columns."""
+    tp = None
+    if plan is not None:
+        lp = plan.gather_layer(lp)
+        tp = plan.group("tp")
+    q, k, v = attention_qkv(x, lp, cfg, cos, sin, positions, tp=tp)
+    x = attention_out(x, attn_fn(q, k, v), lp, cfg, tp=tp)
+    return mlp_block(x, lp, cfg, tp=tp)
 
 
 # What the selective policies save: the flash forward's (out, lse)
@@ -416,20 +467,36 @@ def apply_remat(block, cfg: ModelConfig):
     return checkpointed
 
 
-def _get_attention_fn(cfg: ModelConfig, segment_ids=None):
+def _get_attention_fn(cfg: ModelConfig, segment_ids=None, plan=None):
     """The attention-impl dispatch table: "xla" is the plain PyTorch
-    attention, "flash" the flash-attention kernels."""
-    if cfg.attention_impl == "xla":
+    attention, "flash" the flash-attention kernels, "ring" and "ulysses"
+    the sequence-parallel ones over the sp axis of `plan`'s mesh (the
+    MeshPlan of the step; without one, one chunk). `segment_ids` are the
+    rank's (B, S_local)."""
+    impl = cfg.attention_impl
+    sp = 1 if plan is None else plan.size("sp")
+    if sp > 1 and impl in ("xla", "flash"):
+        raise NotImplementedError(
+            f"attention_impl={impl!r} with sp={sp}: sequence-parallel "
+            "attention is 'ring' or 'ulysses'")
+    if impl == "xla":
         return partial(causal_attention, segment_ids=segment_ids)
-    if cfg.attention_impl == "flash":
+    if impl == "flash":
         return partial(flash_attention, segment_ids=segment_ids,
                        block_q=cfg.flash_block_q,
                        block_kv=cfg.flash_block_kv)
-    if cfg.attention_impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attention_impl={cfg.attention_impl!r} (sequence parallel) is "
-            "not ported yet")
-    raise ValueError(f"unknown attention_impl: {cfg.attention_impl!r}")
+    if impl == "ring":
+        from cloud_server_tpu_torch.parallel.ring_attention import (
+            ring_attention)
+        return partial(ring_attention, segment_ids=segment_ids,
+                       group=None if plan is None else plan.group("sp"))
+    if impl == "ulysses":
+        from cloud_server_tpu_torch.parallel.ulysses import ulysses_attention
+        return partial(ulysses_attention, segment_ids=segment_ids,
+                       group=None if plan is None else plan.group("sp"),
+                       block_q=cfg.flash_block_q,
+                       block_kv=cfg.flash_block_kv)
+    raise ValueError(f"unknown attention_impl: {impl!r}")
 
 
 def apply_segment_loss_mask(batch: dict) -> dict:
@@ -455,7 +522,8 @@ def packed_inputs(cfg: ModelConfig, segment_ids, device):
 
 
 def forward_hidden(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
-                   segment_ids: torch.Tensor | None = None) -> torch.Tensor:
+                   segment_ids: torch.Tensor | None = None,
+                   plan: "MeshPlan | None" = None) -> torch.Tensor:
     """(B, S) int -> final-normed hidden states (B, S, D) in cfg.dtype.
 
     segment_ids: optional (B, S) packed-sequence ids (data/packing.py):
@@ -466,13 +534,21 @@ def forward_hidden(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     Differentiable: weights are cast to cfg.dtype inside the graph, so
     float32 masters receive float32 gradients. The stacked layer leaves
     are split with `unbind`, whose backward stacks the layer gradients
-    once (a per-layer index would zero-fill a full stack per layer)."""
-    x = embed(params, tokens, cfg)
-    cos, sin = rope_table(cfg, tokens.shape[1], device=x.device)
-    attn_fn, positions = packed_inputs(cfg, segment_ids, x.device)
+    once (a per-layer index would zero-fill a full stack per layer).
+
+    On a mesh (`plan`, the step's MeshPlan) `params` are the rank's
+    shards, `tokens` and `segment_ids` its (B_local, S_local) block, and
+    the result its block of the hidden states."""
+    if plan is None:
+        x = embed(params, tokens, cfg)
+        cos, sin = rope_table(cfg, tokens.shape[1], device=x.device)
+        attn_fn, positions = packed_inputs(cfg, segment_ids, x.device)
+    else:
+        x, cos, sin, attn_fn, positions = plan.inputs(params, tokens, cfg,
+                                                      segment_ids)
     block = apply_remat(
         partial(_block, cfg=cfg, cos=cos, sin=sin, attn_fn=attn_fn,
-                positions=positions), cfg)
+                positions=positions, plan=plan), cfg)
     names = sorted(params["layers"])
     per_layer = [params["layers"][n].unbind(0) for n in names]
     for i in range(cfg.num_layers):
@@ -539,11 +615,13 @@ def _chunk_body(x, hc, base, m, l, tgt, bidx, targets, cfg):
     return m_new, l, tgt, bidx
 
 
-def _chunked_logz_target_argmax(x, head, targets, cfg: ModelConfig):
+def _chunked_logz_target_argmax(x, head, targets, cfg: ModelConfig,
+                                with_max: bool = False):
     """Blockwise-vocab logsumexp + target-logit gather + running argmax.
 
     x: (B, S, D); head: (D, V); targets: (B, S) int. Returns (logz,
-    target_logit, argmax_idx), each (B, S), without materialising
+    target_logit, argmax_idx), each (B, S), and the row max after them
+    with `with_max`, without materialising
     (B, S, V) logits: a Python loop over vocab chunks of cfg.vocab_chunk,
     each checkpointed, so the backward also recomputes the logits one
     chunk at a time."""
@@ -564,6 +642,8 @@ def _chunked_logz_target_argmax(x, head, targets, cfg: ModelConfig):
         else:
             m, l, tgt, bidx = _chunk_body(x, hc, base, m, l, tgt, bidx,
                                           targets, cfg)
+    if with_max:
+        return m + torch.log(l), tgt, bidx, m.detach()
     return m + torch.log(l), tgt, bidx
 
 
@@ -633,14 +713,17 @@ def hidden_state_loss(x, params: Params, batch: dict, cfg: ModelConfig,
 
 
 def next_token_loss(params: Params, batch: dict, cfg: ModelConfig,
-                    z_loss_coef: float = 0.0):
+                    z_loss_coef: float = 0.0, plan: "MeshPlan | None" = None):
     """Causal LM loss. batch: {"tokens": (B, S) int, optional "mask":
     (B, S), optional "segment_ids": (B, S) for packed rows}. Predicts
     tokens[:, 1:] from tokens[:, :-1]; the forward runs on the full S and
     the last position is dropped inside the loss. With segment_ids,
     attention and positions follow the packing (`forward_hidden`) and
     targets crossing a document boundary (or in padding) are masked out
-    of the loss, on every CE route."""
+    of the loss, on every CE route. On a mesh (`plan`) the rank's part
+    of it (`MeshPlan.next_token_loss`)."""
+    if plan is not None:
+        return plan.next_token_loss(params, batch, cfg, z_loss_coef)
     seg = batch.get("segment_ids")
     batch = apply_segment_loss_mask(batch)
     if cfg.ce_impl == "pallas" or cfg.vocab_chunk > 0:
@@ -648,3 +731,211 @@ def next_token_loss(params: Params, batch: dict, cfg: ModelConfig,
         return hidden_state_loss(x, params, batch, cfg, z_loss_coef)
     logits = forward(params, batch["tokens"], cfg, seg)
     return masked_cross_entropy(logits, batch, z_loss_coef)
+
+
+# ---------------------------------------------------------------------------
+# Training on a mesh
+# ---------------------------------------------------------------------------
+
+class _GroupLogSumExp(torch.autograd.Function):
+    """log(sum over the group's ranks of exp(z)), elementwise; the
+    backward gives each rank its share, g * exp(z - out), with no
+    collective (every rank holds the same loss)."""
+
+    @staticmethod
+    def forward(ctx, z, group):
+        zs = collectives.all_gather_ad(z[None].contiguous(), group)
+        out = torch.logsumexp(zs, dim=0)
+        ctx.save_for_backward(z, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        z, out = ctx.saved_tensors
+        return g * torch.exp(z - out), None
+
+
+class MeshPlan:
+    """A rank's view of the mesh its training step runs on: the axis
+    sizes, groups and coordinates, and the model-side collectives of a
+    step (the fsdp gathers, the sequence slice, the loss's combines)."""
+
+    DATA_AXES = ("dp", "fsdp", "sp")
+
+    def __init__(self, mesh, cfg: ModelConfig):
+        from cloud_server_tpu_torch.parallel.mesh import axis_size
+        from cloud_server_tpu_torch.parallel.sharding import DEFAULT_RULES
+        self.mesh = mesh
+        names = mesh.mesh_dim_names or ()
+        self._size = {a: axis_size(mesh, a) for a in names}
+        self._groups = {a: mesh.get_group(a) for a in names
+                        if self._size[a] > 1}
+        self._rank = {a: mesh.get_local_rank(a) for a in self._groups}
+        self.rules = DEFAULT_RULES
+        self.axes = param_logical_axes(cfg)
+        self.dtype = torch_dtype(cfg.dtype)
+
+    def size(self, axis: str) -> int:
+        return self._size.get(axis, 1)
+
+    def group(self, axis: str):
+        """The axis's process group (None for an axis of size 1)."""
+        return self._groups.get(axis)
+
+    def rank(self, axis: str) -> int:
+        return self._rank.get(axis, 0)
+
+    # -- parameters ----------------------------------------------------
+
+    def gather(self, x: torch.Tensor, logical) -> torch.Tensor:
+        """The leaf `x` (this rank's shard, laid out by `logical`) with
+        its fsdp-split dimensions gathered (`all_gather_ad`: the backward
+        reduce-scatters its gradient); tp splits stay. A leaf that is
+        gathered is cast to the compute dtype first, so the gather and
+        the gradient's reduce-scatter move cfg.dtype bytes (FSDP's mixed
+        precision); one that is not is returned as it is."""
+        fsdp = self.group("fsdp")
+        dims = [d for d, name in enumerate(logical)
+                if name is not None and self.rules.get(name) == "fsdp"]
+        if fsdp is None or not dims:
+            return x
+        x = x.to(self.dtype)
+        for dim in dims:
+            x = collectives.all_gather_ad(x, fsdp, tiled_axis=dim)
+        return x
+
+    def gather_layer(self, lp: dict) -> dict:
+        """One layer's leaves (the stacked L axis dropped), gathered."""
+        return {k: self.gather(v, self.axes["layers"][k][1:])
+                for k, v in lp.items()}
+
+    def head(self, params: Params, cfg: ModelConfig) -> torch.Tensor:
+        """The unembedding (D, V/tp) in cfg.dtype, gathered over fsdp."""
+        if cfg.tie_embeddings:
+            head = self.gather(params["embed"]["tokens"],
+                               self.axes["embed"]["tokens"]).T
+        else:
+            head = self.gather(params["lm_head"]["kernel"],
+                               self.axes["lm_head"]["kernel"])
+        return head.to(torch_dtype(cfg.dtype))
+
+    # -- inputs --------------------------------------------------------
+
+    def seq_offset(self, s_local: int) -> int:
+        return self.rank("sp") * s_local
+
+    def whole_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """(B_local, S_local) -> the rank's whole rows (B_local, S),
+        gathered over sp (ints or a mask: no gradient)."""
+        with torch.no_grad():
+            return collectives.all_gather_ad(t, self.group("sp"),
+                                             tiled_axis=1)
+
+    def inputs(self, params: Params, tokens, cfg: ModelConfig, segment_ids):
+        """(x, cos, sin, attention fn, positions) of the rank's block:
+        the embedding over the rank's vocabulary rows summed over tp, the
+        RoPE table of the whole sequence and the block's positions in it
+        (restarting per document when packed, from the whole rows'
+        segment ids)."""
+        tp = self.group("tp")
+        table = self.gather(params["embed"]["tokens"],
+                            self.axes["embed"]["tokens"])
+        x = embed({"embed": {"tokens": table}}, tokens, cfg, tp=tp)
+        b, s_loc = tokens.shape
+        off = self.seq_offset(s_loc)
+        cos, sin = rope_table(cfg, s_loc * self.size("sp"), device=x.device)
+        seg = None if segment_ids is None else segment_ids.to(x.device)
+        if seg is not None:
+            positions = positions_from_segments(
+                self.whole_rows(seg))[:, off:off + s_loc]
+        elif off:
+            positions = (off + torch.arange(s_loc, device=x.device)).expand(
+                b, s_loc)
+        else:
+            positions = None
+        return x, cos, sin, _get_attention_fn(cfg, seg, self), positions
+
+    # -- loss ----------------------------------------------------------
+
+    def psum_data(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum over the data axes (dp, fsdp, sp): a new tensor, no
+        gradient."""
+        x = x.detach().clone()
+        for axis in self.DATA_AXES:
+            g = self.group(axis)
+            if g is not None:
+                x = collectives._host_staged(psum, x, g)
+        return x
+
+    def ce_stats(self, x, head, targets, cfg: ModelConfig):
+        """(logz, target_logit, argmax) of the rank's rows over the whole
+        vocabulary, from its (D, V/tp) shard of the head: each shard's
+        statistics (the fused CE kernels with ce_impl="pallas", the
+        vocab-chunked or dense ones otherwise), then the combine over tp
+        as the kernels combine their vocabulary ranges (logsumexp; the
+        target logit from the shard that holds it; the first argmax, a
+        later shard winning only on a strictly greater max)."""
+        tp = self.group("tp")
+        b, s = targets.shape
+        v_loc = head.shape[1]
+        base = self.rank("tp") * v_loc
+        x = _tp_enter(x, tp)
+        local = targets - base
+        inside = (local >= 0) & (local < v_loc)
+        local = local.clamp(0, v_loc - 1)
+        if cfg.ce_impl == "pallas":
+            logz, tl, am, mx = (t.reshape(b, s) for t in fused_ce_shard_stats(
+                x.reshape(b * s, -1), head, local.reshape(-1)))
+        elif cfg.vocab_chunk > 0:
+            logz, tl, am, mx = _chunked_logz_target_argmax(
+                x, head, local, cfg, with_max=True)
+        else:
+            logits = apply_logits_softcap(matmul_f32(x, head), cfg)
+            logz = torch.logsumexp(logits, dim=-1)
+            tl = torch.gather(logits, -1, local[..., None])[..., 0]
+            mx, am = logits.detach().max(dim=-1)
+        tl = torch.where(inside, tl, 0.0)
+        if tp is None:
+            return logz, tl, am
+        logz = _GroupLogSumExp.apply(logz, tp)
+        tl = _tp_sum(tl, tp)
+        with torch.no_grad():
+            both = torch.stack([mx.float(), (am + base).float()])
+            allv = collectives.all_gather_ad(both[None].contiguous(), tp)
+            _, _, am = combine_shard_stats(
+                [(logz, tl, a[1].long(), a[0]) for a in allv])
+        return logz, tl, am
+
+    def next_token_loss(self, params: Params, batch: dict, cfg: ModelConfig,
+                        z_loss_coef: float = 0.0):
+        """The rank's part of the reference's `next_token_loss`: its
+        rows' masked CE sum over the global token count, so the parts
+        sum to the reference's loss over the data axes (the backward of
+        each rank's part gives its share of the gradient). The metrics
+        are the global ones, equal on every rank."""
+        tokens = batch["tokens"]
+        s_loc = tokens.shape[1]
+        off = self.seq_offset(s_loc)
+        whole = {"tokens": self.whole_rows(tokens)}
+        for k in ("mask", "segment_ids"):
+            if batch.get(k) is not None:
+                whole[k] = self.whole_rows(batch[k])
+        whole = apply_segment_loss_mask(whole)
+        x = forward_hidden(params, tokens, cfg, batch.get("segment_ids"),
+                           self)
+        targets, mask = _shifted_targets_mask(whole, x.device)
+        targets = targets[:, off:off + s_loc]
+        mask = mask[:, off:off + s_loc]
+        logz, tl, am = self.ce_stats(x, self.head(params, cfg), targets,
+                                     cfg)
+        denom = self.psum_data(mask.sum()).clamp_min(1.0)
+        loss = ((logz - tl) * mask).sum() / denom
+        metrics = {"loss": self.psum_data(loss)}
+        metrics["ppl_log"] = metrics["loss"]
+        metrics["accuracy"] = self.psum_data(
+            ((am == targets) * mask).sum() / denom)
+        if z_loss_coef > 0.0:
+            z = (logz.square() * mask).sum() / denom
+            loss = loss + z_loss_coef * z
+            metrics["z_loss"] = self.psum_data(z)
+        return loss, metrics

@@ -31,6 +31,13 @@ Two versions of one function:
     `ce_units` the card tests compare it with), `vocab_splits` picks the
     number of ranges.
 
+A vocabulary shard of a tensor-parallel head (`fused_ce_shard_stats`)
+also takes V/tp columns that are not a multiple of 128: the head is
+padded with zero columns to the next multiple, and the statistics and
+d see only the first `valid` columns (the kernels mask the pad out of
+the max, the sum, the argmax and d). It returns the row max beside the
+statistics, for the combine over the shards.
+
 Counters, one per TPU kernel: `launches_fwd` counts B7 calls (two CUDA
 launches each: the ranges and their combine), `launches_dx` counts B8
 calls (two CUDA launches each: d, then dx, counted at the dx launch that
@@ -49,6 +56,7 @@ from cloud_server_tpu_torch.ops import cuda_build
 from cloud_server_tpu_torch.ops.matmul import matmul_f32
 
 TILE = 128  # N and V must be multiples of it (the reference's rule)
+NEG_INF = -1e30  # the kernels' mask value
 COL_TILE = 256  # the kernels' output tile: 128 rows x 256 columns
 # row tiles per raster group, kRowGroup in csrc/fused_ce.cu (for the tests)
 ROW_GROUP = 16  # B7 and d
@@ -77,9 +85,19 @@ def _check_shapes(x, head) -> None:
             f"{TILE}; pad the batch or use the dense/chunked CE path")
 
 
-def _dlogits_ref(x, head, targets, logz, g, h) -> torch.Tensor:
-    """d = g·exp(logits - logz) + h·onehot(targets), rounded to x's dtype."""
+def _masked_logits(x, head, valid: int) -> torch.Tensor:
+    """The f32 logits, the columns from `valid` on masked to NEG_INF."""
     logits = matmul_f32(x, head)
+    if valid < head.shape[1]:
+        logits[:, valid:] = NEG_INF
+    return logits
+
+
+def _dlogits_ref(x, head, targets, logz, g, h, valid=None) -> torch.Tensor:
+    """d = g·exp(logits - logz) + h·onehot(targets), rounded to x's
+    dtype; 0 in the columns from `valid` on."""
+    logits = _masked_logits(x, head, head.shape[1] if valid is None
+                            else valid)
     d = g[:, None] * torch.exp(logits - logz[:, None])
     d[torch.arange(x.shape[0], device=x.device), targets] += h
     return d.to(x.dtype)
@@ -108,34 +126,35 @@ def _cotangents(x, g_logz, g_tl) -> tuple:
 class _FusedCERef(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, head, targets):
+    def forward(ctx, x, head, targets, valid):
         global plain_calls
         plain_calls += 1
         targets = targets.long()
-        logits = matmul_f32(x, head)
+        logits = _masked_logits(x, head, valid)
         logz = torch.logsumexp(logits, dim=-1)
         tl = torch.gather(logits, 1, targets[:, None])[:, 0]
-        am = torch.argmax(logits, dim=-1)
+        mx, am = logits.max(dim=-1)
+        ctx.valid = valid
         ctx.save_for_backward(x, head, targets, logz)
-        ctx.mark_non_differentiable(am)
-        return logz, tl, am
+        ctx.mark_non_differentiable(am, mx)
+        return logz, tl, am, mx
 
     @staticmethod
-    def backward(ctx, g_logz, g_tl, g_am):
+    def backward(ctx, g_logz, g_tl, g_am, g_mx):
         global plain_calls
         plain_calls += 1
         x, head, targets, logz = ctx.saved_tensors
         g, h = _cotangents(x, g_logz, g_tl)
-        d = _dlogits_ref(x, head, targets, logz, g, h)
+        d = _dlogits_ref(x, head, targets, logz, g, h, ctx.valid)
         dx, dw = _grads_of_d(x, head, d)
-        return dx, dw, None
+        return dx, dw, None, None
 
 
 def fused_ce_stats_ref(x, head, targets):
     """The plain version: x (N, D), head (D, V), targets (N,) int ->
     (logz (N,) f32, target_logit (N,) f32, argmax (N,) int64)."""
     _check_shapes(x, head)
-    return _FusedCERef.apply(x, head, targets)
+    return _FusedCERef.apply(x, head, targets, head.shape[1])[:3]
 
 
 # ---------------------------------------------------------------------------
@@ -219,11 +238,11 @@ def stats_by_ranges_ref(x, head, targets, splits: int) -> tuple:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # x, head, targets, part_m, part_l, part_tl, part_am, logz, tl, am |
-    # n, d, v, splits | stream
-    "ce_fwd_bf16": [_P] * 10 + [_I] * 4 + [_P],
-    # x, head, targets, logz, g, h, d | n, d, v, splits | stream
-    "ce_dlogits_bf16": [_P] * 7 + [_I] * 4 + [_P],
+    # x, head, targets, part_m, part_l, part_tl, part_am, logz, tl, am,
+    # mx | n, d, v, valid, splits | stream
+    "ce_fwd_bf16": [_P] * 11 + [_I] * 5 + [_P],
+    # x, head, targets, logz, g, h, d | n, d, v, valid, splits | stream
+    "ce_dlogits_bf16": [_P] * 7 + [_I] * 5 + [_P],
     # d, head, dx | n, d, v | stream
     "ce_dx_bf16": [_P] * 3 + [_I] * 3 + [_P],
     # n, cols, splits, dx | out (host int32, (N / 128 * splits, 4))
@@ -276,37 +295,45 @@ def device_splits(n: int, v: int, device) -> int:
     return vocab_splits(n, v, sms)
 
 
-def forward_stats(x, head, targets32):
-    """One B7 call on validated CUDA tensors: (logz, tl, am int32)."""
+def forward_stats(x, head, targets32, valid: int | None = None,
+                  with_max: bool = False):
+    """One B7 call on validated CUDA tensors over the first `valid`
+    columns of head (all by default): (logz, tl, am int32), and the row
+    max (f32) after them with `with_max`."""
     global launches_fwd
     n, d = x.shape
     v = head.shape[1]
-    splits = device_splits(n, v, x.device)
+    valid = v if valid is None else valid
+    splits = device_splits(n, valid, x.device)
     f32 = dict(dtype=torch.float32, device=x.device)
     part = torch.empty((4, splits, n), **f32)
     part_am = torch.empty((splits, n), dtype=torch.int32, device=x.device)
     logz = torch.empty(n, **f32)
     tl = torch.empty(n, **f32)
     am = torch.empty(n, dtype=torch.int32, device=x.device)
+    mx = torch.empty(n, **f32) if with_max else None
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _check(_kernel("ce_fwd_bf16")(
         x.data_ptr(), head.data_ptr(), targets32.data_ptr(),
         part[0].data_ptr(), part[1].data_ptr(), part[2].data_ptr(),
         part_am.data_ptr(), logz.data_ptr(), tl.data_ptr(), am.data_ptr(),
-        n, d, v, splits, stream), "forward")
+        None if mx is None else mx.data_ptr(), n, d, v, valid, splits,
+        stream), "forward")
     launches_fwd += 1
-    return logz, tl, am
+    return (logz, tl, am, mx) if with_max else (logz, tl, am)
 
 
-def _launch_dlogits(x, head, targets32, logz, g, h, dbuf) -> None:
-    """B8's first launch: d (N, V) into dbuf. Counts nothing: a B8 call
-    is counted at its dx launch."""
+def _launch_dlogits(x, head, targets32, logz, g, h, dbuf,
+                    valid: int | None = None) -> None:
+    """B8's first launch: d (N, V) into dbuf, 0 from column `valid` on.
+    Counts nothing: a B8 call is counted at its dx launch."""
     n, dim = x.shape
     v = head.shape[1]
+    valid = v if valid is None else valid
     _check(_kernel("ce_dlogits_bf16")(
         x.data_ptr(), head.data_ptr(), targets32.data_ptr(),
         logz.data_ptr(), g.data_ptr(), h.data_ptr(), dbuf.data_ptr(), n,
-        dim, v, device_splits(n, v, x.device),
+        dim, v, valid, device_splits(n, valid, x.device),
         torch.cuda.current_stream(x.device).cuda_stream), "d_logits")
 
 
@@ -322,36 +349,39 @@ def _launch_dx(dbuf, head, dx) -> None:
     launches_dx += 1
 
 
-def backward_dx(x, head, targets32, logz, g, h):
+def backward_dx(x, head, targets32, logz, g, h, valid: int | None = None):
     """One B8 call on validated CUDA tensors: (d (N, V), dx (N, D)), both
     in x's dtype."""
     dbuf = torch.empty((x.shape[0], head.shape[1]), dtype=x.dtype,
                        device=x.device)
     dx = torch.empty_like(x)
-    _launch_dlogits(x, head, targets32, logz, g, h, dbuf)
+    _launch_dlogits(x, head, targets32, logz, g, h, dbuf, valid)
     _launch_dx(dbuf, head, dx)
     return dbuf, dx
 
 
 class _FusedCE(torch.autograd.Function):
-    """The kernels on (N, D) x and (D, V) head, bf16 CUDA tensors."""
+    """The kernels on (N, D) x and (D, V) head, bf16 CUDA tensors, over
+    head's first `valid` columns."""
 
     @staticmethod
-    def forward(ctx, x, head, targets):
+    def forward(ctx, x, head, targets, valid):
         targets32 = targets.to(torch.int32).contiguous()
-        logz, tl, am = forward_stats(x, head, targets32)
+        logz, tl, am, mx = forward_stats(x, head, targets32, valid,
+                                         with_max=True)
+        ctx.valid = valid
         ctx.save_for_backward(x, head, targets32, logz)
         am = am.long()
-        ctx.mark_non_differentiable(am)
-        return logz, tl, am
+        ctx.mark_non_differentiable(am, mx)
+        return logz, tl, am, mx
 
     @staticmethod
-    def backward(ctx, g_logz, g_tl, g_am):
+    def backward(ctx, g_logz, g_tl, g_am, g_mx):
         x, head, targets32, logz = ctx.saved_tensors
         g, h = _cotangents(x, g_logz, g_tl)
-        dbuf, dx = backward_dx(x, head, targets32, logz, g, h)
+        dbuf, dx = backward_dx(x, head, targets32, logz, g, h, ctx.valid)
         dw = torch.mm(x.t(), dbuf, out_dtype=torch.float32).to(head.dtype)
-        return dx, dw, None
+        return dx, dw, None, None
 
 
 def fused_ce_stats(x, head, targets):
@@ -367,4 +397,55 @@ def fused_ce_stats(x, head, targets):
         raise ValueError(f"fused_ce_stats: unsupported device {x.device}")
     x, head = x.contiguous(), head.contiguous()
     _validate(x, head, targets)
-    return _FusedCE.apply(x, head, targets)
+    return _FusedCE.apply(x, head, targets, head.shape[1])[:3]
+
+
+def _pad_shard(x, head):
+    n, valid = x.shape[0], head.shape[1]
+    if n % TILE or n == 0 or valid == 0:
+        raise ValueError(
+            f"fused_ce_shard_stats needs N ({n}) divisible by {TILE} and a "
+            "non-empty vocabulary shard")
+    pad = -valid % TILE
+    return (torch.nn.functional.pad(head, (0, pad)) if pad else head), valid
+
+
+def fused_ce_shard_stats_ref(x, head, targets):
+    """The plain version of `fused_ce_shard_stats`, on any device: the
+    same zero pad, masked the same way."""
+    head, valid = _pad_shard(x, head)
+    return _FusedCERef.apply(x, head, targets, valid)
+
+
+def combine_shard_stats(parts) -> tuple:
+    """(logz, target_logit, argmax) over the whole vocabulary from each
+    shard's (logz, target_logit (0 off the shard), argmax as a global
+    index, row max), shards in vocabulary order: the logsumexp of the
+    logz, the sum of the target logits, and the first shard's argmax
+    among those with the greatest max (a later shard wins only on a
+    strictly greater max, as the kernels combine their ranges)."""
+    logz = torch.logsumexp(torch.stack([p[0] for p in parts]), dim=0)
+    tl = torch.stack([p[1] for p in parts]).sum(dim=0)
+    mx = torch.stack([p[3].float() for p in parts])
+    best = mx.argmax(dim=0)  # the first of equal maxima
+    am = torch.gather(torch.stack([p[2] for p in parts]), 0, best[None])[0]
+    return logz, tl, am
+
+
+def fused_ce_shard_stats(x, head, targets):
+    """`fused_ce_stats` over one vocabulary shard of a tensor-parallel
+    head: x (N, D), head (D, V_shard) with any V_shard, targets (N,) in
+    [0, V_shard). A V_shard that is not a multiple of 128 is padded with
+    zero columns up to one, masked out of the statistics and of d (the
+    pad's gradient is dropped). Returns (logz, target_logit, argmax
+    int64, row max f32); the last two are not differentiable. On a CPU
+    tensor the plain version, on a CUDA tensor the kernels."""
+    head, valid = _pad_shard(x, head)
+    if x.device.type == "cpu":
+        return _FusedCERef.apply(x, head, targets, valid)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_ce_shard_stats: unsupported device "
+                         f"{x.device}")
+    x, head = x.contiguous(), head.contiguous()
+    _validate(x, head, targets)
+    return _FusedCE.apply(x, head, targets, valid)

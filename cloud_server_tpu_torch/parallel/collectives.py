@@ -6,6 +6,11 @@ dimension's process group (`mesh.get_group("tp")`): NCCL on cards, where
 they run on the current stream and a CUDA graph captures them, or gloo
 on the CPU. Thin on purpose: the rest of the port names its collectives
 in one place. A group of one rank (or None) makes each an identity.
+
+The forms named `*_ad` are the training step's: differentiable, each
+with the backward collective that makes every rank's gradient the
+gradient of the one global loss. The plain forms (serving) are
+forward-only.
 """
 
 from __future__ import annotations
@@ -112,3 +117,139 @@ def ring_exchange(chunks, group, *, shift: int = 1):
         return type(chunks)(ring_exchange(v, group, shift=shift)
                             for v in chunks)
     return ppermute_shift(chunks, group, shift)
+
+
+# -- host staging for gloo on CUDA tensors ------------------------------------
+
+def _host_staged(op, x: torch.Tensor, group, **kwargs) -> torch.Tensor:
+    """`op(x, group, **kwargs)` on a host copy of `x` when the group is
+    gloo and `x` lies on a card (the one-card form of a mesh: several
+    ranks on one card, which NCCL does not take); gloo's CUDA support
+    does not cover every collective. The copy is pinned (PyTorch's
+    caching host allocator keeps the buffers), so both copies run at
+    the link's rate. Elsewhere `op` on `x` itself."""
+    if x.is_cuda and _size(group) > 1 and dist.get_backend(group) == "gloo":
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        host.copy_(x.detach())
+        return op(host, group, **kwargs).to(x.device)
+    return op(x, group, **kwargs)
+
+
+# -- autograd-aware forms (training) ------------------------------------------
+#
+# The training step differentiates through its collectives. Each form
+# below is the forward collective with the backward that makes every
+# rank's gradient the gradient of the one global loss:
+#   psum_ad        sum over the group; backward the identity
+#   identity_ad    the identity; backward a sum over the group
+#   all_gather_ad  gather; backward a reduce_scatter (and the reverse)
+#   all_to_all_ad  all_to_all; backward the inverse all_to_all
+#   ppermute_ad    shift; backward the reverse shift
+# A group of one rank (or None) makes each the identity.
+
+
+class _PsumAD(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _host_staged(lambda t, g: psum(t.clone(), g), x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _IdentityAD(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _host_staged(lambda t, grp: psum(t.clone(), grp), g,
+                            ctx.group), None
+
+
+class _AllGatherAD(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        ctx.group, ctx.axis = group, axis
+        return _host_staged(all_gather, x, group, tiled_axis=axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _host_staged(reduce_scatter, g.contiguous(), ctx.group,
+                            scatter_axis=ctx.axis), None, None
+
+
+class _AllToAllAD(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis):
+        ctx.args = (group, split_axis, concat_axis)
+        return _host_staged(all_to_all, x, group, split_axis=split_axis,
+                            concat_axis=concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, split_axis, concat_axis = ctx.args
+        return _host_staged(all_to_all, g.contiguous(), group,
+                            split_axis=concat_axis,
+                            concat_axis=split_axis), None, None, None
+
+
+class _PpermuteAD(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return _host_staged(ppermute_shift, x, group, shift=shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _host_staged(ppermute_shift, g.contiguous(), ctx.group,
+                            shift=-ctx.shift), None, None
+
+
+def psum_ad(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum over the group (a new tensor); the backward is the identity:
+    the partial sums of a row-parallel product leaving a tp region."""
+    return x if _size(group) == 1 else _PsumAD.apply(x, group)
+
+
+def identity_ad(x: torch.Tensor, group) -> torch.Tensor:
+    """The identity; the backward sums over the group: a replicated
+    activation entering a tp region, whose ranks each send back the
+    gradient of their own part."""
+    return x if _size(group) == 1 else _IdentityAD.apply(x, group)
+
+
+def all_gather_ad(x: torch.Tensor, group, *, tiled_axis: int = 0):
+    """`all_gather` whose backward reduce-scatters (fsdp's parameter
+    gather: every rank's gradient of the full leaf is summed into the
+    owner's shard)."""
+    if _size(group) == 1:
+        return x
+    return _AllGatherAD.apply(x, group, tiled_axis % x.dim())
+
+
+def all_to_all_ad(x: torch.Tensor, group, *, split_axis: int,
+                  concat_axis: int) -> torch.Tensor:
+    """`all_to_all` whose backward is the inverse all_to_all (split the
+    concatenated axis, concatenate the split one)."""
+    if _size(group) == 1:
+        return x
+    return _AllToAllAD.apply(x, group, split_axis % x.dim(),
+                             concat_axis % x.dim())
+
+
+def ppermute_ad(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
+    """`ppermute_shift` whose backward shifts the gradient back."""
+    if _size(group) == 1 or shift % _size(group) == 0:
+        return x
+    return _PpermuteAD.apply(x, group, shift)
+
+
+def ring_exchange_ad(chunks, group, *, shift: int = 1):
+    """`ring_exchange` over `ppermute_ad`: a tuple of tensors one hop
+    around the ring, differentiable."""
+    return tuple(ppermute_ad(c, group, shift) for c in chunks)

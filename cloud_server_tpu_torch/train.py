@@ -11,8 +11,17 @@ The model family follows the config: MoE when model.num_experts >= 2.
 `--init-from` a training checkpoint), writing the adapter config beside
 the checkpoints. Runs on the GPU unless `--device cpu` is given.
 
-Not ported yet, and refused with NotImplementedError: multi-process runs
-(`--distributed`), a mesh with any axis > 1 and a "dcn_mesh" section.
+A "mesh" section of more than one device trains a dense model over a
+`torch.distributed` mesh, one process a rank: start the ranks with
+`torchrun --nproc-per-node N -m cloud_server_tpu_torch.train
+--distributed ...` (NCCL, one card a rank; gloo with `--device cpu`),
+which reads torchrun's environment (`parallel.distributed.initialize`).
+Each rank holds its shards of the parameters and optimizer state, rank
+0 logs and writes the checkpoints.
+
+Not ported yet, and refused with NotImplementedError: a mesh with pp or
+ep > 1, MoE models or `--lora-rank` (so `--init-from`) on a mesh, and a
+"dcn_mesh" section.
 """
 
 from __future__ import annotations
@@ -26,7 +35,8 @@ import json
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m cloud_server_tpu_torch.train",
-        description="Train a dense or MoE decoder LM on one GPU.")
+        description="Train a dense or MoE decoder LM on one GPU, or a "
+        "dense one over a mesh of GPUs (one process a rank).")
     p.add_argument("--config", help="JSON config file with optional "
                    "model/train/mesh/loop sections")
     p.add_argument("--data", action="append", default=None,
@@ -47,7 +57,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="override loop.eval_interval (defaults to 500 when "
                    "--eval-data is given and the config leaves it 0)")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-process training (not ported yet)")
+                   help="join the process group of a multi-process run "
+                   "from torchrun's environment (NCCL on cards, gloo with "
+                   "--device cpu); each rank trains on its own card")
     p.add_argument("--no-nan-guard", action="store_true",
                    help="disable the NaN/inf loss guard")
     from cloud_server_tpu_torch.models.lora import add_lora_args
@@ -103,13 +115,35 @@ def configs_from_args(args) -> tuple:
     return model_cfg, train_cfg, mesh_cfg, loop_cfg
 
 
-def _refuse_unported(args, mesh_cfg) -> None:
-    if args.distributed:
-        raise NotImplementedError("--distributed is not ported yet")
-    if mesh_cfg.num_devices > 1:
+def _refuse_unported(args, model_cfg, mesh_cfg) -> None:
+    """What the port does not train on a mesh raises NotImplementedError
+    before any process group is joined."""
+    from cloud_server_tpu_torch.models import moe
+    from cloud_server_tpu_torch.training.train_step import check_mesh
+    if mesh_cfg.num_devices > 1 and args.lora_rank > 0:
         raise NotImplementedError(
-            f"mesh {mesh_cfg.axis_sizes()}: training on more than one "
-            "device is not ported yet")
+            "--lora-rank on a mesh: LoRA adapters on a mesh are not ported "
+            "yet (they wait for lora_logical_axes)")
+    check_mesh(mesh_cfg, model_cfg, moe.module_for(model_cfg))
+
+
+def _join(args):
+    """(device, mesh or None): with --distributed, the process group from
+    torchrun's environment and this rank's card (LOCAL_RANK)."""
+    import os
+
+    import torch
+
+    from cloud_server_tpu_torch import resolve_device
+    device = resolve_device(args.device)
+    if not args.distributed:
+        return device
+    from cloud_server_tpu_torch.parallel.distributed import initialize
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
+    initialize(backend="nccl" if device.type == "cuda" else "gloo")
+    return device
 
 
 def build_dataset(args, train_cfg, model_cfg):
@@ -168,15 +202,14 @@ def main(argv=None):
     """Run the CLI; returns the final TrainState."""
     args = build_parser().parse_args(argv)
     model_cfg, train_cfg, mesh_cfg, loop_cfg = configs_from_args(args)
-    _refuse_unported(args, mesh_cfg)
+    _refuse_unported(args, model_cfg, mesh_cfg)
 
-    from cloud_server_tpu_torch import resolve_device
     from cloud_server_tpu_torch.data.dataset import MemmapTokenDataset
     from cloud_server_tpu_torch.training.loop import train_loop
     from cloud_server_tpu_torch.utils.failure import (
         NaNGuard, PreemptionHandler, Watchdog)
 
-    device = resolve_device(args.device)
+    device = _join(args)
     dataset = build_dataset(args, train_cfg, model_cfg)
     eval_dataset = (MemmapTokenDataset(args.eval_data, train_cfg.seq_len)
                     if args.eval_data else None)
@@ -190,10 +223,23 @@ def main(argv=None):
             hooks.append(NaNGuard())
         if args.watchdog > 0:
             hooks.append(stack.enter_context(Watchdog(args.watchdog)))
-        return train_loop(model_cfg, train_cfg, dataset, mesh_cfg=mesh_cfg,
-                          loop_cfg=loop_cfg, eval_dataset=eval_dataset,
-                          loss_fn_module=loss_fn_module, hooks=hooks,
-                          device=device)
+        try:
+            state = train_loop(model_cfg, train_cfg, dataset,
+                               mesh_cfg=mesh_cfg, loop_cfg=loop_cfg,
+                               eval_dataset=eval_dataset,
+                               loss_fn_module=loss_fn_module, hooks=hooks,
+                               device=device)
+            if args.distributed:
+                # the ranks leave together, none while rank 0 still
+                # writes the last checkpoint
+                import torch.distributed as dist
+                dist.barrier()
+            return state
+        finally:
+            if args.distributed:
+                import torch.distributed as dist
+                if dist.is_initialized():
+                    dist.destroy_process_group()
 
 
 if __name__ == "__main__":

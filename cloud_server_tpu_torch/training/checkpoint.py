@@ -1,4 +1,5 @@
-"""Checkpoint / resume on one device, in torch's own file format.
+"""Checkpoint / resume, on one device or a mesh, in torch's own file
+format.
 
 A checkpoint directory holds one subdirectory per saved step, named by
 the step. Each holds one file per item, so a reader loads only what it
@@ -23,6 +24,18 @@ for the device, since the next step updates the parameters in place)
 and a writer thread writes the files while training goes on; the next
 `save`, `wait` or `close` waits for it. Errors of the writer are raised
 there.
+
+On a mesh (`Checkpointer(mesh=)`) the files are the same: every rank
+takes part in gathering each leaf from its shards, one leaf at a time,
+and rank 0 alone copies the gathered (full) leaf to host memory and
+writes the leaves; a rank's device holds its shards plus one full leaf
+at most. A restore maps the files (`torch.load(mmap=True)`) and copies
+out this rank's slices, so a rank reads only its part of them, and a
+checkpoint saved on one mesh (or on one device) restores onto any other
+bit for bit (elastic resume). One writer keeps the format, the atomic
+rename and the async writer of the single-device case, and lets serving
+and `restore_params` read any run's checkpoint; the price is each leaf
+gathered once per save.
 """
 
 from __future__ import annotations
@@ -41,8 +54,12 @@ from cloud_server_tpu_torch.models import moe, transformer
 from cloud_server_tpu_torch.training.optim import (
     EmaState, FusedAdamWState, ema_params, flatten, map_tree,
     optimizer_for_module)
+from cloud_server_tpu_torch.parallel import collectives
+from cloud_server_tpu_torch.parallel.distributed import is_primary
+from cloud_server_tpu_torch.parallel.sharding import shard_tensor
 from cloud_server_tpu_torch.training.train_step import (TrainState,
-                                                        init_train_state)
+                                                        init_train_state,
+                                                        state_shardings)
 
 _MISMATCH = (
     "restore of step {step} failed with a structure mismatch. If "
@@ -84,6 +101,54 @@ def _items(state: TrainState) -> tuple[dict, dict]:
     return items, meta
 
 
+def _item_splits(items: dict, model_cfg, mesh, loss_fn_module) -> dict:
+    """{item: {path: splits}} of a state's items on `mesh`: the moments
+    and the EMA shard like their parameters."""
+    by_path = dict(flatten(state_shardings(model_cfg, mesh,
+                                           loss_fn_module=loss_fn_module)))
+    out = {}
+    for name, leaves in items.items():
+        out[name] = {}
+        for k in leaves:
+            path = k.split("/", 1)[1] if name == "opt" else k
+            out[name][k] = by_path[path]
+    return out
+
+
+def _gather_leaf(t: torch.Tensor, splits, mesh) -> torch.Tensor:
+    """The full leaf from every rank's shard of it (a collective: every
+    rank of the mesh calls it, in the same order)."""
+    t = t.detach()
+    for dim, axis in reversed(splits):
+        t = collectives.all_gather_ad(t.contiguous(), mesh.get_group(axis),
+                                      tiled_axis=dim)
+    return t
+
+
+def _gather_to_host(items: dict, splits: dict, mesh) -> dict | None:
+    """Rank 0's host copies of the full leaves of a mesh state's items
+    (None on the other ranks). One leaf at a time: each gathered leaf is
+    dropped before the next is gathered, so no rank's device ever holds
+    more than its shards and one full leaf."""
+    primary = is_primary()
+    host: dict = {}
+    for name, leaves in items.items():
+        host[name] = {}
+        for k, t in leaves.items():
+            full = _gather_leaf(t, splits[name][k], mesh)
+            if primary:
+                host[name][k] = full.to("cpu", copy=True)
+            del full
+    return host if primary else None
+
+
+def _slice_to(t: torch.Tensor, splits, mesh, device) -> torch.Tensor:
+    """This rank's slice of a leaf read through a file map, in memory
+    of its own on `device` (never a view of the map)."""
+    part = shard_tensor(t, splits, mesh)
+    return part.to(device, copy=part is t)
+
+
 def _snapshot(items: dict) -> dict:
     """Host copies of every tensor (never views of the live state, which
     the next optimizer step updates in place)."""
@@ -98,8 +163,11 @@ def _write_file(path: str, obj) -> None:
         os.fsync(f.fileno())
 
 
-def _load(path: str, device) -> dict:
-    return torch.load(path, map_location=device, weights_only=True)
+def _load(path: str, device, mmap: bool = False) -> dict:
+    """A checkpoint file's tensors; `mmap`: mapped, not read (host
+    tensors whose pages are read when touched)."""
+    return torch.load(path, map_location=device, weights_only=True,
+                      mmap=mmap)
 
 
 def abstract_train_state(model_cfg: ModelConfig, train_cfg: TrainConfig,
@@ -124,11 +192,25 @@ class Checkpointer:
     `max_to_keep` steps stay) and async save."""
 
     def __init__(self, directory: str | os.PathLike, *, max_to_keep: int = 3,
-                 save_interval_steps: int = 1, async_save: bool = True):
+                 save_interval_steps: int = 1, async_save: bool = True,
+                 mesh=None, model_cfg: ModelConfig | None = None,
+                 loss_fn_module=None):
+        """`mesh`: the DeviceMesh of the states saved and restored (every
+        rank of it makes the Checkpointer; rank 0 writes), with the
+        `model_cfg` (and `loss_fn_module`) whose logical axes place the
+        leaves."""
         self.directory = os.path.abspath(os.fspath(directory))
         self.max_to_keep = max_to_keep
         self.save_interval_steps = max(1, save_interval_steps)
         self.async_save = async_save
+        self.mesh = mesh
+        self.model_cfg = model_cfg
+        self.loss_fn_module = loss_fn_module
+        if mesh is not None and model_cfg is None:
+            raise ValueError("a Checkpointer on a mesh needs model_cfg")
+        # the steps every rank agrees are saved (a mesh's ranks decide
+        # alike whether to take part in a save)
+        self._saved = set(self.all_steps())
         self._thread: threading.Thread | None = None
         self._inflight: int | None = None
         self._error: Exception | None = None
@@ -142,18 +224,31 @@ class Checkpointer:
         keeps an EMA of the parameters, the EMA tree is its own item, so
         serving can read it alone."""
         step = int(state.step)
-        if step in self.all_steps() or step == self._inflight:
+        if self.mesh is not None:
+            if step in self._saved:
+                return False
+        elif step in self.all_steps() or step == self._inflight:
             return False  # even force=True must not collide with a save
         if not force and step % self.save_interval_steps:
             return False
         self.wait()
         items, meta = _items(state)
         meta["metrics"] = {k: float(v) for k, v in (metrics or {}).items()}
-        host = _snapshot(items)
+        if self.mesh is None:
+            host = _snapshot(items)
+        else:
+            host = _gather_to_host(items, _item_splits(
+                items, self.model_cfg, self.mesh, self.loss_fn_module),
+                self.mesh)
+            self._saved.add(step)
+            if host is None:
+                return True
         if not self.async_save:
             self._write(step, host, meta)
+            self._saved.add(step)
             return True
         self._inflight = step
+        self._saved.add(step)
         self._thread = threading.Thread(
             target=self._write_async, args=(step, host, meta), daemon=True,
             name="checkpoint-writer")
@@ -199,7 +294,9 @@ class Checkpointer:
         `abstract_train_state` will do) and loaded onto `device` (default:
         target's device, or CUDA for a meta target). The parameters the
         optimizer keeps moments for come back as autograd leaves, ready
-        to train; frozen ones (LoRA's base) do not."""
+        to train; frozen ones (LoRA's base) do not. On a mesh `target`
+        holds the full shapes (`abstract_train_state`) and each rank
+        keeps its slices of the saved leaves."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -216,7 +313,9 @@ class Checkpointer:
         want, _ = _items(target)
         if sorted(want) != meta["items"]:
             raise ValueError(_MISMATCH.format(step=step))
-        got = {name: _load(os.path.join(root, f"{name}.pt"), device)
+        on_mesh = self.mesh is not None
+        got = {name: _load(os.path.join(root, f"{name}.pt"),
+                           "cpu" if on_mesh else device, mmap=on_mesh)
                for name in meta["items"]}
         for name, leaves in want.items():
             if sorted(leaves) != sorted(got[name]) or any(
@@ -224,6 +323,12 @@ class Checkpointer:
                     or t.dtype != got[name][k].dtype
                     for k, t in leaves.items()):
                 raise ValueError(_MISMATCH.format(step=step))
+        if self.mesh is not None:
+            splits = _item_splits(got, self.model_cfg, self.mesh,
+                                  self.loss_fn_module)
+            got = {name: {k: _slice_to(t, splits[name][k], self.mesh, device)
+                          for k, t in leaves.items()}
+                   for name, leaves in got.items()}
         trained = {k[len("mu/"):] for k in got["opt"] if k.startswith("mu/")}
         params = _unflatten({k: p.requires_grad_(k in trained)
                              for k, p in got["params"].items()})
@@ -283,17 +388,26 @@ def _latest_step(directory: str) -> int:
 
 def restore_params(checkpoint_dir: str | os.PathLike, model_cfg: ModelConfig,
                    *, step: int | None = None, device=None,
-                   loss_fn_module=None) -> dict:
+                   loss_fn_module=None, mesh=None) -> dict:
     """The parameters of a saved TrainState (the latest step unless
     `step`), read from their own file: the optimizer's moments are never
     read. On `device` (CUDA unless named), at the saved dtype, checked
     against `loss_fn_module`'s shapes (the family of model_cfg by
-    default; a LoRA module's {"base", "lora"} tree)."""
+    default; a LoRA module's {"base", "lora"} tree). On a `mesh`, this
+    rank's slices."""
     directory = os.path.abspath(os.fspath(checkpoint_dir))
     if step is None:
         step = _latest_step(directory)
-    return _restore_tree(os.path.join(directory, str(step), "params.pt"),
-                         model_cfg, device, step, loss_fn_module)
+    path = os.path.join(directory, str(step), "params.pt")
+    if mesh is None:
+        return _restore_tree(path, model_cfg, device, step, loss_fn_module)
+    full = _restore_tree(path, model_cfg, "cpu", step, loss_fn_module,
+                         mmap=True)
+    splits = dict(flatten(state_shardings(model_cfg, mesh,
+                                          loss_fn_module=loss_fn_module)))
+    dev = resolve_device(device)
+    return _unflatten({k: _slice_to(t, splits[k], mesh, dev)
+                       for k, t in flatten(full)})
 
 
 def restore_ema_params(checkpoint_dir: str | os.PathLike,
@@ -314,8 +428,8 @@ def restore_ema_params(checkpoint_dir: str | os.PathLike,
 
 
 def _restore_tree(path: str, model_cfg: ModelConfig, device, step,
-                  loss_fn_module=None) -> dict:
-    flat = _load(path, resolve_device(device))
+                  loss_fn_module=None, mmap: bool = False) -> dict:
+    flat = _load(path, resolve_device(device), mmap)
     module = loss_fn_module or moe.module_for(model_cfg)
     want = dict(flatten(module.param_shapes(model_cfg)))
     if sorted(want) != sorted(flat) or any(
@@ -334,4 +448,4 @@ def restore_or_init(ckpt: Checkpointer, model_cfg: ModelConfig,
         target = abstract_train_state(model_cfg, train_cfg, loss_fn_module)
         return ckpt.restore(target, device=device), True
     return init_train_state(model_cfg, train_cfg, seed, device,
-                            loss_fn_module), False
+                            loss_fn_module, mesh=ckpt.mesh), False

@@ -17,11 +17,11 @@ from typing import Callable, Iterable
 import torch
 
 from cloud_server_tpu_torch.config import ModelConfig
-from cloud_server_tpu_torch.models import moe
+from cloud_server_tpu_torch.models import moe, transformer
 
 
 def make_eval_step(model_cfg: ModelConfig, loss_fn: Callable | None = None,
-                   loss_fn_module=None):
+                   loss_fn_module=None, mesh=None):
     """eval_step(params, batch) -> {"nll_sum", "n_tokens", "n_correct"}:
     sums (0-d float32 tensors on the batch's device, not read on the
     host), so the caller aggregates exactly across batches of different
@@ -30,20 +30,36 @@ def make_eval_step(model_cfg: ModelConfig, loss_fn: Callable | None = None,
     `loss_fn` ((params, batch, cfg) -> (loss, metrics with "loss" and
     "accuracy")) keeps eval on the objective of a custom training loss;
     without it, `loss_fn_module`'s (the family of model_cfg by default;
-    its "loss" metric is the CE alone for every family)."""
+    its "loss" metric is the CE alone for every family).
+
+    `mesh`: the DeviceMesh this rank evaluates on (its params the
+    rank's shards, its batch the rank's block; the loss is called with
+    `plan=`, as in the train step); the sums are the global batch's,
+    equal on every rank."""
     loss_fn = loss_fn or (loss_fn_module
                           or moe.module_for(model_cfg)).next_token_loss
+    plan = None if mesh is None else transformer.MeshPlan(mesh, model_cfg)
+    on_mesh = {} if plan is None else {"plan": plan}
+
+    def count(batch):
+        tokens = batch["tokens"]
+        mask = batch.get("mask")
+        if plan is None:
+            if mask is None:
+                return torch.tensor(
+                    float(tokens.shape[0] * (tokens.shape[1] - 1)),
+                    device=tokens.device)
+            return mask[:, 1:].float().sum()
+        # the whole rows' count, once per row (sp rank 0's)
+        whole = plan.whole_rows(torch.ones_like(tokens) if mask is None
+                                else mask)
+        n = whole[:, 1:].float().sum()
+        return plan.psum_data(n if plan.rank("sp") == 0 else n * 0)
 
     @torch.no_grad()
     def step(params, batch):
-        _, metrics = loss_fn(params, batch, model_cfg)
-        tokens = batch["tokens"]
-        mask = batch.get("mask")
-        if mask is None:
-            n = torch.tensor(float(tokens.shape[0] * (tokens.shape[1] - 1)),
-                             device=tokens.device)
-        else:
-            n = mask[:, 1:].float().sum()
+        _, metrics = loss_fn(params, batch, model_cfg, **on_mesh)
+        n = count(batch)
         # "loss" is the CE alone (the z-loss is added to the returned loss)
         return {"nll_sum": metrics["loss"] * n, "n_tokens": n,
                 "n_correct": metrics["accuracy"] * n}

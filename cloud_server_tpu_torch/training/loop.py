@@ -1,5 +1,5 @@
 """The training loop: data -> train step -> metrics/ckpt/eval, on one
-device.
+device or as one rank of a mesh.
 
 Orchestrates the port's subsystems as the reference's loop does:
   * the train step (`train_step.py`),
@@ -17,6 +17,11 @@ Orchestrates the port's subsystems as the reference's loop does:
     (`utils/failure.py`); hooks with `beat()` are beaten around eval and
     checkpoint writes.
 
+On a mesh (`mesh=`, or one built from a `mesh_cfg` of more than one
+device over the initialized process group) every rank runs the loop on
+its shards and its block of each batch; rank 0 alone logs, prints and
+writes the checkpoints (of the gathered leaves: `checkpoint.py`).
+
 Blocking discipline: the loop reads device results on the host only at
 log, eval and checkpoint boundaries, so up to `log_interval` steps queue
 on the card while the host prepares the next batches.
@@ -30,12 +35,14 @@ from typing import Callable, Sequence
 from cloud_server_tpu_torch import resolve_device
 from cloud_server_tpu_torch.config import MeshConfig, ModelConfig, TrainConfig
 from cloud_server_tpu_torch.data.loader import DataLoader
+from cloud_server_tpu_torch.parallel.distributed import is_primary
+from cloud_server_tpu_torch.parallel.mesh import make_mesh
 from cloud_server_tpu_torch.training.checkpoint import (Checkpointer,
                                                         restore_or_init)
 from cloud_server_tpu_torch.training.eval import evaluate, make_eval_step
 from cloud_server_tpu_torch.training.optim import ema_params
 from cloud_server_tpu_torch.training.train_step import (
-    check_single_device, init_train_state, make_train_step)
+    check_mesh, init_train_state, make_train_step)
 from cloud_server_tpu_torch.utils.logging import MetricLogger
 from cloud_server_tpu_torch.utils.metrics import (
     MetricAggregator, StepTimer, transformer_flops_per_token)
@@ -78,7 +85,7 @@ def train_loop(model_cfg: ModelConfig, train_cfg: TrainConfig,
                loop_cfg: LoopConfig | None = None, eval_dataset=None,
                loss_fn_module=None, loss_fn=None,
                hooks: Sequence[Hook] = (), max_steps: int | None = None,
-               device=None):
+               device=None, mesh=None):
     """Run training to `train_cfg.total_steps` on `device` (CUDA unless
     named); returns the final TrainState.
 
@@ -86,31 +93,39 @@ def train_loop(model_cfg: ModelConfig, train_cfg: TrainConfig,
     there. `max_steps` stops this run early (e.g. to simulate
     preemption) without touching `total_steps`, which the schedule
     reads. `loss_fn_module` is the model family (`models.transformer`,
-    `models.moe`, a LoRA module; the family of model_cfg by default)."""
+    `models.moe`, a LoRA module; the family of model_cfg by default).
+    `mesh`: the DeviceMesh this rank trains on; without it a `mesh_cfg`
+    of more than one device builds one over the process group (on
+    `device`'s type)."""
     loop_cfg = loop_cfg or LoopConfig()
-    check_single_device(mesh_cfg)
+    check_mesh(mesh_cfg, model_cfg, loss_fn_module)
     device = resolve_device(device)
+    if mesh is None and mesh_cfg is not None and mesh_cfg.num_devices > 1:
+        mesh = make_mesh(mesh_cfg, device.type)
 
     step_fn = make_train_step(model_cfg, train_cfg, mesh_cfg,
-                              loss_fn=loss_fn, loss_fn_module=loss_fn_module)
+                              loss_fn=loss_fn, loss_fn_module=loss_fn_module,
+                              mesh=mesh)
     ckpt = None
     resumed = False
     if loop_cfg.checkpoint_dir is not None:
         ckpt = Checkpointer(
             loop_cfg.checkpoint_dir, max_to_keep=loop_cfg.max_checkpoints,
             save_interval_steps=max(1, loop_cfg.checkpoint_interval),
-            async_save=loop_cfg.async_checkpoint)
+            async_save=loop_cfg.async_checkpoint, mesh=mesh,
+            model_cfg=model_cfg, loss_fn_module=loss_fn_module)
         state, resumed = restore_or_init(ckpt, model_cfg, train_cfg,
                                          train_cfg.seed, device,
                                          loss_fn_module)
     else:
         state = init_train_state(model_cfg, train_cfg, train_cfg.seed, device,
-                                 loss_fn_module)
+                                 loss_fn_module, mesh=mesh)
     start_step = int(state.step)
 
-    loader = DataLoader(dataset, train_cfg.batch_size, device,
-                        seed=train_cfg.seed, shuffle=loop_cfg.shuffle,
-                        prefetch=loop_cfg.data_prefetch)
+    loader = DataLoader.for_mesh(dataset, train_cfg.batch_size, device, mesh,
+                                 seed=train_cfg.seed,
+                                 shuffle=loop_cfg.shuffle,
+                                 prefetch=loop_cfg.data_prefetch)
     # one train step consumes one global batch, so the sampler position
     # is a function of the restored step
     bpe = loader.sampler.batches_per_epoch
@@ -120,12 +135,12 @@ def train_loop(model_cfg: ModelConfig, train_cfg: TrainConfig,
     eval_step = None
     if eval_dataset is not None and loop_cfg.eval_interval > 0:
         eval_step = make_eval_step(model_cfg, loss_fn=loss_fn,
-                                   loss_fn_module=loss_fn_module)
+                                   loss_fn_module=loss_fn_module, mesh=mesh)
         # prefetch=0: evaluate() stops mid-stream after eval_batches, and
         # an abandoned prefetch thread would block on its full queue
-        eval_loader = DataLoader(eval_dataset, train_cfg.batch_size, device,
-                                 seed=train_cfg.seed, shuffle=False,
-                                 prefetch=0)
+        eval_loader = DataLoader.for_mesh(eval_dataset, train_cfg.batch_size,
+                                          device, mesh, seed=train_cfg.seed,
+                                          shuffle=False, prefetch=0)
 
     tokens_per_step = train_cfg.batch_size * train_cfg.seq_len
     timer = StepTimer(
@@ -134,8 +149,9 @@ def train_loop(model_cfg: ModelConfig, train_cfg: TrainConfig,
         device=device,
         window=max(1, 100 // max(1, loop_cfg.log_interval)))
     agg = MetricAggregator()
-    logger = MetricLogger(loop_cfg.logdir)
-    if resumed:
+    logger = MetricLogger(loop_cfg.logdir,
+                          process_index=0 if is_primary() else 1)
+    if resumed and is_primary():
         print(f"[loop] resumed from step {start_step} "
               f"({loop_cfg.checkpoint_dir})")
 
@@ -199,6 +215,7 @@ def train_loop(model_cfg: ModelConfig, train_cfg: TrainConfig,
         # any other exception (a NaN-guard abort) must not save: it would
         # checkpoint corrupt params, and retention could evict the last
         # good checkpoint
+        data_it.close()  # stops the loader's prefetch thread
         if ckpt is not None:
             ckpt.close()
         logger.close()

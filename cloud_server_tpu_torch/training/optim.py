@@ -141,6 +141,18 @@ def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms).float())
 
 
+def sharded_global_norm(tensors: list[torch.Tensor], replicas: list[int],
+                        reduce) -> torch.Tensor:
+    """The global norm of leaves split over a mesh: each rank's sum of
+    squares of its shards, a leaf held identically by `replicas[i]` ranks
+    counted once (divided by that count), summed over every rank by
+    `reduce` (an in-place sum over the mesh)."""
+    norms = torch._foreach_norm(tensors)
+    sq = torch.stack([n.float().square() / r
+                      for n, r in zip(norms, replicas)]).sum()
+    return torch.sqrt(reduce(sq))
+
+
 def _f32(x: float) -> float:
     """x rounded to float32, as the reference computes its scalars."""
     return float(torch.tensor(x, dtype=torch.float32))
@@ -161,17 +173,21 @@ class FusedAdamW:
                                nu=map_tree(zeros, params))
 
     @torch.no_grad()
-    def step_(self, grads: dict, state: FusedAdamWState,
-              params: dict) -> tuple[FusedAdamWState, torch.Tensor]:
+    def step_(self, grads: dict, state: FusedAdamWState, params: dict,
+              gnorm: torch.Tensor | None = None
+              ) -> tuple[FusedAdamWState, torch.Tensor]:
         """Apply one update in place to `params` and the moments of
         `state`; `grads` are consumed. Returns (new state, the global norm
-        of `grads` before clipping)."""
+        of `grads` before clipping). `gnorm` gives that norm instead (on a
+        mesh, the norm over every rank's shards: `sharded_global_norm`);
+        the update then runs on this rank's shards."""
         cfg = self.cfg
         g = [t for _, t in flatten(grads)]
         m = [t for _, t in flatten(state.mu)]
         v = [t for _, t in flatten(state.nu)]
         p = [t for _, t in flatten(params)]
-        gnorm = global_norm(g)
+        if gnorm is None:
+            gnorm = global_norm(g)
         # optax.clip_by_global_norm scales by clip/norm when norm > clip;
         # the fused kernel divides the gradients by grad_scale as it reads
         # them, so grad_scale = max(norm / clip, 1)
@@ -274,14 +290,15 @@ class Optimizer:
             return state
         return (state, self.ema.init(params))
 
-    def step_(self, grads: dict, state, params: dict):
+    def step_(self, grads: dict, state, params: dict, gnorm=None):
         """In-place update from the trainable leaves' `grads`; returns
-        (new state, grad global norm)."""
+        (new state, grad global norm). `gnorm`: the norm, when the caller
+        computed it over a mesh."""
         trainable = self.trainable(params)
         if self.ema is None:
-            return self.adamw.step_(grads, state, trainable)
+            return self.adamw.step_(grads, state, trainable, gnorm)
         adam, ema = state
-        adam, gnorm = self.adamw.step_(grads, adam, trainable)
+        adam, gnorm = self.adamw.step_(grads, adam, trainable, gnorm)
         return (adam, self.ema.step_(ema, params)), gnorm
 
 

@@ -4,6 +4,8 @@ EOS x length penalty, ragged and batched prompts independent, k=1
 equal to greedy, and the tiny-vocabulary ValueError."""
 
 import dataclasses
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -19,6 +21,9 @@ from cloud_server_tpu_torch.config import ModelConfig as TModelConfig
 from cloud_server_tpu_torch.inference import beam_search, engine
 from cloud_server_tpu_torch.models.transformer import params_from_numpy
 from cloud_server_tpu_torch.utils import prng
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_test_setup import release_compiled_programs  # noqa: E402,F401
 
 CFG = ModelConfig(
     vocab_size=64, embed_dim=32, num_layers=2, num_heads=4, num_kv_heads=2,

@@ -70,6 +70,27 @@ def test_loader_yields_int64_batches_of_the_sampled_examples(prefetch):
         np.testing.assert_array_equal(batch["tokens"].numpy(), want)
 
 
+def test_closing_a_prefetching_loader_stops_its_thread():
+    """Closing the iterator of a prefetching loader stops its producer
+    thread and waits for it, also while the producer is blocked on a
+    full queue: no producer outlives the loop that used it."""
+    import threading
+    import time
+    ds = dataset.SyntheticLMDataset(32, 8, 100, seed=0)
+    dl = loader.DataLoader(ds, 4, "cpu", seed=2, prefetch=2)
+    before = threading.active_count()
+    it = iter(dl)
+    first = next(it)
+    assert first["tokens"].shape == (4, 8)
+    deadline = time.monotonic() + 10
+    while threading.active_count() == before and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert threading.active_count() == before + 1
+    time.sleep(0.2)  # the queue fills and the producer waits on it
+    it.close()
+    assert threading.active_count() == before
+
+
 def test_native_reader_is_not_ported():
     """The gathered reader's route, refused before, now collates: a
     dataset with `read_batch` gets one call per batch with the sampler's

@@ -8,6 +8,8 @@ request prefilled when no decode replica can import, QoS-class
 handoffs and prompt tokens billed once."""
 
 import dataclasses
+import os
+import sys
 import time
 
 import jax
@@ -37,6 +39,9 @@ from cloud_server_tpu_torch.inference.router import (ROLE_COLOCATED,
                                                      ReplicatedRouter)
 from cloud_server_tpu_torch.models.transformer import params_from_numpy
 from tests.test_torch_migration import _assert_gap_free
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_test_setup import release_compiled_programs  # noqa: E402,F401
 
 CFG = ModelConfig(
     vocab_size=64, embed_dim=32, num_layers=2, num_heads=4, num_kv_heads=2,

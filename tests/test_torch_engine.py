@@ -7,6 +7,8 @@ logits, lengths left alone), the int8 cache, the flash route's prefill
 against the plain one, and the reference's ValueErrors."""
 
 import dataclasses
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +27,9 @@ from cloud_server_tpu_torch.inference.sampling import sample_logits
 from cloud_server_tpu_torch.models import transformer
 from cloud_server_tpu_torch.ops import flash_attention as flash_mod
 from cloud_server_tpu_torch.utils import prng
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_test_setup import release_compiled_programs  # noqa: E402,F401
 
 TINY = ModelConfig(
     vocab_size=64, embed_dim=32, num_layers=2, num_heads=4, num_kv_heads=2,

@@ -7,6 +7,8 @@ NaNs and 0 tokens in both."""
 
 import dataclasses
 import math
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +24,9 @@ from cloud_server_tpu_torch import config as tconfig
 from cloud_server_tpu_torch.models import transformer
 from cloud_server_tpu_torch.ops import fused_ce as fc
 from cloud_server_tpu_torch.training import eval as teval
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_test_setup import release_compiled_programs  # noqa: E402,F401
 
 CFG = ModelConfig(
     vocab_size=128, embed_dim=32, num_layers=2, num_heads=4, num_kv_heads=2,

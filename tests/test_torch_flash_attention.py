@@ -12,6 +12,8 @@ the sums run in other orders and the reference accumulates blockwise).
 The CUDA kernels themselves are held against this plain version on the
 card (tests/test_torch_kernels_gpu.py, chip_smoke.py)."""
 
+import os
+import sys
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +22,9 @@ import torch
 
 from cloud_server_tpu.ops import flash_attention as ref_fa
 from cloud_server_tpu_torch.ops import flash_attention as fl
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_test_setup import release_compiled_programs  # noqa: E402,F401
 
 FWD_TOL = 1e-5
 GRAD_TOL = 1e-4

@@ -20,6 +20,8 @@ interpret mode as the reference's own tests run them:
 """
 
 import dataclasses
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -34,6 +36,9 @@ from cloud_server_tpu_torch import config as tconfig
 from cloud_server_tpu_torch.models import transformer
 from cloud_server_tpu_torch.ops import fused_ce as fc
 from cloud_server_tpu_torch.training import optim
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_test_setup import release_compiled_programs  # noqa: E402,F401
 
 SHAPES = [(256, 64, 512), (128, 64, 384)]
 

@@ -7,6 +7,8 @@ combinations. Without a GPU the port's CLI refuses to run unless given
 --device cpu."""
 
 import json
+import os
+import sys
 
 import jax
 import numpy as np
@@ -17,6 +19,9 @@ from cloud_server_tpu import generate as ref_generate
 from cloud_server_tpu.config import ModelConfig
 from cloud_server_tpu.models import transformer as ref_tf
 from cloud_server_tpu_torch import generate
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_test_setup import release_compiled_programs  # noqa: E402,F401
 
 MODEL = {"vocab_size": 300, "embed_dim": 32, "num_layers": 2,
          "num_heads": 4, "num_kv_heads": 2, "head_dim": 8, "mlp_dim": 64,

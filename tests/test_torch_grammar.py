@@ -7,6 +7,8 @@ the port's server constrains a generation to its pattern, the
 reference's tokens on the same weights."""
 
 import dataclasses
+import os
+import sys
 
 import jax
 import numpy as np
@@ -28,6 +30,9 @@ from cloud_server_tpu_torch.inference.paged_server import (
     PagedInferenceServer)
 from cloud_server_tpu_torch.inference.sampling import SamplingParams
 from cloud_server_tpu_torch.models.transformer import params_from_numpy
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_test_setup import release_compiled_programs  # noqa: E402,F401
 
 VOCAB = 300
 PATTERNS = [

@@ -10,7 +10,9 @@ module-level cases of tests/test_qos.py, test_slo.py, test_faults.py,
 test_anomaly.py and test_migration.py."""
 
 import json
+import os
 import random
+import sys
 import threading
 
 import pytest
@@ -25,6 +27,9 @@ from cloud_server_tpu_torch.inference import (anomaly, faults, migration,
                                               qos, slo)
 from cloud_server_tpu_torch.inference.server import _StepTracer
 from cloud_server_tpu_torch.utils import tracing
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_test_setup import release_compiled_programs  # noqa: E402,F401
 
 
 class _Clock:

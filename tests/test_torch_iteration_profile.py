@@ -9,6 +9,8 @@ and the HTTP frontend's /stats and /debug/scheduler_trace answer."""
 
 import dataclasses
 import json
+import os
+import sys
 import urllib.error
 import urllib.request
 
@@ -30,6 +32,9 @@ from cloud_server_tpu_torch.inference.iteration_profile import (
 from cloud_server_tpu_torch.inference.paged_server import (
     PagedInferenceServer)
 from cloud_server_tpu_torch.models.transformer import params_from_numpy
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_test_setup import release_compiled_programs  # noqa: E402,F401
 
 CFG = ModelConfig(
     vocab_size=64, embed_dim=32, num_layers=2, num_heads=4, num_kv_heads=2,

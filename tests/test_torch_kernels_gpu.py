@@ -479,13 +479,32 @@ def test_flash_kernels_match_plain(b, s, docs, d):
     the reference's block 16) run padded to a multiple of 64, S 900
     (fused, packed) and S 40 (fused, Dh 64) padded to 960 and 64, whose
     last 128-row tile is half empty."""
+    _flash_case(b, s, docs, d, 32, 8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,docs,h,kh", [(4, 2048, 0, 16, 4),
+                                           (2, 2048, 0, 8, 2),
+                                           (4, 1024, 0, 16, 4),
+                                           (4, 1024, 3, 16, 4)],
+                         ids=["tp2", "tp4", "ulysses_sp2",
+                              "ulysses_sp2_packed"])
+def test_flash_kernels_match_plain_per_rank_heads(b, s, docs, h, kh):
+    """The flash kernels on one rank's heads of Llama-3.1-8B under a mesh:
+    H/tp and KH/tp at tp 2 and 4 (S 2048, the blocked backward), and the
+    H/sp heads over the whole sequence that Ulysses attention hands them
+    at sp 2 (S 1024, the fused backward; packed rows too)."""
+    _flash_case(b, s, docs, 128, h, kh)
+
+
+def _flash_case(b, s, docs, d, h, kh):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from cloud_server_tpu_torch.ops import flash_attention as fl
-    r = np.random.default_rng(s + docs + 128 - d)
+    r = np.random.default_rng(s + docs + 128 - d + h)
     q, k, v, dout = (torch.from_numpy(r.standard_normal(shape).astype(
         np.float32)).cuda().to(torch.bfloat16) for shape in (
-        (b, s, 32, d), (b, s, 8, d), (b, s, 8, d), (b, s, 32, d)))
+        (b, s, h, d), (b, s, kh, d), (b, s, kh, d), (b, s, h, d)))
     seg = None
     if docs:
         cuts = [np.sort(r.choice(np.arange(1, s), docs - 1, replace=False))
@@ -662,6 +681,79 @@ def test_fused_ce_kernels_match_plain(n, vocab, case):
         assert float(diff.square().mean().sqrt()
                      / w.square().mean().sqrt()) <= rms_lim, key
         assert float(diff.max() / w.abs().max()) <= max_lim, key
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("v", [32064, 64128, 16032])
+def test_fused_ce_shard_kernels_match_plain(v):
+    """B7 and B8 on one tp rank's vocabulary shard of Llama-3.1-8B's
+    128256 rows: 32064 (tp 4) and 16032 (tp 8), not multiples of 128, so
+    padded with zero columns masked out of the statistics and of d, and
+    64128 (tp 2), against the plain version of the same padded shard
+    (logz, target logit, row max, argmax, dx, dW) at the 2048 rows of
+    CE_CASES, with CE_TOL; and two shards' statistics combined
+    (`combine_shard_stats`) against the plain statistics of the whole
+    2v-row head."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cloud_server_tpu_torch.ops import fused_ce as fc
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, d = 2048, 4096
+    r = np.random.default_rng(v)
+    x = torch.from_numpy(r.standard_normal((n, d)).astype(
+        np.float32)).cuda().to(torch.bfloat16)
+    head = torch.from_numpy((r.standard_normal((d, 2 * v)) * d ** -0.5)
+                            .astype(np.float32)).cuda().to(torch.bfloat16)
+    t = torch.from_numpy(r.integers(0, 2 * v, n)).cuda()
+    gz = torch.from_numpy(r.standard_normal(n).astype(np.float32)).cuda()
+    gt = torch.from_numpy(r.standard_normal(n).astype(np.float32)).cuda()
+
+    def run(fn, hh, tt, inside):
+        xx = x.clone().requires_grad_(True)
+        hh = hh.clone().requires_grad_(True)
+        logz, tl, am, mx = fn(xx, hh, tt)
+        tl = torch.where(inside, tl, 0.0)
+        ((logz * gz).sum() + (tl * gt).sum()).backward()
+        return logz.detach(), tl.detach(), am, mx, xx.grad, hh.grad
+
+    shards = []
+    for i in range(2):
+        local = t - i * v
+        inside = (local >= 0) & (local < v)
+        local = local.clamp(0, v - 1)
+        hs = head[:, i * v:(i + 1) * v]
+        fc.reset_counters()
+        got = run(fc.fused_ce_shard_stats, hs, local, inside)
+        torch.cuda.synchronize()
+        assert fc.counters() == {"launches_fwd": 1, "launches_dx": 1,
+                                 "plain_calls": 0}
+        want = run(fc.fused_ce_shard_stats_ref, hs, local, inside)
+        for key, g, w in zip(("logz", "tl", "mx"), (got[0], got[1], got[3]),
+                             (want[0], want[1], want[3])):
+            assert bool(torch.isfinite(g).all()), key
+            assert float((g - w).abs().max()) <= CE_TOL["logz"], key
+        logits = torch.mm(x, hs, out_dtype=torch.float32)
+        rows = torch.arange(n, device="cuda")
+        assert bool((got[2] < v).all())
+        gap = logits[rows, want[2]] - logits[rows, got[2]]
+        assert float(gap.max()) <= CE_TOL["logz"]
+        for key, g, w in zip(("dx", "dw"), got[4:], want[4:]):
+            g, w = g.float(), w.float()
+            diff = (g - w).abs()
+            rms_lim, max_lim = CE_TOL[key]
+            assert float(diff.square().mean().sqrt()
+                         / w.square().mean().sqrt()) <= rms_lim, key
+            assert float(diff.max() / w.abs().max()) <= max_lim, key
+        shards.append((got[0], got[1], got[2] + i * v, got[3]))
+    logz, tl, am = fc.combine_shard_stats(shards)
+    with torch.no_grad():
+        want = fc.fused_ce_shard_stats_ref(x, head, t)
+    assert float((logz - want[0]).abs().max()) <= CE_TOL["logz"]
+    assert float((tl - want[1]).abs().max()) <= CE_TOL["tl"]
+    full = torch.mm(x, head, out_dtype=torch.float32)
+    rows = torch.arange(n, device="cuda")
+    assert float((full[rows, want[2]] - full[rows, am]).abs().max()) <= (
+        CE_TOL["logz"])
 
 
 # (N, V): the shapes of tests/test_torch_fused_ce.py's schedule test

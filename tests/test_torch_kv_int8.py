@@ -11,6 +11,8 @@ of the same size. The CUDA kernel's int8 branch is held against the
 plain version on the card by tests/test_torch_kernels_gpu.py."""
 
 import dataclasses
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +34,9 @@ from cloud_server_tpu_torch.inference.paged_server import (
     PagedInferenceServer)
 from cloud_server_tpu_torch.models import transformer
 from cloud_server_tpu_torch.ops import paged_attention as pa
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_test_setup import release_compiled_programs  # noqa: E402,F401
 
 # --------------------------------------------------------------------------
 # quantization

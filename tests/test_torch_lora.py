@@ -8,6 +8,8 @@ the reference's merge. Training (A18) and MoE adapters are not ported:
 their target table refuses."""
 
 import dataclasses
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +30,9 @@ from cloud_server_tpu_torch.models import lora
 from cloud_server_tpu_torch.models import transformer
 from cloud_server_tpu_torch.models.transformer import params_from_numpy
 from cloud_server_tpu_torch.ops import rope_table
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_test_setup import release_compiled_programs  # noqa: E402,F401
 
 CFG = ModelConfig(
     vocab_size=64, embed_dim=32, num_layers=2, num_heads=4, num_kv_heads=2,

@@ -4,6 +4,8 @@ llama3 rope scaling and GQA. Also the weight loader and the on-device
 initialisation's distribution."""
 
 import dataclasses
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +17,9 @@ from cloud_server_tpu.config import ModelConfig
 from cloud_server_tpu.models import transformer as ref_tf
 from cloud_server_tpu_torch.config import ModelConfig as TModelConfig
 from cloud_server_tpu_torch.models import transformer
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_test_setup import release_compiled_programs  # noqa: E402,F401
 
 BASE = dict(vocab_size=97, embed_dim=32, num_layers=2, num_heads=4,
             head_dim=8, mlp_dim=64, max_seq_len=64, dtype="float32",
@@ -80,11 +85,30 @@ def test_init_params_distribution():
 
 
 def test_unported_attention_impl_raises():
-    cfg = _tcfg(dataclasses.replace(CONFIGS["mha"], attention_impl="ring"))
+    """Sequence-parallel attention is "ring" or "ulysses": under a mesh
+    with sp > 1 the plain and flash attentions raise NotImplementedError.
+    On one device "ring" and "ulysses" compute the plain causal
+    attention over their one chunk."""
+    cfg = _tcfg(CONFIGS["mha"])
     params = transformer.init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError):
-        transformer.forward(params, torch.zeros((1, 4), dtype=torch.long),
-                            cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 8),
+                           generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        want = transformer.forward(params, tokens, cfg)
+        for impl in ("ring", "ulysses"):
+            got = transformer.forward(
+                params, tokens, dataclasses.replace(cfg, attention_impl=impl))
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+    class _SpPlan:  # a mesh plan's view: sp 2
+        def size(self, axis):
+            return 2 if axis == "sp" else 1
+
+    for impl in ("xla", "flash"):
+        with pytest.raises(NotImplementedError, match="sp=2"):
+            transformer._get_attention_fn(
+                dataclasses.replace(cfg, attention_impl=impl),
+                plan=_SpPlan())
 
 
 @pytest.mark.parametrize("make", ["init_params", "params_from_numpy"])

@@ -355,20 +355,6 @@ def test_prefill_decode_matches_full_forward(weights):
                                    atol=3e-4)
 
 
-@pytest.mark.parametrize("kind", list(FACTORS))
-def test_contiguous_server_matches_reference(weights, kind):
-    """The contiguous server on an MoE model: the reference server's
-    tokens under the same schedule (capacity contended over the same
-    bucketed rows), and dropless also each prompt's engine tokens."""
-    ref, port = weights
-    cfg = _cfg(FACTORS[kind])
-    kw = dict(max_slots=2, max_len=64, prompt_buckets=[16, 32])
-    want = _staggered(RefServer(ref, cfg, GREEDY, **kw))
-    got = _staggered(InferenceServer(port, _tc(cfg), _ti(), device="cpu",
-                                     **kw))
-    assert got == want
-
-
 @pytest.fixture(scope="module")
 def paged_reference(weights):
     """The reference paged server's tokens on the staggered workload at
@@ -378,76 +364,12 @@ def paged_reference(weights):
             for kind, f in FACTORS.items()}
 
 
-@pytest.mark.parametrize("kind", list(FACTORS))
-def test_paged_server_matches_reference(weights, paged_reference, kind):
-    """The paged server (mixed scheduler, overlap pipeline) routes each
-    window_forward's (B, W) rows as the reference's programs do: its
-    tokens equal the reference server's, with drops too; dropless they
-    also equal each prompt's engine tokens."""
-    _, port = weights
-    cfg = _cfg(FACTORS[kind])
-    srv = PagedInferenceServer(port, _tc(cfg), _ti(), device="cpu",
-                               **SRV_KW)
-    got = _staggered(srv)
-    assert got == paged_reference[kind]
-    if kind == "dropless":
-        for prompt, out in zip(PROMPTS, got):
-            assert out == _port_engine(port, cfg, prompt, 8), prompt
-
-
 @pytest.fixture(scope="module")
 def moe_draft():
     """A 1-layer MoE draft model (reference init, crossed as numpy)."""
     dcfg = dataclasses.replace(CFG, num_layers=1)
     ref = ref_moe.init_params(dcfg, jax.random.key(7))
     return ref, params_from_numpy(_np(ref), _tc(dcfg), device="cpu"), dcfg
-
-
-@pytest.mark.parametrize("draft", ["ngram", "moe_draft"])
-def test_paged_speculation_matches_plain(weights, paged_reference,
-                                         moe_draft, draft):
-    """In-server speculation on an MoE target (n-gram drafts, or an MoE
-    draft model on its own pools) gives the plain greedy tokens."""
-    _, port = weights
-    kw = {}
-    if draft == "moe_draft":
-        kw = dict(draft_params=moe_draft[1], draft_cfg=_tc(moe_draft[2]))
-    srv = PagedInferenceServer(port, _tc(CFG), _ti(), device="cpu",
-                               spec_drafts=2, **kw, **SRV_KW)
-    assert _staggered(srv) == paged_reference["dropless"]
-
-
-def test_paged_ngram_speculation_under_drops_matches_reference(weights):
-    """Under capacity drops (factor 1.25) speculation changes which rows
-    contend for expert slots, so the reference's speculative tokens
-    differ from its plain ones: the port's n-gram speculative server
-    (spec_drafts=2, mixed scheduler, greedy) gives the reference's
-    speculative server's tokens. Rows with sentinel tables (padding and
-    inert rows) read the last real page, as the reference's gather does,
-    not the scratch page."""
-    ref, port = weights
-    cfg = _cfg(FACTORS["drops"])
-    want = _staggered(RefPaged(ref, cfg, GREEDY, overlap=False,
-                               spec_drafts=2, **SRV_KW))
-    srv = PagedInferenceServer(port, _tc(cfg), _ti(), device="cpu",
-                               spec_drafts=2, **SRV_KW)
-    assert _staggered(srv) == want
-
-
-def test_speculative_generate_with_moe_draft(weights, moe_draft):
-    """The batch API with an MoE target and an MoE draft gives plain
-    greedy generation's tokens (the engine's, held to the reference's
-    above)."""
-    _, port = weights
-    _, pdraft, dcfg = moe_draft
-    prompt = torch.tensor([[5, 9, 3, 7], [17, 2, 40, 8]])
-    icfg = _ti(dataclasses.replace(GREEDY, max_decode_len=10))
-    got = speculative.speculative_generate(
-        port, pdraft, prompt, prng.key(0), cfg=_tc(CFG),
-        draft_cfg=_tc(dcfg), infer_cfg=icfg, num_draft=3)
-    plain = engine.generate(port, prompt, prng.key(0), cfg=_tc(CFG),
-                            infer_cfg=icfg)
-    assert got.tolist() == plain.tolist()
 
 
 def test_moe_params_quantize(weights):
@@ -504,29 +426,6 @@ def test_moe_adapter_validation(weights):
                       LoRAConfig(rank=2, targets=("w_gate",)))):
         with pytest.raises(ValueError, match="MoE base"):
             srv.add_adapter("m", _np(mlp), cfg)
-
-
-def test_attention_adapters_on_moe_base(weights, paged_reference):
-    """Attention-target adapters serve per request on an MoE base: base
-    rows give the plain tokens, adapted rows the reference server's."""
-    ref, port = weights
-    lp = _attention_adapter(4)
-
-    def run(srv, lcfg):
-        srv.add_adapter("att", lp, lcfg)
-        base = srv.submit(PROMPTS[0], max_new_tokens=6)
-        adapted = srv.submit(PROMPTS[0], max_new_tokens=6, adapter="att")
-        srv.run_until_idle()
-        return base.result(), adapted.result()
-
-    want = run(RefPaged(ref, CFG, GREEDY, overlap=False, **SRV_KW),
-               RefLoRAConfig(rank=4, alpha=8.0, targets=("wq", "wv")))
-    got = run(PagedInferenceServer(port, _tc(CFG), _ti(), device="cpu",
-                                   **SRV_KW),
-              LoRAConfig(rank=4, alpha=8.0, targets=("wq", "wv")))
-    assert got == want
-    assert got[0] == paged_reference["dropless"][0][:6]
-    assert got[1] != got[0]  # the adapter bites
 
 
 # ---------------------------------------------------------------------------

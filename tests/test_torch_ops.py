@@ -3,6 +3,8 @@ rms_norm, rope (none / linear / llama3 scaling), swiglu and
 causal_attention. Inputs are numpy arrays from a seed, fed to both."""
 
 import dataclasses
+import os
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +18,9 @@ from cloud_server_tpu.ops import norms as ref_norms
 from cloud_server_tpu.ops import rope as ref_rope
 from cloud_server_tpu_torch.config import ModelConfig as TModelConfig
 from cloud_server_tpu_torch.ops import activations, attention, norms, rope
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_test_setup import release_compiled_programs  # noqa: E402,F401
 
 ATOL = 1e-5
 

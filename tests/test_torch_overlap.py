@@ -13,7 +13,8 @@ and deadline expiries deferred past the in-flight dispatch, the overlap
 fields of the flight records."""
 
 import dataclasses
-import gc
+import os
+import sys
 import time
 
 import jax
@@ -33,6 +34,9 @@ from cloud_server_tpu_torch.inference.paged_server import (
     PagedInferenceServer)
 from cloud_server_tpu_torch.inference.sampling import SamplingParams
 from cloud_server_tpu_torch.models.transformer import params_from_numpy
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_test_setup import release_compiled_programs  # noqa: E402,F401
 
 CFG = ModelConfig(
     vocab_size=64, embed_dim=32, num_layers=2, num_heads=4, num_kv_heads=2,
@@ -59,18 +63,6 @@ CLOCK_FIELDS = {"t_start", "phases_ms", "duration_ms", "host_ms",
 def _port_cfgs(cfg=CFG, icfg=GREEDY):
     return (TModelConfig(**dataclasses.asdict(cfg)),
             TInferConfig(**dataclasses.asdict(icfg)))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _release_compiled_programs():
-    """Drop the reference's compiled XLA programs when the module ends:
-    each holds a few memory maps, and this module's leave about 27
-    thousand; a test worker that runs it and other reference-heavy
-    modules would otherwise reach the kernel's map limit
-    (vm.max_map_count), where the next compile fails."""
-    yield
-    jax.clear_caches()
-    gc.collect()
 
 
 @pytest.fixture(scope="module")
@@ -110,8 +102,19 @@ def _policy(records):
 
 @pytest.mark.parametrize("workload", ["staggered", "preempt"])
 @pytest.mark.parametrize("draw", ["greedy", "seeded_rows", "server_global"])
-@pytest.mark.parametrize("sched", list(SCHEDULERS))
+@pytest.mark.parametrize("sched", ["overlap"])
 def test_schedulers_match_reference(weights, sched, draw, workload):
+    """The overlap scheduler's case of `check_schedulers_match_reference`;
+    test_torch_overlap_{sequential,alternating}.py hold the other two
+    schedulers' cases (a file each, so that `--dist loadfile` spreads
+    them over workers)."""
+    check_schedulers_match_reference(weights, sched, draw, workload)
+
+
+def check_schedulers_match_reference(weights, sched, draw, workload):
+    """The port's server and the reference's on the same inputs under
+    scheduler `sched`: the same tokens, logprobs within 1e-4, the same
+    preemptions and flight records."""
     ref_params, params = weights
     icfg = GREEDY
     if draw == "server_global":

@@ -6,6 +6,8 @@ Cases: narrow and wide windows, GQA and MHA, ragged widths, short
 lengths, sentinel table entries, and a length-0 slot that must stay
 finite."""
 
+import os
+import sys
 import numpy as np
 import pytest
 import torch
@@ -14,6 +16,9 @@ import jax.numpy as jnp
 
 from cloud_server_tpu.ops import paged_attention as ref_pa
 from cloud_server_tpu_torch.ops import paged_attention as pa
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_test_setup import release_compiled_programs  # noqa: E402,F401
 
 ATOL = 1e-5
 

@@ -4,6 +4,8 @@ write through a sentinel table leaves the pool's pages unchanged (it
 lands on the scratch page the port's pools carry last)."""
 
 import dataclasses
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -17,6 +19,9 @@ from cloud_server_tpu.models import transformer as ref_tf
 from cloud_server_tpu_torch.config import ModelConfig as TModelConfig
 from cloud_server_tpu_torch.inference import paged_engine
 from cloud_server_tpu_torch.models import transformer
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_test_setup import release_compiled_programs  # noqa: E402,F401
 
 CFG = ModelConfig(vocab_size=61, embed_dim=32, num_layers=2, num_heads=4,
                   num_kv_heads=2, head_dim=8, mlp_dim=64, max_seq_len=128,

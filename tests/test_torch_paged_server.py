@@ -8,6 +8,8 @@ scheduler); sequence embeddings through both attention routes."""
 
 import dataclasses
 import gc
+import os
+import sys
 import weakref
 
 import jax
@@ -27,6 +29,9 @@ from cloud_server_tpu_torch.inference.paged_server import (
     PagedInferenceServer)
 from cloud_server_tpu_torch.inference.sampling import SamplingParams
 from cloud_server_tpu_torch.models.transformer import params_from_numpy
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_test_setup import release_compiled_programs  # noqa: E402,F401
 
 CFG = ModelConfig(
     vocab_size=64, embed_dim=32, num_layers=2, num_heads=4, num_kv_heads=2,

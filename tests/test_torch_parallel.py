@@ -27,6 +27,7 @@ from cloud_server_tpu_torch.parallel import spawn_ranks
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import torch_tp_ranks as ranks  # noqa: E402
+from torch_test_setup import release_compiled_programs  # noqa: E402,F401
 
 _CFG = dict(vocab_size=64, embed_dim=32, num_layers=2, num_heads=4,
             num_kv_heads=2, head_dim=8, mlp_dim=64, max_seq_len=32,

@@ -8,6 +8,8 @@ numpy arrays, served by both port servers token for token against the
 reference's servers."""
 
 import dataclasses
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +34,9 @@ from cloud_server_tpu_torch.models import transformer
 from cloud_server_tpu_torch.models.quantization import (
     QTensor, dequantize_params, quantize, quantize_params, quantized_bytes)
 from cloud_server_tpu_torch.utils import prng
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_test_setup import release_compiled_programs  # noqa: E402,F401
 
 TINY = ModelConfig(
     vocab_size=64, embed_dim=32, num_layers=2, num_heads=4, num_kv_heads=2,

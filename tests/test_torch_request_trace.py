@@ -11,6 +11,8 @@ Mirrors tests/test_request_trace.py and the tail cases of
 tests/test_anomaly.py."""
 
 import dataclasses
+import os
+import sys
 
 import jax
 import numpy as np
@@ -27,6 +29,9 @@ from cloud_server_tpu_torch.inference import request_trace as rt
 from cloud_server_tpu_torch.inference.paged_server import (
     PagedInferenceServer)
 from cloud_server_tpu_torch.models.transformer import params_from_numpy
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_test_setup import release_compiled_programs  # noqa: E402,F401
 
 CFG = ModelConfig(
     vocab_size=64, embed_dim=32, num_layers=2, num_heads=4, num_kv_heads=2,

@@ -9,6 +9,8 @@ reference's router and the port's alike, and live fleet mutation."""
 import dataclasses
 import json
 import logging
+import os
+import sys
 import threading
 import time as _time
 
@@ -32,6 +34,9 @@ from cloud_server_tpu_torch.inference.paged_server import (
 from cloud_server_tpu_torch.inference.router import ReplicatedRouter
 from cloud_server_tpu_torch.inference.server import QueueFullError
 from cloud_server_tpu_torch.models.transformer import params_from_numpy
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_test_setup import release_compiled_programs  # noqa: E402,F401
 
 CFG = ModelConfig(
     vocab_size=64, embed_dim=32, num_layers=2, num_heads=4, num_kv_heads=2,

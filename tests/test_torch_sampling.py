@@ -8,6 +8,8 @@ server-global path draws from one key over the whole (rows, V) logits,
 as jax.random.categorical does, and is the reference's token for token
 too."""
 
+import os
+import sys
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +21,9 @@ from cloud_server_tpu.inference import sampling as ref_s
 from cloud_server_tpu_torch.config import InferConfig as TInferConfig
 from cloud_server_tpu_torch.inference import sampling
 from cloud_server_tpu_torch.utils import prng
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_test_setup import release_compiled_programs  # noqa: E402,F401
 
 V = 50
 

@@ -14,7 +14,9 @@ both simulators, whose reports must agree, and the calibration itself
 is read on the card (chip_smoke.py's elastic phase)."""
 
 import dataclasses
+import os
 import random
+import sys
 import threading
 import time
 
@@ -38,6 +40,9 @@ from cloud_server_tpu_torch.inference.router import ReplicatedRouter
 from cloud_server_tpu_torch.models.transformer import params_from_numpy
 from cloud_server_tpu_torch.scenarios.simulator import _SimReq
 from cloud_server_tpu_torch.utils.serving_metrics import MetricsRegistry
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_test_setup import release_compiled_programs  # noqa: E402,F401
 
 CFG = ModelConfig(
     vocab_size=64, embed_dim=32, num_layers=2, num_heads=4, num_kv_heads=2,

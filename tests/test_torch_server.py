@@ -12,6 +12,8 @@ profile, fault sites) held against the reference server running the
 same script."""
 
 import dataclasses
+import os
+import sys
 import time
 
 import jax
@@ -32,6 +34,9 @@ from cloud_server_tpu_torch.inference.server import (InferenceServer,
                                                      QueueFullError)
 from cloud_server_tpu_torch.models.transformer import params_from_numpy
 from cloud_server_tpu_torch.utils import prng
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_test_setup import release_compiled_programs  # noqa: E402,F401
 
 CFG = ModelConfig(
     vocab_size=64, embed_dim=32, num_layers=2, num_heads=4, num_kv_heads=2,

@@ -5,6 +5,8 @@ percentiles, Prometheus text, merges and exports."""
 
 import dataclasses
 import json
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -18,6 +20,9 @@ from cloud_server_tpu_torch.inference import request_trace as rt
 from cloud_server_tpu_torch.inference.server import Request
 from cloud_server_tpu_torch.utils import serving_metrics as sm
 from cloud_server_tpu_torch.utils.logging import JsonLogger
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_test_setup import release_compiled_programs  # noqa: E402,F401
 
 
 def _observations(seed):

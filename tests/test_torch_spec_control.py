@@ -6,6 +6,8 @@ speculation (flight records, metrics, /stats summary) against the
 reference server's on the same weights."""
 
 import dataclasses
+import os
+import sys
 
 import jax
 import numpy as np
@@ -23,6 +25,9 @@ from cloud_server_tpu_torch.inference.paged_server import (
 from cloud_server_tpu_torch.inference.spec_control import (
     SpecControlConfig, SpecController, resolve_controller)
 from cloud_server_tpu_torch.models.transformer import params_from_numpy
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_test_setup import release_compiled_programs  # noqa: E402,F401
 
 
 def _ctl(**kw):

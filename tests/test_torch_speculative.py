@@ -6,6 +6,8 @@ tokens exact, probabilities within 1e-6; and `speculative_generate`
 against the reference's on the same float32 weights, token for token."""
 
 import dataclasses
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +22,9 @@ from cloud_server_tpu_torch.config import InferConfig as TInferConfig
 from cloud_server_tpu_torch.inference import sampling
 from cloud_server_tpu_torch.inference import speculative as spec
 from cloud_server_tpu_torch.utils import prng
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_test_setup import release_compiled_programs  # noqa: E402,F401
 
 B, G, V = 6, 3, 40
 

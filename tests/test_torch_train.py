@@ -28,6 +28,8 @@ from the same numpy weights and batches:
 """
 
 import dataclasses
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -47,6 +49,9 @@ from cloud_server_tpu_torch.models import transformer
 from cloud_server_tpu_torch.training import optim, train_step
 from cloud_server_tpu_torch.training.loop import LoopConfig, train_loop
 from cloud_server_tpu_torch.utils.logging import read_jsonl
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_test_setup import release_compiled_programs  # noqa: E402,F401
 
 TINY = ModelConfig(
     vocab_size=64, embed_dim=32, num_layers=2, num_heads=4, num_kv_heads=2,
@@ -245,7 +250,9 @@ def test_train_loop_tracks_reference(tmp_path):
     np_params = _np_tree(ref_init_state(TINY, tcfg, mesh,
                                         jax.random.key(tcfg.seed)).params)
 
-    def same_init(model_cfg, train_cfg, seed, device, loss_fn_module=None):
+    def same_init(model_cfg, train_cfg, seed, device, loss_fn_module=None,
+                  mesh=None):
+        assert mesh is None
         return train_step.train_state_from_params(
             _port_params(np_params, TINY), train_cfg)
 
@@ -270,7 +277,9 @@ def _same_init(np_params, monkeypatch):
     from cloud_server_tpu_torch.training import checkpoint as tckpt
     from cloud_server_tpu_torch.training import loop as tloop
 
-    def same_init(model_cfg, train_cfg, seed, device, loss_fn_module=None):
+    def same_init(model_cfg, train_cfg, seed, device, loss_fn_module=None,
+                  mesh=None):
+        assert mesh is None
         return train_step.train_state_from_params(
             _port_params(np_params, TINY), train_cfg)
 
@@ -384,8 +393,9 @@ def test_only_a_keyboard_interrupt_saves(tmp_path, abort):
 
 @pytest.mark.parametrize("what", ["remat_dots", "segments", "mesh"])
 def test_unported_options_raise(what, tmp_path):
-    """Of the options the port once refused, a device mesh (parallel
-    training) still raises NotImplementedError. remat "dots" and packed
+    """Of the options the port once refused, a mesh with pipeline
+    parallelism (pp 2) still raises NotImplementedError; dp, fsdp, sp and
+    tp meshes train (tests/test_torch_parallel_train.py). remat "dots" and packed
     rows ("segments") now run: "dots" gives remat "none"'s loss and
     gradients; one document a row gives the unpacked loss, and two
     documents a row mask the target that crosses their boundary."""
@@ -396,7 +406,7 @@ def test_unported_options_raise(what, tmp_path):
     if what == "mesh":
         with pytest.raises(NotImplementedError):
             train_step.make_train_step(cfg, _t(TrainConfig()),
-                                       tconfig.MeshConfig(fsdp=2))
+                                       tconfig.MeshConfig(pp=2))
         return
     params = transformer.init_params(cfg, 0, device="cpu")
     if what == "remat_dots":

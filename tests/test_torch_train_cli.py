@@ -89,16 +89,19 @@ def test_cli_eval_data_checkpoint_dir_and_resume(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,sections", [
-    (["--distributed"], {}),
+    (["--distributed"], {"mesh": {"pp": 2}}),
     (["--lora-rank", "4"], {}),
     (["--init-from", "ckpt"], {}),
-    ([], {"mesh": {"fsdp": 2}}),
+    ([], {"mesh": {"ep": 2}}),
     ([], {"dcn_mesh": {"dp": 2}}),
 ])
 def test_unported_options_raise(tmp_path, argv, sections):
-    """What stays unported raises NotImplementedError. --lora-rank trains
-    rank-R adapters over a frozen base, and --init-from without it exits
-    with the reference's message."""
+    """What stays unported raises NotImplementedError, before any process
+    group is joined: a mesh with pipeline (pp) or expert (ep) parallelism
+    (dp, fsdp, sp and tp meshes train, with --distributed:
+    tests/test_torch_parallel_train.py) and a dcn_mesh section.
+    --lora-rank trains rank-R adapters over a frozen base, and
+    --init-from without it exits with the reference's message."""
     def run():
         return train.main(["--config", _config(tmp_path, **sections),
                            "--synthetic", "16", "--device", "cpu", *argv])

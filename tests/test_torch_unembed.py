@@ -5,6 +5,8 @@ within 1e-5 of the largest logit — a product rounded to bfloat16 first
 errs by up to 2^-9 of each logit and fails this."""
 
 import dataclasses
+import os
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +17,9 @@ from cloud_server_tpu.config import ModelConfig
 from cloud_server_tpu.models import transformer as ref_tf
 from cloud_server_tpu_torch.config import ModelConfig as TModelConfig
 from cloud_server_tpu_torch.models import transformer
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_test_setup import release_compiled_programs  # noqa: E402,F401
 
 CFG = ModelConfig(vocab_size=300, embed_dim=64, num_layers=1, num_heads=4,
                   num_kv_heads=4, head_dim=16, mlp_dim=128, max_seq_len=32,
