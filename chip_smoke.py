@@ -42,8 +42,11 @@ each:
                 KH 4, S 2048) and on Ulysses' H/sp heads over the whole
                 sequence (S 1024), the fused-CE kernels on one tp 2
                 rank's 64128 vocabulary rows and a tp 4 rank's 32064
-                (padded to 32128, the pad masked), each against its
-                plain version and timed as above;
+                (padded to 32128, the pad masked); the flash kernels on
+                one pipeline stage's microbatch (B 2, S 2048) and beside
+                the experts over ep (B 4), the fused CE at Mixtral's
+                vocabulary (N 8192, V 32000): each against its plain
+                version and timed as above;
   3. serve    — PagedInferenceServer at the full Llama-3.1-8B width (all
                 32 layers, random bf16 weights from a seed) on the path a
                 user gets: the mixed scheduler, the overlap pipeline and
@@ -140,9 +143,13 @@ each:
                 its commit, recaptured); the reference bench's autoscaled
                 arm — one replica and a spare behind the router, the
                 SLOBurnAutoscaler, a 30 s diurnal burst replayed by
-                ReplayDriver: nothing lost, a scale-up and a migrating
-                scale-down — then FleetSim calibrated from the replicas'
-                flight records against the live attainment;
+                ReplayDriver, the burst at ELASTIC_BURST_X times the rate
+                R at which a server completes the scenario's requests
+                (measured first on the spare): nothing lost, a scale-up
+                and a migrating scale-down, R, the burst's rate and the
+                highest queue a replica saw printed — then FleetSim
+                calibrated from the replicas' flight records against the
+                live attainment;
      tp       — after the serve phase (and its contiguous part):
                 tensor-parallel serving at tp 2 (one process a rank,
                 `parallel.spawn_ranks`; NCCL with one rank a card and
@@ -181,10 +188,14 @@ each:
                 `evaluate.perplexity` over a `prepare_corpus` file and
                 `loglikelihoods`; the native reader (it must build)
                 bit-equal to the numpy path, rows/s of each;
-     ptrain   — data-, tensor- and sequence-parallel training at the
-                fused-CE config's widths cut to 2 layers: two ranks on
-                card 0 over gloo, one spawn running 3 steps each at
-                fsdp 2, tp 2, and sp 2 with Ulysses and with the ring,
+     ptrain   — parallel training at the fused-CE config's widths cut
+                to 2 layers: two ranks on card 0 over gloo (their
+                collectives through mailboxes on the card), one spawn
+                running 2-3 steps each at fsdp 2, tp 2, sp 2 with
+                Ulysses and with the ring, pp 2 (the pipelined loss, one
+                layer a stage, 2 microbatches), rank-16 adapters at
+                fsdp 2, and Mixtral-8x7B's widths (1 layer) with its
+                experts over ep 2,
                 each from the seeded weights against the one-rank step
                 on the same state and batch (losses, gradient norms,
                 first moments, every parameter against its update's
@@ -194,6 +205,10 @@ each:
                 parameters), B3-B8 launched
                 on every rank, each rank's weight and state bytes, peak
                 and step times;
+     dryrun   — `graft_entry.dryrun_multichip(2)`: the reference's eight
+                families (dense, ring and Ulysses sp, MoE over ep, a
+                hybrid mesh, the pipeline, tp paged serving with B1/B2,
+                the two-replica router), both ranks on card 0 over gloo;
   5. ckpt     — 1 layer at full width with the fused CE: 4 steps
                 straight; 2 steps with an async checkpoint, restored bit
                 for bit; a resumed run to 4 against the straight run;
@@ -253,9 +268,11 @@ tp phase alone, serving its own one-card tokens; on a machine with two
 cards or more that is the NCCL form with graphs (it prints no result).
 `--ptrain-only` builds the kernels, checks them at the ptrain phase's
 per-rank shapes and runs that phase alone; on a machine with four cards
-or more it runs fsdp 2 x tp 2 over NCCL at 8 layers, one rank a card,
-against the one-card step at that depth, with a step of rank 0 under
-torch.profiler for the collectives' share (it prints no result).
+or more it runs fsdp 2 x tp 2 and pp 2 x fsdp 2 over NCCL at 8 layers,
+one rank a card, against the one-card step at that depth, and fsdp 2 x
+ep 2 at 4 Mixtral layers, each with a step of rank 0 under
+torch.profiler for the collectives' share, then dryrun_multichip(4)
+(it prints no result).
 """
 
 from __future__ import annotations
@@ -3328,8 +3345,18 @@ ELASTIC_AUTOSCALER = dict(
     pending_high=4.0, pending_low=1.0, hold_s=4.0, poll_s=0.5,
     drain_timeout_s=60.0)
 ELASTIC_SCENARIO = dict(seed=SEED, duration_s=30.0, phase_s=10.0,
-                        low_rps=0.3, high_rps=6.0)
+                        low_rps=0.3)
 ELASTIC_TENANTS = {"inter": 3.0, "bulk": 1.0}
+# The burst's rate is set from the card, not fixed: before the replay a
+# server like the primary (the spare, which joins only at the scale-up)
+# completes ELASTIC_RATE_REQUESTS of the scenario's requests, all
+# submitted at once (after as many to warm its programs), and the burst
+# arrives at ELASTIC_BURST_X times that rate R. Over its 10 s the queue
+# then grows by about (X - 1) R a second, well past pending_high a
+# replica on any host that completes a request in under a second; a
+# fixed 6 rps left the queue below 4 on a slower host.
+ELASTIC_RATE_REQUESTS = 12
+ELASTIC_BURST_X = 3.0
 # after the replay: pumping until the quiet tail's scale-down lands (the
 # burn windows need wall time to age the burst out), as the bench does
 ELASTIC_SETTLE_S = 45.0
@@ -3639,6 +3666,36 @@ def elastic_adapters(params, cfg, icfg, prompts, plain_tokens,
                      "adapted_rows": grow_ties}}
 
 
+def completion_rate(srv) -> dict:
+    """The rate R (requests/s) at which `srv` completes the elastic
+    scenario's requests, at their own prompt and output lengths and
+    tenant mix: ELASTIC_RATE_REQUESTS of them submitted at once after as
+    many more to warm the server's programs (events of the scenario's
+    generator at another seed)."""
+    from cloud_server_tpu_torch.scenarios import TenantMix, diurnal_burst
+    events = diurnal_burst(tenants=TenantMix(ELASTIC_TENANTS),
+                           high_rps=10.0, **{**ELASTIC_SCENARIO,
+                                             "seed": SEED + 1}).generate()
+    first = [e for e in events if e.turn == 0]
+    n = ELASTIC_RATE_REQUESTS
+    if len(first) < 2 * n:
+        raise RuntimeError(f"elastic rate: {len(first)} requests drawn, "
+                           f"{2 * n} needed")
+    out = {}
+    for what, batch in (("warm", first[:n]), ("timed", first[n:2 * n])):
+        t0 = time.perf_counter()
+        reqs = [srv.submit(list(e.prompt), max_new_tokens=e.max_new_tokens,
+                           tenant=e.tenant) for e in batch]
+        srv.run_until_idle()
+        out[f"{what}_s"] = time.perf_counter() - t0
+        if not all(r.done for r in reqs):
+            raise RuntimeError(f"elastic rate: the {what} requests did "
+                               "not finish")
+    out["rps"] = n / out["timed_s"]
+    out["requests"] = n
+    return out
+
+
 def elastic_fleet(params, cfg, icfg) -> dict:
     """The reference bench's autoscaled arm on the port: a router starting
     with one replica, one spare handed out by `spawn`, the
@@ -3660,10 +3717,12 @@ def elastic_fleet(params, cfg, icfg) -> dict:
         return make_server(params, cfg, icfg, qos=ELASTIC_QOS,
                            slo=ELASTIC_SLO, flight_recorder_size=1 << 14)
 
-    scenario = diurnal_burst(tenants=TenantMix(ELASTIC_TENANTS),
-                             **ELASTIC_SCENARIO)
-    events = scenario.generate()
     primary, spare = mk(), mk()
+    rate = completion_rate(spare)
+    high_rps = ELASTIC_BURST_X * rate["rps"]
+    scenario = diurnal_burst(tenants=TenantMix(ELASTIC_TENANTS),
+                             high_rps=high_rps, **ELASTIC_SCENARIO)
+    events = scenario.generate()
     servers = {"primary": primary, "spare": spare}
     per_counts = {k: {} for k in servers}
     for key, s in servers.items():
@@ -3698,10 +3757,14 @@ def elastic_fleet(params, cfg, icfg) -> dict:
                             config=AutoscalerConfig(**ELASTIC_AUTOSCALER))
     drv = ReplayDriver(router, events)
     pa.reset_counters()
-    state = {"poll": 0.0, "chips": 0.0, "t": time.monotonic()}
+    state = {"poll": 0.0, "chips": 0.0, "t": time.monotonic(),
+             "peak_pending": 0.0}
 
     def pump():
         router.step()
+        state["peak_pending"] = max(
+            state["peak_pending"],
+            router.num_pending / max(1, len(router.attached_indices())))
         now = time.monotonic()
         state["chips"] += len(router.attached_indices()) * (now - state["t"])
         state["t"] = now
@@ -3722,11 +3785,24 @@ def elastic_fleet(params, cfg, icfg) -> dict:
     counts = pa.counters()
     ups = [e.to_json() for e in asc.events if e.action == "up"]
     downs = [e.to_json() for e in asc.events if e.action == "down"]
+    load = {"completion_rps": rate["rps"], "burst_rps": high_rps,
+            "peak_pending_per_replica": state["peak_pending"],
+            "pending_high": ELASTIC_AUTOSCALER["pending_high"]}
+    print(f"elastic fleet: R {rate['rps']:.3f} requests/s, burst "
+          f"{high_rps:.3f} rps, highest queue a replica saw "
+          f"{state['peak_pending']:.2f}", flush=True)
     if res["fired"] != len(events) or res["failed"] or res["rejected"] \
             or res["outstanding"]:
         raise RuntimeError(f"elastic fleet replay: {res}")
-    if not ups or not downs:
-        raise RuntimeError(f"the autoscaler did not cycle: "
+    if not ups and state["peak_pending"] < load["pending_high"]:
+        raise RuntimeError(f"the load never reached the trigger (the "
+                           f"harness's fault): {load}")
+    if not ups:
+        raise RuntimeError(f"the trigger was crossed and no scale-up "
+                           f"followed: {load}, "
+                           f"{[e.to_json() for e in asc.events]}")
+    if not downs:
+        raise RuntimeError(f"the autoscaler did not scale down: "
                            f"{[e.to_json() for e in asc.events]}")
     migration = {k: primary.migration_stats()[k] + spare.migration_stats()[k]
                  for k in ("out_started", "out_completed", "out_failed",
@@ -3773,7 +3849,8 @@ def elastic_fleet(params, cfg, icfg) -> dict:
     for s in servers.values():
         s.stop()
     router.stop()
-    return {"events": len(events), "replay": res, "replay_s": replay_s,
+    return {"events": len(events), "load": load, "rate": rate,
+            "replay": res, "replay_s": replay_s,
             "replay_lag_ms_p99": histogram_percentile(lag, 0.99),
             "scale_ups": ups, "scale_downs": downs,
             "autoscaler": asc.stats(), "chip_s": state["chips"],
@@ -5002,27 +5079,57 @@ def phase_train() -> dict:
 # Phase 4a: data-, tensor- and sequence-parallel training
 # ---------------------------------------------------------------------------
 
-PTRAIN_STEPS = 3
 # One card: two ranks share card 0 over gloo (NCCL refuses two ranks on
-# one device), each collective through host copies, at
-# PTRAIN_LAYERS_ONE_CARD layers. The cases: (name, mesh axes,
-# attention_impl, sequence length). fsdp and tp run the flash kernels'
-# blocked backward at S 2048 (B3, B4, B5), Ulysses over the whole
-# sequence of 1024 their fused one (B3, B6); every case runs B7 and B8
-# (on each tp rank's 64128 vocabulary rows at tp 2).
+# one device), each collective moved through the ranks' mailboxes on the
+# card (`collectives._CardMailbox`), at PTRAIN_LAYERS_ONE_CARD layers.
+# The cases: (name, mesh axes, attention_impl, sequence length, steps,
+# kind). fsdp, tp, pp and the adapters run the flash kernels' blocked
+# backward at S 2048 (B3, B4, B5), Ulysses over the whole sequence of
+# 1024 their fused one (B3, B6); every case runs B7 and B8 (on each tp
+# rank's 64128 vocabulary rows at tp 2, on every pipeline stage at
+# pp 2). The kinds: "dense" (the fused-CE Llama-3.1-8B train config),
+# "pipeline" (the same model with its layers split over pp, one a
+# stage, the 4 rows in PTRAIN_MICROBATCHES microbatches:
+# `make_pipelined_loss`), "lora" (PTRAIN_LORA adapters over the same
+# base) and "moe" (mixtral_8x7b_train.json's widths, E 8, k 2, the fused
+# CE, 4 rows, at PTRAIN_MOE_LAYERS layers: two ranks' states beside the
+# one-rank runs' kept parameters and moments do not fit the card at 2).
+# The dense and pipeline cases run 3 steps: with the learning rate 0 at
+# the first step (warmup), 2 steps make one update, and at sp 2 with
+# the ring its parameters read 0.1097 of their update against the
+# limit's 0.1 (tp 2: 0.1162; an H100 80GB HBM3 at 700 W). The adapters and
+# the experts run 2 (the second step's moments still depend on the
+# first). The parent keeps each one-rank run's parameters and moments on
+# the card beside the ranks.
 PTRAIN_LAYERS_ONE_CARD = 2
-PTRAIN_CASES = (("fsdp2", {"fsdp": 2}, "flash", 2048),
-                ("tp2", {"tp": 2}, "flash", 2048),
-                ("sp2_ulysses", {"sp": 2}, "ulysses", 1024),
-                ("sp2_ring", {"sp": 2}, "ring", 1024))
-# Four cards (`--ptrain-only`, NCCL, one rank a card): fsdp 2 x tp 2 at
-# PTRAIN_LAYERS_NCCL layers against the one-card step of the same depth.
+PTRAIN_MOE_LAYERS = 1
+PTRAIN_CASES = (("pp2", {"pp": 2}, "flash", 2048, 3, "pipeline"),
+                ("fsdp2", {"fsdp": 2}, "flash", 2048, 3, "dense"),
+                ("tp2", {"tp": 2}, "flash", 2048, 3, "dense"),
+                ("sp2_ulysses", {"sp": 2}, "ulysses", 1024, 3, "dense"),
+                ("sp2_ring", {"sp": 2}, "ring", 1024, 3, "dense"),
+                ("ep2", {"ep": 2}, "flash", 2048, 2, "moe"),
+                ("lora_fsdp2", {"fsdp": 2}, "flash", 2048, 2, "lora"))
+PTRAIN_MICROBATCHES = 2
+PTRAIN_LORA = dict(rank=16, alpha=32.0)
+# the adapters' B drawn non-zero (it starts at zero), so A has a
+# gradient from the first step
+PTRAIN_LORA_B_STD = 0.02
+# Four cards (`--ptrain-only`, NCCL, one rank a card): fsdp 2 x tp 2 and
+# pp 2 x fsdp 2 at PTRAIN_LAYERS_NCCL layers against the one-card step of
+# the same depth; fsdp 2 x ep 2 at PTRAIN_MOE_LAYERS_NCCL Mixtral layers,
+# whose state does not fit one card: no one-card run to hold it against
+# beyond its float32 first step at the cut width.
 PTRAIN_LAYERS_NCCL = 8
-PTRAIN_NCCL_CASE = ("fsdp2_tp2", {"fsdp": 2, "tp": 2}, "flash", 2048)
+PTRAIN_MOE_LAYERS_NCCL = 4
+PTRAIN_NCCL_CASES = (
+    ("fsdp2_tp2", {"fsdp": 2, "tp": 2}, "flash", 2048, 3, "dense"),
+    ("pp2_fsdp2", {"pp": 2, "fsdp": 2}, "flash", 2048, 3, "pipeline"),
+    ("fsdp2_ep2", {"fsdp": 2, "ep": 2}, "flash", 2048, 2, "moe"))
 # bf16 compute, the mesh step against the one-rank step on the same
 # state and batch: each loss within PTRAIN_LOSS_RTOL; each step's global
 # gradient norm within PTRAIN_GNORM_RTOL; each leaf's first moment after
-# the steps (0.1, 0.09, 0.081 x the three steps' clipped gradients), in
+# the steps (0.1, 0.09, 0.081 x the steps' clipped gradients), in
 # norm, within PTRAIN_MU_REL of the one-rank run's; each leaf's
 # difference after the steps, in norm, within PTRAIN_PARAM_REL of the
 # norm of the one-rank run's update to that leaf (the sums over ranks
@@ -5061,14 +5168,22 @@ PTRAIN_F32_PARAM_REL = 1e-2
 # the fused CE on one tp 2 rank's 64128 vocabulary rows, and on a tp 4
 # rank's 32064 (not a multiple of 128: padded and masked).
 PTRAIN_FLASH_CASES = {"tp2_heads": (4, 2048, 0, 128, 16, 4),
-                      "ulysses_sp2": (4, 1024, 0, 128, 16, 4)}
+                      "ulysses_sp2": (4, 1024, 0, 128, 16, 4),
+                      # one microbatch of a pipeline stage at pp 2 (B 2
+                      # of 4), the full heads
+                      "b2_s2048": (2, 2048, 0, 128, 32, 8),
+                      # Mixtral's attention beside the experts over ep 2
+                      "b4_s2048": (4, 2048, 0, 128, 32, 8)}
 PTRAIN_CE_SHARDS = {"tp2_shard": (8192, 4096, 64128),
-                    "tp4_shard": (8192, 4096, 32064)}
+                    "tp4_shard": (8192, 4096, 32064),
+                    # Mixtral's vocabulary beside the experts over ep 2
+                    # (every pipeline stage's loss is CE_SHAPE's)
+                    "ep2_moe": (8192, 4096, 32000)}
 PTRAIN_DEADLINE_S = 900.0
 # a collective that a rank never joins raises after this long (a step's
 # collectives take seconds, over gloo on one card up to about 20 s)
 PTRAIN_TIMEOUT_S = 120.0
-PTRAIN_BUDGET_S = 90.0
+PTRAIN_BUDGET_S = 150.0
 
 
 def ptrain_configs(layers: int) -> tuple:
@@ -5082,6 +5197,32 @@ def ptrain_configs(layers: int) -> tuple:
     cfg = dataclasses.replace(from_json(ModelConfig, raw["model"]),
                               num_layers=layers)
     return cfg, from_json(TrainConfig, raw["train"])
+
+
+def ptrain_moe_configs(layers: int) -> tuple:
+    """(ModelConfig, TrainConfig) of mixtral_8x7b_train.json at `layers`
+    layers with the fused CE kernels (ce_impl "pallas"), on the Llama
+    cases' 4 rows (B7/B8 then take N 8192, as the limits were set at)."""
+    import dataclasses
+    from cloud_server_tpu_torch.config import (ModelConfig, TrainConfig,
+                                               from_json)
+    with open(MOE_TRAIN_CONFIG) as f:
+        raw = json.load(f)
+    cfg = dataclasses.replace(from_json(ModelConfig, raw["model"]),
+                              num_layers=layers, ce_impl="pallas")
+    return cfg, dataclasses.replace(from_json(TrainConfig, raw["train"]),
+                                    batch_size=4)
+
+
+def ptrain_family(kind: str) -> str:
+    """The model a case's kind trains: "moe" or "llama"."""
+    return "moe" if kind == "moe" else "llama"
+
+
+def ptrain_ref_kind(kind: str) -> str:
+    """The one-rank step a case is held against: a pipeline's is the
+    dense model's (the same function)."""
+    return "dense" if kind == "pipeline" else kind
 
 
 def ptrain_batch(cfg, tcfg, seq_len: int):
@@ -5100,25 +5241,65 @@ def ptrain_case_cfg(cfg, impl: str):
     return dataclasses.replace(cfg, attention_impl=impl)
 
 
-def ptrain_reference(cfg, tcfg, batch, steps: int,
-                     double_leaf: str | None = None) -> dict:
-    """The one-rank train step on the seeded state: its losses and
-    global gradient norms, the final parameters and first moments (in
-    cfg.dtype, on the card), each leaf's update norm, and the step times
-    (each step ends with a host read of its loss). `double_leaf`: that
-    leaf's gradient doubled (the control of the checks)."""
+def ptrain_module(kind: str, cfg, mesh=None) -> tuple:
+    """(loss_fn_module, rules, loss_fn) of a case's kind; the pipeline's
+    rules and pipelined loss only on a mesh (its one-rank step is the
+    dense one)."""
+    from cloud_server_tpu_torch.models import lora, moe, transformer
+    from cloud_server_tpu_torch.parallel.pipeline import (
+        make_pipelined_loss, pipeline_rules)
+    if kind == "moe":
+        return moe, None, None
+    if kind == "lora":
+        return (lora.make_lora_module(lora.LoRAConfig(**PTRAIN_LORA)), None,
+                None)
+    if kind == "pipeline" and mesh is not None:
+        return (transformer, pipeline_rules(),
+                make_pipelined_loss(cfg, mesh, PTRAIN_MICROBATCHES))
+    return transformer, None, None
+
+
+def ptrain_state(kind: str, cfg, tcfg, module, mesh=None, rules=None):
+    """The seeded TrainState of a case (on a mesh the rank's shards): the
+    weights drawn from SEED a leaf at a time; for "lora" the base and
+    adapters drawn whole, B then redrawn non-zero (PTRAIN_LORA_B_STD,
+    from SEED + 7), and each rank keeping its slices."""
     import torch
-    from cloud_server_tpu_torch.models import transformer
     from cloud_server_tpu_torch.training import train_step as ts
-    from cloud_server_tpu_torch.training.optim import flatten
-    params = transformer.init_params(cfg, SEED, device=DEVICE)
+    if kind != "lora":
+        return ts.init_train_state(cfg, tcfg, SEED, DEVICE, module,
+                                   mesh=mesh, rules=rules)
+    params = module.init_params(cfg, SEED, device=DEVICE)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 7)
+    for name in sorted(params["lora"]["layers"]):
+        params["lora"]["layers"][name]["b"].normal_(
+            0.0, PTRAIN_LORA_B_STD, generator=gen)
+    return ts.train_state_from_params(params, tcfg, cfg, module, mesh=mesh,
+                                      rules=rules)
+
+
+def ptrain_reference(kind: str, cfg, tcfg, batch, steps: int,
+                     double_leaf: str | None = None) -> dict:
+    """The one-rank train step of a case's kind on the seeded state: its
+    losses and global gradient norms, the final trainable parameters and
+    their first moments (in cfg.dtype, on the card), each leaf's update
+    norm, and the step times (each step ends with a host read of its
+    loss). `double_leaf`: that leaf's gradient doubled (the control of
+    the checks)."""
+    import torch
+    from cloud_server_tpu_torch.training import train_step as ts
+    from cloud_server_tpu_torch.training.optim import (flatten,
+                                                       optimizer_for_module)
+    module, _, _ = ptrain_module(kind, cfg)
+    state = ptrain_state(kind, cfg, tcfg, module)
+    opt = optimizer_for_module(tcfg, cfg, module)
     init = {k: v.detach().to(torch_dtype(cfg), copy=True)
-            for k, v in flatten(params)}
-    state = ts.train_state_from_params(params, tcfg, cfg)
+            for k, v in flatten(opt.trainable(state.params))}
     if double_leaf is not None:
         dict(flatten(state.params))[double_leaf].register_hook(
             lambda g: g * 2)
-    step = ts.make_train_step(cfg, tcfg)
+    step = ts.make_train_step(cfg, tcfg, loss_fn_module=module)
     losses, gnorms, step_s = [], [], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -5126,13 +5307,25 @@ def ptrain_reference(cfg, tcfg, batch, steps: int,
         losses.append(float(m["loss"]))
         step_s.append(time.perf_counter() - t0)
         gnorms.append(float(m["grad_norm"]))
-    final = {k: v.detach().to(torch_dtype(cfg)) for k, v in
-             flatten(state.params)}
-    mu = {k: v.detach().to(torch_dtype(cfg), copy=True)
-          for k, v in flatten(state.opt_state.mu)}
-    update = {k: float((final[k].float() - init[k].float()).norm())
-              for k in final}
-    del state, params, init
+    params = dict(flatten(opt.trainable(state.params)))
+    update = {k: float((v.detach().float() - init[k].float()).norm())
+              for k, v in params.items()}
+    del init
+    # the kept parameters and moments go into one buffer of their own
+    # (the run's cached blocks released first), so that releasing the
+    # run's segments afterwards strands nothing beside them on the card
+    mus = dict(flatten(state.opt_state.mu))
+    gc.collect()
+    torch.cuda.empty_cache()
+    keep = torch.empty(sum(2 * v.numel() for v in params.values()),
+                       dtype=torch_dtype(cfg), device=DEVICE)
+    final, mu, at = {}, {}, 0
+    for k, v in params.items():
+        for dst, src in ((final, v), (mu, mus[k])):
+            dst[k] = keep[at:at + src.numel()].view(src.shape)
+            dst[k].copy_(src.detach())
+            at += src.numel()
+    del state, params, mus
     gc.collect()
     torch.cuda.empty_cache()
     return {"losses": losses, "grad_norms": gnorms, "params": final,
@@ -5170,10 +5363,10 @@ def ptrain_failed(readings: dict) -> list[str]:
             if readings[k] > v]
 
 
-def ptrain_control(cfg, tcfg, batch, ref: dict) -> dict:
+def ptrain_control(cfg, tcfg, batch, steps: int, ref: dict) -> dict:
     """The control: the one-rank run with PTRAIN_CONTROL_LEAF's
     gradient doubled, read by the bf16 checks against `ref`."""
-    ctl = ptrain_reference(cfg, tcfg, batch, PTRAIN_STEPS,
+    ctl = ptrain_reference("dense", cfg, tcfg, batch, steps,
                            double_leaf=PTRAIN_CONTROL_LEAF)
 
     def sq(tree, want):
@@ -5192,19 +5385,22 @@ def torch_dtype(cfg):
     return transformer.torch_dtype(cfg.dtype)
 
 
-def ptrain_compare(tree, cfg, mesh, ref: dict) -> dict:
-    """Per leaf of a params-shaped tree (the parameters, or a moment):
-    this rank's squared difference to the one-rank run's over its shard,
-    and the number of ranks that hold that shard (so the sums over ranks
-    count each element once)."""
+def ptrain_compare(tree, cfg, mesh, ref: dict, rules=None,
+                   module=None) -> dict:
+    """Per leaf of `ref` in a params-shaped tree (the parameters, or a
+    moment): this rank's squared difference to the one-rank run's over
+    its shard, and the number of ranks that hold that shard (so the sums
+    over ranks count each element once)."""
     from cloud_server_tpu_torch.parallel.mesh import axis_size
     from cloud_server_tpu_torch.parallel.sharding import shard_tensor
     from cloud_server_tpu_torch.training import train_step as ts
     from cloud_server_tpu_torch.training.optim import flatten
-    splits = dict(flatten(ts.state_shardings(cfg, mesh)))
+    splits = dict(flatten(ts.state_shardings(cfg, mesh, rules, module)))
     world = mesh.size()
     out = {}
     for k, v in flatten(tree):
+        if k not in ref:
+            continue
         want = shard_tensor(ref[k], splits[k], mesh).to(v.device)
         held = 1
         for _, axis in splits[k]:
@@ -5214,10 +5410,10 @@ def ptrain_compare(tree, cfg, mesh, ref: dict) -> dict:
     return out
 
 
-def ptrain_rank(rank: int, world: int, cases, cfg, tcfg, batches, refs,
-                f32_cfg, f32_refs, cards: int) -> dict:
+def ptrain_rank(rank: int, world: int, cases, cfgs, batches, refs,
+                f32_refs, cards: int) -> dict:
     """One rank of the ptrain phase: per case the mesh, the sharded state
-    from the seeded weights, PTRAIN_STEPS steps on its block of the batch,
+    from the seeded weights, the case's steps on its block of the batch,
     and its numbers (losses, launch counts, bytes, peak, step times); a
     first float32 step at a cut width beside each."""
     import dataclasses
@@ -5241,44 +5437,63 @@ def ptrain_rank(rank: int, world: int, cases, cfg, tcfg, batches, refs,
         return t[i * b:(i + 1) * b, j * s:(j + 1) * s].to(
             torch.device("cuda", rank % cards)).contiguous()
 
-    for name, axes, impl, seq in cases:
+    for name, axes, impl, seq, steps, kind in cases:
+        t_case = time.perf_counter()
         mesh = make_mesh(MeshConfig(**axes), "cuda")
         layout = batch_layout(mesh)
+        cfg, tcfg = cfgs[ptrain_family(kind)]
+        tokens = batches[(ptrain_family(kind), seq)]
+        ref = refs.get((ptrain_ref_kind(kind), ptrain_family(kind), seq,
+                        steps))
         res = {}
         # the float32 cut width, one step at the peak learning rate
-        c32 = ptrain_case_cfg(f32_cfg, impl)
+        c32 = ptrain_case_cfg(dataclasses.replace(cfg, **PTRAIN_F32), impl)
         t32 = dataclasses.replace(tcfg, warmup_steps=0)
-        st = ts.init_train_state(c32, t32, SEED, "cuda", mesh=mesh)
-        _, m32 = ts.make_train_step(c32, t32, mesh=mesh)(
-            st, {"tokens": block(batches[seq], layout) % c32.vocab_size})
+        module, rules, loss_fn = ptrain_module(kind, c32, mesh)
+        st = ptrain_state(kind, c32, t32, module, mesh, rules)
+        _, m32 = ts.make_train_step(c32, t32, mesh=mesh, rules=rules,
+                                    loss_fn=loss_fn,
+                                    loss_fn_module=module)(
+            st, {"tokens": block(tokens, layout) % c32.vocab_size})
         res["f32_loss"] = float(m32["loss"])
         res["f32_diff"] = ptrain_compare(st.params, c32, mesh,
-                                         f32_refs[name]["params"])
+                                         f32_refs[name]["params"], rules,
+                                         module)
         res["f32_mu_diff"] = ptrain_compare(st.opt_state.mu, c32, mesh,
-                                            f32_refs[name]["mu"])
+                                            f32_refs[name]["mu"], rules,
+                                            module)
         del st
+        res["f32_s"] = time.perf_counter() - t_case
         # full width
         c = ptrain_case_cfg(cfg, impl)
+        module, rules, loss_fn = ptrain_module(kind, c, mesh)
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        free, total_b = torch.cuda.mem_get_info()
+        held = torch.cuda.memory_allocated() / 1e9
+        print(f"ptrain rank {rank} {name}: {held:.2f} GB allocated here, "
+              f"{free / 1e9:.2f} of {total_b / 1e9:.2f} GB free on the card",
+              flush=True)
         # the seeded weights, each rank drawing a leaf at a time and
         # keeping its slice
-        state = ts.init_train_state(c, tcfg, SEED, "cuda", mesh=mesh)
+        state = ptrain_state(kind, c, tcfg, module, mesh, rules)
         gc.collect()
         torch.cuda.empty_cache()
         res["weight_bytes"] = sum(v.numel() * v.element_size()
                                   for _, v in flatten(state.params))
-        adam = state.opt_state
         res["state_bytes"] = res["weight_bytes"] + sum(
             v.numel() * v.element_size()
-            for t in (adam.mu, adam.nu) for _, v in flatten(t))
-        step = ts.make_train_step(c, tcfg, mesh=mesh)
-        batch = {"tokens": block(batches[seq], layout)}
+            for t in (state.opt_state.mu, state.opt_state.nu)
+            for _, v in flatten(t))
+        step = ts.make_train_step(c, tcfg, mesh=mesh, rules=rules,
+                                  loss_fn=loss_fn, loss_fn_module=module)
+        batch = {"tokens": block(tokens, layout)}
+        res["init_s"] = time.perf_counter() - t_case - res["f32_s"]
         fl.reset_counters()
         fc.reset_counters()
         losses, gnorms, step_s = [], [], []
-        for _ in range(PTRAIN_STEPS):
+        for _ in range(steps):
             t0 = time.perf_counter()
             state, m = step(state, batch)
             losses.append(float(m["loss"]))  # a host read: the step's end
@@ -5287,11 +5502,12 @@ def ptrain_rank(rank: int, world: int, cases, cfg, tcfg, batches, refs,
         torch.cuda.synchronize()
         res.update(losses=losses, grad_norms=gnorms, step_s=step_s,
                    counts=fl.counters(), ce_counts=fc.counters(),
-                   peak_bytes=torch.cuda.max_memory_allocated(),
-                   diff=ptrain_compare(state.params, c, mesh,
-                                       refs[seq]["params"]),
-                   mu_diff=ptrain_compare(state.opt_state.mu, c, mesh,
-                                          refs[seq]["mu"]))
+                   peak_bytes=torch.cuda.max_memory_allocated())
+        if ref is not None:
+            res.update(diff=ptrain_compare(state.params, c, mesh,
+                                           ref["params"], rules, module),
+                       mu_diff=ptrain_compare(state.opt_state.mu, c, mesh,
+                                              ref["mu"], rules, module))
         if world >= 4:
             # one more step on every rank (their collectives pair up),
             # rank 0's under the profiler
@@ -5303,7 +5519,14 @@ def ptrain_rank(rank: int, world: int, cases, cfg, tcfg, batches, refs,
         del state, step, batch
         gc.collect()
         torch.cuda.empty_cache()
+        res["case_s"] = time.perf_counter() - t_case
         out[name] = res
+    # Release the parent's tensors here before returning: a rank exits
+    # without running its objects' finalizers, and the parent frees a
+    # tensor it shared (CUDA IPC) only once every process that received
+    # it has released it.
+    for shared in (batches, refs, f32_refs):
+        shared.clear()
     return out
 
 
@@ -5340,70 +5563,130 @@ def phase_ptrain_kernel() -> dict:
 
 
 def phase_ptrain(nccl: bool = False) -> dict:
-    """Data-, tensor- and sequence-parallel training (`make_train_step(
-    mesh=)`, one process a rank, `parallel.spawn_ranks`) at Llama-3.1-8B's
-    widths from the seeded weights and batch, against the one-rank step
-    on the same state: on one card (the default) two ranks over gloo at
-    PTRAIN_LAYERS_ONE_CARD layers, PTRAIN_STEPS steps each at fsdp 2,
-    tp 2 and sp 2 with Ulysses and with the ring, one spawn running the
-    four in turn; with `nccl` (four cards) fsdp 2 x tp 2 at
-    PTRAIN_LAYERS_NCCL layers over NCCL. Per case a first float32 step at
-    a cut width against its one-rank step, the bf16 losses, gradient
-    norms, first moments and parameters (with the control that these
-    checks must catch), each rank's B3-B8 launches, weight and state
-    bytes and peak, and the step times."""
+    """Parallel training (`make_train_step(mesh=)`, one process a rank,
+    `parallel.spawn_ranks`) at Llama-3.1-8B's and Mixtral-8x7B's widths
+    from the seeded weights and batch, against the one-rank step on the
+    same state: on one card (the default) two ranks over gloo,
+    PTRAIN_CASES in turn in one spawn (fsdp 2, tp 2, sp 2 with Ulysses
+    and with the ring, the pipeline at pp 2, the experts over ep 2 and
+    adapters at fsdp 2); with `nccl` (four cards) PTRAIN_NCCL_CASES over
+    NCCL. Per case a first float32 step at a cut width against its
+    one-rank step, the bf16 losses, gradient norms, first moments and
+    parameters (with the control that these checks must catch), each
+    rank's B3-B8 launches, weight and state bytes and peak, and the step
+    times."""
     import dataclasses
     import torch
     from cloud_server_tpu_torch.parallel import spawn_ranks
     from cloud_server_tpu_torch.utils.metrics import (
         transformer_flops_per_token)
     t_phase = time.perf_counter()
+    free, _ = torch.cuda.mem_get_info()
+    print(f"ptrain: the parent holds {torch.cuda.memory_allocated() / 1e9:.2f}"
+          f" GB ({torch.cuda.memory_reserved() / 1e9:.2f} reserved), "
+          f"{free / 1e9:.2f} GB free at the start", flush=True)
+    # the ranks' allocators grow their segments in place rather than
+    # stranding freed blocks between cases (the card holds the parent's
+    # one-rank runs beside two ranks' states)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cards = torch.cuda.device_count()
     if nccl:
-        cases, layers, world, backend = ((PTRAIN_NCCL_CASE,),
-                                         PTRAIN_LAYERS_NCCL, 4, "nccl")
+        cases, world, backend = PTRAIN_NCCL_CASES, 4, "nccl"
+        layers, moe_layers = PTRAIN_LAYERS_NCCL, PTRAIN_MOE_LAYERS_NCCL
         if cards < world:
             raise RuntimeError(f"--ptrain-only over NCCL needs {world} "
                                f"cards, found {cards}")
     else:
-        cases, layers, world, backend = (PTRAIN_CASES,
-                                         PTRAIN_LAYERS_ONE_CARD, 2, "gloo")
-    cfg, tcfg = ptrain_configs(layers)
-    f32_cfg = dataclasses.replace(cfg, **PTRAIN_F32)
-    seqs = sorted({c[3] for c in cases})
-    batches = {s: ptrain_batch(cfg, tcfg, s)["tokens"] for s in seqs}
+        cases, world, backend = PTRAIN_CASES, 2, "gloo"
+        layers, moe_layers = PTRAIN_LAYERS_ONE_CARD, PTRAIN_MOE_LAYERS
+    cfgs = {"llama": ptrain_configs(layers),
+            "moe": ptrain_moe_configs(moe_layers)}
+    batches = {}
+    for _, _, _, seq, _, kind in cases:
+        fam = ptrain_family(kind)
+        if (fam, seq) not in batches:
+            batches[(fam, seq)] = ptrain_batch(*cfgs[fam], seq)["tokens"]
     t0 = time.perf_counter()
-    refs = {s: ptrain_reference(cfg, dataclasses.replace(tcfg, seq_len=s),
-                                {"tokens": batches[s]}, PTRAIN_STEPS)
-            for s in seqs}
-    s_ctl = max(seqs)
-    control = ptrain_control(cfg, dataclasses.replace(tcfg, seq_len=s_ctl),
-                             {"tokens": batches[s_ctl]}, refs[s_ctl])
-    if not ptrain_failed(control):
-        raise RuntimeError(f"ptrain: the control ({PTRAIN_CONTROL_LEAF}'s "
-                           f"gradient doubled) passes every check: "
-                           f"{control}")
     f32_refs = {}
-    for name, _, impl, s in cases:
-        c32 = ptrain_case_cfg(f32_cfg, impl)
+    for name, _, impl, s, _, kind in cases:
+        cfg, tcfg = cfgs[ptrain_family(kind)]
+        c32 = ptrain_case_cfg(dataclasses.replace(cfg, **PTRAIN_F32), impl)
         f32_refs[name] = ptrain_reference(
-            c32, dataclasses.replace(tcfg, warmup_steps=0),
-            {"tokens": batches[s] % c32.vocab_size}, 1)
+            ptrain_ref_kind(kind), c32,
+            dataclasses.replace(tcfg, warmup_steps=0),
+            {"tokens": batches[(ptrain_family(kind), s)] % c32.vocab_size},
+            1)
     ref_s = time.perf_counter() - t0
+    # the one-rank runs of every case, kept on the card for the ranks to
+    # read (each in a buffer of its own), then one spawn for every case
     t0 = time.perf_counter()
-    ranks = spawn_ranks(ptrain_rank, world, backend, cases, cfg, tcfg,
-                        batches, refs, f32_cfg, f32_refs, cards,
-                        deadline_s=PTRAIN_DEADLINE_S,
+    refs = {}
+    for _, _, impl, seq, steps, kind in cases:
+        fam = ptrain_family(kind)
+        key = (ptrain_ref_kind(kind), fam, seq, steps)
+        # the 4-card Mixtral state does not fit one card: no one-rank run
+        if key in refs or (nccl and kind == "moe"):
+            continue
+        cfg, tcfg = cfgs[fam]
+        refs[key] = ptrain_reference(
+            key[0], ptrain_case_cfg(cfg, impl),
+            dataclasses.replace(tcfg, seq_len=seq),
+            {"tokens": batches[(fam, seq)]}, steps)
+    control = None
+    dense = [c for c in cases if c[5] == "dense"]
+    if dense:
+        _, _, ctl_impl, s_ctl, ctl_steps, _ = max(
+            dense, key=lambda c: (c[4], c[3]))
+        cfg, tcfg = cfgs["llama"]
+        control = ptrain_control(
+            ptrain_case_cfg(cfg, ctl_impl),
+            dataclasses.replace(tcfg, seq_len=s_ctl),
+            {"tokens": batches[("llama", s_ctl)]}, ctl_steps,
+            refs[("dense", "llama", s_ctl, ctl_steps)])
+        if not ptrain_failed(control):
+            raise RuntimeError(
+                f"ptrain: the control ({PTRAIN_CONTROL_LEAF}'s gradient "
+                f"doubled) passes every check: {control}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_s += time.perf_counter() - t0
+    free, _ = torch.cuda.mem_get_info()
+    print(f"ptrain: the parent holds "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"({torch.cuda.memory_reserved() / 1e9:.2f} reserved), "
+          f"{free / 1e9:.2f} GB free before the ranks", flush=True)
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(ptrain_rank, world, backend, cases, cfgs, batches,
+                        refs, f32_refs, cards, deadline_s=PTRAIN_DEADLINE_S,
                         timeout_s=PTRAIN_TIMEOUT_S)
     ranks_s = time.perf_counter() - t0
+    case_readings, ref_info = {}, {}
+    for name, _, _, seq, steps, kind in cases:
+        ref = refs.get((ptrain_ref_kind(kind), ptrain_family(kind), seq,
+                        steps))
+        if ref is not None:
+            case_readings[name] = ptrain_readings(ref,
+                                                  [r[name] for r in ranks])
+            ref_info[name] = {k: ref[k] for k in
+                              ("losses", "grad_norms", "step_s")}
+    del refs, ref
+    gc.collect()
     torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    print(f"ptrain: the parent holds "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"({torch.cuda.memory_reserved() / 1e9:.2f} reserved) after the "
+          "ranks", flush=True)
     failures = []
     out_cases = {}
     total = {"flash": {}, "fused_ce": {}}
-    for name, axes, impl, s in cases:
-        ref, r32 = refs[s], f32_refs[name]
+    for name, axes, impl, s, steps, kind in cases:
+        cfg, tcfg = cfgs[ptrain_family(kind)]
+        ref = ref_info.get(name)
+        r32 = f32_refs[name]
         per_rank = [r[name] for r in ranks]
         f32_loss_err = max(abs(r["f32_loss"] - r32["losses"][0])
                            / abs(r32["losses"][0]) for r in per_rank)
@@ -5415,7 +5698,7 @@ def phase_ptrain(nccl: bool = False) -> dict:
             math.sqrt(sum(r["f32_diff"][k][0] / r["f32_diff"][k][1]
                           for r in per_rank))
             / max(r32["update_norm"][k], 1e-30) for k in r32["params"])
-        readings = ptrain_readings(ref, per_rank)
+        readings = case_readings.get(name, {})
         for r, res in enumerate(per_rank):
             c, ce = res["counts"], res["ce_counts"]
             for key, n in c.items():
@@ -5429,12 +5712,14 @@ def phase_ptrain(nccl: bool = False) -> dict:
             if not flash_ok or ce["launches_fwd"] <= 0 or (
                     ce["launches_dx"] <= 0 or ce["plain_calls"]):
                 failures.append(f"{name} rank {r}: launches {c}, {ce}")
+            if not all(math.isfinite(x) for x in res["losses"]):
+                failures.append(f"{name} rank {r}: losses {res['losses']}")
         if (f32_loss_err > PTRAIN_F32_RTOL or f32_rel > PTRAIN_F32_REL
                 or f32_param_rel > PTRAIN_F32_PARAM_REL):
             failures.append(f"{name}: float32 first step loss rel err "
                             f"{f32_loss_err}, worst moment {f32_rel}, "
                             f"worst leaf {f32_param_rel} of its update")
-        if ptrain_failed(readings):
+        if ref is not None and ptrain_failed(readings):
             failures.append(f"{name}: bf16 " + ", ".join(
                 ptrain_failed(readings)))
         tokens = tcfg.batch_size * s
@@ -5442,15 +5727,20 @@ def phase_ptrain(nccl: bool = False) -> dict:
         flops = transformer_flops_per_token(cfg, s)
         step_s = max(steady)
         out_cases[name] = {
-            "mesh": axes, "attention_impl": impl, "seq_len": s,
-            "losses": per_rank[0]["losses"], "ref_losses": ref["losses"],
+            "mesh": axes, "kind": kind, "attention_impl": impl,
+            "seq_len": s, "steps": steps,
+            "layers": cfg.num_layers, "batch": tcfg.batch_size,
+            "losses": per_rank[0]["losses"],
+            "ref_losses": None if ref is None else ref["losses"],
             "grad_norms": per_rank[0]["grad_norms"],
-            "ref_grad_norms": ref["grad_norms"], **readings,
+            "ref_grad_norms": None if ref is None else ref["grad_norms"],
+            **readings,
             "f32_loss_rel_err": f32_loss_err,
             "f32_worst_moment_rel": f32_rel,
             "f32_param_worst_rel_of_update": f32_param_rel,
             "steady_step_s": step_s,
-            "one_rank_step_s": min(ref["step_s"][1:]),
+            "one_rank_step_s": (None if ref is None
+                                else min(ref["step_s"][1:])),
             "tokens_per_s": tokens / step_s,
             "mfu": tokens / step_s * flops / (BF16_FLOP_PER_S
                                               * (world if nccl else 1)),
@@ -5459,21 +5749,21 @@ def phase_ptrain(nccl: bool = False) -> dict:
                        "weight_bytes": x["weight_bytes"],
                        "state_bytes": x["state_bytes"],
                        "peak_gb": x["peak_bytes"] / 1e9,
-                       "step_s": x["step_s"]}
+                       "step_s": x["step_s"], "case_s": x["case_s"],
+                       "f32_s": x["f32_s"], "init_s": x["init_s"]}
                       for r, x in enumerate(per_rank)]}
         if "profile" in per_rank[0]:
             out_cases[name]["profile_rank0"] = per_rank[0]["profile"]
     out = {"phase": "ptrain", "backend": backend, "world": world,
-           "cards": cards, "layers": layers,
-           "model": "Llama-3.1-8B widths (random f32 master weights, bf16 "
-                    "compute, fused CE)",
-           "batch": tcfg.batch_size, "steps": PTRAIN_STEPS,
+           "cards": cards, "layers": layers, "moe_layers": moe_layers,
+           "model": "Llama-3.1-8B and Mixtral-8x7B widths (random f32 "
+                    "master weights, bf16 compute, fused CE)",
            "cases": out_cases, "control": control,
            "control_leaf": PTRAIN_CONTROL_LEAF,
            "counts": total, "reference_s": ref_s,
            "ranks_s": ranks_s, "seconds": time.perf_counter() - t_phase}
     emit(out)
-    del refs, f32_refs, batches
+    del f32_refs, batches
     gc.collect()
     torch.cuda.empty_cache()
     if failures:
@@ -5481,6 +5771,44 @@ def phase_ptrain(nccl: bool = False) -> dict:
     if not nccl and out["seconds"] > PTRAIN_BUDGET_S:
         print(f"ptrain phase: {out['seconds']:.1f} s, over its "
               f"{PTRAIN_BUDGET_S} s budget", flush=True)
+    return out
+
+
+# The reference's `dryrun_multichip` on the port (`graft_entry.py`): its
+# eight families, one step each on a tiny model, over DRYRUN_RANKS ranks
+# (on one card both over gloo; with four cards or more over NCCL, one a
+# card). The one-card form must take at most DRYRUN_BUDGET_S.
+DRYRUN_RANKS = 2
+DRYRUN_BUDGET_S = 30.0
+DRYRUN_FAMILIES = ("dense", "ring-sp", "ulysses-sp", "moe-ep", "hybrid-dcn",
+                   "pipeline-pp", "paged-serving-tp", "replicated-serving-dp")
+
+
+def phase_dryrun(n: int = DRYRUN_RANKS) -> dict:
+    """`graft_entry.dryrun_multichip(n)`: every family must run; on
+    fewer cards than n the ranks share them over gloo. The paged kernels'
+    launches of family 6 on each rank."""
+    import torch
+    from cloud_server_tpu_torch.graft_entry import dryrun_multichip
+    t0 = time.perf_counter()
+    share = torch.cuda.device_count() < n
+    res = dryrun_multichip(n, share_card=share, deadline_s=300.0)
+    seconds = time.perf_counter() - t0
+    out = {"phase": "dryrun", "ranks": n, "shared_card": share,
+           "backend": "gloo" if share else "nccl", "ran": res["ran"],
+           "skipped": res["skipped"], "lines": res["lines"],
+           "paged_counts": res["paged_counts"], "seconds": seconds}
+    emit(out)
+    missing = [f for f in DRYRUN_FAMILIES if f not in res["ran"]]
+    if missing:
+        raise RuntimeError(f"dryrun_multichip({n}) skipped {missing}")
+    for r, c in enumerate(res["paged_counts"]):
+        if c.get("launches_narrow", 0) <= 0 or c.get("plain_calls", 0):
+            raise RuntimeError(f"dryrun rank {r}: family 6's paged "
+                               f"kernels did not run: {c}")
+    if share and seconds > DRYRUN_BUDGET_S:
+        print(f"dryrun phase: {seconds:.1f} s, over its {DRYRUN_BUDGET_S} "
+              "s budget", flush=True)
     return out
 
 
@@ -7016,7 +7344,9 @@ def main() -> int:
         # four cards or more: fsdp 2 x tp 2 over NCCL; else the one-card
         # form (gloo); prints no result
         timed(phase_ptrain_kernel)
-        timed(phase_ptrain, torch.cuda.device_count() >= 4)
+        cards = torch.cuda.device_count()
+        timed(phase_ptrain, cards >= 4)
+        timed(phase_dryrun, 4 if cards >= 4 else DRYRUN_RANKS)
         emit({"phase_seconds": seconds})
         return 0
     kern = timed(phase_kernel)
@@ -7030,6 +7360,7 @@ def main() -> int:
     tp = timed(phase_tp, serve)
     train = timed(phase_train)
     ptrain = timed(phase_ptrain)
+    timed(phase_dryrun)
     pack = timed(phase_pack, train)
     ckpt = timed(phase_ckpt)
     hf = timed(phase_hf, ckpt)
@@ -7290,6 +7621,59 @@ def main() -> int:
             "bound_ms": shard["bound_ms"][key],
             "bound_by": shard["bound_by"][key],
             "library_ms": shard[f"library_{key}_ms"]})
+    # the pipeline's and the experts' cases: B3-B5 on one stage's
+    # microbatch (B 2 of 4 at pp 2) and beside the ep-sharded experts
+    # (Mixtral, B 2), B7/B8 on every stage's whole vocabulary and on
+    # Mixtral's, with the ptrain phase's launches per rank
+    for case, kcase, fcase, where in (
+            ("pp2", None, "b2_s2048", "one pipeline stage at pp 2, a "
+                                      "microbatch"),
+            ("ep2", "ep2_moe", "b4_s2048", "beside experts over ep 2")):
+        k = pkern["flash"][fcase]
+        for name, line, key, ckey, errs in (
+                ("flash_attention forward", 70, "fwd", "launches_fwd",
+                 ("out",)),
+                ("flash_attention dK/dV backward", 205, "bwd_dkdv",
+                 "launches_bwd_dkdv", ("dk", "dv")),
+                ("flash_attention dQ backward", 295, "bwd_dq",
+                 "launches_bwd_dq", ("dq",))):
+            per_rank = [r["counts"][ckey] for r in pcases[case]["ranks"]]
+            rows.append({
+                "name": f"{name} ({where}: B {k['B']}, S {k['S']}, H "
+                        f"{k['H']}, KH {k['KH']})",
+                "route": "cuda",
+                "source": "cloud_server_tpu_torch/csrc/flash_attention.cu",
+                "replaces": f"cloud_server_tpu/ops/flash_attention.py:{line}",
+                "launches": sum(per_rank), "launches_per_rank": per_rank,
+                "max_abs_err": max(k["errors"][e]["max_abs_err"]
+                                   for e in errs),
+                "ms": k[f"{key}_ms"],
+                "plain_ms": k["plain_fwd_ms" if key == "fwd"
+                              else "plain_bwd_ms"],
+                "bound_ms": k["bound_ms"][key],
+                "bound_by": k["bound_by"][key],
+                "library_ms": k["library_fwd_ms" if key == "fwd"
+                                else "library_bwd_ms"]})
+        shard = ce if kcase is None else pkern[kcase]
+        for name, line, key, ckey, err in (
+                ("fused_ce forward", 81, "b7", "launches_fwd",
+                 max(shard["errors"]["logz"]["max_abs_err"],
+                     shard["errors"]["tl"]["max_abs_err"])),
+                ("fused_ce dx backward", 131, "b8", "launches_dx",
+                 shard["errors"]["dx"]["max_abs_err"])):
+            per_rank = [r["ce_counts"][ckey] for r in pcases[case]["ranks"]]
+            rows.append({
+                "name": f"{name} ({where}: N {shard['N']}, D "
+                        f"{shard['D']}, V {shard['V']})",
+                "route": "cuda",
+                "source": "cloud_server_tpu_torch/csrc/fused_ce.cu",
+                "replaces": f"cloud_server_tpu/ops/fused_ce.py:{line}",
+                "launches": sum(per_rank), "launches_per_rank": per_rank,
+                "max_abs_err": err, "ms": shard[f"{key}_ms"],
+                "plain_ms": shard[f"plain_{key}_ms"],
+                "bound_ms": shard["bound_ms"][key],
+                "bound_by": shard["bound_by"][key],
+                "library_ms": shard[f"library_{key}_ms"]})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})

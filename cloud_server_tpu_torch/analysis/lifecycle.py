@@ -118,6 +118,10 @@ LIFECYCLE_ROSTER: tuple[str, ...] = (
     "cloud_server_tpu_torch/inference/block_allocator.py",
     "cloud_server_tpu_torch/inference/migration.py",
     "cloud_server_tpu_torch/inference/router.py",
+    # the training side's threads and schedule: the watchdog's monitor,
+    # the pipeline
+    "cloud_server_tpu_torch/utils/failure.py",
+    "cloud_server_tpu_torch/parallel/pipeline.py",
 )
 
 # Functions sanctioned to call `_done.set()` (and complete a handle)

@@ -83,6 +83,11 @@ LOCK_ROSTER: tuple[str, ...] = (
     "cloud_server_tpu_torch/inference/slo.py",
     "cloud_server_tpu_torch/inference/cache_telemetry.py",
     "cloud_server_tpu_torch/inference/anomaly.py",
+    # the watchdog's monitor thread beside the training loop's beats
+    "cloud_server_tpu_torch/utils/failure.py",
+    # the pipeline's schedule (no thread of its own: held to the rules
+    # should one come)
+    "cloud_server_tpu_torch/parallel/pipeline.py",
 )
 
 # Declared acquisition order, outermost first: the scheduler iteration

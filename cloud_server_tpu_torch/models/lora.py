@@ -17,8 +17,19 @@ calls the base module's loss. The base's tensors do not require
 gradients (`param_labels` marks them "frozen"; the optimizer gives them
 no moments, no update and no weight decay), so no base gradient is ever
 formed. `export_merged` folds the trained adapters back into plain base
-params for serving. The port shards nothing, so it has no counterpart
-of the reference's `lora_logical_axes`.
+params for serving.
+
+On a mesh (`make_train_step(mesh=)`), `lora_logical_axes` is the
+reference's: an adapter pair splits its layer axis like its base (over
+pp in a pipeline) and an expert stack over ep, and is whole on every
+other axis. The loss merges onto the rank's shard of each base leaf
+(`merge_lora(plan=)`): A's rows and B's columns are cut to the slice the
+shard holds, so the delta matches the shard that `MeshPlan.gather_layer`
+then gathers over fsdp. Where the base splits over tp each tp rank forms
+only its slice's part of the adapters' gradient, so A and B enter
+through `identity_ad` over tp (the backward sums the parts); fsdp's
+parts are summed by the step's gradient sum over the data axes, as for
+any leaf fsdp does not split.
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ import torch
 from cloud_server_tpu_torch import resolve_device
 from cloud_server_tpu_torch.config import ModelConfig
 from cloud_server_tpu_torch.models import transformer
+from cloud_server_tpu_torch.parallel import collectives
 
 # target name -> (stack axis names between the layer axis and fan-in,
 # number of trailing output dims). Everything between the stack axes and
@@ -173,20 +185,92 @@ def init_lora_params(model_cfg: ModelConfig, lora_cfg: LoRAConfig,
     return out
 
 
+def lora_logical_axes(model_cfg: ModelConfig, lora_cfg: LoRAConfig,
+                      base_module=transformer) -> dict:
+    """The adapter tree's logical axes: the layer axis and the stack axes
+    of the base (experts), fan-in, rank and fan-out unnamed (whole)."""
+    table = _target_table(base_module)
+    out = {}
+    for name in sorted(lora_cfg.targets):
+        stack_axes = table[name][0]
+        out[name] = {"a": ("layers", *stack_axes, None, None),
+                     "b": ("layers", *stack_axes, None, None)}
+    return {"layers": out}
+
+
+def _cut(t: torch.Tensor, dim: int, full: tuple, splits: dict, plan):
+    """`t` with its dimension `dim` (the flattened `full` dims) cut to
+    the rank's block of each split one (`splits`: {index in full: mesh
+    axes})."""
+    if not splits:
+        return t
+    shape = list(t.shape)
+    t = t.reshape(*shape[:dim], *full, *shape[dim + 1:])
+    for j, axes in splits.items():
+        for axis in axes:
+            n = t.shape[dim + j] // plan.size(axis)
+            t = t.narrow(dim + j, plan.rank(axis) * n, n)
+    return t.reshape(*shape[:dim], -1, *shape[dim + 1:])
+
+
+def _shard_adapters(name: str, w: torch.Tensor, a, b, plan, base_axes,
+                    table):
+    """(A, B) of target `name` cut to the rank's shard `w` of its base
+    leaf: A's fan-in rows and B's fan-out columns where the base splits
+    them (entering through `identity_ad` over tp when it splits over
+    tp)."""
+    logical = base_axes["layers"][name]
+    n_stack = len(table[name][0])
+    n_out = table[name][1]
+    full = []
+    for d, axis_name in enumerate(logical):
+        k = 1
+        for axis in ("dp", "pp", "fsdp", "ep", "sp", "tp"):
+            if plan.splits_over(axis_name, axis):
+                k *= plan.size(axis)
+        full.append(w.shape[d] * k)
+    fan_in = range(1 + n_stack, len(logical) - n_out)
+    fan_out = range(len(logical) - n_out, len(logical))
+
+    def splits(dims):
+        out = {}
+        for j, d in enumerate(dims):
+            axes = [x for x in ("fsdp", "tp", "sp", "dp")
+                    if plan.splits_over(logical[d], x) and plan.size(x) > 1]
+            if axes:
+                out[j] = axes
+        return out
+
+    s_in, s_out = splits(fan_in), splits(fan_out)
+    if any("tp" in v for v in (*s_in.values(), *s_out.values())):
+        a = collectives.identity_ad(a, plan.group("tp"))
+        b = collectives.identity_ad(b, plan.group("tp"))
+    a = _cut(a, a.dim() - 2, tuple(full[d] for d in fan_in), s_in, plan)
+    b = _cut(b, b.dim() - 1, tuple(full[d] for d in fan_out), s_out, plan)
+    return a, b
+
+
 def merge_lora(base: dict, lora: dict, lora_cfg: LoRAConfig,
-               dtype=None) -> dict:
+               dtype=None, plan=None, base_module=transformer) -> dict:
     """base params + scale·A@B on each target: the delta computed in
     `dtype` (the base weight's by default), cast to the weight's dtype
     and added, as the reference merges. Structure-preserving; the base
     dict is not modified (merged leaves are new tensors, the rest are
     shared). One layer's delta at a time, so a full-width merge needs no
-    (L, fan_in, fan_out) temporary."""
+    (L, fan_in, fan_out) temporary. On a mesh (`plan`, a
+    `transformer.MeshPlan`) `base` and `lora` are the rank's shards and
+    each delta is cut to its base shard's slice."""
     merged_layers = dict(base["layers"])
+    if plan is not None:
+        table = _target_table(base_module)
+        base_axes = base_module.param_logical_axes(plan.cfg)
     for name, ab in lora["layers"].items():
         w = base["layers"][name]
         compute = w.dtype if dtype is None else dtype
         a = torch.as_tensor(ab["a"]).to(device=w.device, dtype=compute)
         b = torch.as_tensor(ab["b"]).to(device=w.device, dtype=compute)
+        if plan is not None:
+            a, b = _shard_adapters(name, w, a, b, plan, base_axes, table)
         out = torch.empty_like(w)
         for layer in range(w.shape[0]):
             delta = (a[layer] @ b[layer]) * lora_cfg.scale
@@ -235,6 +319,11 @@ def make_lora_module(lora_cfg: LoRAConfig, base_module=transformer,
         lora_config = lora_cfg
 
         @staticmethod
+        def param_logical_axes(cfg: ModelConfig) -> dict:
+            return {"base": base_module.param_logical_axes(cfg),
+                    "lora": lora_logical_axes(cfg, lora_cfg, base_module)}
+
+        @staticmethod
         def param_shapes(cfg: ModelConfig) -> dict:
             return {"base": base_module.param_shapes(cfg),
                     "lora": lora_shapes(cfg, lora_cfg, base_module)}
@@ -260,11 +349,16 @@ def make_lora_module(lora_cfg: LoRAConfig, base_module=transformer,
 
         @staticmethod
         def next_token_loss(params: dict, batch: dict, cfg: ModelConfig,
-                            **kwargs):
+                            plan=None, **kwargs):
             frozen = _detached(params["base"])
-            merged = merge_lora(frozen, params["lora"], lora_cfg)
+            merged = merge_lora(frozen, params["lora"], lora_cfg, plan=plan,
+                                base_module=base_module)
+            if plan is not None:
+                kwargs["plan"] = plan
             return base_module.next_token_loss(merged, batch, cfg, **kwargs)
 
+    module.base_module = base_module
+    module.base_params = base_params
     return module
 
 

@@ -19,8 +19,21 @@ batched matmuls over the expert axis; every expert runs its C slots,
 filled or not (the reference's dense dispatch does the same work).
 
 Attention, norms and RoPE are the dense model's (`models.transformer`);
-only the MLP is replaced. Packed rows (segment_ids) are refused, as in
-the dense model.
+only the MLP is replaced.
+
+Expert parallelism (training on a mesh, `plan=`, a
+`transformer.MeshPlan`): the expert leaves (L, E, D, F) split E over ep
+and F over tp (`param_logical_axes`, the reference's rules), the rest
+follows the dense model's. Routing is global, as the reference's jit
+routes all B*S tokens of the batch at once: each rank's router logits
+are gathered over the data axes (T x E in float32), every rank routes
+the whole batch the same way, and the slots are split between the ranks
+— each expert's to the ep rank that holds it, its C slots in blocks over
+the data ranks. A rank gathers the tokens its slots serve, runs its
+experts on its columns of F, and the weighted rows are summed over
+(ep, tp) and reduce-scattered back to the rows' owners. Inside a
+pipeline stage a microbatch is routed alone over the rank's rows, as the
+reference's stage routes its shard (`route_axes`).
 """
 
 from __future__ import annotations
@@ -34,6 +47,7 @@ import torch
 from cloud_server_tpu_torch.config import ModelConfig
 from cloud_server_tpu_torch.models import transformer
 from cloud_server_tpu_torch.ops import rms_norm, rope_table, swiglu
+from cloud_server_tpu_torch.parallel import collectives
 
 Params = dict
 
@@ -149,6 +163,66 @@ def moe_mlp(x: torch.Tensor, lp: dict, cfg: ModelConfig):
     return out[:t].to(dtype).reshape(b, s, d), r.aux
 
 
+def _to_region(t: torch.Tensor, plan) -> torch.Tensor:
+    """A tensor every (ep, tp) rank holds alike, entering the expert
+    region where each uses it for its own experts and columns: the
+    identity, the backward summing the ranks' gradients."""
+    for axis in ("ep", "tp"):
+        if plan.group(axis) is not None:
+            t = collectives.identity_ad(t, plan.group(axis))
+    return t
+
+
+def moe_mlp_mesh(x: torch.Tensor, lp: dict, cfg: ModelConfig, plan,
+                 route_axes=("dp", "fsdp", "sp")):
+    """`moe_mlp` on a rank of a mesh. x: the rank's (B_loc, S_loc, D)
+    block (alike on its ep and tp ranks); lp: the layer's leaves as
+    `plan.gather_layer` gives them (router (D, E), experts (E/ep, D,
+    F/tp) and (E/ep, F/tp, D)). The tokens of every rank of
+    `route_axes` are routed together, in the global batch's order.
+    Returns (the rank's out block, aux of the routed tokens, the number
+    of ranks that routed them together)."""
+    b, s, d = x.shape
+    dtype = transformer.torch_dtype(cfg.dtype)
+    axes = tuple(a for a in route_axes if plan.group(a) is not None)
+    e = cfg.num_experts
+    logits = plan.gather_tokens(
+        (x.reshape(b * s, d).float() @ lp["router"].float()).reshape(
+            b, s, e), axes).reshape(-1, e)
+    t = logits.shape[0]
+    capacity = _capacity(cfg, t)
+    r = route(logits, cfg.num_experts_per_token, capacity)
+    # this rank's slots: its experts (ep), a block of their C (data ranks)
+    n_d, q = 1, 0
+    for a in ("dp", "fsdp", "sp"):
+        if a in axes:
+            q = q * plan.size(a) + plan.rank(a)
+            n_d *= plan.size(a)
+    e_loc = lp["w_gate"].shape[0]
+    e0 = plan.rank("ep") * e_loc
+    c_blk = -(-capacity // n_d)
+    pad = c_blk * n_d - capacity
+    token = torch.nn.functional.pad(r.token, (0, pad), value=t)
+    weight = torch.nn.functional.pad(_to_region(r.weight, plan), (0, pad))
+    token = token[e0:e0 + e_loc, q * c_blk:(q + 1) * c_blk]
+    weight = weight[e0:e0 + e_loc, q * c_blk:(q + 1) * c_blk]
+    tokens = _to_region(plan.gather_tokens(x, axes).reshape(-1, d), plan)
+    padded = torch.cat([tokens, tokens.new_zeros((1, d))])
+    xs = padded[token]  # (E/ep, C/n_d, D)
+    gate = torch.bmm(xs, lp["w_gate"].to(dtype))
+    up = torch.bmm(xs, lp["w_up"].to(dtype))
+    ys = torch.bmm(swiglu(gate, up), lp["w_down"].to(dtype))
+    rows = (ys.float() * weight[..., None]).reshape(-1, d)
+    out = torch.zeros((t + 1, d), dtype=torch.float32, device=x.device)
+    out = out.index_add(0, token.reshape(-1), rows)[:t]
+    s_all = s * (plan.size("sp") if "sp" in axes else 1)
+    out = plan.scatter_tokens(out.reshape(-1, s_all, d), axes)
+    for axis in ("ep", "tp"):
+        if plan.group(axis) is not None:
+            out = collectives.psum_ad(out, plan.group(axis))
+    return out.to(dtype), r.aux, n_d
+
+
 # ---------------------------------------------------------------------------
 # Model: dense attention + MoE MLP blocks
 # ---------------------------------------------------------------------------
@@ -165,6 +239,21 @@ def param_shapes(cfg: ModelConfig) -> dict[str, Any]:
     layers["w_up"] = (L, E, D, F)
     layers["w_down"] = (L, E, F, D)
     return shapes
+
+
+def param_logical_axes(cfg: ModelConfig) -> dict[str, Any]:
+    """The dense model's logical axes with the router (replicated over
+    experts) and the expert stacks: E over "experts" (ep), F over
+    "expert_mlp" (tp), D over "embed" (fsdp)."""
+    axes = transformer.param_logical_axes(cfg)
+    layers = axes["layers"]
+    for k in ("w_gate", "w_up", "w_down"):
+        del layers[k]
+    layers["router"] = ("layers", "embed", None)
+    layers["w_gate"] = ("layers", "experts", "embed", "expert_mlp")
+    layers["w_up"] = ("layers", "experts", "embed", "expert_mlp")
+    layers["w_down"] = ("layers", "experts", "expert_mlp", "embed")
+    return axes
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
@@ -187,31 +276,54 @@ def moe_mlp_block(x, lp, cfg: ModelConfig):
     return x + out, aux
 
 
-def _moe_block(x, lp, cfg: ModelConfig, cos, sin, attn_fn, positions=None):
-    q, k, v = transformer.attention_qkv(x, lp, cfg, cos, sin, positions)
-    x = transformer.attention_out(x, attn_fn(q, k, v), lp, cfg)
-    x, aux = moe_mlp_block(x, lp, cfg)
-    return x, aux["load_balance"], aux["router_z"], aux["dropped_frac"]
+def _moe_block(x, lp, cfg: ModelConfig, cos, sin, attn_fn, positions=None,
+               plan=None, route_axes=("dp", "fsdp", "sp")):
+    """One layer: (x, load_balance, router_z, dropped_frac). On a mesh
+    (`plan`) the layer's fsdp-split leaves are gathered, attention runs
+    on the rank's tp heads and the experts as `moe_mlp_mesh`; the aux
+    statistics are then those of the tokens routed together, divided by
+    the number of ranks that routed them (so their sum over the data
+    axes is the statistic once)."""
+    if plan is None:
+        q, k, v = transformer.attention_qkv(x, lp, cfg, cos, sin, positions)
+        x = transformer.attention_out(x, attn_fn(q, k, v), lp, cfg)
+        x, aux = moe_mlp_block(x, lp, cfg)
+        return x, aux["load_balance"], aux["router_z"], aux["dropped_frac"]
+    lp = plan.gather_layer(lp)
+    tp = plan.group("tp")
+    q, k, v = transformer.attention_qkv(x, lp, cfg, cos, sin, positions,
+                                        tp=tp)
+    x = transformer.attention_out(x, attn_fn(q, k, v), lp, cfg, tp=tp)
+    h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    out, aux, n = moe_mlp_mesh(h, lp, cfg, plan, route_axes)
+    return (x + out, aux["load_balance"] / n, aux["router_z"] / n,
+            aux["dropped_frac"] / n)
 
 
 def forward_hidden(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
-                   segment_ids: torch.Tensor | None = None):
+                   segment_ids: torch.Tensor | None = None, plan=None):
     """(B, S) -> (final-normed hidden (B, S, D), aux dict of router stats
     averaged over layers). Differentiable, with the remat policy applied
     per layer, and packed rows (`segment_ids`) handled, as
-    `transformer.forward_hidden`."""
-    x = transformer.embed(params, tokens, cfg)
-    cos, sin = rope_table(cfg, tokens.shape[1], device=x.device)
-    attn_fn, positions = transformer.packed_inputs(cfg, segment_ids,
-                                                   x.device)
+    `transformer.forward_hidden`. On a mesh (`plan`) the rank's block of
+    the hidden states, and its part of the aux statistics (their sum
+    over the data axes is the reference's)."""
+    if plan is None:
+        x = transformer.embed(params, tokens, cfg)
+        cos, sin = rope_table(cfg, tokens.shape[1], device=x.device)
+        attn_fn, positions = transformer.packed_inputs(cfg, segment_ids,
+                                                       x.device)
+    else:
+        x, cos, sin, attn_fn, positions = plan.inputs(params, tokens, cfg,
+                                                      segment_ids)
     block = transformer.apply_remat(
         partial(_moe_block, cfg=cfg, cos=cos, sin=sin, attn_fn=attn_fn,
-                positions=positions), cfg)
+                positions=positions, plan=plan), cfg)
     names = sorted(params["layers"])
     per_layer = [params["layers"][n].unbind(0) for n in names]
     lb = rz = dropped = torch.zeros((), dtype=torch.float32,
                                     device=x.device)
-    for i in range(cfg.num_layers):
+    for i in range(len(per_layer[0])):
         x, a, z, d = block(x, {n: t[i] for n, t in zip(names, per_layer)})
         lb, rz, dropped = lb + a, rz + z, dropped + d
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
@@ -227,14 +339,33 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     return transformer.unembed(x, params, cfg), aux
 
 
+def add_aux_loss(loss, metrics: dict, aux: dict, aux_loss_coef: float,
+                 router_z_coef: float, metric_of=lambda v: v.detach()):
+    """The router terms of the MoE loss and their metrics (`metric_of`
+    maps a rank's part of a statistic to the global value)."""
+    metrics.update({k: metric_of(aux[k]) for k in
+                    ("load_balance", "router_z", "dropped_frac")})
+    loss = loss + aux_loss_coef * aux["load_balance"]
+    if router_z_coef > 0.0:
+        loss = loss + router_z_coef * aux["router_z"]
+    return loss, metrics
+
+
 def next_token_loss(params: Params, batch: dict, cfg: ModelConfig,
                     z_loss_coef: float = 0.0, aux_loss_coef: float = 0.01,
-                    router_z_coef: float = 0.0):
+                    router_z_coef: float = 0.0, plan=None):
     """The dense model's next-token CE (the hidden-state route when
     ce_impl is "pallas" or vocab_chunk > 0) plus aux_loss_coef ·
     load_balance and, when set, router_z_coef · router_z; the metrics
     carry the three router stats. Packed batches ("segment_ids") mask the
-    CE as the dense model's do."""
+    CE as the dense model's do. On a mesh (`plan`) the rank's part of
+    it, as `transformer.MeshPlan.next_token_loss`."""
+    if plan is not None:
+        x, aux = forward_hidden(params, batch["tokens"], cfg,
+                                batch.get("segment_ids"), plan)
+        loss, metrics = plan.hidden_loss(x, params, batch, cfg, z_loss_coef)
+        return add_aux_loss(loss, metrics, aux, aux_loss_coef,
+                            router_z_coef, plan.psum_data)
     seg = batch.get("segment_ids")
     batch = transformer.apply_segment_loss_mask(batch)
     if cfg.ce_impl == "pallas" or cfg.vocab_chunk > 0:
@@ -245,13 +376,7 @@ def next_token_loss(params: Params, batch: dict, cfg: ModelConfig,
         logits, aux = forward(params, batch["tokens"], cfg, seg)
         loss, metrics = transformer.masked_cross_entropy(logits, batch,
                                                          z_loss_coef)
-    metrics.update(load_balance=aux["load_balance"].detach(),
-                   router_z=aux["router_z"].detach(),
-                   dropped_frac=aux["dropped_frac"].detach())
-    loss = loss + aux_loss_coef * aux["load_balance"]
-    if router_z_coef > 0.0:
-        loss = loss + router_z_coef * aux["router_z"]
-    return loss, metrics
+    return add_aux_loss(loss, metrics, aux, aux_loss_coef, router_z_coef)
 
 
 def module_for(cfg: ModelConfig):

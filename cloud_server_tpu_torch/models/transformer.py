@@ -758,11 +758,18 @@ class _GroupLogSumExp(torch.autograd.Function):
 class MeshPlan:
     """A rank's view of the mesh its training step runs on: the axis
     sizes, groups and coordinates, and the model-side collectives of a
-    step (the fsdp gathers, the sequence slice, the loss's combines)."""
+    step (the fsdp gathers, the sequence slice, the loss's combines).
+
+    `rules` (the logical-axis table, `parallel.sharding.DEFAULT_RULES`
+    by default) say how the rank's leaves are split: the pipeline's
+    `{**DEFAULT_RULES, "layers": "pp"}` splits the stacked layer axis
+    over pp. `logical` is the parameter tree's logical axes (the model
+    family's `param_logical_axes` by default)."""
 
     DATA_AXES = ("dp", "fsdp", "sp")
 
-    def __init__(self, mesh, cfg: ModelConfig):
+    def __init__(self, mesh, cfg: ModelConfig, rules=None, logical=None):
+        from cloud_server_tpu_torch.models import moe
         from cloud_server_tpu_torch.parallel.mesh import axis_size
         from cloud_server_tpu_torch.parallel.sharding import DEFAULT_RULES
         self.mesh = mesh
@@ -771,8 +778,10 @@ class MeshPlan:
         self._groups = {a: mesh.get_group(a) for a in names
                         if self._size[a] > 1}
         self._rank = {a: mesh.get_local_rank(a) for a in self._groups}
-        self.rules = DEFAULT_RULES
-        self.axes = param_logical_axes(cfg)
+        self.rules = DEFAULT_RULES if rules is None else rules
+        self.axes = (moe.module_for(cfg).param_logical_axes(cfg)
+                     if logical is None else logical)
+        self.cfg = cfg
         self.dtype = torch_dtype(cfg.dtype)
 
     def size(self, axis: str) -> int:
@@ -785,18 +794,23 @@ class MeshPlan:
     def rank(self, axis: str) -> int:
         return self._rank.get(axis, 0)
 
+    def splits_over(self, name, axis: str) -> bool:
+        """Whether the logical axis `name` maps to mesh axis `axis`."""
+        rule = self.rules.get(name) if name is not None else None
+        return rule == axis or (isinstance(rule, tuple) and axis in rule)
+
     # -- parameters ----------------------------------------------------
 
     def gather(self, x: torch.Tensor, logical) -> torch.Tensor:
         """The leaf `x` (this rank's shard, laid out by `logical`) with
         its fsdp-split dimensions gathered (`all_gather_ad`: the backward
-        reduce-scatters its gradient); tp splits stay. A leaf that is
-        gathered is cast to the compute dtype first, so the gather and
+        reduce-scatters its gradient); tp and ep splits stay. A leaf that
+        is gathered is cast to the compute dtype first, so the gather and
         the gradient's reduce-scatter move cfg.dtype bytes (FSDP's mixed
         precision); one that is not is returned as it is."""
         fsdp = self.group("fsdp")
         dims = [d for d, name in enumerate(logical)
-                if name is not None and self.rules.get(name) == "fsdp"]
+                if self.splits_over(name, "fsdp")]
         if fsdp is None or not dims:
             return x
         x = x.to(self.dtype)
@@ -830,6 +844,28 @@ class MeshPlan:
         with torch.no_grad():
             return collectives.all_gather_ad(t, self.group("sp"),
                                              tiled_axis=1)
+
+    def gather_tokens(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """(B_local, S_local, ...) -> the rows and positions of every
+        rank of `axes` (a subset of the data axes), in the global batch's
+        order: over sp on the sequence, then fsdp and dp (outer) on the
+        rows (`all_gather_ad`: the backward sums each rank's rows'
+        gradients into their owner)."""
+        for axis, dim in (("sp", 1), ("fsdp", 0), ("dp", 0)):
+            if axis in axes:
+                t = collectives.all_gather_ad(t, self.group(axis),
+                                              tiled_axis=dim)
+        return t
+
+    def scatter_tokens(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """The inverse of `gather_tokens`: partial sums over the gathered
+        rows and positions summed over the ranks of `axes`, each keeping
+        its own block (`reduce_scatter_ad`)."""
+        for axis, dim in (("dp", 0), ("fsdp", 0), ("sp", 1)):
+            if axis in axes:
+                t = collectives.reduce_scatter_ad(t, self.group(axis),
+                                                  scatter_axis=dim)
+        return t
 
     def inputs(self, params: Params, tokens, cfg: ModelConfig, segment_ids):
         """(x, cos, sin, attention fn, positions) of the rank's block:
@@ -906,13 +942,14 @@ class MeshPlan:
                 [(logz, tl, a[1].long(), a[0]) for a in allv])
         return logz, tl, am
 
-    def next_token_loss(self, params: Params, batch: dict, cfg: ModelConfig,
-                        z_loss_coef: float = 0.0):
-        """The rank's part of the reference's `next_token_loss`: its
-        rows' masked CE sum over the global token count, so the parts
-        sum to the reference's loss over the data axes (the backward of
-        each rank's part gives its share of the gradient). The metrics
-        are the global ones, equal on every rank."""
+    def hidden_loss(self, x, params: Params, batch: dict, cfg: ModelConfig,
+                    z_loss_coef: float = 0.0):
+        """The rank's part of the reference's loss from its hidden states
+        `x` (B_local, S_local, D) of `batch`'s rows: their masked CE sum
+        over the global token count, so the parts sum to the reference's
+        loss over the data axes (the backward of each rank's part gives
+        its share of the gradient). The metrics are the global ones,
+        equal on every rank."""
         tokens = batch["tokens"]
         s_loc = tokens.shape[1]
         off = self.seq_offset(s_loc)
@@ -921,8 +958,6 @@ class MeshPlan:
             if batch.get(k) is not None:
                 whole[k] = self.whole_rows(batch[k])
         whole = apply_segment_loss_mask(whole)
-        x = forward_hidden(params, tokens, cfg, batch.get("segment_ids"),
-                           self)
         targets, mask = _shifted_targets_mask(whole, x.device)
         targets = targets[:, off:off + s_loc]
         mask = mask[:, off:off + s_loc]
@@ -939,3 +974,11 @@ class MeshPlan:
             loss = loss + z_loss_coef * z
             metrics["z_loss"] = self.psum_data(z)
         return loss, metrics
+
+    def next_token_loss(self, params: Params, batch: dict, cfg: ModelConfig,
+                        z_loss_coef: float = 0.0):
+        """The rank's part of the reference's `next_token_loss`
+        (`hidden_loss` of the rank's forward)."""
+        x = forward_hidden(params, batch["tokens"], cfg,
+                           batch.get("segment_ids"), self)
+        return self.hidden_loss(x, params, batch, cfg, z_loss_coef)

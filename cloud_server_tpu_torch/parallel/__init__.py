@@ -17,3 +17,10 @@ from cloud_server_tpu_torch.parallel.sharding import (  # noqa: F401
     logical_to_sharding,
     shard_params,
 )
+from cloud_server_tpu_torch.parallel.pipeline import (  # noqa: F401
+    make_pipelined_forward,
+    make_pipelined_hidden,
+    make_pipelined_loss,
+    pipeline_rules,
+    pipeline_spmd,
+)

@@ -11,17 +11,19 @@ The model family follows the config: MoE when model.num_experts >= 2.
 `--init-from` a training checkpoint), writing the adapter config beside
 the checkpoints. Runs on the GPU unless `--device cpu` is given.
 
-A "mesh" section of more than one device trains a dense model over a
+A "mesh" section of more than one device trains over a
 `torch.distributed` mesh, one process a rank: start the ranks with
 `torchrun --nproc-per-node N -m cloud_server_tpu_torch.train
 --distributed ...` (NCCL, one card a rank; gloo with `--device cpu`),
 which reads torchrun's environment (`parallel.distributed.initialize`).
 Each rank holds its shards of the parameters and optimizer state, rank
-0 logs and writes the checkpoints.
-
-Not ported yet, and refused with NotImplementedError: a mesh with pp or
-ep > 1, MoE models or `--lora-rank` (so `--init-from`) on a mesh, and a
-"dcn_mesh" section.
+0 logs and writes the checkpoints. Dense and MoE models (experts over
+ep) and `--lora-rank` adapters train on any mesh, as in the reference;
+as there, the CLI never pipelines: a pp axis here holds replicas (the
+pipelined loss is `parallel.pipeline.make_pipelined_loss`, passed to
+`make_train_step`). A "dcn_mesh" section asks for a hybrid mesh over
+several hosts (`parallel.distributed.make_hybrid_mesh`): the batch must
+divide the global dp x fsdp.
 """
 
 from __future__ import annotations
@@ -35,8 +37,8 @@ import json
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m cloud_server_tpu_torch.train",
-        description="Train a dense or MoE decoder LM on one GPU, or a "
-        "dense one over a mesh of GPUs (one process a rank).")
+        description="Train a dense or MoE decoder LM on one GPU, or over "
+        "a mesh of GPUs (one process a rank).")
     p.add_argument("--config", help="JSON config file with optional "
                    "model/train/mesh/loop sections")
     p.add_argument("--data", action="append", default=None,
@@ -76,8 +78,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def configs_from_args(args) -> tuple:
-    """(ModelConfig, TrainConfig, MeshConfig, LoopConfig) from file +
-    flags."""
+    """(ModelConfig, TrainConfig, MeshConfig, LoopConfig, dcn MeshConfig
+    or None) from file + flags. A "dcn_mesh" section requests a hybrid
+    mesh over hosts: its axes say how the "mesh" section's layout is
+    replicated across them."""
     from cloud_server_tpu_torch.config import (
         MeshConfig, ModelConfig, TrainConfig, from_json)
     from cloud_server_tpu_torch.training.loop import LoopConfig
@@ -86,13 +90,12 @@ def configs_from_args(args) -> tuple:
     if args.config:
         with open(args.config) as f:
             raw = json.load(f)
-    if "dcn_mesh" in raw:
-        raise NotImplementedError("a dcn_mesh (multi-slice) section is not "
-                                  "ported yet")
     model_cfg = from_json(ModelConfig, raw.get("model", {}))
     train_cfg = from_json(TrainConfig, raw.get("train", {}))
     mesh_cfg = from_json(MeshConfig, raw.get("mesh", {}))
     loop_cfg = from_json(LoopConfig, raw.get("loop", {}))
+    dcn_cfg = (from_json(MeshConfig, raw["dcn_mesh"])
+               if "dcn_mesh" in raw else None)
 
     train_over = {k: v for k, v in {
         "total_steps": args.steps, "batch_size": args.batch_size,
@@ -112,19 +115,23 @@ def configs_from_args(args) -> tuple:
               "defaulting loop.eval_interval=500")
     if loop_over:
         loop_cfg = dataclasses.replace(loop_cfg, **loop_over)
-    return model_cfg, train_cfg, mesh_cfg, loop_cfg
+    return model_cfg, train_cfg, mesh_cfg, loop_cfg, dcn_cfg
 
 
-def _refuse_unported(args, model_cfg, mesh_cfg) -> None:
-    """What the port does not train on a mesh raises NotImplementedError
-    before any process group is joined."""
-    from cloud_server_tpu_torch.models import moe
-    from cloud_server_tpu_torch.training.train_step import check_mesh
-    if mesh_cfg.num_devices > 1 and args.lora_rank > 0:
-        raise NotImplementedError(
-            "--lora-rank on a mesh: LoRA adapters on a mesh are not ported "
-            "yet (they wait for lora_logical_axes)")
-    check_mesh(mesh_cfg, model_cfg, moe.module_for(model_cfg))
+def hybrid_mesh(train_cfg, mesh_cfg, dcn_cfg, device):
+    """(the global MeshConfig, the hybrid DeviceMesh) of a "dcn_mesh"
+    section; SystemExit when the batch does not divide the global batch
+    axes."""
+    from cloud_server_tpu_torch.parallel.distributed import (
+        global_mesh_config, make_hybrid_mesh)
+    g = global_mesh_config(mesh_cfg, dcn_cfg)
+    batch_shards = g.dp * g.fsdp
+    if train_cfg.batch_size % batch_shards:
+        raise SystemExit(
+            f"batch_size {train_cfg.batch_size} not divisible by the "
+            f"GLOBAL batch-sharding axes dp×fsdp = {g.dp}×{g.fsdp} = "
+            f"{batch_shards} (mesh × dcn_mesh)")
+    return g, make_hybrid_mesh(mesh_cfg, dcn_cfg, device.type)
 
 
 def _join(args):
@@ -193,7 +200,8 @@ def lora_module(args, model_cfg, train_cfg, loop_cfg, device):
                                   train_cfg.seed, device)
     module = make_lora_module(lcfg, base_module=moe.module_for(model_cfg),
                               base_params=base_params)
-    if loop_cfg.checkpoint_dir:
+    from cloud_server_tpu_torch.parallel.distributed import is_primary
+    if loop_cfg.checkpoint_dir and is_primary():  # one writer on a mesh
         save_lora_config(loop_cfg.checkpoint_dir, lcfg)
     return module
 
@@ -201,8 +209,8 @@ def lora_module(args, model_cfg, train_cfg, loop_cfg, device):
 def main(argv=None):
     """Run the CLI; returns the final TrainState."""
     args = build_parser().parse_args(argv)
-    model_cfg, train_cfg, mesh_cfg, loop_cfg = configs_from_args(args)
-    _refuse_unported(args, model_cfg, mesh_cfg)
+    model_cfg, train_cfg, mesh_cfg, loop_cfg, dcn_cfg = configs_from_args(
+        args)
 
     from cloud_server_tpu_torch.data.dataset import MemmapTokenDataset
     from cloud_server_tpu_torch.training.loop import train_loop
@@ -210,6 +218,9 @@ def main(argv=None):
         NaNGuard, PreemptionHandler, Watchdog)
 
     device = _join(args)
+    mesh = None
+    if dcn_cfg is not None:
+        mesh_cfg, mesh = hybrid_mesh(train_cfg, mesh_cfg, dcn_cfg, device)
     dataset = build_dataset(args, train_cfg, model_cfg)
     eval_dataset = (MemmapTokenDataset(args.eval_data, train_cfg.seq_len)
                     if args.eval_data else None)
@@ -228,7 +239,7 @@ def main(argv=None):
                                mesh_cfg=mesh_cfg, loop_cfg=loop_cfg,
                                eval_dataset=eval_dataset,
                                loss_fn_module=loss_fn_module, hooks=hooks,
-                               device=device)
+                               device=device, mesh=mesh)
             if args.distributed:
                 # the ranks leave together, none while rank 0 still
                 # writes the last checkpoint

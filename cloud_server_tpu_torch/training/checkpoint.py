@@ -101,11 +101,13 @@ def _items(state: TrainState) -> tuple[dict, dict]:
     return items, meta
 
 
-def _item_splits(items: dict, model_cfg, mesh, loss_fn_module) -> dict:
-    """{item: {path: splits}} of a state's items on `mesh`: the moments
-    and the EMA shard like their parameters."""
-    by_path = dict(flatten(state_shardings(model_cfg, mesh,
-                                           loss_fn_module=loss_fn_module)))
+def _item_splits(items: dict, model_cfg, mesh, loss_fn_module,
+                 rules=None) -> dict:
+    """{item: {path: splits}} of a state's items on `mesh` under `rules`
+    (layers over pp in a pipeline, experts over ep, adapters like their
+    layers): the moments and the EMA shard like their parameters."""
+    by_path = dict(flatten(state_shardings(model_cfg, mesh, rules,
+                                           loss_fn_module)))
     out = {}
     for name, leaves in items.items():
         out[name] = {}
@@ -194,11 +196,11 @@ class Checkpointer:
     def __init__(self, directory: str | os.PathLike, *, max_to_keep: int = 3,
                  save_interval_steps: int = 1, async_save: bool = True,
                  mesh=None, model_cfg: ModelConfig | None = None,
-                 loss_fn_module=None):
+                 loss_fn_module=None, rules=None):
         """`mesh`: the DeviceMesh of the states saved and restored (every
         rank of it makes the Checkpointer; rank 0 writes), with the
         `model_cfg` (and `loss_fn_module`) whose logical axes place the
-        leaves."""
+        leaves by `rules` (DEFAULT_RULES by default)."""
         self.directory = os.path.abspath(os.fspath(directory))
         self.max_to_keep = max_to_keep
         self.save_interval_steps = max(1, save_interval_steps)
@@ -206,6 +208,7 @@ class Checkpointer:
         self.mesh = mesh
         self.model_cfg = model_cfg
         self.loss_fn_module = loss_fn_module
+        self.rules = rules
         if mesh is not None and model_cfg is None:
             raise ValueError("a Checkpointer on a mesh needs model_cfg")
         # the steps every rank agrees are saved (a mesh's ranks decide
@@ -238,7 +241,8 @@ class Checkpointer:
             host = _snapshot(items)
         else:
             host = _gather_to_host(items, _item_splits(
-                items, self.model_cfg, self.mesh, self.loss_fn_module),
+                items, self.model_cfg, self.mesh, self.loss_fn_module,
+                self.rules),
                 self.mesh)
             self._saved.add(step)
             if host is None:
@@ -325,7 +329,7 @@ class Checkpointer:
                 raise ValueError(_MISMATCH.format(step=step))
         if self.mesh is not None:
             splits = _item_splits(got, self.model_cfg, self.mesh,
-                                  self.loss_fn_module)
+                                  self.loss_fn_module, self.rules)
             got = {name: {k: _slice_to(t, splits[name][k], self.mesh, device)
                           for k, t in leaves.items()}
                    for name, leaves in got.items()}
@@ -388,13 +392,13 @@ def _latest_step(directory: str) -> int:
 
 def restore_params(checkpoint_dir: str | os.PathLike, model_cfg: ModelConfig,
                    *, step: int | None = None, device=None,
-                   loss_fn_module=None, mesh=None) -> dict:
+                   loss_fn_module=None, mesh=None, rules=None) -> dict:
     """The parameters of a saved TrainState (the latest step unless
     `step`), read from their own file: the optimizer's moments are never
     read. On `device` (CUDA unless named), at the saved dtype, checked
     against `loss_fn_module`'s shapes (the family of model_cfg by
     default; a LoRA module's {"base", "lora"} tree). On a `mesh`, this
-    rank's slices."""
+    rank's slices (placed by `rules`)."""
     directory = os.path.abspath(os.fspath(checkpoint_dir))
     if step is None:
         step = _latest_step(directory)
@@ -403,8 +407,8 @@ def restore_params(checkpoint_dir: str | os.PathLike, model_cfg: ModelConfig,
         return _restore_tree(path, model_cfg, device, step, loss_fn_module)
     full = _restore_tree(path, model_cfg, "cpu", step, loss_fn_module,
                          mmap=True)
-    splits = dict(flatten(state_shardings(model_cfg, mesh,
-                                          loss_fn_module=loss_fn_module)))
+    splits = dict(flatten(state_shardings(model_cfg, mesh, rules,
+                                          loss_fn_module)))
     dev = resolve_device(device)
     return _unflatten({k: _slice_to(t, splits[k], mesh, dev)
                        for k, t in flatten(full)})
@@ -448,4 +452,5 @@ def restore_or_init(ckpt: Checkpointer, model_cfg: ModelConfig,
         target = abstract_train_state(model_cfg, train_cfg, loss_fn_module)
         return ckpt.restore(target, device=device), True
     return init_train_state(model_cfg, train_cfg, seed, device,
-                            loss_fn_module, mesh=ckpt.mesh), False
+                            loss_fn_module, mesh=ckpt.mesh,
+                            rules=ckpt.rules), False

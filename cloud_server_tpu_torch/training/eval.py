@@ -21,7 +21,7 @@ from cloud_server_tpu_torch.models import moe, transformer
 
 
 def make_eval_step(model_cfg: ModelConfig, loss_fn: Callable | None = None,
-                   loss_fn_module=None, mesh=None):
+                   loss_fn_module=None, mesh=None, rules=None):
     """eval_step(params, batch) -> {"nll_sum", "n_tokens", "n_correct"}:
     sums (0-d float32 tensors on the batch's device, not read on the
     host), so the caller aggregates exactly across batches of different
@@ -34,11 +34,12 @@ def make_eval_step(model_cfg: ModelConfig, loss_fn: Callable | None = None,
 
     `mesh`: the DeviceMesh this rank evaluates on (its params the
     rank's shards, its batch the rank's block; the loss is called with
-    `plan=`, as in the train step); the sums are the global batch's,
-    equal on every rank."""
+    `plan=`, over `rules`, as in the train step); the sums are the
+    global batch's, equal on every rank."""
     loss_fn = loss_fn or (loss_fn_module
                           or moe.module_for(model_cfg)).next_token_loss
-    plan = None if mesh is None else transformer.MeshPlan(mesh, model_cfg)
+    plan = None if mesh is None else transformer.MeshPlan(mesh, model_cfg,
+                                                             rules)
     on_mesh = {} if plan is None else {"plan": plan}
 
     def count(batch):

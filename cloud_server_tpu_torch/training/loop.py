@@ -85,7 +85,7 @@ def train_loop(model_cfg: ModelConfig, train_cfg: TrainConfig,
                loop_cfg: LoopConfig | None = None, eval_dataset=None,
                loss_fn_module=None, loss_fn=None,
                hooks: Sequence[Hook] = (), max_steps: int | None = None,
-               device=None, mesh=None):
+               device=None, mesh=None, rules=None):
     """Run training to `train_cfg.total_steps` on `device` (CUDA unless
     named); returns the final TrainState.
 
@@ -96,7 +96,8 @@ def train_loop(model_cfg: ModelConfig, train_cfg: TrainConfig,
     `models.moe`, a LoRA module; the family of model_cfg by default).
     `mesh`: the DeviceMesh this rank trains on; without it a `mesh_cfg`
     of more than one device builds one over the process group (on
-    `device`'s type)."""
+    `device`'s type). `rules`: the sharding rules of the state
+    (DEFAULT_RULES by default), as the reference's loop takes them."""
     loop_cfg = loop_cfg or LoopConfig()
     check_mesh(mesh_cfg, model_cfg, loss_fn_module)
     device = resolve_device(device)
@@ -105,7 +106,7 @@ def train_loop(model_cfg: ModelConfig, train_cfg: TrainConfig,
 
     step_fn = make_train_step(model_cfg, train_cfg, mesh_cfg,
                               loss_fn=loss_fn, loss_fn_module=loss_fn_module,
-                              mesh=mesh)
+                              mesh=mesh, rules=rules)
     ckpt = None
     resumed = False
     if loop_cfg.checkpoint_dir is not None:
@@ -113,13 +114,14 @@ def train_loop(model_cfg: ModelConfig, train_cfg: TrainConfig,
             loop_cfg.checkpoint_dir, max_to_keep=loop_cfg.max_checkpoints,
             save_interval_steps=max(1, loop_cfg.checkpoint_interval),
             async_save=loop_cfg.async_checkpoint, mesh=mesh,
-            model_cfg=model_cfg, loss_fn_module=loss_fn_module)
+            model_cfg=model_cfg, loss_fn_module=loss_fn_module,
+            rules=rules)
         state, resumed = restore_or_init(ckpt, model_cfg, train_cfg,
                                          train_cfg.seed, device,
                                          loss_fn_module)
     else:
         state = init_train_state(model_cfg, train_cfg, train_cfg.seed, device,
-                                 loss_fn_module, mesh=mesh)
+                                 loss_fn_module, mesh=mesh, rules=rules)
     start_step = int(state.step)
 
     loader = DataLoader.for_mesh(dataset, train_cfg.batch_size, device, mesh,
@@ -135,7 +137,8 @@ def train_loop(model_cfg: ModelConfig, train_cfg: TrainConfig,
     eval_step = None
     if eval_dataset is not None and loop_cfg.eval_interval > 0:
         eval_step = make_eval_step(model_cfg, loss_fn=loss_fn,
-                                   loss_fn_module=loss_fn_module, mesh=mesh)
+                                   loss_fn_module=loss_fn_module, mesh=mesh,
+                                   rules=rules)
         # prefetch=0: evaluate() stops mid-stream after eval_batches, and
         # an abandoned prefetch thread would block on its full queue
         eval_loader = DataLoader.for_mesh(eval_dataset, train_cfg.batch_size,

@@ -10,19 +10,26 @@ The model family comes from `loss_fn_module` (`models.transformer`,
 `models.moe`, or a LoRA module from `models.lora.make_lora_module`),
 as in the reference.
 
-On a mesh (`mesh=`, a DeviceMesh over the dp, fsdp, sp and tp axes; one
-process a rank) each rank holds its shards of the parameters and of the
-optimizer state, placed by `parallel.sharding.DEFAULT_RULES`
-(`state_shardings`; moments shard like their parameters), and its block
-of the global batch (rows over (dp, fsdp), the sequence over sp). The
-loss is called with the step's `transformer.MeshPlan` (`plan=`): fsdp
-gathers each layer's leaves (reduce-scattering their gradients in the backward), tp's
-activations cross ranks through the autograd-aware collectives. After
-the backward each gradient is summed over the data axes its leaf is not
-split over (dp and sp always, fsdp for the leaves it does not split);
-the global norm counts a replicated leaf once; AdamW updates each
-rank's shards. Pipeline (pp) and expert (ep) parallelism, MoE models and
-adapters on a mesh raise NotImplementedError.
+On a mesh (`mesh=`, a DeviceMesh over the dp, pp, fsdp, ep, sp and tp
+axes; one process a rank) each rank holds its shards of the parameters
+and of the optimizer state, placed by `rules` (`parallel.sharding.
+DEFAULT_RULES` by default; `parallel.pipeline.pipeline_rules()` splits
+the layers over pp), through `state_shardings` (moments shard like their
+parameters), and its block of the global batch (rows over (dp, fsdp),
+the sequence over sp). The loss is called with the step's
+`transformer.MeshPlan` (`plan=`): fsdp gathers each layer's leaves
+(reduce-scattering their gradients in the backward), tp's and ep's
+activations cross ranks through the autograd-aware collectives, MoE
+experts run on their ep rank (`models.moe.moe_mlp_mesh`), adapters merge
+onto the rank's shards (`models.lora`), and a pipelined loss
+(`parallel.pipeline.make_pipelined_loss`) runs the layers as a GPipe
+schedule over pp. After the backward each gradient is summed over the
+data axes its leaf is not split over (dp and sp always, fsdp for the
+leaves it does not split); every other axis holds a leaf's whole
+gradient on each rank that holds the leaf (the collectives' pairs make
+it so), and the global norm counts each element once, whatever the
+leaf's split (layers over pp, experts over ep, adapters); AdamW updates
+each rank's shards.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import torch
 
 from cloud_server_tpu_torch import resolve_device
 from cloud_server_tpu_torch.config import MeshConfig, ModelConfig, TrainConfig
+from cloud_server_tpu_torch.models import lora as lora_mod
 from cloud_server_tpu_torch.models import moe, transformer
 from cloud_server_tpu_torch.parallel import collectives
 from cloud_server_tpu_torch.parallel.mesh import axis_size
@@ -59,28 +67,13 @@ def mesh_config_of(mesh) -> MeshConfig:
 
 def check_mesh(mesh_cfg: MeshConfig | None, model_cfg: ModelConfig | None
                = None, loss_fn_module=None) -> None:
-    """Raise NotImplementedError, naming the feature, for what the port
-    does not train on a mesh yet."""
-    if mesh_cfg is None or mesh_cfg.num_devices == 1:
+    """Raise ValueError for a mesh the model cannot be split over: ep
+    must divide an MoE model's expert count."""
+    if mesh_cfg is None or model_cfg is None or mesh_cfg.ep == 1:
         return
-    if mesh_cfg.pp > 1:
-        raise NotImplementedError(
-            f"mesh pp={mesh_cfg.pp}: pipeline parallelism "
-            "(parallel/pipeline.py) is not ported yet")
-    if mesh_cfg.ep > 1:
-        raise NotImplementedError(
-            f"mesh ep={mesh_cfg.ep}: expert parallelism is not ported yet")
-    module = loss_fn_module
-    if module is None and model_cfg is not None:
-        module = moe.module_for(model_cfg)
-    if module is moe:
-        raise NotImplementedError(
-            "MoE models on a mesh are not ported yet (they wait for expert "
-            "parallelism)")
-    if module is not None and module is not transformer:
-        raise NotImplementedError(
-            "LoRA adapters on a mesh are not ported yet (they wait for "
-            "lora_logical_axes)")
+    if model_cfg.num_experts >= 2 and model_cfg.num_experts % mesh_cfg.ep:
+        raise ValueError(f"num_experts={model_cfg.num_experts} not "
+                         f"divisible by ep={mesh_cfg.ep}")
 
 
 def state_shardings(model_cfg: ModelConfig, mesh, rules=DEFAULT_RULES,
@@ -91,7 +84,7 @@ def state_shardings(model_cfg: ModelConfig, mesh, rules=DEFAULT_RULES,
     are replicated."""
     module = loss_fn_module or moe.module_for(model_cfg)
     return logical_to_sharding(module.param_logical_axes(model_cfg), mesh,
-                               rules)
+                               rules or DEFAULT_RULES)
 
 
 def shard_tree(tree: dict, splits: dict, mesh) -> dict:
@@ -100,39 +93,61 @@ def shard_tree(tree: dict, splits: dict, mesh) -> dict:
             else shard_tensor(v, splits[k], mesh) for k, v in tree.items()}
 
 
+def _init_sharded(module, model_cfg: ModelConfig, seed: int, device,
+                  splits: dict, mesh) -> dict:
+    """`module.init_params`' values with each leaf cut to this rank's
+    slice as soon as it is drawn (a LoRA module's adapters, small, are
+    drawn whole and cut)."""
+    lcfg = getattr(module, "lora_config", None)
+    if lcfg is None:
+        return transformer.init_params(
+            model_cfg, seed, device=device,
+            shapes=module.param_shapes(model_cfg),
+            leaf_fn=lambda g, n, t: shard_tensor(t, splits[g][n], mesh))
+    if module.base_params is None:
+        base = _init_sharded(module.base_module, model_cfg, seed, device,
+                             splits["base"], mesh)
+    else:
+        base = shard_tree(module.base_params, splits["base"], mesh)
+    adapters = lora_mod.init_lora_params(model_cfg, lcfg, seed + 1,
+                                         device=device,
+                                         base_module=module.base_module)
+    return {"base": base,
+            "lora": shard_tree(adapters, splits["lora"], mesh)}
+
+
 def init_train_state(model_cfg: ModelConfig, train_cfg: TrainConfig,
                      seed: int = 0, device=None, loss_fn_module=None,
-                     mesh=None) -> TrainState:
+                     mesh=None, rules=None) -> TrainState:
     """Parameters of `loss_fn_module` (the family of model_cfg by
     default: `models.moe.module_for`) drawn on `device` (CUDA unless
     named) at cfg.param_dtype, the trainable ones marked as autograd
     leaves, and the optimizer state. On a mesh each rank keeps only its
-    shards of the values one device would draw from `seed`: every rank
-    draws each leaf whole, keeps its slice and drops the leaf before the
-    next is drawn."""
+    shards (placed by `rules`) of the values one device would draw from
+    `seed`: every rank draws each leaf whole, keeps its slice and drops
+    the leaf before the next is drawn."""
     module = loss_fn_module or moe.module_for(model_cfg)
     device = resolve_device(device)
     if mesh is None:
         params = module.init_params(model_cfg, seed, device=device)
         return train_state_from_params(params, train_cfg, model_cfg, module)
     check_mesh(mesh_config_of(mesh), model_cfg, module)
-    splits = state_shardings(model_cfg, mesh, loss_fn_module=module)
-    params = transformer.init_params(
-        model_cfg, seed, device=device,
-        leaf_fn=lambda g, n, t: shard_tensor(t, splits[g][n], mesh))
+    splits = state_shardings(model_cfg, mesh, rules, module)
+    params = _init_sharded(module, model_cfg, seed, device, splits, mesh)
     return train_state_from_params(params, train_cfg, model_cfg, module)
 
 
 def train_state_from_params(params: dict, train_cfg: TrainConfig,
                             model_cfg: ModelConfig | None = None,
-                            loss_fn_module=None, mesh=None) -> TrainState:
+                            loss_fn_module=None, mesh=None,
+                            rules=None) -> TrainState:
     """A fresh TrainState over `params`. With a module that labels its
     params (LoRA), only the trainable leaves become autograd leaves and
     get optimizer moments; the frozen ones never form a gradient. On a
-    mesh, `params` are the full leaves and each rank keeps its slices."""
+    mesh, `params` are the full leaves and each rank keeps its slices
+    (placed by `rules`)."""
     if mesh is not None:
-        splits = state_shardings(model_cfg, mesh,
-                                 loss_fn_module=loss_fn_module)
+        splits = state_shardings(model_cfg, mesh, rules, loss_fn_module)
         params = shard_tree(params, splits, mesh)
     opt = optimizer_for_module(train_cfg, model_cfg, loss_fn_module)
     trainable = {id(p) for _, p in flatten(opt.trainable(params))}
@@ -165,13 +180,9 @@ class _GradSync:
             self.replicas[path] = world // held
 
     def sum_(self, x: torch.Tensor, axes) -> torch.Tensor:
-        """x summed over `axes`' groups (in place where the backend
-        allows; returns the result)."""
+        """x summed over `axes`' groups, in place; returns x."""
         for a in axes:
-            out = collectives._host_staged(collectives.psum, x,
-                                           self.groups[a])
-            if out is not x:
-                x.copy_(out)
+            collectives.psum_(x, self.groups[a])
         return x
 
     @torch.no_grad()
@@ -222,7 +233,7 @@ def _microbatches(batch: dict, nsteps: int, sync: _GradSync | None,
 def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
                     mesh_cfg: MeshConfig | None = None,
                     loss_fn: Callable | None = None, loss_fn_module=None,
-                    mesh=None):
+                    mesh=None, rules=None):
     """(state, batch) -> (state, metrics). batch: {"tokens": (B, S) int
     tensor on the parameters' device}: on a mesh, this rank's block of
     the global batch (`data.loader.DataLoader` with the mesh). The
@@ -234,7 +245,10 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
     coefficient, and the MoE aux coefficients where it takes them.
     `mesh`: the DeviceMesh this rank trains on (a `mesh_cfg` of more
     than one device needs it); on it the loss is called with `plan=`,
-    the step's `transformer.MeshPlan`, as `next_token_loss` takes it."""
+    the step's `transformer.MeshPlan` over `rules`, as `next_token_loss`
+    takes it. A pipelined `loss_fn` (`parallel.pipeline.
+    make_pipelined_loss`) goes with `rules=pipeline_rules()`, the layout
+    of its parameters."""
     module = loss_fn_module or moe.module_for(model_cfg)
     if mesh is not None:
         mesh_cfg = mesh_config_of(mesh)
@@ -258,9 +272,9 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
     sync = plan = None
     batch_index, batch_shards = 0, 1
     if mesh is not None:
-        sync = _GradSync(mesh, state_shardings(model_cfg, mesh,
-                                               loss_fn_module=module))
-        plan = transformer.MeshPlan(mesh, model_cfg)
+        sync = _GradSync(mesh, state_shardings(model_cfg, mesh, rules,
+                                               module))
+        plan = transformer.MeshPlan(mesh, model_cfg, rules)
         batch_shards = mesh_cfg.dp * mesh_cfg.fsdp
         batch_index = (plan.rank("dp") * mesh_cfg.fsdp + plan.rank("fsdp"))
     on_mesh = {} if plan is None else {"plan": plan}

@@ -15,6 +15,10 @@ Host-side train-loop hooks, copied from the reference package:
   stderr and invokes `on_hang` (default: `os._exit(code)`). It only arms
   at the *first* beat, so a long first step cannot trigger it.
 
+* `CollectiveWatchdog` — a `Watchdog` for a rank of a mesh: its timeout
+  grows by `per_axis_s` for each mesh axis of more than one rank, and
+  its hang report names those axes.
+
 * `FaultInjector` — fires "preempt", "nan_loss" or "crash" at exact
   steps, to drill the hooks above and the loop's checkpointing.
 """
@@ -160,6 +164,67 @@ class Watchdog:
         self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout=5)
+
+
+class CollectiveWatchdog:
+    """Mesh-aware deadlock watchdog (see `Watchdog` for the mechanism).
+
+    The classic distributed hang is a wedged collective: one rank on a
+    mesh axis stops issuing its all_reduce/send/all_gather and every
+    other rank on that axis blocks forever. This wrapper (a) extends the
+    timeout by `per_axis_s` for each comm-active mesh axis (axes of size
+    > 1 — each adds a blocking dependency chain, e.g. pp stage handoffs on
+    top of sp ring hops), and (b) names those axes in the hang report so
+    the operator knows which collectives to suspect before reading stacks.
+
+    `mesh` is the rank's `torch.distributed` DeviceMesh (its axis names
+    and sizes). Constructed like `Watchdog(...)` plus the mesh; use it
+    anywhere a Watchdog is accepted (it is one, via delegation to an
+    inner instance).
+    """
+
+    def __init__(self, mesh, timeout_s: float = 600.0,
+                 per_axis_s: float = 60.0,
+                 on_hang: Callable[[float], None] | None = None,
+                 poll_s: float | None = None):
+        axis_sizes = dict(zip(mesh.mesh_dim_names or (),
+                              (int(n) for n in mesh.shape)))
+        self.comm_axes = {a: s for a, s in axis_sizes.items() if s > 1}
+        self._user_on_hang = on_hang or _default_on_hang
+        self._inner = Watchdog(
+            timeout_s=timeout_s + per_axis_s * len(self.comm_axes),
+            on_hang=self._report, poll_s=poll_s)
+
+    def _report(self, timeout_s: float) -> None:
+        print(
+            f"[watchdog] possible collective deadlock: no heartbeat for "
+            f"{timeout_s:.0f}s with comm-active mesh axes "
+            f"{self.comm_axes or '{} (single-device)'} — a wedged "
+            "psum/ppermute/all_gather on any of these axes blocks every "
+            "participant on it", file=sys.stderr, flush=True)
+        self._user_on_hang(timeout_s)
+
+    # Watchdog surface, delegated
+    @property
+    def timeout_s(self) -> float:
+        return self._inner.timeout_s
+
+    @property
+    def fired(self) -> bool:
+        return self._inner.fired
+
+    def beat(self) -> None:
+        self._inner.beat()
+
+    def __call__(self, step: int, state, metrics: dict):
+        return self._inner(step, state, metrics)
+
+    def __enter__(self) -> "CollectiveWatchdog":
+        self._inner.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._inner.__exit__(*exc)
 
 
 class FaultInjector:

@@ -125,6 +125,14 @@ def test_lock_roster_covers(rel):
         f"{rel} dropped from the lock-discipline roster"
 
 
+@pytest.mark.parametrize("rel", ["utils/failure.py", "parallel/pipeline.py"])
+def test_training_threads_on_the_lock_and_lifecycle_rosters(rel):
+    """The watchdog's monitor thread and the pipeline's schedule go
+    through the lock and lifecycle passes."""
+    assert _PKG + rel in locks.LOCK_ROSTER
+    assert _PKG + rel in lifecycle.LIFECYCLE_ROSTER
+
+
 def test_registry_covers_migration_sync_and_loop():
     paged = _INF + "paged_server.py"
     assert ("PagedInferenceServer._export_request_locked"
@@ -924,7 +932,8 @@ def test_lifecycle_rosters_cover_the_serving_stack():
     assert lifecycle.LIFECYCLE_ROSTER == tuple(
         _INF + f for f in ("paged_server.py", "server.py",
                            "block_allocator.py", "migration.py",
-                           "router.py"))
+                           "router.py")) + (
+        _PKG + "utils/failure.py", _PKG + "parallel/pipeline.py")
     owners = lifecycle.COMPLETION_OWNER_FUNCS[_INF + "router.py"]
     assert "ReplicatedRouter._retry_submit" in owners
     assert "ReplicatedRouter._mirror_retry" in owners

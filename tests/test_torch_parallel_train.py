@@ -433,11 +433,13 @@ def test_mesh_checkpoint_gathers_one_leaf_at_a_time(runs):
 
 
 def test_refusals_on_a_mesh(runs):
-    """MoE models, LoRA adapters and sp > 1 on the flash route raise
-    NotImplementedError naming the feature."""
+    """MoE models and LoRA adapters, once refused on a mesh, now build
+    their train step on it (they train in tests/test_torch_lora_parallel.py
+    and test_torch_parallel_mesh8.py); sp > 1 on the flash route still
+    raises NotImplementedError naming the sequence-parallel routes."""
     got = runs["w4"][0]["refusals"]
-    assert "MoE" in got["moe"]
-    assert "LoRA" in got["lora"]
+    assert got["moe"] is None
+    assert got["lora"] is None
     assert "'ring' or 'ulysses'" in got["sp_flash"]
 
 
@@ -449,19 +451,30 @@ def test_refusals_on_a_mesh(runs):
     ({"dcn_mesh": {"dp": 2}}, "dcn_mesh"),
 ])
 def test_train_cli_refusals(tmp_path, section, words):
-    """What train.py does not run on a mesh raises NotImplementedError
-    before any process group is joined."""
+    """What train.py once refused on a mesh (a pp or ep axis, MoE,
+    --lora-rank, a dcn_mesh section) it now takes: in one process it
+    gets as far as any mesh does, to the ValueError of a mesh of more
+    ranks than the process group holds (the reference's message; they
+    train in two processes with `--distributed` in
+    tests/test_torch_train_cli.py); a dcn_mesh whose global dp x fsdp
+    does not divide the batch exits with the reference's message
+    first."""
     from cloud_server_tpu_torch import train
     cfg_path = tmp_path / "cfg.json"
-    cfg_path.write_text(json.dumps({"model": {**_TINY,
-                                              **section.get("model", {})},
-                                    **{k: v for k, v in section.items()
-                                       if k != "model"}}))
+    raw = {"model": {**_TINY, **section.get("model", {})},
+           **{k: v for k, v in section.items() if k != "model"}}
+    cfg_path.write_text(json.dumps(raw))
     argv = ["--config", str(cfg_path), "--synthetic", "16", "--device",
             "cpu"]
     if words == "LoRA":
         argv += ["--lora-rank", "2"]
-    with pytest.raises(NotImplementedError, match=words):
+    if words == "dcn_mesh":
+        with pytest.raises(ValueError, match="hybrid mesh wants"):
+            train.main(argv)
+        with pytest.raises(SystemExit, match="GLOBAL batch-sharding axes"):
+            train.main(argv + ["--batch-size", "3"])
+        return
+    with pytest.raises(ValueError, match="wants 2 devices but only 1"):
         train.main(argv)
 
 

@@ -251,8 +251,8 @@ def test_train_loop_tracks_reference(tmp_path):
                                         jax.random.key(tcfg.seed)).params)
 
     def same_init(model_cfg, train_cfg, seed, device, loss_fn_module=None,
-                  mesh=None):
-        assert mesh is None
+                  mesh=None, rules=None):
+        assert mesh is None and rules is None
         return train_step.train_state_from_params(
             _port_params(np_params, TINY), train_cfg)
 
@@ -278,8 +278,8 @@ def _same_init(np_params, monkeypatch):
     from cloud_server_tpu_torch.training import loop as tloop
 
     def same_init(model_cfg, train_cfg, seed, device, loss_fn_module=None,
-                  mesh=None):
-        assert mesh is None
+                  mesh=None, rules=None):
+        assert mesh is None and rules is None
         return train_step.train_state_from_params(
             _port_params(np_params, TINY), train_cfg)
 
@@ -393,20 +393,34 @@ def test_only_a_keyboard_interrupt_saves(tmp_path, abort):
 
 @pytest.mark.parametrize("what", ["remat_dots", "segments", "mesh"])
 def test_unported_options_raise(what, tmp_path):
-    """Of the options the port once refused, a mesh with pipeline
-    parallelism (pp 2) still raises NotImplementedError; dp, fsdp, sp and
-    tp meshes train (tests/test_torch_parallel_train.py). remat "dots" and packed
-    rows ("segments") now run: "dots" gives remat "none"'s loss and
-    gradients; one document a row gives the unpacked loss, and two
-    documents a row mask the target that crosses their boundary."""
+    """The options the port once refused now run: a mesh with pipeline
+    parallelism (pp 2, two ranks over gloo, the pipelined loss in 2
+    microbatches) trains as one device does (losses, moments,
+    parameters; dp, fsdp, sp and tp meshes: tests/
+    test_torch_parallel_train.py); remat "dots" gives remat "none"'s
+    loss and gradients; one document a row gives the unpacked loss, and
+    two documents a row mask the target that crosses their boundary."""
     cfg = _t(TINY)
     tokens = torch.from_numpy(_tokens(2, 8, TINY.vocab_size).astype(
         np.int64))
     batch = {"tokens": tokens}
     if what == "mesh":
-        with pytest.raises(NotImplementedError):
-            train_step.make_train_step(cfg, _t(TrainConfig()),
-                                       tconfig.MeshConfig(pp=2))
+        import torch_train_ranks as ranks
+        from cloud_server_tpu_torch.parallel import spawn_ranks
+        tcfg = tconfig.TrainConfig(learning_rate=1e-2, warmup_steps=1,
+                                   total_steps=6, batch_size=2, seq_len=8)
+        np_params = optim.map_tree(
+            lambda t: t.numpy(), transformer.init_params(cfg, 0,
+                                                         device="cpu"))
+        want = ranks.train(cfg, tcfg, np_params, tokens.numpy(), 2)
+        got = spawn_ranks(ranks.run_cases, 2, "gloo", [(
+            "pp2", "train_case", dict(
+                cfg=cfg, tcfg=tcfg, np_params=np_params,
+                tokens=tokens.numpy(), axes={"pp": 2}, steps=2,
+                pipeline_m=2))], deadline_s=240.0)
+        for rank, res in enumerate(got):
+            ranks.assert_run_close(res["pp2"], want, f"rank {rank}", tcfg)
+            assert res["pp2"]["shapes"]["layers/wq"][0] == 1
         return
     params = transformer.init_params(cfg, 0, device="cpu")
     if what == "remat_dots":

@@ -88,18 +88,58 @@ def test_cli_eval_data_checkpoint_dir_and_resume(tmp_path, capsys):
     assert all_steps(ckpt) == [3, 5]
 
 
+def _run_ranks(cfg_path, argv, logdir, n=2):
+    """`train --distributed` in `n` processes in torchrun's environment
+    (gloo on the CPU), with the rendezvous store hosted here, as
+    torchrun's agent hosts it; returns each rank's output."""
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    store = torch.distributed.TCPStore("localhost", 0, is_master=True,
+                                       wait_for_workers=False)
+    procs = []
+    for rank in range(n):
+        env = {**os.environ, "MASTER_ADDR": "localhost",
+               "MASTER_PORT": str(store.port), "RANK": str(rank),
+               "WORLD_SIZE": str(n), "LOCAL_RANK": str(rank),
+               "LOCAL_WORLD_SIZE": str(n), "PYTHONPATH": repo,
+               "TORCHELASTIC_USE_AGENT_STORE": "True"}
+        env.pop("XLA_FLAGS", None)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "cloud_server_tpu_torch.train",
+             "--device", "cpu", "--config", cfg_path, "--synthetic", "16",
+             "--logdir", str(logdir), *argv],
+            env=env, cwd=repo, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=240)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out
+    return outs
+
+
 @pytest.mark.parametrize("argv,sections", [
     (["--distributed"], {"mesh": {"pp": 2}}),
     (["--lora-rank", "4"], {}),
     (["--init-from", "ckpt"], {}),
-    ([], {"mesh": {"ep": 2}}),
-    ([], {"dcn_mesh": {"dp": 2}}),
+    (["--distributed"], {"mesh": {"ep": 2},
+                         "model": {**TINY["model"], "num_experts": 4}}),
+    (["--distributed"], {"dcn_mesh": {"dp": 2}}),
 ])
 def test_unported_options_raise(tmp_path, argv, sections):
-    """What stays unported raises NotImplementedError, before any process
-    group is joined: a mesh with pipeline (pp) or expert (ep) parallelism
-    (dp, fsdp, sp and tp meshes train, with --distributed:
-    tests/test_torch_parallel_train.py) and a dcn_mesh section.
+    """The options the port once refused now train: a mesh with a pp
+    axis (its ranks replicas, as the reference's CLI holds them: the CLI
+    never pipelines) and an MoE model with its experts over ep, in two
+    processes (--distributed, gloo), and a dcn_mesh section (a hybrid
+    mesh, dp across hosts); a mesh's losses are the single process's.
     --lora-rank trains rank-R adapters over a frozen base, and
     --init-from without it exits with the reference's message."""
     def run():
@@ -116,5 +156,16 @@ def test_unported_options_raise(tmp_path, argv, sections):
         with pytest.raises(SystemExit, match="requires --lora-rank"):
             run()
     else:
-        with pytest.raises(NotImplementedError):
-            run()
+        mesh_dir, one_dir = tmp_path / "mesh", tmp_path / "one"
+        mesh_dir.mkdir()
+        one_dir.mkdir()
+        _run_ranks(_config(mesh_dir, **sections), argv, mesh_dir / "logs")
+        model = sections.get("model", TINY["model"])
+        train.main(["--config", _config(one_dir, model=model),
+                    "--synthetic", "16", "--device", "cpu", "--logdir",
+                    str(one_dir / "logs")])
+        got = read_jsonl(mesh_dir / "logs" / "train.jsonl")
+        want = read_jsonl(one_dir / "logs" / "train.jsonl")
+        assert [r["step"] for r in got] == [1, 2, 3]
+        np.testing.assert_allclose([r["loss"] for r in got],
+                                   [r["loss"] for r in want], rtol=1e-5)
